@@ -21,6 +21,30 @@ prints no result line):
               with --projection). Every kernel launch count is set to 0
               just before each run and read just after it; the embeddings
               are compared with the same CLI run on the CPU (plain path).
+  4. training kernels, at the pretraining shape (a 512-molecule batch
+              packed as the Pretrainer packs it: T = 22 tiles of 256,
+              D = 300): K1f with its residuals and K1b against their plain
+              versions in f32 and bf16, relu_in False and True; K2f and K2b
+              at 2B = 1,024 and 4,096 (D = 256) with and without dead pairs.
+              Two runs bit-identical; kernel, plain and library times.
+  5. step     the pretraining step at full width (GIN 5 x 300 / 512, B =
+              512, node augmentation, f32, ntxent 'auto'): 3 steps on the
+              card, each also run on the CPU's plain path from the card's
+              state with the same CPU-drawn augmentation keys (losses,
+              parameters and BatchNorm stats agree); launch counts per step
+              (K1f 10, K1b 10, K2f 0, K2b 0); two identical card steps
+              bit-identical; one step with ntxent 'pallas' (K2f and K2b
+              once each, the loss of the closed form).
+  6. speed    the step's time on the card in f32 and bf16 (median of CUDA
+              event times over 25 steps after 5 warm-up steps), as
+              message-edges/s (bench.py's metric) and molecules/s, the
+              host's time to queue a step, and a torch.profiler breakdown
+              of the device time by kernel.
+  7. cli      `molclr_tpu_torch.cli.pretrain` on 4,096 synthetic molecules,
+              B = 512: two epochs of a three-epoch schedule, then
+              `--resume latest` for the third; metrics.jsonl records, K1b
+              launches = 10 per training step, the step count and LR
+              schedule continue.
 
 It prints one JSON line listing the kernels, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. It needs one
@@ -29,6 +53,7 @@ CUDA card and imports nothing of JAX.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -41,12 +66,13 @@ import numpy as np
 import torch
 
 from molclr_tpu_torch.cli import embed
+from molclr_tpu_torch.cli import pretrain as pretrain_cli
 from molclr_tpu_torch.data.featurize import NUM_BOND_DIRS, NUM_BOND_TYPES
 from molclr_tpu_torch.data.graphs import pack_batch
 from molclr_tpu_torch.data.loader import featurize_many, spec_for_graphs
 from molclr_tpu_torch.data.synthetic import synthetic_corpus
 from molclr_tpu_torch.models import MolCLRNet
-from molclr_tpu_torch.ops import _build
+from molclr_tpu_torch.ops import _build, ntxent
 from molclr_tpu_torch.ops.fused_gcn import (
     fused_gcn_bn_layer,
     fused_gcn_bn_layer_plain,
@@ -55,12 +81,19 @@ from molclr_tpu_torch.ops.fused_layer import (
     CNT_PAD,
     adj_diag_mask,
     fused_gine_bn_layer,
+    fused_gine_bn_layer_bwd,
+    fused_gine_bn_layer_bwd_plain,
+    fused_gine_bn_layer_fwd,
+    fused_gine_bn_layer_fwd_plain,
     fused_gine_bn_layer_plain,
     pack_cnt,
 )
 from molclr_tpu_torch.ops.scatter_free import _counts
 from molclr_tpu_torch.ops.tile_dense import build_tile_adjacency
+from molclr_tpu_torch.train import optim
 from molclr_tpu_torch.train.checkpoints import transfer_state
+from molclr_tpu_torch.train.config import ModelConfig, PretrainConfig
+from molclr_tpu_torch.train.pretrain import build_model, train_step
 
 SEED = 0
 TILE, EMB, FEAT, LAYERS, BATCH, N_MOLS = 256, 300, 512, 5, 256, 1024
@@ -86,6 +119,41 @@ KERNELS = {
         fn=fused_gcn_bn_layer, source="molclr_tpu_torch/csrc/fused_gcn_bn.cu",
         replaces="molclr_tpu/ops/fused_gcn.py:146", model="gcn"),
 }
+# the kernels of the training path (K1f is also on it, counted in
+# fused_gine_bn_layer.launches)
+TRAIN_KERNELS = {
+    "fused_gine_bn_layer_bwd": dict(
+        fn=fused_gine_bn_layer_bwd,
+        source="molclr_tpu_torch/csrc/fused_gine_bn.cu",
+        replaces="molclr_tpu/ops/fused_layer.py:271"),
+    "ntxent_fwd": dict(fn=ntxent.ntxent_fwd,
+                       source="molclr_tpu_torch/csrc/ntxent.cu",
+                       replaces="molclr_tpu/ops/pallas_ntxent.py:43"),
+    "ntxent_bwd": dict(fn=ntxent.ntxent_bwd,
+                       source="molclr_tpu_torch/csrc/ntxent.cu",
+                       replaces="molclr_tpu/ops/pallas_ntxent.py:86"),
+}
+ALL_FNS = {**{k: v["fn"] for k, v in KERNELS.items()},
+           **{k: v["fn"] for k, v in TRAIN_KERNELS.items()}}
+
+# the pretraining main path: bench.py's batch and model (B = 512, the
+# Pretrainer's 'total' sizing), 3 steps on the card and the CPU
+P_BATCH, P_STEPS, SPEED_STEPS, WARM_STEPS = 512, 3, 25, 5
+# K1b against its plain version: the same reasons as KERNEL_RTOL; weight
+# gradients are sums over the 5,632 rows of a batch
+BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# K2f / K2b against their plain versions (f32): row statistics and dreps
+# summed in another order
+NTX_RTOL = 1e-4
+# card against CPU on each of 3 full-width steps from the same state (f32):
+# loss rtol 1e-4; parameters within Adam's sign-flip envelope 2 lr times
+# adam_step_bound (elements whose true gradient is ~0 may flip a whole
+# lr-sized step), and within 5e-5 + 2e-4 |p| on 99.97 % of the elements
+# whose gradient exceeds 1e-4; BatchNorm running stats rtol 2e-3 / atol
+# 1e-5
+STEP_LOSS_RTOL = 1e-4
+# the kernels' NT-Xent against the closed form on one step (f32)
+PALLAS_LOSS_RTOL = 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -337,18 +405,26 @@ def forward_throughput(model_type: str, graphs, ckpt: str, dev) -> dict:
                 message_edges_per_pass=messages)
 
 
+def reset_counts() -> None:
+    for fn in ALL_FNS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in ALL_FNS.items()}
+
+
 def embed_run(argv) -> tuple[dict, float]:
     """One embed CLI run with every kernel count set to 0 just before it;
     returns the counts read just after it and the wall seconds."""
-    for spec in KERNELS.values():
-        spec["fn"].launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     rc = embed.main(argv)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     check(rc == 0, f"embed {argv} returned {rc}")
-    return {name: spec["fn"].launches for name, spec in KERNELS.items()}, sec
+    return read_counts(), sec
 
 
 def slice_phase(dev, tmp: str, card: str) -> dict:
@@ -375,8 +451,9 @@ def slice_phase(dev, tmp: str, card: str) -> dict:
         counts, sec = embed_run([corpus, out_gpu, *base])
         # the main path's launches: this model's kernel once per layer and
         # batch, the other kernel never
-        for name, spec in KERNELS.items():
-            want = LAYERS * n_batches if spec["model"] == model_type else 0
+        for name in ALL_FNS:
+            want = (LAYERS * n_batches if KERNELS.get(name, {}).get("model")
+                    == model_type else 0)
             check(counts[name] == want, f"{tag}: {name} launched "
                   f"{counts[name]} times, expected {want}")
         embed_run([corpus, out_cpu, *base, "--cpu"])
@@ -402,6 +479,527 @@ def slice_phase(dev, tmp: str, card: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------- phase 4
+
+
+def pretrain_batch():
+    """The first training batch of the pretraining path on the host: 512
+    molecules of synthetic_corpus(512, seed=7) packed as the Pretrainer
+    packs them (tile 256, 'total' sizing with the capped slack 1.05)."""
+    graphs, _ = featurize_many(synthetic_corpus(P_BATCH, seed=7))
+    spec = spec_for_graphs(graphs, P_BATCH, slack=1.05, tile=TILE)
+    return pack_batch(graphs, spec), spec
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    """(max |got - want|, max |want|) in f32."""
+    g, w = got.float(), want.float()
+    return (g - w).abs().max().item(), w.abs().max().item()
+
+
+def gine_bwd_library(g, dsums, h, a, b, adj, cnt, agg, mid, out, w1, w2,
+                     relu_in):
+    """The K1b function as a chain of cuBLAS calls in the activation dtype
+    (yardstick only; the port never calls it)."""
+    t, s, _ = adj.shape
+    n, d = g.shape
+    dt = g.dtype
+    gt = torch.addcmul(dsums[0], out.float(), dsums[1], value=2.0)
+    gt = gt.mul_(adj_diag_mask(adj)).add_(g.float())
+    gtc = gt.to(dt)
+    dmid = torch.mm(gtc, w2.t()).mul_(mid > 0)
+    dagg = torch.mm(dmid, w1.t())
+    dx = torch.bmm(adj, dagg.view(t, s, d)).view(n, d).float()
+    hf = h.float()
+    if relu_in:
+        dx = dx.mul_(torch.addcmul(b, hf, a) > 0)
+    return ((dx * a).to(dt), (dx * hf).sum(0), dx.sum(0), torch.mm(agg.t(), dmid),
+            dmid.float().sum(0), torch.mm(mid.t(), gtc), gt.sum(0),
+            torch.mm(cnt.t(), dagg))
+
+
+def k1b_bound_ms(x, p, dt):
+    """Least time for K1b's work at these inputs: the four dense products
+    over the real rows, A @ daggc and cnt^T daggc by their nonzeros; bytes:
+    g, out, h, agg, dh [N, D], mid [N, 2D], A, cnt, W1, W2 in the activation
+    type, the f32 vectors and weight gradients."""
+    adj, cnt = x["adj"], x["cnt"]
+    t, s, _ = adj.shape
+    n, d = x["h"].shape
+    d2 = p["w1"].shape[1]
+    n_real = int(adj_diag_mask(adj).sum())
+    ops = (4 * 2 * n_real * d * d2 + 2 * int((adj != 0).sum()) * d
+           + 2 * int((cnt != 0).sum()) * d)
+    act = 5 * n * d + n * d2 + t * s * s + n * CNT_PAD + 2 * d * d2
+    f32 = 7 * d + d2 + 2 * d * d2 + CNT_PAD * d
+    t_bytes = (act * x["h"].element_size() + f32 * 4) / HBM_BPS
+    t_ops = ops / PEAK_FLOPS[dt]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def training_layer_phase(batch, dev) -> dict:
+    """K1f with residuals and K1b at the pretraining shape."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    res = {"fwd": {"max_abs_err": 0.0, "cases": []},
+           "bwd": {"max_abs_err": 0.0, "cases": []}}
+    for dt in (torch.float32, torch.bfloat16):
+        x, pg, _ = layer_inputs(batch, dt, gen)
+        args = gine_args(x, pg)
+        n, d = x["h"].shape
+        g = (0.1 * torch.randn(n, d, generator=gen)).to(dev, dt)
+        dsums = (1e-3 * torch.randn(2, d, generator=gen)).to(dev)
+        for relu_in in (False, True):
+            tag = dict(dtype=str(dt).replace("torch.", ""), relu_in=relu_in,
+                       tiles=x["adj"].shape[0], d=d)
+            fwd = fused_gine_bn_layer_fwd(*args, relu_in, residuals=True)
+            fwd2 = fused_gine_bn_layer_fwd(*args, relu_in, residuals=True)
+            ref = fused_gine_bn_layer_fwd_plain(*args, relu_in)
+            torch.cuda.synchronize()
+            case = dict(tag, bit_identical=all(
+                torch.equal(u, v) for u, v in zip(fwd, fwd2)))
+            for name, u, v in zip(("out", "sums", "agg", "mid"), fwd, ref):
+                err, top = rel_err(u, v)
+                case[f"err_{name}"], case[f"lim_{name}"] = \
+                    err, KERNEL_RTOL[dt] * top
+            case.update(
+                ms=time_ms(lambda: fused_gine_bn_layer_fwd(
+                    *args, relu_in, residuals=True)),
+                plain_ms=time_ms(lambda: fused_gine_bn_layer_fwd_plain(
+                    *args, relu_in)),
+                library_ms=time_ms(lambda: gine_library(*args, relu_in)))
+            case["bound_ms"], case["bound_by"] = bound_ms(
+                "fused_gine_bn_layer", x, pg, dt)
+            print(f"kernel k1f_residuals {json.dumps(case)}", flush=True)
+            for name in ("out", "sums", "agg", "mid"):
+                check(case[f"err_{name}"] <= case[f"lim_{name}"],
+                      f"K1f residuals {tag}: {name} error "
+                      f"{case[f'err_{name}']} > {case[f'lim_{name}']}")
+            check(case["bit_identical"], f"K1f residuals {tag}: runs differ")
+            res["fwd"]["max_abs_err"] = max(res["fwd"]["max_abs_err"],
+                                            case["err_out"])
+            res["fwd"]["cases"].append(case)
+
+            out, _, agg, mid = fwd
+            bargs = (g, dsums, x["h"], x["a"], x["b"], x["adj"], x["cnt"],
+                     agg, mid, out, pg["w1"], pg["w2"], relu_in)
+            got = fused_gine_bn_layer_bwd(*bargs)
+            again = fused_gine_bn_layer_bwd(*bargs)
+            want = fused_gine_bn_layer_bwd_plain(*bargs)
+            torch.cuda.synchronize()
+            case = dict(tag, bit_identical=all(
+                torch.equal(u, v) for u, v in zip(got, again)))
+            names = ("dh", "da", "db", "dw1", "db1", "dw2", "db2", "detab")
+            for name, u, v in zip(names, got, want):
+                err, top = rel_err(u, v)
+                case[f"err_{name}"], case[f"lim_{name}"] = \
+                    err, BWD_RTOL[dt] * top
+            lib = gine_bwd_library(*bargs)
+            case["library_err_dh"] = rel_err(lib[0], want[0])[0]
+            case.update(
+                ms=time_ms(lambda: fused_gine_bn_layer_bwd(*bargs)),
+                plain_ms=time_ms(lambda: fused_gine_bn_layer_bwd_plain(
+                    *bargs)),
+                library_ms=time_ms(lambda: gine_bwd_library(*bargs)))
+            case["bound_ms"], case["bound_by"] = k1b_bound_ms(x, pg, dt)
+            print(f"kernel k1b {json.dumps(case)}", flush=True)
+            for name in names:
+                check(case[f"err_{name}"] <= case[f"lim_{name}"],
+                      f"K1b {tag}: {name} error {case[f'err_{name}']} > "
+                      f"{case[f'lim_{name}']}")
+            check(case["bit_identical"], f"K1b {tag}: runs differ")
+            res["bwd"]["max_abs_err"] = max(res["bwd"]["max_abs_err"],
+                                            case["err_dh"])
+            res["bwd"]["cases"].append(case)
+    return res
+
+
+def closed_form_from_reps(reps, valid, inv_t):
+    """The masked NT-Xent of pre-normalized reps in closed form with one
+    cuBLAS product and logsumexp (yardstick only; the port's closed form
+    is losses.nt_xent_loss)."""
+    n = reps.shape[0]
+    sim = torch.mm(reps, reps.t()) * inv_t
+    pos = torch.cat([torch.diagonal(sim, n // 2),
+                     torch.diagonal(sim, -n // 2)])
+    dead = torch.eye(n, dtype=torch.bool, device=reps.device) \
+        | (valid == 0)[None, :]
+    per_row = torch.logsumexp(sim.masked_fill(dead, float("-inf")), 1) - pos
+    return (per_row * valid).sum() / valid.sum().clamp(min=1.0)
+
+
+def k2_bound_ms(n: int, d: int, backward: bool):
+    """K2f: 2 n^2 d operations (the similarity); K2b 4 n^2 d (the
+    similarity again and (P + P^T) @ reps); bytes: reps, valid, the row
+    statistics, and dreps for K2b; f32 at 67 TFLOP/s."""
+    ops = (4 if backward else 2) * n * n * d
+    nbytes = 4 * (n * d + n + 3 * n + (n * d if backward else 0))
+    t_bytes, t_ops = nbytes / HBM_BPS, ops / PEAK_FLOPS[torch.float32]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def ntxent_phase(dev) -> dict:
+    """K2f and K2b at 2B = 1,024 and 4,096, D = 256, with and without dead
+    pairs, against their plain versions; the closed form's forward and
+    backward as the library yardstick (and the crossover)."""
+    res = {"fwd": {"max_abs_err": 0.0, "cases": []},
+           "bwd": {"max_abs_err": 0.0, "cases": []}}
+    inv_t = 10.0
+    for n in (1024, 4096):
+        for dead in (0, n // 16):
+            gen = torch.Generator().manual_seed(n + dead)
+            reps = torch.randn(n, 256, generator=gen)
+            reps = (reps / reps.norm(dim=1, keepdim=True)).to(dev)
+            valid = torch.ones(n)
+            if dead:
+                pairs = torch.randperm(n // 2, generator=gen)[:dead // 2]
+                valid[pairs] = 0
+                valid[pairs + n // 2] = 0
+            valid = valid.to(dev)
+            live = valid > 0
+            tag = dict(two_b=n, d=256, dead_rows=int((~live).sum()))
+            got = ntxent.ntxent_fwd(reps, valid, inv_t)
+            again = ntxent.ntxent_fwd(reps, valid, inv_t)
+            want = ntxent.ntxent_fwd_plain(reps, valid, inv_t)
+            torch.cuda.synchronize()
+            case = dict(tag, bit_identical=all(
+                torch.equal(u, v) for u, v in zip(got, again)))
+            per_got = (got[0] + torch.log(got[1]) - got[2])[live]
+            per_want = (want[0] + torch.log(want[1]) - want[2])[live]
+            case["err_per_row"], top = rel_err(per_got, per_want)
+            case["lim_per_row"] = NTX_RTOL * max(1.0, top)
+            rq = reps.clone().requires_grad_(True)
+            lib_loss = closed_form_from_reps(rq, valid, inv_t)
+            case["loss_kernel"] = ntxent.masked_mean(*got, valid).item()
+            case["loss_closed_form"] = lib_loss.item()
+            case.update(
+                ms=time_ms(lambda: ntxent.ntxent_fwd(reps, valid, inv_t)),
+                plain_ms=time_ms(lambda: ntxent.ntxent_fwd_plain(
+                    reps, valid, inv_t)),
+                library_ms=time_ms(lambda: closed_form_from_reps(
+                    reps, valid, inv_t)))
+            case["bound_ms"], case["bound_by"] = k2_bound_ms(n, 256, False)
+            print(f"kernel k2f {json.dumps(case)}", flush=True)
+            check(case["err_per_row"] <= case["lim_per_row"],
+                  f"K2f {tag}: error {case['err_per_row']}")
+            check(abs(case["loss_kernel"] - case["loss_closed_form"])
+                  <= NTX_RTOL * max(1.0, abs(case["loss_closed_form"])),
+                  f"K2f {tag}: loss {case['loss_kernel']} vs closed form "
+                  f"{case['loss_closed_form']}")
+            check(case["bit_identical"], f"K2f {tag}: runs differ")
+            res["fwd"]["max_abs_err"] = max(res["fwd"]["max_abs_err"],
+                                            case["err_per_row"])
+            res["fwd"]["cases"].append(case)
+
+            m, l, _ = got
+            scale = 1.0 / valid.sum().clamp(min=1.0)
+            dr = ntxent.ntxent_bwd(reps, valid, inv_t, scale, m, l)
+            dr2 = ntxent.ntxent_bwd(reps, valid, inv_t, scale, m, l)
+            ref = ntxent.ntxent_bwd_plain(reps, valid, inv_t, scale, m, l)
+            (lib_grad,) = torch.autograd.grad(lib_loss, rq, retain_graph=True)
+            torch.cuda.synchronize()
+            case = dict(tag, bit_identical=torch.equal(dr, dr2))
+            case["err_dreps"], top = rel_err(dr, ref)
+            case["lim_dreps"] = NTX_RTOL * top
+            case["library_err_dreps"] = rel_err(lib_grad, ref)[0]
+            case.update(
+                ms=time_ms(lambda: ntxent.ntxent_bwd(reps, valid, inv_t,
+                                                     scale, m, l)),
+                plain_ms=time_ms(lambda: ntxent.ntxent_bwd_plain(
+                    reps, valid, inv_t, scale, m, l)),
+                library_ms=time_ms(lambda: torch.autograd.grad(
+                    lib_loss, rq, retain_graph=True)))
+            case["bound_ms"], case["bound_by"] = k2_bound_ms(n, 256, True)
+            print(f"kernel k2b {json.dumps(case)}", flush=True)
+            check(case["err_dreps"] <= case["lim_dreps"],
+                  f"K2b {tag}: error {case['err_dreps']} > "
+                  f"{case['lim_dreps']}")
+            check(case["library_err_dreps"] <= 1e-3 * top,
+                  f"K2b {tag}: the closed form's gradient disagrees "
+                  f"({case['library_err_dreps']})")
+            check(case["bit_identical"], f"K2b {tag}: runs differ")
+            res["bwd"]["max_abs_err"] = max(res["bwd"]["max_abs_err"],
+                                            case["err_dreps"])
+            res["bwd"]["cases"].append(case)
+    return res
+
+
+# ---------------------------------------------------------------- phase 5
+
+
+def pretrain_cfg(bf16: bool = False, ntxent_impl: str = "auto"):
+    return PretrainConfig(
+        batch_size=P_BATCH, ntxent_impl=ntxent_impl,
+        model=ModelConfig(num_layers=LAYERS, emb_dim=EMB, feat_dim=FEAT,
+                          tile=TILE, bf16=bf16))
+
+
+def adam_step_bound(t: int, b1: float = 0.9, b2: float = 0.999) -> float:
+    """The largest |m_hat / sqrt(v_hat)| Adam's t-th update can take, over
+    all gradient histories (Cauchy-Schwarz on the moments' weights): 1 at
+    t = 1, 1.0036 at t = 3. An update moves an element by at most lr times
+    this, so a sign flip moves it by at most twice that."""
+    w = [(1 - b1) * b1 ** (t - i) / (1 - b1 ** t) for i in range(1, t + 1)]
+    u = [(1 - b2) * b2 ** (t - i) / (1 - b2 ** t) for i in range(1, t + 1)]
+    return sum(a * a / c for a, c in zip(w, u)) ** 0.5
+
+
+def params_of(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def step_phase(batch, spec, dev) -> dict:
+    """3 pretraining steps on the card; before each, the CPU takes the
+    card's state (weights, BatchNorm stats, Adam moments) and runs the same
+    step with the same augmentation keys on its plain path. (Free-running
+    f32 runs drift apart within steps, card and CPU alike: Adam's first
+    steps move every element by about lr whatever its gradient's size, so
+    the f32 noise on gradients that are 0 in exact arithmetic, such as the
+    conv biases ahead of a BatchNorm, flips whole steps.) Launch counts,
+    bit-reproducibility, and the kernels' NT-Xent on one step."""
+    cfg = pretrain_cfg()
+    bw = spec.max_graph_bonds
+    lr = cfg.init_lr
+    models, opts = {}, {}
+    for where in ("card", "cpu"):
+        models[where] = build_model(cfg, torch.Generator().manual_seed(
+            SEED + 2)).to(dev if where == "card" else "cpu")
+        opts[where] = optim.adam_torch(models[where].parameters(),
+                                       cfg.weight_decay)
+    bg, bc = batch.to(dev), batch.to("cpu")
+    report = {"losses": [], "counts": [], "worst_fraction_off": [],
+              "max_param_diff": [], "running_stats_over_limit": []}
+    totals = dict.fromkeys(ALL_FNS, 0)
+    for step in range(P_STEPS):
+        models["cpu"].load_state_dict(
+            {k: v.cpu() for k, v in models["card"].state_dict().items()})
+        opts["cpu"].load_state_dict(copy.deepcopy(opts["card"].state_dict()))
+        reset_counts()
+        loss_g = train_step(models["card"], opts["card"], bg, cfg, step, lr,
+                            bond_window=bw)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        t0 = time.perf_counter()
+        loss_c = train_step(models["cpu"], opts["cpu"], bc, cfg, step, lr,
+                            bond_window=bw)
+        report["cpu_step_s"] = time.perf_counter() - t0
+        report["losses"].append([loss_g.item(), loss_c.item()])
+        report["counts"].append(counts)
+        want = dict(fused_gine_bn_layer=2 * LAYERS,
+                    fused_gine_bn_layer_bwd=2 * LAYERS)
+        for name, c in counts.items():
+            check(c == want.get(name, 0), f"step {step}: {name} launched "
+                  f"{c} times, expected {want.get(name, 0)}")
+            totals[name] += c
+        check(abs(loss_g.item() - loss_c.item())
+              <= STEP_LOSS_RTOL * abs(loss_c.item()),
+              f"step {step}: loss card {loss_g.item()} cpu {loss_c.item()}")
+        grads = {k: p.grad for k, p in models["cpu"].named_parameters()}
+        card, cpu = (params_of(models[w]) for w in ("card", "cpu"))
+        worst = top = stat = 0.0
+        for k, v in cpu.items():
+            got = card[k].cpu()
+            if k.endswith("num_batches_tracked"):
+                check(int(got) == int(v), f"step {step}: {k} differs")
+                continue
+            diff = (got.double() - v.double()).abs()
+            if "running_" in k:
+                over = (diff / (1e-5 + 2e-3 * v.double().abs())).max().item()
+                stat = max(stat, over)
+                check(over <= 1.0, f"step {step}: {k} card and CPU differ "
+                      f"by {diff.max().item()}")
+                continue
+            top = max(top, diff.max().item())
+            cap = 2.0 * lr * adam_step_bound(step + 1)
+            check(diff.max().item() <= cap, f"step {step}: {k} differs by "
+                  f"{diff.max().item()} > the Adam envelope {cap}")
+            real = grads[k].abs() > 1e-4
+            bad = diff[real] > 5e-5 + 2e-4 * v.double()[real].abs()
+            frac = bad.float().mean().item() if bad.numel() else 0.0
+            worst = max(worst, frac)
+            check(frac <= 3e-4, f"step {step}: {k} has {frac:.2%} of its "
+                  f"real-gradient elements off the CPU's")
+        report["worst_fraction_off"].append(worst)
+        report["max_param_diff"].append(top)
+        report["running_stats_over_limit"].append(stat)
+    report["launches"] = totals
+
+    # two identical card steps from the same state are bit-identical
+    model, opt = models["card"], opts["card"]
+    snap = (copy.deepcopy(model.state_dict()), copy.deepcopy(
+        opt.state_dict()))
+    outcomes = []
+    for _ in range(2):
+        # (load_state_dict keeps the optimizer state's tensors, which the
+        # step then updates in place: hand it a copy)
+        model.load_state_dict(snap[0])
+        opt.load_state_dict(copy.deepcopy(snap[1]))
+        loss = train_step(model, opt, bg, cfg, P_STEPS, lr, bond_window=bw)
+        outcomes.append((loss.clone(), params_of(model)))
+    check(torch.equal(outcomes[0][0], outcomes[1][0])
+          and all(torch.equal(outcomes[0][1][k], outcomes[1][1][k])
+                  for k in outcomes[0][1]),
+          "two identical card steps differ")
+    report["bit_identical_steps"] = True
+
+    # the same step with the kernels' NT-Xent (K2f / K2b once each)
+    model.load_state_dict(snap[0])
+    opt.load_state_dict(copy.deepcopy(snap[1]))
+    reset_counts()
+    loss_p = train_step(model, opt, bg, pretrain_cfg(ntxent_impl="pallas"),
+                        P_STEPS, lr, bond_window=bw)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    report["pallas_counts"] = counts
+    want = dict(fused_gine_bn_layer=2 * LAYERS,
+                fused_gine_bn_layer_bwd=2 * LAYERS, ntxent_fwd=1,
+                ntxent_bwd=1)
+    for name, c in counts.items():
+        check(c == want.get(name, 0), f"pallas step: {name} launched {c} "
+              f"times, expected {want.get(name, 0)}")
+    lx = outcomes[0][0].item()
+    report["pallas_loss"], report["closed_form_loss"] = loss_p.item(), lx
+    check(abs(loss_p.item() - lx) <= PALLAS_LOSS_RTOL * abs(lx),
+          f"pallas loss {loss_p.item()} vs closed form {lx}")
+    after = params_of(model)
+    report["pallas_max_param_diff"] = max(
+        (after[k] - outcomes[0][1][k]).abs().max().item()
+        for k in after if "running" not in k and "num_batches" not in k)
+    check(report["pallas_max_param_diff"]
+          <= 2.0 * lr * adam_step_bound(P_STEPS + 1),
+          f"pallas step moved the parameters by "
+          f"{report['pallas_max_param_diff']} more than the closed form")
+    print(f"step {json.dumps(report)}", flush=True)
+    return report
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def speed_phase(batch, spec, dev, card: str) -> dict:
+    """The step's time on the card, f32 and bf16, and a profile of its
+    device time by kernel (f32)."""
+    bg = batch.to(dev)
+    # bench.py's metric: 2 views x layers x (real directed edges +
+    # self-loops) of the base batch
+    messages = 2 * LAYERS * (int(batch.edge_mask.sum())
+                             + int(batch.node_mask.sum()))
+    report = {}
+    for bf16 in (False, True):
+        cfg = pretrain_cfg(bf16=bf16)
+        model = build_model(cfg, torch.Generator().manual_seed(SEED + 2))
+        model = model.to(dev)
+        opt = optim.adam_torch(model.parameters(), cfg.weight_decay)
+        for step in range(WARM_STEPS):
+            train_step(model, opt, bg, cfg, step, cfg.init_lr,
+                       bond_window=spec.max_graph_bonds)
+        torch.cuda.synchronize()
+        events, host = [], []
+        for step in range(WARM_STEPS, WARM_STEPS + SPEED_STEPS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            loss = train_step(model, opt, bg, cfg, step, cfg.init_lr,
+                              bond_window=spec.max_graph_bonds)
+            e1.record()
+            host.append(1e3 * (time.perf_counter() - t0))
+            events.append((e0, e1))
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(loss)), f"bf16={bf16}: loss {loss}")
+        ms = statistics.median(a.elapsed_time(b) for a, b in events)
+        # host_ms: the host's time to queue one step (no synchronize), the
+        # step's floor while the device waits for it
+        row = dict(card=card, dtype="bfloat16" if bf16 else "float32",
+                   step_ms=ms, host_ms=statistics.median(host),
+                   steps=SPEED_STEPS,
+                   message_edges_per_step=messages,
+                   message_edges_per_s=messages / (ms / 1e3),
+                   mol_per_s=int(batch.graph_mask.sum()) / (ms / 1e3))
+        if not bf16:
+            row["profile"] = profile_steps(model, opt, bg, cfg, spec)
+        report[row["dtype"]] = row
+        print(f"speed {json.dumps(row)}", flush=True)
+    return report
+
+
+def profile_steps(model, opt, bg, cfg, spec, steps: int = 5) -> dict:
+    """torch.profiler over `steps` steps: device time per kernel name (top
+    12) and the device's busy share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for step in range(steps):
+            train_step(model, opt, bg, cfg, 100 + step, cfg.init_lr,
+                       bond_window=spec.max_graph_bonds)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((e.key, us, e.count))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return dict(window_steps=steps, wall_ms_per_step=wall_us / steps / 1e3,
+                device_ms_per_step=busy / steps / 1e3,
+                device_busy_share=busy / wall_us if wall_us else None,
+                kernels=len(rows),
+                top=[dict(name=k[:80], ms_per_step=us / steps / 1e3,
+                          launches_per_step=c / steps)
+                     for k, us, c in rows[:12]])
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+def cli_phase(tmp: str) -> dict:
+    """The pretrain CLI on the card: two epochs of a three-epoch schedule,
+    then --resume latest for the third."""
+    corpus = os.path.join(tmp, "pretrain.txt")
+    ckpt = os.path.join(tmp, "pretrain_ckpt")
+    base = ["--synthetic", "4096", "--data", corpus, "--ckpt-dir", ckpt,
+            "--batch-size", str(P_BATCH), "--epochs", "3", "--warm-up", "1",
+            "--save-every", "1"]
+    report = {}
+    for tag, extra in (("first", ["--stop-after-epoch", "2"]),
+                       ("resumed", ["--resume", "latest"])):
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = pretrain_cli.main(base + extra)
+        torch.cuda.synchronize()
+        report[f"{tag}_s"] = time.perf_counter() - t0
+        check(rc == 0, f"pretrain CLI {tag} returned {rc}")
+        report[f"{tag}_counts"] = read_counts()
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    report["records"] = recs
+    check([r["epoch"] for r in recs] == [0, 1, 2],
+          f"metrics.jsonl epochs {[r['epoch'] for r in recs]}")
+    for r in recs:
+        check(all(np.isfinite(r[k]) for k in ("train_loss", "valid_loss")),
+              f"non-finite record {r}")
+    spe = recs[0]["steps"]
+    check(spe > 0 and [r["step"] for r in recs] == [spe, 2 * spe, 3 * spe],
+          f"steps {[r['step'] for r in recs]} do not continue")
+    sched = optim.warmup_then_cosine(5e-4, spe, 3, 1)
+    check(all(r["lr"] == sched(r["step"]) for r in recs),
+          "the LR schedule does not continue across the resume")
+    for tag, steps in (("first", 2 * spe), ("resumed", spe)):
+        c = report[f"{tag}_counts"]
+        check(c["fused_gine_bn_layer_bwd"] == 2 * LAYERS * steps,
+              f"{tag}: K1b launched {c['fused_gine_bn_layer_bwd']} times "
+              f"for {steps} steps")
+    print(f"cli {json.dumps(report)}", flush=True)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -412,29 +1010,70 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
+    t_start = time.perf_counter()
 
-    t0 = time.perf_counter()
+    def phase(name: str) -> None:
+        print(f"phase {name} at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     built = _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.2f} s "
+    print(f"build: {time.perf_counter() - t_start:.2f} s "
           f"{json.dumps(built)}", flush=True)
 
+    phase("kernels")
     kernels = kernel_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
+        phase("slice")
         sl = slice_phase(dev, tmp, card)
+        batch, spec = pretrain_batch()
+        print(f"pretraining batch: {spec}, {int(batch.node_mask.sum())} "
+              f"atoms, {int(batch.edge_mask.sum())} directed bonds",
+              flush=True)
+        phase("training kernels")
+        layer = training_layer_phase(batch.to(dev), dev)
+        ntx = ntxent_phase(dev)
+        phase("step")
+        step = step_phase(batch, spec, dev)
+        phase("speed")
+        speed_phase(batch, spec, dev, card)
+        phase("cli")
+        cli_phase(tmp)
+    phase("done")
 
-    rows = []
-    for name, spec in KERNELS.items():
-        # the serving path's case: f32 with the relu prologue (layers 2-5)
-        main_case = next(c for c in kernels[name]["cases"]
-                         if c["dtype"] == "float32" and c["relu_in"])
-        tag = spec["model"]
-        rows.append(dict(
-            name=name, route="cuda", source=spec["source"],
-            replaces=spec["replaces"], launches=sl[tag]["launches"][name],
-            max_abs_err=kernels[name]["max_abs_err"], ms=main_case["ms"],
-            plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
-            bound_by=main_case["bound_by"],
-            library_ms=main_case["library_ms"]))
+    def row(name, source, replaces, launches, res, case):
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=launches,
+                    max_abs_err=res["max_abs_err"], ms=case["ms"],
+                    plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
+                    bound_by=case["bound_by"],
+                    library_ms=case["library_ms"])
+
+    # the main path's cases: f32 with the relu prologue (layers 2-5) at the
+    # pretraining shape for K1f / K1b, 2B = 1,024 with no dead pair for K2
+    def pick(cases, **want):
+        return next(c for c in cases if all(c[k] == v
+                                            for k, v in want.items()))
+
+    train_case = dict(dtype="float32", relu_in=True)
+    rows = [row("fused_gine_bn_layer", KERNELS["fused_gine_bn_layer"][
+        "source"], KERNELS["fused_gine_bn_layer"]["replaces"],
+        step["launches"]["fused_gine_bn_layer"], layer["fwd"],
+        pick(layer["fwd"]["cases"], **train_case))]
+    serving = pick(kernels["fused_gcn_bn_layer"]["cases"], **train_case)
+    rows.append(row("fused_gcn_bn_layer", KERNELS["fused_gcn_bn_layer"][
+        "source"], KERNELS["fused_gcn_bn_layer"]["replaces"],
+        sl["gcn"]["launches"]["fused_gcn_bn_layer"],
+        kernels["fused_gcn_bn_layer"], serving))
+    spec_b = TRAIN_KERNELS["fused_gine_bn_layer_bwd"]
+    rows.append(row("fused_gine_bn_layer_bwd", spec_b["source"],
+                    spec_b["replaces"],
+                    step["launches"]["fused_gine_bn_layer_bwd"],
+                    layer["bwd"], pick(layer["bwd"]["cases"], **train_case)))
+    for name, part in (("ntxent_fwd", "fwd"), ("ntxent_bwd", "bwd")):
+        spec_k = TRAIN_KERNELS[name]
+        rows.append(row(name, spec_k["source"], spec_k["replaces"],
+                        step["pallas_counts"][name], ntx[part],
+                        pick(ntx[part]["cases"], two_b=1024, dead_rows=0)))
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,117 @@
+"""Contrastive pretraining CLI (replaces `python molclr.py`, ref
+molclr.py:180-199).
+
+Port of molclr_tpu/cli/pretrain.py with the flags that apply to one card.
+It trains on the first CUDA device unless --cpu is given (the kernels'
+plain versions), and raises when there is none.
+
+    python -m molclr_tpu_torch.cli.pretrain --data corpus.txt --epochs 2
+    python -m molclr_tpu_torch.cli.pretrain --synthetic 4096 --cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="molclr-pretrain",
+        description="MolCLR contrastive pretraining on one GPU (PyTorch)")
+    p.add_argument("--config", default="configs/pretrain.yaml",
+                   help="YAML config (reference config.yaml keys accepted)")
+    p.add_argument("--data", default=None, help="override corpus path")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--aug", choices=["node", "subgraph", "mix"],
+                   default=None, help="augmentation kind (subgraph and mix "
+                   "are not ported yet and raise)")
+    p.add_argument("--model", choices=["gin", "gcn"], default=None,
+                   help="encoder (GCN training on the card raises until "
+                        "its backward kernel is ported)")
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--resume", default=None, metavar="PATH|latest",
+                   help="resume from a checkpoint; 'latest' picks the "
+                        "newest full-state checkpoint in --ckpt-dir")
+    p.add_argument("--valid-size", type=float, default=None,
+                   help="validation fraction (reference 0.05)")
+    p.add_argument("--eval-every", type=int, default=None,
+                   help="validate every N epochs")
+    p.add_argument("--save-every", type=int, default=None,
+                   help="full-state checkpoint every N epochs")
+    p.add_argument("--warm-up", type=int, default=None)
+    p.add_argument("--stop-after-epoch", type=int, default=None,
+                   help="stop after this many epochs WITHOUT changing the "
+                        "--epochs schedule (forces a full-state checkpoint; "
+                        "--resume latest continues the same cosine)")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--synthetic", type=int, default=0, metavar="N",
+                   help="generate an N-molecule synthetic corpus if the "
+                        "data path is missing")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU with the kernels' plain versions")
+    args = p.parse_args(argv)
+
+    from molclr_tpu_torch.cli.embed import resolve_device
+
+    device = resolve_device(args.cpu)
+
+    from molclr_tpu_torch.train.checkpoints import latest_checkpoint
+    from molclr_tpu_torch.train.config import PretrainConfig, \
+        pretrain_from_yaml
+    from molclr_tpu_torch.train.pretrain import Pretrainer
+
+    cfg = (pretrain_from_yaml(args.config) if os.path.exists(args.config)
+           else PretrainConfig())
+    for flag, attr in (("data", "data_path"), ("epochs", "epochs"),
+                       ("batch_size", "batch_size"), ("aug", "aug"),
+                       ("ckpt_dir", "ckpt_dir"),
+                       ("valid_size", "valid_size"),
+                       ("eval_every", "eval_every_epochs"),
+                       ("save_every", "save_every_epochs"),
+                       ("warm_up", "warm_up"),
+                       ("stop_after_epoch", "stop_after_epochs"),
+                       ("seed", "seed")):
+        value = getattr(args, flag)
+        if value is not None:
+            setattr(cfg, attr, value)
+    if args.model:
+        cfg.model.gnn_type = args.model
+    if args.resume == "latest":
+        latest = latest_checkpoint(cfg.ckpt_dir)
+        if latest is None:
+            print(f"no checkpoint under {cfg.ckpt_dir}; starting from "
+                  f"scratch")
+        else:
+            cfg.resume_from = latest
+    elif args.resume:
+        cfg.resume_from = args.resume
+
+    if args.synthetic:
+        # size-keyed corpus path, so that different --synthetic N do not
+        # reuse a smaller cached corpus (unless --data names one)
+        if not args.data:
+            root, ext = os.path.splitext(cfg.data_path)
+            cfg.data_path = f"{root}_{args.synthetic}{ext}"
+        if not os.path.exists(cfg.data_path):
+            from molclr_tpu_torch.data.synthetic import write_pretrain_corpus
+
+            print(f"generating synthetic corpus ({args.synthetic} "
+                  f"molecules) -> {cfg.data_path}")
+            write_pretrain_corpus(cfg.data_path, args.synthetic,
+                                  seed=cfg.seed)
+
+    print(f"device: {device}")
+    pre = Pretrainer(cfg, device).setup_data()
+    print(f"bucket: {pre.spec}")
+    pre.setup_state()
+    if pre.step:
+        print(f"resumed from {cfg.resume_from} at step {pre.step}, epoch "
+              f"{pre._start_epoch}")
+    pre.train()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -160,20 +160,62 @@ __device__ void load_adj_strip(const T* adj, const T* cnt, int tile,
   // msk is read only after strip_gemm's next __syncthreads
 }
 
+// Load this block's A strip ([R, S], f32) into As and the node mask
+// diag(A) > 0 of its rows into msk (load_adj_strip without the cnt rows).
+template <typename T>
+__device__ void load_a_strip(const T* adj, int tile, int strip, int S,
+                             float* As, float* msk) {
+  const size_t arow0 = ((size_t)tile * S + (size_t)strip * R) * S;
+  for (int e = threadIdx.x; e < R * S; e += NT) As[e] = ld(adj, arow0 + e);
+  __syncthreads();
+  if (threadIdx.x < R) {
+    const int r = threadIdx.x;
+    msk[r] = As[r * S + strip * R + r] > 0.f ? 1.f : 0.f;
+  }
+  // msk is read only after strip_gemm's next __syncthreads
+}
+
+// Column sums of a column pass over the strip's rows: s[v][j] is this
+// thread's sum over its TM rows of quantity v at column c0 + lane + 32 j.
+// The warps' sums meet in red[NV, NWARP, CW] (the chunk buffer, free once
+// every warp is past its products) and are added in warp order into
+// dst[v][c0 + tid] for c0 + tid < ncols. Called by all threads inside a
+// strip_gemm epilogue.
+template <int NV>
+__device__ void colsum_epilogue(int c0, const float (&s)[NV][TN], int ncols,
+                                float* red, float* const (&dst)[NV]) {
+  static_assert(NV * NWARP * CW <= KC * CW, "scratch fits the chunk buffer");
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  __syncthreads();  // every warp is done reading the chunk that red reuses
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+      red[(v * NWARP + warp) * CW + lane + 32 * j] = s[v][j];
+  __syncthreads();
+  if (tid < CW && c0 + tid < ncols) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      float t = 0.f;
+      for (int w = 0; w < NWARP; ++w) t += red[(v * NWARP + w) * CW + tid];
+      dst[v][c0 + tid] = t;
+    }
+  }
+  // red is overwritten only after strip_gemm's next __syncthreads
+}
+
 // Column-pass epilogue shared by both layers: v = rnd(acc + bias[c]) is
 // written to out rows row0.., and the masked moments (sum m v, sum m v^2)
 // of the CAST values over this strip go to partial[blockIdx.x, {0,1}, c].
-// The warps' column sums meet in red[2, NWARP, CW] (the chunk buffer, free
-// once every warp is past its products) and are added in warp order.
 template <typename T>
 __device__ void moment_epilogue(int c0, const float (&acc)[TM][TN],
                                 const float* bias, T* out, size_t row0,
                                 int D, const float* msk, float* red,
                                 float* partial) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float s1[TN], s2[TN];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float s[2][TN];
 #pragma unroll
-  for (int j = 0; j < TN; ++j) s1[j] = s2[j] = 0.f;
+  for (int j = 0; j < TN; ++j) s[0][j] = s[1][j] = 0.f;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = warp * TM + i;
@@ -185,29 +227,126 @@ __device__ void moment_epilogue(int c0, const float (&acc)[TM][TN],
         const float v = rnd<T>(acc[i][j] + bias[c]);
         st(out, (row0 + r) * D + c, v);
         const float ob = v * m;
-        s1[j] += ob;
-        s2[j] += ob * v;
+        s[0][j] += ob;
+        s[1][j] += ob * v;
       }
     }
   }
-  __syncthreads();  // every warp is done reading the chunk that red reuses
+  float* prow = partial + (size_t)blockIdx.x * 2 * D;
+  float* const dst[2] = {prow, prow + D};
+  colsum_epilogue<2>(c0, s, D, red, dst);
+}
+
+// Weight-gradient products C[m, c] = sum_r X[r, m] * Y[r, c] over the rows
+// r of a [N, M] and a [N, C] matrix (the transposed-left products of a
+// backward pass). The row range splits into `chunks` fixed chunks; block
+// (chunk, 64 x 64 output tile) writes its chunk's sums to
+// partial[chunk, off + m * C + c], and sum_partials adds the chunks in
+// order: no atomics, and each output tile's work is one block's. Up to
+// three problems share one launch so that together they fill the card.
+struct AtB {
+  const void* x;  // [N, M]
+  const void* y;  // [N, C]
+  int m, c;       // output shape
+  int off;        // offset of this problem's output in a partial row
+};
+
+constexpr int AT = 64;    // output tile edge
+constexpr int AKT = 16;   // rows per staged chunk
+constexpr int ANT = 256;  // threads: 16 x 16, each a 4 x 4 sub-tile
+
+__host__ __device__ inline int atb_tiles(const AtB& p) {
+  return ((p.m + AT - 1) / AT) * ((p.c + AT - 1) / AT);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ANT)
+atb_kernel(AtB p0, AtB p1, AtB p2, int nprob, int N, int rows_per_chunk,
+           int chunks, int width, float* __restrict__ partial) {
+  __shared__ float Xs[AKT][AT];
+  __shared__ float Ys[AKT][AT];
+  int blk = blockIdx.x;
+  AtB p = p0;
+  const AtB ps[3] = {p0, p1, p2};
+  int q = 0;
+  for (; q < nprob; ++q) {
+    const int nb = chunks * atb_tiles(ps[q]);
+    if (blk < nb) break;
+    blk -= nb;
+  }
+  if (q >= nprob) return;
+  p = ps[q];
+  const int tiles_c = (p.c + AT - 1) / AT;
+  const int chunk = blk / atb_tiles(p);
+  const int t = blk % atb_tiles(p);
+  const int m0 = (t / tiles_c) * AT, c0 = (t % tiles_c) * AT;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const T* X = (const T*)p.x;
+  const T* Y = (const T*)p.y;
+  const int r_lo = chunk * rows_per_chunk;
+  const int r_hi = min(N, r_lo + rows_per_chunk);
+  float acc[4][4];
 #pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    red[warp * CW + lane + 32 * j] = s1[j];
-    red[(NWARP + warp) * CW + lane + 32 * j] = s2[j];
-  }
-  __syncthreads();
-  if (tid < CW && c0 + tid < D) {
-    float t1 = 0.f, t2 = 0.f;
-    for (int w = 0; w < NWARP; ++w) {
-      t1 += red[w * CW + tid];
-      t2 += red[(NWARP + w) * CW + tid];
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int r0 = r_lo; r0 < r_hi; r0 += AKT) {
+    for (int e = tid; e < AKT * AT; e += ANT) {
+      const int kk = e / AT, mm = e % AT, r = r0 + kk;
+      Xs[kk][mm] = (r < r_hi && m0 + mm < p.m)
+                       ? ld(X, (size_t)r * p.m + m0 + mm) : 0.f;
+      Ys[kk][mm] = (r < r_hi && c0 + mm < p.c)
+                       ? ld(Y, (size_t)r * p.c + c0 + mm) : 0.f;
     }
-    float* prow = partial + (size_t)blockIdx.x * 2 * D;
-    prow[c0 + tid] = t1;
-    prow[D + c0 + tid] = t2;
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < AKT; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = Xs[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Ys[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
   }
-  // red is overwritten only after strip_gemm's next __syncthreads
+  float* prow = partial + (size_t)chunk * width + p.off;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + ty + 16 * i, c = c0 + tx + 16 * j;
+      if (m < p.m && c < p.c) prow[(size_t)m * p.c + c] = acc[i][j];
+    }
+}
+
+// dst [cols, rows] = src [rows, cols]^T through a 32 x 32 shared tile
+// (blocks of 32 x 8 threads).
+template <typename T>
+__global__ void transpose_kernel(const T* __restrict__ src,
+                                 T* __restrict__ dst, int rows, int cols) {
+  __shared__ float tile[32][33];
+  int x = blockIdx.x * 32 + threadIdx.x, y = blockIdx.y * 32 + threadIdx.y;
+  for (int j = 0; j < 32; j += 8)
+    if (x < cols && y + j < rows)
+      tile[threadIdx.y + j][threadIdx.x] = ld(src, (size_t)(y + j) * cols + x);
+  __syncthreads();
+  x = blockIdx.y * 32 + threadIdx.x, y = blockIdx.x * 32 + threadIdx.y;
+  for (int j = 0; j < 32; j += 8)
+    if (x < rows && y + j < cols)
+      st(dst, (size_t)(y + j) * rows + x, tile[threadIdx.x][threadIdx.y + j]);
+}
+
+template <typename T>
+static inline int launch_transpose(const void* src, void* dst, int rows,
+                                   int cols, cudaStream_t stream) {
+  const dim3 grid((cols + 31) / 32, (rows + 31) / 32), block(32, 8);
+  transpose_kernel<T><<<grid, block, 0, stream>>>((const T*)src, (T*)dst,
+                                                   rows, cols);
+  return (int)cudaGetLastError();
 }
 
 // Ask for the largest shared-memory carveout, so that three blocks of the

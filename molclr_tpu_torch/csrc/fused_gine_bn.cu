@@ -1,6 +1,7 @@
-// K1f: BN-chained fused GINE layer, forward, for sm_90a.
+// K1f and K1b: BN-chained fused GINE layer, forward and backward, for
+// sm_90a.
 //
-// Replaces molclr_tpu/ops/fused_layer.py:_bn_fwd_kernel (the Pallas TPU
+// K1f replaces molclr_tpu/ops/fused_layer.py:_bn_fwd_kernel (the Pallas TPU
 // kernel behind fused_gine_bn_layer). Per node row:
 //   y   = rnd(relu?(h * a + b))                 prologue: previous BN affine
 //   agg = rnd(A @ y + cnt @ etab)               neighbor + edge-emb sums
@@ -8,16 +9,16 @@
 //   out = rnd(mid @ W2 + b2)
 //   sums += [sum m out, sum m out^2]            m = diag(A) > 0
 // rnd() is the cast to the activation type T (float or bf16); every sum is
-// f32.
+// f32. agg and mid are written to device memory only when the caller asks
+// for them (the residuals of a training step); serving passes null.
 //
 // Design (see fused_bn_common.cuh): one block of 128 threads per 16-row
 // strip of a tile. The block keeps [A strip | cnt rows] (then mid, in the
 // same space) and agg in shared memory as f32, streams [y ; etab], W1 and
-// W2 through a 32 x 128 chunk staged one chunk ahead in registers, and
-// never writes agg or mid to device memory (the forward of the serving
-// path needs no residuals). Shared memory at S = 256, D = 300:
-// (max(16*272, 16*600) + 16*300 + 32*128 + 16) floats = 74 KB, three
-// blocks per SM, so the 288 blocks of the embed shape run in one wave.
+// W2 through a 32 x 128 chunk staged one chunk ahead in registers. Shared
+// memory at S = 256, D = 300: (max(16*272, 16*600) + 16*300 + 32*128 + 16)
+// floats = 74 KB, three blocks per SM, so the 288 blocks of the embed
+// shape run in one wave.
 //
 // Bound on the H100 at the embed shape (T = 18 tiles of 256, D = 300,
 // f32): as a dense computation 4.07 GFLOP (A@y 0.71, cnt@etab 0.04, two
@@ -34,6 +35,39 @@
 // dense A strip multiplies mostly zeros; padded rows (half of a batch) are
 // computed in full; the prologue and y are recomputed by each of a tile's
 // 16 strips; W1 and W2 are re-read from L2 by each of the 288 blocks.
+//
+// K1b replaces molclr_tpu/ops/fused_layer.py:_bn_bwd_kernel. Given the
+// output cotangents (g [N, D], dsums [2, D]) and the residuals:
+//   gt    = g + m * (ds0 + 2 out ds1)   (f32; gtc = rnd(gt))
+//   dmid  = (gtc @ W2^T) * [mid > 0]    (dmidc = rnd(dmid))
+//   dagg  = dmidc @ W1^T                (daggc = rnd(dagg))
+//   dx    = A @ daggc                   (A is symmetric: the adjoint of A@)
+//   dpre  = dx * [h a + b > 0 if relu_in]
+//   dh    = rnd(dpre * a)
+//   da = sum dpre h, db = sum dpre, db1 = sum dmid, db2 = sum gt,
+//   dW1 = agg^T dmidc, dW2 = mid^T gtc, detab = cnt^T daggc  (all f32)
+// The TPU kernel holds a whole tile and carries the parameter sums across
+// its sequential grid. Here dx for a strip needs daggc for all 256 rows of
+// its tile, which a strip block does not have, so the backward is three
+// passes, each deterministic:
+//   (a) rows: per strip, gt, dmid, dagg (row-local; gtc and dmidc live in
+//       shared memory; W2^T and W1^T, transposed once per backward so that
+//       they stream row by row, go through the chunk), writing gtc, dmidc,
+//       daggc to scratch and the strip's db1 / db2 partials;
+//   (b) adjacency: per strip, dx = A_strip @ daggc_tile and the prologue
+//       adjoint, writing dh and the strip's da / db partials;
+//   (c) weights: dW1, dW2 and detab as transposed-left products over N
+//       (atb_kernel), the rows split in fixed chunks;
+// and every partial is added in a fixed order (sum_partials). No atomics:
+// two runs are bit-identical.
+//
+// Bound on the H100 at the pretraining shape (T = 22, D = 300, 4,696 real
+// rows of 5,632, f32): four dense products over the real rows, 4 x 2 x
+// 4,696 x 300 x 600 = 6.8 GFLOP, plus A @ daggc and cnt^T daggc by their
+// nonzeros, against about 40 MB moved: 0.10 ms at 67 TFLOP/s. In bf16 the
+// bytes set the bound (about 7 us). The same simple design as K1f, so the
+// same things are left on the table; the weight products read agg, mid,
+// gtc and dmidc back from device memory (the TPU kernel has them in VMEM).
 
 #include "fused_bn_common.cuh"
 
@@ -46,8 +80,9 @@ gine_bn_fwd_kernel(const T* __restrict__ h, const float* __restrict__ a,
                    const T* __restrict__ cnt, const T* __restrict__ etab,
                    const T* __restrict__ w1, const float* __restrict__ b1,
                    const T* __restrict__ w2, const float* __restrict__ b2,
-                   T* __restrict__ out, float* __restrict__ partial, int S,
-                   int D, int D2, int relu_in) {
+                   T* __restrict__ out, T* __restrict__ agg_out,
+                   T* __restrict__ mid_out, float* __restrict__ partial,
+                   int S, int D, int D2, int relu_in) {
   extern __shared__ float smem[];
   const int strips = S / R;
   const int tile = blockIdx.x / strips, strip = blockIdx.x % strips;
@@ -78,7 +113,11 @@ gine_bn_fwd_kernel(const T* __restrict__ h, const float* __restrict__ a,
 #pragma unroll
           for (int j = 0; j < TN; ++j) {
             const int c = c0 + lane + 32 * j;
-            if (c < D) agg[(warp * TM + i) * D + c] = rnd<T>(acc[i][j]);
+            if (c < D) {
+              const float v = rnd<T>(acc[i][j]);
+              agg[(warp * TM + i) * D + c] = v;
+              if (agg_out) st(agg_out, (row0 + warp * TM + i) * D + c, v);
+            }
           }
       });
 
@@ -94,9 +133,11 @@ gine_bn_fwd_kernel(const T* __restrict__ h, const float* __restrict__ a,
 #pragma unroll
           for (int j = 0; j < TN; ++j) {
             const int c = c0 + lane + 32 * j;
-            if (c < D2)
-              mid[(warp * TM + i) * D2 + c] =
-                  rnd<T>(fmaxf(acc[i][j] + b1[c], 0.f));
+            if (c < D2) {
+              const float v = rnd<T>(fmaxf(acc[i][j] + b1[c], 0.f));
+              mid[(warp * TM + i) * D2 + c] = v;
+              if (mid_out) st(mid_out, (row0 + warp * TM + i) * D2 + c, v);
+            }
           }
       });
 
@@ -110,13 +151,153 @@ gine_bn_fwd_kernel(const T* __restrict__ h, const float* __restrict__ a,
       });
 }
 
+// K1b pass (a): gt, dmid, dagg for one strip (row-local). w1t [D2, D] and
+// w2t [D, D2] are W1^T and W2^T, so that the chunks stream row by row.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+gine_bn_bwd_rows_kernel(const T* __restrict__ g, const float* __restrict__ ds,
+                        const T* __restrict__ adj, const T* __restrict__ mid,
+                        const T* __restrict__ out, const T* __restrict__ w1t,
+                        const T* __restrict__ w2t, T* __restrict__ gtc,
+                        T* __restrict__ dmidc, T* __restrict__ daggc,
+                        float* __restrict__ partial, int S, int D, int D2) {
+  extern __shared__ float smem[];
+  const int strips = S / R;
+  const int tile = blockIdx.x / strips, strip = blockIdx.x % strips;
+  const size_t row0 = (size_t)tile * S + (size_t)strip * R;
+  float* gts = smem;             // [R, D]  gtc
+  float* dms = gts + R * D;      // [R, D2] dmidc
+  float* Bs = dms + R * D2;      // [KC, CW], epilogue scratch
+  float* msk = Bs + KC * CW;     // [R]
+  float* prow = partial + (size_t)blockIdx.x * (D2 + D);  // [db1 | db2]
+
+  if (threadIdx.x < R) {
+    const int r = threadIdx.x;
+    msk[r] = ld(adj, (row0 + r) * S + strip * R + r) > 0.f ? 1.f : 0.f;
+  }
+  __syncthreads();
+  // gt = g + m (ds0 + 2 out ds1), each operation rounded as the plain
+  // version rounds it; db2 = sum gt over the strip (uncast)
+  for (int c = threadIdx.x; c < D; c += NT) {
+    float s = 0.f;
+    for (int r = 0; r < R; ++r) {
+      const size_t i = (row0 + r) * D + c;
+      const float t = __fadd_rn(ds[c], __fmul_rn(2.f * ld(out, i), ds[D + c]));
+      const float gt = __fadd_rn(ld(g, i), msk[r] * t);
+      s += gt;
+      const float v = rnd<T>(gt);
+      gts[r * D + c] = v;
+      st(gtc, i, v);
+    }
+    prow[D2 + c] = s;
+  }
+
+  // dmid = (gtc @ W2^T) * [mid > 0]; db1 = sum dmid (uncast)
+  strip_gemm(
+      gts, D, D, D2, Bs,
+      [&](int k, int c) -> T { return w2t[(size_t)k * D2 + c]; },
+      Identity(),
+      [&](int c0, float (&acc)[TM][TN]) {
+        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+        float s[1][TN];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) s[0][j] = 0.f;
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const int r = warp * TM + i;
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            const int c = c0 + lane + 32 * j;
+            if (c < D2) {
+              const size_t idx = (row0 + r) * D2 + c;
+              const float dm = ld(mid, idx) > 0.f ? acc[i][j] : 0.f;
+              s[0][j] += dm;
+              const float v = rnd<T>(dm);
+              dms[r * D2 + c] = v;
+              st(dmidc, idx, v);
+            }
+          }
+        }
+        float* const dst[1] = {prow};
+        colsum_epilogue<1>(c0, s, D2, Bs, dst);
+      });
+
+  // dagg = dmidc @ W1^T
+  strip_gemm(
+      dms, D2, D2, D, Bs,
+      [&](int k, int c) -> T { return w1t[(size_t)k * D + c]; },
+      Identity(),
+      [&](int c0, float (&acc)[TM][TN]) {
+        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            const int c = c0 + lane + 32 * j;
+            if (c < D)
+              st(daggc, (row0 + warp * TM + i) * D + c, rnd<T>(acc[i][j]));
+          }
+      });
+}
+
+// K1b pass (b): dx = A_strip @ daggc_tile, the prologue adjoint, dh and the
+// strip's [da | db] partials.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+gine_bn_bwd_adj_kernel(const T* __restrict__ daggc, const T* __restrict__ h,
+                       const float* __restrict__ a,
+                       const float* __restrict__ b, const T* __restrict__ adj,
+                       T* __restrict__ dh, float* __restrict__ partial, int S,
+                       int D, int relu_in) {
+  extern __shared__ float smem[];
+  const int strips = S / R;
+  const int tile = blockIdx.x / strips, strip = blockIdx.x % strips;
+  const size_t node0 = (size_t)tile * S;
+  const size_t row0 = node0 + (size_t)strip * R;
+  float* As = smem;              // [R, S]
+  float* Bs = As + R * S;        // [KC, CW], epilogue scratch
+  float* msk = Bs + KC * CW;     // [R]
+  float* prow = partial + (size_t)blockIdx.x * 2 * D;
+
+  load_a_strip(adj, tile, strip, S, As, msk);
+  strip_gemm(
+      As, S, S, D, Bs,
+      [&](int k, int c) -> T { return daggc[(node0 + k) * D + c]; },
+      Identity(),
+      [&](int c0, float (&acc)[TM][TN]) {
+        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+        float s[2][TN];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) s[0][j] = s[1][j] = 0.f;
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const size_t r = row0 + warp * TM + i;
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            const int c = c0 + lane + 32 * j;
+            if (c < D) {
+              const float hf = ld(h, r * D + c);
+              const float dx = acc[i][j];
+              const float dpre =
+                  (!relu_in || prologue(hf, a[c], b[c], 0) > 0.f) ? dx : 0.f;
+              st(dh, r * D + c, __fmul_rn(dpre, a[c]));
+              s[0][j] += dpre * hf;
+              s[1][j] += dpre;
+            }
+          }
+        }
+        float* const dst[2] = {prow, prow + D};
+        colsum_epilogue<2>(c0, s, D, Bs, dst);
+      });
+}
+
 template <typename T>
 static int gine_bn_fwd(const void* h, const float* a, const float* b,
                        const void* adj, const void* cnt, const void* etab,
                        const void* w1, const float* b1, const void* w2,
-                       const float* b2, void* out, float* partial,
-                       float* sums, int T_, int S, int D, int D2,
-                       int relu_in, void* stream) {
+                       const float* b2, void* out, void* agg, void* mid,
+                       float* partial, float* sums, int T_, int S, int D,
+                       int D2, int relu_in, void* stream) {
   if (T_ <= 0 || S <= 0 || S % R || D <= 0 || D2 <= 0)
     return (int)cudaErrorInvalidValue;
   const int nblk = T_ * (S / R);
@@ -128,11 +309,74 @@ static int gine_bn_fwd(const void* h, const float* a, const float* b,
   cudaStream_t st = (cudaStream_t)stream;
   gine_bn_fwd_kernel<T><<<nblk, NT, bytes, st>>>(
       (const T*)h, a, b, (const T*)adj, (const T*)cnt, (const T*)etab,
-      (const T*)w1, b1, (const T*)w2, b2, (T*)out, partial, S, D, D2,
-      relu_in);
+      (const T*)w1, b1, (const T*)w2, b2, (T*)out, (T*)agg, (T*)mid, partial,
+      S, D, D2, relu_in);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return launch_sum_partials(partial, sums, nblk, 2 * D, st);
+}
+
+// K1b: the three passes and the fixed-order sums. Scratch: w1t [D2, D],
+// w2t [D, D2], gtc, daggc [N, D], dmidc [N, D2] (T) and the partials.
+// Outputs: dh [N, D] (T); sums_rows [D2 + D] = [db1 | db2]; sums_adj
+// [2 D] = [da | db]; wgrad [D*D2 + D2*D + CNT_PAD*D] = [dW1 | dW2 | detab]
+// (f32).
+template <typename T>
+static int gine_bn_bwd(const void* g, const float* ds, const void* h,
+                       const float* a, const float* b, const void* adj,
+                       const void* cnt, const void* agg, const void* mid,
+                       const void* out, const void* w1, const void* w2,
+                       void* w1t, void* w2t, void* gtc, void* dmidc,
+                       void* daggc, float* part_rows,
+                       float* part_adj, float* part_w, void* dh,
+                       float* sums_rows, float* sums_adj, float* wgrad,
+                       int T_, int S, int D, int D2, int relu_in, int chunks,
+                       void* stream) {
+  if (T_ <= 0 || S <= 0 || S % R || D <= 0 || D2 <= 0 || chunks <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int nblk = T_ * (S / R);
+  const int N = T_ * S;
+  cudaStream_t st = (cudaStream_t)stream;
+
+  int err = launch_transpose<T>(w1, w1t, D, D2, st);
+  if (err) return err;
+  if ((err = launch_transpose<T>(w2, w2t, D2, D, st))) return err;
+
+  const size_t bytes_rows =
+      ((size_t)R * D + (size_t)R * D2 + KC * CW + R) * sizeof(float);
+  cudaError_t e = set_smem(gine_bn_bwd_rows_kernel<T>, bytes_rows);
+  if (e != cudaSuccess) return (int)e;
+  gine_bn_bwd_rows_kernel<T><<<nblk, NT, bytes_rows, st>>>(
+      (const T*)g, ds, (const T*)adj, (const T*)mid, (const T*)out,
+      (const T*)w1t, (const T*)w2t, (T*)gtc, (T*)dmidc, (T*)daggc, part_rows,
+      S, D, D2);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+
+  const size_t bytes_adj = ((size_t)R * S + KC * CW + R) * sizeof(float);
+  e = set_smem(gine_bn_bwd_adj_kernel<T>, bytes_adj);
+  if (e != cudaSuccess) return (int)e;
+  gine_bn_bwd_adj_kernel<T><<<nblk, NT, bytes_adj, st>>>(
+      (const T*)daggc, (const T*)h, a, b, (const T*)adj, (T*)dh, part_adj, S,
+      D, relu_in);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+
+  const AtB p_w1 = {agg, dmidc, D, D2, 0};
+  const AtB p_w2 = {mid, gtc, D2, D, D * D2};
+  const AtB p_et = {cnt, daggc, CNT_PAD, D, 2 * D * D2};
+  const int width = 2 * D * D2 + CNT_PAD * D;
+  int rows_per_chunk = (N + chunks - 1) / chunks;
+  rows_per_chunk = (rows_per_chunk + AKT - 1) / AKT * AKT;
+  const int nb = chunks * (atb_tiles(p_w1) + atb_tiles(p_w2) +
+                           atb_tiles(p_et));
+  atb_kernel<T><<<nb, ANT, 0, st>>>(p_w1, p_w2, p_et, 3, N, rows_per_chunk,
+                                    chunks, width, part_w);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+
+  if ((err = launch_sum_partials(part_rows, sums_rows, nblk, D2 + D, st)))
+    return err;
+  err = launch_sum_partials(part_adj, sums_adj, nblk, 2 * D, st);
+  if (err) return err;
+  return launch_sum_partials(part_w, wgrad, chunks, width, st);
 }
 
 }  // namespace fbl
@@ -141,24 +385,39 @@ extern "C" {
 
 int fbl_strip_rows() { return fbl::R; }
 
-int gine_bn_fwd_f32(const void* h, const float* a, const float* b,
-                    const void* adj, const void* cnt, const void* etab,
-                    const void* w1, const float* b1, const void* w2,
-                    const float* b2, void* out, float* partial, float* sums,
-                    int T, int S, int D, int D2, int relu_in, void* stream) {
-  return fbl::gine_bn_fwd<float>(h, a, b, adj, cnt, etab, w1, b1, w2, b2,
-                                 out, partial, sums, T, S, D, D2, relu_in,
-                                 stream);
-}
+#define GINE_BN_FWD(suffix, T)                                              \
+  int gine_bn_fwd_##suffix(const void* h, const float* a, const float* b,   \
+                           const void* adj, const void* cnt,                \
+                           const void* etab, const void* w1,                \
+                           const float* b1, const void* w2,                 \
+                           const float* b2, void* out, void* agg, void* mid, \
+                           float* partial, float* sums, int T_, int S,      \
+                           int D, int D2, int relu_in, void* stream) {      \
+    return fbl::gine_bn_fwd<T>(h, a, b, adj, cnt, etab, w1, b1, w2, b2, out, \
+                               agg, mid, partial, sums, T_, S, D, D2,       \
+                               relu_in, stream);                            \
+  }
 
-int gine_bn_fwd_bf16(const void* h, const float* a, const float* b,
-                     const void* adj, const void* cnt, const void* etab,
-                     const void* w1, const float* b1, const void* w2,
-                     const float* b2, void* out, float* partial, float* sums,
-                     int T, int S, int D, int D2, int relu_in, void* stream) {
-  return fbl::gine_bn_fwd<__nv_bfloat16>(h, a, b, adj, cnt, etab, w1, b1, w2,
-                                         b2, out, partial, sums, T, S, D, D2,
-                                         relu_in, stream);
-}
+#define GINE_BN_BWD(suffix, T)                                              \
+  int gine_bn_bwd_##suffix(                                                 \
+      const void* g, const float* ds, const void* h, const float* a,        \
+      const float* b, const void* adj, const void* cnt, const void* agg,    \
+      const void* mid, const void* out, const void* w1, const void* w2,     \
+      void* w1t, void* w2t, void* gtc, void* dmidc, void* daggc,            \
+      float* part_rows,                                                     \
+      float* part_adj, float* part_w, void* dh, float* sums_rows,           \
+      float* sums_adj, float* wgrad, int T_, int S, int D, int D2,          \
+      int relu_in, int chunks, void* stream) {                              \
+    return fbl::gine_bn_bwd<T>(g, ds, h, a, b, adj, cnt, agg, mid, out, w1, \
+                               w2, w1t, w2t, gtc, dmidc, daggc, part_rows,  \
+                               part_adj,                                    \
+                               part_w, dh, sums_rows, sums_adj, wgrad, T_,  \
+                               S, D, D2, relu_in, chunks, stream);          \
+  }
+
+GINE_BN_FWD(f32, float)
+GINE_BN_FWD(bf16, __nv_bfloat16)
+GINE_BN_BWD(f32, float)
+GINE_BN_BWD(bf16, __nv_bfloat16)
 
 }  // extern "C"

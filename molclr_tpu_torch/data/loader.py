@@ -1,17 +1,22 @@
-"""Host data pipeline: corpus reader, bulk featurization, bucket sizing.
+"""Host data pipeline: corpus reader, bulk featurization, bucket sizing,
+and the epoch iterator.
 
 Port of molclr_tpu/data/loader.py (read_pretrain_smiles, featurize_many,
-spec_for_graphs). Featurization runs the Python chem layer; the JAX
-package's C++ featurizer, which its tests hold to exact parity with it,
-is not ported yet.
+spec_for_graphs, BatchIterator). Featurization runs the Python chem
+layer; the JAX package's C++ featurizer, which its tests hold to exact
+parity with it, is not ported yet, nor is its prefetch thread.
 """
 
 from __future__ import annotations
 
+import warnings
+from dataclasses import dataclass
+from typing import Iterator
+
 import numpy as np
 
 from molclr_tpu_torch.data.featurize import MolGraph, featurize_smiles
-from molclr_tpu_torch.data.graphs import PadSpec
+from molclr_tpu_torch.data.graphs import PackOverflow, PadSpec, pack_batch
 
 
 def read_pretrain_smiles(path: str) -> list[str]:
@@ -99,3 +104,105 @@ def spec_for_graphs(graphs: list[MolGraph], batch_size: int,
                        tile, max_graph_bonds=max_graph_bonds)
     return PadSpec(batch_size, max(n_nodes, 8), max(n_edges, 8), max_degree,
                    max_graph_bonds=max_graph_bonds)
+
+
+@dataclass
+class BatchIterator:
+    """Epoch iterator yielding (GraphBatch, label_array | None, indices).
+
+    drop_last=True matches the reference pretrain loader contract
+    (dataset/dataset.py:179-183) and keeps batch shapes static. On
+    PackOverflow the molecule responsible for the violated bound is dropped
+    (and the batch padded short) rather than crashing.
+
+    cache_packed=True packs each batch ONCE (epoch 0's molecule shuffle
+    fixes the compositions) and later epochs re-yield the cached batches in
+    a freshly shuffled ORDER; augmentation runs per step on the device, so
+    only the in-batch negative composition is frozen. Epoch shuffles are
+    seeded by seed + epoch counter (`set_epoch` for resume)."""
+
+    graphs: list[MolGraph]
+    spec: PadSpec
+    labels: np.ndarray | None = None
+    batch_size: int | None = None
+    shuffle: bool = True
+    drop_last: bool = True
+    seed: int = 0
+    cache_packed: bool = False
+
+    def __post_init__(self):
+        if self.batch_size is None:
+            self.batch_size = self.spec.n_graphs
+        self._epoch = 0
+        self._cache = None
+
+    def __len__(self) -> int:
+        n = len(self.graphs)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _pack_epoch(self, order) -> Iterator:
+        n = len(self.graphs)
+        stop = (n - n % self.batch_size) if self.drop_last else n
+        for lo in range(0, stop, self.batch_size):
+            idx = list(order[lo : lo + self.batch_size])
+            batch_graphs = [self.graphs[i] for i in idx]
+            dropped = 0
+            while True:
+                try:
+                    gb = pack_batch(batch_graphs, self.spec)
+                    break
+                except PackOverflow as e:
+                    # evict the molecule responsible for the violated bound
+                    msg = str(e)
+                    if "bond" in msg or "edges" in msg:
+                        key = [g.edge_src.shape[0] for g in batch_graphs]
+                    else:
+                        key = [g.n_atoms for g in batch_graphs]
+                    drop = int(np.argmax(key))
+                    batch_graphs.pop(drop)
+                    idx.pop(drop)
+                    dropped += 1
+            if dropped:
+                warnings.warn(
+                    f"PackOverflow: dropped {dropped} molecule(s) from a "
+                    f"batch (spec {self.spec}); use sizing='max' if every "
+                    f"molecule must be kept", stacklevel=2)
+            labels = self.labels[idx] if self.labels is not None else None
+            yield gb, labels, np.asarray(idx)
+
+    @property
+    def cache(self):
+        """The packed-batch cache (None until a full epoch has run with
+        cache_packed=True)."""
+        return self._cache
+
+    def set_epoch(self, epoch: int) -> None:
+        """Advance the shuffle stream to `epoch` (resume)."""
+        self._epoch = int(epoch)
+
+    def __iter__(self) -> Iterator:
+        if self._cache is not None:
+            rng = np.random.RandomState(self.seed + self._epoch)
+            self._epoch += 1
+            order = rng.permutation(len(self._cache)) if self.shuffle \
+                else np.arange(len(self._cache))
+            for b in order:
+                yield self._cache[b]
+            return
+        order = np.arange(len(self.graphs))
+        if self.shuffle:
+            rng = np.random.RandomState(self.seed + self._epoch)
+            rng.shuffle(order)
+        self._epoch += 1
+        if self.cache_packed:
+            # install the cache only once the epoch completes: callers also
+            # draw single example batches with next(iter(...))
+            cache = []
+            for item in self._pack_epoch(order):
+                cache.append(item)
+                yield item
+            self._cache = cache
+            return
+        yield from self._pack_epoch(order)

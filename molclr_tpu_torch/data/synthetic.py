@@ -1,6 +1,6 @@
 """Deterministic synthetic SMILES corpora (copied from molclr_tpu.data.
-synthetic: random_smiles and synthetic_corpus only; the task-label helpers
-come with fine-tuning).
+synthetic: random_smiles, synthetic_corpus and write_pretrain_corpus; the
+task-label helpers come with fine-tuning).
 
 Generated molecules are template scaffolds with substituent slots; every
 emitted SMILES is validated by the in-repo parser, and a seed gives the
@@ -8,6 +8,8 @@ same corpus as the JAX package's synthetic_corpus.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -69,3 +71,12 @@ def synthetic_corpus(n: int, seed: int = 0) -> list[str]:
     rng = np.random.RandomState(seed)
     return [random_smiles(rng) for _ in range(n)]
 
+
+
+def write_pretrain_corpus(path: str, n: int, seed: int = 0) -> None:
+    """One SMILES per line (the reference reads the last CSV column of each
+    row, ref dataset/dataset.py:46-53; plain lines are compatible)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        for s in synthetic_corpus(n, seed):
+            f.write(s + "\n")

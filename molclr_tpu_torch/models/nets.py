@@ -16,7 +16,10 @@ BatchNorm's affine + relu as its prologue and returns its masked output
 moments; MaskedBatchNorm turns those into the next affine, and the last
 layer's affine and mask run here. The JAX package runs this path whenever
 fused=True, tile > 0 and drop_ratio == 0 (in eval mode too); its tests hold
-it to the unfused path.
+it to the unfused path. In train mode gradients flow through the GINE
+kernels' backward (K1b) and through the BatchNorm coefficient math; the
+GCN layer's backward kernel is not ported, so GCN training runs on the
+CPU only.
 """
 
 from __future__ import annotations

@@ -69,7 +69,9 @@ def fused_gcn_bn_layer(x, a, b, adj, cnt, etab, w, bias,
 
     Returns (out [N, D] in x's dtype, sums [2, D] f32). CUDA tensors run
     the sm_90a kernels (counted in `fused_gcn_bn_layer.launches`); CPU
-    tensors run fused_gcn_bn_layer_plain."""
+    tensors run fused_gcn_bn_layer_plain, through which autograd flows. The
+    backward kernel (K3b) is not ported yet: on CUDA tensors a call that
+    would need a gradient raises NotImplementedError."""
     n, d = x.shape
     check_layer_args("fused_gcn_bn_layer",
                      dict(x=x, adj=adj, cnt=cnt, etab=etab, w=w),
@@ -79,6 +81,13 @@ def fused_gcn_bn_layer(x, a, b, adj, cnt, etab, w, bias,
     if x.device.type == "cpu":
         return fused_gcn_bn_layer_plain(x, a, b, adj, cnt, etab, w, bias,
                                         relu_in)
+    if torch.is_grad_enabled() and any(
+            v.requires_grad for v in (x, a, b, etab, w, bias)):
+        # the kernel's output has no grad_fn: training on the card would
+        # silently skip every trunk gradient
+        raise NotImplementedError(
+            "K3b not ported: fused_gcn_bn_layer has no backward on CUDA "
+            "yet (GCN training runs on the CPU only)")
     if x.device.type != "cuda":
         raise ValueError(f"fused_gcn_bn_layer: no kernel for {x.device}")
     t, s, _ = adj.shape

@@ -1,8 +1,9 @@
-"""BN-chained fused GINE layer, forward (kernel K1f), and its helpers.
+"""BN-chained fused GINE layer: forward (kernel K1f), backward (kernel
+K1b), and its helpers.
 
 Port of molclr_tpu/ops/fused_layer.py (`CNT_PAD`, `pack_cnt`, `pack_etab`,
-`_adj_diag_mask`, and the forward of `fused_gine_bn_layer`). Per 256-node
-tile the layer computes
+`_adj_diag_mask`, and `fused_gine_bn_layer` with its custom VJP). Per
+256-node tile the layer computes
 
     y    = relu?(h * a + b)            the PREVIOUS BatchNorm's affine
     agg  = A[t] @ y + cnt[t] @ etab    neighbor sum + edge-embedding sum
@@ -10,11 +11,18 @@ tile the layer computes
     sums = [sum m * out, sum m * out^2]  over real nodes, m = diag(A) > 0
 
 with y, agg, mid and out cast to the activation dtype exactly where the
-Pallas kernel casts, and every product accumulated in f32.
+Pallas kernel casts, and every product accumulated in f32. The backward
+takes the cotangents (g, dsums) of (out, sums) as `_bn_fused_bwd` does and
+returns the gradients of h, a, b, etab, W1, b1, W2 and b2 (none for adj and
+cnt, which are mask-derived constants).
 
-`fused_gine_bn_layer` launches the hand-written sm_90a kernel
-(csrc/fused_gine_bn.cu) on CUDA tensors and runs the plain PyTorch version
-`fused_gine_bn_layer_plain` on CPU tensors.
+`fused_gine_bn_layer` launches the hand-written sm_90a kernels
+(csrc/fused_gine_bn.cu) on CUDA tensors and runs the plain PyTorch versions
+(`fused_gine_bn_layer_plain`, `fused_gine_bn_layer_bwd_plain`) on CPU
+tensors. When a gradient is needed it goes through `torch.autograd.
+Function`: K1f then also writes the residuals agg and mid, and the backward
+is K1b (or the plain backward on the CPU, so that bf16 rounds where the
+kernel rounds).
 """
 
 from __future__ import annotations
@@ -72,19 +80,53 @@ def masked_moments(outc: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
     return torch.stack([ob.sum(dim=0), (ob * of).sum(dim=0)])
 
 
-def fused_gine_bn_layer_plain(h, a, b, adj, cnt, etab, w1, b1, w2, b2,
-                              relu_in: bool = False):
-    """The plain PyTorch version of the layer: the same arithmetic and
-    cast points as the kernel. Returns (out [N, D], sums [2, D] f32)."""
+def fused_gine_bn_layer_fwd_plain(h, a, b, adj, cnt, etab, w1, b1, w2, b2,
+                                  relu_in: bool):
+    """The plain forward with its residuals: (out, sums, agg, mid)."""
     dt = h.dtype
     t, s, _ = adj.shape
     n, d = h.shape
     y = bn_prologue(h, a, b, relu_in)
     agg = torch.bmm(adj.float(), y.float().reshape(t, s, d)).reshape(n, d)
-    agg = agg + cnt.float() @ etab.float()
-    mid = torch.relu(agg.to(dt).float() @ w1.float() + b1).to(dt)
+    aggc = (agg + cnt.float() @ etab.float()).to(dt)
+    mid = torch.relu(aggc.float() @ w1.float() + b1).to(dt)
     outc = (mid.float() @ w2.float() + b2).to(dt)
-    return outc, masked_moments(outc, adj)
+    return outc, masked_moments(outc, adj), aggc, mid
+
+
+def fused_gine_bn_layer_plain(h, a, b, adj, cnt, etab, w1, b1, w2, b2,
+                              relu_in: bool = False):
+    """The plain PyTorch version of the layer: the same arithmetic and
+    cast points as the kernel. Returns (out [N, D], sums [2, D] f32)."""
+    return fused_gine_bn_layer_fwd_plain(h, a, b, adj, cnt, etab, w1, b1, w2,
+                                         b2, relu_in)[:2]
+
+
+def fused_gine_bn_layer_bwd_plain(g, dsums, h, a, b, adj, cnt, agg, mid,
+                                  out, w1, w2, relu_in: bool = False):
+    """The plain PyTorch version of the backward (`_bn_bwd_kernel` line by
+    line, the same cast points as K1b). Returns (dh [N, D] act, da [D],
+    db [D], dW1 [D, 2D], db1 [2D], dW2 [2D, D], db2 [D], detab
+    [CNT_PAD, D]), all but dh in f32."""
+    dt = g.dtype
+    t, s, _ = adj.shape
+    n, d = g.shape
+    m = adj_diag_mask(adj)
+    # total output cotangent: downstream grad + the moment sums' adjoint
+    gt = g.float() + m * (dsums[0] + 2.0 * out.float() * dsums[1])
+    gtc = gt.to(dt)
+    dmid = gtc.float() @ w2.float().t()
+    dmid = torch.where(mid.float() > 0.0, dmid, 0.0)
+    dmidc = dmid.to(dt)
+    daggc = (dmidc.float() @ w1.float().t()).to(dt)
+    # adjacency blocks are symmetric: the adjoint of A @ . is A @ .
+    dx = torch.bmm(adj.float(), daggc.float().reshape(t, s, d)).reshape(n, d)
+    hf = h.float()
+    dpre = torch.where(hf * a + b > 0.0, dx, 0.0) if relu_in else dx
+    return ((dpre * a).to(dt), (dpre * hf).sum(dim=0), dpre.sum(dim=0),
+            agg.float().t() @ dmidc.float(), dmid.sum(dim=0),
+            mid.float().t() @ gtc.float(), gt.sum(dim=0),
+            cnt.float().t() @ daggc.float())
 
 
 def check_layer_args(name: str, act: dict, f32: dict, adj: torch.Tensor,
@@ -111,7 +153,8 @@ def check_layer_args(name: str, act: dict, f32: dict, adj: torch.Tensor,
     for k in ("a", "b"):
         if f32[k].shape != (d,):
             raise ValueError(f"{name}: {k} has shape {tuple(f32[k].shape)}")
-    if act["cnt"].shape != (n, CNT_PAD) or act["etab"].shape != (CNT_PAD, d):
+    if act["cnt"].shape != (n, CNT_PAD) or (
+            "etab" in act and act["etab"].shape != (CNT_PAD, d)):
         raise ValueError(f"{name}: cnt/etab must be [N, {CNT_PAD}] and "
                          f"[{CNT_PAD}, D]")
 
@@ -137,9 +180,129 @@ def strip_rows(source: str) -> int:
     return f()
 
 
+def _cuda_tiles(name: str, h: torch.Tensor, adj: torch.Tensor):
+    """(T, S) of a CUDA call, after checking the device and the strip."""
+    if h.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {h.device}")
+    t, s, _ = adj.shape
+    strip = strip_rows("fused_gine_bn")
+    if s % strip:
+        raise ValueError(f"{name}: tile {s} is not a multiple of {strip}")
+    return t, s
+
+
+def fused_gine_bn_layer_fwd(h, a, b, adj, cnt, etab, w1, b1, w2, b2,
+                            relu_in: bool, residuals: bool):
+    """Forward of the layer (kernel K1f) with its residuals: (out, sums,
+    agg, mid); agg and mid are None unless `residuals` (the CPU path, the
+    plain version, always has them). Launches K1f on CUDA tensors."""
+    if h.device.type == "cpu":
+        return fused_gine_bn_layer_fwd_plain(h, a, b, adj, cnt, etab, w1, b1,
+                                             w2, b2, relu_in)
+    t, s = _cuda_tiles("fused_gine_bn_layer", h, adj)
+    n, d = h.shape
+    d2 = w1.shape[1]
+    suffix = "f32" if h.dtype == torch.float32 else "bf16"
+    fn = kernel_fn("fused_gine_bn", f"gine_bn_fwd_{suffix}", 15, 5)
+    out = torch.empty_like(h)
+    agg = torch.empty_like(h) if residuals else None
+    mid = h.new_empty(n, d2) if residuals else None
+    sums = torch.empty(2, d, dtype=torch.float32, device=h.device)
+    partial = torch.empty(t * (s // strip_rows("fused_gine_bn")), 2, d,
+                          dtype=torch.float32, device=h.device)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    err = fn(h.data_ptr(), a.data_ptr(), b.data_ptr(), adj.data_ptr(),
+             cnt.data_ptr(), etab.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+             w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+             None if agg is None else agg.data_ptr(),
+             None if mid is None else mid.data_ptr(), partial.data_ptr(),
+             sums.data_ptr(), t, s, d, d2, int(bool(relu_in)), stream)
+    _build.check(err, "fused_gine_bn_layer")
+    fused_gine_bn_layer.launches += 1
+    return out, sums, agg, mid
+
+
+# K1b splits the weight-gradient sums over N into chunks of this many rows
+# (per-chunk partials, then a fixed-order sum).
+BWD_CHUNK_ROWS = 1024
+
+
+def fused_gine_bn_layer_bwd(g, dsums, h, a, b, adj, cnt, agg, mid, out, w1,
+                            w2, relu_in: bool = False):
+    """Backward of the layer (kernel K1b): the arguments and results of
+    fused_gine_bn_layer_bwd_plain. CUDA tensors run the sm_90a kernels
+    (counted in `fused_gine_bn_layer_bwd.launches`); CPU tensors run the
+    plain version."""
+    n, d = g.shape
+    d2 = w1.shape[1]
+    check_layer_args("fused_gine_bn_layer_bwd",
+                     dict(g=g, h=h, adj=adj, cnt=cnt, agg=agg, mid=mid,
+                          out=out, w1=w1, w2=w2),
+                     dict(dsums=dsums, a=a, b=b), adj, n, d)
+    if dsums.shape != (2, d) or agg.shape != (n, d) or mid.shape != (n, d2) \
+            or out.shape != (n, d) or w1.shape != (d, d2) \
+            or w2.shape != (d2, d):
+        raise ValueError("fused_gine_bn_layer_bwd: shapes do not match")
+    if g.device.type == "cpu":
+        return fused_gine_bn_layer_bwd_plain(g, dsums, h, a, b, adj, cnt,
+                                             agg, mid, out, w1, w2, relu_in)
+    t, s = _cuda_tiles("fused_gine_bn_layer_bwd", g, adj)
+    suffix = "f32" if g.dtype == torch.float32 else "bf16"
+    fn = kernel_fn("fused_gine_bn", f"gine_bn_bwd_{suffix}", 24, 6)
+    nblk = t * (s // strip_rows("fused_gine_bn"))
+    chunks = -(-n // BWD_CHUNK_ROWS)
+    width = 2 * d * d2 + CNT_PAD * d
+    f32 = dict(dtype=torch.float32, device=g.device)
+    gtc, daggc, dh = (torch.empty_like(g) for _ in range(3))
+    dmidc = g.new_empty(n, d2)
+    w1t, w2t = w1.new_empty(d2, d), w2.new_empty(d, d2)
+    part_rows = torch.empty(nblk, d2 + d, **f32)
+    part_adj = torch.empty(nblk, 2 * d, **f32)
+    part_w = torch.empty(chunks, width, **f32)
+    sums_rows = torch.empty(d2 + d, **f32)
+    sums_adj = torch.empty(2 * d, **f32)
+    wgrad = torch.empty(width, **f32)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = fn(*(x.data_ptr() for x in (
+        g, dsums, h, a, b, adj, cnt, agg, mid, out, w1, w2, w1t, w2t, gtc,
+        dmidc, daggc, part_rows, part_adj, part_w, dh, sums_rows, sums_adj,
+        wgrad)),
+        t, s, d, d2, int(bool(relu_in)), chunks, stream)
+    _build.check(err, "fused_gine_bn_layer_bwd")
+    fused_gine_bn_layer_bwd.launches += 1
+    dw1, dw2, detab = wgrad.split([d * d2, d2 * d, CNT_PAD * d])
+    return (dh, sums_adj[:d], sums_adj[d:], dw1.view(d, d2), sums_rows[:d2],
+            dw2.view(d2, d), sums_rows[d2:], detab.view(CNT_PAD, d))
+
+
+fused_gine_bn_layer_bwd.launches = 0
+
+
+class _GineBN(torch.autograd.Function):
+    """K1f with residuals forward, K1b backward (`_bn_fused_fwd` /
+    `_bn_fused_bwd` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, h, a, b, adj, cnt, etab, w1, b1, w2, b2, relu_in):
+        out, sums, agg, mid = fused_gine_bn_layer_fwd(
+            h, a, b, adj, cnt, etab, w1, b1, w2, b2, relu_in, residuals=True)
+        ctx.save_for_backward(h, a, b, adj, cnt, agg, mid, out, w1, w2)
+        ctx.relu_in = relu_in
+        return out, sums
+
+    @staticmethod
+    def backward(ctx, g, dsums):
+        h, a, b, adj, cnt, agg, mid, out, w1, w2 = ctx.saved_tensors
+        dh, da, db, dw1, db1, dw2, db2, detab = fused_gine_bn_layer_bwd(
+            g.contiguous(), dsums.contiguous(), h, a, b, adj, cnt, agg, mid,
+            out, w1, w2, ctx.relu_in)
+        return (dh, da, db, None, None, detab.to(w1.dtype), dw1.to(w1.dtype),
+                db1, dw2.to(w2.dtype), db2, None)
+
+
 def fused_gine_bn_layer(h, a, b, adj, cnt, etab, w1, b1, w2, b2,
                         relu_in: bool = False):
-    """BN-chained fused GINE layer, forward.
+    """BN-chained fused GINE layer.
 
     h     [N, D]   RAW previous conv output (f32 or bf16)
     a, b  [D]      f32 BatchNorm coefficients; identity = (ones, zeros,
@@ -151,7 +314,9 @@ def fused_gine_bn_layer(h, a, b, adj, cnt, etab, w1, b1, w2, b2,
 
     Returns (out [N, D] in h's dtype, sums [2, D] f32). CUDA tensors run
     the sm_90a kernel (counted in `fused_gine_bn_layer.launches`); CPU
-    tensors run fused_gine_bn_layer_plain."""
+    tensors run fused_gine_bn_layer_plain. When grad mode is on and an
+    input requires a gradient, the call is differentiable: K1f writes its
+    residuals and the backward runs K1b."""
     n, d = h.shape
     d2 = w1.shape[1]
     check_layer_args("fused_gine_bn_layer",
@@ -160,30 +325,10 @@ def fused_gine_bn_layer(h, a, b, adj, cnt, etab, w1, b1, w2, b2,
     if w1.shape != (d, d2) or w2.shape != (d2, d) or b1.shape != (d2,) \
             or b2.shape != (d,):
         raise ValueError("fused_gine_bn_layer: MLP shapes do not match D")
-    if h.device.type == "cpu":
-        return fused_gine_bn_layer_plain(h, a, b, adj, cnt, etab, w1, b1,
-                                         w2, b2, relu_in)
-    if h.device.type != "cuda":
-        raise ValueError(f"fused_gine_bn_layer: no kernel for {h.device}")
-    t, s, _ = adj.shape
-    strip = strip_rows("fused_gine_bn")
-    if s % strip:
-        raise ValueError(f"fused_gine_bn_layer: tile {s} is not a multiple "
-                         f"of {strip}")
-    suffix = "f32" if h.dtype == torch.float32 else "bf16"
-    fn = kernel_fn("fused_gine_bn", f"gine_bn_fwd_{suffix}", 13, 5)
-    out = torch.empty_like(h)
-    sums = torch.empty(2, d, dtype=torch.float32, device=h.device)
-    partial = torch.empty(t * (s // strip), 2, d, dtype=torch.float32,
-                          device=h.device)
-    stream = torch.cuda.current_stream(h.device).cuda_stream
-    err = fn(h.data_ptr(), a.data_ptr(), b.data_ptr(), adj.data_ptr(),
-             cnt.data_ptr(), etab.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-             w2.data_ptr(), b2.data_ptr(), out.data_ptr(), partial.data_ptr(),
-             sums.data_ptr(), t, s, d, d2, int(bool(relu_in)), stream)
-    _build.check(err, "fused_gine_bn_layer")
-    fused_gine_bn_layer.launches += 1
-    return out, sums
+    args = (h, a, b, adj, cnt, etab, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        return _GineBN.apply(*args, relu_in)
+    return fused_gine_bn_layer_fwd(*args, relu_in, residuals=False)[:2]
 
 
 fused_gine_bn_layer.launches = 0

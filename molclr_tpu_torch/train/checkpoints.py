@@ -1,19 +1,26 @@
-"""Checkpoints: reference .pth state dicts, partial transfer, and the
-carry-over of JAX (Flax) weights.
+"""Checkpoints: reference .pth state dicts, partial transfer, the
+carry-over of JAX (Flax) weights, and full training state.
 
-Port of the .pth half of molclr_tpu/train/checkpoints.py. The port's
-models use the reference torch state-dict schema, so a .pth needs no
-renaming; `transfer_state` reproduces load_my_state_dict (ref
+Port of molclr_tpu/train/checkpoints.py. The port's models use the
+reference torch state-dict schema, so a .pth needs no renaming;
+`transfer_state` reproduces load_my_state_dict (ref
 models/ginet_finetune.py:149-157). `state_dict_from_jax` is the inverse of
 the JAX package's import_torch_params: it turns a Flax (params,
-batch_stats) tree of numpy arrays into this schema. Orbax checkpoint
-directories are not read yet.
+batch_stats) tree of numpy arrays into this schema. Full training state
+(model, optimizer, step, epoch) is one torch file `step_<step>.pt` per
+checkpoint, where the JAX package writes an Orbax directory `step_<step>`;
+Orbax directories are not read yet.
 """
 
 from __future__ import annotations
 
+import os
+import re
+
 import numpy as np
 import torch
+
+_STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
 
 
 def load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:
@@ -78,3 +85,30 @@ def state_dict_from_jax(params: dict, batch_stats: dict | None = None
             state[f"{key}.weight"] = t(np.asarray(params[name]["kernel"]).T)
             state[f"{key}.bias"] = t(params[name]["bias"])
     return state
+
+
+def save_checkpoint(directory: str, step: int, state: dict) -> str:
+    """Write `state` (tensors, optimizer state dicts, ints) to
+    <directory>/step_<step>.pt atomically; returns the path."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(os.path.abspath(directory), f"step_{step}.pt")
+    tmp = f"{path}.tmp"
+    torch.save(state, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str) -> dict:
+    """A full-state checkpoint written by save_checkpoint, on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def latest_checkpoint(directory: str) -> str | None:
+    """The step_<step>.pt with the largest step in `directory`, or None."""
+    if not os.path.isdir(directory):
+        return None
+    steps = [int(m.group(1)) for m in map(_STEP_FILE.match,
+                                          os.listdir(directory)) if m]
+    if not steps:
+        return None
+    return os.path.join(directory, f"step_{max(steps)}.pt")

@@ -1,0 +1,120 @@
+"""Typed configuration, YAML-compatible with the reference config keys.
+
+Port of molclr_tpu/train/config.py (`ModelConfig`, `PretrainConfig`,
+`pretrain_from_yaml`), cut to the options the port runs: one card, the
+host streaming path. The YAML keys and the value names (`ntxent_impl`
+'auto' / 'xla' / 'pallas') are the JAX package's, so one file serves both
+packages; keys for options the port does not have are ignored.
+"""
+
+from __future__ import annotations
+
+from dataclasses import asdict, dataclass, field
+
+
+@dataclass
+class ModelConfig:
+    gnn_type: str = "gin"           # 'gin' | 'gcn' (config.yaml model_type)
+    num_layers: int = 5
+    emb_dim: int = 300
+    feat_dim: int = 512
+    drop_ratio: float = 0.0
+    pool: str = "mean"
+    normalize_gcn: bool = False     # True fixes quirk Q2 (not ported yet)
+    bf16: bool = False              # bfloat16 activations (params stay f32)
+    tile: int = 256                 # tile-dense aggregation, tile-aligned
+                                    # packing (a multiple of 16 on the card)
+
+
+@dataclass
+class PretrainConfig:
+    data_path: str = "data/pubchem_synthetic.txt"
+    batch_size: int = 512           # config.yaml:1
+    epochs: int = 100               # config.yaml:2
+    warm_up: int = 10               # config.yaml:3
+    init_lr: float = 5e-4           # config.yaml:11
+    weight_decay: float = 1e-5      # config.yaml:12
+    temperature: float = 0.1        # config.yaml:30
+    use_cosine_similarity: bool = True
+    ntxent_impl: str = "auto"       # 'auto' | 'xla' | 'pallas': the closed
+                                    # form, the K2 kernels, or the kernels
+                                    # for CUDA tensors at 2B >= 4096
+    aug: str = "node"               # 'node' | 'none' (subgraph and mix are
+                                    # not ported yet)
+    valid_size: float = 0.05        # config.yaml:26
+    model: ModelConfig = field(default_factory=ModelConfig)
+    max_degree: int = 6
+    pad_sizing: str = "total"       # 'total' (statistical batch totals) |
+                                    # 'max' (worst case)
+    pad_quantile: float = 1.0       # only used with pad_sizing='max'
+    pad_slack: float = 1.1          # capped at 1.05 under pad_sizing='total'
+    eval_every_epochs: int = 1
+    save_every_epochs: int = 5      # molclr.py:142-143
+    stop_after_epochs: int = 0      # > 0: stop after this many epochs
+                                    # WITHOUT changing the cfg.epochs
+                                    # schedule (a full-state checkpoint is
+                                    # forced; resume continues it)
+    log_every_steps: int = 50       # molclr.py:116
+    ckpt_dir: str = "runs/pretrain"
+    resume_from: str = ""           # config.yaml load_model
+    seed: int = 0
+    pack_cache_max_mols: int = 500_000  # cache packed batches across
+                                    # epochs (compositions fixed after epoch
+                                    # 0, order reshuffled) up to this size
+
+
+_REF_MODEL_KEYS = {"num_layer": "num_layers", "drop_ratio": "drop_ratio",
+                   "emb_dim": "emb_dim", "feat_dim": "feat_dim",
+                   "pool": "pool"}
+_EXT_MODEL_KEYS = ("tile", "bf16", "normalize_gcn", "gnn_type")
+
+
+def pretrain_from_yaml(path: str) -> PretrainConfig:
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    cfg = PretrainConfig()
+    for k in ("batch_size", "epochs", "warm_up", "aug", "seed"):
+        if k in raw:
+            setattr(cfg, k, raw[k])
+    if "init_lr" in raw:
+        cfg.init_lr = float(raw["init_lr"])
+    if "weight_decay" in raw:
+        cfg.weight_decay = float(raw["weight_decay"])  # no eval() (Q11)
+    if "eval_every_n_epochs" in raw:
+        cfg.eval_every_epochs = int(raw["eval_every_n_epochs"])
+    if "save_every_n_epochs" in raw:
+        cfg.save_every_epochs = int(raw["save_every_n_epochs"])
+    if "log_every_n_steps" in raw:
+        cfg.log_every_steps = int(raw["log_every_n_steps"])
+    if raw.get("fp16_precision"):
+        cfg.model.bf16 = True          # apex amp O2 -> bf16 activations
+    if "model_type" in raw:
+        cfg.model.gnn_type = raw["model_type"]
+    if "load_model" in raw and raw["load_model"] not in (None, "None"):
+        cfg.resume_from = str(raw["load_model"])
+    model = raw.get("model", {})
+    for src, dst in _REF_MODEL_KEYS.items():
+        if src in model:
+            setattr(cfg.model, dst, model[src])
+    for k in _EXT_MODEL_KEYS:
+        if k in model:
+            setattr(cfg.model, k, model[k])
+    loss = raw.get("loss", {})
+    if "temperature" in loss:
+        cfg.temperature = float(loss["temperature"])
+    if "use_cosine_similarity" in loss:
+        cfg.use_cosine_similarity = bool(loss["use_cosine_similarity"])
+    ds = raw.get("dataset", {})
+    for k in ("valid_size", "data_path"):
+        if k in ds:
+            setattr(cfg, k, ds[k])
+    for k in ("data_path", "ckpt_dir"):
+        if k in raw:
+            setattr(cfg, k, raw[k])
+    return cfg
+
+
+def to_dict(cfg) -> dict:
+    return asdict(cfg)

@@ -9,7 +9,9 @@ PyTorch; tests/conftest.py imports JAX, so run it there without it:
 Tolerances: kernel against its plain version on the same inputs, max error
 <= 1e-4 (f32) / 3e-2 (bf16) of max|plain| (f32 sums in another order; bf16
 may round one intermediate the other way); the embed CLI on the card
-against --cpu, 1e-4 * max(1, max|cpu|)."""
+against --cpu, 1e-4 * max(1, max|cpu|); a training step's gradients on the
+card against the CPU, 1e-3 of each gradient's max + 1e-6 (f32 through
+three layers, a BatchNorm each)."""
 
 import numpy as np
 import pytest
@@ -21,7 +23,8 @@ from molclr_tpu_torch.data.graphs import pack_batch
 from molclr_tpu_torch.data.loader import spec_for_graphs
 from molclr_tpu_torch.data.synthetic import synthetic_corpus
 from molclr_tpu_torch.models import MolCLRNet
-from molclr_tpu_torch.ops import fused_gcn, fused_layer
+from molclr_tpu_torch.losses import nt_xent_loss
+from molclr_tpu_torch.ops import fused_gcn, fused_layer, ntxent
 
 pytestmark = pytest.mark.cuda
 
@@ -113,6 +116,131 @@ def test_kernel_matches_plain(cuda, shape, dtype, relu_in, layer):
     err = (sums - ref_sums).abs().max().item()
     assert err <= rtol * ref_sums.abs().max().item()
     assert torch.equal(out, out2) and torch.equal(sums, sums2)
+
+
+def _gine_args(x, p):
+    return (x["h"], x["a"], x["b"], x["adj"], x["cnt"], p["etab"], p["w1"],
+            p["b1"], p["w2"], p["b2"])
+
+
+@pytest.mark.parametrize("shape", [(4, 64, 40, 9), (3, 16, 37, 5),
+                                   (2, 256, 300, 100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu_in", [False, True])
+def test_backward_kernel_matches_plain(cuda, shape, dtype, relu_in):
+    """K1f's residuals and K1b against the plain versions on the card, on
+    the same residuals and random cotangents; two runs bit-identical."""
+    dt = getattr(torch, dtype)
+    x, pg, _ = _problem(sum(shape) + 1, *shape)
+    x, p = _to(x, cuda, dt), _to(pg, cuda, dt)
+    args = _gine_args(x, p)
+    out, sums, agg, mid = fused_layer.fused_gine_bn_layer_fwd(*args, relu_in,
+                                               residuals=True)
+    ref = fused_layer.fused_gine_bn_layer_fwd_plain(*args, relu_in)
+    rtol = 1e-4 if dt == torch.float32 else 3e-2
+    for got, want in zip((out, sums, agg, mid), ref):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= rtol * want.float().abs().max().item()
+    gen = torch.Generator().manual_seed(sum(shape))
+    g = torch.randn(out.shape, generator=gen).to(cuda, dt)
+    dsums = (0.05 * torch.randn(sums.shape, generator=gen)).to(cuda)
+    bargs = (g, dsums, x["h"], x["a"], x["b"], x["adj"], x["cnt"], agg, mid,
+             out, p["w1"], p["w2"], relu_in)
+    before = fused_layer.fused_gine_bn_layer_bwd.launches
+    got = fused_layer.fused_gine_bn_layer_bwd(*bargs)
+    again = fused_layer.fused_gine_bn_layer_bwd(*bargs)
+    want = fused_layer.fused_gine_bn_layer_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    assert fused_layer.fused_gine_bn_layer_bwd.launches == before + 2
+    for name, a, b, c in zip(("dh", "da", "db", "dw1", "db1", "dw2", "db2",
+                              "detab"), got, again, want):
+        assert a.dtype == c.dtype and a.shape == c.shape, name
+        err = (a.float() - c.float()).abs().max().item()
+        assert err <= rtol * c.float().abs().max().item(), (name, err)
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("n,d", [(128, 32), (256, 256), (384, 100)])
+@pytest.mark.parametrize("dead", [0, 7])
+def test_ntxent_kernels_match_plain(cuda, n, d, dead):
+    """K2f and K2b against their plain versions on the card, with dead
+    pairs; two runs bit-identical."""
+    gen = torch.Generator().manual_seed(n + d + dead)
+    reps = torch.randn(n, d, generator=gen)
+    reps = (reps / reps.norm(dim=1, keepdim=True)).to(cuda)
+    valid = torch.ones(n)
+    if dead:
+        pairs = torch.randperm(n // 2, generator=gen)[:dead]
+        valid[pairs] = 0
+        valid[pairs + n // 2] = 0
+    valid = valid.to(cuda)
+    got = ntxent.ntxent_fwd(reps, valid, 10.0)
+    again = ntxent.ntxent_fwd(reps, valid, 10.0)
+    want = ntxent.ntxent_fwd_plain(reps, valid, 10.0)
+    live = valid > 0
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+        err = (a - c)[live].abs().max().item()
+        assert err <= 1e-4 * max(1.0, c[live].abs().max().item())
+    scale = 1.0 / valid.sum()
+    m, l, _ = got
+    dr = ntxent.ntxent_bwd(reps, valid, 10.0, scale, m, l)
+    dr2 = ntxent.ntxent_bwd(reps, valid, 10.0, scale, m, l)
+    ref = ntxent.ntxent_bwd_plain(reps, valid, 10.0, scale, m, l)
+    torch.cuda.synchronize()
+    assert torch.equal(dr, dr2)
+    assert (dr - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_ntxent_kernel_loss_matches_closed_form_on_card(cuda):
+    gen = torch.Generator().manual_seed(3)
+    zi = torch.randn(200, 64, generator=gen)
+    zj = zi + 0.5 * torch.randn(200, 64, generator=gen)
+    mask = torch.rand(200, generator=gen) > 0.1
+    res = []
+    for fn in (ntxent.nt_xent_kernel, nt_xent_loss):
+        a = zi.to(cuda).requires_grad_(True)
+        b = zj.to(cuda).requires_grad_(True)
+        loss = fn(a, b, 0.1, True, pair_mask=mask.to(cuda))
+        loss.backward()
+        res.append((loss.item(), a.grad, b.grad))
+    (l0, a0, b0), (l1, a1, b1) = res
+    assert abs(l0 - l1) <= 1e-5 * max(1.0, abs(l1))
+    assert (a0 - a1).abs().max().item() <= 1e-4 * a1.abs().max().item()
+    assert (b0 - b1).abs().max().item() <= 1e-4 * b1.abs().max().item()
+
+
+def test_trunk_gets_gradients_on_card(cuda):
+    """Training MolCLRNet on the card gives every parameter a non-zero
+    gradient (the backward runs K1b once per layer), equal to the CPU's
+    within 1e-3 of its max; GCN training on the card raises until its
+    backward kernel is ported."""
+    smiles = synthetic_corpus(24, seed=5)
+    gp = [featurize_smiles(s) for s in smiles]
+    batch = pack_batch(gp, spec_for_graphs(gp, 24, tile=32, sizing="max"))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        model = MolCLRNet(num_layers=3, emb_dim=32, feat_dim=64, tile=32,
+                          generator=torch.Generator().manual_seed(2))
+        model = model.to(dev).train()
+        b = batch.to(dev)
+        before = fused_layer.fused_gine_bn_layer_bwd.launches
+        _, zi = model(b)
+        _, zj = model(b)
+        nt_xent_loss(zi, zj, 0.1, True, pair_mask=b.graph_mask).backward()
+        if dev.type == "cuda":
+            assert fused_layer.fused_gine_bn_layer_bwd.launches == before + 6
+        grads.append({k: p.grad.cpu() for k, p in model.named_parameters()})
+    for k, g in grads[0].items():
+        assert g.abs().max() > 0, k
+        ref = grads[1][k]
+        # (+1e-6: the conv output biases feed a BatchNorm, so their exact
+        # gradient is 0 and both devices hold f32 noise there)
+        assert (g - ref).abs().max() <= 1e-3 * ref.abs().max() + 1e-6, k
+    gcn = MolCLRNet(num_layers=2, emb_dim=32, feat_dim=64, tile=32,
+                    gnn_type="gcn").to(cuda).train()
+    with pytest.raises(NotImplementedError, match="K3b"):
+        gcn(batch.to(cuda))
 
 
 def test_kernel_rejects_a_tile_that_is_not_a_multiple_of_the_strip(cuda):
