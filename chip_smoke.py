@@ -45,6 +45,27 @@ prints no result line):
               `--resume latest` for the third; metrics.jsonl records, K1b
               launches = 10 per training step, the step count and LR
               schedule continue.
+  8. fine-tune kernels, at the fine-tuning shape (a batch of 32 molecules
+              of the synthetic BBBP stand-in with their hydrogens, packed
+              as the FineTuner packs a training batch: T = 4 tiles of 256,
+              D = 300): K4f (with residuals), K4b, K5f and K5b against
+              their plain versions in f32 and bf16; two runs
+              bit-identical; kernel, plain and library times.
+  9. fine-tune steps: the FineTuner at the reference fine-tune model (5 x
+              300 / 512, drop 0.3, batch 32, pred head 2 x softplus, f32),
+              GIN, GCN and GIN with the motif head: 3 steps on the card,
+              each also run on the CPU from the card's state with the same
+              dropout masks (losses, parameters, BatchNorm stats agree);
+              launches per step K4f 5, K4b 5 (GIN) or K5f 5, K5b 5 (GCN);
+              the eval forward of one validation batch ('max' sizing) and
+              the motif table, card against the CPU from the same state;
+              then the step's time (median of CUDA-event times over 25
+              steps), molecules/s, the host's time to queue a step, an
+              eval batch's time and a profile of the GIN step.
+ 10. fine-tune cli: `molclr_tpu_torch.cli.finetune --allow-synthetic` for
+              2 epochs in a temporary working directory: GIN warm-started
+              from phase 7's step_<n>.pt, then --model gcn, then --motifs;
+              every RESULT metric finite, every row stamped synthetic.
 
 It prints one JSON line listing the kernels, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. It needs one
@@ -53,29 +74,41 @@ CUDA card and imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from molclr_tpu_torch.cli import embed
+from molclr_tpu_torch.cli import finetune as finetune_cli
 from molclr_tpu_torch.cli import pretrain as pretrain_cli
 from molclr_tpu_torch.data.featurize import NUM_BOND_DIRS, NUM_BOND_TYPES
 from molclr_tpu_torch.data.graphs import pack_batch
 from molclr_tpu_torch.data.loader import featurize_many, spec_for_graphs
+from molclr_tpu_torch.data.motifs import encode_motif_vocab
 from molclr_tpu_torch.data.synthetic import synthetic_corpus
-from molclr_tpu_torch.models import MolCLRNet
+from molclr_tpu_torch.models import FineTuneNet, MolCLRNet
 from molclr_tpu_torch.ops import _build, ntxent
+from molclr_tpu_torch.data.tasks import TASKS
 from molclr_tpu_torch.ops.fused_gcn import (
     fused_gcn_bn_layer,
     fused_gcn_bn_layer_plain,
+    fused_gcn_layer,
+    fused_gcn_layer_bwd,
+    fused_gcn_layer_bwd_plain,
+    fused_gcn_layer_fwd,
+    fused_gcn_layer_plain,
 )
 from molclr_tpu_torch.ops.fused_layer import (
     CNT_PAD,
@@ -86,13 +119,21 @@ from molclr_tpu_torch.ops.fused_layer import (
     fused_gine_bn_layer_fwd,
     fused_gine_bn_layer_fwd_plain,
     fused_gine_bn_layer_plain,
+    fused_gine_layer,
+    fused_gine_layer_bwd,
+    fused_gine_layer_bwd_plain,
+    fused_gine_layer_fwd,
+    fused_gine_layer_fwd_plain,
     pack_cnt,
 )
 from molclr_tpu_torch.ops.scatter_free import _counts
 from molclr_tpu_torch.ops.tile_dense import build_tile_adjacency
+from molclr_tpu_torch.train import finetune as ft_lib
 from molclr_tpu_torch.train import optim
-from molclr_tpu_torch.train.checkpoints import transfer_state
-from molclr_tpu_torch.train.config import ModelConfig, PretrainConfig
+from molclr_tpu_torch.train.checkpoints import latest_checkpoint, \
+    transfer_state
+from molclr_tpu_torch.train.config import FineTuneConfig, ModelConfig, \
+    PretrainConfig
 from molclr_tpu_torch.train.pretrain import build_model, train_step
 
 SEED = 0
@@ -133,8 +174,25 @@ TRAIN_KERNELS = {
                        source="molclr_tpu_torch/csrc/ntxent.cu",
                        replaces="molclr_tpu/ops/pallas_ntxent.py:86"),
 }
+# the kernels of the fine-tuning path (the unchained layers)
+FT_KERNELS = {
+    "fused_gine_layer": dict(
+        fn=fused_gine_layer, source="molclr_tpu_torch/csrc/fused_gine_bn.cu",
+        replaces="molclr_tpu/ops/fused_layer.py:59", model="gin"),
+    "fused_gine_layer_bwd": dict(
+        fn=fused_gine_layer_bwd,
+        source="molclr_tpu_torch/csrc/fused_gine_bn.cu",
+        replaces="molclr_tpu/ops/fused_layer.py:81", model="gin"),
+    "fused_gcn_layer": dict(
+        fn=fused_gcn_layer, source="molclr_tpu_torch/csrc/fused_gcn_bn.cu",
+        replaces="molclr_tpu/ops/fused_gcn.py:45", model="gcn"),
+    "fused_gcn_layer_bwd": dict(
+        fn=fused_gcn_layer_bwd, source="molclr_tpu_torch/csrc/fused_gcn_bn.cu",
+        replaces="molclr_tpu/ops/fused_gcn.py:54", model="gcn"),
+}
 ALL_FNS = {**{k: v["fn"] for k, v in KERNELS.items()},
-           **{k: v["fn"] for k, v in TRAIN_KERNELS.items()}}
+           **{k: v["fn"] for k, v in TRAIN_KERNELS.items()},
+           **{k: v["fn"] for k, v in FT_KERNELS.items()}}
 
 # the pretraining main path: bench.py's batch and model (B = 512, the
 # Pretrainer's 'total' sizing), 3 steps on the card and the CPU
@@ -154,6 +212,13 @@ NTX_RTOL = 1e-4
 STEP_LOSS_RTOL = 1e-4
 # the kernels' NT-Xent against the closed form on one step (f32)
 PALLAS_LOSS_RTOL = 1e-5
+
+# the fine-tuning main path: configs/finetune.yaml's model and batch on the
+# synthetic BBBP stand-in (write_task_csv's 2,000 molecules, seed 0), 3
+# steps on the card and the CPU; kernels against their plain versions with
+# KERNEL_RTOL, card steps against the CPU with STEP_LOSS_RTOL and the
+# parameter and BatchNorm limits of phase 5
+FT_BATCH, FT_MOLS, FT_STEPS = 32, 2000, 3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -749,6 +814,42 @@ def params_of(model) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
+def state_agreement(card_model, cpu_model, step: int, lr: float,
+                    what: str) -> tuple[float, float, float]:
+    """Check the card's state against the CPU's after the same step from
+    the same state (the CPU model's .grad holds the step's gradients):
+    parameters within Adam's sign-flip envelope and tight on the elements
+    with a real gradient, BatchNorm stats rtol 2e-3 / atol 1e-5. Returns
+    (worst fraction off, largest parameter difference, largest BatchNorm
+    difference over its limit)."""
+    grads = {k: p.grad for k, p in cpu_model.named_parameters()}
+    card, cpu = params_of(card_model), params_of(cpu_model)
+    worst = top = stat = 0.0
+    for k, v in cpu.items():
+        got = card[k].cpu()
+        if k.endswith("num_batches_tracked"):
+            check(int(got) == int(v), f"{what}: {k} differs")
+            continue
+        diff = (got.double() - v.double()).abs()
+        if "running_" in k:
+            over = (diff / (1e-5 + 2e-3 * v.double().abs())).max().item()
+            stat = max(stat, over)
+            check(over <= 1.0, f"{what}: {k} card and CPU differ by "
+                  f"{diff.max().item()}")
+            continue
+        top = max(top, diff.max().item())
+        cap = 2.0 * lr * adam_step_bound(step + 1)
+        check(diff.max().item() <= cap, f"{what}: {k} differs by "
+              f"{diff.max().item()} > the Adam envelope {cap}")
+        real = grads[k].abs() > 1e-4
+        bad = diff[real] > 5e-5 + 2e-4 * v.double()[real].abs()
+        frac = bad.float().mean().item() if bad.numel() else 0.0
+        worst = max(worst, frac)
+        check(frac <= 3e-4, f"{what}: {k} has {frac:.2%} of its "
+              f"real-gradient elements off the CPU's")
+    return worst, top, stat
+
+
 def step_phase(batch, spec, dev) -> dict:
     """3 pretraining steps on the card; before each, the CPU takes the
     card's state (weights, BatchNorm stats, Adam moments) and runs the same
@@ -795,31 +896,8 @@ def step_phase(batch, spec, dev) -> dict:
         check(abs(loss_g.item() - loss_c.item())
               <= STEP_LOSS_RTOL * abs(loss_c.item()),
               f"step {step}: loss card {loss_g.item()} cpu {loss_c.item()}")
-        grads = {k: p.grad for k, p in models["cpu"].named_parameters()}
-        card, cpu = (params_of(models[w]) for w in ("card", "cpu"))
-        worst = top = stat = 0.0
-        for k, v in cpu.items():
-            got = card[k].cpu()
-            if k.endswith("num_batches_tracked"):
-                check(int(got) == int(v), f"step {step}: {k} differs")
-                continue
-            diff = (got.double() - v.double()).abs()
-            if "running_" in k:
-                over = (diff / (1e-5 + 2e-3 * v.double().abs())).max().item()
-                stat = max(stat, over)
-                check(over <= 1.0, f"step {step}: {k} card and CPU differ "
-                      f"by {diff.max().item()}")
-                continue
-            top = max(top, diff.max().item())
-            cap = 2.0 * lr * adam_step_bound(step + 1)
-            check(diff.max().item() <= cap, f"step {step}: {k} differs by "
-                  f"{diff.max().item()} > the Adam envelope {cap}")
-            real = grads[k].abs() > 1e-4
-            bad = diff[real] > 5e-5 + 2e-4 * v.double()[real].abs()
-            frac = bad.float().mean().item() if bad.numel() else 0.0
-            worst = max(worst, frac)
-            check(frac <= 3e-4, f"step {step}: {k} has {frac:.2%} of its "
-                  f"real-gradient elements off the CPU's")
+        worst, top, stat = state_agreement(models["card"], models["cpu"],
+                                           step, lr, f"step {step}")
         report["worst_fraction_off"].append(worst)
         report["max_param_diff"].append(top)
         report["running_stats_over_limit"].append(stat)
@@ -918,15 +996,17 @@ def speed_phase(batch, spec, dev, card: str) -> dict:
                    message_edges_per_s=messages / (ms / 1e3),
                    mol_per_s=int(batch.graph_mask.sum()) / (ms / 1e3))
         if not bf16:
-            row["profile"] = profile_steps(model, opt, bg, cfg, spec)
+            row["profile"] = profile_steps(lambda i: train_step(
+                model, opt, bg, cfg, 100 + i, cfg.init_lr,
+                bond_window=spec.max_graph_bonds))
         report[row["dtype"]] = row
         print(f"speed {json.dumps(row)}", flush=True)
     return report
 
 
-def profile_steps(model, opt, bg, cfg, spec, steps: int = 5) -> dict:
-    """torch.profiler over `steps` steps: device time per kernel name (top
-    12) and the device's busy share of the window."""
+def profile_steps(step_fn, steps: int = 5) -> dict:
+    """torch.profiler over `steps` calls of step_fn(i): device time per
+    kernel name (top 12) and the device's busy share of the window."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -934,8 +1014,7 @@ def profile_steps(model, opt, bg, cfg, spec, steps: int = 5) -> dict:
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for step in range(steps):
-            train_step(model, opt, bg, cfg, 100 + step, cfg.init_lr,
-                       bond_window=spec.max_graph_bonds)
+            step_fn(step)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -1000,6 +1079,424 @@ def cli_phase(tmp: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------- phase 8
+
+
+def finetune_batch():
+    """The fine-tuning shape on the host: the first 32 molecules of the
+    synthetic BBBP stand-in (write_task_csv writes synthetic_corpus(2000,
+    seed=0)) with their hydrogens, packed with the FineTuner's training
+    spec ('total' sizing, tile 256)."""
+    graphs, _ = featurize_many(synthetic_corpus(FT_MOLS, seed=SEED),
+                               add_hs=True)
+    spec = spec_for_graphs(graphs, FT_BATCH, tile=TILE)
+    return pack_batch(graphs[:FT_BATCH], spec)
+
+
+def gine_unchained_library(h, adj, cnt, etab, w1, b1, w2, b2):
+    """K4f's function (out, agg, mid) as a chain of cuBLAS calls in the
+    activation dtype (yardstick only; the port never calls it)."""
+    t, s, _ = adj.shape
+    n, d = h.shape
+    agg = torch.bmm(adj, h.view(t, s, d)).view(n, d)
+    agg = torch.addmm(agg, cnt, etab)
+    mid = torch.addmm(b1.to(h.dtype), agg, w1).relu_()
+    return torch.addmm(b2.to(h.dtype), mid, w2), agg, mid
+
+
+def gine_unchained_bwd_library(g, adj, cnt, agg, mid, w1, w2):
+    """K4b's function as a chain of cuBLAS calls (yardstick only)."""
+    t, s, _ = adj.shape
+    n, d = g.shape
+    dmid = torch.mm(g, w2.t()).mul_(mid > 0)
+    dagg = torch.mm(dmid, w1.t())
+    dh = torch.bmm(adj, dagg.view(t, s, d)).view(n, d)
+    return (dh, torch.mm(agg.t(), dmid), dmid.float().sum(0),
+            torch.mm(mid.t(), g), g.float().sum(0), torch.mm(cnt.t(), dagg))
+
+
+def gcn_unchained_library(x, adj, w):
+    """K5f's function A @ (x @ W) with two cuBLAS calls (yardstick only)."""
+    t, s, _ = adj.shape
+    n, d = x.shape
+    return torch.bmm(adj, torch.mm(x, w).view(t, s, d)).view(n, d)
+
+
+def gcn_unchained_bwd_library(g, x, adj, w):
+    """K5b's function (dx, dW) with three cuBLAS calls (yardstick only)."""
+    t, s, _ = adj.shape
+    n, d = g.shape
+    dxw = torch.bmm(adj, g.view(t, s, d)).view(n, d)
+    return torch.mm(dxw, w.t()), torch.mm(x.t(), dxw)
+
+
+def unchained_bound_ms(name, x, p, dt):
+    """Least time for an unchained layer's work at these inputs: the dense
+    products over the real rows, the adjacency and edge-count products by
+    their nonzeros; bytes: each input read once and each output written
+    once (K4f's residuals agg and mid are outputs on the training path;
+    K5f's x @ W is scratch)."""
+    adj, cnt = x["adj"], x["cnt"]
+    t, s, _ = adj.shape
+    n, d = x["h"].shape
+    n_real = int(adj_diag_mask(adj).sum())
+    sparse = 2 * int((adj != 0).sum()) * d
+    edges = 2 * int((cnt != 0).sum()) * d
+    if name.startswith("fused_gine"):
+        d2 = p["w1"].shape[1]
+        mlp = 2 * 2 * n_real * d * d2
+        weights = t * s * s + n * CNT_PAD + 2 * d * d2   # A, cnt, W1, W2
+        if name == "fused_gine_layer":
+            ops = mlp + sparse + edges
+            act = 3 * n * d + n * d2 + CNT_PAD * d + weights
+            f32 = d2 + d
+        else:
+            ops = 2 * mlp + sparse + edges
+            act = 3 * n * d + n * d2 + weights            # g, agg, dh, mid
+            f32 = 2 * d * d2 + d2 + d + CNT_PAD * d
+    else:
+        dense = 2 * n_real * d * d
+        if name == "fused_gcn_layer":
+            ops, act, f32 = dense + sparse, 2 * n * d + t * s * s + d * d, 0
+        else:
+            ops = 2 * dense + sparse
+            act, f32 = 3 * n * d + t * s * s + d * d, d * d
+    t_bytes = (act * x["h"].element_size() + f32 * 4) / HBM_BPS
+    t_ops = ops / PEAK_FLOPS[dt]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def kernel_case(name, tag, names, run, plain, library, rtol):
+    """Run a kernel twice and its plain version once on the same inputs:
+    the error of each output against its limit, bit-identity, and the
+    kernel's, the plain version's and the library's times. Returns (case,
+    the kernel's outputs)."""
+    got, again, want = _tuple(run()), _tuple(run()), _tuple(plain())
+    torch.cuda.synchronize()
+    case = dict(tag, bit_identical=all(torch.equal(u, v)
+                                       for u, v in zip(got, again)))
+    for out, u, v in zip(names, got, want):
+        check(u.dtype == v.dtype and u.shape == v.shape,
+              f"{name} {tag}: {out} is {u.dtype} {tuple(u.shape)}, the "
+              f"plain version's {v.dtype} {tuple(v.shape)}")
+        err, top = rel_err(u, v)
+        case[f"err_{out}"], case[f"lim_{out}"] = err, rtol * top
+    case.update(ms=time_ms(run), plain_ms=time_ms(plain),
+                library_ms=time_ms(library))
+    for out in names:
+        check(case[f"err_{out}"] <= case[f"lim_{out}"],
+              f"{name} {tag}: {out} error {case[f'err_{out}']} > "
+              f"{case[f'lim_{out}']}")
+    check(case["bit_identical"], f"{name} {tag}: two runs differ")
+    return case, got
+
+
+def finetune_kernel_phase(batch, dev) -> dict:
+    """K4f with residuals, K4b, K5f and K5b at the fine-tuning shape, f32
+    and bf16, on features that are zero on padded rows (as the unchained
+    trunk gives them) and a random cotangent."""
+    gen = torch.Generator().manual_seed(SEED + 4)
+    res = {name: {"max_abs_err": 0.0, "cases": []} for name in FT_KERNELS}
+    for dt in (torch.float32, torch.bfloat16):
+        x, pg, pc = layer_inputs(batch, dt, gen)
+        mask = adj_diag_mask(x["adj"])
+        x["h"] = (x["h"].float() * mask).to(dt)
+        n, d = x["h"].shape
+        g = (0.1 * torch.randn(n, d, generator=gen)).to(dev) * mask
+        g = g.to(dt)
+        rtol = KERNEL_RTOL[dt]
+        tag = dict(dtype=str(dt).replace("torch.", ""),
+                   tiles=x["adj"].shape[0], d=d)
+        fargs = (x["h"], x["adj"], x["cnt"], pg["etab"], pg["w1"], pg["b1"],
+                 pg["w2"], pg["b2"])
+        cases = {}
+        cases["fused_gine_layer"], (_, agg, mid) = kernel_case(
+            "K4f", tag, ("out", "agg", "mid"),
+            lambda: fused_gine_layer_fwd(*fargs, residuals=True),
+            lambda: fused_gine_layer_fwd_plain(*fargs),
+            lambda: gine_unchained_library(*fargs), rtol)
+        bargs = (g, x["adj"], x["cnt"], agg, mid, pg["w1"], pg["w2"])
+        cases["fused_gine_layer_bwd"], _ = kernel_case(
+            "K4b", tag, ("dh", "dw1", "db1", "dw2", "db2", "detab"),
+            lambda: fused_gine_layer_bwd(*bargs),
+            lambda: fused_gine_layer_bwd_plain(*bargs),
+            lambda: gine_unchained_bwd_library(*bargs), rtol)
+        cargs = (x["h"], x["adj"], pc["w"])
+        cases["fused_gcn_layer"], _ = kernel_case(
+            "K5f", tag, ("out",), lambda: fused_gcn_layer_fwd(*cargs),
+            lambda: fused_gcn_layer_plain(*cargs),
+            lambda: gcn_unchained_library(*cargs), rtol)
+        gargs = (g, x["h"], x["adj"], pc["w"])
+        cases["fused_gcn_layer_bwd"], _ = kernel_case(
+            "K5b", tag, ("dx", "dw"), lambda: fused_gcn_layer_bwd(*gargs),
+            lambda: fused_gcn_layer_bwd_plain(*gargs),
+            lambda: gcn_unchained_bwd_library(*gargs), rtol)
+        for name, case in cases.items():
+            case["bound_ms"], case["bound_by"] = unchained_bound_ms(
+                name, x, pg if name.startswith("fused_gine") else pc, dt)
+            print(f"kernel {name} {json.dumps(case)}", flush=True)
+            first = next(k for k in case if k.startswith("err_"))
+            r = res[name]
+            r["max_abs_err"] = max(r["max_abs_err"], case[first])
+            r["cases"].append(case)
+    return res
+
+
+# ---------------------------------------------------------------- phase 9
+
+
+def finetune_cfg(tmp: str, gnn: str = "gin", motifs: bool = False,
+                 bf16: bool = False) -> FineTuneConfig:
+    """configs/finetune.yaml's fine-tuning run (BBBP, batch 32, 5 x 300 /
+    512, drop 0.3, pred head 2 x softplus, tile 256) on the synthetic
+    stand-in fabricated under tmp."""
+    return FineTuneConfig(
+        data_root=os.path.join(tmp, "data"), synthetic_fallback=True,
+        batch_size=FT_BATCH, ckpt_dir=os.path.join(tmp, "ft_runs"),
+        use_motifs=motifs, model=ModelConfig(
+            gnn_type=gnn, num_layers=LAYERS, emb_dim=EMB, feat_dim=FEAT,
+            drop_ratio=0.3, tile=TILE, bf16=bf16))
+
+
+def finetuner(cfg, dev, shared):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # synthetic stand-in
+        if shared[0] is None:
+            shared[0] = ft_lib.SharedTaskData(cfg, TASKS[cfg.task_name])
+    return ft_lib.FineTuner(cfg, dev).setup_data(
+        shared=shared[0]).setup_state()
+
+
+def eval_agreement(ft, cpu_model, gnn: str, tag: str):
+    """The eval path (drop 0.3 in eval mode: K4f / K5f without residuals)
+    on one validation batch, packed with 'max' sizing, on the card and on
+    the CPU from the card's state: predictions within SLICE_RTOL, and one
+    forward launch per layer. Returns (max error, the batch's tiles)."""
+    item = next(iter(ft.iters["valid"]))
+    batch, _, mot = ft._device_item("valid", *item)
+    cpu_model.load_state_dict(
+        {k: v.cpu() for k, v in ft.model.state_dict().items()})
+    reset_counts()
+    pred_g = ft_lib.predict(ft.model, batch, mot)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: LAYERS for k, v in FT_KERNELS.items()
+            if v["model"] == gnn and not k.endswith("_bwd")}
+    for name, c in counts.items():
+        check(c == want.get(name, 0), f"{tag} eval: {name} launched {c} "
+              f"times, expected {want.get(name, 0)}")
+    pred_c = ft_lib.predict(cpu_model, item[0].to("cpu"),
+                            tuple(m.cpu() for m in mot))
+    err = float((pred_g.cpu() - pred_c).abs().max())
+    lim = SLICE_RTOL * max(1.0, float(pred_c.abs().max()))
+    check(bool(torch.isfinite(pred_g).all()) and err <= lim,
+          f"{tag} eval: max |card - cpu| {err} > {lim}")
+    return err, batch.nbr.shape[0] // TILE
+
+
+def motif_table_agreement(ft, cpu_model, tag: str) -> float:
+    """The motif table that setup_state encoded on the card against the
+    same vocabulary encoded on the CPU by the plain network with the same
+    trunk and feat_lin, within SLICE_RTOL."""
+    plain = FineTuneNet(**ft._model_kwargs())
+    transfer_state(cpu_model.state_dict(), plain)
+    m = ft.cfg.model
+    want = encode_motif_vocab(ft.motif_vocab, plain, m.feat_dim,
+                              max_degree=ft.cfg.max_degree, tile=m.tile)
+    got = cpu_model.motif_embedding.weight.detach().numpy()
+    check(got.shape == want.shape, f"{tag}: motif table {got.shape}")
+    err = float(np.abs(got - want).max())
+    lim = SLICE_RTOL * max(1.0, float(np.abs(want).max()))
+    check(np.isfinite(got).all() and err <= lim,
+          f"{tag}: motif table max |card - cpu| {err} > {lim}")
+    return err
+
+
+def finetune_step_phase(dev, tmp: str, shared: list) -> dict:
+    """3 fine-tuning steps on the card for GIN, GCN and GIN with the motif
+    head; before each, the CPU takes the card's state (weights, BatchNorm
+    stats, Adam moments) and runs the same step with the same dropout
+    masks on its plain path. Launch counts per step."""
+    report = {}
+    totals = dict.fromkeys(ALL_FNS, 0)
+    mgen = torch.Generator().manual_seed(SEED + 5)
+    for gnn, motifs in (("gin", False), ("gcn", False), ("gin", True)):
+        tag = gnn + ("_motifs" if motifs else "")
+        cfg = finetune_cfg(tmp, gnn, motifs)
+        ft = finetuner(cfg, dev, shared)
+        lr = max(cfg.init_lr, cfg.init_base_lr)
+        cpu_model = copy.deepcopy(ft.model).to("cpu")
+        cpu_opt = optim.two_group_adam(cpu_model, cfg.init_lr,
+                                       cfg.init_base_lr, cfg.weight_decay)
+        items = []
+        for item in ft.iters["train"]:
+            items.append(item)
+            if len(items) == FT_STEPS:
+                break
+        row = {"losses": [], "counts": [], "worst_fraction_off": [],
+               "max_param_diff": [], "running_stats_over_limit": [],
+               "motif_vocab": ft.motif_vocab.size if motifs else 0}
+        if motifs:
+            row["motif_table_err"] = motif_table_agreement(ft, cpu_model, tag)
+        want = {k: LAYERS for k, v in FT_KERNELS.items()
+                if v["model"] == gnn}
+        for step, item in enumerate(items):
+            batch, lab, mot = ft._device_item("train", *item)
+            cpu_args = (item[0].to("cpu"), lab.cpu(),
+                        tuple(m.cpu() for m in mot))
+            cpu_model.load_state_dict(
+                {k: v.cpu() for k, v in ft.model.state_dict().items()})
+            cpu_opt.load_state_dict(copy.deepcopy(ft.opt.state_dict()))
+            n = batch.nbr.shape[0]
+            masks = [torch.rand(n, EMB, generator=mgen) < 0.7
+                     for _ in range(LAYERS)]
+            reset_counts()
+            loss_g = ft_lib.train_step(
+                ft.model, ft.opt, batch, lab, mot, ft.task.loss,
+                dropout_masks=[m.to(dev) for m in masks])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            loss_c = ft_lib.train_step(cpu_model, cpu_opt, *cpu_args,
+                                       ft.task.loss, dropout_masks=masks)
+            row["losses"].append([loss_g.item(), loss_c.item()])
+            row["counts"].append(counts)
+            for name, c in counts.items():
+                check(c == want.get(name, 0), f"{tag} step {step}: {name} "
+                      f"launched {c} times, expected {want.get(name, 0)}")
+                totals[name] += c
+            check(abs(loss_g.item() - loss_c.item())
+                  <= STEP_LOSS_RTOL * abs(loss_c.item()),
+                  f"{tag} step {step}: loss card {loss_g.item()} cpu "
+                  f"{loss_c.item()}")
+            worst, top, stat = state_agreement(ft.model, cpu_model, step, lr,
+                                               f"{tag} step {step}")
+            row["worst_fraction_off"].append(worst)
+            row["max_param_diff"].append(top)
+            row["running_stats_over_limit"].append(stat)
+        row["eval_err"], row["eval_tiles"] = eval_agreement(
+            ft, cpu_model, gnn, tag)
+        report[tag] = row
+        print(f"finetune step {tag} {json.dumps(row)}", flush=True)
+    report["launches"] = totals
+    return report
+
+
+def finetune_speed_phase(dev, tmp: str, card: str, shared: list) -> dict:
+    """The fine-tuning step's time on the card (median of CUDA-event times
+    over 25 steps after 5 warm-up steps, dropout drawn on the card), the
+    host's time to queue a step, an eval batch's forward, and a profile of
+    the GIN f32 step."""
+    report = {}
+    for gnn, bf16 in (("gin", False), ("gcn", False), ("gin", True)):
+        cfg = finetune_cfg(tmp, gnn, bf16=bf16)
+        ft = finetuner(cfg, dev, shared)
+        item = next(iter(ft.iters["train"]))
+        batch, lab, mot = ft._device_item("train", *item)
+
+        def step():
+            return ft_lib.train_step(ft.model, ft.opt, batch, lab, mot,
+                                     ft.task.loss, generator=ft.dropout_gen)
+
+        for _ in range(WARM_STEPS):
+            step()
+        torch.cuda.synchronize()
+        events, host = [], []
+        for _ in range(SPEED_STEPS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            loss = step()
+            e1.record()
+            host.append(1e3 * (time.perf_counter() - t0))
+            events.append((e0, e1))
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(loss)), f"{gnn} bf16={bf16}: loss {loss}")
+        ms = statistics.median(a.elapsed_time(b) for a, b in events)
+        ebatch, _, emot = ft._device_item("valid",
+                                          *next(iter(ft.iters["valid"])))
+        row = dict(card=card, model=gnn,
+                   dtype="bfloat16" if bf16 else "float32",
+                   step_ms=ms, host_ms=statistics.median(host),
+                   steps=SPEED_STEPS, tiles=batch.nbr.shape[0] // TILE,
+                   mol_per_s=int(item[0].graph_mask.sum()) / (ms / 1e3),
+                   eval_tiles=ebatch.nbr.shape[0] // TILE,
+                   eval_batch_ms=time_ms(lambda: ft_lib.predict(
+                       ft.model, ebatch, emot)))
+        if gnn == "gin" and not bf16:
+            row["profile"] = profile_steps(lambda i: step())
+        report[f"{gnn}_{row['dtype']}"] = row
+        print(f"finetune speed {json.dumps(row)}", flush=True)
+    return report
+
+
+# --------------------------------------------------------------- phase 10
+
+
+def finetune_cli_phase(tmp: str) -> dict:
+    """cli.finetune for 2 epochs of configs/finetune.yaml on the synthetic
+    stand-in, in a temporary working directory: GIN warm-started from
+    phase 7's newest step_<n>.pt, then --model gcn, then --motifs."""
+    pre = latest_checkpoint(os.path.join(tmp, "pretrain_ckpt"))
+    check(pre is not None, "no step_<n>.pt from the pretrain CLI phase")
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "configs", "finetune.yaml")
+    cwd = os.path.join(tmp, "ft_cli")
+    os.makedirs(cwd)
+    base = ["--config", config, "--allow-synthetic", "--epochs", "2"]
+    report = {"pretrained": os.path.basename(pre)}
+    old = os.getcwd()
+    os.chdir(cwd)
+    try:
+        for tag, extra, model in (("gin_warm", ["--pretrained", pre], "gin"),
+                                  ("gcn", ["--model", "gcn"], "gcn"),
+                                  ("gin_motifs", ["--motifs"], "gin")):
+            reset_counts()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                rc = finetune_cli.main(base + extra)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            text = out.getvalue()
+            check(rc == 0, f"finetune CLI {tag} returned {rc}")
+            results = re.findall(r"^RESULT (\S+): (\S+) = (\S+)$", text, re.M)
+            check(len(results) == 1 and np.isfinite(float(results[0][2])),
+                  f"finetune CLI {tag}: RESULT lines {results}")
+            prefix = os.path.basename(pre) if tag == "gin_warm" \
+                else "scratch"
+            csv_name = f"{prefix}_BBBP_finetune.csv"
+            with open(os.path.join("experiments", csv_name)) as f:
+                row = f.read().splitlines()[-1].split(",")
+            check(row[-1] == "synthetic=true",
+                  f"finetune CLI {tag}: CSV row {row} not stamped synthetic")
+            with open(os.path.join("runs", "finetune", "BBBP_p_np",
+                                   "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f][-3:]
+            check([r.get("epoch") for r in recs[:2]] == [0, 1]
+                  and all(np.isfinite(r["train_loss"]) for r in recs[:2]),
+                  f"finetune CLI {tag}: records {recs}")
+            counts = read_counts()
+            for name, spec_k in FT_KERNELS.items():
+                check((counts[name] > 0) == (spec_k["model"] == model),
+                      f"finetune CLI {tag}: {name} launched "
+                      f"{counts[name]} times")
+            report[tag] = dict(result=results[0], csv_row=row, cli_s=sec,
+                               epochs=recs[:2], test=recs[2],
+                               counts=counts)
+            print(f"finetune cli {tag} {json.dumps(report[tag])}",
+                  flush=True)
+    finally:
+        os.chdir(old)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1038,6 +1535,19 @@ def main() -> int:
         speed_phase(batch, spec, dev, card)
         phase("cli")
         cli_phase(tmp)
+        fbatch = finetune_batch()
+        print(f"fine-tuning batch: {fbatch.nbr.shape[0] // TILE} tiles, "
+              f"{int(fbatch.node_mask.sum())} atoms, "
+              f"{int(fbatch.edge_mask.sum())} directed bonds", flush=True)
+        phase("fine-tune kernels")
+        ft_kernels = finetune_kernel_phase(fbatch.to(dev), dev)
+        phase("fine-tune steps")
+        shared = [None]
+        ft_step = finetune_step_phase(dev, tmp, shared)
+        phase("fine-tune speed")
+        finetune_speed_phase(dev, tmp, card, shared)
+        phase("fine-tune cli")
+        finetune_cli_phase(tmp)
     phase("done")
 
     def row(name, source, replaces, launches, res, case):
@@ -1074,6 +1584,10 @@ def main() -> int:
         rows.append(row(name, spec_k["source"], spec_k["replaces"],
                         step["pallas_counts"][name], ntx[part],
                         pick(ntx[part]["cases"], two_b=1024, dead_rows=0)))
+    for name, spec_k in FT_KERNELS.items():
+        rows.append(row(name, spec_k["source"], spec_k["replaces"],
+                        ft_step["launches"][name], ft_kernels[name],
+                        pick(ft_kernels[name]["cases"], dtype="float32")))
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

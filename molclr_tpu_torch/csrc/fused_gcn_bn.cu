@@ -32,11 +32,30 @@
 // f32); the dense A strip multiplies mostly zeros; W is re-read from L2 by
 // each of the 288 first-pass blocks.
 
+// K5f and K5b replace molclr_tpu/ops/fused_gcn.py:_fwd_kernel and
+// _bwd_kernel, the unchained layer fused_gcn_layer of the fine-tuning
+// trunk (the scalar edge term and the bias stay in PyTorch):
+//   K5f: xw = rnd(x @ W), out = rnd(A @ xw): the two passes of K3f with
+//        BN = false (no prologue; A @ xw alone, no cnt, etab, bias or
+//        moments);
+//   K5b: dxw = rnd(A @ g) (the adjacency pass on g), dx = rnd(dxw @ W^T)
+//        (the row pass on dxw with W^T, transposed once so that it
+//        streams row by row), dW = x^T @ dxw in f32 (atb_kernel over
+//        fixed row chunks, summed in chunk order: no atomics). x is the
+//        saved input; nothing else is recomputed.
+// Bound on the H100 at the fine-tuning shape (T = 4, 619 real rows, D =
+// 300, f32): K5f 0.11 GFLOP against 3.9 MB, 1.7 us by operations; K5b
+// 0.22 GFLOP against 5.4 MB, 3.4 us. As for K4, 64 strip blocks leave
+// most of the card idle and the launch costs about one block's latency.
+
 #include "fused_bn_common.cuh"
 
 namespace fbl {
 
-template <typename T>
+// BN selects the kernel: true for K3f (prologue; [A | cnt] @ [xw ; etab] +
+// bias with the moment epilogue), false for the unchained passes of K5f and
+// K5b (no prologue; A @ xw alone, with no edge term, bias or moments).
+template <typename T, bool BN>
 __global__ void __launch_bounds__(NT)
 gcn_xw_kernel(const T* __restrict__ x, const float* __restrict__ a,
               const float* __restrict__ b, const T* __restrict__ w,
@@ -46,8 +65,12 @@ gcn_xw_kernel(const T* __restrict__ x, const float* __restrict__ a,
   float* Bs = ys + R * D;                      // [KC, CW]
   const size_t row0 = (size_t)blockIdx.x * R;
   for (int e = threadIdx.x; e < R * D; e += NT) {
-    const int c = e % D;
-    ys[e] = rnd<T>(prologue(ld(x, row0 * D + e), a[c], b[c], relu_in));
+    if constexpr (BN) {
+      const int c = e % D;
+      ys[e] = rnd<T>(prologue(ld(x, row0 * D + e), a[c], b[c], relu_in));
+    } else {
+      ys[e] = ld(x, row0 * D + e);
+    }
   }
   // strip_gemm's first __syncthreads orders these writes before the reads
   strip_gemm(
@@ -66,23 +89,26 @@ gcn_xw_kernel(const T* __restrict__ x, const float* __restrict__ a,
       });
 }
 
-template <typename T>
+template <typename T, bool BN>
 __global__ void __launch_bounds__(NT)
-gcn_bn_fwd_kernel(const T* __restrict__ xw, const T* __restrict__ adj,
-                  const T* __restrict__ cnt, const T* __restrict__ etab,
-                  const float* __restrict__ bias, T* __restrict__ out,
-                  float* __restrict__ partial, int S, int D) {
+gcn_adj_kernel(const T* __restrict__ xw, const T* __restrict__ adj,
+               const T* __restrict__ cnt, const T* __restrict__ etab,
+               const float* __restrict__ bias, T* __restrict__ out,
+               float* __restrict__ partial, int S, int D) {
   extern __shared__ float smem[];
   const int strips = S / R;
   const int tile = blockIdx.x / strips, strip = blockIdx.x % strips;
-  const int KA = S + CNT_PAD;
+  const int KA = BN ? S + CNT_PAD : S;
   const size_t node0 = (size_t)tile * S;
   const size_t row0 = node0 + (size_t)strip * R;
-  float* ext = smem;                           // [R, KA] A strip | cnt
+  float* ext = smem;                           // [R, KA] A strip (| cnt)
   float* Bs = ext + R * KA;                    // [KC, CW], epilogue scratch
   float* msk = Bs + KC * CW;                   // [R]
 
-  load_adj_strip(adj, cnt, tile, strip, S, ext, msk);
+  if constexpr (BN)
+    load_adj_strip(adj, cnt, tile, strip, S, ext, msk);
+  else
+    load_a_strip(adj, tile, strip, S, ext, msk);
   strip_gemm(
       ext, KA, KA, D, Bs,
       [&](int k, int c) -> T {
@@ -90,8 +116,46 @@ gcn_bn_fwd_kernel(const T* __restrict__ xw, const T* __restrict__ adj,
       },
       Identity(),
       [&](int c0, float (&acc)[TM][TN]) {
-        moment_epilogue<T>(c0, acc, bias, out, row0, D, msk, Bs, partial);
+        if constexpr (BN) {
+          moment_epilogue<T>(c0, acc, bias, out, row0, D, msk, Bs, partial);
+        } else {
+          const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int j = 0; j < TN; ++j) {
+              const int c = c0 + lane + 32 * j;
+              if (c < D) st(out, (row0 + warp * TM + i) * D + c, acc[i][j]);
+            }
+        }
       });
+}
+
+template <typename T, bool BN>
+static int launch_xw(const void* x, const float* a, const float* b,
+                     const void* w, void* xw, int nrow_blk, int D,
+                     int relu_in, cudaStream_t st) {
+  const size_t bytes = ((size_t)R * D + KC * CW) * sizeof(float);
+  cudaError_t e = set_smem(gcn_xw_kernel<T, BN>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  gcn_xw_kernel<T, BN><<<nrow_blk, NT, bytes, st>>>(
+      (const T*)x, a, b, (const T*)w, (T*)xw, D, relu_in);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool BN>
+static int launch_adj(const void* xw, const void* adj, const void* cnt,
+                      const void* etab, const float* bias, void* out,
+                      float* partial, int nrow_blk, int S, int D,
+                      cudaStream_t st) {
+  const size_t bytes =
+      ((size_t)R * (BN ? S + CNT_PAD : S) + KC * CW + R) * sizeof(float);
+  cudaError_t e = set_smem(gcn_adj_kernel<T, BN>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  gcn_adj_kernel<T, BN><<<nrow_blk, NT, bytes, st>>>(
+      (const T*)xw, (const T*)adj, (const T*)cnt, (const T*)etab, bias,
+      (T*)out, partial, S, D);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -103,24 +167,56 @@ static int gcn_bn_fwd(const void* x, const float* a, const float* b,
   if (T_ <= 0 || S <= 0 || S % R || D <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int nrow_blk = T_ * S / R;
-  const size_t bytes1 = ((size_t)R * D + KC * CW) * sizeof(float);
-  cudaError_t e = set_smem(gcn_xw_kernel<T>, bytes1);
-  if (e != cudaSuccess) return (int)e;
-  gcn_xw_kernel<T><<<nrow_blk, NT, bytes1, st>>>(
-      (const T*)x, a, b, (const T*)w, (T*)xw, D, relu_in);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-
-  const size_t bytes2 =
-      ((size_t)R * (S + CNT_PAD) + KC * CW + R) * sizeof(float);
-  e = set_smem(gcn_bn_fwd_kernel<T>, bytes2);
-  if (e != cudaSuccess) return (int)e;
-  gcn_bn_fwd_kernel<T><<<nrow_blk, NT, bytes2, st>>>(
-      (const T*)xw, (const T*)adj, (const T*)cnt, (const T*)etab, bias,
-      (T*)out, partial, S, D);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  int err = launch_xw<T, true>(x, a, b, w, xw, nrow_blk, D, relu_in, st);
+  if (err) return err;
+  err = launch_adj<T, true>(xw, adj, cnt, etab, bias, out, partial, nrow_blk,
+                            S, D, st);
+  if (err) return err;
   return launch_sum_partials(partial, sums, nrow_blk, 2 * D, st);
+}
+
+// K5f: xw = rnd(x @ W) into the scratch xw, then out = rnd(A @ xw).
+template <typename T>
+static int gcn_fwd(const void* x, const void* adj, const void* w, void* xw,
+                   void* out, int T_, int S, int D, void* stream) {
+  if (T_ <= 0 || S <= 0 || S % R || D <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nrow_blk = T_ * S / R;
+  int err = launch_xw<T, false>(x, nullptr, nullptr, w, xw, nrow_blk, D, 0,
+                                st);
+  if (err) return err;
+  return launch_adj<T, false>(xw, adj, nullptr, nullptr, nullptr, out,
+                              nullptr, nrow_blk, S, D, st);
+}
+
+// K5b: dxw = rnd(A @ g) (A is symmetric: the adjoint of A @), dx = rnd(dxw
+// @ W^T) with W^T transposed once into wt so that it streams row by row,
+// and dW = x^T @ dxw in f32 from per-chunk partials added in chunk order.
+template <typename T>
+static int gcn_bwd(const void* g, const void* x, const void* adj,
+                   const void* w, void* wt, void* dxw, void* dx,
+                   float* part_w, float* dw, int T_, int S, int D, int chunks,
+                   void* stream) {
+  if (T_ <= 0 || S <= 0 || S % R || D <= 0 || chunks <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nrow_blk = T_ * S / R;
+  const int N = T_ * S;
+  int err = launch_adj<T, false>(g, adj, nullptr, nullptr, nullptr, dxw,
+                                 nullptr, nrow_blk, S, D, st);
+  if (err) return err;
+  if ((err = launch_transpose<T>(w, wt, D, D, st))) return err;
+  err = launch_xw<T, false>(dxw, nullptr, nullptr, wt, dx, nrow_blk, D, 0,
+                            st);
+  if (err) return err;
+  const AtB p = {x, dxw, D, D, 0};
+  int rows_per_chunk = (N + chunks - 1) / chunks;
+  rows_per_chunk = (rows_per_chunk + AKT - 1) / AKT * AKT;
+  atb_kernel<T><<<chunks * atb_tiles(p), ANT, 0, st>>>(
+      p, p, p, 1, N, rows_per_chunk, chunks, D * D, part_w);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_sum_partials(part_w, dw, chunks, D * D, st);
 }
 
 }  // namespace fbl
@@ -129,23 +225,30 @@ extern "C" {
 
 int fbl_strip_rows() { return fbl::R; }
 
-int gcn_bn_fwd_f32(const void* x, const float* a, const float* b,
-                   const void* adj, const void* cnt, const void* etab,
-                   const void* w, const float* bias, void* xw, void* out,
-                   float* partial, float* sums, int T, int S, int D,
-                   int relu_in, void* stream) {
-  return fbl::gcn_bn_fwd<float>(x, a, b, adj, cnt, etab, w, bias, xw, out,
-                                partial, sums, T, S, D, relu_in, stream);
-}
+#define GCN_ENTRIES(suffix, T)                                              \
+  int gcn_bn_fwd_##suffix(const void* x, const float* a, const float* b,    \
+                          const void* adj, const void* cnt,                 \
+                          const void* etab, const void* w,                  \
+                          const float* bias, void* xw, void* out,           \
+                          float* partial, float* sums, int T_, int S,       \
+                          int D, int relu_in, void* stream) {               \
+    return fbl::gcn_bn_fwd<T>(x, a, b, adj, cnt, etab, w, bias, xw, out,    \
+                              partial, sums, T_, S, D, relu_in, stream);    \
+  }                                                                         \
+  int gcn_fwd_##suffix(const void* x, const void* adj, const void* w,       \
+                       void* xw, void* out, int T_, int S, int D,           \
+                       void* stream) {                                      \
+    return fbl::gcn_fwd<T>(x, adj, w, xw, out, T_, S, D, stream);           \
+  }                                                                         \
+  int gcn_bwd_##suffix(const void* g, const void* x, const void* adj,       \
+                       const void* w, void* wt, void* dxw, void* dx,        \
+                       float* part_w, float* dw, int T_, int S, int D,      \
+                       int chunks, void* stream) {                          \
+    return fbl::gcn_bwd<T>(g, x, adj, w, wt, dxw, dx, part_w, dw, T_, S, D, \
+                           chunks, stream);                                 \
+  }
 
-int gcn_bn_fwd_bf16(const void* x, const float* a, const float* b,
-                    const void* adj, const void* cnt, const void* etab,
-                    const void* w, const float* bias, void* xw, void* out,
-                    float* partial, float* sums, int T, int S, int D,
-                    int relu_in, void* stream) {
-  return fbl::gcn_bn_fwd<__nv_bfloat16>(x, a, b, adj, cnt, etab, w, bias,
-                                        xw, out, partial, sums, T, S, D,
-                                        relu_in, stream);
-}
+GCN_ENTRIES(f32, float)
+GCN_ENTRIES(bf16, __nv_bfloat16)
 
 }  // extern "C"

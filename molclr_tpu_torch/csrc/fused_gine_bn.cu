@@ -69,20 +69,49 @@
 // same things are left on the table; the weight products read agg, mid,
 // gtc and dmidc back from device memory (the TPU kernel has them in VMEM).
 
+// K4f and K4b replace molclr_tpu/ops/fused_layer.py:_fwd_kernel and
+// _bwd_kernel, the unchained layer fused_gine_layer that the fine-tuning
+// trunk runs (drop_ratio > 0: BatchNorm, relu and dropout run outside):
+//   agg = rnd(A @ h + cnt @ etab), mid = rnd(relu(agg @ W1 + b1)),
+//   out = rnd(mid @ W2 + b2), with agg and mid written as residuals;
+//   dmid = (g @ W2^T) * [mid > 0], dagg = rnd(rnd(dmid) @ W1^T),
+//   dh = rnd(A @ daggc), dW1 = agg^T dmidc, db1 = sum dmid,
+//   dW2 = mid^T g, db2 = sum g, detab = cnt^T daggc.
+// They are the same strip kernels instantiated with BN = false: no
+// prologue, no moment epilogue, gt = g with no dsums term, no prologue
+// adjoint. Nothing of BatchNorm is computed, where feeding K1f identity
+// coefficients would compute the moments and throw them away. K4b keeps
+// K1b's three deterministic passes and its W^T transposes.
+//
+// Bound on the H100 at the fine-tuning shape (a 32-molecule batch with
+// hydrogens: T = 4 tiles of 256, 619 real rows, D = 300, f32): K4f 0.45
+// GFLOP (the two MLP products over the real rows; the adjacency and counts
+// by their nonzeros add 2 MFLOP) against 8.7 MB moved (h, out, agg, mid,
+// A, W1, W2): 6.7 us by operations; K4b twice the operations, 13 us. In
+// bf16 K4f is bound by its 4.4 MB, 1.3 us. What bounds this kernel in
+// practice is the shape: 64 strip blocks on 132 SMs, one partial wave, so
+// a launch takes about one block's latency (a 16-row strip through three
+// products on CUDA cores); the design leaves the card mostly idle at this
+// batch size, and takes no tensor cores, as K1f.
+
 #include "fused_bn_common.cuh"
 
 namespace fbl {
 
-template <typename T>
+// BN selects the kernel: true for K1f / K1b (prologue, moments and their
+// adjoints), false for K4f / K4b, the unchained layer of the fine-tuning
+// trunk (the same strips without the prologue, the moment epilogue, gt's
+// dsums term and the prologue adjoint: nothing of BatchNorm is computed).
+template <typename T, bool BN>
 __global__ void __launch_bounds__(NT)
-gine_bn_fwd_kernel(const T* __restrict__ h, const float* __restrict__ a,
-                   const float* __restrict__ b, const T* __restrict__ adj,
-                   const T* __restrict__ cnt, const T* __restrict__ etab,
-                   const T* __restrict__ w1, const float* __restrict__ b1,
-                   const T* __restrict__ w2, const float* __restrict__ b2,
-                   T* __restrict__ out, T* __restrict__ agg_out,
-                   T* __restrict__ mid_out, float* __restrict__ partial,
-                   int S, int D, int D2, int relu_in) {
+gine_fwd_kernel(const T* __restrict__ h, const float* __restrict__ a,
+                const float* __restrict__ b, const T* __restrict__ adj,
+                const T* __restrict__ cnt, const T* __restrict__ etab,
+                const T* __restrict__ w1, const float* __restrict__ b1,
+                const T* __restrict__ w2, const float* __restrict__ b2,
+                T* __restrict__ out, T* __restrict__ agg_out,
+                T* __restrict__ mid_out, float* __restrict__ partial, int S,
+                int D, int D2, int relu_in) {
   extern __shared__ float smem[];
   const int strips = S / R;
   const int tile = blockIdx.x / strips, strip = blockIdx.x % strips;
@@ -97,14 +126,17 @@ gine_bn_fwd_kernel(const T* __restrict__ h, const float* __restrict__ a,
 
   load_adj_strip(adj, cnt, tile, strip, S, ext, msk);
 
-  // agg = [A | cnt] @ [y ; etab], y = rnd(relu?(h * a + b))
+  // agg = [A | cnt] @ [y ; etab], y = rnd(relu?(h * a + b)) (K1f) or h (K4f)
   strip_gemm(
       ext, KA, KA, D, Bs,
       [&](int k, int c) -> T {
         return k < S ? h[(node0 + k) * D + c] : etab[(size_t)(k - S) * D + c];
       },
       [&](int k, int c, float v) -> float {
-        return k < S ? rnd<T>(prologue(v, a[c], b[c], relu_in)) : v;
+        if constexpr (BN)
+          return k < S ? rnd<T>(prologue(v, a[c], b[c], relu_in)) : v;
+        else
+          return v;
       },
       [&](int c0, float (&acc)[TM][TN]) {
         const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -141,26 +173,40 @@ gine_bn_fwd_kernel(const T* __restrict__ h, const float* __restrict__ a,
           }
       });
 
-  // out = mid @ W2 + b2, and the masked moments of the cast out
+  // out = mid @ W2 + b2, and (K1f) the masked moments of the cast out
   strip_gemm(
       mid, D2, D2, D, Bs,
       [&](int k, int c) -> T { return w2[(size_t)k * D + c]; },
       Identity(),
       [&](int c0, float (&acc)[TM][TN]) {
-        moment_epilogue<T>(c0, acc, b2, out, row0, D, msk, Bs, partial);
+        if constexpr (BN) {
+          moment_epilogue<T>(c0, acc, b2, out, row0, D, msk, Bs, partial);
+        } else {
+          const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int j = 0; j < TN; ++j) {
+              const int c = c0 + lane + 32 * j;
+              if (c < D)
+                st(out, (row0 + warp * TM + i) * D + c, acc[i][j] + b2[c]);
+            }
+        }
       });
 }
 
-// K1b pass (a): gt, dmid, dagg for one strip (row-local). w1t [D2, D] and
-// w2t [D, D2] are W1^T and W2^T, so that the chunks stream row by row.
-template <typename T>
+// Backward pass (a): gt, dmid, dagg for one strip (row-local). w1t [D2, D]
+// and w2t [D, D2] are W1^T and W2^T, so that the chunks stream row by row.
+// K4b (BN false) takes gt = g itself: no gtc is written, and ds, adj, out
+// and gtc are not read.
+template <typename T, bool BN>
 __global__ void __launch_bounds__(NT)
-gine_bn_bwd_rows_kernel(const T* __restrict__ g, const float* __restrict__ ds,
-                        const T* __restrict__ adj, const T* __restrict__ mid,
-                        const T* __restrict__ out, const T* __restrict__ w1t,
-                        const T* __restrict__ w2t, T* __restrict__ gtc,
-                        T* __restrict__ dmidc, T* __restrict__ daggc,
-                        float* __restrict__ partial, int S, int D, int D2) {
+gine_bwd_rows_kernel(const T* __restrict__ g, const float* __restrict__ ds,
+                     const T* __restrict__ adj, const T* __restrict__ mid,
+                     const T* __restrict__ out, const T* __restrict__ w1t,
+                     const T* __restrict__ w2t, T* __restrict__ gtc,
+                     T* __restrict__ dmidc, T* __restrict__ daggc,
+                     float* __restrict__ partial, int S, int D, int D2) {
   extern __shared__ float smem[];
   const int strips = S / R;
   const int tile = blockIdx.x / strips, strip = blockIdx.x % strips;
@@ -171,23 +217,33 @@ gine_bn_bwd_rows_kernel(const T* __restrict__ g, const float* __restrict__ ds,
   float* msk = Bs + KC * CW;     // [R]
   float* prow = partial + (size_t)blockIdx.x * (D2 + D);  // [db1 | db2]
 
-  if (threadIdx.x < R) {
-    const int r = threadIdx.x;
-    msk[r] = ld(adj, (row0 + r) * S + strip * R + r) > 0.f ? 1.f : 0.f;
+  if constexpr (BN) {
+    if (threadIdx.x < R) {
+      const int r = threadIdx.x;
+      msk[r] = ld(adj, (row0 + r) * S + strip * R + r) > 0.f ? 1.f : 0.f;
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  // gt = g + m (ds0 + 2 out ds1), each operation rounded as the plain
-  // version rounds it; db2 = sum gt over the strip (uncast)
+  // K1b: gt = g + m (ds0 + 2 out ds1), each operation rounded as the plain
+  // version rounds it; K4b: gt = g. db2 = sum gt over the strip (uncast).
+  // (strip_gemm's first __syncthreads orders the gts writes before reads.)
   for (int c = threadIdx.x; c < D; c += NT) {
     float s = 0.f;
     for (int r = 0; r < R; ++r) {
       const size_t i = (row0 + r) * D + c;
-      const float t = __fadd_rn(ds[c], __fmul_rn(2.f * ld(out, i), ds[D + c]));
-      const float gt = __fadd_rn(ld(g, i), msk[r] * t);
-      s += gt;
-      const float v = rnd<T>(gt);
+      float v;
+      if constexpr (BN) {
+        const float t =
+            __fadd_rn(ds[c], __fmul_rn(2.f * ld(out, i), ds[D + c]));
+        const float gt = __fadd_rn(ld(g, i), msk[r] * t);
+        s += gt;
+        v = rnd<T>(gt);
+        st(gtc, i, v);
+      } else {
+        v = ld(g, i);
+        s += v;
+      }
       gts[r * D + c] = v;
-      st(gtc, i, v);
     }
     prow[D2 + c] = s;
   }
@@ -240,15 +296,15 @@ gine_bn_bwd_rows_kernel(const T* __restrict__ g, const float* __restrict__ ds,
       });
 }
 
-// K1b pass (b): dx = A_strip @ daggc_tile, the prologue adjoint, dh and the
-// strip's [da | db] partials.
-template <typename T>
+// Backward pass (b): dx = A_strip @ daggc_tile. K1b then applies the
+// prologue adjoint and writes dh and the strip's [da | db] partials; K4b
+// writes dh = rnd(dx) (h, a, b and partial are not read).
+template <typename T, bool BN>
 __global__ void __launch_bounds__(NT)
-gine_bn_bwd_adj_kernel(const T* __restrict__ daggc, const T* __restrict__ h,
-                       const float* __restrict__ a,
-                       const float* __restrict__ b, const T* __restrict__ adj,
-                       T* __restrict__ dh, float* __restrict__ partial, int S,
-                       int D, int relu_in) {
+gine_bwd_adj_kernel(const T* __restrict__ daggc, const T* __restrict__ h,
+                    const float* __restrict__ a, const float* __restrict__ b,
+                    const T* __restrict__ adj, T* __restrict__ dh,
+                    float* __restrict__ partial, int S, int D, int relu_in) {
   extern __shared__ float smem[];
   const int strips = S / R;
   const int tile = blockIdx.x / strips, strip = blockIdx.x % strips;
@@ -257,7 +313,6 @@ gine_bn_bwd_adj_kernel(const T* __restrict__ daggc, const T* __restrict__ h,
   float* As = smem;              // [R, S]
   float* Bs = As + R * S;        // [KC, CW], epilogue scratch
   float* msk = Bs + KC * CW;     // [R]
-  float* prow = partial + (size_t)blockIdx.x * 2 * D;
 
   load_a_strip(adj, tile, strip, S, As, msk);
   strip_gemm(
@@ -266,72 +321,87 @@ gine_bn_bwd_adj_kernel(const T* __restrict__ daggc, const T* __restrict__ h,
       Identity(),
       [&](int c0, float (&acc)[TM][TN]) {
         const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-        float s[2][TN];
+        if constexpr (BN) {
+          float s[2][TN];
 #pragma unroll
-        for (int j = 0; j < TN; ++j) s[0][j] = s[1][j] = 0.f;
+          for (int j = 0; j < TN; ++j) s[0][j] = s[1][j] = 0.f;
 #pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const size_t r = row0 + warp * TM + i;
+          for (int i = 0; i < TM; ++i) {
+            const size_t r = row0 + warp * TM + i;
 #pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            const int c = c0 + lane + 32 * j;
-            if (c < D) {
-              const float hf = ld(h, r * D + c);
-              const float dx = acc[i][j];
-              const float dpre =
-                  (!relu_in || prologue(hf, a[c], b[c], 0) > 0.f) ? dx : 0.f;
-              st(dh, r * D + c, __fmul_rn(dpre, a[c]));
-              s[0][j] += dpre * hf;
-              s[1][j] += dpre;
+            for (int j = 0; j < TN; ++j) {
+              const int c = c0 + lane + 32 * j;
+              if (c < D) {
+                const float hf = ld(h, r * D + c);
+                const float dx = acc[i][j];
+                const float dpre =
+                    (!relu_in || prologue(hf, a[c], b[c], 0) > 0.f) ? dx
+                                                                    : 0.f;
+                st(dh, r * D + c, __fmul_rn(dpre, a[c]));
+                s[0][j] += dpre * hf;
+                s[1][j] += dpre;
+              }
             }
           }
+          float* prow = partial + (size_t)blockIdx.x * 2 * D;
+          float* const dst[2] = {prow, prow + D};
+          colsum_epilogue<2>(c0, s, D, Bs, dst);
+        } else {
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int j = 0; j < TN; ++j) {
+              const int c = c0 + lane + 32 * j;
+              if (c < D) st(dh, (row0 + warp * TM + i) * D + c, acc[i][j]);
+            }
         }
-        float* const dst[2] = {prow, prow + D};
-        colsum_epilogue<2>(c0, s, D, Bs, dst);
       });
 }
 
-template <typename T>
-static int gine_bn_fwd(const void* h, const float* a, const float* b,
-                       const void* adj, const void* cnt, const void* etab,
-                       const void* w1, const float* b1, const void* w2,
-                       const float* b2, void* out, void* agg, void* mid,
-                       float* partial, float* sums, int T_, int S, int D,
-                       int D2, int relu_in, void* stream) {
+// K1f (BN) or K4f: the strip kernel and, for K1f, the fixed-order sum of
+// the moment partials. a, b, partial and sums are null for K4f.
+template <typename T, bool BN>
+static int gine_fwd(const void* h, const float* a, const float* b,
+                    const void* adj, const void* cnt, const void* etab,
+                    const void* w1, const float* b1, const void* w2,
+                    const float* b2, void* out, void* agg, void* mid,
+                    float* partial, float* sums, int T_, int S, int D, int D2,
+                    int relu_in, void* stream) {
   if (T_ <= 0 || S <= 0 || S % R || D <= 0 || D2 <= 0)
     return (int)cudaErrorInvalidValue;
   const int nblk = T_ * (S / R);
   const int region = R * (S + CNT_PAD) > R * D2 ? R * (S + CNT_PAD) : R * D2;
   const size_t floats = (size_t)region + R * D + KC * CW + R;
   const size_t bytes = floats * sizeof(float);
-  cudaError_t e = set_smem(gine_bn_fwd_kernel<T>, bytes);
+  cudaError_t e = set_smem(gine_fwd_kernel<T, BN>, bytes);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
-  gine_bn_fwd_kernel<T><<<nblk, NT, bytes, st>>>(
+  gine_fwd_kernel<T, BN><<<nblk, NT, bytes, st>>>(
       (const T*)h, a, b, (const T*)adj, (const T*)cnt, (const T*)etab,
       (const T*)w1, b1, (const T*)w2, b2, (T*)out, (T*)agg, (T*)mid, partial,
       S, D, D2, relu_in);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return launch_sum_partials(partial, sums, nblk, 2 * D, st);
+  if constexpr (BN) return launch_sum_partials(partial, sums, nblk, 2 * D, st);
+  return 0;
 }
 
-// K1b: the three passes and the fixed-order sums. Scratch: w1t [D2, D],
-// w2t [D, D2], gtc, daggc [N, D], dmidc [N, D2] (T) and the partials.
-// Outputs: dh [N, D] (T); sums_rows [D2 + D] = [db1 | db2]; sums_adj
-// [2 D] = [da | db]; wgrad [D*D2 + D2*D + CNT_PAD*D] = [dW1 | dW2 | detab]
-// (f32).
-template <typename T>
-static int gine_bn_bwd(const void* g, const float* ds, const void* h,
-                       const float* a, const float* b, const void* adj,
-                       const void* cnt, const void* agg, const void* mid,
-                       const void* out, const void* w1, const void* w2,
-                       void* w1t, void* w2t, void* gtc, void* dmidc,
-                       void* daggc, float* part_rows,
-                       float* part_adj, float* part_w, void* dh,
-                       float* sums_rows, float* sums_adj, float* wgrad,
-                       int T_, int S, int D, int D2, int relu_in, int chunks,
-                       void* stream) {
+// K1b (BN) or K4b: the three passes and the fixed-order sums. Scratch: w1t
+// [D2, D], w2t [D, D2], gtc (K1b), daggc [N, D], dmidc [N, D2] (T) and the
+// partials. Outputs: dh [N, D] (T); sums_rows [D2 + D] = [db1 | db2];
+// sums_adj [2 D] = [da | db] (K1b); wgrad [D*D2 + D2*D + CNT_PAD*D] = [dW1
+// | dW2 | detab] (f32). K4b passes null for ds, h, a, b, out, gtc,
+// part_adj and sums_adj, and its dW2 multiplies g itself.
+template <typename T, bool BN>
+static int gine_bwd(const void* g, const float* ds, const void* h,
+                    const float* a, const float* b, const void* adj,
+                    const void* cnt, const void* agg, const void* mid,
+                    const void* out, const void* w1, const void* w2,
+                    void* w1t, void* w2t, void* gtc, void* dmidc, void* daggc,
+                    float* part_rows, float* part_adj, float* part_w,
+                    void* dh, float* sums_rows, float* sums_adj,
+                    float* wgrad, int T_, int S, int D, int D2, int relu_in,
+                    int chunks, void* stream) {
   if (T_ <= 0 || S <= 0 || S % R || D <= 0 || D2 <= 0 || chunks <= 0)
     return (int)cudaErrorInvalidValue;
   const int nblk = T_ * (S / R);
@@ -344,24 +414,24 @@ static int gine_bn_bwd(const void* g, const float* ds, const void* h,
 
   const size_t bytes_rows =
       ((size_t)R * D + (size_t)R * D2 + KC * CW + R) * sizeof(float);
-  cudaError_t e = set_smem(gine_bn_bwd_rows_kernel<T>, bytes_rows);
+  cudaError_t e = set_smem(gine_bwd_rows_kernel<T, BN>, bytes_rows);
   if (e != cudaSuccess) return (int)e;
-  gine_bn_bwd_rows_kernel<T><<<nblk, NT, bytes_rows, st>>>(
+  gine_bwd_rows_kernel<T, BN><<<nblk, NT, bytes_rows, st>>>(
       (const T*)g, ds, (const T*)adj, (const T*)mid, (const T*)out,
       (const T*)w1t, (const T*)w2t, (T*)gtc, (T*)dmidc, (T*)daggc, part_rows,
       S, D, D2);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   const size_t bytes_adj = ((size_t)R * S + KC * CW + R) * sizeof(float);
-  e = set_smem(gine_bn_bwd_adj_kernel<T>, bytes_adj);
+  e = set_smem(gine_bwd_adj_kernel<T, BN>, bytes_adj);
   if (e != cudaSuccess) return (int)e;
-  gine_bn_bwd_adj_kernel<T><<<nblk, NT, bytes_adj, st>>>(
+  gine_bwd_adj_kernel<T, BN><<<nblk, NT, bytes_adj, st>>>(
       (const T*)daggc, (const T*)h, a, b, (const T*)adj, (T*)dh, part_adj, S,
       D, relu_in);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   const AtB p_w1 = {agg, dmidc, D, D2, 0};
-  const AtB p_w2 = {mid, gtc, D2, D, D * D2};
+  const AtB p_w2 = {mid, BN ? (const void*)gtc : g, D2, D, D * D2};
   const AtB p_et = {cnt, daggc, CNT_PAD, D, 2 * D * D2};
   const int width = 2 * D * D2 + CNT_PAD * D;
   int rows_per_chunk = (N + chunks - 1) / chunks;
@@ -374,8 +444,10 @@ static int gine_bn_bwd(const void* g, const float* ds, const void* h,
 
   if ((err = launch_sum_partials(part_rows, sums_rows, nblk, D2 + D, st)))
     return err;
-  err = launch_sum_partials(part_adj, sums_adj, nblk, 2 * D, st);
-  if (err) return err;
+  if constexpr (BN) {
+    err = launch_sum_partials(part_adj, sums_adj, nblk, 2 * D, st);
+    if (err) return err;
+  }
   return launch_sum_partials(part_w, wgrad, chunks, width, st);
 }
 
@@ -393,9 +465,9 @@ int fbl_strip_rows() { return fbl::R; }
                            const float* b2, void* out, void* agg, void* mid, \
                            float* partial, float* sums, int T_, int S,      \
                            int D, int D2, int relu_in, void* stream) {      \
-    return fbl::gine_bn_fwd<T>(h, a, b, adj, cnt, etab, w1, b1, w2, b2, out, \
-                               agg, mid, partial, sums, T_, S, D, D2,       \
-                               relu_in, stream);                            \
+    return fbl::gine_fwd<T, true>(h, a, b, adj, cnt, etab, w1, b1, w2, b2,  \
+                                  out, agg, mid, partial, sums, T_, S, D,   \
+                                  D2, relu_in, stream);                     \
   }
 
 #define GINE_BN_BWD(suffix, T)                                              \
@@ -404,20 +476,51 @@ int fbl_strip_rows() { return fbl::R; }
       const float* b, const void* adj, const void* cnt, const void* agg,    \
       const void* mid, const void* out, const void* w1, const void* w2,     \
       void* w1t, void* w2t, void* gtc, void* dmidc, void* daggc,            \
-      float* part_rows,                                                     \
-      float* part_adj, float* part_w, void* dh, float* sums_rows,           \
-      float* sums_adj, float* wgrad, int T_, int S, int D, int D2,          \
-      int relu_in, int chunks, void* stream) {                              \
-    return fbl::gine_bn_bwd<T>(g, ds, h, a, b, adj, cnt, agg, mid, out, w1, \
-                               w2, w1t, w2t, gtc, dmidc, daggc, part_rows,  \
-                               part_adj,                                    \
-                               part_w, dh, sums_rows, sums_adj, wgrad, T_,  \
-                               S, D, D2, relu_in, chunks, stream);          \
+      float* part_rows, float* part_adj, float* part_w, void* dh,           \
+      float* sums_rows, float* sums_adj, float* wgrad, int T_, int S,       \
+      int D, int D2, int relu_in, int chunks, void* stream) {               \
+    return fbl::gine_bwd<T, true>(g, ds, h, a, b, adj, cnt, agg, mid, out,  \
+                                  w1, w2, w1t, w2t, gtc, dmidc, daggc,      \
+                                  part_rows, part_adj, part_w, dh,          \
+                                  sums_rows, sums_adj, wgrad, T_, S, D, D2, \
+                                  relu_in, chunks, stream);                 \
+  }
+
+// K4f: out (and the residuals agg, mid when not null) of the unchained
+// layer.
+#define GINE_FWD(suffix, T)                                                 \
+  int gine_fwd_##suffix(const void* h, const void* adj, const void* cnt,    \
+                        const void* etab, const void* w1, const float* b1,  \
+                        const void* w2, const float* b2, void* out,         \
+                        void* agg, void* mid, int T_, int S, int D, int D2, \
+                        void* stream) {                                     \
+    return fbl::gine_fwd<T, false>(h, nullptr, nullptr, adj, cnt, etab, w1, \
+                                   b1, w2, b2, out, agg, mid, nullptr,      \
+                                   nullptr, T_, S, D, D2, 0, stream);       \
+  }
+
+// K4b: dh, [db1 | db2] and [dW1 | dW2 | detab] of the unchained layer.
+#define GINE_BWD(suffix, T)                                                 \
+  int gine_bwd_##suffix(const void* g, const void* adj, const void* cnt,    \
+                        const void* agg, const void* mid, const void* w1,   \
+                        const void* w2, void* w1t, void* w2t, void* dmidc,  \
+                        void* daggc, float* part_rows, float* part_w,       \
+                        void* dh, float* sums_rows, float* wgrad, int T_,   \
+                        int S, int D, int D2, int chunks, void* stream) {   \
+    return fbl::gine_bwd<T, false>(                                         \
+        g, nullptr, nullptr, nullptr, nullptr, adj, cnt, agg, mid, nullptr, \
+        w1, w2, w1t, w2t, nullptr, dmidc, daggc, part_rows, nullptr,        \
+        part_w, dh, sums_rows, nullptr, wgrad, T_, S, D, D2, 0, chunks,     \
+        stream);                                                            \
   }
 
 GINE_BN_FWD(f32, float)
 GINE_BN_FWD(bf16, __nv_bfloat16)
 GINE_BN_BWD(f32, float)
 GINE_BN_BWD(bf16, __nv_bfloat16)
+GINE_FWD(f32, float)
+GINE_FWD(bf16, __nv_bfloat16)
+GINE_BWD(f32, float)
+GINE_BWD(bf16, __nv_bfloat16)
 
 }  // extern "C"

@@ -1,6 +1,12 @@
 """GIN / GCN encoders (PyTorch) with the reference's state-dict schema."""
 
 from molclr_tpu_torch.models.layers import GCNConv, GINEConv, MaskedBatchNorm
-from molclr_tpu_torch.models.nets import MolCLRNet
+from molclr_tpu_torch.models.nets import (
+    Encoder,
+    FineTuneNet,
+    MolCLRNet,
+    MotifFineTuneNet,
+)
 
-__all__ = ["GCNConv", "GINEConv", "MaskedBatchNorm", "MolCLRNet"]
+__all__ = ["Encoder", "FineTuneNet", "GCNConv", "GINEConv",
+           "MaskedBatchNorm", "MolCLRNet", "MotifFineTuneNet"]

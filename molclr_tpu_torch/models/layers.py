@@ -13,9 +13,11 @@ reference state dict loads directly:
   BatchNorm torch BatchNorm1d semantics (eps 1e-5, momentum 0.1, biased
             variance to normalize, unbiased in the running stats) over
             real nodes only.
-Each conv runs only in the BN-chained mode: it takes the previous
-BatchNorm's affine (a, b, relu_in) as its prologue and returns its output
-with the masked moments that feed the next MaskedBatchNorm.
+Each conv has two fused modes, as in the JAX package: BN-chained (it takes
+the previous BatchNorm's affine (a, b, relu_in) as its prologue and returns
+its output with the masked moments that feed the next MaskedBatchNorm),
+and unchained (one fused layer call; BatchNorm, relu and dropout follow
+outside the kernel), which the trunk runs when drop_ratio > 0.
 """
 
 from __future__ import annotations
@@ -24,8 +26,17 @@ import torch
 from torch import nn
 
 from molclr_tpu_torch.data.featurize import NUM_BOND_DIRS, NUM_BOND_TYPES
-from molclr_tpu_torch.ops.fused_gcn import fused_gcn_bn_layer, pack_gcn_etab
-from molclr_tpu_torch.ops.fused_layer import fused_gine_bn_layer, pack_etab
+from molclr_tpu_torch.ops.fused_gcn import (
+    fused_gcn_bn_layer,
+    fused_gcn_layer,
+    pack_gcn_etab,
+)
+from molclr_tpu_torch.ops.fused_layer import (
+    fused_gine_bn_layer,
+    fused_gine_layer,
+    pack_etab,
+)
+from molclr_tpu_torch.ops.tile_dense import gcn_edge_term
 
 
 @torch.no_grad()
@@ -48,13 +59,18 @@ def reset_linear_(lin: nn.Linear, generator=None) -> nn.Linear:
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm1d in coefficient mode for the BN-chained fused kernels.
+    """BatchNorm1d over the real nodes, with the JAX package's two modes.
 
-    forward((total, total_sq, count)) takes the masked moments the previous
-    kernel accumulated and returns the f32 affine pair (a, b) with
-    normalize(x) == x * a + b. Training mode takes the statistics from the
-    moments and updates the running stats in place; eval mode uses the
-    running stats."""
+    bn(x, mask)               classic: statistics from the rows of x where
+                              mask is True; returns the normalized x, zero
+                              on the other rows (the unchained trunk).
+    bn((total, total_sq, count))
+                              coefficient mode for the BN-chained kernels:
+                              statistics from the masked moments the
+                              previous kernel accumulated; returns the f32
+                              affine pair (a, b) with normalize(x) == x*a+b.
+    Training mode takes the batch statistics and updates the running stats
+    in place; eval mode uses the running stats."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -68,8 +84,9 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
 
-    def forward(self, moments):
-        total, total_sq, count = moments
+    def _mean_inv(self, total, total_sq, count):
+        """(mean, 1 / sqrt(var + eps)) of the batch in training mode (and
+        the running-stat update), of the running stats in eval mode."""
         if self.training:
             count = torch.clamp(count, min=1.0)
             mean = total / count
@@ -84,12 +101,26 @@ class MaskedBatchNorm(nn.Module):
                 self.num_batches_tracked += 1
         else:
             mean, var = self.running_mean, self.running_var
-        a = torch.rsqrt(var + self.eps) * self.weight
-        return a, self.bias - mean * a
+        return mean, torch.rsqrt(var + self.eps)
+
+    def forward(self, x, mask=None):
+        if isinstance(x, tuple):
+            mean, inv = self._mean_inv(*x)
+            a = inv * self.weight
+            return a, self.bias - mean * a
+        m = mask.float()[:, None]
+        xf = x.float()
+        mean, inv = self._mean_inv((xf * m).sum(dim=0),
+                                   (xf ** 2 * m).sum(dim=0), m.sum())
+        # the JAX package's casts: a bf16 x meets the f32 scale and bias,
+        # so the result is f32
+        y = (x - mean.to(x.dtype)) * (inv.to(x.dtype) * self.weight) \
+            + self.bias
+        return torch.where(mask[:, None], y, 0)
 
 
 class GINEConv(nn.Module):
-    """GINE convolution (no epsilon), BN-chained fused mode only."""
+    """GINE convolution (no epsilon) in its two fused modes."""
 
     def __init__(self, emb_dim: int, generator=None):
         super().__init__()
@@ -103,24 +134,29 @@ class GINEConv(nn.Module):
         xavier_uniform_(self.edge_embedding1.weight, generator)
         xavier_uniform_(self.edge_embedding2.weight, generator)
 
-    def forward(self, h, adj, cnt, bn_in):
-        """h [N, D] raw previous conv output; adj/cnt from the trunk;
-        bn_in = (a, b, relu_in) of the previous BatchNorm. Returns
-        (out [N, D], sums [2, D])."""
-        a, b, relu_in = bn_in
+    def forward(self, h, adj, cnt, bn_in=None):
+        """h [N, D]; adj/cnt from the trunk. With bn_in = (a, b, relu_in)
+        of the previous BatchNorm (h its raw input) the BN-chained kernel
+        runs and returns (out [N, D], sums [2, D]); without it the
+        unchained kernel returns out [N, D]. Both compute in h's dtype."""
         dt = h.dtype
         lin0, lin1 = self.mlp[0], self.mlp[2]
-        return fused_gine_bn_layer(
-            h, a, b, adj, cnt.to(dt),
-            pack_etab(self.edge_embedding1.weight,
-                      self.edge_embedding2.weight, dt),
-            lin0.weight.t().to(dt).contiguous(), lin0.bias.float(),
-            lin1.weight.t().to(dt).contiguous(), lin1.bias.float(), relu_in)
+        etab = pack_etab(self.edge_embedding1.weight,
+                         self.edge_embedding2.weight, dt)
+        w1 = lin0.weight.t().to(dt).contiguous()
+        w2 = lin1.weight.t().to(dt).contiguous()
+        if bn_in is None:
+            return fused_gine_layer(h, adj.to(dt), cnt.to(dt), etab, w1,
+                                    lin0.bias.float(), w2, lin1.bias.float())
+        a, b, relu_in = bn_in
+        return fused_gine_bn_layer(h, a, b, adj, cnt.to(dt), etab, w1,
+                                   lin0.bias.float(), w2, lin1.bias.float(),
+                                   relu_in)
 
 
 class GCNConv(nn.Module):
-    """GCN convolution with scalar edge embeddings, BN-chained fused mode
-    only (normalize=False, the reference's quirk Q2)."""
+    """GCN convolution with scalar edge embeddings in its two fused modes
+    (normalize=False, the reference's quirk Q2)."""
 
     def __init__(self, emb_dim: int, generator=None):
         super().__init__()
@@ -135,11 +171,17 @@ class GCNConv(nn.Module):
         xavier_uniform_(self.edge_embedding1.weight, generator)
         xavier_uniform_(self.edge_embedding2.weight, generator)
 
-    def forward(self, h, adj, cnt, bn_in):
-        a, b, relu_in = bn_in
+    def forward(self, h, adj, cnt, bn_in=None):
+        """As GINEConv.forward. The unchained mode runs A @ (h @ W) as one
+        kernel call and adds the scalar edge term and the bias outside it,
+        in h's dtype, as the JAX package does."""
         dt = h.dtype
+        e1, e2 = self.edge_embedding1.weight, self.edge_embedding2.weight
+        w = self.weight.to(dt).contiguous()
+        if bn_in is None:
+            out = fused_gcn_layer(h, adj.to(dt), w)
+            return out + gcn_edge_term(e1, e2, cnt, dt) + self.bias.to(dt)
+        a, b, relu_in = bn_in
         return fused_gcn_bn_layer(
-            h, a, b, adj, cnt.to(dt),
-            pack_gcn_etab(self.edge_embedding1.weight,
-                          self.edge_embedding2.weight, h.shape[1], dt),
-            self.weight.to(dt).contiguous(), self.bias.float(), relu_in)
+            h, a, b, adj, cnt.to(dt), pack_gcn_etab(e1, e2, h.shape[1], dt),
+            w, self.bias.float(), relu_in)

@@ -1,8 +1,8 @@
 """Tile-dense neighborhood aggregation: block-diagonal adjacency matmuls.
 
 Port of molclr_tpu/ops/tile_dense.py (`build_tile_adjacency`,
-`tile_matmul`). When every molecule sits inside one `tile`-node block
-(PadSpec.tile), the batch adjacency is block-diagonal and aggregation is
+`tile_matmul`, `gcn_edge_term`). When every molecule sits inside one
+`tile`-node block (PadSpec.tile), the batch adjacency is block-diagonal and aggregation is
 the batched matmul  out.view(T, tile, D) = A @ h.view(T, tile, D)  with
 A: [T, tile, tile], symmetric per block (undirected bonds + slot-0
 self-loop).
@@ -42,3 +42,18 @@ def tile_matmul(adj: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     t, s, _ = adj.shape
     out = torch.bmm(adj.float(), h.float().reshape(t, s, h.shape[-1]))
     return out.reshape(h.shape).to(h.dtype)
+
+
+def gcn_edge_term(t_type: torch.Tensor, t_dir: torch.Tensor,
+                  cnt: torch.Tensor, dtype) -> torch.Tensor:
+    """The [N, 1] scalar edge-embedding sum of GCN aggregation: over each
+    node's incident edges, Emb1(bond_type) + Emb2(bond_dir). cnt is the
+    trunk's packed count matrix [N, CNT_PAD] (bond-type counts ++ bond-dir
+    counts ++ zeros, ops/fused_layer.pack_cnt), the `_counts` the JAX
+    function builds from the same mask. Each product is accumulated in f32
+    and cast to `dtype`, then the two are added in `dtype`. The symmetric
+    normalization (normalize_gcn) is not ported."""
+    nt, nd = t_type.shape[0], t_dir.shape[0]
+    cf = cnt.float()
+    return ((cf[:, :nt] @ t_type.to(dtype).float()).to(dtype)
+            + (cf[:, nt:nt + nd] @ t_dir.to(dtype).float()).to(dtype))

@@ -6,10 +6,12 @@ reference torch state-dict schema, so a .pth needs no renaming;
 `transfer_state` reproduces load_my_state_dict (ref
 models/ginet_finetune.py:149-157). `state_dict_from_jax` is the inverse of
 the JAX package's import_torch_params: it turns a Flax (params,
-batch_stats) tree of numpy arrays into this schema. Full training state
-(model, optimizer, step, epoch) is one torch file `step_<step>.pt` per
-checkpoint, where the JAX package writes an Orbax directory `step_<step>`;
-Orbax directories are not read yet.
+batch_stats) tree of numpy arrays, of any of the networks, into this
+schema. Full training state (model, optimizer, step, epoch) is one torch
+file `step_<step>.pt` per checkpoint, where the JAX package writes an
+Orbax directory `step_<step>`; Orbax directories are not read yet.
+`resolve_pretrained` and `load_pretrained_state` find and read a
+fine-tuning warm start: a reference .pth or the port's own step_<n>.pt.
 """
 
 from __future__ import annotations
@@ -46,12 +48,15 @@ def transfer_state(src: dict, model: torch.nn.Module) -> dict:
 
 def state_dict_from_jax(params: dict, batch_stats: dict | None = None
                         ) -> dict[str, torch.Tensor]:
-    """Flax MolCLRNet trees (numpy leaves) -> the port's state dict.
+    """Flax MolCLRNet / FineTuneNet / MotifFineTuneNet trees (numpy
+    leaves) -> the port's state dict.
 
     Dense kernels [in, out] are transposed to torch Linear weights
     [out, in]; the GCN `weight` (used as x @ W) is kept as it is; BatchNorm
-    scale/bias/mean/var become weight/bias/running_mean/running_var. The
-    number of layers and the conv type are read from the tree."""
+    scale/bias/mean/var become weight/bias/running_mean/running_var;
+    pred_i / pred_out become pred_head.{2i} (pred_out last), motif_gate
+    motif_pool.gate_nn.0. The number of layers, the conv type and the head
+    depth are read from the tree."""
     def t(a):
         return torch.tensor(np.ascontiguousarray(np.asarray(a)))
 
@@ -79,11 +84,19 @@ def state_dict_from_jax(params: dict, batch_stats: dict | None = None
             sbn = batch_stats["trunk"][f"bn_{i}"]
             state[f"batch_norms.{i}.running_mean"] = t(sbn["mean"])
             state[f"batch_norms.{i}.running_var"] = t(sbn["var"])
-    for name, key in (("feat_lin", "feat_lin"), ("out_lin_0", "out_lin.0"),
-                      ("out_lin_1", "out_lin.2")):
+    dense = [("feat_lin", "feat_lin"), ("out_lin_0", "out_lin.0"),
+             ("out_lin_1", "out_lin.2"), ("motif_lin", "motif_lin"),
+             ("motif_gate", "motif_pool.gate_nn.0")]
+    hidden = sorted(int(k.split("_")[1]) for k in params
+                    if k.startswith("pred_") and k != "pred_out")
+    dense += [(f"pred_{i}", f"pred_head.{2 * i}") for i in hidden]
+    dense.append(("pred_out", f"pred_head.{2 * len(hidden)}"))
+    for name, key in dense:
         if name in params:
             state[f"{key}.weight"] = t(np.asarray(params[name]["kernel"]).T)
             state[f"{key}.bias"] = t(params[name]["bias"])
+    if "motif_embedding" in params:
+        state["motif_embedding.weight"] = t(params["motif_embedding"])
     return state
 
 
@@ -112,3 +125,38 @@ def latest_checkpoint(directory: str) -> str | None:
     if not steps:
         return None
     return os.path.join(directory, f"step_{max(steps)}.pt")
+
+
+def resolve_pretrained(path: str) -> str:
+    """Resolve a warm-start spec to a loadable checkpoint path, as the JAX
+    package does: everything the reference's `fine_tune_from` key accepts
+    (a bare name is ./ckpt/<name>/checkpoints/model.pth, finetune.py:249),
+    an explicit file, or a directory holding step_<n>.pt files (the newest
+    is taken)."""
+    if not path:
+        return path
+    for cand in (path, os.path.join(path, "checkpoints", "model.pth"),
+                 os.path.join("ckpt", path, "checkpoints", "model.pth")):
+        if os.path.exists(cand):
+            if os.path.isdir(cand):
+                latest = latest_checkpoint(cand)
+                if latest is not None:
+                    return latest
+            return cand
+    return path
+
+
+def load_pretrained_state(path: str) -> dict[str, torch.Tensor]:
+    """The model state dict of a warm start: a reference .pth state dict,
+    or the model of a full-state step_<n>.pt written by the port's
+    pretraining. A directory (an Orbax checkpoint of the JAX package)
+    raises NotImplementedError."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a directory: Orbax checkpoints of the JAX package "
+            f"are not read yet; pass a .pth or a step_<n>.pt")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"pretrained checkpoint not found: {path!r}")
+    if _STEP_FILE.match(os.path.basename(path)):
+        return load_checkpoint(path)["model"]
+    return load_torch_state_dict(path)

@@ -1,10 +1,11 @@
 """Typed configuration, YAML-compatible with the reference config keys.
 
 Port of molclr_tpu/train/config.py (`ModelConfig`, `PretrainConfig`,
-`pretrain_from_yaml`), cut to the options the port runs: one card, the
-host streaming path. The YAML keys and the value names (`ntxent_impl`
-'auto' / 'xla' / 'pallas') are the JAX package's, so one file serves both
-packages; keys for options the port does not have are ignored.
+`pretrain_from_yaml`, `FineTuneConfig`, `finetune_from_yaml`), cut to the
+options the port runs: one card, the host streaming path. The YAML keys
+and the value names (`ntxent_impl` 'auto' / 'xla' / 'pallas') are the JAX
+package's, so one file serves both packages; keys for options the port
+does not have are ignored.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ class ModelConfig:
     feat_dim: int = 512
     drop_ratio: float = 0.0
     pool: str = "mean"
+    pred_n_layer: int = 2           # fine-tune prediction head depth
+    pred_act: str = "softplus"      # 'softplus' | 'relu'
     normalize_gcn: bool = False     # True fixes quirk Q2 (not ported yet)
     bf16: bool = False              # bfloat16 activations (params stay f32)
     tile: int = 256                 # tile-dense aggregation, tile-aligned
@@ -63,10 +66,51 @@ class PretrainConfig:
                                     # 0, order reshuffled) up to this size
 
 
+@dataclass
+class FineTuneConfig:
+    task_name: str = "BBBP"
+    data_root: str = "data"
+    batch_size: int = 32            # config_finetune.yaml:1
+    epochs: int = 100
+    init_lr: float = 5e-4           # head LR, config_finetune.yaml:7
+    init_base_lr: float = 1e-4      # encoder LR, config_finetune.yaml:8
+    weight_decay: float = 1e-6
+    model: ModelConfig = field(
+        default_factory=lambda: ModelConfig(drop_ratio=0.3))
+    pretrained: str = ""            # .pth, the port's step_<n>.pt, or a
+                                    # directory holding either
+    use_motifs: bool = False        # the fork's motif-MP head
+    max_motifs_per_mol: int = 12
+    valid_size: float = 0.1
+    test_size: float = 0.1
+    splitting: str = "scaffold"     # config_finetune.yaml:27
+    score_mode: str = "softmax"     # 'softmax' | 'logit1' (quirk Q7)
+    max_degree: int = 6
+    seed: int = 0
+    ckpt_dir: str = "runs/finetune"
+    synthetic_n: int = 2000         # rows when fabricating a missing CSV
+    synthetic_fallback: bool = False  # opt-in: fabricate a synthetic CSV
+                                    # when the task CSV is absent; results
+                                    # are then stamped synthetic=true
+    n_seeds: int = 1                # > 1 (the JAX package's vmapped seed
+                                    # ensemble) is not ported and raises
+
+
 _REF_MODEL_KEYS = {"num_layer": "num_layers", "drop_ratio": "drop_ratio",
                    "emb_dim": "emb_dim", "feat_dim": "feat_dim",
-                   "pool": "pool"}
+                   "pool": "pool", "pred_n_layer": "pred_n_layer",
+                   "pred_act": "pred_act"}
 _EXT_MODEL_KEYS = ("tile", "bf16", "normalize_gcn", "gnn_type")
+
+
+def _apply_model_keys(model_cfg: ModelConfig, raw: dict) -> None:
+    model = raw.get("model", {})
+    for src, dst in _REF_MODEL_KEYS.items():
+        if src in model:
+            setattr(model_cfg, dst, model[src])
+    for k in _EXT_MODEL_KEYS:
+        if k in model:
+            setattr(model_cfg, k, model[k])
 
 
 def pretrain_from_yaml(path: str) -> PretrainConfig:
@@ -94,13 +138,7 @@ def pretrain_from_yaml(path: str) -> PretrainConfig:
         cfg.model.gnn_type = raw["model_type"]
     if "load_model" in raw and raw["load_model"] not in (None, "None"):
         cfg.resume_from = str(raw["load_model"])
-    model = raw.get("model", {})
-    for src, dst in _REF_MODEL_KEYS.items():
-        if src in model:
-            setattr(cfg.model, dst, model[src])
-    for k in _EXT_MODEL_KEYS:
-        if k in model:
-            setattr(cfg.model, k, model[k])
+    _apply_model_keys(cfg.model, raw)
     loss = raw.get("loss", {})
     if "temperature" in loss:
         cfg.temperature = float(loss["temperature"])
@@ -113,6 +151,38 @@ def pretrain_from_yaml(path: str) -> PretrainConfig:
     for k in ("data_path", "ckpt_dir"):
         if k in raw:
             setattr(cfg, k, raw[k])
+    return cfg
+
+
+def finetune_from_yaml(path: str) -> FineTuneConfig:
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    cfg = FineTuneConfig()
+    for k in ("task_name", "batch_size", "epochs", "seed", "data_root",
+              "use_motifs", "splitting", "score_mode", "ckpt_dir"):
+        if k in raw:
+            setattr(cfg, k, raw[k])
+    for k in ("init_lr", "init_base_lr", "weight_decay"):
+        if k in raw:
+            setattr(cfg, k, float(raw[k]))
+    if raw.get("fp16_precision"):
+        cfg.model.bf16 = True
+    if "model_type" in raw:
+        cfg.model.gnn_type = raw["model_type"]
+    if "fine_tune_from" in raw and raw["fine_tune_from"] \
+            not in (None, "None", ""):
+        # reference semantics: a bare name is a subdirectory of ./ckpt,
+        # resolved by checkpoints.resolve_pretrained at load time
+        cfg.pretrained = str(raw["fine_tune_from"])
+    if "pretrained" in raw:
+        cfg.pretrained = str(raw["pretrained"])
+    _apply_model_keys(cfg.model, raw)
+    ds = raw.get("dataset", {})
+    for k in ("valid_size", "test_size", "splitting"):
+        if k in ds:
+            setattr(cfg, k, ds[k])
     return cfg
 
 

@@ -281,3 +281,125 @@ def test_embed_cli_on_card_matches_cpu(cuda, tmp_path, gnn):
     emb, ref = np.load(tmp_path / "g.npy"), np.load(tmp_path / "c.npy")
     assert emb.shape == ref.shape == (40, 64)
     assert np.abs(emb - ref).max() <= 1e-4 * max(1.0, np.abs(ref).max())
+
+
+# ----------------------------------------------- the unchained layers K4, K5
+
+
+@pytest.mark.parametrize("shape", [(4, 64, 40, 9), (3, 16, 37, 5),
+                                   (2, 256, 300, 100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unchained_gine_kernels_match_plain(cuda, shape, dtype):
+    """K4f (with and without residuals) and K4b against their plain
+    versions on the card, with random cotangents; two runs bit-identical,
+    one launch counted per call."""
+    dt = getattr(torch, dtype)
+    x, pg, _ = _problem(sum(shape) + 2, *shape)
+    x, p = _to(x, cuda, dt), _to(pg, cuda, dt)
+    args = (x["h"], x["adj"], x["cnt"], p["etab"], p["w1"], p["b1"],
+            p["w2"], p["b2"])
+    rtol = 1e-4 if dt == torch.float32 else 3e-2
+    before = fused_layer.fused_gine_layer.launches
+    res = fused_layer.fused_gine_layer_fwd(*args, residuals=True)
+    res2 = fused_layer.fused_gine_layer_fwd(*args, residuals=True)
+    lean = fused_layer.fused_gine_layer_fwd(*args, residuals=False)
+    ref = fused_layer.fused_gine_layer_fwd_plain(*args)
+    torch.cuda.synchronize()
+    assert fused_layer.fused_gine_layer.launches == before + 3
+    assert lean[1] is None and torch.equal(lean[0], res[0])
+    for name, a, b, c in zip(("out", "agg", "mid"), res, res2, ref):
+        assert a.dtype == dt and a.shape == c.shape, name
+        err = (a.float() - c.float()).abs().max().item()
+        assert err <= rtol * c.float().abs().max().item(), (name, err)
+        assert torch.equal(a, b), name
+    out, agg, mid = res
+    gen = torch.Generator().manual_seed(sum(shape))
+    g = torch.randn(out.shape, generator=gen).to(cuda, dt)
+    bargs = (g, x["adj"], x["cnt"], agg, mid, p["w1"], p["w2"])
+    before = fused_layer.fused_gine_layer_bwd.launches
+    got = fused_layer.fused_gine_layer_bwd(*bargs)
+    again = fused_layer.fused_gine_layer_bwd(*bargs)
+    want = fused_layer.fused_gine_layer_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    assert fused_layer.fused_gine_layer_bwd.launches == before + 2
+    for name, a, b, c in zip(("dh", "dw1", "db1", "dw2", "db2", "detab"),
+                             got, again, want):
+        assert a.dtype == c.dtype and a.shape == c.shape, name
+        err = (a.float() - c.float()).abs().max().item()
+        assert err <= rtol * c.float().abs().max().item(), (name, err)
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("shape", [(4, 64, 40, 9), (3, 16, 37, 5),
+                                   (2, 256, 300, 100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unchained_gcn_kernels_match_plain(cuda, shape, dtype):
+    """K5f and K5b against their plain versions on the card; two runs
+    bit-identical, one launch counted per call."""
+    dt = getattr(torch, dtype)
+    x, _, pc = _problem(sum(shape) + 3, *shape)
+    x, p = _to(x, cuda, dt), _to(pc, cuda, dt)
+    rtol = 1e-4 if dt == torch.float32 else 3e-2
+    before = fused_gcn.fused_gcn_layer.launches
+    out = fused_gcn.fused_gcn_layer_fwd(x["h"], x["adj"], p["w"])
+    out2 = fused_gcn.fused_gcn_layer_fwd(x["h"], x["adj"], p["w"])
+    ref = fused_gcn.fused_gcn_layer_plain(x["h"], x["adj"], p["w"])
+    torch.cuda.synchronize()
+    assert fused_gcn.fused_gcn_layer.launches == before + 2
+    assert out.dtype == dt and torch.equal(out, out2)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= rtol * ref.float().abs().max().item()
+    gen = torch.Generator().manual_seed(sum(shape))
+    g = torch.randn(out.shape, generator=gen).to(cuda, dt)
+    before = fused_gcn.fused_gcn_layer_bwd.launches
+    got = fused_gcn.fused_gcn_layer_bwd(g, x["h"], x["adj"], p["w"])
+    again = fused_gcn.fused_gcn_layer_bwd(g, x["h"], x["adj"], p["w"])
+    want = fused_gcn.fused_gcn_layer_bwd_plain(g, x["h"], x["adj"], p["w"])
+    torch.cuda.synchronize()
+    assert fused_gcn.fused_gcn_layer_bwd.launches == before + 2
+    for name, a, b, c in zip(("dx", "dw"), got, again, want):
+        assert a.dtype == c.dtype and a.shape == c.shape, name
+        err = (a.float() - c.float()).abs().max().item()
+        assert err <= rtol * c.float().abs().max().item(), (name, err)
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("gnn", ["gin", "gcn"])
+def test_finetune_trunk_gets_gradients_on_card(cuda, gnn):
+    """A train-mode FineTuneNet step (drop_ratio 0.3, the unchained trunk)
+    on the card gives every parameter a gradient through K4b / K5b (one
+    launch per layer), equal to the CPU's with the same dropout masks
+    within 1e-3 of its max (+1e-6, as above); all are non-zero but the
+    conv output biases, whose exact gradient is 0 ahead of a BatchNorm."""
+    from molclr_tpu_torch.models import FineTuneNet
+    from molclr_tpu_torch.train.finetune import compute_loss
+
+    layers, d = 3, 32
+    smiles = synthetic_corpus(24, seed=6)
+    gp = [featurize_smiles(s, add_hs=True) for s in smiles]
+    batch = pack_batch(gp, spec_for_graphs(gp, 24, tile=64, sizing="max"))
+    gen = torch.Generator().manual_seed(4)
+    n = batch.nbr.shape[0]
+    masks = [torch.rand(n, d, generator=gen) < 0.7 for _ in range(layers)]
+    labels = torch.randint(0, 2, (24,), generator=gen).float()
+    kern = (fused_layer.fused_gine_layer_bwd if gnn == "gin"
+            else fused_gcn.fused_gcn_layer_bwd)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        model = FineTuneNet(num_layers=layers, emb_dim=d, feat_dim=64,
+                            gnn_type=gnn, drop_ratio=0.3, tile=64,
+                            generator=torch.Generator().manual_seed(2))
+        model = model.to(dev).train()
+        b = batch.to(dev)
+        before = kern.launches
+        _, pred = model(b, dropout_masks=[m.to(dev) for m in masks])
+        compute_loss(pred, labels.to(dev), b.graph_mask, "ce").backward()
+        if dev.type == "cuda":
+            assert kern.launches == before + layers
+        grads.append({k: p.grad.cpu() for k, p in model.named_parameters()})
+    for k, g in grads[0].items():
+        ref = grads[1][k]
+        assert (g - ref).abs().max() <= 1e-3 * ref.abs().max() + 1e-6, k
+        if not (k.endswith("mlp.2.bias") or (gnn == "gcn" and k.startswith(
+                "gnns.") and k.endswith(".bias"))):
+            assert g.abs().max() > 0, k

@@ -161,8 +161,11 @@ def test_transfer_state_copies_matching_shapes_only():
 
 
 @pytest.mark.parametrize("option", [
-    dict(tile=0), dict(normalize_gcn=True), dict(drop_ratio=0.1)])
+    dict(tile=0), dict(normalize_gcn=True),
+    dict(gnn_type="gcn", normalize_gcn=True)])
 def test_unported_options_raise(option):
+    # (drop_ratio > 0, the unchained trunk, is ported: it is held to the
+    # JAX package in tests/test_torch_port_finetune.py)
     with pytest.raises(NotImplementedError):
         MolCLRNet(**{**SMALL, **option})
 
