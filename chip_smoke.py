@@ -66,6 +66,26 @@ prints no result line):
               2 epochs in a temporary working directory: GIN warm-started
               from phase 7's step_<n>.pt, then --model gcn, then --motifs;
               every RESULT metric finite, every row stamped synthetic.
+ 11. GCN training kernels, at the pretraining shape (phase 4's batch, T =
+              22): K3f and K3b (fused_gcn_bn_layer's backward) against
+              their plain versions in f32 and bf16, relu_in False and True;
+              two runs bit-identical; kernel, plain and library times.
+ 12. GCN step: GCN pretraining at full width (5 x 300 / 512, B = 512, node
+              augmentation, ntxent 'auto'): 3 card-vs-CPU steps in f32 and
+              in bf16 with phase 5's limits, K3f 10 and K3b 10 launches per
+              step and no other kernel; two identical card steps
+              bit-identical; one normalize_gcn step card-vs-CPU; the step's
+              time (f32, bf16), the host's time and a profile.
+ 13. options: one card-vs-CPU step each at full width with launch counts
+              for GIN subgraph, GIN mix and GCN mix augmentation (the views
+              on the card bit-identical to the CPU's from the same keys;
+              mix on the batch featurized with hydrogens), GIN with dropout
+              0.1 (the same masks on both; K4f / K4b 5 per view) and GIN
+              with concat_views (K1f / K1b 5 per step at T = 44); the
+              augmentation's stream, host and device time per step for
+              node, subgraph and mix.
+ 14. gcn cli: `molclr_tpu_torch.cli.pretrain --model gcn --aug mix` as
+              phase 7 runs the GIN CLI (two epochs, then a resume).
 
 It prints one JSON line listing the kernels, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. It needs one
@@ -78,6 +98,7 @@ import contextlib
 import copy
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -93,6 +114,7 @@ import torch
 from molclr_tpu_torch.cli import embed
 from molclr_tpu_torch.cli import finetune as finetune_cli
 from molclr_tpu_torch.cli import pretrain as pretrain_cli
+from molclr_tpu_torch.data.augment import AUG_DELTA_FIELDS, paired_augment
 from molclr_tpu_torch.data.featurize import NUM_BOND_DIRS, NUM_BOND_TYPES
 from molclr_tpu_torch.data.graphs import pack_batch
 from molclr_tpu_torch.data.loader import featurize_many, spec_for_graphs
@@ -103,6 +125,8 @@ from molclr_tpu_torch.ops import _build, ntxent
 from molclr_tpu_torch.data.tasks import TASKS
 from molclr_tpu_torch.ops.fused_gcn import (
     fused_gcn_bn_layer,
+    fused_gcn_bn_layer_bwd,
+    fused_gcn_bn_layer_bwd_plain,
     fused_gcn_bn_layer_plain,
     fused_gcn_layer,
     fused_gcn_layer_bwd,
@@ -134,7 +158,8 @@ from molclr_tpu_torch.train.checkpoints import latest_checkpoint, \
     transfer_state
 from molclr_tpu_torch.train.config import FineTuneConfig, ModelConfig, \
     PretrainConfig
-from molclr_tpu_torch.train.pretrain import build_model, train_step
+from molclr_tpu_torch.train.pretrain import TRAIN_STREAM, build_model, \
+    step_generator, train_step
 
 SEED = 0
 TILE, EMB, FEAT, LAYERS, BATCH, N_MOLS = 256, 300, 512, 5, 256, 1024
@@ -173,6 +198,10 @@ TRAIN_KERNELS = {
     "ntxent_bwd": dict(fn=ntxent.ntxent_bwd,
                        source="molclr_tpu_torch/csrc/ntxent.cu",
                        replaces="molclr_tpu/ops/pallas_ntxent.py:86"),
+    "fused_gcn_bn_layer_bwd": dict(
+        fn=fused_gcn_bn_layer_bwd,
+        source="molclr_tpu_torch/csrc/fused_gcn_bn.cu",
+        replaces="molclr_tpu/ops/fused_gcn.py:175"),
 }
 # the kernels of the fine-tuning path (the unchained layers)
 FT_KERNELS = {
@@ -203,13 +232,35 @@ BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # K2f / K2b against their plain versions (f32): row statistics and dreps
 # summed in another order
 NTX_RTOL = 1e-4
-# card against CPU on each of 3 full-width steps from the same state (f32):
-# loss rtol 1e-4; parameters within Adam's sign-flip envelope 2 lr times
+# card against CPU on each of 3 full-width steps from the same state:
+# loss rtol 1e-4. Per tensor: its gradient within STEP_GRAD_RTOL of the
+# model's largest gradient (a tensor wrong in full fails, however few its
+# elements); its parameters within Adam's sign-flip envelope 2 lr times
 # adam_step_bound (elements whose true gradient is ~0 may flip a whole
-# lr-sized step), and within 5e-5 + 2e-4 |p| on 99.97 % of the elements
-# whose gradient exceeds 1e-4; BatchNorm running stats rtol 2e-3 / atol
-# 1e-5
+# lr-sized step) plus the f32 rounding of p +- lr, and within 5e-5 + 2e-4
+# |p| on all but max(1, ceil(STEP_FRAC_OFF n)) of its n elements with a
+# real gradient: above 1e-4 and above STEP_GRAD_NOISE times the model's
+# largest gradient (below that its sign is rounding noise, as on the conv
+# output biases ahead of a BatchNorm, whose exact gradient is 0, and Adam
+# turns a flipped sign into a whole step); BatchNorm running stats rtol
+# 2e-3 / atol STEP_BN_ATOL
 STEP_LOSS_RTOL = 1e-4
+# 2e-2 in f32: a relu input within rounding of 0 (the projection head's,
+# an MLP's) takes the other branch on one device and moves a whole row of
+# the gradients behind it (up to 8.4e-3 seen); 0.15 in bf16, where GCN's
+# scalar edge tables are sums over 300 bf16 columns that cancel (7.4e-2)
+STEP_GRAD_RTOL = {torch.float32: 2e-2, torch.bfloat16: 0.15}
+# 0 in f32 (the 1e-4 floor alone, as the noise on the exact-zero biases
+# stays below it); 2e-2 in bf16, five bf16 ulps of the largest gradient
+STEP_GRAD_NOISE = {torch.float32: 0.0, torch.bfloat16: 2e-2}
+# 3e-4 in f32; 1e-2 in bf16, where a bf16 rounding flip in the sums that
+# feed a gradient can flip its sign
+STEP_FRAC_OFF = {torch.float32: 3e-4, torch.bfloat16: 1e-2}
+# 1e-5 in f32; 2.5e-4 in bf16: a flipped rounding of an O(1) bf16 layer
+# output moves the batch mean, and the running mean by a tenth of that
+STEP_BN_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2.5e-4}
+
+
 # the kernels' NT-Xent against the closed form on one step (f32)
 PALLAS_LOSS_RTOL = 1e-5
 
@@ -547,11 +598,13 @@ def slice_phase(dev, tmp: str, card: str) -> dict:
 # ---------------------------------------------------------------- phase 4
 
 
-def pretrain_batch():
+def pretrain_batch(add_hs: bool = False):
     """The first training batch of the pretraining path on the host: 512
     molecules of synthetic_corpus(512, seed=7) packed as the Pretrainer
-    packs them (tile 256, 'total' sizing with the capped slack 1.05)."""
-    graphs, _ = featurize_many(synthetic_corpus(P_BATCH, seed=7))
+    packs them (tile 256, 'total' sizing with the capped slack 1.05), with
+    their hydrogens when add_hs (mix augmentation featurizes so)."""
+    graphs, _ = featurize_many(synthetic_corpus(P_BATCH, seed=7),
+                               add_hs=add_hs)
     spec = spec_for_graphs(graphs, P_BATCH, slack=1.05, tile=TILE)
     return pack_batch(graphs, spec), spec
 
@@ -793,11 +846,17 @@ def ntxent_phase(dev) -> dict:
 # ---------------------------------------------------------------- phase 5
 
 
-def pretrain_cfg(bf16: bool = False, ntxent_impl: str = "auto"):
+def pretrain_cfg(bf16: bool = False, ntxent_impl: str = "auto",
+                 gnn: str = "gin", drop_ratio: float = 0.0,
+                 normalize_gcn: bool = False, **kw):
+    """The full-width pretraining config (B = 512, 5 x 300 / 512, tile
+    256); kw sets PretrainConfig fields (aug, concat_views)."""
     return PretrainConfig(
         batch_size=P_BATCH, ntxent_impl=ntxent_impl,
         model=ModelConfig(num_layers=LAYERS, emb_dim=EMB, feat_dim=FEAT,
-                          tile=TILE, bf16=bf16))
+                          tile=TILE, bf16=bf16, gnn_type=gnn,
+                          drop_ratio=drop_ratio,
+                          normalize_gcn=normalize_gcn), **kw)
 
 
 def adam_step_bound(t: int, b1: float = 0.9, b2: float = 0.999) -> float:
@@ -815,16 +874,20 @@ def params_of(model) -> dict:
 
 
 def state_agreement(card_model, cpu_model, step: int, lr: float,
-                    what: str) -> tuple[float, float, float]:
+                    what: str, dt=torch.float32
+                    ) -> tuple[float, float, float, float]:
     """Check the card's state against the CPU's after the same step from
-    the same state (the CPU model's .grad holds the step's gradients):
-    parameters within Adam's sign-flip envelope and tight on the elements
-    with a real gradient, BatchNorm stats rtol 2e-3 / atol 1e-5. Returns
-    (worst fraction off, largest parameter difference, largest BatchNorm
-    difference over its limit)."""
+    the same state (each model's .grad holds its step's gradients), with
+    the limits above for activation dtype dt. Returns (the largest share
+    of a tensor's real-gradient elements off, the largest parameter
+    difference, the largest BatchNorm difference over its limit, the
+    largest gradient difference over the model's largest gradient)."""
     grads = {k: p.grad for k, p in cpu_model.named_parameters()}
+    card_grads = {k: p.grad for k, p in card_model.named_parameters()}
+    gmax = max(g.abs().max().item() for g in grads.values())
+    floor = max(1e-4, STEP_GRAD_NOISE[dt] * gmax)
     card, cpu = params_of(card_model), params_of(cpu_model)
-    worst = top = stat = 0.0
+    worst = top = stat = gworst = 0.0
     for k, v in cpu.items():
         got = card[k].cpu()
         if k.endswith("num_batches_tracked"):
@@ -832,22 +895,115 @@ def state_agreement(card_model, cpu_model, step: int, lr: float,
             continue
         diff = (got.double() - v.double()).abs()
         if "running_" in k:
-            over = (diff / (1e-5 + 2e-3 * v.double().abs())).max().item()
+            over = (diff / (STEP_BN_ATOL[dt] + 2e-3 * v.double().abs())
+                    ).max().item()
             stat = max(stat, over)
             check(over <= 1.0, f"{what}: {k} card and CPU differ by "
                   f"{diff.max().item()}")
             continue
         top = max(top, diff.max().item())
-        cap = 2.0 * lr * adam_step_bound(step + 1)
+        cap = (2.0 * lr * adam_step_bound(step + 1)
+               + 2.0 ** -22 * v.abs().max().item())
         check(diff.max().item() <= cap, f"{what}: {k} differs by "
               f"{diff.max().item()} > the Adam envelope {cap}")
-        real = grads[k].abs() > 1e-4
-        bad = diff[real] > 5e-5 + 2e-4 * v.double()[real].abs()
-        frac = bad.float().mean().item() if bad.numel() else 0.0
-        worst = max(worst, frac)
-        check(frac <= 3e-4, f"{what}: {k} has {frac:.2%} of its "
-              f"real-gradient elements off the CPU's")
-    return worst, top, stat
+        gdiff = (card_grads[k].cpu().double() - grads[k].double()).abs()
+        gworst = max(gworst, gdiff.max().item() / gmax)
+        check(gdiff.max().item() <= STEP_GRAD_RTOL[dt] * gmax,
+              f"{what}: {k} gradient differs by {gdiff.max().item()} "
+              f"(the model's largest gradient {gmax})")
+        real = grads[k].abs() > floor
+        n_real = int(real.sum())
+        n_bad = int((diff[real] > 5e-5 + 2e-4 * v.double()[real].abs())
+                    .sum())
+        worst = max(worst, n_bad / max(n_real, 1))
+        check(n_bad <= max(1, math.ceil(STEP_FRAC_OFF[dt] * n_real)),
+              f"{what}: {k} has {n_bad} of its {n_real} real-gradient "
+              f"elements off the CPU's")
+    return worst, top, stat, gworst
+
+
+def card_and_cpu(cfg, dev):
+    """The same seeded model and an Adam on the card and on the CPU."""
+    models, opts = {}, {}
+    for where in ("card", "cpu"):
+        models[where] = build_model(cfg, torch.Generator().manual_seed(
+            SEED + 2)).to(dev if where == "card" else "cpu")
+        opts[where] = optim.adam_torch(models[where].parameters(),
+                                       cfg.weight_decay)
+    return models, opts
+
+
+def card_vs_cpu_steps(models, opts, cfg, batch, dev, bw, first, steps, want,
+                      tag, max_waves=0, masks=None) -> dict:
+    """`steps` train steps on the card from step `first`; before each, the
+    CPU takes the card's state (weights, BatchNorm stats, Adam moments) and
+    runs the same step with the same augmentation keys (and the same
+    dropout masks, masks(step) -> per-view lists, when given) on its plain
+    path: losses within STEP_LOSS_RTOL, parameters and BatchNorm stats as
+    state_agreement holds them; every kernel launched as `want` says per
+    step (0 if absent). Returns the report, with the launches totalled."""
+    lr = cfg.init_lr
+    bg, bc = batch.to(dev), batch.to("cpu")
+    report = {"losses": [], "counts": [], "fraction_off": [],
+              "grad_off": [], "max_param_diff": [],
+              "running_stats_over_limit": []}
+    totals = dict.fromkeys(ALL_FNS, 0)
+    for step in range(first, first + steps):
+        models["cpu"].load_state_dict(
+            {k: v.cpu() for k, v in models["card"].state_dict().items()})
+        opts["cpu"].load_state_dict(copy.deepcopy(opts["card"].state_dict()))
+        mk = masks(step) if masks else None
+        reset_counts()
+        loss_g = train_step(models["card"], opts["card"], bg, cfg, step, lr,
+                            bond_window=bw, max_waves=max_waves,
+                            dropout_masks=mk and [
+                                [m.to(dev) for m in v] for v in mk])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        t0 = time.perf_counter()
+        loss_c = train_step(models["cpu"], opts["cpu"], bc, cfg, step, lr,
+                            bond_window=bw, max_waves=max_waves,
+                            dropout_masks=mk)
+        report["cpu_step_s"] = time.perf_counter() - t0
+        report["losses"].append([loss_g.item(), loss_c.item()])
+        report["counts"].append(counts)
+        for name, c in counts.items():
+            check(c == want.get(name, 0), f"{tag} {step}: {name} launched "
+                  f"{c} times, expected {want.get(name, 0)}")
+            totals[name] += c
+        check(abs(loss_g.item() - loss_c.item())
+              <= STEP_LOSS_RTOL * abs(loss_c.item()),
+              f"{tag} {step}: loss card {loss_g.item()} cpu {loss_c.item()}")
+        worst, top, stat, gworst = state_agreement(
+            models["card"], models["cpu"], step, lr, f"{tag} {step}",
+            models["card"].dtype)
+        report["fraction_off"].append(worst)
+        report["grad_off"].append(gworst)
+        report["max_param_diff"].append(top)
+        report["running_stats_over_limit"].append(stat)
+    report["launches"] = totals
+    return report
+
+
+def bit_identical_steps(model, opt, cfg, bg, bw, step, tag, max_waves=0):
+    """Two identical card steps from the same state must be bit-identical.
+    Returns the state before them and the two (loss, parameters)."""
+    snap = (copy.deepcopy(model.state_dict()), copy.deepcopy(
+        opt.state_dict()))
+    outcomes = []
+    for _ in range(2):
+        # (load_state_dict keeps the optimizer state's tensors, which the
+        # step then updates in place: hand it a copy)
+        model.load_state_dict(snap[0])
+        opt.load_state_dict(copy.deepcopy(snap[1]))
+        loss = train_step(model, opt, bg, cfg, step, cfg.init_lr,
+                          bond_window=bw, max_waves=max_waves)
+        outcomes.append((loss.clone(), params_of(model)))
+    check(torch.equal(outcomes[0][0], outcomes[1][0])
+          and all(torch.equal(outcomes[0][1][k], outcomes[1][1][k])
+                  for k in outcomes[0][1]),
+          f"{tag}: two identical card steps differ")
+    return snap, outcomes
 
 
 def step_phase(batch, spec, dev) -> dict:
@@ -862,63 +1018,15 @@ def step_phase(batch, spec, dev) -> dict:
     cfg = pretrain_cfg()
     bw = spec.max_graph_bonds
     lr = cfg.init_lr
-    models, opts = {}, {}
-    for where in ("card", "cpu"):
-        models[where] = build_model(cfg, torch.Generator().manual_seed(
-            SEED + 2)).to(dev if where == "card" else "cpu")
-        opts[where] = optim.adam_torch(models[where].parameters(),
-                                       cfg.weight_decay)
-    bg, bc = batch.to(dev), batch.to("cpu")
-    report = {"losses": [], "counts": [], "worst_fraction_off": [],
-              "max_param_diff": [], "running_stats_over_limit": []}
-    totals = dict.fromkeys(ALL_FNS, 0)
-    for step in range(P_STEPS):
-        models["cpu"].load_state_dict(
-            {k: v.cpu() for k, v in models["card"].state_dict().items()})
-        opts["cpu"].load_state_dict(copy.deepcopy(opts["card"].state_dict()))
-        reset_counts()
-        loss_g = train_step(models["card"], opts["card"], bg, cfg, step, lr,
-                            bond_window=bw)
-        torch.cuda.synchronize()
-        counts = read_counts()
-        t0 = time.perf_counter()
-        loss_c = train_step(models["cpu"], opts["cpu"], bc, cfg, step, lr,
-                            bond_window=bw)
-        report["cpu_step_s"] = time.perf_counter() - t0
-        report["losses"].append([loss_g.item(), loss_c.item()])
-        report["counts"].append(counts)
-        want = dict(fused_gine_bn_layer=2 * LAYERS,
-                    fused_gine_bn_layer_bwd=2 * LAYERS)
-        for name, c in counts.items():
-            check(c == want.get(name, 0), f"step {step}: {name} launched "
-                  f"{c} times, expected {want.get(name, 0)}")
-            totals[name] += c
-        check(abs(loss_g.item() - loss_c.item())
-              <= STEP_LOSS_RTOL * abs(loss_c.item()),
-              f"step {step}: loss card {loss_g.item()} cpu {loss_c.item()}")
-        worst, top, stat = state_agreement(models["card"], models["cpu"],
-                                           step, lr, f"step {step}")
-        report["worst_fraction_off"].append(worst)
-        report["max_param_diff"].append(top)
-        report["running_stats_over_limit"].append(stat)
-    report["launches"] = totals
-
-    # two identical card steps from the same state are bit-identical
+    want = dict(fused_gine_bn_layer=2 * LAYERS,
+                fused_gine_bn_layer_bwd=2 * LAYERS)
+    models, opts = card_and_cpu(cfg, dev)
+    bg = batch.to(dev)
+    report = card_vs_cpu_steps(models, opts, cfg, batch, dev, bw, 0, P_STEPS,
+                               want, "step")
     model, opt = models["card"], opts["card"]
-    snap = (copy.deepcopy(model.state_dict()), copy.deepcopy(
-        opt.state_dict()))
-    outcomes = []
-    for _ in range(2):
-        # (load_state_dict keeps the optimizer state's tensors, which the
-        # step then updates in place: hand it a copy)
-        model.load_state_dict(snap[0])
-        opt.load_state_dict(copy.deepcopy(snap[1]))
-        loss = train_step(model, opt, bg, cfg, P_STEPS, lr, bond_window=bw)
-        outcomes.append((loss.clone(), params_of(model)))
-    check(torch.equal(outcomes[0][0], outcomes[1][0])
-          and all(torch.equal(outcomes[0][1][k], outcomes[1][1][k])
-                  for k in outcomes[0][1]),
-          "two identical card steps differ")
+    snap, outcomes = bit_identical_steps(model, opt, cfg, bg, bw, P_STEPS,
+                                         "step")
     report["bit_identical_steps"] = True
 
     # the same step with the kernels' NT-Xent (K2f / K2b once each)
@@ -955,7 +1063,7 @@ def step_phase(batch, spec, dev) -> dict:
 # ---------------------------------------------------------------- phase 6
 
 
-def speed_phase(batch, spec, dev, card: str) -> dict:
+def speed_phase(batch, spec, dev, card: str, gnn: str = "gin") -> dict:
     """The step's time on the card, f32 and bf16, and a profile of its
     device time by kernel (f32)."""
     bg = batch.to(dev)
@@ -965,7 +1073,7 @@ def speed_phase(batch, spec, dev, card: str) -> dict:
                              + int(batch.node_mask.sum()))
     report = {}
     for bf16 in (False, True):
-        cfg = pretrain_cfg(bf16=bf16)
+        cfg = pretrain_cfg(bf16=bf16, gnn=gnn)
         model = build_model(cfg, torch.Generator().manual_seed(SEED + 2))
         model = model.to(dev)
         opt = optim.adam_torch(model.parameters(), cfg.weight_decay)
@@ -989,7 +1097,8 @@ def speed_phase(batch, spec, dev, card: str) -> dict:
         ms = statistics.median(a.elapsed_time(b) for a, b in events)
         # host_ms: the host's time to queue one step (no synchronize), the
         # step's floor while the device waits for it
-        row = dict(card=card, dtype="bfloat16" if bf16 else "float32",
+        row = dict(card=card, model=gnn,
+                   dtype="bfloat16" if bf16 else "float32",
                    step_ms=ms, host_ms=statistics.median(host),
                    steps=SPEED_STEPS,
                    message_edges_per_step=messages,
@@ -1038,14 +1147,20 @@ def profile_steps(step_fn, steps: int = 5) -> dict:
 # ---------------------------------------------------------------- phase 7
 
 
-def cli_phase(tmp: str) -> dict:
+def cli_phase(tmp: str, name: str = "pretrain_ckpt", extra_args=(),
+              gnn: str = "gin") -> dict:
     """The pretrain CLI on the card: two epochs of a three-epoch schedule,
-    then --resume latest for the third."""
+    then --resume latest for the third (`extra_args` choose the model and
+    the augmentation; the checkpoints go to tmp/name)."""
     corpus = os.path.join(tmp, "pretrain.txt")
-    ckpt = os.path.join(tmp, "pretrain_ckpt")
+    ckpt = os.path.join(tmp, name)
     base = ["--synthetic", "4096", "--data", corpus, "--ckpt-dir", ckpt,
             "--batch-size", str(P_BATCH), "--epochs", "3", "--warm-up", "1",
-            "--save-every", "1"]
+            "--save-every", "1", *extra_args]
+    bwd = ("fused_gine_bn_layer_bwd" if gnn == "gin"
+           else "fused_gcn_bn_layer_bwd")
+    other = ("fused_gcn_bn_layer_bwd" if gnn == "gin"
+             else "fused_gine_bn_layer_bwd")
     report = {}
     for tag, extra in (("first", ["--stop-after-epoch", "2"]),
                        ("resumed", ["--resume", "latest"])):
@@ -1072,10 +1187,10 @@ def cli_phase(tmp: str) -> dict:
           "the LR schedule does not continue across the resume")
     for tag, steps in (("first", 2 * spe), ("resumed", spe)):
         c = report[f"{tag}_counts"]
-        check(c["fused_gine_bn_layer_bwd"] == 2 * LAYERS * steps,
-              f"{tag}: K1b launched {c['fused_gine_bn_layer_bwd']} times "
-              f"for {steps} steps")
-    print(f"cli {json.dumps(report)}", flush=True)
+        check(c[bwd] == 2 * LAYERS * steps and c[other] == 0,
+              f"{name} {tag}: {bwd} launched {c[bwd]} times for {steps} "
+              f"steps, {other} {c[other]} times")
+    print(f"cli {name} {json.dumps(report)}", flush=True)
     return report
 
 
@@ -1338,8 +1453,9 @@ def finetune_step_phase(dev, tmp: str, shared: list) -> dict:
             items.append(item)
             if len(items) == FT_STEPS:
                 break
-        row = {"losses": [], "counts": [], "worst_fraction_off": [],
-               "max_param_diff": [], "running_stats_over_limit": [],
+        row = {"losses": [], "counts": [], "fraction_off": [],
+               "grad_off": [], "max_param_diff": [],
+               "running_stats_over_limit": [],
                "motif_vocab": ft.motif_vocab.size if motifs else 0}
         if motifs:
             row["motif_table_err"] = motif_table_agreement(ft, cpu_model, tag)
@@ -1373,9 +1489,10 @@ def finetune_step_phase(dev, tmp: str, shared: list) -> dict:
                   <= STEP_LOSS_RTOL * abs(loss_c.item()),
                   f"{tag} step {step}: loss card {loss_g.item()} cpu "
                   f"{loss_c.item()}")
-            worst, top, stat = state_agreement(ft.model, cpu_model, step, lr,
-                                               f"{tag} step {step}")
-            row["worst_fraction_off"].append(worst)
+            worst, top, stat, gworst = state_agreement(
+                ft.model, cpu_model, step, lr, f"{tag} step {step}")
+            row["fraction_off"].append(worst)
+            row["grad_off"].append(gworst)
             row["max_param_diff"].append(top)
             row["running_stats_over_limit"].append(stat)
         row["eval_err"], row["eval_tiles"] = eval_agreement(
@@ -1497,6 +1614,240 @@ def finetune_cli_phase(tmp: str) -> dict:
     return report
 
 
+# --------------------------------------------------------------- phase 11
+
+
+def gcn_bwd_library(g, dsums, x, a, b, adj, cnt, out, w, relu_in):
+    """The K3b function as a chain of cuBLAS calls in the activation dtype
+    (yardstick only; the port never calls it)."""
+    t, s, _ = adj.shape
+    n, d = g.shape
+    dt = g.dtype
+    gt = torch.addcmul(dsums[0], out.float(), dsums[1], value=2.0)
+    gt = gt.mul_(adj_diag_mask(adj)).add_(g.float())
+    gtc = gt.to(dt)
+    dxw = torch.bmm(adj, gtc.view(t, s, d)).view(n, d)
+    dpre = torch.mm(dxw, w.t()).float()
+    pre = torch.addcmul(b, x.float(), a)
+    if relu_in:
+        dpre = dpre.mul_(pre > 0)
+        pre = pre.relu_()
+    xc = pre.to(dt)
+    return ((dpre * a).to(dt), (dpre * x.float()).sum(0), dpre.sum(0),
+            torch.mm(xc.t(), dxw), gt.sum(0), torch.mm(cnt.t(), gtc))
+
+
+def k3b_bound_ms(x, p, dt):
+    """Least time for K3b's work at these inputs: dxw @ W^T and xc^T @ dxw
+    over the real rows, A @ gtc and cnt^T gtc by their nonzeros; bytes: g,
+    x, out, dx [N, D], A, cnt and W in the activation type, dsums, a, b,
+    da, db, dbias, dW and detab in f32."""
+    adj, cnt = x["adj"], x["cnt"]
+    t, s, _ = adj.shape
+    n, d = x["h"].shape
+    n_real = int(adj_diag_mask(adj).sum())
+    ops = (2 * 2 * n_real * d * d + 2 * int((adj != 0).sum()) * d
+           + 2 * int((cnt != 0).sum()) * d)
+    act = 4 * n * d + t * s * s + n * CNT_PAD + d * d
+    f32 = 7 * d + d * d + CNT_PAD * d
+    t_bytes = (act * x["h"].element_size() + f32 * 4) / HBM_BPS
+    t_ops = ops / PEAK_FLOPS[dt]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def gcn_train_kernel_phase(batch, dev) -> dict:
+    """K3f and K3b at the pretraining shape (T = 22), f32 and bf16,
+    relu_in False and True: K3f against its plain version, K3b against its
+    plain version on K3f's output and a random cotangent; two runs
+    bit-identical; kernel, plain and library times and the bound."""
+    gen = torch.Generator().manual_seed(SEED + 6)
+    res = {"fwd": {"max_abs_err": 0.0, "cases": []},
+           "bwd": {"max_abs_err": 0.0, "cases": []}}
+    names = ("dx", "da", "db", "dw", "dbias", "detab")
+    for dt in (torch.float32, torch.bfloat16):
+        x, _, pc = layer_inputs(batch, dt, gen)
+        args = gcn_args(x, pc)
+        n, d = x["h"].shape
+        g = (0.1 * torch.randn(n, d, generator=gen)).to(dev, dt)
+        dsums = (1e-3 * torch.randn(2, d, generator=gen)).to(dev)
+        for relu_in in (False, True):
+            tag = dict(dtype=str(dt).replace("torch.", ""), relu_in=relu_in,
+                       tiles=x["adj"].shape[0], d=d)
+            case, (out, _) = kernel_case(
+                "K3f", tag, ("out", "sums"),
+                lambda: fused_gcn_bn_layer(*args, relu_in),
+                lambda: fused_gcn_bn_layer_plain(*args, relu_in),
+                lambda: gcn_library(*args, relu_in), KERNEL_RTOL[dt])
+            case["bound_ms"], case["bound_by"] = bound_ms(
+                "fused_gcn_bn_layer", x, pc, dt)
+            print(f"kernel k3f_pretrain {json.dumps(case)}", flush=True)
+            res["fwd"]["max_abs_err"] = max(res["fwd"]["max_abs_err"],
+                                            case["err_out"])
+            res["fwd"]["cases"].append(case)
+            bargs = (g, dsums, x["h"], x["a"], x["b"], x["adj"], x["cnt"],
+                     out, pc["w"], relu_in)
+            case, _ = kernel_case(
+                "K3b", tag, names, lambda: fused_gcn_bn_layer_bwd(*bargs),
+                lambda: fused_gcn_bn_layer_bwd_plain(*bargs),
+                lambda: gcn_bwd_library(*bargs), BWD_RTOL[dt])
+            case["library_err_dx"] = rel_err(gcn_bwd_library(*bargs)[0],
+                                             fused_gcn_bn_layer_bwd_plain(
+                                                 *bargs)[0])[0]
+            case["bound_ms"], case["bound_by"] = k3b_bound_ms(x, pc, dt)
+            print(f"kernel k3b {json.dumps(case)}", flush=True)
+            res["bwd"]["max_abs_err"] = max(res["bwd"]["max_abs_err"],
+                                            case["err_dx"])
+            res["bwd"]["cases"].append(case)
+    return res
+
+
+# --------------------------------------------------------------- phase 12
+
+
+def gcn_step_phase(batch, spec, dev, card: str) -> dict:
+    """Full-width GCN pretraining (5 x 300 / 512, B = 512, node
+    augmentation, ntxent 'auto'): 3 card-vs-CPU steps in f32 and in bf16
+    with phase 5's limits, K3f 10 and K3b 10 launches per step and no
+    other kernel; two identical card steps bit-identical; one
+    normalize_gcn step card-vs-CPU; then phase 6's speed measurement."""
+    bw = spec.max_graph_bonds
+    want = dict(fused_gcn_bn_layer=2 * LAYERS,
+                fused_gcn_bn_layer_bwd=2 * LAYERS)
+    report = {}
+    for bf16 in (False, True):
+        cfg = pretrain_cfg(bf16=bf16, gnn="gcn")
+        models, opts = card_and_cpu(cfg, dev)
+        key = "bfloat16" if bf16 else "float32"
+        report[key] = card_vs_cpu_steps(models, opts, cfg, batch, dev, bw, 0,
+                                        P_STEPS, want, f"gcn {key} step")
+        if not bf16:
+            bit_identical_steps(models["card"], opts["card"], cfg,
+                                batch.to(dev), bw, P_STEPS, "gcn step")
+            report[key]["bit_identical_steps"] = True
+    cfg = pretrain_cfg(gnn="gcn", normalize_gcn=True)
+    models, opts = card_and_cpu(cfg, dev)
+    report["normalize_gcn"] = card_vs_cpu_steps(
+        models, opts, cfg, batch, dev, bw, 0, 1, want, "gcn normalize step")
+    print(f"gcn step {json.dumps(report)}", flush=True)
+    report["speed"] = speed_phase(batch, spec, dev, card, gnn="gcn")
+    return report
+
+
+# --------------------------------------------------------------- phase 13
+
+
+def views_equal(batch, cfg, bw, max_waves, dev) -> None:
+    """The two views of step 0 drawn on the card equal the CPU's from the
+    same keys, bit for bit."""
+    got, want = (paired_augment(
+        batch.to(where), step_generator(cfg.seed, TRAIN_STREAM, 0), cfg.aug,
+        tile=TILE, bond_window=bw, max_waves=max_waves)
+        for where in (dev, "cpu"))
+    for v, w in zip(got, want):
+        for f in AUG_DELTA_FIELDS:
+            check(torch.equal(getattr(v, f).cpu(), getattr(w, f)),
+                  f"{cfg.aug} views: {f} differs between card and CPU")
+
+
+def dropout_masks_for(n: int, views: int):
+    """masks(step) -> `views` lists of LAYERS keep masks [n, EMB] (keep
+    probability 0.9), drawn on the CPU from (SEED + 7, step)."""
+    def masks(step):
+        gen = torch.Generator().manual_seed(SEED + 7 + 1000 * step)
+        return [[torch.rand(n, EMB, generator=gen) < 0.9
+                 for _ in range(LAYERS)] for _ in range(views)]
+    return masks
+
+
+def augment_timing(batch, kind: str, bw: int, max_waves: int, dev) -> dict:
+    """paired_augment's time per step on the card: the stream's time
+    between CUDA events around each call (median of 20 after 3 warm-up
+    calls), the host's time to queue a call, and the device's busy time
+    from torch.profiler."""
+    bg = batch.to(dev)
+
+    def aug(i):
+        return paired_augment(bg, step_generator(SEED, TRAIN_STREAM, i),
+                              kind, tile=TILE, bond_window=bw,
+                              max_waves=max_waves)
+
+    for i in range(3):
+        aug(i)
+    torch.cuda.synchronize()
+    events, host = [], []
+    for i in range(20):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        aug(i)
+        e1.record()
+        host.append(1e3 * (time.perf_counter() - t0))
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    prof = profile_steps(aug)
+    return dict(kind=kind, max_waves=max_waves,
+                stream_ms=statistics.median(a.elapsed_time(b)
+                                            for a, b in events),
+                host_ms=statistics.median(host),
+                device_ms=prof["device_ms_per_step"],
+                device_kernels=prof["kernels"])
+
+
+def options_phase(dev) -> dict:
+    """The other pretraining options at full width, each one card-vs-CPU
+    step from the same state with phase 5's limits and its launch counts:
+    GIN and GCN with subgraph / mix augmentation (views on the card equal
+    to the CPU's from the same keys; mix on the batch featurized with
+    hydrogens), GIN with dropout 0.1 (the same masks on both; K4f / K4b
+    per view), GIN with concat_views (one forward of both views, T = 44).
+    The BFS horizon is the one the Pretrainer derives for a corpus of this
+    batch (max atoms - 1). Then the augmentation's time per step for
+    node, subgraph and mix."""
+    plain = pretrain_batch()
+    with_hs = pretrain_batch(add_hs=True)
+    gin_bn = dict(fused_gine_bn_layer=2 * LAYERS,
+                  fused_gine_bn_layer_bwd=2 * LAYERS)
+    gcn_bn = dict(fused_gcn_bn_layer=2 * LAYERS,
+                  fused_gcn_bn_layer_bwd=2 * LAYERS)
+    runs = (("gin_subgraph", dict(aug="subgraph"), plain, gin_bn),
+            ("gin_mix", dict(aug="mix"), with_hs, gin_bn),
+            ("gcn_mix", dict(aug="mix", gnn="gcn"), with_hs, gcn_bn),
+            ("gin_drop", dict(drop_ratio=0.1), plain,
+             dict(fused_gine_layer=2 * LAYERS,
+                  fused_gine_layer_bwd=2 * LAYERS)),
+            ("gin_concat", dict(concat_views=True), plain,
+             dict(fused_gine_bn_layer=LAYERS,
+                  fused_gine_bn_layer_bwd=LAYERS)))
+    report = {}
+    for tag, kw, (batch, spec), want in runs:
+        cfg = pretrain_cfg(**kw)
+        bw = spec.max_graph_bonds
+        mw = int(batch.graph_n_nodes.max()) - 1
+        if cfg.aug != "node":
+            views_equal(batch, cfg, bw, mw, dev)
+        masks = None
+        if cfg.model.drop_ratio:
+            masks = dropout_masks_for(batch.nbr.shape[0], 2)
+        models, opts = card_and_cpu(cfg, dev)
+        row = card_vs_cpu_steps(models, opts, cfg, batch, dev, bw, 0, 1,
+                                want, tag, max_waves=mw, masks=masks)
+        row.update(max_waves=mw, tiles=batch.nbr.shape[0] // TILE
+                   * (2 if cfg.concat_views else 1),
+                   views_equal_cpu=cfg.aug != "node")
+        report[tag] = row
+        print(f"option {tag} {json.dumps(row)}", flush=True)
+    report["augment"] = {}
+    for kind, (batch, spec) in (("node", plain), ("subgraph", plain),
+                                ("mix", with_hs)):
+        row = augment_timing(batch, kind, spec.max_graph_bonds,
+                             int(batch.graph_n_nodes.max()) - 1, dev)
+        report["augment"][kind] = row
+        print(f"augment {json.dumps(row)}", flush=True)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1548,6 +1899,15 @@ def main() -> int:
         finetune_speed_phase(dev, tmp, card, shared)
         phase("fine-tune cli")
         finetune_cli_phase(tmp)
+        phase("gcn training kernels")
+        gcn_layer = gcn_train_kernel_phase(batch.to(dev), dev)
+        phase("gcn step")
+        gcn_step = gcn_step_phase(batch, spec, dev, card)
+        phase("pretraining options")
+        options_phase(dev)
+        phase("gcn cli")
+        cli_phase(tmp, "pretrain_gcn_mix", ["--model", "gcn", "--aug", "mix"],
+                  gnn="gcn")
     phase("done")
 
     def row(name, source, replaces, launches, res, case):
@@ -1584,6 +1944,12 @@ def main() -> int:
         rows.append(row(name, spec_k["source"], spec_k["replaces"],
                         step["pallas_counts"][name], ntx[part],
                         pick(ntx[part]["cases"], two_b=1024, dead_rows=0)))
+    spec_b = TRAIN_KERNELS["fused_gcn_bn_layer_bwd"]
+    rows.append(row("fused_gcn_bn_layer_bwd", spec_b["source"],
+                    spec_b["replaces"],
+                    gcn_step["float32"]["launches"]["fused_gcn_bn_layer_bwd"],
+                    gcn_layer["bwd"],
+                    pick(gcn_layer["bwd"]["cases"], **train_case)))
     for name, spec_k in FT_KERNELS.items():
         rows.append(row(name, spec_k["source"], spec_k["replaces"],
                         ft_step["launches"][name], ft_kernels[name],

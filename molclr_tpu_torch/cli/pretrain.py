@@ -25,11 +25,10 @@ def main(argv=None) -> int:
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--aug", choices=["node", "subgraph", "mix"],
-                   default=None, help="augmentation kind (subgraph and mix "
-                   "are not ported yet and raise)")
+                   default=None, help="augmentation kind (mix featurizes "
+                   "with hydrogens)")
     p.add_argument("--model", choices=["gin", "gcn"], default=None,
-                   help="encoder (GCN training on the card raises until "
-                        "its backward kernel is ported)")
+                   help="encoder")
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--resume", default=None, metavar="PATH|latest",
                    help="resume from a checkpoint; 'latest' picks the "

@@ -48,6 +48,32 @@
 // 0.22 GFLOP against 5.4 MB, 3.4 us. As for K4, 64 strip blocks leave
 // most of the card idle and the launch costs about one block's latency.
 
+// K3b replaces molclr_tpu/ops/fused_gcn.py:_bn_bwd_kernel, the backward of
+// K3f. Given the output cotangents (g [N, D], dsums [2, D]), the saved
+// input x, the forward's own output out and W:
+//   gt    = g + m * (ds0 + 2 out ds1)          (f32; gtc = rnd(gt))
+//   dxw   = rnd(A @ gtc)                        (A is symmetric)
+//   dxc   = dxw @ W^T                           (f32, NOT rounded)
+//   pre   = x a + b; dpre = relu_in ? [pre > 0] dxc : dxc
+//   dx    = rnd(dpre * a); xc = rnd(relu?(pre)) (the forward's prologue)
+//   da = sum dpre x, db = sum dpre, dbias = sum gt (uncast, every row),
+//   dW = xc^T @ dxw, detab = cnt^T @ gtc        (all f32)
+// As K1b, it runs as passes on one stream, each deterministic: (a) rows:
+// gt, gtc and the strip's dbias partial; (b) adjacency: dxw, K5b's pass on
+// gtc; (c) rows with W^T (transposed once): dxc and the prologue adjoint,
+// writing dx and xc and the strip's [da | db] partials; (d) weights: dW and
+// detab as two transposed-left problems of one atb_kernel launch over fixed
+// row chunks; then every partial is added in a fixed order (sum_partials).
+// No atomics: two runs are bit-identical. Nothing of the forward but x and
+// out is read back; xc is recomputed from x, a and b.
+// Bound on the H100 at the pretraining shape (T = 22, 4,696 real rows of
+// 5,632, D = 300, f32): dxw @ W^T and xc^T @ dxw over the real rows are
+// 2 x 0.85 GFLOP, the adjacency and counts by their nonzeros a few
+// hundredths more, against about 33 MB moved: about 26 us by operations.
+// In bf16 the bytes set it. What the design leaves on the table is K5b's:
+// no tensor cores, and dxw, gtc and xc round-trip device memory between
+// the passes (the TPU kernel has the whole tile in VMEM).
+
 #include "fused_bn_common.cuh"
 
 namespace fbl {
@@ -128,6 +154,87 @@ gcn_adj_kernel(const T* __restrict__ xw, const T* __restrict__ adj,
               if (c < D) st(out, (row0 + warp * TM + i) * D + c, acc[i][j]);
             }
         }
+      });
+}
+
+// K3b pass (a): gt = g + m (ds0 + 2 out ds1) for one strip, each operation
+// rounded as the plain version rounds it; gtc = rnd(gt) to scratch and the
+// strip's dbias partial sum gt (uncast) to partial[blockIdx.x, c].
+template <typename T>
+__global__ void __launch_bounds__(NT)
+gcn_bn_bwd_gt_kernel(const T* __restrict__ g, const float* __restrict__ ds,
+                     const T* __restrict__ adj, const T* __restrict__ out,
+                     T* __restrict__ gtc, float* __restrict__ partial, int S,
+                     int D) {
+  __shared__ float msk[R];
+  const int strips = S / R;
+  const int strip = blockIdx.x % strips;
+  const size_t row0 = (size_t)blockIdx.x * R;
+  if (threadIdx.x < R) {
+    const int r = threadIdx.x;
+    msk[r] = ld(adj, (row0 + r) * S + strip * R + r) > 0.f ? 1.f : 0.f;
+  }
+  __syncthreads();
+  float* prow = partial + (size_t)blockIdx.x * D;
+  for (int c = threadIdx.x; c < D; c += NT) {
+    float s = 0.f;
+    for (int r = 0; r < R; ++r) {
+      const size_t i = (row0 + r) * D + c;
+      const float t = __fadd_rn(ds[c], __fmul_rn(2.f * ld(out, i), ds[D + c]));
+      const float gt = __fadd_rn(ld(g, i), msk[r] * t);
+      s += gt;
+      st(gtc, i, gt);
+    }
+    prow[c] = s;
+  }
+}
+
+// K3b pass (c): dxc = dxw @ W^T for one strip (wt = W^T streams row by row),
+// kept in f32, then the prologue adjoint: dx = rnd(dpre * a), the
+// recomputed prologue output xc = rnd(relu?(x a + b)) for the weight pass,
+// and the strip's [da | db] partials (sum dpre x, sum dpre).
+template <typename T>
+__global__ void __launch_bounds__(NT)
+gcn_bn_bwd_rows_kernel(const T* __restrict__ dxw, const T* __restrict__ wt,
+                       const T* __restrict__ x, const float* __restrict__ a,
+                       const float* __restrict__ b, T* __restrict__ dx,
+                       T* __restrict__ xc, float* __restrict__ partial, int D,
+                       int relu_in) {
+  extern __shared__ float smem[];
+  float* ys = smem;                            // [R, D] dxw rows
+  float* Bs = ys + R * D;                      // [KC, CW], epilogue scratch
+  const size_t row0 = (size_t)blockIdx.x * R;
+  for (int e = threadIdx.x; e < R * D; e += NT) ys[e] = ld(dxw, row0 * D + e);
+  // strip_gemm's first __syncthreads orders these writes before the reads
+  strip_gemm(
+      ys, D, D, D, Bs,
+      [&](int k, int c) -> T { return wt[(size_t)k * D + c]; },
+      Identity(),
+      [&](int c0, float (&acc)[TM][TN]) {
+        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+        float s[2][TN];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) s[0][j] = s[1][j] = 0.f;
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const size_t r = row0 + warp * TM + i;
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            const int c = c0 + lane + 32 * j;
+            if (c < D) {
+              const float xf = ld(x, r * D + c);
+              const float pre = prologue(xf, a[c], b[c], 0);
+              const float dpre = (!relu_in || pre > 0.f) ? acc[i][j] : 0.f;
+              st(dx, r * D + c, __fmul_rn(dpre, a[c]));
+              st(xc, r * D + c, relu_in ? fmaxf(pre, 0.f) : pre);
+              s[0][j] += dpre * xf;
+              s[1][j] += dpre;
+            }
+          }
+        }
+        float* prow = partial + (size_t)blockIdx.x * 2 * D;
+        float* const dst[2] = {prow, prow + D};
+        colsum_epilogue<2>(c0, s, D, Bs, dst);
       });
 }
 
@@ -219,6 +326,54 @@ static int gcn_bwd(const void* g, const void* x, const void* adj,
   return launch_sum_partials(part_w, dw, chunks, D * D, st);
 }
 
+// K3b: passes (a)-(d) and the fixed-order sums. Scratch: wt [D, D], gtc,
+// dxw, xc [N, D] (T) and the partials part_gt [nblk, D], part_adj [nblk,
+// 2 D], part_w [chunks, D*D + CNT_PAD*D]. Outputs: dx [N, D] (T), dbias
+// [D], sums_adj [2 D] = [da | db] and wgrad [D*D + CNT_PAD*D] = [dW |
+// detab] (f32).
+template <typename T>
+static int gcn_bn_bwd(const void* g, const float* ds, const void* x,
+                      const float* a, const float* b, const void* adj,
+                      const void* cnt, const void* out, const void* w,
+                      void* wt, void* gtc, void* dxw, void* xc,
+                      float* part_gt, float* part_adj, float* part_w,
+                      void* dx, float* dbias, float* sums_adj, float* wgrad,
+                      int T_, int S, int D, int relu_in, int chunks,
+                      void* stream) {
+  if (T_ <= 0 || S <= 0 || S % R || D <= 0 || chunks <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nblk = T_ * S / R;
+  const int N = T_ * S;
+  gcn_bn_bwd_gt_kernel<T><<<nblk, NT, 0, st>>>(
+      (const T*)g, ds, (const T*)adj, (const T*)out, (T*)gtc, part_gt, S, D);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  int err = launch_adj<T, false>(gtc, adj, nullptr, nullptr, nullptr, dxw,
+                                 nullptr, nblk, S, D, st);
+  if (err) return err;
+  if ((err = launch_transpose<T>(w, wt, D, D, st))) return err;
+  const size_t bytes = ((size_t)R * D + KC * CW) * sizeof(float);
+  if ((e = set_smem(gcn_bn_bwd_rows_kernel<T>, bytes)) != cudaSuccess)
+    return (int)e;
+  gcn_bn_bwd_rows_kernel<T><<<nblk, NT, bytes, st>>>(
+      (const T*)dxw, (const T*)wt, (const T*)x, a, b, (T*)dx, (T*)xc,
+      part_adj, D, relu_in);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const AtB p_w = {xc, dxw, D, D, 0};
+  const AtB p_et = {cnt, gtc, CNT_PAD, D, D * D};
+  const int width = D * D + CNT_PAD * D;
+  int rows_per_chunk = (N + chunks - 1) / chunks;
+  rows_per_chunk = (rows_per_chunk + AKT - 1) / AKT * AKT;
+  atb_kernel<T><<<chunks * (atb_tiles(p_w) + atb_tiles(p_et)), ANT, 0, st>>>(
+      p_w, p_et, p_et, 2, N, rows_per_chunk, chunks, width, part_w);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if ((err = launch_sum_partials(part_gt, dbias, nblk, D, st))) return err;
+  if ((err = launch_sum_partials(part_adj, sums_adj, nblk, 2 * D, st)))
+    return err;
+  return launch_sum_partials(part_w, wgrad, chunks, width, st);
+}
+
 }  // namespace fbl
 
 extern "C" {
@@ -246,6 +401,18 @@ int fbl_strip_rows() { return fbl::R; }
                        int chunks, void* stream) {                          \
     return fbl::gcn_bwd<T>(g, x, adj, w, wt, dxw, dx, part_w, dw, T_, S, D, \
                            chunks, stream);                                 \
+  }                                                                         \
+  int gcn_bn_bwd_##suffix(                                                  \
+      const void* g, const float* ds, const void* x, const float* a,        \
+      const float* b, const void* adj, const void* cnt, const void* out,    \
+      const void* w, void* wt, void* gtc, void* dxw, void* xc,              \
+      float* part_gt, float* part_adj, float* part_w, void* dx,             \
+      float* dbias, float* sums_adj, float* wgrad, int T_, int S, int D,    \
+      int relu_in, int chunks, void* stream) {                              \
+    return fbl::gcn_bn_bwd<T>(g, ds, x, a, b, adj, cnt, out, w, wt, gtc,    \
+                              dxw, xc, part_gt, part_adj, part_w, dx,       \
+                              dbias, sums_adj, wgrad, T_, S, D, relu_in,    \
+                              chunks, stream);                              \
   }
 
 GCN_ENTRIES(f32, float)

@@ -1,7 +1,8 @@
 """Flat-packed, statically-shaped batched molecular graphs.
 
-Port of molclr_tpu/data/graphs.py (PadSpec, PackOverflow, pack_batch; the
-packing is bit-identical). Every batch of B molecules is packed into ONE
+Port of molclr_tpu/data/graphs.py (PadSpec, PackOverflow, pack_batch, the
+packing bit-identical; concat_shards and concat_views on torch tensors).
+Every batch of B molecules is packed into ONE
 padded graph with fixed shapes, carrying two adjacency views:
 
   COO  (`src/dst/bond_type/bond_dir/edge_mask` over [n_edges]); bond k of
@@ -117,6 +118,42 @@ class GraphBatch:
 
 class PackOverflow(ValueError):
     pass
+
+
+def concat_shards(batches: list) -> GraphBatch:
+    """S same-shape GraphBatches of torch tensors as ONE packed batch, with
+    node, graph and bond ids renumbered globally: segment i's ids shift by
+    i times the per-segment count, and the per-segment sentinel bond id
+    (n_bonds) maps to the concatenated sentinel S * n_bonds, never onto a
+    real bond of another segment. Tile-aligned segments stay tile-aligned."""
+    a = batches[0]
+    n, g, s = a.num_nodes, a.num_graphs, len(batches)
+    bmax = a.bond_mask.shape[-1]
+
+    def shift_bond(x, i):
+        return torch.where(x == bmax, s * bmax, x + i * bmax)
+
+    def cat(field, shift=0):
+        xs = [getattr(b, field) for b in batches]
+        return torch.cat([x + i * shift for i, x in enumerate(xs)]
+                         if shift else xs)
+
+    out = {f.name: cat(f.name) for f in fields(GraphBatch)}
+    for field, shift in (("node_graph", g), ("src", n), ("dst", n),
+                         ("nbr", n), ("bond_graph", g)):
+        out[field] = cat(field, shift)
+    for field in ("edge_bond", "nbr_bond"):
+        out[field] = torch.cat([shift_bond(getattr(b, field), i)
+                                for i, b in enumerate(batches)])
+    return GraphBatch(**out)
+
+
+def concat_views(a: GraphBatch, b: GraphBatch) -> GraphBatch:
+    """The two contrastive views as one packed batch (concat_views=True):
+    both run through the encoder in ONE forward, so BatchNorm statistics
+    span both views. (The reference runs the views one after the other,
+    molclr.py:57-60, which concat_views=False reproduces.)"""
+    return concat_shards([a, b])
 
 
 def pack_batch(graphs: list[MolGraph], spec: PadSpec) -> GraphBatch:

@@ -9,7 +9,8 @@ reference state dict loads directly:
             aggregation incl. the type-4 self-loop, no epsilon.
   GCNConv   weight [D, D] used as x @ W (uniform +-sqrt(6 / 2D)), bias [D]
             (zeros), scalar edge embeddings [5, 1] and [3, 1]; the
-            reference's discarded normalization (quirk Q2) is reproduced.
+            reference's discarded normalization (quirk Q2) is reproduced
+            unless normalize (normalize_gcn) applies it.
   BatchNorm torch BatchNorm1d semantics (eps 1e-5, momentum 0.1, biased
             variance to normalize, unbiased in the running stats) over
             real nodes only.
@@ -34,9 +35,23 @@ from molclr_tpu_torch.ops.fused_gcn import (
 from molclr_tpu_torch.ops.fused_layer import (
     fused_gine_bn_layer,
     fused_gine_layer,
+    pack_cnt,
     pack_etab,
 )
-from molclr_tpu_torch.ops.tile_dense import gcn_edge_term
+from molclr_tpu_torch.ops.scatter_free import _counts
+from molclr_tpu_torch.ops.tile_dense import (
+    gcn_edge_term,
+    gcn_normalization,
+    normalize_tile_adjacency,
+)
+
+
+def edge_counts(batch, w: torch.Tensor) -> torch.Tensor:
+    """The packed per-node edge count matrix [N, CNT_PAD] of the ELL view
+    with slot weights w [N, K] (the mask, or the normalized mask), in w's
+    dtype."""
+    return pack_cnt(_counts(batch.nbr_bond_type, w, NUM_BOND_TYPES),
+                    _counts(batch.nbr_bond_dir, w, NUM_BOND_DIRS))
 
 
 @torch.no_grad()
@@ -155,12 +170,15 @@ class GINEConv(nn.Module):
 
 
 class GCNConv(nn.Module):
-    """GCN convolution with scalar edge embeddings in its two fused modes
-    (normalize=False, the reference's quirk Q2)."""
+    """GCN convolution with scalar edge embeddings in its two fused modes.
+    normalize=False reproduces the reference's discarded normalization
+    (quirk Q2); normalize=True applies the symmetric normalization from
+    the masked degree including the self-loop."""
 
-    def __init__(self, emb_dim: int, generator=None):
+    def __init__(self, emb_dim: int, generator=None, normalize: bool = False):
         super().__init__()
         d = emb_dim
+        self.normalize = normalize
         self.weight = nn.Parameter(torch.empty(d, d))
         self.bias = nn.Parameter(torch.zeros(d))
         self.edge_embedding1 = nn.Embedding(NUM_BOND_TYPES, 1)
@@ -171,14 +189,21 @@ class GCNConv(nn.Module):
         xavier_uniform_(self.edge_embedding1.weight, generator)
         xavier_uniform_(self.edge_embedding2.weight, generator)
 
-    def forward(self, h, adj, cnt, bn_in=None):
+    def forward(self, h, adj, cnt, bn_in=None, batch=None):
         """As GINEConv.forward. The unchained mode runs A @ (h @ W) as one
         kernel call and adds the scalar edge term and the bias outside it,
-        in h's dtype, as the JAX package does."""
+        in h's dtype, as the JAX package does; with normalize it scales adj
+        and weights the counts itself, from `batch`'s ELL view in h's dtype
+        (as the JAX layer does per layer). The BN-chained mode takes adj
+        and cnt already normalized by the trunk."""
         dt = h.dtype
         e1, e2 = self.edge_embedding1.weight, self.edge_embedding2.weight
         w = self.weight.to(dt).contiguous()
         if bn_in is None:
+            if self.normalize:
+                dis, wn = gcn_normalization(batch.nbr, batch.nbr_mask, dt)
+                adj = normalize_tile_adjacency(adj, dis)
+                cnt = edge_counts(batch, wn)
             out = fused_gcn_layer(h, adj.to(dt), w)
             return out + gcn_edge_term(e1, e2, cnt, dt) + self.bias.to(dt)
         a, b, relu_in = bn_in

@@ -33,23 +33,22 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from molclr_tpu_torch.data.featurize import (
-    NUM_ATOM_TYPES,
-    NUM_BOND_DIRS,
-    NUM_BOND_TYPES,
-    NUM_CHIRALITY,
-)
+from molclr_tpu_torch.data.featurize import NUM_ATOM_TYPES, NUM_CHIRALITY
 from molclr_tpu_torch.models.layers import (
     GCNConv,
     GINEConv,
     MaskedBatchNorm,
+    edge_counts,
     reset_linear_,
     xavier_uniform_,
 )
-from molclr_tpu_torch.ops.fused_layer import pack_cnt
-from molclr_tpu_torch.ops.scatter_free import _counts, embed_lookup
+from molclr_tpu_torch.ops.scatter_free import embed_lookup
 from molclr_tpu_torch.ops.segment import graph_pool
-from molclr_tpu_torch.ops.tile_dense import build_tile_adjacency
+from molclr_tpu_torch.ops.tile_dense import (
+    build_tile_adjacency,
+    gcn_normalization,
+    normalize_tile_adjacency,
+)
 
 
 def _linear(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -79,9 +78,10 @@ class Encoder(nn.Module):
 
     dtype is the activation dtype (f32 or bf16); parameters stay f32.
     Initial weights come from `generator` (a CPU torch.Generator); build
-    the model on the CPU and move it with .to(device). Options of the JAX
-    model that the port does not have yet raise NotImplementedError: tile
-    == 0 (the ELL gather path) and normalize_gcn."""
+    the model on the CPU and move it with .to(device). normalize_gcn
+    applies GCN's symmetric normalization (the GIN trunk ignores it, as
+    the JAX model does). tile == 0 (the ELL gather path of the JAX model)
+    is not ported yet and raises NotImplementedError."""
 
     def __init__(self, num_layers: int = 5, emb_dim: int = 300,
                  feat_dim: int = 512, gnn_type: str = "gin",
@@ -94,20 +94,23 @@ class Encoder(nn.Module):
         if tile <= 0:
             raise NotImplementedError("tile == 0 (ELL gather path) is not "
                                       "ported yet")
-        if normalize_gcn:
-            raise NotImplementedError("normalize_gcn is not ported yet")
         self.num_layers, self.emb_dim, self.feat_dim = \
             num_layers, emb_dim, feat_dim
         self.gnn_type, self.pool, self.dtype, self.tile = \
             gnn_type, pool, dtype, tile
         self.drop_ratio = float(drop_ratio)
+        self.normalize_gcn = bool(normalize_gcn) and gnn_type == "gcn"
         g = generator
         self.x_embedding1 = nn.Embedding(NUM_ATOM_TYPES, emb_dim)
         self.x_embedding2 = nn.Embedding(NUM_CHIRALITY, emb_dim)
         xavier_uniform_(self.x_embedding1.weight, g)
         xavier_uniform_(self.x_embedding2.weight, g)
-        conv = GINEConv if gnn_type == "gin" else GCNConv
-        self.gnns = nn.ModuleList(conv(emb_dim, g) for _ in range(num_layers))
+        if gnn_type == "gin":
+            convs = (GINEConv(emb_dim, g) for _ in range(num_layers))
+        else:
+            convs = (GCNConv(emb_dim, g, self.normalize_gcn)
+                     for _ in range(num_layers))
+        self.gnns = nn.ModuleList(convs)
         self.batch_norms = nn.ModuleList(
             MaskedBatchNorm(emb_dim) for _ in range(num_layers))
         self.feat_lin = reset_linear_(nn.Linear(emb_dim, feat_dim), g)
@@ -127,10 +130,15 @@ class Encoder(nn.Module):
         adj = build_tile_adjacency(batch.nbr, batch.nbr_mask, self.tile,
                                    dtype=dt)
         w = batch.nbr_mask.to(dt)
-        cnt = pack_cnt(_counts(batch.nbr_bond_type, w, NUM_BOND_TYPES),
-                       _counts(batch.nbr_bond_dir, w, NUM_BOND_DIRS))
+        chained = self.drop_ratio == 0.0
+        if chained and self.normalize_gcn:
+            # bake the symmetric normalization into the shared adjacency
+            # and edge counts once (the unchained GCNConv does it per layer)
+            dis, w = gcn_normalization(batch.nbr, batch.nbr_mask, dt)
+            adj = normalize_tile_adjacency(adj, dis)
+        cnt = edge_counts(batch, w)
         last = self.num_layers - 1
-        if self.drop_ratio == 0.0:
+        if chained:
             count = batch.node_mask.float().sum()
             d = self.emb_dim
             a = torch.ones(d, device=h.device)
@@ -149,8 +157,9 @@ class Encoder(nn.Module):
         if drop and dropout_masks is None and generator is None:
             raise ValueError("training with dropout needs dropout_masks or "
                              "a generator")
+        extra = dict(batch=batch) if self.normalize_gcn else {}
         for layer, (conv, bn) in enumerate(zip(self.gnns, self.batch_norms)):
-            h = bn(conv(h, adj, cnt), batch.node_mask)
+            h = bn(conv(h, adj, cnt, **extra), batch.node_mask)
             if layer != last:
                 h = torch.relu(h)
             if drop:

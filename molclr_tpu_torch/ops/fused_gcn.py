@@ -1,11 +1,11 @@
-"""Fused GCN layers: the BN-chained forward (kernel K3f) with its edge
+"""Fused GCN layers: the BN-chained layer (kernels K3f / K3b) with its edge
 table, and the unchained layer of the fine-tuning trunk (kernels K5f /
 K5b).
 
-Port of molclr_tpu/ops/fused_gcn.py (`pack_gcn_etab`, the forward of
-`fused_gcn_bn_layer`, and `fused_gcn_layer` with its custom VJP, whose
-section is at the end of the module). Per 256-node tile the BN-chained
-layer computes
+Port of molclr_tpu/ops/fused_gcn.py (`pack_gcn_etab`, `fused_gcn_bn_layer`
+and `fused_gcn_layer` with their custom VJPs; the unchained layer's section
+is at the end of the module). Per 256-node tile the BN-chained layer
+computes
 
     y    = relu?(x * a + b)                 the PREVIOUS BatchNorm's affine
     xw   = y @ W
@@ -17,8 +17,13 @@ casts, and every product accumulated in f32. etab carries the SCALAR edge
 tables broadcast across the D columns (pack_gcn_etab).
 
 `fused_gcn_bn_layer` launches the hand-written sm_90a kernels
-(csrc/fused_gcn_bn.cu) on CUDA tensors and runs the plain PyTorch version
-`fused_gcn_bn_layer_plain` on CPU tensors.
+(csrc/fused_gcn_bn.cu) on CUDA tensors and runs the plain PyTorch versions
+(`fused_gcn_bn_layer_plain`, `fused_gcn_bn_layer_bwd_plain`) on CPU
+tensors. When a gradient is needed it goes through a
+`torch.autograd.Function` whose backward is K3b (or the plain backward on
+the CPU, so that bf16 rounds where the kernel rounds). With normalize_gcn
+the trunk hands it an adjacency scaled by dis_i * dis_j and norm-weighted
+counts; the layer itself is the same.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from molclr_tpu_torch.ops import _build
 from molclr_tpu_torch.ops.fused_layer import (
     BWD_CHUNK_ROWS,
     CNT_PAD,
+    adj_diag_mask,
     bn_prologue,
     check_layer_args,
     cuda_tiles,
@@ -61,39 +67,42 @@ def fused_gcn_bn_layer_plain(x, a, b, adj, cnt, etab, w, bias,
     return outc, masked_moments(outc, adj)
 
 
-def fused_gcn_bn_layer(x, a, b, adj, cnt, etab, w, bias,
-                       relu_in: bool = False):
-    """BN-chained fused GCN layer, forward.
+def fused_gcn_bn_layer_bwd_plain(g, dsums, x, a, b, adj, cnt, out, w,
+                                 relu_in: bool = False):
+    """The plain PyTorch version of the backward (`_bn_bwd_kernel` line by
+    line, the same cast points as K3b). Returns (dx [N, D] in g's dtype,
+    da [D], db [D], dW [D, D], dbias [D], detab [CNT_PAD, D], all f32).
+    dxc = dxw @ W^T stays f32 into the prologue adjoint; dW multiplies the
+    recomputed, rounded prologue output xc; dbias sums the uncast gt, the
+    products take gtc."""
+    dt = g.dtype
+    t, s, _ = adj.shape
+    n, d = g.shape
+    m = adj_diag_mask(adj)
+    # total output cotangent: downstream grad + the moment sums' adjoint
+    gt = g.float() + m * (dsums[0] + 2.0 * out.float() * dsums[1])
+    gtc = gt.to(dt)
+    # adjacency blocks are symmetric (normalization weights included): the
+    # adjoint of A @ . is A @ .
+    dxw = torch.bmm(adj.float(), gtc.float().reshape(t, s, d)).reshape(n, d)
+    dxw = dxw.to(dt)
+    dxc = dxw.float() @ w.float().t()
+    xf = x.float()
+    dpre = torch.where(xf * a + b > 0.0, dxc, 0.0) if relu_in else dxc
+    xc = bn_prologue(x, a, b, relu_in)
+    return ((dpre * a).to(dt), (dpre * xf).sum(dim=0), dpre.sum(dim=0),
+            xc.float().t() @ dxw.float(), gt.sum(dim=0),
+            cnt.float().t() @ gtc.float())
 
-    x     [N, D]   RAW previous conv output (f32 or bf16)
-    a, b  [D]      f32 BatchNorm coefficients; identity = (ones, zeros,
-                   relu_in=False) for the first layer
-    adj   [T, S, S] block-diagonal symmetric adjacency, S % 16 == 0
-    cnt   [N, CNT_PAD] per-node edge count matrix
-    etab  [CNT_PAD, D] column-broadcast scalar edge tables (pack_gcn_etab)
-    w     [D, D] in x's dtype; bias [D] f32
 
-    Returns (out [N, D] in x's dtype, sums [2, D] f32). CUDA tensors run
-    the sm_90a kernels (counted in `fused_gcn_bn_layer.launches`); CPU
-    tensors run fused_gcn_bn_layer_plain, through which autograd flows. The
-    backward kernel (K3b) is not ported yet: on CUDA tensors a call that
-    would need a gradient raises NotImplementedError."""
-    n, d = x.shape
-    check_layer_args("fused_gcn_bn_layer",
-                     dict(x=x, adj=adj, cnt=cnt, etab=etab, w=w),
-                     dict(a=a, b=b, bias=bias), adj, n, d)
-    if w.shape != (d, d) or bias.shape != (d,):
-        raise ValueError("fused_gcn_bn_layer: w/bias shapes do not match D")
+def fused_gcn_bn_layer_fwd(x, a, b, adj, cnt, etab, w, bias, relu_in: bool):
+    """Forward of the layer (kernel K3f, counted in
+    `fused_gcn_bn_layer.launches`) on CUDA tensors; the plain version on
+    CPU tensors. Returns (out, sums)."""
     if x.device.type == "cpu":
         return fused_gcn_bn_layer_plain(x, a, b, adj, cnt, etab, w, bias,
                                         relu_in)
-    if torch.is_grad_enabled() and any(
-            v.requires_grad for v in (x, a, b, etab, w, bias)):
-        # the kernel's output has no grad_fn: training on the card would
-        # silently skip every trunk gradient
-        raise NotImplementedError(
-            "K3b not ported: fused_gcn_bn_layer has no backward on CUDA "
-            "yet (GCN training runs on the CPU only)")
+    n, d = x.shape
     t, s = cuda_tiles("fused_gcn_bn_layer", x, adj, "fused_gcn_bn")
     strip = strip_rows("fused_gcn_bn")
     suffix = "f32" if x.dtype == torch.float32 else "bf16"
@@ -111,6 +120,106 @@ def fused_gcn_bn_layer(x, a, b, adj, cnt, etab, w, bias,
     _build.check(err, "fused_gcn_bn_layer")
     fused_gcn_bn_layer.launches += 1
     return out, sums
+
+
+def fused_gcn_bn_layer_bwd(g, dsums, x, a, b, adj, cnt, out, w,
+                           relu_in: bool = False):
+    """Backward of the layer (kernel K3b): the arguments and results of
+    fused_gcn_bn_layer_bwd_plain. CUDA tensors run the sm_90a kernels
+    (counted in `fused_gcn_bn_layer_bwd.launches`); CPU tensors run the
+    plain version."""
+    n, d = g.shape
+    check_layer_args("fused_gcn_bn_layer_bwd",
+                     dict(g=g, x=x, adj=adj, cnt=cnt, out=out, w=w),
+                     dict(dsums=dsums, a=a, b=b), adj, n, d)
+    if dsums.shape != (2, d) or x.shape != (n, d) or out.shape != (n, d) \
+            or w.shape != (d, d):
+        raise ValueError("fused_gcn_bn_layer_bwd: shapes do not match")
+    if g.device.type == "cpu":
+        return fused_gcn_bn_layer_bwd_plain(g, dsums, x, a, b, adj, cnt, out,
+                                            w, relu_in)
+    t, s = cuda_tiles("fused_gcn_bn_layer_bwd", g, adj, "fused_gcn_bn")
+    suffix = "f32" if g.dtype == torch.float32 else "bf16"
+    fn = kernel_fn("fused_gcn_bn", f"gcn_bn_bwd_{suffix}", 20, 5)
+    nblk = t * (s // strip_rows("fused_gcn_bn"))
+    chunks = -(-n // BWD_CHUNK_ROWS)
+    width = d * d + CNT_PAD * d
+    f32 = dict(dtype=torch.float32, device=g.device)
+    wt = w.new_empty(d, d)
+    gtc, dxw, xc, dx = (torch.empty_like(g) for _ in range(4))
+    part_gt = torch.empty(nblk, d, **f32)
+    part_adj = torch.empty(nblk, 2 * d, **f32)
+    part_w = torch.empty(chunks, width, **f32)
+    dbias = torch.empty(d, **f32)
+    sums_adj = torch.empty(2 * d, **f32)
+    wgrad = torch.empty(width, **f32)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = fn(*(v.data_ptr() for v in (
+        g, dsums, x, a, b, adj, cnt, out, w, wt, gtc, dxw, xc, part_gt,
+        part_adj, part_w, dx, dbias, sums_adj, wgrad)),
+        t, s, d, int(bool(relu_in)), chunks, stream)
+    _build.check(err, "fused_gcn_bn_layer_bwd")
+    fused_gcn_bn_layer_bwd.launches += 1
+    dw, detab = wgrad.split([d * d, CNT_PAD * d])
+    return (dx, sums_adj[:d], sums_adj[d:], dw.view(d, d), dbias,
+            detab.view(CNT_PAD, d))
+
+
+fused_gcn_bn_layer_bwd.launches = 0
+
+
+class _GcnBN(torch.autograd.Function):
+    """K3f forward, K3b backward (`_bn_fused_fwd` / `_bn_fused_bwd` of the
+    JAX package: x and the forward's own output saved, dW and detab
+    returned in w's dtype, the vector gradients in f32)."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, adj, cnt, etab, w, bias, relu_in):
+        out, sums = fused_gcn_bn_layer_fwd(x, a, b, adj, cnt, etab, w, bias,
+                                           relu_in)
+        ctx.save_for_backward(x, a, b, adj, cnt, out, w)
+        ctx.relu_in = relu_in
+        return out, sums
+
+    @staticmethod
+    def backward(ctx, g, dsums):
+        x, a, b, adj, cnt, out, w = ctx.saved_tensors
+        dx, da, db, dw, dbias, detab = fused_gcn_bn_layer_bwd(
+            g.contiguous(), dsums.contiguous(), x, a, b, adj, cnt, out, w,
+            ctx.relu_in)
+        return (dx, da, db, None, None, detab.to(w.dtype), dw.to(w.dtype),
+                dbias, None)
+
+
+def fused_gcn_bn_layer(x, a, b, adj, cnt, etab, w, bias,
+                       relu_in: bool = False):
+    """BN-chained fused GCN layer.
+
+    x     [N, D]   RAW previous conv output (f32 or bf16)
+    a, b  [D]      f32 BatchNorm coefficients; identity = (ones, zeros,
+                   relu_in=False) for the first layer
+    adj   [T, S, S] block-diagonal symmetric adjacency, S % 16 == 0
+                   (dis_i * dis_j-weighted when normalize_gcn)
+    cnt   [N, CNT_PAD] per-node edge count matrix (norm-weighted when
+                   normalize_gcn)
+    etab  [CNT_PAD, D] column-broadcast scalar edge tables (pack_gcn_etab)
+    w     [D, D] in x's dtype; bias [D] f32
+
+    Returns (out [N, D] in x's dtype, sums [2, D] f32). CUDA tensors run
+    the sm_90a kernel (counted in `fused_gcn_bn_layer.launches`); CPU
+    tensors run fused_gcn_bn_layer_plain. When grad mode is on and an
+    input requires a gradient, the call is differentiable in x, a, b,
+    etab, w and bias: the backward runs K3b (adj and cnt get none)."""
+    n, d = x.shape
+    check_layer_args("fused_gcn_bn_layer",
+                     dict(x=x, adj=adj, cnt=cnt, etab=etab, w=w),
+                     dict(a=a, b=b, bias=bias), adj, n, d)
+    if w.shape != (d, d) or bias.shape != (d,):
+        raise ValueError("fused_gcn_bn_layer: w/bias shapes do not match D")
+    args = (x, a, b, adj, cnt, etab, w, bias)
+    if torch.is_grad_enabled() and any(v.requires_grad for v in args):
+        return _GcnBN.apply(*args, relu_in)
+    return fused_gcn_bn_layer_fwd(*args, relu_in)
 
 
 fused_gcn_bn_layer.launches = 0

@@ -23,7 +23,7 @@ class ModelConfig:
     pool: str = "mean"
     pred_n_layer: int = 2           # fine-tune prediction head depth
     pred_act: str = "softplus"      # 'softplus' | 'relu'
-    normalize_gcn: bool = False     # True fixes quirk Q2 (not ported yet)
+    normalize_gcn: bool = False     # True fixes quirk Q2
     bf16: bool = False              # bfloat16 activations (params stay f32)
     tile: int = 256                 # tile-dense aggregation, tile-aligned
                                     # packing (a multiple of 16 on the card)
@@ -42,8 +42,13 @@ class PretrainConfig:
     ntxent_impl: str = "auto"       # 'auto' | 'xla' | 'pallas': the closed
                                     # form, the K2 kernels, or the kernels
                                     # for CUDA tensors at 2B >= 4096
-    aug: str = "node"               # 'node' | 'none' (subgraph and mix are
-                                    # not ported yet)
+    aug: str = "node"               # 'node' | 'subgraph' | 'mix' | 'none'
+    max_waves: int = 0              # BFS horizon of subgraph / mix; 0 =
+                                    # derive (max atoms per molecule - 1,
+                                    # capped at 2000) from the corpus at
+                                    # setup_data, a bound on every graph's
+                                    # eccentricity (the reference BFS is
+                                    # unbounded, dataset_subgraph.py:70-88)
     valid_size: float = 0.05        # config.yaml:26
     model: ModelConfig = field(default_factory=ModelConfig)
     max_degree: int = 6
@@ -64,6 +69,10 @@ class PretrainConfig:
     pack_cache_max_mols: int = 500_000  # cache packed batches across
                                     # epochs (compositions fixed after epoch
                                     # 0, order reshuffled) up to this size
+    concat_views: bool = False      # True: both views in ONE forward
+                                    # (joint BatchNorm statistics); False
+                                    # runs them one after the other, as the
+                                    # reference does (molclr.py:57-60)
 
 
 @dataclass

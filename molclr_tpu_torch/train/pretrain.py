@@ -2,20 +2,26 @@
 
 Port of molclr_tpu/train/pretrain.py: `train_step` / `eval_step` (its
 `loss_fn`, `train_step` and `eval_step`) and a `Pretrainer` on the host
-streaming path. Per step, two views are drawn by paired_augment; both run
+streaming path, for GIN and GCN (normalize_gcn too), every augmentation
+kind (node, subgraph, mix, none), dropout (drop_ratio > 0: the unchained
+trunk) and concat_views. Per step, two views are drawn by paired_augment
+(the BFS kinds within the corpus-derived horizon `max_waves`); both run
 through the model in train mode one after the other, so view j's BatchNorm
-sees the running stats view i updated; the loss is the masked NT-Xent of
-(zi, zj) in f32 with pair_mask = graph_mask; gradients flow through the
-kernels' backward passes; and Adam with torch semantics steps on the
-epoch-granular warm-up + cosine schedule.
+sees the running stats view i updated, or with concat_views as one batch
+in one forward; the loss is the masked NT-Xent of (zi, zj) in f32 with
+pair_mask = graph_mask; gradients flow through the kernels' backward
+passes; and Adam with torch semantics steps on the epoch-granular warm-up
++ cosine schedule.
 
-Random draws come from CPU torch.Generators seeded from (cfg.seed, step)
-(`step_generator`), so a resumed run redraws the same stream and a run on
-the card sees the same views as one on the CPU. Not ported yet: the JAX
-Pretrainer's TPU dispatch machinery (scan folding, precomputed
+Augmentation draws come from CPU torch.Generators seeded from (cfg.seed,
+step) (`step_generator`), so a resumed run redraws the same stream and a
+run on the card sees the same views as one on the CPU; dropout draws its
+masks on the model's device from generators seeded from (cfg.seed, step,
+view), one stream per view as JAX's rng_di / rng_dj. Not ported yet: the
+JAX Pretrainer's TPU dispatch machinery (scan folding, precomputed
 augmentation, device-resident caches and tile-unit regrouping, the narrow
-wire format, the prefetch thread, the on-disk corpus), data parallelism and
-profiling.
+wire format, the prefetch thread, the on-disk corpus), data parallelism,
+TensorBoard and profiling.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 
 from molclr_tpu_torch.data.augment import paired_augment
+from molclr_tpu_torch.data.graphs import concat_views
 from molclr_tpu_torch.data.loader import (
     BatchIterator,
     featurize_many,
@@ -43,15 +50,17 @@ from molclr_tpu_torch.train.optim import adam_torch, set_lr, \
     warmup_then_cosine
 
 # stream ids of step_generator
-TRAIN_STREAM, VALID_STREAM = 0, 1
+TRAIN_STREAM, VALID_STREAM, DROPOUT_STREAM = 0, 1, 2
 
 
-def step_generator(seed: int, *ids: int) -> torch.Generator:
-    """A CPU torch.Generator seeded from (seed, *ids): the augmentation
-    draws of one train step (TRAIN_STREAM, step) or one validation batch
-    (VALID_STREAM, epoch, i)."""
+def step_generator(seed: int, *ids: int, device="cpu") -> torch.Generator:
+    """A torch.Generator on `device` seeded from (seed, *ids): the
+    augmentation draws of one train step (TRAIN_STREAM, step) or one
+    validation batch (VALID_STREAM, epoch, i) on the CPU, the dropout
+    masks of one view of a train step (DROPOUT_STREAM, step, view) on the
+    model's device."""
     words = np.random.SeedSequence([seed, *ids]).generate_state(2)
-    return torch.Generator().manual_seed(
+    return torch.Generator(device=device).manual_seed(
         (int(words[0]) << 31) ^ int(words[1]))
 
 
@@ -70,21 +79,45 @@ def _loss(loss_fn, cfg, zi, zj, batch):
                    cfg.use_cosine_similarity, pair_mask=batch.graph_mask)
 
 
+def _dropout_kw(model, cfg, step: int, view: int, masks) -> dict:
+    """The dropout inputs of one forward: the given keep masks, or (with
+    drop_ratio > 0) a generator on the model's device for (cfg.seed,
+    step, view); nothing at drop_ratio 0."""
+    if masks is not None:
+        return dict(dropout_masks=masks)
+    if model.drop_ratio == 0.0:
+        return {}
+    dev = next(model.parameters()).device
+    return dict(generator=step_generator(cfg.seed, DROPOUT_STREAM, step,
+                                         view, device=dev))
+
+
 def train_step(model, opt, batch, cfg: PretrainConfig, step: int, lr: float,
-               views=None, bond_window: int = 0) -> torch.Tensor:
+               views=None, bond_window: int = 0, max_waves: int = 0,
+               dropout_masks=None) -> torch.Tensor:
     """One optimizer step on one base batch; returns the loss (a 0-d
     tensor on the batch's device, not synchronized). views = (vi, vj)
-    replaces the augmentation draw (as the JAX train_step's `views`); the
-    LR is the schedule at the step count before the update."""
+    replaces the augmentation draw (as the JAX train_step's `views`);
+    dropout_masks replaces the dropout draw: per view a list of bool keep
+    masks [N, emb_dim], one per layer (with concat_views, one list for the
+    joint batch, [2N, emb_dim]). The LR is the schedule at the step count
+    before the update."""
     if views is None:
         views = paired_augment(batch, step_generator(cfg.seed, TRAIN_STREAM,
                                                      step),
                                cfg.aug, tile=cfg.model.tile,
-                               bond_window=bond_window)
+                               bond_window=bond_window, max_waves=max_waves)
     vi, vj = views
+    masks = dropout_masks or (None, None)
     model.train()
-    _, zi = model(vi)
-    _, zj = model(vj)
+    if cfg.concat_views:
+        _, z = model(concat_views(vi, vj),
+                     **_dropout_kw(model, cfg, step, 0, masks[0]))
+        g = batch.num_graphs
+        zi, zj = z[:g], z[g:]
+    else:
+        _, zi = model(vi, **_dropout_kw(model, cfg, step, 0, masks[0]))
+        _, zj = model(vj, **_dropout_kw(model, cfg, step, 1, masks[1]))
     loss = _loss(resolve_ntxent(cfg.ntxent_impl), cfg, zi, zj, batch)
     opt.zero_grad(set_to_none=True)
     loss.backward()
@@ -95,11 +128,12 @@ def train_step(model, opt, batch, cfg: PretrainConfig, step: int, lr: float,
 
 @torch.no_grad()
 def eval_step(model, batch, cfg: PretrainConfig, generator: torch.Generator,
-              bond_window: int = 0) -> torch.Tensor:
-    """Validation loss of one batch: both views in eval mode, the closed
-    form NT-Xent (as the JAX eval_step)."""
+              bond_window: int = 0, max_waves: int = 0) -> torch.Tensor:
+    """Validation loss of one batch: both views in eval mode, one after the
+    other whatever concat_views says, the closed form NT-Xent (as the JAX
+    eval_step)."""
     vi, vj = paired_augment(batch, generator, cfg.aug, tile=cfg.model.tile,
-                            bond_window=bond_window)
+                            bond_window=bond_window, max_waves=max_waves)
     model.eval()
     _, zi = model(vi)
     _, zj = model(vj)
@@ -139,6 +173,12 @@ class Pretrainer:
         self._mean_real_edges = (float(np.mean(
             [g.edge_src.shape[0] for g in train])) * cfg.batch_size
             if train else 0.0)
+        # BFS horizon of subgraph / mix: max atoms - 1 bounds every graph's
+        # eccentricity, so the wave sweep never under-removes (capped at
+        # 2000 so that the wave key (max_waves + 1) * 2^20 stays in int32)
+        max_atoms = max((g.n_atoms for g in graphs), default=2)
+        self.max_waves = (cfg.max_waves if cfg.max_waves > 0
+                          else max(1, min(max_atoms - 1, 2000)))
         self.train_iter = BatchIterator(
             train, self.spec, shuffle=True, drop_last=True, seed=cfg.seed,
             cache_packed=0 < len(train) <= cfg.pack_cache_max_mols)
@@ -183,7 +223,7 @@ class Pretrainer:
         losses = [eval_step(self.model, batch.to(self.device), self.cfg,
                             step_generator(self.cfg.seed, VALID_STREAM,
                                            epoch, i),
-                            self.spec.max_graph_bonds)
+                            self.spec.max_graph_bonds, self.max_waves)
                   for i, (batch, _, _) in enumerate(self.valid_iter)]
         return (float(np.float32(np.mean([float(x) for x in losses])))
                 if losses else float("nan"))
@@ -213,7 +253,8 @@ class Pretrainer:
                     loss = train_step(self.model, self.opt,
                                       batch.to(self.device), cfg, self.step,
                                       self.schedule(self.step),
-                                      bond_window=self.spec.max_graph_bonds)
+                                      bond_window=self.spec.max_graph_bonds,
+                                      max_waves=self.max_waves)
                     self.step += 1
                     losses.append(loss)
                     if self.step % cfg.log_every_steps == 0:

@@ -1,10 +1,13 @@
-"""The PyTorch port's node augmentation against the JAX package, on the CPU.
+"""The PyTorch port's augmentation (node, subgraph, mix) against the JAX
+package, on the CPU.
 
 Augmentation is integer and boolean work: given the JAX package's random
-inputs (`_rand_keys(rng_n, N)`, `_hash_salts(rng_b)` with rng_n, rng_b =
-split(rng)), the port's node_augment must return JAX's views bit for bit
-(tolerance 0). The port's own draws are held to the reference's exact
-counts and invariants."""
+inputs (for node `_rand_keys(rng_n, N)`, `_hash_salts(rng_b)` with rng_n,
+rng_b = split(rng); for the BFS kinds the start, tie-break and top-up keys,
+salts and mix's fractions its functions draw), the port must return JAX's
+views bit for bit (tolerance 0), for tile 0, 32 and 64 and BFS strides 1
+and 8. The port's own draws are held to the reference's exact counts and
+invariants (those of tests/test_augment.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -140,8 +143,17 @@ def test_paired_augment_kinds_and_deltas():
     vi, vj = augment.paired_augment(bp, torch.Generator(), "none")
     assert vi is bp and vj is bp
     for kind in ("subgraph", "mix"):
-        with pytest.raises(NotImplementedError):
-            augment.paired_augment(bp, torch.Generator(), kind)
+        # the BFS kinds draw two views from the generator, the same views
+        # from the same seed
+        views = [augment.paired_augment(bp, torch.Generator().manual_seed(3),
+                                        kind, tile=32) for _ in range(2)]
+        for v, w in zip(*views):
+            assert v.nbr is bp.nbr
+            for f in augment.AUG_DELTA_FIELDS:
+                assert torch.equal(getattr(v, f), getattr(w, f)), (kind, f)
+        masked = [(v.atom_type == MASK_ATOM_TYPE) & bp.node_mask
+                  for v in views[0]]
+        assert bool(masked[0].any()) and bool(masked[1].any()), kind
     with pytest.raises(ValueError):
         augment.paired_augment(bp, torch.Generator(), "edge")
     v, _ = augment.paired_augment(bp, torch.Generator().manual_seed(1),
@@ -154,3 +166,183 @@ def test_paired_augment_kinds_and_deltas():
     w, _ = augment.paired_augment(bp, torch.Generator().manual_seed(1),
                                   "node", tile=32)
     assert torch.equal(w.nbr_mask, v.nbr_mask)
+
+
+# ----------------------------------------------------- subgraph and mix
+
+
+def _bfs_batches(tile):
+    """A batch with a long chain (times past any stride boundary) and a
+    disconnected salt (unreached atoms), as JAX and as the port."""
+    smiles = synthetic_corpus(20, seed=17) + ["C" * 25, "CC(=O)[O-].[Na+]",
+                                              "C"]
+    gj = [jax_featurize_smiles(s) for s in smiles]
+    bj = jax_pack_batch(gj, jax_spec_for_graphs(gj, len(smiles), tile=tile,
+                                                sizing="max"),
+                        prefer_native=False)
+    gp = [featurize_smiles(s) for s in smiles]
+    spec = spec_for_graphs(gp, len(smiles), tile=tile, sizing="max")
+    return bj, pack_batch(gp, spec).to("cpu"), spec
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _assert_views_equal(got, want):
+    for f in augment.AUG_DELTA_FIELDS:
+        assert np.array_equal(getattr(got, f).numpy(),
+                              np.asarray(getattr(want, f))), f
+
+
+@pytest.mark.parametrize("tile", [0, 32, 64])
+@pytest.mark.parametrize("stride", [1, 8])
+@pytest.mark.parametrize("kind", ["subgraph", "mix"])
+def test_bfs_kinds_bit_identical_to_jax(tile, stride, kind):
+    """Paired and single subgraph / mix views given JAX's draws (the keys
+    its functions draw from their rngs, recomputed here with the same
+    splits) equal JAX's views bit for bit (tolerance 0)."""
+    bj, bp, spec = _bfs_batches(tile)
+    n, g, bw = bp.num_nodes, bp.num_graphs, spec.max_graph_bonds
+    ri, rj, rs = jax.random.split(jax.random.PRNGKey(3 + stride), 3)
+    key_s = _t(jax_augment._rand_keys(rs, n))
+    bfs = dict(tile=tile, bfs_stride=stride, max_waves=30)
+    if kind == "subgraph":
+        key_t = [_t(jax_augment._rand_keys(jax.random.split(r)[1], n))
+                 for r in (ri, rj)]
+        ref = jax_augment.paired_subgraph_augment(bj, ri, rj, rs, **bfs)
+        got = augment.paired_subgraph_augment(bp, key_s, key_t, **bfs)
+        single = (jax_augment.subgraph_augment(
+            bj, rj, start_rank_slot=1, start_rng=rs, **bfs),
+            augment.subgraph_augment(bp, key_s, key_t[1], start_rank_slot=1,
+                                     **bfs))
+    else:
+        views = []
+        for r in (ri, rj):
+            rf, rs_v, rn, rb = jax.random.split(r, 4)
+            views.append((
+                _t(jax.random.uniform(rf, (g,), maxval=0.2)),
+                _t(jax_augment._rand_keys(jax.random.split(rs_v)[1], n)),
+                _t(jax_augment._rand_keys(rn, n)),
+                _t(jax_augment._hash_salts(rb))))
+        ref = jax_augment.paired_mix_augment(bj, ri, rj, rs, bond_window=bw,
+                                             **bfs)
+        got = augment.paired_mix_augment(bp, key_s, views, bond_window=bw,
+                                         **bfs)
+        rf, rs_v, rn, rb = jax.random.split(ri, 4)
+        single = (jax_augment.mix_augment(bj, ri, bond_window=bw, **bfs),
+                  augment.mix_augment(
+                      bp, _t(jax.random.uniform(rf, (g,), maxval=0.2)),
+                      *(_t(jax_augment._rand_keys(r, n))
+                        for r in jax.random.split(rs_v)),
+                      _t(jax_augment._rand_keys(rn, n)),
+                      _t(jax_augment._hash_salts(rb)), bond_window=bw, **bfs))
+    for v, r in zip(got, ref):
+        _assert_views_equal(v, r)
+    _assert_views_equal(single[1], single[0])
+
+
+def _masked(batch, view):
+    return (view.atom_type == MASK_ATOM_TYPE) & batch.node_mask
+
+
+def _dead_bonds(batch, view):
+    return set(batch.edge_bond[batch.edge_mask & ~view.edge_mask].tolist())
+
+
+def _assert_ell_matches_coo(batch, view):
+    """Every live ELL slot is alive in the view iff its bond survives in
+    the COO view; both directed rows of a bond die together; self-loops
+    always survive."""
+    dead = _dead_bonds(batch, view)
+    rows = batch.edge_mask & ~view.edge_mask
+    assert int(rows.sum()) == 2 * len(dead)
+    slots = batch.nbr_mask & (batch.nbr_bond < batch.bond_mask.shape[0])
+    expect = torch.tensor([b not in dead
+                           for b in batch.nbr_bond[slots].tolist()])
+    assert torch.equal(view.nbr_mask[slots], expect)
+    assert bool(view.nbr_mask[batch.node_mask, 0].all())
+
+
+@pytest.mark.parametrize("tile", [0, 32])
+def test_subgraph_invariants(tile):
+    """With the port's own draws and a horizon of max atoms - 1: exactly
+    floor(0.25 N) atoms removed per graph, a connected removed set, every
+    bond touching a removed atom dropped and no other, ELL = COO, distinct
+    start atoms (the views differ), padding untouched."""
+    _, bp, _ = _bfs_batches(tile)
+    horizon = int(bp.graph_n_nodes.max()) - 1
+    vi, vj = augment.paired_augment(bp, torch.Generator().manual_seed(5),
+                                    "subgraph", tile=tile,
+                                    max_waves=horizon)
+    assert not torch.equal(_masked(bp, vi), _masked(bp, vj))
+    src, dst = bp.src[bp.edge_mask], bp.dst[bp.edge_mask]
+    for v in (vi, vj):
+        m = _masked(bp, v)
+        for gi in range(bp.num_graphs):
+            if not bp.graph_mask[gi]:
+                continue
+            nodes = set(torch.nonzero(m & (bp.node_graph == gi))[:, 0]
+                        .tolist())
+            assert len(nodes) == int(bp.graph_n_nodes[gi]) // 4, gi
+            if len(nodes) > 1:     # connected over the original bonds
+                seen, frontier = {min(nodes)}, [min(nodes)]
+                while frontier:
+                    u = frontier.pop()
+                    for s, d in zip(src.tolist(), dst.tolist()):
+                        if s == u and d in nodes and d not in seen:
+                            seen.add(d)
+                            frontier.append(d)
+                assert seen == nodes, gi
+        touches = (m[bp.src] | m[bp.dst]) & bp.edge_mask
+        assert torch.equal(v.edge_mask, bp.edge_mask & ~touches)
+        _assert_ell_matches_coo(bp, v)
+        pad = ~bp.node_mask
+        assert torch.equal(v.atom_type[pad], bp.atom_type[pad])
+
+
+@pytest.mark.parametrize("tile", [0, 32])
+def test_mix_invariants(tile):
+    """With the port's own draws: floor(0.25 N) atoms masked per graph in
+    all, at most ceil(0.75 M) bonds alive, every bond touching a removed
+    (BFS) atom dead, ELL = COO."""
+    _, bp, spec = _bfs_batches(tile)
+    horizon = int(bp.graph_n_nodes.max()) - 1
+    views = augment.paired_augment(bp, torch.Generator().manual_seed(6),
+                                   "mix", tile=tile,
+                                   bond_window=spec.max_graph_bonds,
+                                   max_waves=horizon)
+    for v in views:
+        m = _masked(bp, v)
+        dead = _dead_bonds(bp, v)
+        for gi in range(bp.num_graphs):
+            if not bp.graph_mask[gi]:
+                continue
+            n, nb = int(bp.graph_n_nodes[gi]), int(bp.graph_n_bonds[gi])
+            assert int(m[bp.node_graph == gi].sum()) == n // 4, gi
+            bonds = set(torch.nonzero(bp.bond_mask & (bp.bond_graph == gi))
+                        [:, 0].tolist())
+            assert len(bonds - dead) <= -(-3 * nb // 4), gi
+        _assert_ell_matches_coo(bp, v)
+
+
+def test_max_waves_horizon_on_a_long_chain():
+    """A 200-atom chain: the corpus-derived horizon (199) removes exactly
+    floor(0.25 N) atoms from every start, the old fixed 32 waves cannot
+    from some starts (the reference BFS is unbounded)."""
+    g = featurize_smiles("C" * 200)
+    spec = spec_for_graphs([g], 2, tile=256, sizing="max")
+    bp = pack_batch([g], spec).to("cpu")
+    short = 0
+    for seed in range(12):
+        for mw in (199, 32):
+            views = augment.paired_augment(
+                bp, torch.Generator().manual_seed(seed), "subgraph",
+                tile=256, max_waves=mw)
+            for v in views:
+                n = int(_masked(bp, v).sum())
+                if mw == 199:
+                    assert n == 50, (seed, n)
+                else:
+                    short += int(n < 50)
+    assert short > 0

@@ -212,35 +212,91 @@ def test_ntxent_kernel_loss_matches_closed_form_on_card(cuda):
 
 def test_trunk_gets_gradients_on_card(cuda):
     """Training MolCLRNet on the card gives every parameter a non-zero
-    gradient (the backward runs K1b once per layer), equal to the CPU's
-    within 1e-3 of its max; GCN training on the card raises until its
-    backward kernel is ported."""
+    gradient, equal to the CPU's within 1e-3 of its max: GIN through K1b,
+    GCN (with and without normalize_gcn) through K3b, one backward launch
+    per layer and view."""
     smiles = synthetic_corpus(24, seed=5)
     gp = [featurize_smiles(s) for s in smiles]
     batch = pack_batch(gp, spec_for_graphs(gp, 24, tile=32, sizing="max"))
-    grads = []
-    for dev in (cuda, torch.device("cpu")):
-        model = MolCLRNet(num_layers=3, emb_dim=32, feat_dim=64, tile=32,
-                          generator=torch.Generator().manual_seed(2))
-        model = model.to(dev).train()
-        b = batch.to(dev)
-        before = fused_layer.fused_gine_bn_layer_bwd.launches
-        _, zi = model(b)
-        _, zj = model(b)
-        nt_xent_loss(zi, zj, 0.1, True, pair_mask=b.graph_mask).backward()
-        if dev.type == "cuda":
-            assert fused_layer.fused_gine_bn_layer_bwd.launches == before + 6
-        grads.append({k: p.grad.cpu() for k, p in model.named_parameters()})
-    for k, g in grads[0].items():
-        assert g.abs().max() > 0, k
-        ref = grads[1][k]
-        # (+1e-6: the conv output biases feed a BatchNorm, so their exact
-        # gradient is 0 and both devices hold f32 noise there)
-        assert (g - ref).abs().max() <= 1e-3 * ref.abs().max() + 1e-6, k
-    gcn = MolCLRNet(num_layers=2, emb_dim=32, feat_dim=64, tile=32,
-                    gnn_type="gcn").to(cuda).train()
-    with pytest.raises(NotImplementedError, match="K3b"):
-        gcn(batch.to(cuda))
+    for gnn, normalize in (("gin", False), ("gcn", False), ("gcn", True)):
+        kern = (fused_layer.fused_gine_bn_layer_bwd if gnn == "gin"
+                else fused_gcn.fused_gcn_bn_layer_bwd)
+        grads = []
+        for dev in (cuda, torch.device("cpu")):
+            model = MolCLRNet(num_layers=3, emb_dim=32, feat_dim=64, tile=32,
+                              gnn_type=gnn, normalize_gcn=normalize,
+                              generator=torch.Generator().manual_seed(2))
+            model = model.to(dev).train()
+            b = batch.to(dev)
+            before = kern.launches
+            _, zi = model(b)
+            _, zj = model(b)
+            nt_xent_loss(zi, zj, 0.1, True, pair_mask=b.graph_mask).backward()
+            if dev.type == "cuda":
+                assert kern.launches == before + 6, gnn
+            grads.append({k: p.grad.cpu()
+                          for k, p in model.named_parameters()})
+        for k, g in grads[0].items():
+            ref = grads[1][k]
+            # (+1e-6: the conv output biases feed a BatchNorm, so their
+            # exact gradient is 0 and both devices hold f32 noise there)
+            assert (g - ref).abs().max() <= 1e-3 * ref.abs().max() + 1e-6, \
+                (gnn, normalize, k)
+            assert g.abs().max() > 0, (gnn, normalize, k)
+
+
+@pytest.mark.parametrize("shape", [(4, 64, 40, 9), (3, 16, 37, 5),
+                                   (2, 256, 300, 100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu_in", [False, True])
+def test_gcn_backward_kernel_matches_plain(cuda, shape, dtype, relu_in):
+    """K3b against its plain version on the card, on K3f's output and
+    random cotangents, ragged widths and padded rows included; two runs
+    bit-identical, one launch counted per call."""
+    dt = getattr(torch, dtype)
+    x, _, pc = _problem(sum(shape) + 4, *shape)
+    x, p = _to(x, cuda, dt), _to(pc, cuda, dt)
+    args = (x["h"], x["a"], x["b"], x["adj"], x["cnt"], p["etab"], p["w"],
+            p["bias"])
+    out, sums = fused_gcn.fused_gcn_bn_layer(*args, relu_in)
+    gen = torch.Generator().manual_seed(sum(shape))
+    g = torch.randn(out.shape, generator=gen).to(cuda, dt)
+    dsums = (0.05 * torch.randn(sums.shape, generator=gen)).to(cuda)
+    bargs = (g, dsums, x["h"], x["a"], x["b"], x["adj"], x["cnt"], out,
+             p["w"], relu_in)
+    rtol = 1e-4 if dt == torch.float32 else 3e-2
+    before = fused_gcn.fused_gcn_bn_layer_bwd.launches
+    got = fused_gcn.fused_gcn_bn_layer_bwd(*bargs)
+    again = fused_gcn.fused_gcn_bn_layer_bwd(*bargs)
+    want = fused_gcn.fused_gcn_bn_layer_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    assert fused_gcn.fused_gcn_bn_layer_bwd.launches == before + 2
+    for name, a, b, c in zip(("dx", "da", "db", "dw", "dbias", "detab"),
+                             got, again, want):
+        assert a.dtype == c.dtype and a.shape == c.shape, name
+        err = (a.float() - c.float()).abs().max().item()
+        assert err <= rtol * c.float().abs().max().item(), (name, err)
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("kind", ["subgraph", "mix"])
+@pytest.mark.parametrize("tile", [0, 128])
+def test_bfs_views_on_card_equal_cpu(cuda, kind, tile):
+    """Subgraph and mix views drawn on the card equal the CPU's given the
+    same CPU-drawn keys (integer and boolean work: tolerance 0)."""
+    from molclr_tpu_torch.data import augment
+
+    smiles = synthetic_corpus(30, seed=8) + ["C" * 25, "CC(=O)[O-].[Na+]"]
+    gp = [featurize_smiles(s, add_hs=kind == "mix") for s in smiles]
+    spec = spec_for_graphs(gp, len(gp), tile=tile or 128, sizing="max")
+    batch = pack_batch(gp, spec)
+    views = [augment.paired_augment(
+        batch.to(dev), torch.Generator().manual_seed(3), kind, tile=tile,
+        bond_window=spec.max_graph_bonds, max_waves=40)
+        for dev in (cuda, torch.device("cpu"))]
+    for got, want in zip(*views):
+        for f in augment.AUG_DELTA_FIELDS:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
 
 
 def test_kernel_rejects_a_tile_that_is_not_a_multiple_of_the_strip(cuda):

@@ -160,14 +160,37 @@ def test_transfer_state_copies_matching_shapes_only():
     assert torch.equal(port.state_dict()["feat_lin.bias"], before)
 
 
-@pytest.mark.parametrize("option", [
-    dict(tile=0), dict(normalize_gcn=True),
-    dict(gnn_type="gcn", normalize_gcn=True)])
+@pytest.mark.parametrize("option", [dict(tile=0)])
 def test_unported_options_raise(option):
     # (drop_ratio > 0, the unchained trunk, is ported: it is held to the
-    # JAX package in tests/test_torch_port_finetune.py)
+    # JAX package in tests/test_torch_port_finetune.py; normalize_gcn in
+    # test_normalize_gcn_matches_jax below)
     with pytest.raises(NotImplementedError):
         MolCLRNet(**{**SMALL, **option})
+
+
+@pytest.mark.parametrize("gnn", ["gin", "gcn"])
+def test_normalize_gcn_matches_jax(batches, gnn):
+    """normalize_gcn=True builds and agrees with the JAX model in eval and
+    in train mode (the GIN trunk ignores the option, as JAX's does; the GCN
+    trunk bakes dis_i * dis_j into adj and the norm into the counts)."""
+    bj, bp = batches
+    model = JaxMolCLRNet(gnn_type=gnn, fused=True, normalize_gcn=True,
+                         **SMALL)
+    v = model.init(jax.random.PRNGKey(8), bj, train=False)
+    (hj, zj), upd = model.apply(v, bj, train=True, mutable=["batch_stats"])
+    port = MolCLRNet(gnn_type=gnn, normalize_gcn=True, **SMALL)
+    transfer_state(state_dict_from_jax(v["params"], v["batch_stats"]), port)
+    with torch.no_grad():
+        h, z = port.train()(bp.to("cpu"))
+    assert_close(h, hj)
+    assert_close(z, zj)
+    v = {"params": v["params"], "batch_stats": upd["batch_stats"]}
+    hj, zj = model.apply(v, bj, train=False)
+    with torch.no_grad():
+        h, z = port.eval()(bp.to("cpu"))
+    assert_close(h, hj)
+    assert_close(z, zj)
 
 
 def _cli_setup(tmp_path, gnn):

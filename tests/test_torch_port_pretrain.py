@@ -1,7 +1,9 @@
 """The PyTorch port's pretraining slice against the JAX package, on the CPU:
 the optimizer and schedule, the epoch iterator, the config reader, three
-contrastive train steps against the JAX Pretrainer's own jitted step, and
-the port's Pretrainer / CLI (checkpoint, resume, device choice).
+contrastive train steps (GIN and GCN) against the JAX Pretrainer's own
+jitted step, one step each of subgraph and mix augmentation, dropout and
+concat_views, the BFS horizon, and the port's Pretrainer / CLI
+(checkpoint, resume, device choice).
 
 Small sizes (tile 32, D 32, 3 layers, feat 64), f32. The step parity
 feeds both sides the same JAX-drawn views (the four AUG_DELTA_FIELDS) and
@@ -25,6 +27,7 @@ import pytest
 import torch
 
 from molclr_tpu.data.augment import paired_augment as jax_paired_augment
+from molclr_tpu.data.graphs import concat_views as jax_concat_views
 from molclr_tpu.data.loader import BatchIterator as JaxBatchIterator
 from molclr_tpu.data.loader import featurize_many as jax_featurize_many
 from molclr_tpu.data.loader import spec_for_graphs as jax_spec_for_graphs
@@ -39,7 +42,7 @@ from molclr_tpu_torch.data.augment import AUG_DELTA_FIELDS, apply_view_delta
 from molclr_tpu_torch.data.graphs import GraphBatch
 from molclr_tpu_torch.data.loader import BatchIterator, featurize_many, \
     spec_for_graphs
-from molclr_tpu_torch.ops import fused_layer
+from molclr_tpu_torch.ops import fused_gcn, fused_layer
 from molclr_tpu_torch.train import optim
 from molclr_tpu_torch.train.checkpoints import latest_checkpoint, \
     state_dict_from_jax, transfer_state
@@ -162,17 +165,55 @@ def _compare_states(jstate, model, grads0, steps, lr, tight):
             assert (float(bad.mean()) if bad.size else 0.0) <= 3e-4, k
 
 
-def test_train_step_matches_jax_pretrainer(tmp_path):
-    """Three steps of the port's train_step against the JAX Pretrainer's
+def _port_views(bp, vj):
+    """JAX's two views as the port's: the base batch with their
+    AUG_DELTA_FIELDS."""
+    return tuple(apply_view_delta(bp, tuple(
+        torch.from_numpy(np.asarray(getattr(v, f)).astype(
+            np.int64 if f in ("atom_type", "chirality") else bool))
+        for f in AUG_DELTA_FIELDS)) for v in vj)
+
+
+def _dropout_masks(pre, state, views, rng, concat):
+    """JAX's dropout keep masks of one train step: `_train_step` folds the
+    step into rng and splits it into (rng_aug, rng_di, rng_dj); the
+    Dropout outputs of a train-mode apply with the view's stream are
+    non-zero exactly where kept (where an input is 0 the mask changes
+    nothing). Per view a list of [N, D] masks, or one list for the joint
+    batch of concat_views."""
+    _, rng_di, rng_dj = jax.random.split(
+        jax.random.fold_in(rng, state.step), 3)
+    runs = ([(jax_concat_views(*views), rng_di)] if concat
+            else list(zip(views, (rng_di, rng_dj))))
+    masks = []
+    for batch, r in runs:
+        _, upd = pre.model.apply(
+            {"params": state.params, "batch_stats": state.batch_stats},
+            batch, train=True, rngs={"dropout": r},
+            mutable=["batch_stats", "intermediates"],
+            capture_intermediates=True)
+        trunk = upd["intermediates"]["trunk"]
+        masks.append([torch.from_numpy(np.asarray(
+            trunk[f"Dropout_{i}"]["__call__"][0]) != 0)
+            for i in range(SMALL["num_layers"])])
+    return masks
+
+
+def _run_steps_against_jax(tmp_path, steps, gnn="gin", aug="node",
+                           drop=0.0, concat=False):
+    """`steps` steps of the port's train_step against the JAX Pretrainer's
     jitted _train_step (fused layers in interpreter mode), both given the
-    same JAX-drawn node-augmented views."""
+    same JAX-drawn views (and JAX's dropout masks), from the same weights:
+    the loss, the step-0 gradients and Adam moments, the parameters and
+    BatchNorm stats after every step. Returns the JAX Pretrainer."""
     smiles = synthetic_corpus(44, seed=23)
+    model_kw = dict(SMALL, gnn_type=gnn, drop_ratio=drop)
     cfg_j = JaxPretrainConfig(
         batch_size=20, epochs=3, warm_up=0, init_lr=5e-4, weight_decay=1e-5,
-        aug="node", valid_size=0.05, seed=0, featurize_processes=0,
-        steps_per_dispatch=1, device_cache_mb=0,
+        aug=aug, valid_size=0.05, seed=0, featurize_processes=0,
+        steps_per_dispatch=1, device_cache_mb=0, concat_views=concat,
         ckpt_dir=str(tmp_path / "jax"),
-        model=JaxModelConfig(fused=True, **SMALL))
+        model=JaxModelConfig(fused=True, **model_kw))
     pre = JaxPretrainer(cfg_j).setup_data(smiles)
     batches = [b for b, _, _ in pre.train_iter]
     assert len(batches) == 2
@@ -182,8 +223,9 @@ def test_train_step_matches_jax_pretrainer(tmp_path):
     bw = pre.spec.max_graph_bonds
 
     cfg_p = PretrainConfig(batch_size=20, epochs=3, warm_up=0,
-                           init_lr=5e-4, weight_decay=1e-5, aug="node",
-                           model=ModelConfig(**SMALL))
+                           init_lr=5e-4, weight_decay=1e-5, aug=aug,
+                           concat_views=concat,
+                           model=ModelConfig(**model_kw))
     model = build_model(cfg_p)
     got = transfer_state(state_dict_from_jax(
         jax.tree_util.tree_map(np.asarray, state.params),
@@ -192,21 +234,20 @@ def test_train_step_matches_jax_pretrainer(tmp_path):
     opt = optim.adam_torch(model.parameters(), cfg_p.weight_decay)
     schedule = optim.warmup_then_cosine(cfg_p.init_lr, len(batches),
                                         cfg_p.epochs, cfg_p.warm_up)
-    launches = fused_layer.fused_gine_bn_layer_bwd.launches
     grads0 = None
-    for step in range(3):
+    for step in range(steps):
         bj = batches[step % 2]
         rng = jax.random.fold_in(jax.random.PRNGKey(9), step)
-        vj = jax_paired_augment(bj, rng, "node", tile=32, bond_window=bw)
+        vj = jax_paired_augment(bj, rng, aug, tile=32, bond_window=bw,
+                                max_waves=pre._max_waves)
+        masks = (_dropout_masks(pre, state, vj, rng, concat) if drop
+                 else None)
         p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
         state, jloss = pre._train_step(state, bj, rng, vj)
         bp = _port_batch(bj)
-        views = tuple(apply_view_delta(bp, tuple(
-            torch.from_numpy(np.asarray(getattr(v, f)).astype(
-                np.int64 if f in ("atom_type", "chirality") else bool))
-            for f in AUG_DELTA_FIELDS)) for v in vj)
         loss = train_step(model, opt, bp, cfg_p, step, schedule(step),
-                          views=views, bond_window=bw)
+                          views=_port_views(bp, vj), bond_window=bw,
+                          dropout_masks=masks)
         np.testing.assert_allclose(
             float(loss), float(jloss), rtol=1e-5 if step == 0 else 1e-3,
             atol=0.0 if step == 0 else 2e-5, err_msg=f"loss at step {step}")
@@ -231,9 +272,49 @@ def test_train_step_matches_jax_pretrainer(tmp_path):
             jax.tree_util.tree_map(np.asarray, state.batch_stats))
         _compare_states(jstate, model, grads0, steps=step + 1,
                         lr=cfg_p.init_lr, tight=step == 0)
-    assert int(state.step) == 3
+    assert int(state.step) == steps
+    return pre
+
+
+@pytest.mark.parametrize("gnn", ["gin", "gcn"])
+def test_train_step_matches_jax_pretrainer(tmp_path, gnn):
+    """Three steps of the port's train_step against the JAX Pretrainer's
+    jitted _train_step, both given the same JAX-drawn node-augmented
+    views: GIN (K1 layers) and GCN (K3 layers)."""
+    bwd = (fused_layer.fused_gine_bn_layer_bwd if gnn == "gin"
+           else fused_gcn.fused_gcn_bn_layer_bwd)
+    launches = bwd.launches
+    _run_steps_against_jax(tmp_path, 3, gnn=gnn)
     # the CPU path runs the plain backward, not the kernel
-    assert fused_layer.fused_gine_bn_layer_bwd.launches == launches
+    assert bwd.launches == launches
+
+
+@pytest.mark.parametrize("variant", [
+    dict(aug="subgraph"), dict(aug="mix"), dict(aug="mix", gnn="gcn"),
+    dict(drop=0.1), dict(drop=0.1, gnn="gcn"), dict(concat=True)])
+def test_one_train_step_of_each_option_matches_jax(tmp_path, variant):
+    """One step of each other pretraining option against the JAX
+    Pretrainer, with the limits of the three-step test: subgraph and mix
+    augmentation (JAX's views, drawn within the Pretrainer's corpus-derived
+    horizon; mix featurizes with hydrogens), dropout 0.1 (JAX's masks, one
+    stream per view) and concat_views (both views in one forward)."""
+    _run_steps_against_jax(tmp_path, 1, **variant)
+
+
+def test_pretrainer_derives_the_bfs_horizon_as_jax(tmp_path):
+    """max_waves 0 derives max atoms - 1 from the corpus, as the JAX
+    Pretrainer does; an explicit value wins."""
+    smiles = ["C" * 60, "CCO", "c1ccccc1"] * 10
+    model = dict(SMALL, tile=64)
+    for max_waves, want in ((0, 59), (17, 17)):
+        kw = dict(batch_size=8, epochs=1, aug="subgraph", valid_size=0.1,
+                  max_waves=max_waves, ckpt_dir=str(tmp_path))
+        ref = JaxPretrainer(JaxPretrainConfig(
+            featurize_processes=0, model=JaxModelConfig(**model), **kw)
+        ).setup_data(smiles)
+        got = Pretrainer(PretrainConfig(model=ModelConfig(**model), **kw),
+                         "cpu").setup_data(smiles)
+        assert got.max_waves == ref._max_waves == want
 
 
 def test_train_step_draws_per_step_and_runs_bf16():

@@ -1,8 +1,9 @@
 """The PyTorch port's training ops against the JAX package, on the CPU, at
 small sizes: the K1 layer's VJP (residual forward, plain backward, the
 autograd.Function), the embedding lookup's one-hot backward, the NT-Xent
-closed form and the K2 kernels' plain versions, and the GCN layer's guard
-on a device without its backward kernel.
+closed form and the K2 kernels' plain versions, and the layers' device
+check on a device without kernels (the K3 layer's VJP is held to JAX in
+tests/test_torch_port_gcn_pretrain.py).
 
 JAX runs its Pallas kernels in interpreter mode, as its own tests do.
 Tolerances, unless a test says otherwise: f32 max|port - jax| <= 1e-5 *
@@ -187,11 +188,10 @@ def test_bwd_wrapper_runs_the_plain_backward_on_cpu():
 
 
 def test_layers_on_a_device_without_kernels():
-    """The guard's wiring, on the meta device (no kernel there): the GCN
-    layer raises NotImplementedError when a gradient is needed (K3b is not
-    ported; on the card the forward kernel's output would carry no
-    gradient) and ValueError otherwise; the GINE layer goes to its
-    autograd.Function and stops at the device check."""
+    """The wiring, on the meta device (no kernel there): with and without a
+    gradient, the GCN layer (through its autograd.Function when a gradient
+    is needed) and the GINE layer stop at the device check, and so does
+    the GCN backward wrapper."""
     x, _, _ = _problem(96)
     m = {k: t(v).to("meta") for k, v in x.items()}
     gcn = (m["h"], m["a"], m["b"], m["adj"], m["cnt"], m["etab"],
@@ -199,11 +199,15 @@ def test_layers_on_a_device_without_kernels():
     with pytest.raises(ValueError, match="no kernel"):
         fused_gcn.fused_gcn_bn_layer(*gcn)
     w = gcn[6].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K3b"):
+    with pytest.raises(ValueError, match="no kernel"):
         fused_gcn.fused_gcn_bn_layer(*gcn[:6], w, *gcn[7:])
     with torch.no_grad():
         with pytest.raises(ValueError, match="no kernel"):
             fused_gcn.fused_gcn_bn_layer(*gcn[:6], w, *gcn[7:])
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_gcn.fused_gcn_bn_layer_bwd(
+            m["h"], m["a"][None].expand(2, -1).contiguous(), m["h"],
+            m["a"], m["b"], m["adj"], m["cnt"], m["h"], gcn[6], True)
     h = m["h"].clone().requires_grad_(True)
     with pytest.raises(ValueError, match="no kernel"):
         fused_layer.fused_gine_bn_layer(
