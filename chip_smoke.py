@@ -14,7 +14,9 @@ prints no result line):
               256, D 300), in f32 and bf16 with relu_in False and True;
               compare out and the moment sums, check that two kernel runs
               are bit-identical, and time the kernel, the plain version and
-              a cuBLAS matmul chain computing the same function.
+              a cuBLAS matmul chain computing the same function; for K1f,
+              the shares of dead 32-row blocks and of adjacency chunks that
+              the launch skipped (kernel_plan).
   3. slice    the serving path end to end: 1,024 synthetic SMILES through
               `molclr_tpu_torch.cli.embed.main` for a GIN and a GCN
               5 x 300 / 512 encoder with seeded random weights (and once
@@ -26,7 +28,9 @@ prints no result line):
               D = 300): K1f with its residuals and K1b against their plain
               versions in f32 and bf16, relu_in False and True; K2f and K2b
               at 2B = 1,024 and 4,096 (D = 256) with and without dead pairs.
-              Two runs bit-identical; kernel, plain and library times.
+              Two runs bit-identical; kernel, plain and library times; K1f's
+              device time by kernel (torch.profiler over 20 launches) and
+              the shares of work it skipped.
   5. step     the pretraining step at full width (GIN 5 x 300 / 512, B =
               512, node augmentation, f32, ntxent 'auto'): 3 steps on the
               card, each also run on the CPU's plain path from the card's
@@ -50,7 +54,10 @@ prints no result line):
               as the FineTuner packs a training batch: T = 4 tiles of 256,
               D = 300): K4f (with residuals), K4b, K5f and K5b against
               their plain versions in f32 and bf16; two runs
-              bit-identical; kernel, plain and library times.
+              bit-identical; kernel, plain and library times; K5b's device
+              time by kernel (torch.profiler over 20 launches) and the
+              shares of strips, adjacency chunks and dW row chunks it
+              skipped (k5b_plan).
   9. fine-tune steps: the FineTuner at the reference fine-tune model (5 x
               300 / 512, drop 0.3, batch 32, pred head 2 x softplus, f32),
               GIN, GCN and GIN with the motif head: 3 steps on the card,
@@ -61,7 +68,7 @@ prints no result line):
               the motif table, card against the CPU from the same state;
               then the step's time (median of CUDA-event times over 25
               steps), molecules/s, the host's time to queue a step, an
-              eval batch's time and a profile of the GIN step.
+              eval batch's time and a profile of the GIN and GCN steps.
  10. fine-tune cli: `molclr_tpu_torch.cli.finetune --allow-synthetic` for
               2 epochs in a temporary working directory: GIN warm-started
               from phase 7's step_<n>.pt, then --model gcn, then --motifs;
@@ -125,6 +132,7 @@ from molclr_tpu_torch.ops import _build, ntxent
 from molclr_tpu_torch.data.tasks import TASKS
 from molclr_tpu_torch.ops.fused_gcn import (
     fused_gcn_bn_layer,
+    k5b_plan,
     fused_gcn_bn_layer_bwd,
     fused_gcn_bn_layer_bwd_plain,
     fused_gcn_bn_layer_plain,
@@ -148,6 +156,8 @@ from molclr_tpu_torch.ops.fused_layer import (
     fused_gine_layer_bwd_plain,
     fused_gine_layer_fwd,
     fused_gine_layer_fwd_plain,
+    k1f_block_rows,
+    kernel_plan,
     pack_cnt,
 )
 from molclr_tpu_torch.ops.scatter_free import _counts
@@ -417,6 +427,33 @@ def bound_ms(name, x, p, dt):
                                        else "operations")
 
 
+def k1f_skipped(x, p) -> dict:
+    """The share of K1f's row blocks that are dead (one constant row
+    computed) and of the (block, adjacency chunk) products a dense strip
+    would do that it skips, from the plan helper on this launch's input,
+    with the rows per block that the kernel's library launches with."""
+    _, s, _ = x["adj"].shape
+    d, d2 = p["w1"].shape
+    rows = k1f_block_rows(x["h"].dtype, s, d, d2)
+    plan = kernel_plan(x["adj"].cpu(), x["cnt"].cpu(), rows)
+    return dict(block_rows=rows,
+                dead_blocks=float(plan["dead_blocks"].float().mean()),
+                a_chunks=1 - plan["block_chunks"] / plan["dense_chunks"])
+
+
+def k5b_skipped(adj, d) -> dict:
+    """The share of K5b's 16-row strips that are dead, of the adjacency
+    chunks its strip pass skips and of its weight pass's row chunks that
+    load nothing, from the plan helper on this launch's input and the
+    card's SM count, as the wrapper plans the weight pass."""
+    sms = torch.cuda.get_device_properties(adj.device).multi_processor_count
+    plan = k5b_plan(adj.cpu(), d, sms)
+    return dict(dead_strips=float(plan["dead_strips"].float().mean()),
+                a_chunks=1 - plan["block_chunks"] / plan["dense_chunks"],
+                dw_chunks=1 - float(plan["live_chunks"].float().mean()),
+                dw_chunk_count=plan["dw_chunks"])
+
+
 def kernel_phase(dev) -> dict:
     batch = real_batch(dev)
     gen = torch.Generator().manual_seed(SEED)
@@ -459,6 +496,8 @@ def kernel_phase(dev) -> dict:
                     library_ms=time_ms(lambda: library[name](*args, relu_in)))
                 case["bound_ms"], case["bound_by"] = bound_ms(name, x, (
                     pg if name == "fused_gine_bn_layer" else pc), dt)
+                if name == "fused_gine_bn_layer":
+                    case["skipped"] = k1f_skipped(x, pg)
                 print(f"kernel {name} {json.dumps(case)}", flush=True)
                 check(err_out <= lim_out, f"{name} {case['dtype']} relu_in="
                       f"{relu_in}: out error {err_out} > {lim_out}")
@@ -685,9 +724,12 @@ def training_layer_phase(batch, dev) -> dict:
                     *args, relu_in, residuals=True)),
                 plain_ms=time_ms(lambda: fused_gine_bn_layer_fwd_plain(
                     *args, relu_in)),
-                library_ms=time_ms(lambda: gine_library(*args, relu_in)))
+                library_ms=time_ms(lambda: gine_library(*args, relu_in)),
+                passes_us=pass_profile(lambda: fused_gine_bn_layer_fwd(
+                    *args, relu_in, residuals=True)))
             case["bound_ms"], case["bound_by"] = bound_ms(
                 "fused_gine_bn_layer", x, pg, dt)
+            case["skipped"] = k1f_skipped(x, pg)
             print(f"kernel k1f_residuals {json.dumps(case)}", flush=True)
             for name in ("out", "sums", "agg", "mid"):
                 check(case[f"err_{name}"] <= case[f"lim_{name}"],
@@ -1113,6 +1155,13 @@ def speed_phase(batch, spec, dev, card: str, gnn: str = "gin") -> dict:
     return report
 
 
+def pass_profile(fn, launches: int = 20) -> dict:
+    """Device microseconds per call of each kernel (pass) a wrapper runs,
+    from profile_steps over `launches` calls."""
+    prof = profile_steps(lambda i: fn(), steps=launches)
+    return {t["name"][:60]: 1e3 * t["ms_per_step"] for t in prof["top"]}
+
+
 def profile_steps(step_fn, steps: int = 5) -> dict:
     """torch.profiler over `steps` calls of step_fn(i): device time per
     kernel name (top 12) and the device's busy share of the window."""
@@ -1351,6 +1400,9 @@ def finetune_kernel_phase(batch, dev) -> dict:
             "K5b", tag, ("dx", "dw"), lambda: fused_gcn_layer_bwd(*gargs),
             lambda: fused_gcn_layer_bwd_plain(*gargs),
             lambda: gcn_unchained_bwd_library(*gargs), rtol)
+        cases["fused_gcn_layer_bwd"].update(
+            passes_us=pass_profile(lambda: fused_gcn_layer_bwd(*gargs)),
+            skipped=k5b_skipped(x["adj"], d))
         for name, case in cases.items():
             case["bound_ms"], case["bound_by"] = unchained_bound_ms(
                 name, x, pg if name.startswith("fused_gine") else pc, dt)
@@ -1507,7 +1559,7 @@ def finetune_speed_phase(dev, tmp: str, card: str, shared: list) -> dict:
     """The fine-tuning step's time on the card (median of CUDA-event times
     over 25 steps after 5 warm-up steps, dropout drawn on the card), the
     host's time to queue a step, an eval batch's forward, and a profile of
-    the GIN f32 step."""
+    the GIN and the GCN f32 step."""
     report = {}
     for gnn, bf16 in (("gin", False), ("gcn", False), ("gin", True)):
         cfg = finetune_cfg(tmp, gnn, bf16=bf16)
@@ -1545,7 +1597,7 @@ def finetune_speed_phase(dev, tmp: str, card: str, shared: list) -> dict:
                    eval_tiles=ebatch.nbr.shape[0] // TILE,
                    eval_batch_ms=time_ms(lambda: ft_lib.predict(
                        ft.model, ebatch, emot)))
-        if gnn == "gin" and not bf16:
+        if not bf16:
             row["profile"] = profile_steps(lambda i: step())
         report[f"{gnn}_{row['dtype']}"] = row
         print(f"finetune speed {json.dumps(row)}", flush=True)

@@ -17,8 +17,13 @@
 //   * each block writes its masked moment partials to its own row of a
 //     [n_blocks, 2, D] scratch, and sum_partials adds the rows in block
 //     order: no atomics, so repeated runs are bit-identical.
-// Products are plain f32 FMA loops (no tensor cores yet). Every value is
-// rounded to the activation type T exactly where the Pallas kernels cast.
+// These strip kernels (strip_gemm: plain f32 FMA loops, no tensor cores)
+// carry K1b, K3f, K3b, K4f, K4b and K5f. The redesigned K1f and K5b run on
+// the row-block products further down (rb_pass, rb_pass_w: 16- or 32-row
+// blocks of 256 threads, FP32 FMA in f32 and mma.sync tensor cores in
+// bf16, all-zero adjacency chunks and dead rows skipped) and K5b's weight
+// pass on wgrad_kernel. Every value is rounded to the activation type T
+// exactly where the Pallas kernels cast.
 
 #pragma once
 
@@ -362,6 +367,683 @@ static inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
+// ---------------------------------------------------------------------------
+// Row-block products (the redesigned K1f and K5b).
+//
+// A block of RNT = 256 threads (8 warps) owns RB rows (16 or 32) and
+// computes C[RB, ncols] = A[RB, K] @ B[K, ncols] in column passes of RCW =
+// 128 columns (rb_pass). A, the left operand, lives in shared memory; B
+// streams through a shared chunk of rkc<T>() = 64 rows,
+// the threads staging the NEXT chunk in registers while the block
+// multiplies the current one. The result of a pass lands in a shared f32
+// tile Cs [RB, RCW] (stride CS), from which the caller's epilogue reads
+// element by element, so that the epilogues do not depend on how the
+// products are laid out on the threads.
+//   * f32: full FP32 FMA on CUDA cores (no TF32). A is stored k-major
+//     (A[k * RB + r]). Warp w takes row groups 2 (w % 4) + lane / 16 (RB / 8
+//     rows each) and column group 16 (w / 4) + lane % 16 (4 columns): one
+//     A vector and one float4 of B, both shared by half a warp, feed
+//     RB / 2 FMA.
+//   * bf16: tensor cores, mma.sync m16n8k16 bf16 -> f32. A is stored
+//     row-major with row stride a_lda(K) (conflict-free fragment loads); B
+//     chunks are stored as bf16 pairs along k (one 32-bit word per (k,
+//     k + 1, c)), row stride BS2 words. Warp w takes m16 tile w % (RB / 16)
+//     and RB / 8 n8 tiles. The operands are bf16 values the kernel has
+//     already rounded where the Pallas kernels cast, so only the order of
+//     the f32 sums differs from a scalar loop.
+// K is padded to a multiple of rkc<T>() with zeros in A (the caller zeroes
+// the pad) and in B (the staging masks it), so no NaN from uninitialised
+// shared memory can reach a sum.
+
+constexpr int RNT = 256;      // threads of a row-block kernel
+constexpr int RCW = 128;      // output columns per pass
+constexpr int CS = RCW + 4;   // row stride of the result tile Cs (floats)
+constexpr int BS2 = RCW + 8;  // row stride of a bf16 pair chunk (words)
+constexpr int ACW = 32;       // adjacency column chunk (skipped when zero)
+
+// rows of one staged B chunk
+template <typename T>
+__host__ __device__ constexpr int rkc() { return 64; }
+
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// Row stride (elements) of a bf16 A operand of depth K; unused for f32.
+__host__ __device__ inline int a_lda(int K) {
+  return round_up(K, rkc<__nv_bfloat16>()) + 8;
+}
+
+// Bytes of an A operand [RB, K] (K padded to rkc) of element type T.
+template <typename T>
+__host__ __device__ inline size_t a_bytes(int rb, int K) {
+  return sizeof(T) == 4 ? (size_t)round_up(K, rkc<T>()) * rb * 4
+                        : (size_t)rb * a_lda(K) * 2;
+}
+
+// f32 passes over a row-major weight (rb_pass_w) stream it through a ring
+// of cp.async stages, one of two sizes: ring 0 is NST = 3 stages of 64 rows
+// (two chunks in flight, 96 KB), ring 1 two stages of 32 rows (one chunk
+// in flight, 32 KB) for blocks whose operands leave too little shared
+// memory for ring 0 (wide layers; the kernel's host side picks it).
+constexpr int NST = 3, NRING = 2;
+
+__host__ __device__ inline size_t ring_bytes(int ring) {
+  return ring == 0 ? (size_t)NST * 64 * RCW * 4 : (size_t)2 * 32 * RCW * 4;
+}
+
+// bf16 passes over a row-major weight keep NSTB - 1 chunks of KCB rows in
+// flight, stored [k][c] with row stride BSB elements (rb_pass_w)
+constexpr int KCB = 32, NSTB = 4, BSB = RCW + 8;
+
+// Bytes of the scratch a pass needs: rb_pass's B chunk or the ring of
+// rb_pass_w (`ring` for f32), aliased by Cs.
+template <typename T>
+__host__ __device__ inline size_t pass_bytes(int rb, int ring) {
+  size_t bs = sizeof(T) == 4 ? (size_t)rkc<T>() * RCW * 4
+                             : (size_t)(rkc<T>() / 2) * BS2 * 4;
+  const size_t wring =
+      sizeof(T) == 4 ? ring_bytes(ring) : (size_t)NSTB * KCB * BSB * 2;
+  if (wring > bs) bs = wring;
+  const size_t cs = (size_t)rb * CS * 4;
+  return bs > cs ? bs : cs;
+}
+
+// The largest dynamic shared memory a block of the current device may ask
+// for (227 KB on the H100); 0 if the runtime cannot say.
+static inline size_t max_smem() {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return (size_t)v;
+}
+
+template <int RB>
+__device__ __forceinline__ void a_put(float* A, int, int r, int k, float v) {
+  A[k * RB + r] = v;
+}
+template <int RB>
+__device__ __forceinline__ void a_put(__nv_bfloat16* A, int lda, int r, int k,
+                                      float v) {
+  A[r * lda + k] = __float2bfloat16(v);
+}
+
+// Zero A's columns k0 <= k < round_up(K, rkc) for all RB rows.
+template <int RB, typename T>
+__device__ void a_zero_cols(T* A, int lda, int k0, int K) {
+  const int kp = round_up(K, rkc<T>());
+  for (int e = threadIdx.x; e < RB * (kp - k0); e += RNT)
+    a_put<RB>(A, lda, e % RB, k0 + e / RB, 0.f);
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const unsigned l = __bfloat16_as_ushort(__float2bfloat16(lo));
+  const unsigned h = __bfloat16_as_ushort(__float2bfloat16(hi));
+  return l | (h << 16);
+}
+
+// d[0..3] += A (16 x 16, row-major fragments a) @ B (16 x 8, b0, b1):
+// one tensor-core product, bf16 operands, f32 sums.
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// f32 products (rb_pass, rb_pass_w): thread (rg = 2 (warp % 4) + lane /
+// 16, cg = 16 (warp / 4) + lane % 16) holds an (RB / 8) x 4 tile, rows
+// rg * RB/8 + i, columns 4 cg + j. Per chunk row a warp reads one A vector
+// (two addresses) and one float4 of B (16 addresses) for RB / 2 FMA. Each
+// output is one thread's sum over k in ascending order, as a scalar loop
+// sums it: the f32 results do not depend on how the rows of K are chunked
+// (KR rows a chunk) or which adjacency chunks are skipped (a skipped term
+// is an exact 0).
+template <int RB, int KR = 64>
+__device__ __forceinline__ void f32_chunk(const float* Af, int k0,
+                                          const float* Bs,
+                                          float (&acc)[RB / 8][4]) {
+  constexpr int TMR = RB / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = 2 * (warp & 3) + (lane >> 4);
+  const int cg = 16 * (warp >> 2) + (lane & 15);
+#pragma unroll 8
+  for (int kk = 0; kk < KR; ++kk) {
+    float av[TMR];
+    const float* ap = Af + (size_t)(k0 + kk) * RB + rg * TMR;
+    if constexpr (TMR == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(ap);
+      av[0] = v.x; av[1] = v.y; av[2] = v.z; av[3] = v.w;
+    } else {
+      const float2 v = *reinterpret_cast<const float2*>(ap);
+      av[0] = v.x; av[1] = v.y;
+    }
+    const float4 b = *reinterpret_cast<const float4*>(Bs + kk * RCW + 4 * cg);
+    const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < TMR; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// The accumulators of f32_chunk into the result tile Cs.
+template <int RB>
+__device__ __forceinline__ void f32_to_cs(const float (&acc)[RB / 8][4],
+                                          float* Cs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = 2 * (warp & 3) + (lane >> 4);
+  const int cg = 16 * (warp >> 2) + (lane & 15);
+#pragma unroll
+  for (int i = 0; i < RB / 8; ++i)
+    *reinterpret_cast<float4*>(Cs + (rg * RB / 8 + i) * CS + 4 * cg) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+}
+
+// The B transform of a pass that takes B as it is (see rb_pass).
+struct IdentityFor {
+  __device__ auto operator()(int) const {
+    return [](int, float v) { return v; };
+  }
+};
+
+// One column pass: Cs[r, j] = sum_k A[r, k] B[k, c0 + j] for r < RB,
+// j < RCW, where B element (k, c) is xf(k, tof(load(k, c))) for k < K and
+// c < ncols and 0 elsewhere, xf = xf_for(c) (made once per pass, so that
+// what it reads for the column is read once). load must be valid for
+// every k < K and c < ncols and free of branches: the staging clamps k and
+// c into range and zeroes what lies outside, so that each thread's loads
+// of a chunk issue back to back. Thread t stages column c0 + t % 128 of
+// half the rows of each chunk. All threads must call it; it returns after
+// a __syncthreads with Cs complete (scratch holds the chunk, then Cs).
+template <typename T, int RB, typename Load, typename XfFor>
+__device__ void rb_pass(const T* A, int lda, int K, int c0, int ncols,
+                        float* scratch, Load load, XfFor xf_for) {
+  static_assert(RB == 16 || RB == 32, "row block");
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int KC = rkc<T>();
+  constexpr int NS = KC * RCW / RNT;  // staged elements per thread
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int col = tid & (RCW - 1);
+  const int c = c0 + col;   // the column this thread stages
+  const int kh = tid >> 7;  // and which half of the chunk's rows
+  // the chunk row of staged element i: f32 rows kh + 2 i; bf16 the pairs
+  // (2 p, 2 p + 1), p = kh + 2 (i / 2), so that a thread packs its own
+  auto row = [&](int i) {
+    return F32 ? kh + 2 * i : 2 * (kh + 2 * (i >> 1)) + (i & 1);
+  };
+  const bool cok = c < ncols;
+  const int cl = min(c, ncols - 1);
+  const auto xf = xf_for(cl);
+  using V = decltype(load(0, 0));
+  V stage[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) stage[i] = load(min(row(i), K - 1), cl);
+
+  constexpr int WM = RB / 16;  // bf16: m16 tiles; a warp takes 2 WM n8 tiles
+  // f32: the f32_chunk tile; bf16: 2 WM n8 tiles of 4 sums
+  float acc[F32 ? RB / 8 : 2 * WM][4];
+#pragma unroll
+  for (int i = 0; i < (F32 ? RB / 8 : 2 * WM); ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += KC) {
+    __syncthreads();  // the previous chunk (or Cs) is consumed
+    if constexpr (F32) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int kk = row(i), k = k0 + kk;
+        const float v = xf(k, tof(stage[i]));
+        scratch[kk * RCW + col] = (cok && k < K) ? v : 0.f;
+      }
+    } else {
+      unsigned* bs = reinterpret_cast<unsigned*>(scratch);
+#pragma unroll
+      for (int i = 0; i < NS; i += 2) {
+        const int k = k0 + row(i);
+        const float v0 = xf(k, tof(stage[i])), v1 = xf(k + 1, tof(stage[i + 1]));
+        const float lo = (cok && k < K) ? v0 : 0.f;
+        const float hi = (cok && k + 1 < K) ? v1 : 0.f;
+        bs[(row(i) >> 1) * BS2 + col] = pack_bf16(lo, hi);
+      }
+    }
+    __syncthreads();
+    const int k1 = k0 + KC;
+    if (k1 < K) {  // next chunk's loads, in flight during the products
+#pragma unroll
+      for (int i = 0; i < NS; ++i) stage[i] = load(min(k1 + row(i), K - 1), cl);
+    }
+    if constexpr (F32) {
+      f32_chunk<RB>(reinterpret_cast<const float*>(A), k0, scratch, acc);
+    } else {
+      const __nv_bfloat16* Ab = reinterpret_cast<const __nv_bfloat16*>(A);
+      const unsigned* bs = reinterpret_cast<const unsigned*>(scratch);
+      const int g = lane >> 2, t = lane & 3;
+      const int mt = warp % WM, nb = (warp / WM) * (2 * WM) * 8;
+#pragma unroll 4
+      for (int ks = 0; ks < KC / 16; ++ks) {
+        unsigned af[4];
+        const __nv_bfloat16* ap =
+            Ab + (size_t)(mt * 16 + g) * lda + k0 + ks * 16 + 2 * t;
+        af[0] = *reinterpret_cast<const unsigned*>(ap);
+        af[1] = *reinterpret_cast<const unsigned*>(ap + 8 * lda);
+        af[2] = *reinterpret_cast<const unsigned*>(ap + 8);
+        af[3] = *reinterpret_cast<const unsigned*>(ap + 8 * lda + 8);
+#pragma unroll
+        for (int nt = 0; nt < 2 * WM; ++nt) {
+          const int n = nb + nt * 8 + g;
+          mma_bf16(acc[nt], af, bs[(ks * 8 + t) * BS2 + n],
+                   bs[(ks * 8 + t + 4) * BS2 + n]);
+        }
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with the chunk that Cs aliases
+  if constexpr (F32) {
+    f32_to_cs<RB>(acc, scratch);
+  } else {
+    const int g = lane >> 2, t = lane & 3;
+    const int mt = warp % WM, nb = (warp / WM) * (2 * WM) * 8;
+#pragma unroll
+    for (int nt = 0; nt < 2 * WM; ++nt) {
+      float* r0 = scratch + (mt * 16 + g) * CS + nb + nt * 8 + 2 * t;
+      *reinterpret_cast<float2*>(r0) = make_float2(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<float2*>(r0 + 8 * CS) =
+          make_float2(acc[nt][2], acc[nt][3]);
+    }
+  }
+  __syncthreads();
+}
+
+// Asynchronous copies global -> shared of 4 and 16 bytes; the first
+// `bytes` are copied and the rest of the destination is zero-filled.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One column pass as rb_pass, with B = W, a row-major [K, ncols] weight of
+// row stride ldw taken as it is. The weights stream from L2, and one chunk
+// in flight leaves the block waiting on it, so W goes through a ring of
+// cp.async stages: f32 keeps NS - 1 chunks of KR rows in flight (16-byte
+// copies where the rows allow, else 4-byte ones), bf16 NSTB - 1 chunks of
+// 32 rows (4-byte copies of column pairs; rows of an odd width, which the
+// ring cannot take, are staged in registers by rb_pass).
+template <typename T, int RB, int NS = NST, int KR = 64>
+__device__ void rb_pass_w(const T* A, int lda, int K, int c0, int ncols,
+                          float* scratch, const T* W, int ldw) {
+  if constexpr (sizeof(T) != 4) {
+    if (ldw % 2 || (reinterpret_cast<size_t>(W) & 3)) {
+      // rows of an odd width break the 4-byte copies: stage in registers
+      rb_pass<T, RB>(
+          A, lda, K, c0, ncols, scratch,
+          [&](int k, int c) -> T { return W[(size_t)k * ldw + c]; },
+          IdentityFor());
+      return;
+    }
+    constexpr int WM = RB / 16;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int mt = warp % WM, nb = (warp / WM) * (2 * WM) * 8;
+    const int nch = (K + KCB - 1) / KCB;
+    unsigned short* ring = reinterpret_cast<unsigned short*>(scratch);
+    // thread t copies the column pair c0 + 2 (t % 64) (+1) of rows t / 64 +
+    // 4 i; a column past ncols or a row past K is zero-filled
+    const int cp = c0 + 2 * (tid & 63);
+    const int nb2 = max(0, min(2, ncols - cp)) * 2;
+    auto issue = [&](int ch) {
+      if (ch < nch) {
+        unsigned short* slot = ring + (size_t)(ch % NSTB) * KCB * BSB;
+#pragma unroll
+        for (int i = 0; i < KCB / 4; ++i) {
+          const int kk = (tid >> 6) + 4 * i, k = ch * KCB + kk;
+          cp_async4(reinterpret_cast<float*>(slot + kk * BSB + 2 * (tid & 63)),
+                    reinterpret_cast<const float*>(
+                        W + (size_t)min(k, K - 1) * ldw + (nb2 ? cp : 0)),
+                    k < K ? nb2 : 0);
+        }
+      }
+      cp_async_commit();
+    };
+    float acc[2 * WM][4];
+#pragma unroll
+    for (int i = 0; i < 2 * WM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    const __nv_bfloat16* Ab = reinterpret_cast<const __nv_bfloat16*>(A);
+    __syncthreads();  // the ring (or Cs) is no longer read
+#pragma unroll
+    for (int st = 0; st < NSTB - 1; ++st) issue(st);
+    for (int ch = 0; ch < nch; ++ch) {
+      cp_async_wait<NSTB - 2>();
+      __syncthreads();
+      issue(ch + NSTB - 1);
+      const unsigned short* bs = ring + (size_t)(ch % NSTB) * KCB * BSB;
+#pragma unroll
+      for (int ks = 0; ks < KCB / 16; ++ks) {
+        unsigned af[4];
+        const __nv_bfloat16* ap =
+            Ab + (size_t)(mt * 16 + g) * lda + ch * KCB + ks * 16 + 2 * t;
+        af[0] = *reinterpret_cast<const unsigned*>(ap);
+        af[1] = *reinterpret_cast<const unsigned*>(ap + 8 * lda);
+        af[2] = *reinterpret_cast<const unsigned*>(ap + 8);
+        af[3] = *reinterpret_cast<const unsigned*>(ap + 8 * lda + 8);
+        const unsigned short* b = bs + (ks * 16 + 2 * t) * BSB;
+#pragma unroll
+        for (int nt = 0; nt < 2 * WM; ++nt) {
+          const int n = nb + nt * 8 + g;
+          const unsigned b0 = b[n] | ((unsigned)b[BSB + n] << 16);
+          const unsigned b1 =
+              b[8 * BSB + n] | ((unsigned)b[9 * BSB + n] << 16);
+          mma_bf16(acc[nt], af, b0, b1);
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < 2 * WM; ++nt) {
+      float* r0 = scratch + (mt * 16 + g) * CS + nb + nt * 8 + 2 * t;
+      *reinterpret_cast<float2*>(r0) = make_float2(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<float2*>(r0 + 8 * CS) =
+          make_float2(acc[nt][2], acc[nt][3]);
+    }
+    __syncthreads();
+  } else {
+    static_assert(NS >= 2 && KR % 8 == 0, "ring");
+    constexpr int KC = KR;
+    const int tid = threadIdx.x;
+    const int nch = (K + KC - 1) / KC;
+    // 16-byte copies where W's rows keep 16-byte alignment: thread t copies
+    // columns 4 (t % 32) .. + 3 of rows t / 32 + 8 i; else 4-byte copies,
+    // thread t column t % 128 of rows t / 128 + 2 i. Columns past ncols and
+    // rows past K are zero-filled.
+    const bool vec = ldw % 4 == 0 && (reinterpret_cast<size_t>(W) & 15) == 0;
+    const int c4 = c0 + 4 * (tid & 31), c1 = c0 + (tid & (RCW - 1));
+    const int n4 = max(0, min(4, ncols - c4)) * 4;
+    auto issue = [&](int ch) {  // chunk ch into ring slot ch % NS
+      if (ch < nch) {
+        float* slot = scratch + (size_t)(ch % NS) * KC * RCW;
+        if (vec) {
+#pragma unroll
+          for (int i = 0; i < KC / 8; ++i) {
+            const int kk = (tid >> 5) + 8 * i, k = ch * KC + kk;
+            cp_async16(slot + kk * RCW + 4 * (tid & 31),
+                       W + (size_t)min(k, K - 1) * ldw + (n4 ? c4 : 0),
+                       k < K ? n4 : 0);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < KC / 2; ++i) {
+            const int kk = (tid >> 7) + 2 * i, k = ch * KC + kk;
+            cp_async4(slot + kk * RCW + (tid & (RCW - 1)),
+                      W + (size_t)min(k, K - 1) * ldw + min(c1, ncols - 1),
+                      (c1 < ncols && k < K) ? 4 : 0);
+          }
+        }
+      }
+      cp_async_commit();
+    };
+    float acc[RB / 8][4];
+#pragma unroll
+    for (int i = 0; i < RB / 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    __syncthreads();  // the ring (or Cs) is no longer read
+#pragma unroll
+    for (int s = 0; s < NS - 1; ++s) issue(s);
+    for (int ch = 0; ch < nch; ++ch) {
+      cp_async_wait<NS - 2>();  // this thread's copies of chunk ch landed
+      __syncthreads();          // everyone's; chunk ch - 1 is consumed
+      issue(ch + NS - 1);
+      f32_chunk<RB, KC>(reinterpret_cast<const float*>(A), ch * KC,
+                        scratch + (size_t)(ch % NS) * KC * RCW, acc);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    f32_to_cs<RB>(acc, scratch);
+    __syncthreads();
+  }
+}
+
+// rb_pass_w with the f32 weight ring `ring` (ring_bytes; bf16 has one).
+template <typename T, int RB>
+__device__ void rb_pass_wr(int ring, const T* A, int lda, int K, int c0,
+                           int ncols, float* scratch, const T* W, int ldw) {
+  if constexpr (sizeof(T) == 4) {
+    if (ring == 1) {
+      rb_pass_w<T, RB, 2, 32>(A, lda, K, c0, ncols, scratch, W, ldw);
+      return;
+    }
+  }
+  rb_pass_w<T, RB>(A, lda, K, c0, ncols, scratch, W, ldw);
+}
+
+// Copy a pass's final values, left in Cs by the caller's epilogue, into
+// columns c0 .. min(c0 + RCW, ncols) - 1 of an A operand. f32 operands are
+// k-major, so the threads run along the rows there (a bank-conflict-free
+// store); bf16 operands are row-major and the threads run along the
+// columns. All threads must call it, after a __syncthreads that follows
+// the epilogue's writes to Cs.
+template <int RB, typename T>
+__device__ void cs_to_a(T* A, int lda, int c0, int ncols, const float* Cs) {
+  for (int e = threadIdx.x; e < RB * RCW; e += RNT) {
+    const int r = sizeof(T) == 4 ? e % RB : e / RCW;
+    const int j = sizeof(T) == 4 ? e / RB : e % RCW;
+    if (c0 + j < ncols) a_put<RB>(A, lda, r, c0 + j, Cs[r * CS + j]);
+  }
+}
+
+// The live 32-column chunks of the adjacency rows row0 .. row0 + nrows - 1
+// (nrows <= 32, each 16-row strip inside one tile): a chunk (tile, j) is
+// live when a row of the block that belongs to that tile has a nonzero in
+// tile columns 32 j .. 32 j + 31. Fills node[i] (the first node of live
+// chunk i, in tile order then column order) and width[i] (32, or less at the
+// end of a tile whose size is not a multiple of 32) and returns their count;
+// flags is shared scratch of 2 * ceil(S / 32) ints. msk[r] is the node mask
+// diag(A) > 0 of row r (0 beyond nrows). All threads must call it; it ends
+// with a __syncthreads.
+template <typename T>
+__device__ int adj_live_chunks(const T* adj, size_t row0, int nrows, int S,
+                               int* flags, int* node, int* width, float* msk) {
+  const int nch = (S + ACW - 1) / ACW;
+  const int tile0 = (int)(row0 / S);
+  for (int i = threadIdx.x; i < 2 * nch; i += RNT) flags[i] = 0;
+  if (threadIdx.x < 32) {
+    const int r = threadIdx.x;
+    float m = 0.f;
+    if (r < nrows) {
+      const size_t row = row0 + r;
+      m = ld(adj, row * S + row % S) > 0.f ? 1.f : 0.f;
+    }
+    msk[r] = m;
+  }
+  __syncthreads();
+  // 16-byte loads: S is a multiple of 16, so a vector never spans chunks
+  constexpr int VE = 16 / sizeof(T);
+  const int per_row = S / VE;
+  for (int e = threadIdx.x; e < nrows * per_row; e += RNT) {
+    const int r = e / per_row, v = e % per_row;
+    const size_t row = row0 + r;
+    const uint4 q = *reinterpret_cast<const uint4*>(adj + row * S + v * VE);
+    if ((q.x | q.y | q.z | q.w) & (sizeof(T) == 4 ? 0x7fffffffu : 0x7fff7fffu))
+      flags[((int)(row / S) - tile0) * nch + v * VE / ACW] = 1;
+  }
+  __syncthreads();
+  int n = 0;
+  const int tiles = (int)((row0 + nrows - 1) / S) - tile0 + 1;
+  for (int tt = 0; tt < tiles; ++tt)
+    for (int j = 0; j < nch; ++j)
+      if (flags[tt * nch + j]) {
+        if (threadIdx.x == 0) {
+          node[n] = (tile0 + tt) * S + j * ACW;
+          width[n] = min(ACW, S - j * ACW);
+        }
+        ++n;
+      }
+  __syncthreads();  // node and width are written; flags may be reused
+  return n;
+}
+
+// Weight-gradient products for the redesigned backward passes:
+// C[m, c] = sum_r X[r, m] Y[r, c] over the rows of one chunk, for one 64 x
+// 64 output tile per block, written to partial[chunk, off + m * C + c]; the
+// caller adds the chunks in chunk order (sum_partials). Each 16-row step is
+// one strip of the row space: a strip whose live flag is 0 (its Y rows are
+// all zero, which the pass that wrote Y recorded) is skipped, and a chunk
+// with no live strip writes zeros without loading anything. Loads are
+// staged in registers one step ahead. f32 runs FP32 FMA (4 x 4 per thread,
+// float4 shared loads); bf16 runs mma.sync m16n8k16 with X^T as the A
+// operand (warp w: m16 tile w % 4, n8 tiles 4 (w / 4) .. + 3). Launch
+// chunks * tiles blocks of WNT threads.
+constexpr int WT = 64;    // output tile edge
+constexpr int WK = 16;    // rows per step (one strip)
+constexpr int WNT = 256;  // threads
+constexpr int WS2 = WT + 8;  // bf16 pair-row stride (words)
+constexpr int WMAX_ROWS = 1024;  // most rows of one chunk
+
+template <typename T>
+__global__ void __launch_bounds__(WNT)
+wgrad_kernel(const T* __restrict__ X, const T* __restrict__ Y,
+             const int* __restrict__ strip_live, int N, int M, int C,
+             int rows_per_chunk, float* __restrict__ partial, int width,
+             int off) {
+  constexpr bool F32 = sizeof(T) == 4;
+  __shared__ __align__(16) float xs[F32 ? WK * WT : (WK / 2) * WS2];
+  __shared__ __align__(16) float ys[F32 ? WK * WT : (WK / 2) * WS2];
+  __shared__ int steps[WMAX_ROWS / WK];
+  __shared__ int nsteps;
+  const int tiles_c = (C + WT - 1) / WT;
+  const int tiles = ((M + WT - 1) / WT) * tiles_c;
+  const int chunk = blockIdx.x / tiles, tl = blockIdx.x % tiles;
+  const int m0 = (tl / tiles_c) * WT, c0 = (tl % tiles_c) * WT;
+  const int tid = threadIdx.x;
+  const int r_lo = chunk * rows_per_chunk;
+  const int r_hi = min(N, r_lo + rows_per_chunk);
+  if (tid == 0) {
+    int n = 0;
+    for (int r0 = r_lo; r0 < r_hi; r0 += WK)
+      if (strip_live[r0 / WK]) steps[n++] = r0;
+    nsteps = n;
+  }
+  __syncthreads();
+  const int ns = nsteps;
+  float* prow = partial + (size_t)chunk * width + off;
+
+  // staging: f32 thread loads rows (tid / 64) + 4 i, column tid % 64;
+  // bf16 thread loads the row pair (tid / 32) and columns 2 (tid % 32) + e
+  float sx[4], sy[4];
+  auto load = [&](int r0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int r, cc;
+      if constexpr (F32) {
+        r = r0 + (tid >> 6) + 4 * i;
+        cc = tid & 63;
+      } else {
+        r = r0 + 2 * (tid >> 5) + (i & 1);
+        cc = 2 * (tid & 31) + (i >> 1);
+      }
+      const bool ok = r < r_hi;
+      sx[i] = (ok && m0 + cc < M) ? ld(X, (size_t)r * M + m0 + cc) : 0.f;
+      sy[i] = (ok && c0 + cc < C) ? ld(Y, (size_t)r * C + c0 + cc) : 0.f;
+    }
+  };
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  if (ns > 0) load(steps[0]);
+  for (int s = 0; s < ns; ++s) {
+    __syncthreads();
+    if constexpr (F32) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kk = (tid >> 6) + 4 * i, cc = tid & 63;
+        xs[kk * WT + cc] = sx[i];
+        ys[kk * WT + cc] = sy[i];
+      }
+    } else {
+      unsigned* xp = reinterpret_cast<unsigned*>(xs);
+      unsigned* yp = reinterpret_cast<unsigned*>(ys);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kp = tid >> 5, cc = 2 * (tid & 31) + e;
+        xp[kp * WS2 + cc] = pack_bf16(sx[2 * e], sx[2 * e + 1]);
+        yp[kp * WS2 + cc] = pack_bf16(sy[2 * e], sy[2 * e + 1]);
+      }
+    }
+    __syncthreads();
+    if (s + 1 < ns) load(steps[s + 1]);
+    if constexpr (F32) {
+      const int tx = tid & 15, ty = tid >> 4;
+#pragma unroll
+      for (int kk = 0; kk < WK; ++kk) {
+        const float4 a = *reinterpret_cast<const float4*>(xs + kk * WT + 4 * ty);
+        const float4 b = *reinterpret_cast<const float4*>(ys + kk * WT + 4 * tx);
+        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[i * 4 + j] = fmaf(av[i], bv[j], acc[i * 4 + j]);
+      }
+    } else {
+      const unsigned* xp = reinterpret_cast<const unsigned*>(xs);
+      const unsigned* yp = reinterpret_cast<const unsigned*>(ys);
+      const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+      const int mb = (warp & 3) * 16;
+      unsigned a[4] = {xp[t * WS2 + mb + g], xp[t * WS2 + mb + g + 8],
+                       xp[(t + 4) * WS2 + mb + g],
+                       xp[(t + 4) * WS2 + mb + g + 8]};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int nb = (warp >> 2) * 32 + nt * 8 + g;
+        mma_bf16(&acc[nt * 4], a, yp[t * WS2 + nb], yp[(t + 4) * WS2 + nb]);
+      }
+    }
+  }
+  if constexpr (F32) {
+    const int tx = tid & 15, ty = tid >> 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int m = m0 + 4 * ty + i, c = c0 + 4 * tx + j;
+        if (m < M && c < C) prow[(size_t)m * C + c] = acc[i * 4 + j];
+      }
+  } else {
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + (warp & 3) * 16 + g + (e >> 1) * 8;
+        const int c = c0 + (warp >> 2) * 32 + nt * 8 + 2 * t + (e & 1);
+        if (m < M && c < C) prow[(size_t)m * C + c] = acc[nt * 4 + e];
+      }
+  }
+}
+
 // sums[i] = sum over blocks, in block order, of partial[blk, i]; i < width.
 static __global__ void sum_partials(const float* __restrict__ partial,
                                     float* __restrict__ sums, int nblk,
@@ -382,3 +1064,13 @@ static inline int launch_sum_partials(const float* partial, float* sums,
 }
 
 }  // namespace fbl
+
+// The layout constants that the Python side plans with
+// (ops/fused_layer.py LAYOUT, checked against this at the library's first
+// use): entry i of [strip rows, adjacency chunk, weight-pass tile edge,
+// weight-pass rows per step, most rows of a weight-pass chunk]; -1 past
+// the end. Each library includes this header once.
+extern "C" int fbl_layout(int i) {
+  const int v[] = {fbl::R, fbl::ACW, fbl::WT, fbl::WK, fbl::WMAX_ROWS};
+  return i >= 0 && i < (int)(sizeof(v) / sizeof(v[0])) ? v[i] : -1;
+}

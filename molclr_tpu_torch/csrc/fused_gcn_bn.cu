@@ -38,15 +38,30 @@
 //   K5f: xw = rnd(x @ W), out = rnd(A @ xw): the two passes of K3f with
 //        BN = false (no prologue; A @ xw alone, no cnt, etab, bias or
 //        moments);
-//   K5b: dxw = rnd(A @ g) (the adjacency pass on g), dx = rnd(dxw @ W^T)
-//        (the row pass on dxw with W^T, transposed once so that it
-//        streams row by row), dW = x^T @ dxw in f32 (atb_kernel over
-//        fixed row chunks, summed in chunk order: no atomics). x is the
-//        saved input; nothing else is recomputed.
+//   K5b: dxw = rnd(A @ g), dx = rnd(dxw @ W^T), dW = x^T @ dxw in f32. x is
+//        the saved input; nothing else is recomputed.
 // Bound on the H100 at the fine-tuning shape (T = 4, 619 real rows, D =
 // 300, f32): K5f 0.11 GFLOP against 3.9 MB, 1.7 us by operations; K5b
-// 0.22 GFLOP against 5.4 MB, 3.4 us. As for K4, 64 strip blocks leave
-// most of the card idle and the launch costs about one block's latency.
+// 0.22 GFLOP against 5.4 MB, 3.4 us. At this shape a launch is short and
+// the card wide: what bounds K5b is how many blocks it can keep busy and
+// how long each waits on memory. Its redesign (four launches):
+//   * W^T, transposed once (1.3 us);
+//   * k5b_strip_kernel, one block per (16-row strip, 128-column pass of
+//     dx): 64 strips x 3 passes = 192 blocks at T = 4 (the strip pass of
+//     the first design ran 64). Each block multiplies only the live
+//     32-column chunks of its A strip (a strip's rows reach the one to
+//     three molecules they belong to), keeps the strip's rounded dxw in
+//     shared memory and writes its own column pass of it, then multiplies
+//     that pass of dx = dxw @ W^T (FP32 FMA in f32, mma.sync in bf16; the
+//     cheap sparse A @ g is recomputed by each of a strip's three blocks
+//     rather than using 8-row strips, whose A scan and products would
+//     halve the rows per W chunk). A strip with no live chunk writes zeros
+//     and flags itself dead;
+//   * wgrad_kernel for dW: 11 chunks of 96 rows x 25 tiles of 64 x 64 = 275
+//     blocks (dw_chunks in ops/fused_gcn.py: at least 2 x 132), loads
+//     staged a step ahead, dead strips skipped and dead chunks writing
+//     zeros, tensor cores in bf16;
+//   * sum_partials over the 11 chunks, in chunk order. No atomics.
 
 // K3b replaces molclr_tpu/ops/fused_gcn.py:_bn_bwd_kernel, the backward of
 // K3f. Given the output cotangents (g [N, D], dsums [2, D]), the saved
@@ -70,9 +85,10 @@
 // 5,632, D = 300, f32): dxw @ W^T and xc^T @ dxw over the real rows are
 // 2 x 0.85 GFLOP, the adjacency and counts by their nonzeros a few
 // hundredths more, against about 33 MB moved: about 26 us by operations.
-// In bf16 the bytes set it. What the design leaves on the table is K5b's:
-// no tensor cores, and dxw, gtc and xc round-trip device memory between
-// the passes (the TPU kernel has the whole tile in VMEM).
+// In bf16 the bytes set it. What the design leaves on the table is the
+// first K5b design's: no tensor cores, a weight pass of 180 blocks each
+// summing 1,024 rows, and dxw, gtc and xc round-tripping device memory
+// between the passes (the TPU kernel has the whole tile in VMEM).
 
 #include "fused_bn_common.cuh"
 
@@ -296,33 +312,155 @@ static int gcn_fwd(const void* x, const void* adj, const void* w, void* xw,
                               nullptr, nrow_blk, S, D, st);
 }
 
-// K5b: dxw = rnd(A @ g) (A is symmetric: the adjoint of A @), dx = rnd(dxw
-// @ W^T) with W^T transposed once into wt so that it streams row by row,
-// and dW = x^T @ dxw in f32 from per-chunk partials added in chunk order.
+// K5b's strip pass: one block of RNT threads per (16-row strip, 128-column
+// pass of dx). The block finds the live 32-column chunks of its A strip,
+// computes dxw = rnd(A @ g) for its strip over those chunks only and for all
+// D columns (the next product needs the whole row; every column pass of the
+// strip recomputes this cheap sparse product), keeps it in shared memory as
+// the left operand and writes its own column pass of it, then computes its
+// pass of dx = rnd(dxw @ W^T) (wt = W^T, transposed once). A strip with no
+// live chunk has dxw = dx = 0: it writes zeros and records strip_live = 0
+// for the weight pass. Shared memory: the chunk list, the node mask, the A
+// chunks [16, live * 32], the dxw operand [16, D] and the pass scratch.
+constexpr int K5B_RB = 16;
+
+struct K5bSmem {
+  int nch;
+  size_t meta, msk, ext, dxw, scratch, total;
+};
+
+template <typename T>
+__host__ __device__ inline K5bSmem k5b_smem(int S, int D, int ring) {
+  K5bSmem L;
+  L.nch = (S + ACW - 1) / ACW;
+  size_t off = 0;
+  L.meta = off;
+  off += round_up((4 * L.nch + L.nch * ACW) * 4, 16);
+  L.msk = off;
+  off += 32 * 4;
+  L.ext = off;
+  off += round_up((int)a_bytes<T>(K5B_RB, L.nch * ACW), 16);
+  L.dxw = off;
+  off += round_up((int)a_bytes<T>(K5B_RB, D), 16);
+  L.scratch = off;
+  off += pass_bytes<T>(K5B_RB, ring);
+  L.total = off;
+  return L;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(RNT)
+k5b_strip_kernel(const T* __restrict__ g, const T* __restrict__ adj,
+                 const T* __restrict__ wt, T* __restrict__ dxw,
+                 T* __restrict__ dx, int* __restrict__ strip_live, int S,
+                 int D, int ring) {
+  constexpr int RB = K5B_RB;
+  extern __shared__ float smem_f[];  // 16-byte aligned
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  const K5bSmem L = k5b_smem<T>(S, D, ring);
+  int* flags = reinterpret_cast<int*>(smem + L.meta);
+  int* node = flags + 2 * L.nch;
+  int* width = node + L.nch;
+  int* knode = width + L.nch;
+  float* msk = reinterpret_cast<float*>(smem + L.msk);
+  T* ext = reinterpret_cast<T*>(smem + L.ext);
+  T* da = reinterpret_cast<T*>(smem + L.dxw);
+  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
+  const int tid = threadIdx.x;
+  const size_t row0 = (size_t)blockIdx.x * RB;
+  const int cb = blockIdx.y * RCW;  // this block's column pass of dx
+  const int nlive = adj_live_chunks(adj, row0, RB, S, flags, node, width,
+                                    msk);
+  if (blockIdx.y == 0 && tid == 0) strip_live[blockIdx.x] = nlive > 0;
+  if (nlive == 0) {
+    for (int e = tid; e < RB * RCW; e += RNT) {
+      const int r = e / RCW, c = cb + e % RCW;
+      if (c < D) {
+        st(dxw, (row0 + r) * D + c, 0.f);
+        st(dx, (row0 + r) * D + c, 0.f);
+      }
+    }
+    return;
+  }
+  const int KL = nlive * ACW, lda1 = a_lda(KL), lda2 = a_lda(D);
+  a_zero_cols<RB>(ext, lda1, 0, KL);
+  a_zero_cols<RB>(da, lda2, D, D);
+  // knode[k]: the node of column k, clamped into its chunk (A is 0 past a
+  // chunk's width)
+  for (int k = tid; k < KL; k += RNT)
+    knode[k] = node[k / ACW] + min(k % ACW, width[k / ACW] - 1);
+  __syncthreads();
+  for (int e = tid; e < RB * KL; e += RNT) {
+    const int r = e / KL, k = e % KL, li = k / ACW, kk = k % ACW;
+    const size_t row = row0 + r;
+    const float v =
+        kk < width[li] ? ld(adj, row * S + (node[li] + kk) % S) : 0.f;
+    a_put<RB>(ext, lda1, r, k, v);
+  }
+  // dxw = rnd(A @ g) over the live chunks
+  for (int c0 = 0; c0 < D; c0 += RCW) {
+    rb_pass<T, RB>(
+        ext, lda1, KL, c0, D, scratch,
+        [&](int k, int c) -> T { return g[(size_t)knode[k] * D + c]; },
+        IdentityFor());
+    for (int e = tid; e < RB * RCW; e += RNT) {
+      const int r = e / RCW, j = e % RCW, c = c0 + j;
+      if (c < D) {
+        const float v = rnd<T>(scratch[r * CS + j]);
+        scratch[r * CS + j] = v;
+        if (c0 == cb) st(dxw, (row0 + r) * D + c, v);
+      }
+    }
+    __syncthreads();
+    cs_to_a<RB>(da, lda2, c0, D, scratch);
+  }
+  // dx = rnd(dxw @ W^T), this block's column pass
+  rb_pass_wr<T, RB>(ring, da, lda2, D, cb, D, scratch, wt, D);
+  for (int e = tid; e < RB * RCW; e += RNT) {
+    const int r = e / RCW, j = e % RCW, c = cb + j;
+    if (c < D) st(dx, (row0 + r) * D + c, scratch[r * CS + j]);
+  }
+}
+
+// K5b: W^T, the strip pass (the f32 weight ring 0 where it fits in shared
+// memory, else ring 1), the weight pass dW = x^T @ dxw (wgrad_kernel:
+// `chunks` row chunks of rows_per_chunk rows, which the caller chooses
+// (ops/fused_gcn.py dw_chunks) and this only checks: a multiple of 16, at
+// most WMAX_ROWS, covering the N rows once; times the 64 x 64 tiles of dW;
+// strips with strip_live = 0 skipped) and the sum of the chunk partials in
+// chunk order.
 template <typename T>
 static int gcn_bwd(const void* g, const void* x, const void* adj,
                    const void* w, void* wt, void* dxw, void* dx,
-                   float* part_w, float* dw, int T_, int S, int D, int chunks,
-                   void* stream) {
+                   int* strip_live, float* part_w, float* dw, int T_, int S,
+                   int D, int chunks, int rows_per_chunk, void* stream) {
   if (T_ <= 0 || S <= 0 || S % R || D <= 0 || chunks <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int nrow_blk = T_ * S / R;
   const int N = T_ * S;
-  int err = launch_adj<T, false>(g, adj, nullptr, nullptr, nullptr, dxw,
-                                 nullptr, nrow_blk, S, D, st);
+  if (rows_per_chunk <= 0 || rows_per_chunk % WK ||
+      rows_per_chunk > WMAX_ROWS ||
+      (N + rows_per_chunk - 1) / rows_per_chunk != chunks)
+    return (int)cudaErrorInvalidValue;
+  const size_t cap = max_smem();
+  int ring = 0;
+  while (ring < NRING && k5b_smem<T>(S, D, ring).total > cap) ++ring;
+  if (ring == NRING) return (int)cudaErrorInvalidValue;
+  int err = launch_transpose<T>(w, wt, D, D, st);
   if (err) return err;
-  if ((err = launch_transpose<T>(w, wt, D, D, st))) return err;
-  err = launch_xw<T, false>(dxw, nullptr, nullptr, wt, dx, nrow_blk, D, 0,
-                            st);
-  if (err) return err;
-  const AtB p = {x, dxw, D, D, 0};
-  int rows_per_chunk = (N + chunks - 1) / chunks;
-  rows_per_chunk = (rows_per_chunk + AKT - 1) / AKT * AKT;
-  atb_kernel<T><<<chunks * atb_tiles(p), ANT, 0, st>>>(
-      p, p, p, 1, N, rows_per_chunk, chunks, D * D, part_w);
-  cudaError_t e = cudaGetLastError();
+  const size_t bytes = k5b_smem<T>(S, D, ring).total;
+  cudaError_t e = set_smem(k5b_strip_kernel<T>, bytes);
   if (e != cudaSuccess) return (int)e;
+  const dim3 grid(N / K5B_RB, (D + RCW - 1) / RCW);
+  k5b_strip_kernel<T><<<grid, RNT, bytes, st>>>(
+      (const T*)g, (const T*)adj, (const T*)wt, (T*)dxw, (T*)dx, strip_live,
+      S, D, ring);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const int tiles = ((D + WT - 1) / WT) * ((D + WT - 1) / WT);
+  wgrad_kernel<T><<<chunks * tiles, WNT, 0, st>>>(
+      (const T*)x, (const T*)dxw, strip_live, N, D, D, rows_per_chunk, part_w,
+      D * D, 0);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   return launch_sum_partials(part_w, dw, chunks, D * D, st);
 }
 
@@ -378,8 +516,6 @@ static int gcn_bn_bwd(const void* g, const float* ds, const void* x,
 
 extern "C" {
 
-int fbl_strip_rows() { return fbl::R; }
-
 #define GCN_ENTRIES(suffix, T)                                              \
   int gcn_bn_fwd_##suffix(const void* x, const float* a, const float* b,    \
                           const void* adj, const void* cnt,                 \
@@ -397,10 +533,11 @@ int fbl_strip_rows() { return fbl::R; }
   }                                                                         \
   int gcn_bwd_##suffix(const void* g, const void* x, const void* adj,       \
                        const void* w, void* wt, void* dxw, void* dx,        \
-                       float* part_w, float* dw, int T_, int S, int D,      \
-                       int chunks, void* stream) {                          \
-    return fbl::gcn_bwd<T>(g, x, adj, w, wt, dxw, dx, part_w, dw, T_, S, D, \
-                           chunks, stream);                                 \
+                       int* strip_live, float* part_w, float* dw, int T_,   \
+                       int S, int D, int chunks, int rows_per_chunk,        \
+                       void* stream) {                                      \
+    return fbl::gcn_bwd<T>(g, x, adj, w, wt, dxw, dx, strip_live, part_w,   \
+                           dw, T_, S, D, chunks, rows_per_chunk, stream);   \
   }                                                                         \
   int gcn_bn_bwd_##suffix(                                                  \
       const void* g, const float* ds, const void* x, const float* a,        \

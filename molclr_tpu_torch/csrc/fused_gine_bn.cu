@@ -12,13 +12,33 @@
 // f32. agg and mid are written to device memory only when the caller asks
 // for them (the residuals of a training step); serving passes null.
 //
-// Design (see fused_bn_common.cuh): one block of 128 threads per 16-row
-// strip of a tile. The block keeps [A strip | cnt rows] (then mid, in the
-// same space) and agg in shared memory as f32, streams [y ; etab], W1 and
-// W2 through a 32 x 128 chunk staged one chunk ahead in registers. Shared
-// memory at S = 256, D = 300: (max(16*272, 16*600) + 16*300 + 32*128 + 16)
-// floats = 74 KB, three blocks per SM, so the 288 blocks of the embed
-// shape run in one wave.
+// Design (the row-block products of fused_bn_common.cuh): k1f_kernel runs
+// one block of 256 threads per 32 rows (two 16-row strips, so that each W1
+// and W2 chunk a block stages serves 32 rows; 176 blocks at the
+// pretraining shape T = 22, 144 at the embed shape T = 18). The block
+//   * reads its A rows once, finds the live 32-column chunks (those with a
+//     nonzero) and builds its stage-1 operand [A live chunks | cnt rows]:
+//     the prologue y = rnd(relu?(h a + b)) is computed only for the nodes
+//     of live chunks (about 3 of 8 per block in a pretraining batch);
+//   * keeps agg and mid in shared memory as the next stage's operand and
+//     streams W1 and W2 through a ring of cp.async stages (f32: three
+//     64-row chunks; bf16: four 32-row chunks), so that the next chunks
+//     are in flight while one is multiplied;
+//   * multiplies in f32 with FP32 FMA (4 x 4 outputs per thread) or in
+//     bf16 with mma.sync m16n8k16 tensor-core products, f32 sums;
+//   * when its A and cnt rows are all zero (a dead block, padding only),
+//     computes nothing: agg = 0, mid = rnd(relu(b1)), and every row gets
+//     the one constant out row that k1f_dead_row_kernel computed before it
+//     (zero moment partials).
+// Each output is summed over k in ascending order by one thread, as the
+// first design's strips summed it, and the moment partials are taken per
+// 16-row strip in the first design's order and added in strip order by
+// sum_partials: in f32 the results are bit-identical to the first
+// design's (a skipped term is an exact 0), no atomics, runs bit-identical.
+// Shared memory at S = 256, D = 300, D2 = 600: 217 KB in f32 (one block
+// per SM), 100 KB in bf16. Wider layers and tiles first take a shallower
+// f32 weight ring (two 32-row chunks), then 16-row blocks, whatever fits
+// (k1f_launch_shape); the order of every sum stays the same.
 //
 // Bound on the H100 at the embed shape (T = 18 tiles of 256, D = 300,
 // f32): as a dense computation 4.07 GFLOP (A@y 0.71, cnt@etab 0.04, two
@@ -29,12 +49,11 @@
 // TFLOP/s f32 rate without tensor cores, against 5 us for the bytes. In
 // bf16 the operations take 1.7 us at 989 TFLOP/s and the 8.8 MB 2.6 us.
 //
-// What the simple design leaves on the table: no tensor cores (wgmma) and
-// no TMA; a 4 x 4 register tile reads 8 shared words per 16 FMA, so the
-// shared-memory rate caps the products at about half the FMA rate; the
-// dense A strip multiplies mostly zeros; padded rows (half of a batch) are
-// computed in full; the prologue and y are recomputed by each of a tile's
-// 16 strips; W1 and W2 are re-read from L2 by each of the 288 blocks.
+// What still holds it back: every block streams all of W1 and W2 from L2
+// (1.44 MB in f32 per 32 rows; at T = 22 the 150 live blocks take two
+// rounds of the 132 SMs, and the first runs slower than the second as all
+// SMs draw on L2 at once); the MLP runs over padded rows of live blocks;
+// no TMA multicast of the weight chunks across a cluster, no wgmma.
 //
 // K1b replaces molclr_tpu/ops/fused_layer.py:_bn_bwd_kernel. Given the
 // output cotangents (g [N, D], dsums [2, D]) and the residuals:
@@ -65,9 +84,12 @@
 // rows of 5,632, f32): four dense products over the real rows, 4 x 2 x
 // 4,696 x 300 x 600 = 6.8 GFLOP, plus A @ daggc and cnt^T daggc by their
 // nonzeros, against about 40 MB moved: 0.10 ms at 67 TFLOP/s. In bf16 the
-// bytes set the bound (about 7 us). The same simple design as K1f, so the
-// same things are left on the table; the weight products read agg, mid,
-// gtc and dmidc back from device memory (the TPU kernel has them in VMEM).
+// bytes set the bound (about 7 us). Its passes are 16-row strips of 4 x 4
+// FMA tiles on CUDA cores (strip_gemm), with no tensor cores and no
+// skipping of dead work; the weight products (atb_kernel, one 1,024-row
+// chunk per block) read agg, mid, gtc and dmidc back from device memory
+// (the TPU kernel has them in VMEM). wgrad_kernel, K5b's weight pass, is
+// the building block to move them onto.
 
 // K4f and K4b replace molclr_tpu/ops/fused_layer.py:_fwd_kernel and
 // _bwd_kernel, the unchained layer fused_gine_layer that the fine-tuning
@@ -77,11 +99,11 @@
 //   dmid = (g @ W2^T) * [mid > 0], dagg = rnd(rnd(dmid) @ W1^T),
 //   dh = rnd(A @ daggc), dW1 = agg^T dmidc, db1 = sum dmid,
 //   dW2 = mid^T g, db2 = sum g, detab = cnt^T daggc.
-// They are the same strip kernels instantiated with BN = false: no
-// prologue, no moment epilogue, gt = g with no dsums term, no prologue
-// adjoint. Nothing of BatchNorm is computed, where feeding K1f identity
-// coefficients would compute the moments and throw them away. K4b keeps
-// K1b's three deterministic passes and its W^T transposes.
+// K4f is the 16-row strip kernel gine_fwd_kernel (strip_gemm, no prologue,
+// no moments); K4b is K1b's passes instantiated with BN = false (gt = g
+// with no dsums term, no prologue adjoint). Nothing of BatchNorm is
+// computed. K4b keeps K1b's three deterministic passes and its W^T
+// transposes.
 //
 // Bound on the H100 at the fine-tuning shape (a 32-molecule batch with
 // hydrogens: T = 4 tiles of 256, 619 real rows, D = 300, f32): K4f 0.45
@@ -92,26 +114,23 @@
 // practice is the shape: 64 strip blocks on 132 SMs, one partial wave, so
 // a launch takes about one block's latency (a 16-row strip through three
 // products on CUDA cores); the design leaves the card mostly idle at this
-// batch size, and takes no tensor cores, as K1f.
+// batch size, and takes no tensor cores.
 
 #include "fused_bn_common.cuh"
 
 namespace fbl {
 
-// BN selects the kernel: true for K1f / K1b (prologue, moments and their
-// adjoints), false for K4f / K4b, the unchained layer of the fine-tuning
-// trunk (the same strips without the prologue, the moment epilogue, gt's
-// dsums term and the prologue adjoint: nothing of BatchNorm is computed).
-template <typename T, bool BN>
+// K4f, the unchained layer of the fine-tuning trunk: one 16-row strip per
+// block (fused_bn_common.cuh), [A strip | cnt] @ [h ; etab], then the two
+// MLP products, with agg and mid written when the caller asks for them.
+template <typename T>
 __global__ void __launch_bounds__(NT)
-gine_fwd_kernel(const T* __restrict__ h, const float* __restrict__ a,
-                const float* __restrict__ b, const T* __restrict__ adj,
+gine_fwd_kernel(const T* __restrict__ h, const T* __restrict__ adj,
                 const T* __restrict__ cnt, const T* __restrict__ etab,
                 const T* __restrict__ w1, const float* __restrict__ b1,
                 const T* __restrict__ w2, const float* __restrict__ b2,
                 T* __restrict__ out, T* __restrict__ agg_out,
-                T* __restrict__ mid_out, float* __restrict__ partial, int S,
-                int D, int D2, int relu_in) {
+                T* __restrict__ mid_out, int S, int D, int D2) {
   extern __shared__ float smem[];
   const int strips = S / R;
   const int tile = blockIdx.x / strips, strip = blockIdx.x % strips;
@@ -121,23 +140,18 @@ gine_fwd_kernel(const T* __restrict__ h, const float* __restrict__ a,
   float* ext = smem;                           // [R, KA] A strip | cnt
   float* mid = smem;                           // [R, D2], ext is dead then
   float* agg = smem + max(R * KA, R * D2);     // [R, D]
-  float* Bs = agg + R * D;                     // [KC, CW], epilogue scratch
+  float* Bs = agg + R * D;                     // [KC, CW]
   float* msk = Bs + KC * CW;                   // [R]
 
   load_adj_strip(adj, cnt, tile, strip, S, ext, msk);
 
-  // agg = [A | cnt] @ [y ; etab], y = rnd(relu?(h * a + b)) (K1f) or h (K4f)
+  // agg = [A | cnt] @ [h ; etab]
   strip_gemm(
       ext, KA, KA, D, Bs,
       [&](int k, int c) -> T {
         return k < S ? h[(node0 + k) * D + c] : etab[(size_t)(k - S) * D + c];
       },
-      [&](int k, int c, float v) -> float {
-        if constexpr (BN)
-          return k < S ? rnd<T>(prologue(v, a[c], b[c], relu_in)) : v;
-        else
-          return v;
-      },
+      Identity(),
       [&](int c0, float (&acc)[TM][TN]) {
         const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
@@ -173,26 +187,256 @@ gine_fwd_kernel(const T* __restrict__ h, const float* __restrict__ a,
           }
       });
 
-  // out = mid @ W2 + b2, and (K1f) the masked moments of the cast out
+  // out = mid @ W2 + b2
   strip_gemm(
       mid, D2, D2, D, Bs,
       [&](int k, int c) -> T { return w2[(size_t)k * D + c]; },
       Identity(),
       [&](int c0, float (&acc)[TM][TN]) {
-        if constexpr (BN) {
-          moment_epilogue<T>(c0, acc, b2, out, row0, D, msk, Bs, partial);
-        } else {
-          const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
-          for (int i = 0; i < TM; ++i)
+        for (int i = 0; i < TM; ++i)
 #pragma unroll
-            for (int j = 0; j < TN; ++j) {
-              const int c = c0 + lane + 32 * j;
-              if (c < D)
-                st(out, (row0 + warp * TM + i) * D + c, acc[i][j] + b2[c]);
-            }
-        }
+          for (int j = 0; j < TN; ++j) {
+            const int c = c0 + lane + 32 * j;
+            if (c < D)
+              st(out, (row0 + warp * TM + i) * D + c, acc[i][j] + b2[c]);
+          }
       });
+}
+
+// K1f: one block of RNT threads per RB rows, RB = K1F_RB = 32 (two 16-row
+// strips; when the tile size is not a multiple of 32 the two may lie in
+// different tiles) or, where a 32-row block's operands do not fit in shared
+// memory, 16 (k1f_launch_shape). Shared memory, in order: the live-chunk
+// list, the node mask, the region X (stage 1's operand [A live chunks | cnt
+// rows], then mid), the agg operand and the pass scratch with the f32
+// weight ring `ring` (k1f_smem).
+constexpr int K1F_RB = 32;
+
+struct K1fSmem {
+  int nch, maxc;  // adjacency chunks per tile; live chunks a block can hold
+  size_t meta, msk, x, agg, scratch, total;
+};
+
+template <typename T>
+__host__ __device__ inline K1fSmem k1f_smem(int S, int D, int D2, int rb,
+                                            int ring) {
+  K1fSmem L;
+  L.nch = (S + ACW - 1) / ACW;
+  L.maxc = (S % rb ? 2 : 1) * L.nch;
+  const int K1 = L.maxc * ACW + CNT_PAD;
+  size_t off = 0, x = a_bytes<T>(rb, K1);
+  if (a_bytes<T>(rb, D2) > x) x = a_bytes<T>(rb, D2);
+  L.meta = off;
+  off += round_up((2 * L.nch + 2 * L.maxc + L.maxc * ACW) * 4, 16);
+  L.msk = off;
+  off += K1F_RB * 4;
+  L.x = off;
+  off += round_up((int)x, 16);
+  L.agg = off;
+  off += round_up((int)a_bytes<T>(rb, D), 16);
+  L.scratch = off;
+  off += pass_bytes<T>(rb, ring);
+  L.total = off;
+  return L;
+}
+
+// K1f's block rows and f32 weight ring at this shape: the first of (32
+// rows, ring 0), (32, ring 1), (16, ring 0), (16, ring 1) whose shared
+// memory fits the device's per-block limit, so that wide layers keep the
+// 32-row blocks that share each weight chunk and give up pipeline depth
+// first. At S = 256 in f32 ring 0 takes D = 300 / D2 = 600 (217 KB), ring
+// 1 up to D = 512 / D2 = 1,024, 16-row blocks up to D = 1,024 / D2 =
+// 2,048. rb = 0 when nothing fits.
+struct K1fShape {
+  int rb, ring;
+  size_t bytes;
+};
+
+template <typename T>
+static K1fShape k1f_launch_shape(int S, int D, int D2) {
+  const size_t cap = max_smem();
+  for (int rb = K1F_RB; rb >= R; rb -= R)
+    for (int ring = 0; ring < NRING; ++ring) {
+      const size_t bytes = k1f_smem<T>(S, D, D2, rb, ring).total;
+      if (bytes <= cap) return {rb, ring, bytes};
+    }
+  return {0, 0, 0};
+}
+
+// The output row of a row whose agg is 0: mid = rnd(relu(b1)), row[c] =
+// rnd(mid @ W2 + b2)[c] (f32 holding a value of type T), each column one
+// thread's sum over k in ascending order, as the row-block products sum.
+template <typename T>
+__global__ void __launch_bounds__(RNT)
+k1f_dead_row_kernel(const float* __restrict__ b1, const T* __restrict__ w2,
+                    const float* __restrict__ b2, float* __restrict__ row,
+                    int D, int D2) {
+  const int c = blockIdx.x * RNT + threadIdx.x;
+  if (c >= D) return;
+  float s = 0.f;
+  // (unrolled deep so that many loads of W2 are in flight at once: the
+  // sum itself is one dependent chain)
+#pragma unroll 32
+  for (int k = 0; k < D2; ++k)
+    s = fmaf(rnd<T>(fmaxf(b1[k], 0.f)), ld(w2, (size_t)k * D + c), s);
+  row[c] = rnd<T>(s + b2[c]);
+}
+
+// bf16 blocks (100 KB of shared memory at the reference width) are held to
+// 128 registers so that two run on an SM (the pretraining shape's 150 live
+// blocks then take one round of the 132 SMs, for some register spills);
+// f32 blocks (217 KB) run one to an SM.
+template <typename T, int RB>
+__global__ void __launch_bounds__(RNT, sizeof(T) == 2 ? 2 : 1)
+k1f_kernel(const T* __restrict__ h, const float* __restrict__ a,
+           const float* __restrict__ b, const T* __restrict__ adj,
+           const T* __restrict__ cnt, const T* __restrict__ etab,
+           const T* __restrict__ w1, const float* __restrict__ b1,
+           const T* __restrict__ w2, const float* __restrict__ b2,
+           T* __restrict__ out, T* __restrict__ agg_out,
+           T* __restrict__ mid_out, float* __restrict__ partial,
+           const float* __restrict__ dead_row, int N, int S, int D, int D2,
+           int relu_in, int ring) {
+  extern __shared__ float smem_f[];  // 16-byte aligned
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  __shared__ int cnt_live;
+  const K1fSmem L = k1f_smem<T>(S, D, D2, RB, ring);
+  int* flags = reinterpret_cast<int*>(smem + L.meta);
+  int* node = flags + 2 * L.nch;
+  int* width = node + L.maxc;
+  int* knode = width + L.maxc;
+  float* msk = reinterpret_cast<float*>(smem + L.msk);
+  T* xa = reinterpret_cast<T*>(smem + L.x);
+  T* ga = reinterpret_cast<T*>(smem + L.agg);
+  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
+  const int tid = threadIdx.x;
+  const size_t row0 = (size_t)blockIdx.x * RB;
+  const int nrows = min(RB, N - (int)row0);
+  // the moment partials of the block's RB / 16 strips, from row
+  // blockIdx.x * RB / 16 of partial
+  float* prow = partial + (size_t)blockIdx.x * (RB / R) * (2 * D);
+
+  if (tid == 0) cnt_live = 0;
+  __syncthreads();
+  for (int e = tid; e < nrows * CNT_PAD; e += RNT)
+    if (ld(cnt, row0 * CNT_PAD + e) != 0.f) cnt_live = 1;
+  const int nlive = adj_live_chunks(adj, row0, nrows, S, flags, node, width,
+                                    msk);
+
+  if (nlive == 0 && !cnt_live) {
+    // A dead block: agg = 0, so every row is mid = rnd(relu(b1)) and the
+    // constant row out = rnd(mid @ W2 + b2) that k1f_dead_row_kernel left
+    // in dead_row; zero moment partials (no row is a node).
+    for (int e = tid; e < nrows * D; e += RNT) {
+      st(out, row0 * D + e, dead_row[e % D]);
+      if (agg_out) st(agg_out, row0 * D + e, 0.f);
+    }
+    if (mid_out)
+      for (int e = tid; e < nrows * D2; e += RNT)
+        st(mid_out, row0 * D2 + e, rnd<T>(fmaxf(b1[e % D2], 0.f)));
+    for (int e = tid; e < (nrows / R) * 2 * D; e += RNT) prow[e] = 0.f;
+    return;
+  }
+
+  // stage 1: agg = rnd([A live chunks | cnt] @ [y ; etab]), y = rnd(relu?(h
+  // a + b)) for the nodes of the live chunks only. knode[k] is the node
+  // of column k (clamped into its chunk: A is 0 past a chunk's width).
+  const int KL = nlive * ACW, K1 = KL + CNT_PAD;
+  const int lda1 = a_lda(K1), lda2 = a_lda(D), lda3 = a_lda(D2);
+  a_zero_cols<RB>(xa, lda1, 0, K1);
+  a_zero_cols<RB>(ga, lda2, D, D);
+  for (int k = tid; k < KL; k += RNT)
+    knode[k] = node[k / ACW] + min(k % ACW, width[k / ACW] - 1);
+  __syncthreads();
+  for (int e = tid; e < nrows * K1; e += RNT) {
+    const int r = e / K1, k = e % K1;
+    const size_t row = row0 + r;
+    float v;
+    if (k < KL) {
+      const int li = k / ACW, kk = k % ACW, col = node[li] + kk;
+      v = (kk < width[li] && (size_t)col / S == row / S)
+              ? ld(adj, row * S + col % S) : 0.f;
+    } else {
+      v = ld(cnt, row * CNT_PAD + (k - KL));
+    }
+    a_put<RB>(xa, lda1, r, k, v);
+  }
+  auto load1 = [&](int k, int c) -> T {
+    const T* p = k < KL ? h + (size_t)knode[k] * D : etab + (size_t)(k - KL) * D;
+    return p[c];
+  };
+  auto xf1 = [&](int c) {
+    const float ac = a[c], bc = b[c];
+    return [=](int k, float v) -> float {
+      return k < KL ? rnd<T>(prologue(v, ac, bc, relu_in)) : v;
+    };
+  };
+  for (int c0 = 0; c0 < D; c0 += RCW) {
+    rb_pass<T, RB>(xa, lda1, K1, c0, D, scratch, load1, xf1);
+    for (int e = tid; e < RB * RCW; e += RNT) {
+      const int r = e / RCW, j = e % RCW, c = c0 + j;
+      if (c < D) {
+        const float v = rnd<T>(scratch[r * CS + j]);
+        scratch[r * CS + j] = v;
+        if (agg_out && r < nrows) st(agg_out, (row0 + r) * D + c, v);
+      }
+    }
+    __syncthreads();
+    cs_to_a<RB>(ga, lda2, c0, D, scratch);
+  }
+
+  // stage 2: mid = rnd(relu(agg @ W1 + b1)) into region X (stage 1's
+  // operand is dead)
+  a_zero_cols<RB>(xa, lda3, D2, D2);
+  for (int c0 = 0; c0 < D2; c0 += RCW) {
+    rb_pass_wr<T, RB>(ring, ga, lda2, D, c0, D2, scratch, w1, D2);
+    for (int e = tid; e < RB * RCW; e += RNT) {
+      const int r = e / RCW, j = e % RCW, c = c0 + j;
+      if (c < D2) {
+        const float v = rnd<T>(fmaxf(scratch[r * CS + j] + b1[c], 0.f));
+        scratch[r * CS + j] = v;
+        if (mid_out && r < nrows) st(mid_out, (row0 + r) * D2 + c, v);
+      }
+    }
+    __syncthreads();
+    cs_to_a<RB>(xa, lda3, c0, D2, scratch);
+  }
+
+  // stage 3: out = rnd(mid @ W2 + b2) and the masked moments of the cast
+  // out, summed over the block's rows in row order
+  for (int c0 = 0; c0 < D; c0 += RCW) {
+    rb_pass_wr<T, RB>(ring, xa, lda3, D2, c0, D, scratch, w2, D);
+    for (int e = tid; e < RB * RCW; e += RNT) {
+      const int r = e / RCW, j = e % RCW, c = c0 + j;
+      if (c < D) {
+        const float v = rnd<T>(scratch[r * CS + j] + b2[c]);
+        scratch[r * CS + j] = v;
+        if (r < nrows) st(out, (row0 + r) * D + c, v);
+      }
+    }
+    __syncthreads();
+    // thread (strip st, column j): the strip's sums over its four groups
+    // of four rows, each group's sum then the groups in order
+    const int st = tid / RCW, j = tid % RCW, c = c0 + j;
+    if (16 * st < nrows && c < D) {
+      float t0 = 0.f, t1 = 0.f;
+      for (int w = 0; w < 4; ++w) {
+        float s0 = 0.f, s1 = 0.f;
+        for (int i = 0; i < 4; ++i) {
+          const int r = 16 * st + 4 * w + i;
+          const float v = scratch[r * CS + j], ob = v * msk[r];
+          s0 += ob;
+          s1 += ob * v;
+        }
+        t0 += s0;
+        t1 += s1;
+      }
+      prow[(size_t)st * 2 * D + c] = t0;
+      prow[(size_t)st * 2 * D + D + c] = t1;
+    }
+  }
 }
 
 // Backward pass (a): gt, dmid, dagg for one strip (row-local). w1t [D2, D]
@@ -358,32 +602,57 @@ gine_bwd_adj_kernel(const T* __restrict__ daggc, const T* __restrict__ h,
       });
 }
 
-// K1f (BN) or K4f: the strip kernel and, for K1f, the fixed-order sum of
-// the moment partials. a, b, partial and sums are null for K4f.
-template <typename T, bool BN>
-static int gine_fwd(const void* h, const float* a, const float* b,
-                    const void* adj, const void* cnt, const void* etab,
-                    const void* w1, const float* b1, const void* w2,
-                    const float* b2, void* out, void* agg, void* mid,
-                    float* partial, float* sums, int T_, int S, int D, int D2,
-                    int relu_in, void* stream) {
+// K1f: the dead blocks' constant row, the row-block kernel, then the
+// fixed-order sum of the moment partials of its N / 16 strips. partial
+// holds N / 16 + 1 rows of [2, D]: the last keeps the constant row.
+template <typename T>
+static int gine_bn_fwd(const void* h, const float* a, const float* b,
+                       const void* adj, const void* cnt, const void* etab,
+                       const void* w1, const float* b1, const void* w2,
+                       const float* b2, void* out, void* agg, void* mid,
+                       float* partial, float* sums, int T_, int S, int D,
+                       int D2, int relu_in, void* stream) {
+  if (T_ <= 0 || S <= 0 || S % R || D <= 0 || D2 <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int N = T_ * S;
+  const K1fShape shape = k1f_launch_shape<T>(S, D, D2);
+  if (!shape.rb) return (int)cudaErrorInvalidValue;
+  const int nblk = (N + shape.rb - 1) / shape.rb;
+  auto kernel = shape.rb == K1F_RB ? k1f_kernel<T, K1F_RB> : k1f_kernel<T, R>;
+  cudaError_t e = set_smem(kernel, shape.bytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  float* dead_row = partial + (size_t)(N / R) * 2 * D;
+  k1f_dead_row_kernel<T><<<(D + RNT - 1) / RNT, RNT, 0, st>>>(
+      b1, (const T*)w2, b2, dead_row, D, D2);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  kernel<<<nblk, RNT, shape.bytes, st>>>(
+      (const T*)h, a, b, (const T*)adj, (const T*)cnt, (const T*)etab,
+      (const T*)w1, b1, (const T*)w2, b2, (T*)out, (T*)agg, (T*)mid, partial,
+      dead_row, N, S, D, D2, relu_in, shape.ring);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  return launch_sum_partials(partial, sums, N / R, 2 * D, st);
+}
+
+// K4f: the strip kernel.
+template <typename T>
+static int gine_fwd(const void* h, const void* adj, const void* cnt,
+                    const void* etab, const void* w1, const float* b1,
+                    const void* w2, const float* b2, void* out, void* agg,
+                    void* mid, int T_, int S, int D, int D2, void* stream) {
   if (T_ <= 0 || S <= 0 || S % R || D <= 0 || D2 <= 0)
     return (int)cudaErrorInvalidValue;
   const int nblk = T_ * (S / R);
   const int region = R * (S + CNT_PAD) > R * D2 ? R * (S + CNT_PAD) : R * D2;
   const size_t floats = (size_t)region + R * D + KC * CW + R;
   const size_t bytes = floats * sizeof(float);
-  cudaError_t e = set_smem(gine_fwd_kernel<T, BN>, bytes);
+  cudaError_t e = set_smem(gine_fwd_kernel<T>, bytes);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = (cudaStream_t)stream;
-  gine_fwd_kernel<T, BN><<<nblk, NT, bytes, st>>>(
-      (const T*)h, a, b, (const T*)adj, (const T*)cnt, (const T*)etab,
-      (const T*)w1, b1, (const T*)w2, b2, (T*)out, (T*)agg, (T*)mid, partial,
-      S, D, D2, relu_in);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  if constexpr (BN) return launch_sum_partials(partial, sums, nblk, 2 * D, st);
-  return 0;
+  gine_fwd_kernel<T><<<nblk, NT, bytes, (cudaStream_t)stream>>>(
+      (const T*)h, (const T*)adj, (const T*)cnt, (const T*)etab,
+      (const T*)w1, b1, (const T*)w2, b2, (T*)out, (T*)agg, (T*)mid, S, D,
+      D2);
+  return (int)cudaGetLastError();
 }
 
 // K1b (BN) or K4b: the three passes and the fixed-order sums. Scratch: w1t
@@ -455,8 +724,8 @@ static int gine_bwd(const void* g, const float* ds, const void* h,
 
 extern "C" {
 
-int fbl_strip_rows() { return fbl::R; }
-
+// K1f: gine_bn_fwd_*, and the rows per block it launches with at a shape
+// (0 where it cannot launch), which the plan of what it skips needs.
 #define GINE_BN_FWD(suffix, T)                                              \
   int gine_bn_fwd_##suffix(const void* h, const float* a, const float* b,   \
                            const void* adj, const void* cnt,                \
@@ -465,9 +734,12 @@ int fbl_strip_rows() { return fbl::R; }
                            const float* b2, void* out, void* agg, void* mid, \
                            float* partial, float* sums, int T_, int S,      \
                            int D, int D2, int relu_in, void* stream) {      \
-    return fbl::gine_fwd<T, true>(h, a, b, adj, cnt, etab, w1, b1, w2, b2,  \
-                                  out, agg, mid, partial, sums, T_, S, D,   \
-                                  D2, relu_in, stream);                     \
+    return fbl::gine_bn_fwd<T>(h, a, b, adj, cnt, etab, w1, b1, w2, b2,     \
+                               out, agg, mid, partial, sums, T_, S, D, D2,  \
+                               relu_in, stream);                            \
+  }                                                                         \
+  int gine_bn_fwd_rows_##suffix(int S, int D, int D2) {                     \
+    return fbl::k1f_launch_shape<T>(S, D, D2).rb;                          \
   }
 
 #define GINE_BN_BWD(suffix, T)                                              \
@@ -494,9 +766,8 @@ int fbl_strip_rows() { return fbl::R; }
                         const void* w2, const float* b2, void* out,         \
                         void* agg, void* mid, int T_, int S, int D, int D2, \
                         void* stream) {                                     \
-    return fbl::gine_fwd<T, false>(h, nullptr, nullptr, adj, cnt, etab, w1, \
-                                   b1, w2, b2, out, agg, mid, nullptr,      \
-                                   nullptr, T_, S, D, D2, 0, stream);       \
+    return fbl::gine_fwd<T>(h, adj, cnt, etab, w1, b1, w2, b2, out, agg,    \
+                            mid, T_, S, D, D2, stream);                     \
   }
 
 // K4b: dh, [db1 | db2] and [dW1 | dW2 | detab] of the unchained layer.

@@ -34,11 +34,15 @@ from molclr_tpu_torch.ops import _build
 from molclr_tpu_torch.ops.fused_layer import (
     BWD_CHUNK_ROWS,
     CNT_PAD,
+    DW_MAX_ROWS,
+    DW_TILE,
+    STRIP_ROWS,
     adj_diag_mask,
     bn_prologue,
     check_layer_args,
     cuda_tiles,
     kernel_fn,
+    kernel_plan,
     masked_moments,
     strip_rows,
 )
@@ -280,6 +284,39 @@ def fused_gcn_layer_fwd(x, adj, w):
     return out
 
 
+# SMs of an H100, for the weight pass's plan when no card is at hand
+H100_SMS = 132
+
+
+def dw_chunks(n: int, d: int, sms: int = H100_SMS) -> tuple[int, int]:
+    """(chunks, rows per chunk) of K5b's weight pass over n rows
+    (csrc/fused_bn_common.cuh wgrad_kernel, which takes them as they are):
+    DW_TILE x DW_TILE tiles of dW times row chunks, enough chunks for two
+    blocks per SM of a card with `sms` SMs, chunks of whole strips, at most
+    DW_MAX_ROWS rows each."""
+    tiles = (-(-d // DW_TILE)) ** 2
+    want = max(-(-2 * sms // tiles), -(-n // DW_MAX_ROWS))
+    want = min(want, n // STRIP_ROWS)
+    rows = -(-(-(-n // want)) // STRIP_ROWS) * STRIP_ROWS
+    return -(-n // rows), rows
+
+
+def k5b_plan(adj: torch.Tensor, d: int, sms: int = H100_SMS) -> dict:
+    """What K5b skips on this adjacency (tests and chip_smoke.py only):
+    kernel_plan of its 16-row strip pass, and its weight pass's row chunks
+    (dw_chunks) with live_chunks [chunks], True where a strip of the chunk
+    is live (its dxw rows can be nonzero)."""
+    plan = kernel_plan(adj, None, STRIP_ROWS)
+    n = adj.shape[0] * adj.shape[1]
+    chunks, rows = dw_chunks(n, d, sms)
+    live = ~plan["dead_strips"]
+    per = rows // STRIP_ROWS
+    live = torch.nn.functional.pad(live, (0, chunks * per - live.shape[0]))
+    plan.update(dw_chunks=chunks, dw_rows=rows,
+                live_chunks=live.reshape(chunks, per).any(dim=1))
+    return plan
+
+
 def fused_gcn_layer_bwd(g, x, adj, w):
     """Backward of the unchained layer (kernel K5b): (dx in g's dtype, dW
     f32). CUDA tensors run the sm_90a kernels (counted in
@@ -293,14 +330,24 @@ def fused_gcn_layer_bwd(g, x, adj, w):
     t, s = cuda_tiles("fused_gcn_layer_bwd", g, adj, "fused_gcn_bn")
     n, d = g.shape
     suffix = "f32" if g.dtype == torch.float32 else "bf16"
-    fn = kernel_fn("fused_gcn_bn", f"gcn_bwd_{suffix}", 9, 4)
-    chunks = -(-n // BWD_CHUNK_ROWS)
-    wt, dxw, dx = w.new_empty(d, d), torch.empty_like(g), torch.empty_like(g)
-    part_w = torch.empty(chunks, d * d, dtype=torch.float32, device=g.device)
+    fn = kernel_fn("fused_gcn_bn", f"gcn_bwd_{suffix}", 10, 5)
+    chunks, rows = dw_chunks(n, d, torch.cuda.get_device_properties(
+        g.device).multi_processor_count)
+    dx = torch.empty_like(g)
     dw = torch.empty(d, d, dtype=torch.float32, device=g.device)
+    # one scratch allocation, cut at 256-byte offsets: W^T, dxw, the strip
+    # flags (int32) and the weight pass's chunk partials (f32)
+    es = g.element_size()
+    offs = [0]
+    for size in (d * d * es, n * d * es, 4 * (n // STRIP_ROWS),
+                 4 * chunks * d * d):
+        offs.append(offs[-1] + -(-size // 256) * 256)
+    scratch = torch.empty(offs[-1], dtype=torch.uint8, device=g.device)
+    wt, dxw, strip_live, part_w = (scratch.data_ptr() + o for o in offs[:4])
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = fn(*(v.data_ptr() for v in (g, x, adj, w, wt, dxw, dx, part_w, dw)),
-             t, s, d, chunks, stream)
+    err = fn(g.data_ptr(), x.data_ptr(), adj.data_ptr(), w.data_ptr(), wt,
+             dxw, dx.data_ptr(), strip_live, part_w, dw.data_ptr(), t, s, d,
+             chunks, rows, stream)
     _build.check(err, "fused_gcn_layer_bwd")
     fused_gcn_layer_bwd.launches += 1
     return dx, dw

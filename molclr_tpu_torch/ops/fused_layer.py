@@ -42,6 +42,21 @@ from molclr_tpu_torch.ops import _build
 # zeros); etab rows beyond the real tables are zero.
 CNT_PAD = 16
 
+# The kernels' layout, which the wrappers and the plan helpers (kernel_plan,
+# fused_gcn.dw_chunks) work with: the strip of the tile layout, the
+# adjacency column chunk that the row-block kernels skip when it is all
+# zero, and the weight pass's output tile and most rows per chunk (its rows
+# step one strip at a time). Each library states its own (fbl_layout in
+# csrc/fused_bn_common.cuh); strip_rows checks them at its first use.
+STRIP_ROWS = 16
+ADJ_CHUNK = 32
+DW_TILE = 64
+DW_MAX_ROWS = 1024
+LAYOUT = (STRIP_ROWS, ADJ_CHUNK, DW_TILE, STRIP_ROWS, DW_MAX_ROWS)
+# K1f's rows per block at the reference widths (csrc/fused_gine_bn.cu
+# K1F_RB; 16 where wider layers do not fit: k1f_block_rows)
+K1F_BLOCK_ROWS = 32
+
 _ACT_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -177,12 +192,28 @@ def kernel_fn(source: str, fn: str, n_ptr: int, n_int: int):
 
 @functools.lru_cache(maxsize=None)
 def strip_rows(source: str) -> int:
-    """Rows per block of the kernels in csrc/<source>.cu; tiles must be a
-    multiple of it."""
-    f = _build.load(source).fbl_strip_rows
-    f.argtypes = []
+    """Rows per strip of the kernels in csrc/<source>.cu; tiles must be a
+    multiple of it. Raises if the library's layout is not LAYOUT."""
+    f = _build.load(source).fbl_layout
+    f.argtypes = [ctypes.c_int]
     f.restype = ctypes.c_int
-    return f()
+    got = tuple(f(i) for i in range(len(LAYOUT)))
+    if got != LAYOUT or f(len(LAYOUT)) != -1:
+        raise RuntimeError(f"csrc/{source}.cu states the layout {got}, "
+                           f"ops/fused_layer.py LAYOUT {LAYOUT}")
+    return STRIP_ROWS
+
+
+@functools.lru_cache(maxsize=None)
+def k1f_block_rows(dtype: torch.dtype, s: int, d: int, d2: int) -> int:
+    """Rows per block that K1f launches with at tile s and widths d, d2:
+    K1F_BLOCK_ROWS, or 16 where a 32-row block's operands do not fit in
+    shared memory (0 where none fits). Needs the built library."""
+    suffix = "f32" if dtype == torch.float32 else "bf16"
+    f = getattr(_build.load("fused_gine_bn"), f"gine_bn_fwd_rows_{suffix}")
+    f.argtypes = [ctypes.c_int] * 3
+    f.restype = ctypes.c_int
+    return f(s, d, d2)
 
 
 def cuda_tiles(name: str, h: torch.Tensor, adj: torch.Tensor,
@@ -215,8 +246,9 @@ def fused_gine_bn_layer_fwd(h, a, b, adj, cnt, etab, w1, b1, w2, b2,
     agg = torch.empty_like(h) if residuals else None
     mid = h.new_empty(n, d2) if residuals else None
     sums = torch.empty(2, d, dtype=torch.float32, device=h.device)
-    partial = torch.empty(t * (s // strip_rows("fused_gine_bn")), 2, d,
-                          dtype=torch.float32, device=h.device)
+    # one [2, D] row per 16-row strip, and one for the dead blocks' row
+    partial = torch.empty(n // STRIP_ROWS + 1, 2, d, dtype=torch.float32,
+                          device=h.device)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     err = fn(h.data_ptr(), a.data_ptr(), b.data_ptr(), adj.data_ptr(),
              cnt.data_ptr(), etab.data_ptr(), w1.data_ptr(), b1.data_ptr(),
@@ -227,6 +259,46 @@ def fused_gine_bn_layer_fwd(h, a, b, adj, cnt, etab, w1, b1, w2, b2,
     _build.check(err, "fused_gine_bn_layer")
     fused_gine_bn_layer.launches += 1
     return out, sums, agg, mid
+
+
+def kernel_plan(adj: torch.Tensor, cnt: torch.Tensor | None = None,
+                block_rows: int = K1F_BLOCK_ROWS) -> dict:
+    """What the row-block kernels skip on this adjacency, decided as they
+    decide it from the data they load (K1f: block_rows k1f_block_rows, 32
+    at the reference widths, with cnt; K5b's strip pass: block_rows 16, no
+    cnt). Only the tests and chip_smoke.py call it; the kernels' wrappers
+    never do.
+
+    strip_chunks [N / 16, C]  chunk j (tile columns 32 j .. 32 j + 31) of
+                              a 16-row strip's A rows has a nonzero
+    dead_strips  [N / 16]     the strip's A rows (and cnt rows) are all 0
+    dead_blocks  [ceil(N / block_rows)]  every row of the block is dead: the
+                              kernel computes one constant row for it
+    block_chunks, dense_chunks  (block, tile chunk) pairs the kernel
+                              multiplies, and those a dense strip would"""
+    t, s, _ = adj.shape
+    n = t * s
+    nch = -(-s // ADJ_CHUNK)
+    nz = adj.reshape(n, s) != 0
+    padded = torch.nn.functional.pad(nz, (0, nch * ADJ_CHUNK - s))
+    strip_chunks = padded.reshape(n // STRIP_ROWS, STRIP_ROWS, nch,
+                                  ADJ_CHUNK).any(dim=3).any(dim=1)
+    live_rows = nz.any(dim=1)
+    if cnt is not None:
+        live_rows = live_rows | (cnt != 0).any(dim=1)
+    nb = -(-n // block_rows)
+    dead_blocks = ~torch.nn.functional.pad(
+        live_rows, (0, nb * block_rows - n)).reshape(nb, block_rows).any(1)
+    strip = torch.arange(n // STRIP_ROWS)
+    key = (strip * STRIP_ROWS // s)[:, None] * nch + torch.arange(nch)
+    block = (strip * STRIP_ROWS // block_rows)[:, None].expand(-1, nch)
+    pairs = torch.stack([block[strip_chunks], key[strip_chunks]], dim=1)
+    return dict(
+        block_rows=block_rows, strip_chunks=strip_chunks,
+        dead_strips=~live_rows.reshape(-1, STRIP_ROWS).any(dim=1),
+        dead_blocks=dead_blocks,
+        block_chunks=int(torch.unique(pairs, dim=0).shape[0]),
+        dense_chunks=nb * nch)
 
 
 # K1b splits the weight-gradient sums over N into chunks of this many rows

@@ -39,16 +39,29 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _problem(seed, tiles, s, d, padded_rows):
+def _problem(seed, tiles, s, d, padded_rows, layout="random"):
     """Random block-diagonal symmetric adjacency with self-loops on real
-    rows; the last `padded_rows` rows of every tile are padding."""
+    rows; the last `padded_rows` rows of every tile are padding. With
+    layout "molecules" each tile holds small molecules (6-20 atoms, bonds
+    within a molecule only), so most 32-column chunks of a strip are zero,
+    and the last tile is padding in full."""
     rng = np.random.RandomState(seed)
     n, pad = tiles * s, fused_layer.CNT_PAD
     adj = np.zeros((tiles, s, s), np.float32)
     for t in range(tiles):
-        a = (rng.rand(s, s) < 0.1).astype(np.float32)
-        a = np.maximum(a, a.T)
-        np.fill_diagonal(a, 1.0)
+        if layout == "molecules":
+            a = np.zeros((s, s), np.float32)
+            lo = 0
+            while t < tiles - 1 and lo < s - padded_rows:
+                hi = min(lo + rng.randint(6, 21), s - padded_rows)
+                m = (rng.rand(hi - lo, hi - lo) < 0.3).astype(np.float32)
+                a[lo:hi, lo:hi] = np.maximum(m, m.T)
+                a[np.arange(lo, hi), np.arange(lo, hi)] = 1.0
+                lo = hi
+        else:
+            a = (rng.rand(s, s) < 0.1).astype(np.float32)
+            a = np.maximum(a, a.T)
+            np.fill_diagonal(a, 1.0)
         a[s - padded_rows:, :] = 0
         a[:, s - padded_rows:] = 0
         adj[t] = a
@@ -71,6 +84,16 @@ def _problem(seed, tiles, s, d, padded_rows):
 
 
 ACT = {"h", "adj", "cnt", "etab", "w1", "w2", "w"}
+# (tiles, tile, D, padded rows per tile[, layout]): ragged widths; a tile of
+# 16 or 48 (K1f's 32-row blocks then span two tiles); the full width (S =
+# 256, D = 300, D2 = 600) with molecule-like adjacency: all-zero A chunks,
+# strips half padded (8 padded rows) and a padded tile
+SHAPES = [(4, 64, 40, 9), (3, 16, 37, 5), (2, 256, 300, 100),
+          (3, 256, 300, 8, "molecules"), (5, 48, 37, 8, "molecules")]
+
+
+def _seed(shape):
+    return sum(shape[:4])
 
 
 def _to(m, dev, dt):
@@ -87,8 +110,7 @@ def _run(layer, f, x, p, relu_in):
              p["bias"], relu_in)
 
 
-@pytest.mark.parametrize("shape", [(4, 64, 40, 9), (3, 16, 37, 5),
-                                   (2, 256, 300, 100)])
+@pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("relu_in", [False, True])
 @pytest.mark.parametrize("layer", ["gine", "gcn"])
@@ -97,7 +119,7 @@ def test_kernel_matches_plain(cuda, shape, dtype, relu_in, layer):
     widths and padded rows; two runs are bit-identical (no atomics), and
     the launch count grows by one per call."""
     dt = getattr(torch, dtype)
-    x, pg, pc = _problem(sum(shape), *shape)
+    x, pg, pc = _problem(_seed(shape), *shape)
     x, p = _to(x, cuda, dt), _to(pg if layer == "gine" else pc, cuda, dt)
     kern, plain = ((fused_layer.fused_gine_bn_layer,
                     fused_layer.fused_gine_bn_layer_plain) if layer == "gine"
@@ -123,15 +145,14 @@ def _gine_args(x, p):
             p["b1"], p["w2"], p["b2"])
 
 
-@pytest.mark.parametrize("shape", [(4, 64, 40, 9), (3, 16, 37, 5),
-                                   (2, 256, 300, 100)])
+@pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("relu_in", [False, True])
 def test_backward_kernel_matches_plain(cuda, shape, dtype, relu_in):
     """K1f's residuals and K1b against the plain versions on the card, on
     the same residuals and random cotangents; two runs bit-identical."""
     dt = getattr(torch, dtype)
-    x, pg, _ = _problem(sum(shape) + 1, *shape)
+    x, pg, _ = _problem(_seed(shape) + 1, *shape)
     x, p = _to(x, cuda, dt), _to(pg, cuda, dt)
     args = _gine_args(x, p)
     out, sums, agg, mid = fused_layer.fused_gine_bn_layer_fwd(*args, relu_in,
@@ -141,7 +162,7 @@ def test_backward_kernel_matches_plain(cuda, shape, dtype, relu_in):
     for got, want in zip((out, sums, agg, mid), ref):
         err = (got.float() - want.float()).abs().max().item()
         assert err <= rtol * want.float().abs().max().item()
-    gen = torch.Generator().manual_seed(sum(shape))
+    gen = torch.Generator().manual_seed(_seed(shape))
     g = torch.randn(out.shape, generator=gen).to(cuda, dt)
     dsums = (0.05 * torch.randn(sums.shape, generator=gen)).to(cuda)
     bargs = (g, dsums, x["h"], x["a"], x["b"], x["adj"], x["cnt"], agg, mid,
@@ -155,6 +176,59 @@ def test_backward_kernel_matches_plain(cuda, shape, dtype, relu_in):
     for name, a, b, c in zip(("dh", "da", "db", "dw1", "db1", "dw2", "db2",
                               "detab"), got, again, want):
         assert a.dtype == c.dtype and a.shape == c.shape, name
+        err = (a.float() - c.float()).abs().max().item()
+        assert err <= rtol * c.float().abs().max().item(), (name, err)
+        assert torch.equal(a, b), name
+
+
+# K1f and K5b beyond the reference width (D = 384, 512, 1,024 with D2 = 2
+# D; a tile of 512): a 32-row K1f block first takes the shallower f32
+# weight ring, then 16-row blocks (the block rows expected here). At D =
+# 2,048 no K1f block fits in shared memory and its wrapper raises, while
+# K5b takes its shallower ring.
+WIDE = [((3, 256, 384, 8, "molecules"), 32),
+        ((3, 256, 512, 8, "molecules"), 32),
+        ((3, 512, 300, 8, "molecules"), 32),
+        ((3, 128, 1024, 8, "molecules"), 16),
+        ((2, 128, 2048, 8, "molecules"), 0)]
+
+
+@pytest.mark.parametrize("shape,rows", WIDE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_k1f_and_k5b_match_plain(cuda, shape, rows, dtype):
+    """K1f (with its residuals, relu_in off and on) and K5b against their
+    plain versions at wide layers and tiles; two runs bit-identical."""
+    dt = getattr(torch, dtype)
+    x, pg, pc = _problem(_seed(shape) + 5, *shape)
+    x, p = _to(x, cuda, dt), _to(pg, cuda, dt)
+    _, s, d = shape[:3]
+    assert fused_layer.k1f_block_rows(dt, s, d, 2 * d) == rows
+    rtol = 1e-4 if dt == torch.float32 else 3e-2
+    args = _gine_args(x, p)
+    for relu_in in (False, True):
+        if not rows:
+            with pytest.raises(RuntimeError, match="fused_gine_bn_layer"):
+                fused_layer.fused_gine_bn_layer_fwd(*args, relu_in,
+                                                    residuals=True)
+            continue
+        got = fused_layer.fused_gine_bn_layer_fwd(*args, relu_in,
+                                                  residuals=True)
+        again = fused_layer.fused_gine_bn_layer_fwd(*args, relu_in,
+                                                    residuals=True)
+        want = fused_layer.fused_gine_bn_layer_fwd_plain(*args, relu_in)
+        for name, a, b, c in zip(("out", "sums", "agg", "mid"), got, again,
+                                 want):
+            err = (a.float() - c.float()).abs().max().item()
+            assert err <= rtol * c.float().abs().max().item(), (name, err)
+            assert torch.equal(a, b), name
+    w = _to(pc, cuda, dt)["w"]
+    g = torch.randn(x["h"].shape, generator=torch.Generator().manual_seed(
+        _seed(shape))).to(cuda, dt)
+    got = fused_gcn.fused_gcn_layer_bwd(g, x["h"], x["adj"], w)
+    again = fused_gcn.fused_gcn_layer_bwd(g, x["h"], x["adj"], w)
+    want = fused_gcn.fused_gcn_layer_bwd_plain(g, x["h"], x["adj"], w)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("dx", "dw"), got, again, want):
         err = (a.float() - c.float()).abs().max().item()
         assert err <= rtol * c.float().abs().max().item(), (name, err)
         assert torch.equal(a, b), name
@@ -245,8 +319,7 @@ def test_trunk_gets_gradients_on_card(cuda):
             assert g.abs().max() > 0, (gnn, normalize, k)
 
 
-@pytest.mark.parametrize("shape", [(4, 64, 40, 9), (3, 16, 37, 5),
-                                   (2, 256, 300, 100)])
+@pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("relu_in", [False, True])
 def test_gcn_backward_kernel_matches_plain(cuda, shape, dtype, relu_in):
@@ -254,12 +327,12 @@ def test_gcn_backward_kernel_matches_plain(cuda, shape, dtype, relu_in):
     random cotangents, ragged widths and padded rows included; two runs
     bit-identical, one launch counted per call."""
     dt = getattr(torch, dtype)
-    x, _, pc = _problem(sum(shape) + 4, *shape)
+    x, _, pc = _problem(_seed(shape) + 4, *shape)
     x, p = _to(x, cuda, dt), _to(pc, cuda, dt)
     args = (x["h"], x["a"], x["b"], x["adj"], x["cnt"], p["etab"], p["w"],
             p["bias"])
     out, sums = fused_gcn.fused_gcn_bn_layer(*args, relu_in)
-    gen = torch.Generator().manual_seed(sum(shape))
+    gen = torch.Generator().manual_seed(_seed(shape))
     g = torch.randn(out.shape, generator=gen).to(cuda, dt)
     dsums = (0.05 * torch.randn(sums.shape, generator=gen)).to(cuda)
     bargs = (g, dsums, x["h"], x["a"], x["b"], x["adj"], x["cnt"], out,
@@ -342,15 +415,14 @@ def test_embed_cli_on_card_matches_cpu(cuda, tmp_path, gnn):
 # ----------------------------------------------- the unchained layers K4, K5
 
 
-@pytest.mark.parametrize("shape", [(4, 64, 40, 9), (3, 16, 37, 5),
-                                   (2, 256, 300, 100)])
+@pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_unchained_gine_kernels_match_plain(cuda, shape, dtype):
     """K4f (with and without residuals) and K4b against their plain
     versions on the card, with random cotangents; two runs bit-identical,
     one launch counted per call."""
     dt = getattr(torch, dtype)
-    x, pg, _ = _problem(sum(shape) + 2, *shape)
+    x, pg, _ = _problem(_seed(shape) + 2, *shape)
     x, p = _to(x, cuda, dt), _to(pg, cuda, dt)
     args = (x["h"], x["adj"], x["cnt"], p["etab"], p["w1"], p["b1"],
             p["w2"], p["b2"])
@@ -369,7 +441,7 @@ def test_unchained_gine_kernels_match_plain(cuda, shape, dtype):
         assert err <= rtol * c.float().abs().max().item(), (name, err)
         assert torch.equal(a, b), name
     out, agg, mid = res
-    gen = torch.Generator().manual_seed(sum(shape))
+    gen = torch.Generator().manual_seed(_seed(shape))
     g = torch.randn(out.shape, generator=gen).to(cuda, dt)
     bargs = (g, x["adj"], x["cnt"], agg, mid, p["w1"], p["w2"])
     before = fused_layer.fused_gine_layer_bwd.launches
@@ -386,14 +458,13 @@ def test_unchained_gine_kernels_match_plain(cuda, shape, dtype):
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("shape", [(4, 64, 40, 9), (3, 16, 37, 5),
-                                   (2, 256, 300, 100)])
+@pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_unchained_gcn_kernels_match_plain(cuda, shape, dtype):
     """K5f and K5b against their plain versions on the card; two runs
     bit-identical, one launch counted per call."""
     dt = getattr(torch, dtype)
-    x, _, pc = _problem(sum(shape) + 3, *shape)
+    x, _, pc = _problem(_seed(shape) + 3, *shape)
     x, p = _to(x, cuda, dt), _to(pc, cuda, dt)
     rtol = 1e-4 if dt == torch.float32 else 3e-2
     before = fused_gcn.fused_gcn_layer.launches
@@ -405,7 +476,7 @@ def test_unchained_gcn_kernels_match_plain(cuda, shape, dtype):
     assert out.dtype == dt and torch.equal(out, out2)
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= rtol * ref.float().abs().max().item()
-    gen = torch.Generator().manual_seed(sum(shape))
+    gen = torch.Generator().manual_seed(_seed(shape))
     g = torch.randn(out.shape, generator=gen).to(cuda, dt)
     before = fused_gcn.fused_gcn_layer_bwd.launches
     got = fused_gcn.fused_gcn_layer_bwd(g, x["h"], x["adj"], p["w"])
