@@ -54,10 +54,11 @@ prints no result line):
               as the FineTuner packs a training batch: T = 4 tiles of 256,
               D = 300): K4f (with residuals), K4b, K5f and K5b against
               their plain versions in f32 and bf16; two runs
-              bit-identical; kernel, plain and library times; K5b's device
-              time by kernel (torch.profiler over 20 launches) and the
-              shares of strips, adjacency chunks and dW row chunks it
-              skipped (k5b_plan).
+              bit-identical; kernel, plain and library times; K4f's, K5f's
+              and K5b's device time by kernel (torch.profiler over 20
+              launches), K4f's and K5f's host time per wrapper call, and
+              the shares of row blocks, strips, adjacency chunks and dW row
+              chunks they skipped (kernel_plan, k5b_plan).
   9. fine-tune steps: the FineTuner at the reference fine-tune model (5 x
               300 / 512, drop 0.3, batch 32, pred head 2 x softplus, f32),
               GIN, GCN and GIN with the motif head: 3 steps on the card,
@@ -68,7 +69,8 @@ prints no result line):
               the motif table, card against the CPU from the same state;
               then the step's time (median of CUDA-event times over 25
               steps), molecules/s, the host's time to queue a step, an
-              eval batch's time and a profile of the GIN and GCN steps.
+              eval batch's time and the host's time to queue one, and a
+              profile of the GIN and GCN steps and eval batches.
  10. fine-tune cli: `molclr_tpu_torch.cli.finetune --allow-synthetic` for
               2 epochs in a temporary working directory: GIN warm-started
               from phase 7's step_<n>.pt, then --model gcn, then --motifs;
@@ -144,6 +146,7 @@ from molclr_tpu_torch.ops.fused_gcn import (
 )
 from molclr_tpu_torch.ops.fused_layer import (
     CNT_PAD,
+    STRIP_ROWS,
     adj_diag_mask,
     fused_gine_bn_layer,
     fused_gine_bn_layer_bwd,
@@ -159,6 +162,8 @@ from molclr_tpu_torch.ops.fused_layer import (
     k1f_block_rows,
     kernel_plan,
     pack_cnt,
+    sm_count,
+    unchained_fwd_plan,
 )
 from molclr_tpu_torch.ops.scatter_free import _counts
 from molclr_tpu_torch.ops.tile_dense import build_tile_adjacency
@@ -446,12 +451,39 @@ def k5b_skipped(adj, d) -> dict:
     chunks its strip pass skips and of its weight pass's row chunks that
     load nothing, from the plan helper on this launch's input and the
     card's SM count, as the wrapper plans the weight pass."""
-    sms = torch.cuda.get_device_properties(adj.device).multi_processor_count
-    plan = k5b_plan(adj.cpu(), d, sms)
+    plan = k5b_plan(adj.cpu(), d, sm_count(adj.device))
     return dict(dead_strips=float(plan["dead_strips"].float().mean()),
                 a_chunks=1 - plan["block_chunks"] / plan["dense_chunks"],
                 dw_chunks=1 - float(plan["live_chunks"].float().mean()),
                 dw_chunk_count=plan["dw_chunks"])
+
+
+def unchained_skipped(x, d, d2, kernel) -> dict:
+    """K4f's or K5f's blocks per launch (unchained_fwd_plan) and the shares
+    of its 16-row blocks that are dead and of the (block, adjacency chunk)
+    products that it skips, from the plan helpers on this launch's input."""
+    adj, cnt = x["adj"], x["cnt"]
+    t, s, _ = adj.shape
+    grids = unchained_fwd_plan(t, s, d, d2)
+    kp = kernel_plan(adj.cpu(), cnt.cpu() if kernel == "k4f" else None,
+                     STRIP_ROWS)
+    return dict(blocks={k: v[0] * v[1] for k, v in grids.items()
+                        if k.startswith(kernel)},
+                dead_blocks=float(kp["dead_blocks"].float().mean()),
+                a_chunks=1 - kp["block_chunks"] / kp["dense_chunks"])
+
+
+def host_us(fn, reps: int = 50) -> float:
+    """Host microseconds per call of a wrapper: the time to queue `reps`
+    calls back to back (the card runs behind), after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / reps
 
 
 def kernel_phase(dev) -> dict:
@@ -1184,13 +1216,20 @@ def profile_steps(step_fn, steps: int = 5) -> dict:
             rows.append((e.key, us, e.count))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    # the port's own kernels by function name, template arguments summed
+    port = {}
+    for k, us, _ in rows:
+        m = re.search(r"(?:fbl|ntx)::(\w+)", k)
+        if m:
+            port[m.group(1)] = port.get(m.group(1), 0.0) + us / steps / 1e3
     return dict(window_steps=steps, wall_ms_per_step=wall_us / steps / 1e3,
                 device_ms_per_step=busy / steps / 1e3,
                 device_busy_share=busy / wall_us if wall_us else None,
                 kernels=len(rows),
                 top=[dict(name=k[:80], ms_per_step=us / steps / 1e3,
                           launches_per_step=c / steps)
-                     for k, us, c in rows[:12]])
+                     for k, us, c in rows[:12]],
+                port_ms_per_step=port)
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1403,6 +1442,20 @@ def finetune_kernel_phase(batch, dev) -> dict:
         cases["fused_gcn_layer_bwd"].update(
             passes_us=pass_profile(lambda: fused_gcn_layer_bwd(*gargs)),
             skipped=k5b_skipped(x["adj"], d))
+        # K4f and K5f: device us per launch by pass; events ms are set by
+        # the host's pace where its time per call is the larger
+        for name, kernel, fn in (
+                ("fused_gine_layer", "k4f",
+                 lambda: fused_gine_layer_fwd(*fargs, residuals=True)),
+                ("fused_gcn_layer", "k5f",
+                 lambda: fused_gcn_layer_fwd(*cargs))):
+            case = cases[name]
+            case.update(passes_us=pass_profile(fn), host_us=host_us(fn),
+                        skipped=unchained_skipped(
+                            x, d, pg["w1"].shape[1], kernel))
+            case["device_us"] = sum(case["passes_us"].values())
+            case["ms_paced_by"] = ("host" if case["host_us"]
+                                   > case["device_us"] else "device")
         for name, case in cases.items():
             case["bound_ms"], case["bound_by"] = unchained_bound_ms(
                 name, x, pg if name.startswith("fused_gine") else pc, dt)
@@ -1558,8 +1611,9 @@ def finetune_step_phase(dev, tmp: str, shared: list) -> dict:
 def finetune_speed_phase(dev, tmp: str, card: str, shared: list) -> dict:
     """The fine-tuning step's time on the card (median of CUDA-event times
     over 25 steps after 5 warm-up steps, dropout drawn on the card), the
-    host's time to queue a step, an eval batch's forward, and a profile of
-    the GIN and the GCN f32 step."""
+    host's time to queue a step, an eval batch's forward (events ms and
+    the host's ms to queue one), and a profile of the GIN and the GCN f32
+    step and eval batch."""
     report = {}
     for gnn, bf16 in (("gin", False), ("gcn", False), ("gin", True)):
         cfg = finetune_cfg(tmp, gnn, bf16=bf16)
@@ -1596,9 +1650,13 @@ def finetune_speed_phase(dev, tmp: str, card: str, shared: list) -> dict:
                    mol_per_s=int(item[0].graph_mask.sum()) / (ms / 1e3),
                    eval_tiles=ebatch.nbr.shape[0] // TILE,
                    eval_batch_ms=time_ms(lambda: ft_lib.predict(
-                       ft.model, ebatch, emot)))
+                       ft.model, ebatch, emot)),
+                   eval_host_ms=host_us(lambda: ft_lib.predict(
+                       ft.model, ebatch, emot)) / 1e3)
         if not bf16:
             row["profile"] = profile_steps(lambda i: step())
+            row["eval_profile"] = profile_steps(lambda i: ft_lib.predict(
+                ft.model, ebatch, emot), steps=20)
         report[f"{gnn}_{row['dtype']}"] = row
         print(f"finetune speed {json.dumps(row)}", flush=True)
     return report

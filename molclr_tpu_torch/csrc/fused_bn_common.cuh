@@ -18,18 +18,21 @@
 //     [n_blocks, 2, D] scratch, and sum_partials adds the rows in block
 //     order: no atomics, so repeated runs are bit-identical.
 // These strip kernels (strip_gemm: plain f32 FMA loops, no tensor cores)
-// carry K1b, K3f, K3b, K4f, K4b and K5f. The redesigned K1f and K5b run on
-// the row-block products further down (rb_pass, rb_pass_w: 16- or 32-row
-// blocks of 256 threads, FP32 FMA in f32 and mma.sync tensor cores in
-// bf16, all-zero adjacency chunks and dead rows skipped) and K5b's weight
-// pass on wgrad_kernel. Every value is rounded to the activation type T
-// exactly where the Pallas kernels cast.
+// carry K1b, K3f, K4b and K3b's row passes. The redesigned K1f, K4f, K5f
+// and K5b (and K3b's adjacency pass, which is K5f's) run on the row-block
+// products further down (rb_pass, rb_pass_rows: 16- or 32-row blocks of 256
+// threads, FP32 FMA in f32 and mma.sync tensor cores in bf16, all-zero
+// adjacency chunks and dead rows skipped) and K5b's weight pass on
+// wgrad_kernel. Every value is rounded to the activation type T exactly
+// where the Pallas kernels cast.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <mutex>
 
 namespace fbl {
 
@@ -356,15 +359,39 @@ static inline int launch_transpose(const void* src, void* dst, int rows,
 
 // Ask for the largest shared-memory carveout, so that three blocks of the
 // size the kernels use fit on one SM, and allow `bytes` of dynamic shared
-// memory.
+// memory. The attributes cost microseconds of host time and the wrappers
+// launch on every call, so a kernel's are set again only when a call needs
+// more than this process has set on the device.
 template <typename Kernel>
 static inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  struct Set {
+    const void* fn;
+    int dev;
+    size_t bytes;
+  };
+  static std::mutex mu;
+  static Set set[32];
+  static int n = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              (int)cudaSharedmemCarveoutMaxShared);
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(mu);
+  int i = 0;
+  while (i < n && (set[i].fn != fn || set[i].dev != dev)) ++i;
+  if (i < n && set[i].bytes >= bytes) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  if (i < n)
+    set[i].bytes = bytes;
+  else if (n < 32)
+    set[n++] = {fn, dev, bytes};
+  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -380,10 +407,9 @@ static inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
 // element by element, so that the epilogues do not depend on how the
 // products are laid out on the threads.
 //   * f32: full FP32 FMA on CUDA cores (no TF32). A is stored k-major
-//     (A[k * RB + r]). Warp w takes row groups 2 (w % 4) + lane / 16 (RB / 8
-//     rows each) and column group 16 (w / 4) + lane % 16 (4 columns): one
-//     A vector and one float4 of B, both shared by half a warp, feed
-//     RB / 2 FMA.
+//     (A[k * RB + r]). Warp w takes all RB rows (row group lane % 8, RB / 8
+//     rows each) and columns 16 w .. 16 w + 15 (column group 4 w + lane /
+//     8, 4 columns): one A vector and one float4 of B feed RB / 2 FMA.
 //   * bf16: tensor cores, mma.sync m16n8k16 bf16 -> f32. A is stored
 //     row-major with row stride a_lda(K) (conflict-free fragment loads); B
 //     chunks are stored as bf16 pairs along k (one 32-bit word per (k,
@@ -421,32 +447,42 @@ __host__ __device__ inline size_t a_bytes(int rb, int K) {
                         : (size_t)rb * a_lda(K) * 2;
 }
 
-// f32 passes over a row-major weight (rb_pass_w) stream it through a ring
-// of cp.async stages, one of two sizes: ring 0 is NST = 3 stages of 64 rows
-// (two chunks in flight, 96 KB), ring 1 two stages of 32 rows (one chunk
-// in flight, 32 KB) for blocks whose operands leave too little shared
-// memory for ring 0 (wide layers; the kernel's host side picks it).
-constexpr int NST = 3, NRING = 2;
+// f32 passes that stream B through cp.async stages (rb_pass_rows) use a
+// ring of one of three sizes: ring 0 is NST = 3 stages of 64 rows (two
+// chunks in flight, 96 KB: a block alone on its SM), ring 1 four stages of
+// 32 rows (three in flight, 64 KB: two blocks share an SM), ring 2 two
+// stages of 32 rows (one in flight, 32 KB) for blocks whose operands leave
+// too little shared memory for the others (the kernel's host side picks
+// it).
+constexpr int NST = 3, NRING = 3;
 
 __host__ __device__ inline size_t ring_bytes(int ring) {
-  return ring == 0 ? (size_t)NST * 64 * RCW * 4 : (size_t)2 * 32 * RCW * 4;
+  return ring == 0 ? (size_t)NST * 64 * RCW * 4
+                   : (size_t)(ring == 1 ? 4 : 2) * 32 * RCW * 4;
 }
 
 // bf16 passes over a row-major weight keep NSTB - 1 chunks of KCB rows in
-// flight, stored [k][c] with row stride BSB elements (rb_pass_w)
+// flight, stored [k][c] with row stride BSB elements (rb_pass_rows)
 constexpr int KCB = 32, NSTB = 4, BSB = RCW + 8;
 
-// Bytes of the scratch a pass needs: rb_pass's B chunk or the ring of
-// rb_pass_w (`ring` for f32), aliased by Cs.
+// Bytes of the scratch that rb_pass alone needs: its B chunk, aliased by
+// Cs.
 template <typename T>
-__host__ __device__ inline size_t pass_bytes(int rb, int ring) {
-  size_t bs = sizeof(T) == 4 ? (size_t)rkc<T>() * RCW * 4
-                             : (size_t)(rkc<T>() / 2) * BS2 * 4;
-  const size_t wring =
-      sizeof(T) == 4 ? ring_bytes(ring) : (size_t)NSTB * KCB * BSB * 2;
-  if (wring > bs) bs = wring;
+__host__ __device__ inline size_t chunk_bytes(int rb) {
+  const size_t bs = sizeof(T) == 4 ? (size_t)rkc<T>() * RCW * 4
+                                   : (size_t)(rkc<T>() / 2) * BS2 * 4;
   const size_t cs = (size_t)rb * CS * 4;
   return bs > cs ? bs : cs;
+}
+
+// Bytes of the scratch a pass needs: rb_pass's B chunk or the ring of
+// rb_pass_rows (`ring` for f32), aliased by Cs.
+template <typename T>
+__host__ __device__ inline size_t pass_bytes(int rb, int ring) {
+  const size_t wring =
+      sizeof(T) == 4 ? ring_bytes(ring) : (size_t)NSTB * KCB * BSB * 2;
+  const size_t bs = chunk_bytes<T>(rb);
+  return wring > bs ? wring : bs;
 }
 
 // The largest dynamic shared memory a block of the current device may ask
@@ -458,6 +494,57 @@ static inline size_t max_smem() {
                              dev) != cudaSuccess)
     return 0;
   return (size_t)v;
+}
+
+// The shared memory of a row-block kernel, in order: the live-chunk lists
+// of adj_live_chunks (flags, node and width for up to maxc live chunks) and
+// the node of each of their columns (knode), the node mask (32 floats), two
+// operand regions of op0 and op1 bytes, and the pass scratch. Every region
+// starts 16-byte aligned.
+struct RbSmem {
+  int nch, maxc;  // adjacency chunks per tile; live chunks a block can hold
+  size_t meta, msk, op0, op1, scratch, total;
+};
+
+__host__ __device__ inline RbSmem rb_smem(int S, int maxc, size_t op0,
+                                          size_t op1, size_t scratch) {
+  RbSmem L;
+  L.nch = (S + ACW - 1) / ACW;
+  L.maxc = maxc;
+  size_t off = 0;
+  L.meta = off;
+  off += round_up((2 * L.nch + 2 * maxc + maxc * ACW) * 4, 16);
+  L.msk = off;
+  off += 32 * 4;
+  L.op0 = off;
+  off += round_up((int)op0, 16);
+  L.op1 = off;
+  off += round_up((int)op1, 16);
+  L.scratch = off;
+  off += scratch;
+  L.total = off;
+  return L;
+}
+
+// A row-block launch's rows per block and f32 weight ring: the first of
+// (rb0, ring0 ..), (16, ring0 ..) whose shared memory bytes(rb, ring) fits
+// the device's per-block limit, so that a layer too wide for the plan's
+// shape gives up pipeline depth first, then rows. The order of every f32
+// sum is the same in each. rb = 0 when nothing fits.
+struct RbShape {
+  int rb, ring;
+  size_t bytes;
+};
+
+template <typename Bytes>
+static RbShape rb_shape(int rb0, int ring0, Bytes bytes) {
+  const size_t cap = max_smem();
+  for (int rb = rb0; rb >= R; rb -= R)
+    for (int ring = ring0; ring < NRING; ++ring) {
+      const size_t b = bytes(rb, ring);
+      if (b <= cap) return {rb, ring, b};
+    }
+  return {0, 0, 0};
 }
 
 template <int RB>
@@ -495,22 +582,23 @@ __device__ __forceinline__ void mma_bf16(float* d, const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// f32 products (rb_pass, rb_pass_w): thread (rg = 2 (warp % 4) + lane /
-// 16, cg = 16 (warp / 4) + lane % 16) holds an (RB / 8) x 4 tile, rows
-// rg * RB/8 + i, columns 4 cg + j. Per chunk row a warp reads one A vector
-// (two addresses) and one float4 of B (16 addresses) for RB / 2 FMA. Each
-// output is one thread's sum over k in ascending order, as a scalar loop
-// sums it: the f32 results do not depend on how the rows of K are chunked
-// (KR rows a chunk) or which adjacency chunks are skipped (a skipped term
-// is an exact 0).
+// f32 products (rb_pass, rb_pass_rows): thread (rg = lane % 8, cg = 4 warp
+// + lane / 8) holds an (RB / 8) x 4 tile, rows rg * RB/8 + i, columns 4 cg
+// + j: a warp covers all RB rows and 16 columns. Per chunk row it reads
+// eight A vectors and four float4 of B, each 64 or 128 contiguous bytes
+// (one shared-memory wavefront apiece: the products are bound by these
+// loads when two blocks share an SM), for RB / 2 FMA a thread. Each output
+// is one thread's sum over k in ascending order, as a scalar loop sums it:
+// the f32 results do not depend on how the rows of K are chunked (KR rows
+// a chunk), which thread holds them, or which adjacency chunks are skipped
+// (a skipped term is an exact 0).
 template <int RB, int KR = 64>
 __device__ __forceinline__ void f32_chunk(const float* Af, int k0,
                                           const float* Bs,
                                           float (&acc)[RB / 8][4]) {
   constexpr int TMR = RB / 8;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rg = 2 * (warp & 3) + (lane >> 4);
-  const int cg = 16 * (warp >> 2) + (lane & 15);
+  const int rg = lane & 7, cg = 4 * warp + (lane >> 3);
 #pragma unroll 8
   for (int kk = 0; kk < KR; ++kk) {
     float av[TMR];
@@ -536,8 +624,7 @@ template <int RB>
 __device__ __forceinline__ void f32_to_cs(const float (&acc)[RB / 8][4],
                                           float* Cs) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rg = 2 * (warp & 3) + (lane >> 4);
-  const int cg = 16 * (warp >> 2) + (lane & 15);
+  const int rg = lane & 7, cg = 4 * warp + (lane >> 3);
 #pragma unroll
   for (int i = 0; i < RB / 8; ++i)
     *reinterpret_cast<float4*>(Cs + (rg * RB / 8 + i) * CS + 4 * cg) =
@@ -682,23 +769,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// One column pass as rb_pass, with B = W, a row-major [K, ncols] weight of
-// row stride ldw taken as it is. The weights stream from L2, and one chunk
-// in flight leaves the block waiting on it, so W goes through a ring of
-// cp.async stages: f32 keeps NS - 1 chunks of KR rows in flight (16-byte
-// copies where the rows allow, else 4-byte ones), bf16 NSTB - 1 chunks of
-// 32 rows (4-byte copies of column pairs; rows of an odd width, which the
-// ring cannot take, are staged in registers by rb_pass).
-template <typename T, int RB, int NS = NST, int KR = 64>
-__device__ void rb_pass_w(const T* A, int lda, int K, int c0, int ncols,
-                          float* scratch, const T* W, int ldw) {
+// One column pass as rb_pass, with B's row k at row(k) (a weight's rows, or
+// the feature rows of an adjacency operand's columns) taken as it is. B
+// streams from L2, and one chunk in flight leaves the block waiting on it,
+// so it goes through a ring of cp.async stages: f32 keeps NS - 1 chunks of
+// KR rows in flight (16-byte copies where `wide`, else 4-byte ones), bf16
+// NSTB - 1 chunks of 32 rows (4-byte copies of column pairs where `wide`,
+// else the rows are staged in registers by rb_pass). `wide`: every row
+// starts 16-byte (f32) or 4-byte (bf16) aligned (rows_wide). row(k) is
+// called for k < K only. It returns after a __syncthreads with Cs complete,
+// as rb_pass does.
+template <typename T, int RB, int NS = NST, int KR = 64, typename Row>
+__device__ void rb_pass_rows(const T* A, int lda, int K, int c0, int ncols,
+                             float* scratch, Row row, bool wide) {
   if constexpr (sizeof(T) != 4) {
-    if (ldw % 2 || (reinterpret_cast<size_t>(W) & 3)) {
-      // rows of an odd width break the 4-byte copies: stage in registers
+    if (!wide) {
       rb_pass<T, RB>(
           A, lda, K, c0, ncols, scratch,
-          [&](int k, int c) -> T { return W[(size_t)k * ldw + c]; },
-          IdentityFor());
+          [&](int k, int c) -> T { return row(k)[c]; }, IdentityFor());
       return;
     }
     constexpr int WM = RB / 16;
@@ -718,8 +806,8 @@ __device__ void rb_pass_w(const T* A, int lda, int K, int c0, int ncols,
         for (int i = 0; i < KCB / 4; ++i) {
           const int kk = (tid >> 6) + 4 * i, k = ch * KCB + kk;
           cp_async4(reinterpret_cast<float*>(slot + kk * BSB + 2 * (tid & 63)),
-                    reinterpret_cast<const float*>(
-                        W + (size_t)min(k, K - 1) * ldw + (nb2 ? cp : 0)),
+                    reinterpret_cast<const float*>(row(min(k, K - 1)) +
+                                                   (nb2 ? cp : 0)),
                     k < K ? nb2 : 0);
         }
       }
@@ -774,30 +862,28 @@ __device__ void rb_pass_w(const T* A, int lda, int K, int c0, int ncols,
     constexpr int KC = KR;
     const int tid = threadIdx.x;
     const int nch = (K + KC - 1) / KC;
-    // 16-byte copies where W's rows keep 16-byte alignment: thread t copies
-    // columns 4 (t % 32) .. + 3 of rows t / 32 + 8 i; else 4-byte copies,
-    // thread t column t % 128 of rows t / 128 + 2 i. Columns past ncols and
-    // rows past K are zero-filled.
-    const bool vec = ldw % 4 == 0 && (reinterpret_cast<size_t>(W) & 15) == 0;
+    // 16-byte copies where `wide`: thread t copies columns 4 (t % 32) .. +
+    // 3 of rows t / 32 + 8 i; else 4-byte copies, thread t column t % 128
+    // of rows t / 128 + 2 i. Columns past ncols and rows past K are
+    // zero-filled.
     const int c4 = c0 + 4 * (tid & 31), c1 = c0 + (tid & (RCW - 1));
     const int n4 = max(0, min(4, ncols - c4)) * 4;
     auto issue = [&](int ch) {  // chunk ch into ring slot ch % NS
       if (ch < nch) {
         float* slot = scratch + (size_t)(ch % NS) * KC * RCW;
-        if (vec) {
+        if (wide) {
 #pragma unroll
           for (int i = 0; i < KC / 8; ++i) {
             const int kk = (tid >> 5) + 8 * i, k = ch * KC + kk;
             cp_async16(slot + kk * RCW + 4 * (tid & 31),
-                       W + (size_t)min(k, K - 1) * ldw + (n4 ? c4 : 0),
-                       k < K ? n4 : 0);
+                       row(min(k, K - 1)) + (n4 ? c4 : 0), k < K ? n4 : 0);
           }
         } else {
 #pragma unroll
           for (int i = 0; i < KC / 2; ++i) {
             const int kk = (tid >> 7) + 2 * i, k = ch * KC + kk;
             cp_async4(slot + kk * RCW + (tid & (RCW - 1)),
-                      W + (size_t)min(k, K - 1) * ldw + min(c1, ncols - 1),
+                      row(min(k, K - 1)) + min(c1, ncols - 1),
                       (c1 < ncols && k < K) ? 4 : 0);
           }
         }
@@ -826,17 +912,41 @@ __device__ void rb_pass_w(const T* A, int lda, int K, int c0, int ncols,
   }
 }
 
-// rb_pass_w with the f32 weight ring `ring` (ring_bytes; bf16 has one).
-template <typename T, int RB>
-__device__ void rb_pass_wr(int ring, const T* A, int lda, int K, int c0,
-                           int ncols, float* scratch, const T* W, int ldw) {
+// rb_pass_rows with the f32 ring `ring` (ring_bytes; bf16 has one).
+template <typename T, int RB, typename Row>
+__device__ void rb_pass_rr(int ring, const T* A, int lda, int K, int c0,
+                           int ncols, float* scratch, Row row, bool wide) {
   if constexpr (sizeof(T) == 4) {
     if (ring == 1) {
-      rb_pass_w<T, RB, 2, 32>(A, lda, K, c0, ncols, scratch, W, ldw);
+      rb_pass_rows<T, RB, 4, 32>(A, lda, K, c0, ncols, scratch, row, wide);
+      return;
+    }
+    if (ring == 2) {
+      rb_pass_rows<T, RB, 2, 32>(A, lda, K, c0, ncols, scratch, row, wide);
       return;
     }
   }
-  rb_pass_w<T, RB>(A, lda, K, c0, ncols, scratch, W, ldw);
+  rb_pass_rows<T, RB>(A, lda, K, c0, ncols, scratch, row, wide);
+}
+
+// Whether rows that start at p (and q) plus multiples of ld elements take
+// rb_pass_rows' wide copies: 16-byte aligned in f32, 4-byte in bf16.
+template <typename T>
+__device__ inline bool rows_wide(int ld, const T* p, const T* q = nullptr) {
+  const size_t al = sizeof(T) == 4 ? 16 : 4;
+  const size_t bits =
+      reinterpret_cast<size_t>(p) | reinterpret_cast<size_t>(q);
+  return (ld * sizeof(T)) % al == 0 && bits % al == 0;
+}
+
+// One column pass over a row-major [K, ncols] weight W of row stride ldw
+// with the f32 ring `ring`.
+template <typename T, int RB>
+__device__ void rb_pass_wr(int ring, const T* A, int lda, int K, int c0,
+                           int ncols, float* scratch, const T* W, int ldw) {
+  rb_pass_rr<T, RB>(
+      ring, A, lda, K, c0, ncols, scratch,
+      [=](int k) { return W + (size_t)k * ldw; }, rows_wide(ldw, W));
 }
 
 // Copy a pass's final values, left in Cs by the caller's epilogue, into
@@ -903,6 +1013,57 @@ __device__ int adj_live_chunks(const T* adj, size_t row0, int nrows, int S,
       }
   __syncthreads();  // node and width are written; flags may be reused
   return n;
+}
+
+// Build a row block's adjacency operand from adj_live_chunks' list: xa
+// (row stride lda) = [A live chunks | cnt rows] for rows row0 .. row0 +
+// nrows - 1, columns in list order, zero in rows past nrows and in the
+// columns up to round_up(K, rkc), where K = nlive * 32 (+ CNT_PAD with
+// cnt; cnt null: the A chunks alone). knode[k] is the node whose features
+// column k < nlive * 32 multiplies (clamped into its chunk: A is 0 past a
+// chunk's width, and in a row of another tile than the chunk's). All
+// threads must call it; a __syncthreads must follow before xa is read
+// (rb_pass begins with one).
+template <int RB, typename T>
+__device__ void adj_operand(const T* adj, const T* cnt, size_t row0,
+                            int nrows, int S, int nlive, const int* node,
+                            const int* width, int* knode, T* xa, int lda) {
+  const int KL = nlive * ACW, K = KL + (cnt ? CNT_PAD : 0);
+  a_zero_cols<RB>(xa, lda, 0, K);
+  for (int k = threadIdx.x; k < KL; k += RNT)
+    knode[k] = node[k / ACW] + min(k % ACW, width[k / ACW] - 1);
+  __syncthreads();
+  for (int e = threadIdx.x; e < nrows * K; e += RNT) {
+    const int r = e / K, k = e % K;
+    const size_t row = row0 + r;
+    float v;
+    if (k < KL) {
+      const int li = k / ACW, kk = k % ACW, col = node[li] + kk;
+      v = (kk < width[li] && (size_t)col / S == row / S)
+              ? ld(adj, row * S + col % S) : 0.f;
+    } else {
+      v = ld(cnt, row * CNT_PAD + (k - KL));
+    }
+    a_put<RB>(xa, lda, r, k, v);
+  }
+}
+
+// Load rows row0 .. row0 + nrows - 1 of a row-major [*, K] matrix into an
+// A operand (row stride lda), zero in rows past nrows and in the columns up
+// to round_up(K, rkc). f32 operands are k-major, so the threads run along
+// the rows there (conflict-free stores; a row's loads meet in L1). All
+// threads must call it; a __syncthreads must follow before A is read
+// (rb_pass and rb_pass_rows begin with one).
+template <int RB, typename T>
+__device__ void rows_to_a(T* A, int lda, const T* src, size_t row0,
+                          int nrows, int K) {
+  const int kp = round_up(K, rkc<T>());
+  for (int e = threadIdx.x; e < RB * kp; e += RNT) {
+    const int r = sizeof(T) == 4 ? e % RB : e / kp;
+    const int k = sizeof(T) == 4 ? e / RB : e % kp;
+    a_put<RB>(A, lda, r, k,
+              r < nrows && k < K ? ld(src, (row0 + r) * K + k) : 0.f);
+  }
 }
 
 // Weight-gradient products for the redesigned backward passes:
@@ -1068,9 +1229,11 @@ static inline int launch_sum_partials(const float* partial, float* sums,
 // The layout constants that the Python side plans with
 // (ops/fused_layer.py LAYOUT, checked against this at the library's first
 // use): entry i of [strip rows, adjacency chunk, weight-pass tile edge,
-// weight-pass rows per step, most rows of a weight-pass chunk]; -1 past
-// the end. Each library includes this header once.
+// weight-pass rows per step, most rows of a weight-pass chunk, columns of a
+// row-block pass]; -1 past the end. Each library includes this header
+// once.
 extern "C" int fbl_layout(int i) {
-  const int v[] = {fbl::R, fbl::ACW, fbl::WT, fbl::WK, fbl::WMAX_ROWS};
+  const int v[] = {fbl::R, fbl::ACW, fbl::WT, fbl::WK, fbl::WMAX_ROWS,
+                   fbl::RCW};
   return i >= 0 && i < (int)(sizeof(v) / sizeof(v[0])) ? v[i] : -1;
 }

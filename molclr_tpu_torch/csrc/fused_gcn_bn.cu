@@ -35,16 +35,26 @@
 // K5f and K5b replace molclr_tpu/ops/fused_gcn.py:_fwd_kernel and
 // _bwd_kernel, the unchained layer fused_gcn_layer of the fine-tuning
 // trunk (the scalar edge term and the bias stay in PyTorch):
-//   K5f: xw = rnd(x @ W), out = rnd(A @ xw): the two passes of K3f with
-//        BN = false (no prologue; A @ xw alone, no cnt, etab, bias or
-//        moments);
+//   K5f: xw = rnd(x @ W), out = rnd(A @ xw) (xw rounded where the Pallas
+//        kernel rounds it, never re-associated into (A @ x) @ W);
 //   K5b: dxw = rnd(A @ g), dx = rnd(dxw @ W^T), dW = x^T @ dxw in f32. x is
 //        the saved input; nothing else is recomputed.
 // Bound on the H100 at the fine-tuning shape (T = 4, 619 real rows, D =
 // 300, f32): K5f 0.11 GFLOP against 3.9 MB, 1.7 us by operations; K5b
 // 0.22 GFLOP against 5.4 MB, 3.4 us. At this shape a launch is short and
-// the card wide: what bounds K5b is how many blocks it can keep busy and
-// how long each waits on memory. Its redesign (four launches):
+// the card wide: what bounds both is how many blocks they keep busy and
+// how long each waits on memory. K5f is two row-block launches on 16-row
+// strips (k5f_xw_kernel, k5f_adj_kernel), 64 strips x 3 column passes =
+// 192 blocks each at T = 4, where the first design ran 64 strip blocks
+// per pass on CUDA cores: the xw pass multiplies the strip's x rows by W
+// through the 64 KB f32 weight ring (two blocks share an SM; the 32 KB
+// one where a wider layer does not fit), a strip whose A rows are all
+// zero (37.5 % at T = 4) writing zeros; the adjacency pass multiplies
+// only the strip's live 32-column chunks of A (14.3 % of them) by xw's
+// rows streamed through the same ring. In f32 each output is one thread's
+// sum in ascending k, so the results are bit-identical to the first
+// design's; bf16 runs mma.sync tensor cores. K5b's redesign (four
+// launches):
 //   * W^T, transposed once (1.3 us);
 //   * k5b_strip_kernel, one block per (16-row strip, 128-column pass of
 //     dx): 64 strips x 3 passes = 192 blocks at T = 4 (the strip pass of
@@ -74,8 +84,8 @@
 //   da = sum dpre x, db = sum dpre, dbias = sum gt (uncast, every row),
 //   dW = xc^T @ dxw, detab = cnt^T @ gtc        (all f32)
 // As K1b, it runs as passes on one stream, each deterministic: (a) rows:
-// gt, gtc and the strip's dbias partial; (b) adjacency: dxw, K5b's pass on
-// gtc; (c) rows with W^T (transposed once): dxc and the prologue adjoint,
+// gt, gtc and the strip's dbias partial; (b) adjacency: dxw, K5f's
+// adjacency pass (k5f_adj_kernel) on gtc; (c) rows with W^T (transposed once): dxc and the prologue adjoint,
 // writing dx and xc and the strip's [da | db] partials; (d) weights: dW and
 // detab as two transposed-left problems of one atb_kernel launch over fixed
 // row chunks; then every partial is added in a fixed order (sum_partials).
@@ -86,18 +96,17 @@
 // 2 x 0.85 GFLOP, the adjacency and counts by their nonzeros a few
 // hundredths more, against about 33 MB moved: about 26 us by operations.
 // In bf16 the bytes set it. What the design leaves on the table is the
-// first K5b design's: no tensor cores, a weight pass of 180 blocks each
-// summing 1,024 rows, and dxw, gtc and xc round-tripping device memory
-// between the passes (the TPU kernel has the whole tile in VMEM).
+// first K5b design's: no tensor cores outside the adjacency pass, a weight
+// pass of 180 blocks each summing 1,024 rows, and dxw, gtc and xc
+// round-tripping device memory between the passes (the TPU kernel has the
+// whole tile in VMEM).
 
 #include "fused_bn_common.cuh"
 
 namespace fbl {
 
-// BN selects the kernel: true for K3f (prologue; [A | cnt] @ [xw ; etab] +
-// bias with the moment epilogue), false for the unchained passes of K5f and
-// K5b (no prologue; A @ xw alone, with no edge term, bias or moments).
-template <typename T, bool BN>
+// K3f's first pass: xw = rnd(prologue(x) @ W) for one 16-row strip.
+template <typename T>
 __global__ void __launch_bounds__(NT)
 gcn_xw_kernel(const T* __restrict__ x, const float* __restrict__ a,
               const float* __restrict__ b, const T* __restrict__ w,
@@ -107,12 +116,8 @@ gcn_xw_kernel(const T* __restrict__ x, const float* __restrict__ a,
   float* Bs = ys + R * D;                      // [KC, CW]
   const size_t row0 = (size_t)blockIdx.x * R;
   for (int e = threadIdx.x; e < R * D; e += NT) {
-    if constexpr (BN) {
-      const int c = e % D;
-      ys[e] = rnd<T>(prologue(ld(x, row0 * D + e), a[c], b[c], relu_in));
-    } else {
-      ys[e] = ld(x, row0 * D + e);
-    }
+    const int c = e % D;
+    ys[e] = rnd<T>(prologue(ld(x, row0 * D + e), a[c], b[c], relu_in));
   }
   // strip_gemm's first __syncthreads orders these writes before the reads
   strip_gemm(
@@ -131,7 +136,9 @@ gcn_xw_kernel(const T* __restrict__ x, const float* __restrict__ a,
       });
 }
 
-template <typename T, bool BN>
+// K3f's second pass: out = [A strip | cnt] @ [xw ; etab] + bias with the
+// moment epilogue.
+template <typename T>
 __global__ void __launch_bounds__(NT)
 gcn_adj_kernel(const T* __restrict__ xw, const T* __restrict__ adj,
                const T* __restrict__ cnt, const T* __restrict__ etab,
@@ -140,17 +147,14 @@ gcn_adj_kernel(const T* __restrict__ xw, const T* __restrict__ adj,
   extern __shared__ float smem[];
   const int strips = S / R;
   const int tile = blockIdx.x / strips, strip = blockIdx.x % strips;
-  const int KA = BN ? S + CNT_PAD : S;
+  const int KA = S + CNT_PAD;
   const size_t node0 = (size_t)tile * S;
   const size_t row0 = node0 + (size_t)strip * R;
-  float* ext = smem;                           // [R, KA] A strip (| cnt)
+  float* ext = smem;                           // [R, KA] A strip | cnt
   float* Bs = ext + R * KA;                    // [KC, CW], epilogue scratch
   float* msk = Bs + KC * CW;                   // [R]
 
-  if constexpr (BN)
-    load_adj_strip(adj, cnt, tile, strip, S, ext, msk);
-  else
-    load_a_strip(adj, tile, strip, S, ext, msk);
+  load_adj_strip(adj, cnt, tile, strip, S, ext, msk);
   strip_gemm(
       ext, KA, KA, D, Bs,
       [&](int k, int c) -> T {
@@ -158,18 +162,7 @@ gcn_adj_kernel(const T* __restrict__ xw, const T* __restrict__ adj,
       },
       Identity(),
       [&](int c0, float (&acc)[TM][TN]) {
-        if constexpr (BN) {
-          moment_epilogue<T>(c0, acc, bias, out, row0, D, msk, Bs, partial);
-        } else {
-          const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-          for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int j = 0; j < TN; ++j) {
-              const int c = c0 + lane + 32 * j;
-              if (c < D) st(out, (row0 + warp * TM + i) * D + c, acc[i][j]);
-            }
-        }
+        moment_epilogue<T>(c0, acc, bias, out, row0, D, msk, Bs, partial);
       });
 }
 
@@ -254,30 +247,111 @@ gcn_bn_bwd_rows_kernel(const T* __restrict__ dxw, const T* __restrict__ wt,
       });
 }
 
-template <typename T, bool BN>
-static int launch_xw(const void* x, const float* a, const float* b,
-                     const void* w, void* xw, int nrow_blk, int D,
-                     int relu_in, cudaStream_t st) {
-  const size_t bytes = ((size_t)R * D + KC * CW) * sizeof(float);
-  cudaError_t e = set_smem(gcn_xw_kernel<T, BN>, bytes);
-  if (e != cudaSuccess) return (int)e;
-  gcn_xw_kernel<T, BN><<<nrow_blk, NT, bytes, st>>>(
-      (const T*)x, a, b, (const T*)w, (T*)xw, D, relu_in);
-  return (int)cudaGetLastError();
+// K5f's passes; the second is also K3b's adjacency pass.
+//   k5f_xw_kernel, one block per (16-row strip, 128-column pass of xw):
+//     the strip's x rows as the operand, its pass of xw = rnd(x @ W) with W
+//     through the weight ring. A strip whose A rows are all zero writes
+//     zeros and no product: A is symmetric, so a live row weighs such a
+//     row of xw by an exact zero, and the zeros keep whatever the buffer
+//     held out of the live chunks that the strip's nodes share.
+//   k5f_adj_kernel, one block per (16-row strip, 128-column pass): its pass
+//     of out = rnd(A @ xw) over the strip's live 32-column chunks only; a
+//     strip with none writes zeros.
+template <typename T>
+__host__ __device__ inline RbSmem k5f_xw_smem(int S, int D, int ring) {
+  const int nch = (S + ACW - 1) / ACW;
+  return rb_smem(S, nch, a_bytes<T>(R, D), 0, pass_bytes<T>(R, ring));
 }
 
-template <typename T, bool BN>
-static int launch_adj(const void* xw, const void* adj, const void* cnt,
-                      const void* etab, const float* bias, void* out,
-                      float* partial, int nrow_blk, int S, int D,
-                      cudaStream_t st) {
-  const size_t bytes =
-      ((size_t)R * (BN ? S + CNT_PAD : S) + KC * CW + R) * sizeof(float);
-  cudaError_t e = set_smem(gcn_adj_kernel<T, BN>, bytes);
+template <typename T>
+__host__ __device__ inline RbSmem k5f_adj_smem(int S, int ring) {
+  const int nch = (S + ACW - 1) / ACW;
+  return rb_smem(S, nch, a_bytes<T>(R, nch * ACW), 0, pass_bytes<T>(R, ring));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(RNT, 2)
+k5f_xw_kernel(const T* __restrict__ x, const T* __restrict__ adj,
+              const T* __restrict__ w, T* __restrict__ xw, int S, int D,
+              int ring) {
+  extern __shared__ float smem_f[];  // 16-byte aligned
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  const RbSmem L = k5f_xw_smem<T>(S, D, ring);
+  int* flags = reinterpret_cast<int*>(smem + L.meta);
+  int* node = flags + 2 * L.nch;
+  int* width = node + L.maxc;
+  float* msk = reinterpret_cast<float*>(smem + L.msk);
+  T* xa = reinterpret_cast<T*>(smem + L.op0);
+  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
+  const size_t row0 = (size_t)blockIdx.x * R;
+  const int cb = blockIdx.y * RCW;  // this block's pass of xw
+  if (adj_live_chunks(adj, row0, R, S, flags, node, width, msk) == 0) {
+    for (int e = threadIdx.x; e < R * RCW; e += RNT) {
+      const int r = e / RCW, c = cb + e % RCW;
+      if (c < D) st(xw, (row0 + r) * D + c, 0.f);
+    }
+    return;
+  }
+  const int lda = a_lda(D);
+  rows_to_a<R>(xa, lda, x, row0, R, D);
+  rb_pass_wr<T, R>(ring, xa, lda, D, cb, D, scratch, w, D);
+  for (int e = threadIdx.x; e < R * RCW; e += RNT) {
+    const int r = e / RCW, j = e % RCW, c = cb + j;
+    if (c < D) st(xw, (row0 + r) * D + c, scratch[r * CS + j]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(RNT, 2)
+k5f_adj_kernel(const T* __restrict__ xw, const T* __restrict__ adj,
+               T* __restrict__ out, int S, int D, int ring) {
+  extern __shared__ float smem_f[];  // 16-byte aligned
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  const RbSmem L = k5f_adj_smem<T>(S, ring);
+  int* flags = reinterpret_cast<int*>(smem + L.meta);
+  int* node = flags + 2 * L.nch;
+  int* width = node + L.maxc;
+  int* knode = width + L.maxc;
+  float* msk = reinterpret_cast<float*>(smem + L.msk);
+  T* ext = reinterpret_cast<T*>(smem + L.op0);
+  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
+  const size_t row0 = (size_t)blockIdx.x * R;
+  const int cb = blockIdx.y * RCW;  // this block's pass of out
+  const int nlive = adj_live_chunks(adj, row0, R, S, flags, node, width,
+                                    msk);
+  if (nlive == 0) {
+    for (int e = threadIdx.x; e < R * RCW; e += RNT) {
+      const int r = e / RCW, c = cb + e % RCW;
+      if (c < D) st(out, (row0 + r) * D + c, 0.f);
+    }
+    return;
+  }
+  const int KL = nlive * ACW, lda = a_lda(KL);
+  adj_operand<R, T>(adj, nullptr, row0, R, S, nlive, node, width, knode, ext,
+                    lda);
+  // xw streams through the ring: row k is node knode[k]'s
+  rb_pass_rr<T, R>(
+      ring, ext, lda, KL, cb, D, scratch,
+      [&](int k) { return xw + (size_t)knode[k] * D; }, rows_wide(D, xw));
+  for (int e = threadIdx.x; e < R * RCW; e += RNT) {
+    const int r = e / RCW, j = e % RCW, c = cb + j;
+    if (c < D) st(out, (row0 + r) * D + c, scratch[r * CS + j]);
+  }
+}
+
+// The adjacency pass at the 64 KB f32 ring (the 32 KB one where shared
+// memory does not fit).
+template <typename T>
+static int launch_k5f_adj(const void* xw, const void* adj, void* out, int N,
+                          int S, int D, cudaStream_t st) {
+  const RbShape sh = rb_shape(R, 1, [&](int, int rg) {
+    return k5f_adj_smem<T>(S, rg).total;
+  });
+  if (!sh.rb) return (int)cudaErrorInvalidValue;
+  cudaError_t e = set_smem(k5f_adj_kernel<T>, sh.bytes);
   if (e != cudaSuccess) return (int)e;
-  gcn_adj_kernel<T, BN><<<nrow_blk, NT, bytes, st>>>(
-      (const T*)xw, (const T*)adj, (const T*)cnt, (const T*)etab, bias,
-      (T*)out, partial, S, D);
+  k5f_adj_kernel<T><<<dim3(N / R, (D + RCW - 1) / RCW), RNT, sh.bytes, st>>>(
+      (const T*)xw, (const T*)adj, (T*)out, S, D, sh.ring);
   return (int)cudaGetLastError();
 }
 
@@ -290,26 +364,39 @@ static int gcn_bn_fwd(const void* x, const float* a, const float* b,
   if (T_ <= 0 || S <= 0 || S % R || D <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int nrow_blk = T_ * S / R;
-  int err = launch_xw<T, true>(x, a, b, w, xw, nrow_blk, D, relu_in, st);
-  if (err) return err;
-  err = launch_adj<T, true>(xw, adj, cnt, etab, bias, out, partial, nrow_blk,
-                            S, D, st);
-  if (err) return err;
+  size_t bytes = ((size_t)R * D + KC * CW) * sizeof(float);
+  cudaError_t e = set_smem(gcn_xw_kernel<T>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  gcn_xw_kernel<T><<<nrow_blk, NT, bytes, st>>>(
+      (const T*)x, a, b, (const T*)w, (T*)xw, D, relu_in);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  bytes = ((size_t)R * (S + CNT_PAD) + KC * CW + R) * sizeof(float);
+  if ((e = set_smem(gcn_adj_kernel<T>, bytes)) != cudaSuccess) return (int)e;
+  gcn_adj_kernel<T><<<nrow_blk, NT, bytes, st>>>(
+      (const T*)xw, (const T*)adj, (const T*)cnt, (const T*)etab, bias,
+      (T*)out, partial, S, D);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   return launch_sum_partials(partial, sums, nrow_blk, 2 * D, st);
 }
 
-// K5f: xw = rnd(x @ W) into the scratch xw, then out = rnd(A @ xw).
+// K5f: xw = rnd(x @ W) into the scratch xw at the 64 KB f32 weight ring
+// (the 32 KB one where shared memory does not fit), then out = rnd(A @ xw).
 template <typename T>
 static int gcn_fwd(const void* x, const void* adj, const void* w, void* xw,
                    void* out, int T_, int S, int D, void* stream) {
   if (T_ <= 0 || S <= 0 || S % R || D <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int nrow_blk = T_ * S / R;
-  int err = launch_xw<T, false>(x, nullptr, nullptr, w, xw, nrow_blk, D, 0,
-                                st);
-  if (err) return err;
-  return launch_adj<T, false>(xw, adj, nullptr, nullptr, nullptr, out,
-                              nullptr, nrow_blk, S, D, st);
+  const int N = T_ * S;
+  const RbShape sh = rb_shape(R, 1, [&](int, int rg) {
+    return k5f_xw_smem<T>(S, D, rg).total;
+  });
+  if (!sh.rb) return (int)cudaErrorInvalidValue;
+  cudaError_t e = set_smem(k5f_xw_kernel<T>, sh.bytes);
+  if (e != cudaSuccess) return (int)e;
+  k5f_xw_kernel<T><<<dim3(N / R, (D + RCW - 1) / RCW), RNT, sh.bytes, st>>>(
+      (const T*)x, (const T*)adj, (const T*)w, (T*)xw, S, D, sh.ring);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  return launch_k5f_adj<T>(xw, adj, out, N, S, D, st);
 }
 
 // K5b's strip pass: one block of RNT threads per (16-row strip, 128-column
@@ -324,28 +411,11 @@ static int gcn_fwd(const void* x, const void* adj, const void* w, void* xw,
 // chunks [16, live * 32], the dxw operand [16, D] and the pass scratch.
 constexpr int K5B_RB = 16;
 
-struct K5bSmem {
-  int nch;
-  size_t meta, msk, ext, dxw, scratch, total;
-};
-
 template <typename T>
-__host__ __device__ inline K5bSmem k5b_smem(int S, int D, int ring) {
-  K5bSmem L;
-  L.nch = (S + ACW - 1) / ACW;
-  size_t off = 0;
-  L.meta = off;
-  off += round_up((4 * L.nch + L.nch * ACW) * 4, 16);
-  L.msk = off;
-  off += 32 * 4;
-  L.ext = off;
-  off += round_up((int)a_bytes<T>(K5B_RB, L.nch * ACW), 16);
-  L.dxw = off;
-  off += round_up((int)a_bytes<T>(K5B_RB, D), 16);
-  L.scratch = off;
-  off += pass_bytes<T>(K5B_RB, ring);
-  L.total = off;
-  return L;
+__host__ __device__ inline RbSmem k5b_smem(int S, int D, int ring) {
+  const int nch = (S + ACW - 1) / ACW;
+  return rb_smem(S, nch, a_bytes<T>(K5B_RB, nch * ACW),
+                 a_bytes<T>(K5B_RB, D), pass_bytes<T>(K5B_RB, ring));
 }
 
 template <typename T>
@@ -357,14 +427,14 @@ k5b_strip_kernel(const T* __restrict__ g, const T* __restrict__ adj,
   constexpr int RB = K5B_RB;
   extern __shared__ float smem_f[];  // 16-byte aligned
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
-  const K5bSmem L = k5b_smem<T>(S, D, ring);
+  const RbSmem L = k5b_smem<T>(S, D, ring);
   int* flags = reinterpret_cast<int*>(smem + L.meta);
   int* node = flags + 2 * L.nch;
-  int* width = node + L.nch;
-  int* knode = width + L.nch;
+  int* width = node + L.maxc;
+  int* knode = width + L.maxc;
   float* msk = reinterpret_cast<float*>(smem + L.msk);
-  T* ext = reinterpret_cast<T*>(smem + L.ext);
-  T* da = reinterpret_cast<T*>(smem + L.dxw);
+  T* ext = reinterpret_cast<T*>(smem + L.op0);
+  T* da = reinterpret_cast<T*>(smem + L.op1);
   float* scratch = reinterpret_cast<float*>(smem + L.scratch);
   const int tid = threadIdx.x;
   const size_t row0 = (size_t)blockIdx.x * RB;
@@ -383,20 +453,9 @@ k5b_strip_kernel(const T* __restrict__ g, const T* __restrict__ adj,
     return;
   }
   const int KL = nlive * ACW, lda1 = a_lda(KL), lda2 = a_lda(D);
-  a_zero_cols<RB>(ext, lda1, 0, KL);
   a_zero_cols<RB>(da, lda2, D, D);
-  // knode[k]: the node of column k, clamped into its chunk (A is 0 past a
-  // chunk's width)
-  for (int k = tid; k < KL; k += RNT)
-    knode[k] = node[k / ACW] + min(k % ACW, width[k / ACW] - 1);
-  __syncthreads();
-  for (int e = tid; e < RB * KL; e += RNT) {
-    const int r = e / KL, k = e % KL, li = k / ACW, kk = k % ACW;
-    const size_t row = row0 + r;
-    const float v =
-        kk < width[li] ? ld(adj, row * S + (node[li] + kk) % S) : 0.f;
-    a_put<RB>(ext, lda1, r, k, v);
-  }
+  adj_operand<RB, T>(adj, nullptr, row0, RB, S, nlive, node, width, knode,
+                     ext, lda1);
   // dxw = rnd(A @ g) over the live chunks
   for (int c0 = 0; c0 < D; c0 += RCW) {
     rb_pass<T, RB>(
@@ -442,19 +501,18 @@ static int gcn_bwd(const void* g, const void* x, const void* adj,
       rows_per_chunk > WMAX_ROWS ||
       (N + rows_per_chunk - 1) / rows_per_chunk != chunks)
     return (int)cudaErrorInvalidValue;
-  const size_t cap = max_smem();
-  int ring = 0;
-  while (ring < NRING && k5b_smem<T>(S, D, ring).total > cap) ++ring;
-  if (ring == NRING) return (int)cudaErrorInvalidValue;
+  const RbShape sh = rb_shape(K5B_RB, 0, [&](int, int ring) {
+    return k5b_smem<T>(S, D, ring).total;
+  });
+  if (!sh.rb) return (int)cudaErrorInvalidValue;
   int err = launch_transpose<T>(w, wt, D, D, st);
   if (err) return err;
-  const size_t bytes = k5b_smem<T>(S, D, ring).total;
-  cudaError_t e = set_smem(k5b_strip_kernel<T>, bytes);
+  cudaError_t e = set_smem(k5b_strip_kernel<T>, sh.bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(N / K5B_RB, (D + RCW - 1) / RCW);
-  k5b_strip_kernel<T><<<grid, RNT, bytes, st>>>(
+  k5b_strip_kernel<T><<<grid, RNT, sh.bytes, st>>>(
       (const T*)g, (const T*)adj, (const T*)wt, (T*)dxw, (T*)dx, strip_live,
-      S, D, ring);
+      S, D, sh.ring);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const int tiles = ((D + WT - 1) / WT) * ((D + WT - 1) / WT);
   wgrad_kernel<T><<<chunks * tiles, WNT, 0, st>>>(
@@ -487,8 +545,7 @@ static int gcn_bn_bwd(const void* g, const float* ds, const void* x,
       (const T*)g, ds, (const T*)adj, (const T*)out, (T*)gtc, part_gt, S, D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  int err = launch_adj<T, false>(gtc, adj, nullptr, nullptr, nullptr, dxw,
-                                 nullptr, nblk, S, D, st);
+  int err = launch_k5f_adj<T>(gtc, adj, dxw, N, S, D, st);
   if (err) return err;
   if ((err = launch_transpose<T>(w, wt, D, D, st))) return err;
   const size_t bytes = ((size_t)R * D + KC * CW) * sizeof(float);

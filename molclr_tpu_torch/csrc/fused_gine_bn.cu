@@ -99,111 +99,43 @@
 //   dmid = (g @ W2^T) * [mid > 0], dagg = rnd(rnd(dmid) @ W1^T),
 //   dh = rnd(A @ daggc), dW1 = agg^T dmidc, db1 = sum dmid,
 //   dW2 = mid^T g, db2 = sum g, detab = cnt^T daggc.
-// K4f is the 16-row strip kernel gine_fwd_kernel (strip_gemm, no prologue,
-// no moments); K4b is K1b's passes instantiated with BN = false (gt = g
-// with no dsums term, no prologue adjoint). Nothing of BatchNorm is
-// computed. K4b keeps K1b's three deterministic passes and its W^T
-// transposes.
+// K4b is K1b's passes instantiated with BN = false (gt = g with no dsums
+// term, no prologue adjoint); nothing of BatchNorm is computed, and K4b
+// keeps K1b's three deterministic passes and its W^T transposes.
 //
-// Bound on the H100 at the fine-tuning shape (a 32-molecule batch with
-// hydrogens: T = 4 tiles of 256, 619 real rows, D = 300, f32): K4f 0.45
-// GFLOP (the two MLP products over the real rows; the adjacency and counts
-// by their nonzeros add 2 MFLOP) against 8.7 MB moved (h, out, agg, mid,
-// A, W1, W2): 6.7 us by operations; K4b twice the operations, 13 us. In
-// bf16 K4f is bound by its 4.4 MB, 1.3 us. What bounds this kernel in
-// practice is the shape: 64 strip blocks on 132 SMs, one partial wave, so
-// a launch takes about one block's latency (a 16-row strip through three
-// products on CUDA cores); the design leaves the card mostly idle at this
-// batch size, and takes no tensor cores.
+// K4f is two row-block launches (the kernels below gine_bwd's passes) of
+// 16-row blocks with the 64 KB f32 weight ring, so that two blocks share
+// an SM (the 32 KB ring where a wider layer does not fit). At the
+// fine-tuning shape (T = 4 tiles of 256, D = 300, D2 = 600):
+//   * the mid launch, 64 row blocks x 5 slices of 128 columns = 320
+//     blocks (37.5 % of the row blocks dead on the fine-tuning batch:
+//     they write agg = 0 and mid = rnd(relu(b1)) and stop). A live block
+//     skips its all-zero 32-column adjacency chunks (85.7 % of the (strip,
+//     chunk) products), computes agg over [A live chunks | cnt] for all D
+//     columns (the features of the live chunks' nodes gathered through
+//     the weight ring), and its slice of mid = rnd(relu(agg W1 + b1));
+//   * the out launch, 64 x 3 = 192 blocks of out = rnd(mid W2 + b2),
+//     dead rows included (their product gives the first design's bits).
+// The first design ran 64 strip blocks on CUDA cores in bf16 too. In f32
+// every output is still one thread's sum over k in ascending order, so
+// the results are bit-identical to the first design's; bf16 runs mma.sync
+// tensor cores with f32 sums.
+//
+// Bound on the H100 at the fine-tuning shape (619 real rows of 1,024,
+// f32): K4f 0.45 GFLOP (the two MLP products over the real rows; the
+// adjacency and counts by their nonzeros add 2 MFLOP) against 8.7 MB
+// moved (h, out, agg, mid, A, W1, W2): 6.7 us by operations; K4b twice
+// the operations, 13 us. In bf16 K4f is bound by its 4.4 MB, 1.3 us. What
+// holds K4f back (runs/port_unchained_trace.py, PERF.md): the f32 products
+// of a 16-row block run at about two shared-memory wavefronts per eight
+// FMA a thread, near that bound when two blocks share an SM, and over
+// padded rows of live blocks and dead rows of the out launch; each live
+// mid block also spends about 7 us scanning its adjacency rows and
+// building its operand before the first product.
 
 #include "fused_bn_common.cuh"
 
 namespace fbl {
-
-// K4f, the unchained layer of the fine-tuning trunk: one 16-row strip per
-// block (fused_bn_common.cuh), [A strip | cnt] @ [h ; etab], then the two
-// MLP products, with agg and mid written when the caller asks for them.
-template <typename T>
-__global__ void __launch_bounds__(NT)
-gine_fwd_kernel(const T* __restrict__ h, const T* __restrict__ adj,
-                const T* __restrict__ cnt, const T* __restrict__ etab,
-                const T* __restrict__ w1, const float* __restrict__ b1,
-                const T* __restrict__ w2, const float* __restrict__ b2,
-                T* __restrict__ out, T* __restrict__ agg_out,
-                T* __restrict__ mid_out, int S, int D, int D2) {
-  extern __shared__ float smem[];
-  const int strips = S / R;
-  const int tile = blockIdx.x / strips, strip = blockIdx.x % strips;
-  const int KA = S + CNT_PAD;
-  const size_t node0 = (size_t)tile * S;       // first node of the tile
-  const size_t row0 = node0 + (size_t)strip * R;
-  float* ext = smem;                           // [R, KA] A strip | cnt
-  float* mid = smem;                           // [R, D2], ext is dead then
-  float* agg = smem + max(R * KA, R * D2);     // [R, D]
-  float* Bs = agg + R * D;                     // [KC, CW]
-  float* msk = Bs + KC * CW;                   // [R]
-
-  load_adj_strip(adj, cnt, tile, strip, S, ext, msk);
-
-  // agg = [A | cnt] @ [h ; etab]
-  strip_gemm(
-      ext, KA, KA, D, Bs,
-      [&](int k, int c) -> T {
-        return k < S ? h[(node0 + k) * D + c] : etab[(size_t)(k - S) * D + c];
-      },
-      Identity(),
-      [&](int c0, float (&acc)[TM][TN]) {
-        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            const int c = c0 + lane + 32 * j;
-            if (c < D) {
-              const float v = rnd<T>(acc[i][j]);
-              agg[(warp * TM + i) * D + c] = v;
-              if (agg_out) st(agg_out, (row0 + warp * TM + i) * D + c, v);
-            }
-          }
-      });
-
-  // mid = relu(agg @ W1 + b1)
-  strip_gemm(
-      agg, D, D, D2, Bs,
-      [&](int k, int c) -> T { return w1[(size_t)k * D2 + c]; },
-      Identity(),
-      [&](int c0, float (&acc)[TM][TN]) {
-        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            const int c = c0 + lane + 32 * j;
-            if (c < D2) {
-              const float v = rnd<T>(fmaxf(acc[i][j] + b1[c], 0.f));
-              mid[(warp * TM + i) * D2 + c] = v;
-              if (mid_out) st(mid_out, (row0 + warp * TM + i) * D2 + c, v);
-            }
-          }
-      });
-
-  // out = mid @ W2 + b2
-  strip_gemm(
-      mid, D2, D2, D, Bs,
-      [&](int k, int c) -> T { return w2[(size_t)k * D + c]; },
-      Identity(),
-      [&](int c0, float (&acc)[TM][TN]) {
-        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            const int c = c0 + lane + 32 * j;
-            if (c < D)
-              st(out, (row0 + warp * TM + i) * D + c, acc[i][j] + b2[c]);
-          }
-      });
-}
 
 // K1f: one block of RNT threads per RB rows, RB = K1F_RB = 32 (two 16-row
 // strips; when the tile size is not a multiple of 32 the two may lie in
@@ -214,55 +146,26 @@ gine_fwd_kernel(const T* __restrict__ h, const T* __restrict__ adj,
 // weight ring `ring` (k1f_smem).
 constexpr int K1F_RB = 32;
 
-struct K1fSmem {
-  int nch, maxc;  // adjacency chunks per tile; live chunks a block can hold
-  size_t meta, msk, x, agg, scratch, total;
-};
-
 template <typename T>
-__host__ __device__ inline K1fSmem k1f_smem(int S, int D, int D2, int rb,
-                                            int ring) {
-  K1fSmem L;
-  L.nch = (S + ACW - 1) / ACW;
-  L.maxc = (S % rb ? 2 : 1) * L.nch;
-  const int K1 = L.maxc * ACW + CNT_PAD;
-  size_t off = 0, x = a_bytes<T>(rb, K1);
-  if (a_bytes<T>(rb, D2) > x) x = a_bytes<T>(rb, D2);
-  L.meta = off;
-  off += round_up((2 * L.nch + 2 * L.maxc + L.maxc * ACW) * 4, 16);
-  L.msk = off;
-  off += K1F_RB * 4;
-  L.x = off;
-  off += round_up((int)x, 16);
-  L.agg = off;
-  off += round_up((int)a_bytes<T>(rb, D), 16);
-  L.scratch = off;
-  off += pass_bytes<T>(rb, ring);
-  L.total = off;
-  return L;
+__host__ __device__ inline RbSmem k1f_smem(int S, int D, int D2, int rb,
+                                           int ring) {
+  const int nch = (S + ACW - 1) / ACW, maxc = (S % rb ? 2 : 1) * nch;
+  const size_t x = a_bytes<T>(rb, maxc * ACW + CNT_PAD);
+  const size_t m = a_bytes<T>(rb, D2);
+  return rb_smem(S, maxc, x > m ? x : m, a_bytes<T>(rb, D),
+                 pass_bytes<T>(rb, ring));
 }
 
-// K1f's block rows and f32 weight ring at this shape: the first of (32
-// rows, ring 0), (32, ring 1), (16, ring 0), (16, ring 1) whose shared
-// memory fits the device's per-block limit, so that wide layers keep the
-// 32-row blocks that share each weight chunk and give up pipeline depth
-// first. At S = 256 in f32 ring 0 takes D = 300 / D2 = 600 (217 KB), ring
-// 1 up to D = 512 / D2 = 1,024, 16-row blocks up to D = 1,024 / D2 =
-// 2,048. rb = 0 when nothing fits.
-struct K1fShape {
-  int rb, ring;
-  size_t bytes;
-};
-
+// K1f's block rows and f32 weight ring at this shape (rb_shape from 32
+// rows and ring 0), so that wide layers keep the 32-row blocks that share
+// each weight chunk and give up pipeline depth first. At S = 256 in f32
+// ring 0 takes D = 300 / D2 = 600 (217 KB), ring 1 up to D = 512 / D2 =
+// 1,024, 16-row blocks up to D = 1,024 / D2 = 2,048.
 template <typename T>
-static K1fShape k1f_launch_shape(int S, int D, int D2) {
-  const size_t cap = max_smem();
-  for (int rb = K1F_RB; rb >= R; rb -= R)
-    for (int ring = 0; ring < NRING; ++ring) {
-      const size_t bytes = k1f_smem<T>(S, D, D2, rb, ring).total;
-      if (bytes <= cap) return {rb, ring, bytes};
-    }
-  return {0, 0, 0};
+static RbShape k1f_launch_shape(int S, int D, int D2) {
+  return rb_shape(K1F_RB, 0, [&](int rb, int ring) {
+    return k1f_smem<T>(S, D, D2, rb, ring).total;
+  });
 }
 
 // The output row of a row whose agg is 0: mid = rnd(relu(b1)), row[c] =
@@ -302,14 +205,14 @@ k1f_kernel(const T* __restrict__ h, const float* __restrict__ a,
   extern __shared__ float smem_f[];  // 16-byte aligned
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
   __shared__ int cnt_live;
-  const K1fSmem L = k1f_smem<T>(S, D, D2, RB, ring);
+  const RbSmem L = k1f_smem<T>(S, D, D2, RB, ring);
   int* flags = reinterpret_cast<int*>(smem + L.meta);
   int* node = flags + 2 * L.nch;
   int* width = node + L.maxc;
   int* knode = width + L.maxc;
   float* msk = reinterpret_cast<float*>(smem + L.msk);
-  T* xa = reinterpret_cast<T*>(smem + L.x);
-  T* ga = reinterpret_cast<T*>(smem + L.agg);
+  T* xa = reinterpret_cast<T*>(smem + L.op0);
+  T* ga = reinterpret_cast<T*>(smem + L.op1);
   float* scratch = reinterpret_cast<float*>(smem + L.scratch);
   const int tid = threadIdx.x;
   const size_t row0 = (size_t)blockIdx.x * RB;
@@ -341,28 +244,12 @@ k1f_kernel(const T* __restrict__ h, const float* __restrict__ a,
   }
 
   // stage 1: agg = rnd([A live chunks | cnt] @ [y ; etab]), y = rnd(relu?(h
-  // a + b)) for the nodes of the live chunks only. knode[k] is the node
-  // of column k (clamped into its chunk: A is 0 past a chunk's width).
+  // a + b)) for the nodes of the live chunks only
   const int KL = nlive * ACW, K1 = KL + CNT_PAD;
   const int lda1 = a_lda(K1), lda2 = a_lda(D), lda3 = a_lda(D2);
-  a_zero_cols<RB>(xa, lda1, 0, K1);
   a_zero_cols<RB>(ga, lda2, D, D);
-  for (int k = tid; k < KL; k += RNT)
-    knode[k] = node[k / ACW] + min(k % ACW, width[k / ACW] - 1);
-  __syncthreads();
-  for (int e = tid; e < nrows * K1; e += RNT) {
-    const int r = e / K1, k = e % K1;
-    const size_t row = row0 + r;
-    float v;
-    if (k < KL) {
-      const int li = k / ACW, kk = k % ACW, col = node[li] + kk;
-      v = (kk < width[li] && (size_t)col / S == row / S)
-              ? ld(adj, row * S + col % S) : 0.f;
-    } else {
-      v = ld(cnt, row * CNT_PAD + (k - KL));
-    }
-    a_put<RB>(xa, lda1, r, k, v);
-  }
+  adj_operand<RB>(adj, cnt, row0, nrows, S, nlive, node, width, knode, xa,
+                  lda1);
   auto load1 = [&](int k, int c) -> T {
     const T* p = k < KL ? h + (size_t)knode[k] * D : etab + (size_t)(k - KL) * D;
     return p[c];
@@ -437,6 +324,136 @@ k1f_kernel(const T* __restrict__ h, const float* __restrict__ a,
       prow[(size_t)st * 2 * D + D + c] = t1;
     }
   }
+}
+
+// K4f: two launches of 16-row blocks (k4f_launch_shape: the 64 KB f32
+// ring, the 32 KB one where shared memory does not fit).
+//   k4f_mid_kernel, one block per (row block, 128-column slice of mid):
+//     agg = rnd([A live chunks | cnt] @ [h ; etab]) for all D columns of
+//     its rows (recomputed by every slice: a cheap sparse product), kept in
+//     shared memory, then its slice of mid = rnd(relu(agg @ W1 + b1)). The
+//     slice-0 block writes agg when asked. A dead block (its A and cnt rows
+//     all zero) writes agg = 0 and mid = rnd(relu(0 + b1)) with no product.
+//   k4f_out_kernel, one block per (row block, 128-column slice of out):
+//     its mid rows as the operand, out = rnd(mid @ W2 + b2). Dead rows run
+//     the product on their rnd(relu(b1)) rows, as the first design did.
+template <typename T>
+__host__ __device__ inline RbSmem k4f_mid_smem(int S, int D, int ring) {
+  const int nch = (S + ACW - 1) / ACW;
+  return rb_smem(S, nch, a_bytes<T>(R, nch * ACW + CNT_PAD),
+                 a_bytes<T>(R, D), pass_bytes<T>(R, ring));
+}
+
+template <typename T>
+__host__ __device__ inline RbSmem k4f_out_smem(int D2, int ring) {
+  return rb_smem(0, 0, a_bytes<T>(R, D2), 0, pass_bytes<T>(R, ring));
+}
+
+// (two blocks an SM by registers; shared memory decides the rest)
+template <typename T>
+__global__ void __launch_bounds__(RNT, 2)
+k4f_mid_kernel(const T* __restrict__ h, const T* __restrict__ adj,
+               const T* __restrict__ cnt, const T* __restrict__ etab,
+               const T* __restrict__ w1, const float* __restrict__ b1,
+               T* __restrict__ agg_out, T* __restrict__ mid, int S, int D,
+               int D2, int ring) {
+  extern __shared__ float smem_f[];  // 16-byte aligned
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  __shared__ int cnt_live;
+  const RbSmem L = k4f_mid_smem<T>(S, D, ring);
+  int* flags = reinterpret_cast<int*>(smem + L.meta);
+  int* node = flags + 2 * L.nch;
+  int* width = node + L.maxc;
+  int* knode = width + L.maxc;
+  float* msk = reinterpret_cast<float*>(smem + L.msk);
+  T* xa = reinterpret_cast<T*>(smem + L.op0);
+  T* ga = reinterpret_cast<T*>(smem + L.op1);
+  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
+  const int tid = threadIdx.x;
+  const size_t row0 = (size_t)blockIdx.x * R;
+  const int cb = blockIdx.y * RCW;  // this block's slice of mid
+  T* const agg_w = blockIdx.y == 0 ? agg_out : nullptr;
+
+  if (tid == 0) cnt_live = 0;
+  __syncthreads();
+  for (int e = tid; e < R * CNT_PAD; e += RNT)
+    if (ld(cnt, row0 * CNT_PAD + e) != 0.f) cnt_live = 1;
+  const int nlive = adj_live_chunks(adj, row0, R, S, flags, node, width,
+                                    msk);
+  if (nlive == 0 && !cnt_live) {
+    if (agg_w)
+      for (int e = tid; e < R * D; e += RNT) st(agg_w, row0 * D + e, 0.f);
+    for (int e = tid; e < R * RCW; e += RNT) {
+      const int r = e / RCW, c = cb + e % RCW;
+      if (c < D2)
+        st(mid, (row0 + r) * D2 + c, rnd<T>(fmaxf(0.f + b1[c], 0.f)));
+    }
+    return;
+  }
+
+  const int KL = nlive * ACW, K1 = KL + CNT_PAD;
+  const int lda1 = a_lda(K1), lda2 = a_lda(D);
+  a_zero_cols<R>(ga, lda2, D, D);
+  adj_operand<R>(adj, cnt, row0, R, S, nlive, node, width, knode, xa, lda1);
+  // [h ; etab] streams through the ring: row k is node knode[k]'s features
+  // for the live chunks' columns, then etab's rows
+  auto brow = [&](int k) {
+    return k < KL ? h + (size_t)knode[k] * D : etab + (size_t)(k - KL) * D;
+  };
+  const bool wide = rows_wide(D, h, etab);
+  for (int c0 = 0; c0 < D; c0 += RCW) {
+    rb_pass_rr<T, R>(ring, xa, lda1, K1, c0, D, scratch, brow, wide);
+    for (int e = tid; e < R * RCW; e += RNT) {
+      const int r = e / RCW, j = e % RCW, c = c0 + j;
+      if (c < D) {
+        const float v = rnd<T>(scratch[r * CS + j]);
+        scratch[r * CS + j] = v;
+        if (agg_w) st(agg_w, (row0 + r) * D + c, v);
+      }
+    }
+    __syncthreads();
+    cs_to_a<R>(ga, lda2, c0, D, scratch);
+  }
+
+  rb_pass_wr<T, R>(ring, ga, lda2, D, cb, D2, scratch, w1, D2);
+  for (int e = tid; e < R * RCW; e += RNT) {
+    const int r = e / RCW, j = e % RCW, c = cb + j;
+    if (c < D2)
+      st(mid, (row0 + r) * D2 + c,
+         rnd<T>(fmaxf(scratch[r * CS + j] + b1[c], 0.f)));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(RNT, 2)
+k4f_out_kernel(const T* __restrict__ mid, const T* __restrict__ w2,
+               const float* __restrict__ b2, T* __restrict__ out, int D,
+               int D2, int ring) {
+  extern __shared__ float smem_f[];  // 16-byte aligned
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  const RbSmem L = k4f_out_smem<T>(D2, ring);
+  T* ma = reinterpret_cast<T*>(smem + L.op0);
+  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
+  const size_t row0 = (size_t)blockIdx.x * R;
+  const int cb = blockIdx.y * RCW;  // this block's slice of out
+  const int lda = a_lda(D2);
+  rows_to_a<R>(ma, lda, mid, row0, R, D2);
+  rb_pass_wr<T, R>(ring, ma, lda, D2, cb, D, scratch, w2, D);
+  for (int e = threadIdx.x; e < R * RCW; e += RNT) {
+    const int r = e / RCW, j = e % RCW, c = cb + j;
+    if (c < D)
+      st(out, (row0 + r) * D + c, rnd<T>(scratch[r * CS + j] + b2[c]));
+  }
+}
+
+// K4f's f32 ring for its mid launch (0) or out launch (1): the 64 KB one,
+// or the 32 KB one where that does not fit.
+template <typename T>
+static RbShape k4f_launch_shape(int launch, int S, int D, int D2) {
+  return rb_shape(R, 1, [&](int, int rg) {
+    return launch == 0 ? k4f_mid_smem<T>(S, D, rg).total
+                       : k4f_out_smem<T>(D2, rg).total;
+  });
 }
 
 // Backward pass (a): gt, dmid, dagg for one strip (row-local). w1t [D2, D]
@@ -615,7 +632,7 @@ static int gine_bn_fwd(const void* h, const float* a, const float* b,
   if (T_ <= 0 || S <= 0 || S % R || D <= 0 || D2 <= 0)
     return (int)cudaErrorInvalidValue;
   const int N = T_ * S;
-  const K1fShape shape = k1f_launch_shape<T>(S, D, D2);
+  const RbShape shape = k1f_launch_shape<T>(S, D, D2);
   if (!shape.rb) return (int)cudaErrorInvalidValue;
   const int nblk = (N + shape.rb - 1) / shape.rb;
   auto kernel = shape.rb == K1F_RB ? k1f_kernel<T, K1F_RB> : k1f_kernel<T, R>;
@@ -634,24 +651,29 @@ static int gine_bn_fwd(const void* h, const float* a, const float* b,
   return launch_sum_partials(partial, sums, N / R, 2 * D, st);
 }
 
-// K4f: the strip kernel.
+// K4f: the mid launch, then the out launch. mid is written in full (the
+// caller's scratch when it wants no residuals); agg only when not null.
 template <typename T>
 static int gine_fwd(const void* h, const void* adj, const void* cnt,
                     const void* etab, const void* w1, const float* b1,
                     const void* w2, const float* b2, void* out, void* agg,
                     void* mid, int T_, int S, int D, int D2, void* stream) {
-  if (T_ <= 0 || S <= 0 || S % R || D <= 0 || D2 <= 0)
+  if (T_ <= 0 || S <= 0 || S % R || D <= 0 || D2 <= 0 || !mid)
     return (int)cudaErrorInvalidValue;
-  const int nblk = T_ * (S / R);
-  const int region = R * (S + CNT_PAD) > R * D2 ? R * (S + CNT_PAD) : R * D2;
-  const size_t floats = (size_t)region + R * D + KC * CW + R;
-  const size_t bytes = floats * sizeof(float);
-  cudaError_t e = set_smem(gine_fwd_kernel<T>, bytes);
+  const int N = T_ * S;
+  cudaStream_t st = (cudaStream_t)stream;
+  const RbShape a = k4f_launch_shape<T>(0, S, D, D2);
+  const RbShape b = k4f_launch_shape<T>(1, S, D, D2);
+  if (!a.rb || !b.rb) return (int)cudaErrorInvalidValue;
+  cudaError_t e = set_smem(k4f_mid_kernel<T>, a.bytes);
   if (e != cudaSuccess) return (int)e;
-  gine_fwd_kernel<T><<<nblk, NT, bytes, (cudaStream_t)stream>>>(
+  k4f_mid_kernel<T><<<dim3(N / R, (D2 + RCW - 1) / RCW), RNT, a.bytes, st>>>(
       (const T*)h, (const T*)adj, (const T*)cnt, (const T*)etab,
-      (const T*)w1, b1, (const T*)w2, b2, (T*)out, (T*)agg, (T*)mid, S, D,
-      D2);
+      (const T*)w1, b1, (T*)agg, (T*)mid, S, D, D2, a.ring);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if ((e = set_smem(k4f_out_kernel<T>, b.bytes)) != cudaSuccess) return (int)e;
+  k4f_out_kernel<T><<<dim3(N / R, (D + RCW - 1) / RCW), RNT, b.bytes, st>>>(
+      (const T*)mid, (const T*)w2, b2, (T*)out, D, D2, b.ring);
   return (int)cudaGetLastError();
 }
 
@@ -758,8 +780,8 @@ extern "C" {
                                   relu_in, chunks, stream);                 \
   }
 
-// K4f: out (and the residuals agg, mid when not null) of the unchained
-// layer.
+// K4f: out (and the residual agg when not null; mid always, scratch when
+// the caller wants no residuals) of the unchained layer.
 #define GINE_FWD(suffix, T)                                                 \
   int gine_fwd_##suffix(const void* h, const void* adj, const void* cnt,    \
                         const void* etab, const void* w1, const float* b1,  \

@@ -36,6 +36,7 @@ from molclr_tpu_torch.ops.fused_layer import (
     CNT_PAD,
     DW_MAX_ROWS,
     DW_TILE,
+    H100_SMS,
     STRIP_ROWS,
     adj_diag_mask,
     bn_prologue,
@@ -44,6 +45,7 @@ from molclr_tpu_torch.ops.fused_layer import (
     kernel_fn,
     kernel_plan,
     masked_moments,
+    sm_count,
     strip_rows,
 )
 
@@ -284,10 +286,6 @@ def fused_gcn_layer_fwd(x, adj, w):
     return out
 
 
-# SMs of an H100, for the weight pass's plan when no card is at hand
-H100_SMS = 132
-
-
 def dw_chunks(n: int, d: int, sms: int = H100_SMS) -> tuple[int, int]:
     """(chunks, rows per chunk) of K5b's weight pass over n rows
     (csrc/fused_bn_common.cuh wgrad_kernel, which takes them as they are):
@@ -331,8 +329,7 @@ def fused_gcn_layer_bwd(g, x, adj, w):
     n, d = g.shape
     suffix = "f32" if g.dtype == torch.float32 else "bf16"
     fn = kernel_fn("fused_gcn_bn", f"gcn_bwd_{suffix}", 10, 5)
-    chunks, rows = dw_chunks(n, d, torch.cuda.get_device_properties(
-        g.device).multi_processor_count)
+    chunks, rows = dw_chunks(n, d, sm_count(g.device))
     dx = torch.empty_like(g)
     dw = torch.empty(d, d, dtype=torch.float32, device=g.device)
     # one scratch allocation, cut at 256-byte offsets: W^T, dxw, the strip

@@ -43,19 +43,23 @@ from molclr_tpu_torch.ops import _build
 CNT_PAD = 16
 
 # The kernels' layout, which the wrappers and the plan helpers (kernel_plan,
-# fused_gcn.dw_chunks) work with: the strip of the tile layout, the
-# adjacency column chunk that the row-block kernels skip when it is all
-# zero, and the weight pass's output tile and most rows per chunk (its rows
-# step one strip at a time). Each library states its own (fbl_layout in
-# csrc/fused_bn_common.cuh); strip_rows checks them at its first use.
+# unchained_fwd_plan, fused_gcn.dw_chunks) work with: the strip of the tile
+# layout, the adjacency column chunk that the row-block kernels skip when it
+# is all zero, the weight pass's output tile and most rows per chunk (its
+# rows step one strip at a time), and the columns of a row-block pass. Each
+# library states its own (fbl_layout in csrc/fused_bn_common.cuh);
+# strip_rows checks them at its first use.
 STRIP_ROWS = 16
 ADJ_CHUNK = 32
 DW_TILE = 64
 DW_MAX_ROWS = 1024
-LAYOUT = (STRIP_ROWS, ADJ_CHUNK, DW_TILE, STRIP_ROWS, DW_MAX_ROWS)
+COL_SLICE = 128
+LAYOUT = (STRIP_ROWS, ADJ_CHUNK, DW_TILE, STRIP_ROWS, DW_MAX_ROWS, COL_SLICE)
 # K1f's rows per block at the reference widths (csrc/fused_gine_bn.cu
 # K1F_RB; 16 where wider layers do not fit: k1f_block_rows)
 K1F_BLOCK_ROWS = 32
+# SMs of an H100, for the plans when no card is at hand
+H100_SMS = 132
 
 _ACT_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -216,6 +220,12 @@ def k1f_block_rows(dtype: torch.dtype, s: int, d: int, d2: int) -> int:
     return f(s, d, d2)
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """SMs of a CUDA device, which the launch plans fill."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def cuda_tiles(name: str, h: torch.Tensor, adj: torch.Tensor,
                source: str = "fused_gine_bn"):
     """(T, S) of a CUDA call into csrc/<source>.cu, after checking the
@@ -265,9 +275,10 @@ def kernel_plan(adj: torch.Tensor, cnt: torch.Tensor | None = None,
                 block_rows: int = K1F_BLOCK_ROWS) -> dict:
     """What the row-block kernels skip on this adjacency, decided as they
     decide it from the data they load (K1f: block_rows k1f_block_rows, 32
-    at the reference widths, with cnt; K5b's strip pass: block_rows 16, no
-    cnt). Only the tests and chip_smoke.py call it; the kernels' wrappers
-    never do.
+    at the reference widths, with cnt; K4f's mid launch: block_rows 16,
+    with cnt; K5f's passes and K5b's strip pass: block_rows 16, no cnt).
+    Only the tests and chip_smoke.py call it; the kernels' wrappers never
+    do.
 
     strip_chunks [N / 16, C]  chunk j (tile columns 32 j .. 32 j + 31) of
                               a 16-row strip's A rows has a nonzero
@@ -463,6 +474,19 @@ def _check_gine_args(name, h, adj, cnt, etab, w1, b1, w2, b2):
         raise ValueError(f"{name}: MLP shapes do not match D")
 
 
+def unchained_fwd_plan(t: int, s: int, d: int, d2: int) -> dict:
+    """The grids of the unchained forwards K4f and K5f at T = t tiles of s
+    rows and widths d and d2 (W1 [d, d2]), {launch: (row blocks, column
+    slices)}: K4f's mid and out launches and K5f's xw and out passes each
+    run one block per (16-row block, COL_SLICE-column slice of its output)
+    (csrc/fused_gine_bn.cu gine_fwd, csrc/fused_gcn_bn.cu gcn_fwd). Tests
+    and chip_smoke.py only; the kernels' wrappers never call it."""
+    rows = t * s // STRIP_ROWS
+    slices_mid, slices_out = -(-d2 // COL_SLICE), -(-d // COL_SLICE)
+    return dict(k4f_mid=(rows, slices_mid), k4f_out=(rows, slices_out),
+                k5f_xw=(rows, slices_out), k5f_out=(rows, slices_out))
+
+
 def fused_gine_layer_fwd(h, adj, cnt, etab, w1, b1, w2, b2,
                          residuals: bool):
     """Forward of the unchained layer (kernel K4f): (out, agg, mid); agg
@@ -478,15 +502,16 @@ def fused_gine_layer_fwd(h, adj, cnt, etab, w1, b1, w2, b2,
     fn = kernel_fn("fused_gine_bn", f"gine_fwd_{suffix}", 11, 4)
     out = torch.empty_like(h)
     agg = torch.empty_like(h) if residuals else None
-    mid = h.new_empty(n, d2) if residuals else None
+    # the out launch reads mid: scratch when no residuals are asked for
+    mid = h.new_empty(n, d2)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     err = fn(h.data_ptr(), adj.data_ptr(), cnt.data_ptr(), etab.data_ptr(),
              w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
              out.data_ptr(), None if agg is None else agg.data_ptr(),
-             None if mid is None else mid.data_ptr(), t, s, d, d2, stream)
+             mid.data_ptr(), t, s, d, d2, stream)
     _build.check(err, "fused_gine_layer")
     fused_gine_layer.launches += 1
-    return out, agg, mid
+    return out, agg, mid if residuals else None
 
 
 def fused_gine_layer_bwd(g, adj, cnt, agg, mid, w1, w2):

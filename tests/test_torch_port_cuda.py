@@ -181,57 +181,117 @@ def test_backward_kernel_matches_plain(cuda, shape, dtype, relu_in):
         assert torch.equal(a, b), name
 
 
-# K1f and K5b beyond the reference width (D = 384, 512, 1,024 with D2 = 2
-# D; a tile of 512): a 32-row K1f block first takes the shallower f32
-# weight ring, then 16-row blocks (the block rows expected here). At D =
-# 2,048 no K1f block fits in shared memory and its wrapper raises, while
-# K5b takes its shallower ring.
+# The eight layer kernels beyond the reference width (D = 384, 512, 1,024
+# with D2 = 2 D; a tile of 512). The row-block kernels (K1f, K4f, K5f, K5b)
+# take a shallower f32 weight ring where the first does not fit, and K1f
+# then 16-row blocks (its rows expected here); the strip kernels (K1b, K3f, K3b, K4b) size their shared memory
+# from D and D2, and K1b's and K4b's row pass (16 x (D + D2) floats) is the
+# largest at 213 KB at D = 1,024. At D = 2,048 no K1f block fits in shared
+# memory and its wrapper raises, while K5b takes its shallower ring.
 WIDE = [((3, 256, 384, 8, "molecules"), 32),
         ((3, 256, 512, 8, "molecules"), 32),
         ((3, 512, 300, 8, "molecules"), 32),
-        ((3, 128, 1024, 8, "molecules"), 16),
-        ((2, 128, 2048, 8, "molecules"), 0)]
+        ((3, 128, 1024, 8, "molecules"), 16)]
+WIDEST = ((2, 128, 2048, 8, "molecules"), 0)
+WIDE_CASES = ([(k, *w) for k in ("k1f", "k1b", "k3f", "k3b", "k4f", "k4b",
+                                  "k5f", "k5b") for w in WIDE]
+              + [("k1f", *WIDEST), ("k5b", *WIDEST)])
 
 
-@pytest.mark.parametrize("shape,rows", WIDE)
+def _wide_calls(kernel, x, pg, pc, g, dsums):
+    """[(output names, kernel call, plain call)] of one layer kernel on a
+    problem (each call returns a tuple); the backward kernels take the
+    plain forward's outputs as their residuals."""
+    h, a, b, adj, cnt = (x[k] for k in ("h", "a", "b", "adj", "cnt"))
+    gargs = _gine_args(x, pg)
+    cargs = (h, a, b, adj, cnt, pc["etab"], pc["w"], pc["bias"])
+    uargs = (h, adj, cnt, pg["etab"], pg["w1"], pg["b1"], pg["w2"], pg["b2"])
+    calls = []
+    for relu_in in (False, True):
+        if kernel == "k1f":
+            calls.append((("out", "sums", "agg", "mid"),
+                          lambda r=relu_in: fused_layer.fused_gine_bn_layer_fwd(
+                              *gargs, r, residuals=True),
+                          lambda r=relu_in:
+                          fused_layer.fused_gine_bn_layer_fwd_plain(*gargs, r)))
+        elif kernel == "k1b":
+            out, _, agg, mid = fused_layer.fused_gine_bn_layer_fwd_plain(
+                *gargs, relu_in)
+            bargs = (g, dsums, h, a, b, adj, cnt, agg, mid, out, pg["w1"],
+                     pg["w2"], relu_in)
+            calls.append((("dh", "da", "db", "dw1", "db1", "dw2", "db2",
+                           "detab"),
+                          lambda v=bargs: fused_layer.fused_gine_bn_layer_bwd(
+                              *v),
+                          lambda v=bargs:
+                          fused_layer.fused_gine_bn_layer_bwd_plain(*v)))
+        elif kernel == "k3f":
+            calls.append((("out", "sums"),
+                          lambda r=relu_in: fused_gcn.fused_gcn_bn_layer(
+                              *cargs, r),
+                          lambda r=relu_in: fused_gcn.fused_gcn_bn_layer_plain(
+                              *cargs, r)))
+        elif kernel == "k3b":
+            out, _ = fused_gcn.fused_gcn_bn_layer_plain(*cargs, relu_in)
+            bargs = (g, dsums, h, a, b, adj, cnt, out, pc["w"], relu_in)
+            calls.append((("dx", "da", "db", "dw", "dbias", "detab"),
+                          lambda v=bargs: fused_gcn.fused_gcn_bn_layer_bwd(*v),
+                          lambda v=bargs:
+                          fused_gcn.fused_gcn_bn_layer_bwd_plain(*v)))
+    if kernel == "k4f":
+        calls.append((("out", "agg", "mid"),
+                      lambda: fused_layer.fused_gine_layer_fwd(
+                          *uargs, residuals=True),
+                      lambda: fused_layer.fused_gine_layer_fwd_plain(*uargs)))
+    elif kernel == "k4b":
+        _, agg, mid = fused_layer.fused_gine_layer_fwd_plain(*uargs)
+        bargs = (g, adj, cnt, agg, mid, pg["w1"], pg["w2"])
+        calls.append((("dh", "dw1", "db1", "dw2", "db2", "detab"),
+                      lambda: fused_layer.fused_gine_layer_bwd(*bargs),
+                      lambda: fused_layer.fused_gine_layer_bwd_plain(*bargs)))
+    elif kernel == "k5f":
+        calls.append((("out",),
+                      lambda: (fused_gcn.fused_gcn_layer_fwd(h, adj,
+                                                             pc["w"]),),
+                      lambda: (fused_gcn.fused_gcn_layer_plain(h, adj,
+                                                               pc["w"]),)))
+    elif kernel == "k5b":
+        calls.append((("dx", "dw"),
+                      lambda: fused_gcn.fused_gcn_layer_bwd(g, h, adj,
+                                                            pc["w"]),
+                      lambda: fused_gcn.fused_gcn_layer_bwd_plain(
+                          g, h, adj, pc["w"])))
+    return calls
+
+
+@pytest.mark.parametrize("kernel,shape,rows", WIDE_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_wide_k1f_and_k5b_match_plain(cuda, shape, rows, dtype):
-    """K1f (with its residuals, relu_in off and on) and K5b against their
-    plain versions at wide layers and tiles; two runs bit-identical."""
+def test_wide_layer_kernels_match_plain(cuda, kernel, shape, rows, dtype):
+    """Each layer kernel (relu_in off and on where it has a prologue)
+    against its plain version at wide layers and tiles; two runs
+    bit-identical."""
     dt = getattr(torch, dtype)
     x, pg, pc = _problem(_seed(shape) + 5, *shape)
-    x, p = _to(x, cuda, dt), _to(pg, cuda, dt)
+    x, pg, pc = _to(x, cuda, dt), _to(pg, cuda, dt), _to(pc, cuda, dt)
     _, s, d = shape[:3]
-    assert fused_layer.k1f_block_rows(dt, s, d, 2 * d) == rows
+    if kernel == "k1f":
+        assert fused_layer.k1f_block_rows(dt, s, d, 2 * d) == rows
+    gen = torch.Generator().manual_seed(_seed(shape))
+    g = torch.randn(x["h"].shape, generator=gen).to(cuda, dt)
+    dsums = (0.05 * torch.randn(2, d, generator=gen)).to(cuda)
     rtol = 1e-4 if dt == torch.float32 else 3e-2
-    args = _gine_args(x, p)
-    for relu_in in (False, True):
-        if not rows:
+    for names, run, plain in _wide_calls(kernel, x, pg, pc, g, dsums):
+        if kernel == "k1f" and not rows:
             with pytest.raises(RuntimeError, match="fused_gine_bn_layer"):
-                fused_layer.fused_gine_bn_layer_fwd(*args, relu_in,
-                                                    residuals=True)
+                run()
             continue
-        got = fused_layer.fused_gine_bn_layer_fwd(*args, relu_in,
-                                                  residuals=True)
-        again = fused_layer.fused_gine_bn_layer_fwd(*args, relu_in,
-                                                    residuals=True)
-        want = fused_layer.fused_gine_bn_layer_fwd_plain(*args, relu_in)
-        for name, a, b, c in zip(("out", "sums", "agg", "mid"), got, again,
-                                 want):
+        got, again, want = run(), run(), plain()
+        torch.cuda.synchronize()
+        for name, a, b, c in zip(names, got, again, want):
+            assert a.dtype == c.dtype and a.shape == c.shape, name
             err = (a.float() - c.float()).abs().max().item()
             assert err <= rtol * c.float().abs().max().item(), (name, err)
             assert torch.equal(a, b), name
-    w = _to(pc, cuda, dt)["w"]
-    g = torch.randn(x["h"].shape, generator=torch.Generator().manual_seed(
-        _seed(shape))).to(cuda, dt)
-    got = fused_gcn.fused_gcn_layer_bwd(g, x["h"], x["adj"], w)
-    again = fused_gcn.fused_gcn_layer_bwd(g, x["h"], x["adj"], w)
-    want = fused_gcn.fused_gcn_layer_bwd_plain(g, x["h"], x["adj"], w)
-    torch.cuda.synchronize()
-    for name, a, b, c in zip(("dx", "dw"), got, again, want):
-        err = (a.float() - c.float()).abs().max().item()
-        assert err <= rtol * c.float().abs().max().item(), (name, err)
-        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("n,d", [(128, 32), (256, 256), (384, 100)])

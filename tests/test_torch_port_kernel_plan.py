@@ -1,12 +1,15 @@
-"""What the redesigned K1f and K5b skip, held to the plain versions and JAX.
+"""What the redesigned K1f, K4f, K5f and K5b skip, held to the plain
+versions and JAX.
 
 The row-block kernels skip work that the data they load shows to be dead:
 the all-zero 32-column chunks of an adjacency strip (with the features of
-their nodes), 32-row blocks whose adjacency and count rows are all zero
-(K1f writes one constant row there), and K5b's weight-pass row chunks and
-strips whose dxw rows are zero. `fused_layer.kernel_plan` and
-`fused_gcn.k5b_plan` state those decisions. Here, on packed batches of
-`synthetic_corpus` at tile 64 and 256, in f32 and bf16:
+their nodes), row blocks whose adjacency and count rows are all zero (K1f
+writes one constant row there, K4f agg = 0 and mid = rnd(relu(b1)), K5f
+zeros), and K5b's weight-pass row chunks and strips whose dxw rows are
+zero. `fused_layer.kernel_plan` and `fused_gcn.k5b_plan` state those
+decisions, `fused_layer.unchained_fwd_plan` K4f's and K5f's grids.
+Here, on packed batches of `synthetic_corpus` at tile 64 and 256, in f32
+and bf16:
 
   * the plain version run on inputs where every skipped operand is replaced
     by other finite values, with the dead blocks' constant row written in,
@@ -18,9 +21,13 @@ strips whose dxw rows are zero. `fused_layer.kernel_plan` and
     1e-5 (f32) and 3e-2 (bf16, one bf16 rounding of an intermediate) of
     max(1, max|jax|);
   * K5b's weight pass has enough blocks for two per SM of an H100 (132)
-    at the fine-tuning shape.
+    at the fine-tuning shape, and K4f's and K5f's launches cover every
+    output once and keep the card's SMs busy on the trainers' batches;
+  * the layout constants and every C entry point that the wrappers bind
+    with `fused_layer.kernel_fn` agree with the kernels' sources.
 """
 
+import functools
 import re
 from pathlib import Path
 
@@ -175,6 +182,145 @@ def test_k5b_skips_only_dead_work(packed, dtype):
     assert_close(dw.to(tdt), jdw, rtol)
 
 
+def _gine_problem(tile, adj, cnt, seed):
+    n, d, d2 = adj.shape[0] * tile, 20, 40
+    rng = np.random.RandomState(seed)
+    etab = np.zeros((fused_layer.CNT_PAD, d), np.float32)
+    etab[:8] = 0.3 * rng.randn(8, d)
+    real = (np.diagonal(adj.numpy(), axis1=1, axis2=2).reshape(-1) > 0)
+    h = rng.randn(n, d) * real[:, None]
+    return dict(h=h, adj=adj.numpy(), cnt=cnt.numpy(), etab=etab,
+                w1=0.3 * rng.randn(d, d2), b1=0.3 * rng.randn(d2),
+                w2=0.3 * rng.randn(d2, d), b2=0.1 * rng.randn(d))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4f_skips_only_dead_work(packed, dtype):
+    """K4f's mid launch on 16-row blocks: the plain forward with the skipped adjacency chunks zeroed and the
+    features reached only through them replaced equals the full one bit
+    for bit; dead blocks' rows are agg = 0 and mid = rnd(relu(b1)), the
+    constants the kernel writes there with no product (its out launch
+    runs every row); JAX's `_run_fwd` agrees within the tolerance."""
+    jdt, tdt, rtol = DTYPES[dtype]
+    tile, adj, cnt = packed
+    x = _gine_problem(tile, adj, cnt, tile + 16)
+    n = adj.shape[0] * tile
+    f32 = {"b1", "b2"}
+    tx = {k: torch.tensor(np.asarray(v, np.float32)).to(
+        torch.float32 if k in f32 else tdt) for k, v in x.items()}
+    keys = ("h", "adj", "cnt", "etab", "w1", "b1", "w2", "b2")
+    full = fused_layer.fused_gine_layer_fwd_plain(*(tx[k] for k in keys))
+
+    plan = fused_layer.kernel_plan(tx["adj"], tx["cnt"], 16)
+    assert plan["dead_blocks"].any()
+    assert plan["block_chunks"] < plan["dense_chunks"]
+    mask = _chunk_mask(plan, tile)
+    used = _used_nodes(plan, tile)
+    rx = dict(tx, adj=torch.where(mask, tx["adj"], 0).to(tdt),
+              h=torch.where(used[:, None], tx["h"], GARBAGE).to(tdt))
+    got = fused_layer.fused_gine_layer_fwd_plain(*(rx[k] for k in keys))
+    for a, b in zip(got, full):
+        assert torch.equal(a, b)
+    dead = _rows(plan["dead_blocks"], 16, n)
+    _, agg, mid = full
+    assert not agg[dead].any()
+    assert torch.equal(mid[dead], torch.relu(0.0 + tx["b1"]).to(tdt).expand(
+        int(dead.sum()), -1))
+
+    jx = {k: jnp.asarray(np.asarray(v, np.float32),
+                         jnp.float32 if k in f32 else jdt)
+          for k, v in x.items()}
+    ref = jax_fused_layer._run_fwd(*(jx[k] for k in keys), True)
+    for a, b in zip(got, ref):
+        assert_close(a, b, rtol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k5f_skips_only_dead_work(packed, dtype):
+    """K5f's passes on 16-row strips: the plain forward with the skipped
+    adjacency chunks zeroed, the x rows reached only through them replaced
+    and the x rows of dead strips zero (the kernel writes their xw rows as
+    zeros) equals the full one bit for bit; dead strips' out rows are 0;
+    JAX's `_run_fwd` agrees within the tolerance."""
+    jdt, tdt, rtol = DTYPES[dtype]
+    tile, adj, _ = packed
+    n, d = adj.shape[0] * tile, 20
+    rng = np.random.RandomState(tile + 5)
+    x = dict(x=rng.randn(n, d), adj=adj.numpy(),
+             w=rng.randn(d, d) / d ** 0.5)
+    tx = {k: torch.tensor(np.asarray(v, np.float32)).to(tdt)
+          for k, v in x.items()}
+    full = fused_gcn.fused_gcn_layer_plain(tx["x"], tx["adj"], tx["w"])
+
+    plan = fused_layer.kernel_plan(tx["adj"], None, fused_layer.STRIP_ROWS)
+    assert plan["dead_strips"].any()
+    assert plan["block_chunks"] < plan["dense_chunks"]
+    mask = _chunk_mask(plan, tile)
+    used = _used_nodes(plan, tile)
+    dead = _rows(plan["dead_strips"], fused_layer.STRIP_ROWS, n)
+    rxx = torch.where(used[:, None], tx["x"], GARBAGE)
+    rxx = torch.where(dead[:, None], 0.0, rxx).to(tdt)
+    got = fused_gcn.fused_gcn_layer_plain(
+        rxx, torch.where(mask, tx["adj"], 0).to(tdt), tx["w"])
+    assert torch.equal(got, full)
+    assert not got[dead].any()
+
+    jx = {k: jnp.asarray(np.asarray(v, np.float32), jdt) for k, v in x.items()}
+    assert_close(got, jax_fused_gcn._run_fwd(jx["x"], jx["adj"], jx["w"],
+                                             True), rtol)
+
+
+@functools.lru_cache(maxsize=None)
+def _tiles_batch(t):
+    """(adj, cnt) of a batch as the trainers pack it at tile 256 with t
+    tiles: the fine-tuning batch (t = 4, 32 molecules with hydrogens), a
+    larger fine-tuning batch (t = 6, 48) and the pretraining batch (t =
+    22, 512 molecules)."""
+    n_mols, add_hs = {4: (32, True), 6: (48, True), 22: (512, False)}[t]
+    graphs, _ = featurize_many(synthetic_corpus(n_mols, seed=7 if t == 22
+                                                else 0), add_hs=add_hs)
+    batch = pack_batch(graphs, spec_for_graphs(graphs, n_mols,
+                                               tile=256)).to("cpu")
+    adj = build_tile_adjacency(batch.nbr, batch.nbr_mask, 256,
+                               dtype=torch.float32)
+    assert adj.shape[0] == t
+    w = batch.nbr_mask.float()
+    cnt = fused_layer.pack_cnt(_counts(batch.nbr_bond_type, w, NUM_BOND_TYPES),
+                               _counts(batch.nbr_bond_dir, w, NUM_BOND_DIRS))
+    return adj, cnt
+
+
+@pytest.mark.parametrize("t", [4, 6, 22])
+@pytest.mark.parametrize("sms", [78, 114, 132])
+def test_unchained_forward_plan_fills_the_card(t, sms):
+    """unchained_fwd_plan at the reference widths (D = 300, D2 = 600, tile
+    256): each launch's 16-row blocks cover every (row, column) of its
+    output once, and the blocks that do work (K4f's mid launch and K5f's
+    passes skip dead row blocks, K4f's out launch runs all) reach the SM
+    count on the trainers' batches; only K5f's three column slices of the
+    fine-tuning batch's 40 live strips stay short of 132 SMs."""
+    s, d, d2 = 256, 300, 600
+    n = t * s
+    grids = fused_layer.unchained_fwd_plan(t, s, d, d2)
+    cols = {"k4f_mid": d2, "k4f_out": d, "k5f_xw": d, "k5f_out": d}
+    for name, (blocks, slices) in grids.items():
+        assert blocks * fused_layer.STRIP_ROWS == n, name
+        width = fused_layer.COL_SLICE
+        assert (slices - 1) * width < cols[name] <= slices * width, name
+
+    adj, cnt = _tiles_batch(t)
+    live = int((~fused_layer.kernel_plan(adj, cnt, 16)["dead_blocks"]).sum())
+    strips = int((~fused_layer.kernel_plan(adj, None, 16)["dead_strips"])
+                 .sum())
+    busy = {"k4f_mid": live * grids["k4f_mid"][1],
+            "k4f_out": grids["k4f_out"][0] * grids["k4f_out"][1],
+            "k5f_xw": strips * grids["k5f_xw"][1],
+            "k5f_out": strips * grids["k5f_out"][1]}
+    for name, blocks in busy.items():
+        assert blocks >= sms or (name.startswith("k5f") and t == 4
+                                 and strips == 40), (name, blocks)
+
+
 @pytest.mark.parametrize("n,d", [(1024, 300), (1536, 300), (5632, 300),
                                  (48, 20)])
 def test_k5b_weight_pass_fills_the_card(n, d):
@@ -207,10 +353,10 @@ def _constexpr(src, name):
 
 
 def test_layout_matches_the_kernel_sources():
-    """fused_layer.LAYOUT and K1F_BLOCK_ROWS, with which the plan helpers
-    and the wrappers work, are the constants in the kernels' sources (on
-    the card, strip_rows also holds LAYOUT to each built library's
-    fbl_layout)."""
+    """fused_layer.LAYOUT and K1F_BLOCK_ROWS, with which the
+    plan helpers and the wrappers work, are the constants in the kernels'
+    sources (on the card, strip_rows also holds LAYOUT to each built
+    library's fbl_layout)."""
     common = (CSRC / "fused_bn_common.cuh").read_text()
     names = re.search(r"const int v\[\] = \{([^}]*)\}", common).group(1)
     got = tuple(_constexpr(common, v.strip().removeprefix("fbl::"))
@@ -218,3 +364,30 @@ def test_layout_matches_the_kernel_sources():
     assert got == fused_layer.LAYOUT
     gine = (CSRC / "fused_gine_bn.cu").read_text()
     assert _constexpr(gine, "K1F_RB") == fused_layer.K1F_BLOCK_ROWS
+
+
+def _bindings():
+    """(source, entry point, pointers, ints) of every kernel_fn call of the
+    wrappers in ops/."""
+    pat = re.compile(r'kernel_fn\("(\w+)", f"(\w+)_\{suffix\}", (\d+), '
+                     r'(\d+)\)')
+    ops = CSRC.parent / "ops"
+    return sorted({m.groups() for p in ops.glob("*.py")
+                   for m in pat.finditer(p.read_text())})
+
+
+@pytest.mark.parametrize("source,entry,n_ptr,n_int", _bindings(),
+                         ids=[b[1] for b in _bindings()])
+def test_bindings_match_the_entry_points(source, entry, n_ptr, n_int):
+    """Each wrapper's ctypes signature (n_ptr pointers, n_int ints, then
+    the stream) is the parameter list of its C entry point (the f32 and
+    bf16 forms come from one macro)."""
+    src = (CSRC / f"{source}.cu").read_text().replace("\\\n", " ")
+    head = re.search(rf"int {entry}_##suffix\(([^)]*)\)", src)
+    assert head, entry
+    params = [p.strip() for p in head.group(1).split(",")]
+    kinds = ["int" if re.fullmatch(r"int \w+", p) else
+             "ptr" if "*" in p else p for p in params]
+    assert kinds == (["ptr"] * int(n_ptr) + ["int"] * int(n_int)
+                     + ["ptr"]), params
+    assert params[-1] == "void* stream"
