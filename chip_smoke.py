@@ -29,8 +29,10 @@ prints no result line):
               versions in f32 and bf16, relu_in False and True; K2f and K2b
               at 2B = 1,024 and 4,096 (D = 256) with and without dead pairs.
               Two runs bit-identical; kernel, plain and library times; K1f's
-              device time by kernel (torch.profiler over 20 launches) and
-              the shares of work it skipped.
+              and K1b's device time by kernel (torch.profiler over 20
+              launches) and the shares of work they skipped; K1b's host
+              time per wrapper call and which of the two sets its events
+              ms.
   5. step     the pretraining step at full width (GIN 5 x 300 / 512, B =
               512, node augmentation, f32, ntxent 'auto'): 3 steps on the
               card, each also run on the CPU's plain path from the card's
@@ -54,11 +56,12 @@ prints no result line):
               as the FineTuner packs a training batch: T = 4 tiles of 256,
               D = 300): K4f (with residuals), K4b, K5f and K5b against
               their plain versions in f32 and bf16; two runs
-              bit-identical; kernel, plain and library times; K4f's, K5f's
-              and K5b's device time by kernel (torch.profiler over 20
-              launches), K4f's and K5f's host time per wrapper call, and
-              the shares of row blocks, strips, adjacency chunks and dW row
-              chunks they skipped (kernel_plan, k5b_plan).
+              bit-identical; kernel, plain and library times; K4f's, K4b's,
+              K5f's and K5b's device time by kernel (torch.profiler over 20
+              launches), K4f's, K4b's and K5f's host time per wrapper call,
+              and the shares of row blocks, strips, adjacency chunks and
+              weight-pass row chunks they skipped (kernel_plan, k5b_plan,
+              gine_bwd_plan).
   9. fine-tune steps: the FineTuner at the reference fine-tune model (5 x
               300 / 512, drop 0.3, batch 32, pred head 2 x softplus, f32),
               GIN, GCN and GIN with the motif head: 3 steps on the card,
@@ -85,8 +88,11 @@ prints no result line):
               step and no other kernel; two identical card steps
               bit-identical; one normalize_gcn step card-vs-CPU; the step's
               time (f32, bf16), the host's time and a profile.
- 13. options: one card-vs-CPU step each at full width with launch counts
-              for GIN subgraph, GIN mix and GCN mix augmentation (the views
+ 13. options: K4b at the dropout step's shape (T = 22) and K1b at
+              concat_views' (T = 44) against their plain versions in f32
+              and bf16 (phase 8's and phase 4's limits, two runs
+              bit-identical); then one card-vs-CPU step each at full width
+              with launch counts for GIN subgraph, GIN mix and GCN mix augmentation (the views
               on the card bit-identical to the CPU's from the same keys;
               mix on the batch featurized with hydrogens), GIN with dropout
               0.1 (the same masks on both; K4f / K4b 5 per view) and GIN
@@ -125,7 +131,7 @@ from molclr_tpu_torch.cli import finetune as finetune_cli
 from molclr_tpu_torch.cli import pretrain as pretrain_cli
 from molclr_tpu_torch.data.augment import AUG_DELTA_FIELDS, paired_augment
 from molclr_tpu_torch.data.featurize import NUM_BOND_DIRS, NUM_BOND_TYPES
-from molclr_tpu_torch.data.graphs import pack_batch
+from molclr_tpu_torch.data.graphs import concat_views, pack_batch
 from molclr_tpu_torch.data.loader import featurize_many, spec_for_graphs
 from molclr_tpu_torch.data.motifs import encode_motif_vocab
 from molclr_tpu_torch.data.synthetic import synthetic_corpus
@@ -159,6 +165,8 @@ from molclr_tpu_torch.ops.fused_layer import (
     fused_gine_layer_bwd_plain,
     fused_gine_layer_fwd,
     fused_gine_layer_fwd_plain,
+    gine_bwd_gt,
+    gine_bwd_plan,
     k1f_block_rows,
     kernel_plan,
     pack_cnt,
@@ -471,6 +479,38 @@ def unchained_skipped(x, d, d2, kernel) -> dict:
                         if k.startswith(kernel)},
                 dead_blocks=float(kp["dead_blocks"].float().mean()),
                 a_chunks=1 - kp["block_chunks"] / kp["dense_chunks"])
+
+
+def gine_bwd_skipped(gt, adj, d2, dt) -> dict:
+    """K1b's or K4b's blocks per launch and the shares of its 16-row strips
+    whose gt is all zero (the dmid and dagg launches write zeros, the weight
+    pass skips them), of the adjacency pass's dead strips and skipped
+    (strip, chunk) products, and of the weight pass's row chunks that load
+    nothing, from gine_bwd_plan on this launch's input and the card's SM
+    count, as the wrapper plans the weight pass."""
+    plan = gine_bwd_plan(gt.cpu(), adj.cpu(), d2, dt, sm_count(adj.device))
+    grids, ap = plan["grids"], plan["adj"]
+    blocks = {k: v[0] * v[1] for k, v in grids.items() if k != "weights"}
+    blocks["weights"] = sum(c * tm * tc for c, tm, tc in
+                            grids["weights"].values())
+    return dict(blocks=blocks,
+                dead_strips=float(plan["dead_strips"].float().mean()),
+                adj_dead_strips=float(ap["dead_strips"].float().mean()),
+                a_chunks=1 - ap["block_chunks"] / ap["dense_chunks"],
+                dw_chunks=1 - float(plan["live_chunks"].float().mean()),
+                dw_chunk_count=plan["dw_chunks"],
+                dw_tile_rows=plan["dw_tile_rows"])
+
+
+def paced(case: dict, fn, skipped: dict) -> None:
+    """Add a wrapper's device us per call by pass (pass_profile), its host
+    us per call, their sum and which of the two sets its events ms (the
+    host where its time per call is the larger), and what it skipped."""
+    case.update(passes_us=pass_profile(fn), host_us=host_us(fn),
+                skipped=skipped)
+    case["device_us"] = sum(case["passes_us"].values())
+    case["ms_paced_by"] = ("host" if case["host_us"] > case["device_us"]
+                           else "device")
 
 
 def host_us(fn, reps: int = 50) -> float:
@@ -794,6 +834,9 @@ def training_layer_phase(batch, dev) -> dict:
                     *bargs)),
                 library_ms=time_ms(lambda: gine_bwd_library(*bargs)))
             case["bound_ms"], case["bound_by"] = k1b_bound_ms(x, pg, dt)
+            paced(case, lambda: fused_gine_bn_layer_bwd(*bargs),
+                  gine_bwd_skipped(gine_bwd_gt(g, dsums, x["adj"], out),
+                                   x["adj"], pg["w1"].shape[1], dt))
             print(f"kernel k1b {json.dumps(case)}", flush=True)
             for name in names:
                 check(case[f"err_{name}"] <= case[f"lim_{name}"],
@@ -1449,13 +1492,12 @@ def finetune_kernel_phase(batch, dev) -> dict:
                  lambda: fused_gine_layer_fwd(*fargs, residuals=True)),
                 ("fused_gcn_layer", "k5f",
                  lambda: fused_gcn_layer_fwd(*cargs))):
-            case = cases[name]
-            case.update(passes_us=pass_profile(fn), host_us=host_us(fn),
-                        skipped=unchained_skipped(
-                            x, d, pg["w1"].shape[1], kernel))
-            case["device_us"] = sum(case["passes_us"].values())
-            case["ms_paced_by"] = ("host" if case["host_us"]
-                                   > case["device_us"] else "device")
+            paced(cases[name], fn, unchained_skipped(
+                x, d, pg["w1"].shape[1], kernel))
+        # K4b likewise, with the strips and chunks its passes skip
+        paced(cases["fused_gine_layer_bwd"],
+              lambda: fused_gine_layer_bwd(*bargs),
+              gine_bwd_skipped(g, x["adj"], pg["w1"].shape[1], dt))
         for name, case in cases.items():
             case["bound_ms"], case["bound_by"] = unchained_bound_ms(
                 name, x, pg if name.startswith("fused_gine") else pc, dt)
@@ -1905,6 +1947,63 @@ def augment_timing(batch, kind: str, bw: int, max_waves: int, dev) -> dict:
                 device_kernels=prof["kernels"])
 
 
+def trainer_bwd_cases(batch, dev) -> dict:
+    """K4b at the shape of the dropout step below (the pretraining batch, T
+    = 22; features and cotangent zero on padding rows, as the unchained
+    trunk gives them) and K1b at that of its concat_views step (the batch
+    twice, T = 44; relu prologue, a cotangent on every row), f32 and bf16:
+    each against its plain version within phase 8's (K4b) and phase 4's
+    (K1b) limits, two runs bit-identical. Their weight passes take other
+    row chunks and output tiles there than at phases 4 and 8's shapes."""
+    gen = torch.Generator().manual_seed(SEED + 8)
+    host = batch.to("cpu")
+    twice = concat_views(host, host)
+    res = {"k4b": [], "k1b": []}
+    for dt in (torch.float32, torch.bfloat16):
+        x, pg, _ = layer_inputs(batch.to(dev), dt, gen)
+        mask = adj_diag_mask(x["adj"])
+        h = (x["h"].float() * mask).to(dt)
+        n, d = h.shape
+        g = ((0.1 * torch.randn(n, d, generator=gen)).to(dev) * mask).to(dt)
+        fargs = (h, x["adj"], x["cnt"], pg["etab"], pg["w1"], pg["b1"],
+                 pg["w2"], pg["b2"])
+        _, agg, mid = fused_gine_layer_fwd(*fargs, residuals=True)
+        bargs = (g, x["adj"], x["cnt"], agg, mid, pg["w1"], pg["w2"])
+        tag = dict(dtype=str(dt).replace("torch.", ""),
+                   tiles=x["adj"].shape[0], d=d)
+        case, _ = kernel_case(
+            "K4b", tag, ("dh", "dw1", "db1", "dw2", "db2", "detab"),
+            lambda: fused_gine_layer_bwd(*bargs),
+            lambda: fused_gine_layer_bwd_plain(*bargs),
+            lambda: gine_unchained_bwd_library(*bargs), KERNEL_RTOL[dt])
+        case["skipped"] = gine_bwd_skipped(g, x["adj"], pg["w1"].shape[1],
+                                           dt)
+        print(f"kernel k4b_dropout {json.dumps(case)}", flush=True)
+        res["k4b"].append(case)
+
+        x, pg, _ = layer_inputs(twice.to(dev), dt, gen)
+        n, d = x["h"].shape
+        out, _, agg, mid = fused_gine_bn_layer_fwd(*gine_args(x, pg), True,
+                                                   residuals=True)
+        g = (0.1 * torch.randn(n, d, generator=gen)).to(dev, dt)
+        dsums = (1e-3 * torch.randn(2, d, generator=gen)).to(dev)
+        bargs = (g, dsums, x["h"], x["a"], x["b"], x["adj"], x["cnt"], agg,
+                 mid, out, pg["w1"], pg["w2"], True)
+        tag = dict(tag, tiles=x["adj"].shape[0], relu_in=True)
+        case, _ = kernel_case(
+            "K1b", tag, ("dh", "da", "db", "dw1", "db1", "dw2", "db2",
+                         "detab"),
+            lambda: fused_gine_bn_layer_bwd(*bargs),
+            lambda: fused_gine_bn_layer_bwd_plain(*bargs),
+            lambda: gine_bwd_library(*bargs), BWD_RTOL[dt])
+        case["skipped"] = gine_bwd_skipped(
+            gine_bwd_gt(g, dsums, x["adj"], out), x["adj"],
+            pg["w1"].shape[1], dt)
+        print(f"kernel k1b_concat {json.dumps(case)}", flush=True)
+        res["k1b"].append(case)
+    return res
+
+
 def options_phase(dev) -> dict:
     """The other pretraining options at full width, each one card-vs-CPU
     step from the same state with phase 5's limits and its launch counts:
@@ -1914,8 +2013,10 @@ def options_phase(dev) -> dict:
     per view), GIN with concat_views (one forward of both views, T = 44).
     The BFS horizon is the one the Pretrainer derives for a corpus of this
     batch (max atoms - 1). Then the augmentation's time per step for
-    node, subgraph and mix."""
+    node, subgraph and mix. First K4b and K1b at the dropout and
+    concat_views steps' shapes (trainer_bwd_cases)."""
     plain = pretrain_batch()
+    report = {"kernels": trainer_bwd_cases(plain[0], dev)}
     with_hs = pretrain_batch(add_hs=True)
     gin_bn = dict(fused_gine_bn_layer=2 * LAYERS,
                   fused_gine_bn_layer_bwd=2 * LAYERS)
@@ -1930,7 +2031,6 @@ def options_phase(dev) -> dict:
             ("gin_concat", dict(concat_views=True), plain,
              dict(fused_gine_bn_layer=LAYERS,
                   fused_gine_bn_layer_bwd=LAYERS)))
-    report = {}
     for tag, kw, (batch, spec), want in runs:
         cfg = pretrain_cfg(**kw)
         bw = spec.max_graph_bonds

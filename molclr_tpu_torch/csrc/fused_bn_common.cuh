@@ -18,13 +18,17 @@
 //     [n_blocks, 2, D] scratch, and sum_partials adds the rows in block
 //     order: no atomics, so repeated runs are bit-identical.
 // These strip kernels (strip_gemm: plain f32 FMA loops, no tensor cores)
-// carry K1b, K3f, K4b and K3b's row passes. The redesigned K1f, K4f, K5f
-// and K5b (and K3b's adjacency pass, which is K5f's) run on the row-block
-// products further down (rb_pass, rb_pass_rows: 16- or 32-row blocks of 256
+// carry K3f and K3b's row passes, and atb_kernel K3b's weight pass. The
+// redesigned K1f, K4f, K5f, K5b, K4b and K1b run on the row-block products
+// further down (rb_pass, rb_pass_rows: 16- or 32-row blocks of 256
 // threads, FP32 FMA in f32 and mma.sync tensor cores in bf16, all-zero
-// adjacency chunks and dead rows skipped) and K5b's weight pass on
-// wgrad_kernel. Every value is rounded to the activation type T exactly
-// where the Pallas kernels cast.
+// adjacency chunks and dead rows skipped); one adjacency pass
+// (adj_pass_kernel, its epilogue a parameter) serves K5f, K3b, K4b and
+// K1b, and one weight pass (wgrad_kernel, up to three problems a launch)
+// K5b, K4b and K1b. What still holds the row-block products back in f32:
+// shared-memory loads (two wavefronts per eight FMA), padded rows of live
+// blocks, no wgmma or TMA. Every value is rounded to the activation type T
+// exactly where the Pallas kernels cast.
 
 #pragma once
 
@@ -164,21 +168,6 @@ __device__ void load_adj_strip(const T* adj, const T* cnt, int tile,
   if (threadIdx.x < R) {
     const int r = threadIdx.x;
     msk[r] = ext[r * KA + strip * R + r] > 0.f ? 1.f : 0.f;
-  }
-  // msk is read only after strip_gemm's next __syncthreads
-}
-
-// Load this block's A strip ([R, S], f32) into As and the node mask
-// diag(A) > 0 of its rows into msk (load_adj_strip without the cnt rows).
-template <typename T>
-__device__ void load_a_strip(const T* adj, int tile, int strip, int S,
-                             float* As, float* msk) {
-  const size_t arow0 = ((size_t)tile * S + (size_t)strip * R) * S;
-  for (int e = threadIdx.x; e < R * S; e += NT) As[e] = ld(adj, arow0 + e);
-  __syncthreads();
-  if (threadIdx.x < R) {
-    const int r = threadIdx.x;
-    msk[r] = As[r * S + strip * R + r] > 0.f ? 1.f : 0.f;
   }
   // msk is read only after strip_gemm's next __syncthreads
 }
@@ -395,7 +384,7 @@ static inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// Row-block products (the redesigned K1f and K5b).
+// Row-block products (the redesigned K1f, K4f, K5f, K5b, K4b and K1b).
 //
 // A block of RNT = 256 threads (8 warps) owns RB rows (16 or 32) and
 // computes C[RB, ncols] = A[RB, K] @ B[K, ncols] in column passes of RCW =
@@ -674,6 +663,10 @@ __device__ void rb_pass(const T* A, int lda, int K, int c0, int ncols,
   constexpr int WM = RB / 16;  // bf16: m16 tiles; a warp takes 2 WM n8 tiles
   // f32: the f32_chunk tile; bf16: 2 WM n8 tiles of 4 sums
   float acc[F32 ? RB / 8 : 2 * WM][4];
+  // whether any of this warp's columns lies inside ncols (a warp whose
+  // columns all lie past it multiplies nothing; its sums stay 0)
+  const bool wcols =
+      c0 + (F32 ? 16 * warp : (warp / WM) * 2 * WM * 8) < ncols;
 #pragma unroll
   for (int i = 0; i < (F32 ? RB / 8 : 2 * WM); ++i)
 #pragma unroll
@@ -706,14 +699,15 @@ __device__ void rb_pass(const T* A, int lda, int K, int c0, int ncols,
       for (int i = 0; i < NS; ++i) stage[i] = load(min(k1 + row(i), K - 1), cl);
     }
     if constexpr (F32) {
-      f32_chunk<RB>(reinterpret_cast<const float*>(A), k0, scratch, acc);
+      if (wcols)
+        f32_chunk<RB>(reinterpret_cast<const float*>(A), k0, scratch, acc);
     } else {
       const __nv_bfloat16* Ab = reinterpret_cast<const __nv_bfloat16*>(A);
       const unsigned* bs = reinterpret_cast<const unsigned*>(scratch);
       const int g = lane >> 2, t = lane & 3;
       const int mt = warp % WM, nb = (warp / WM) * (2 * WM) * 8;
 #pragma unroll 4
-      for (int ks = 0; ks < KC / 16; ++ks) {
+      for (int ks = 0; ks < (wcols ? KC / 16 : 0); ++ks) {
         unsigned af[4];
         const __nv_bfloat16* ap =
             Ab + (size_t)(mt * 16 + g) * lda + k0 + ks * 16 + 2 * t;
@@ -793,6 +787,7 @@ __device__ void rb_pass_rows(const T* A, int lda, int K, int c0, int ncols,
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
     const int mt = warp % WM, nb = (warp / WM) * (2 * WM) * 8;
+    const bool wcols = c0 + nb < ncols;  // as in rb_pass
     const int nch = (K + KCB - 1) / KCB;
     unsigned short* ring = reinterpret_cast<unsigned short*>(scratch);
     // thread t copies the column pair c0 + 2 (t % 64) (+1) of rows t / 64 +
@@ -827,6 +822,7 @@ __device__ void rb_pass_rows(const T* A, int lda, int K, int c0, int ncols,
       __syncthreads();
       issue(ch + NSTB - 1);
       const unsigned short* bs = ring + (size_t)(ch % NSTB) * KCB * BSB;
+      if (!wcols) continue;
 #pragma unroll
       for (int ks = 0; ks < KCB / 16; ++ks) {
         unsigned af[4];
@@ -861,6 +857,7 @@ __device__ void rb_pass_rows(const T* A, int lda, int K, int c0, int ncols,
     static_assert(NS >= 2 && KR % 8 == 0, "ring");
     constexpr int KC = KR;
     const int tid = threadIdx.x;
+    const bool wcols = c0 + 16 * (tid >> 5) < ncols;  // as in rb_pass
     const int nch = (K + KC - 1) / KC;
     // 16-byte copies where `wide`: thread t copies columns 4 (t % 32) .. +
     // 3 of rows t / 32 + 8 i; else 4-byte copies, thread t column t % 128
@@ -902,8 +899,9 @@ __device__ void rb_pass_rows(const T* A, int lda, int K, int c0, int ncols,
       cp_async_wait<NS - 2>();  // this thread's copies of chunk ch landed
       __syncthreads();          // everyone's; chunk ch - 1 is consumed
       issue(ch + NS - 1);
-      f32_chunk<RB, KC>(reinterpret_cast<const float*>(A), ch * KC,
-                        scratch + (size_t)(ch % NS) * KC * RCW, acc);
+      if (wcols)
+        f32_chunk<RB, KC>(reinterpret_cast<const float*>(A), ch * KC,
+                          scratch + (size_t)(ch % NS) * KC * RCW, acc);
     }
     cp_async_wait<0>();
     __syncthreads();
@@ -1066,161 +1064,413 @@ __device__ void rows_to_a(T* A, int lda, const T* src, size_t row0,
   }
 }
 
-// Weight-gradient products for the redesigned backward passes:
-// C[m, c] = sum_r X[r, m] Y[r, c] over the rows of one chunk, for one 64 x
-// 64 output tile per block, written to partial[chunk, off + m * C + c]; the
-// caller adds the chunks in chunk order (sum_partials). Each 16-row step is
-// one strip of the row space: a strip whose live flag is 0 (its Y rows are
-// all zero, which the pass that wrote Y recorded) is skipped, and a chunk
-// with no live strip writes zeros without loading anything. Loads are
-// staged in registers one step ahead. f32 runs FP32 FMA (4 x 4 per thread,
-// float4 shared loads); bf16 runs mma.sync m16n8k16 with X^T as the A
-// operand (warp w: m16 tile w % 4, n8 tiles 4 (w / 4) .. + 3). Launch
-// chunks * tiles blocks of WNT threads.
-constexpr int WT = 64;    // output tile edge
-constexpr int WK = 16;    // rows per step (one strip)
+// The row-block adjacency pass: K5f's second pass, K3b's adjacency pass and
+// K4b's and K1b's. One block of RNT threads per (16-row strip, RCW-column
+// slice) computes Cs = A_strip @ X for its slice over the strip's live
+// 32-column chunks only, X's rows (the nodes of those chunks) gathered
+// through the weight ring; a strip with no live chunk has Cs = 0 with no
+// load and no product. Then all threads call epi(row0, c0, Cs), which
+// writes the slice from Cs[r * CS + j] (rows r < R, columns c0 + j < D) and
+// may overwrite Cs. In f32 each output is one thread's sum over the live
+// columns in ascending order, so a skipped chunk (exact zeros) leaves the
+// dense strip's bits.
+template <typename T>
+__host__ __device__ inline RbSmem adj_pass_smem(int S, int ring) {
+  const int nch = (S + ACW - 1) / ACW;
+  return rb_smem(S, nch, a_bytes<T>(R, nch * ACW), 0, pass_bytes<T>(R, ring));
+}
+
+template <typename T, typename Epi>
+__global__ void __launch_bounds__(RNT, 2)
+adj_pass_kernel(const T* __restrict__ x, const T* __restrict__ adj, Epi epi,
+                int S, int D, int ring) {
+  extern __shared__ float smem_f[];  // 16-byte aligned
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  const RbSmem L = adj_pass_smem<T>(S, ring);
+  int* flags = reinterpret_cast<int*>(smem + L.meta);
+  int* node = flags + 2 * L.nch;
+  int* width = node + L.maxc;
+  int* knode = width + L.maxc;
+  float* msk = reinterpret_cast<float*>(smem + L.msk);
+  T* ext = reinterpret_cast<T*>(smem + L.op0);
+  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
+  const size_t row0 = (size_t)blockIdx.x * R;
+  const int cb = blockIdx.y * RCW;  // this block's slice
+  const int nlive = adj_live_chunks(adj, row0, R, S, flags, node, width,
+                                    msk);
+  if (nlive == 0) {
+    for (int e = threadIdx.x; e < R * RCW; e += RNT)
+      scratch[(e / RCW) * CS + e % RCW] = 0.f;
+    __syncthreads();
+  } else {
+    const int KL = nlive * ACW, lda = a_lda(KL);
+    adj_operand<R, T>(adj, nullptr, row0, R, S, nlive, node, width, knode,
+                      ext, lda);
+    rb_pass_rr<T, R>(
+        ring, ext, lda, KL, cb, D, scratch,
+        [&](int k) { return x + (size_t)knode[k] * D; }, rows_wide(D, x));
+  }
+  epi(row0, cb, scratch);
+}
+
+// adj_pass_kernel's epilogue out = rnd(Cs) (K5f, K3b's dxw, K4b's dh).
+template <typename T>
+struct AdjStore {
+  T* out;
+  int D;
+  __device__ void operator()(size_t row0, int c0, float* Cs) const {
+    for (int e = threadIdx.x; e < R * RCW; e += RNT) {
+      const int r = e / RCW, j = e % RCW, c = c0 + j;
+      if (c < D) st(out, (row0 + r) * D + c, Cs[r * CS + j]);
+    }
+  }
+};
+
+// The adjacency pass over N rows at the 64 KB f32 ring (the 32 KB one
+// where shared memory does not fit).
+template <typename T, typename Epi>
+static int launch_adj_pass(const void* x, const void* adj, const Epi& epi,
+                           int N, int S, int D, cudaStream_t st) {
+  const RbShape sh = rb_shape(R, 1, [&](int, int rg) {
+    return adj_pass_smem<T>(S, rg).total;
+  });
+  if (!sh.rb) return (int)cudaErrorInvalidValue;
+  cudaError_t e = set_smem(adj_pass_kernel<T, Epi>, sh.bytes);
+  if (e != cudaSuccess) return (int)e;
+  adj_pass_kernel<T, Epi><<<dim3(N / R, (D + RCW - 1) / RCW), RNT, sh.bytes,
+                            st>>>((const T*)x, (const T*)adj, epi, S, D,
+                                  sh.ring);
+  return (int)cudaGetLastError();
+}
+
+// Weight-gradient products for the redesigned backward passes (K5b, K4b,
+// K1b): C[m, c] = sum_r X[r, m] Y[r, c] over the rows of one chunk, for one
+// TR x 64 output tile per block (TR = 64, or 32 where the caller wants
+// more blocks than 64-row tiles give), written to partial[chunk, off + m *
+// C + c]; the caller adds the chunks in chunk order (sum_partials). Up to
+// three problems share one launch (block order: problem, chunk, tile). Each
+// 16-row step is one strip of the row space: a strip whose live flag is 0
+// (its Y rows are all zero, which the pass that wrote Y recorded) is
+// skipped, and a chunk with no live strip writes zeros without loading
+// anything. The block lists its live strips in parallel (a ballot over the
+// chunk's flags), then streams their X and Y rows through a ring of WST
+// shared-memory stages of one strip each (WST - 1 strips in flight) with
+// cp.async (16-byte copies for f32 rows of whole float4s, else 4-byte ones;
+// bf16 rows of odd width are loaded directly), one __syncthreads a step. f32 runs FP32 FMA
+// ((TR / 16) x 4 per thread, vector shared loads), each output one
+// thread's sum over the chunk's rows in ascending order, as atb_kernel
+// sums it; bf16 runs mma.sync m16n8k16 with X^T as the A
+// operand (warp w: m16 tile w % (TR / 16), TR / 16 n8 tiles of column
+// group w / (TR / 16)), its fragments paired from the staged rows.
+constexpr int WT = 64;    // output tile columns (and rows at most)
+constexpr int WK = 16;    // rows per strip
 constexpr int WNT = 256;  // threads
-constexpr int WS2 = WT + 8;  // bf16 pair-row stride (words)
+constexpr int WST = 4;    // ring stages
 constexpr int WMAX_ROWS = 1024;  // most rows of one chunk
 
-template <typename T>
-__global__ void __launch_bounds__(WNT)
-wgrad_kernel(const T* __restrict__ X, const T* __restrict__ Y,
-             const int* __restrict__ strip_live, int N, int M, int C,
-             int rows_per_chunk, float* __restrict__ partial, int width,
-             int off) {
+
+struct WProb {
+  const void* x;  // [N, m]
+  const void* y;  // [N, c]
+  int m, c;       // output shape
+  int off;        // offset of this problem's output in a partial row
+};
+
+__host__ __device__ inline int wgrad_tiles(const WProb& p, int tr) {
+  return ((p.m + tr - 1) / tr) * ((p.c + WT - 1) / WT);
+}
+
+// One step's copies of wgrad_kernel: rows r0 .. r0 + WK - 1 of src (row
+// stride and width `cols`), columns col0 .. col0 + W - 1, into dst (row
+// pitch `pitch` elements), EW elements a copy: cp.async of EW * sizeof(T)
+// bytes when ASYNC, else loads and stores. Rows at or past r_hi and
+// columns past `cols` are zero-filled.
+template <int W, int EW, bool ASYNC, typename T>
+__device__ __forceinline__ void wgrad_copy(T* dst, const T* src, int cols,
+                                           int col0, int r0, int r_hi,
+                                           int pitch) {
+  constexpr int WPR = W / EW;  // copies per row
+  for (int e = threadIdx.x; e < WK * WPR; e += WNT) {
+    const int kk = e / WPR, cc = (e % WPR) * EW;
+    const int r = r0 + kk, c = col0 + cc;
+    const int nv = r < r_hi ? max(0, min(EW, cols - c)) : 0;
+    if constexpr (ASYNC) {
+      float* d = reinterpret_cast<float*>(dst + kk * pitch + cc);
+      const float* s =
+          reinterpret_cast<const float*>(nv ? src + (size_t)r * cols + c : src);
+      if constexpr (EW * sizeof(T) == 16)
+        cp_async16(d, s, nv * (int)sizeof(T));
+      else
+        cp_async4(d, s, nv * (int)sizeof(T));
+    } else {
+#pragma unroll
+      for (int h = 0; h < EW; ++h)
+        st(dst, kk * pitch + cc + h,
+           h < nv ? ld(src, (size_t)r * cols + c + h) : 0.f);
+    }
+  }
+}
+
+// (held to 64 registers, so that four blocks share an SM: faster at the
+// pretraining shape than the 80 registers it takes unbounded)
+template <typename T, int TR>
+__global__ void __launch_bounds__(WNT, 4)
+wgrad_kernel(WProb p0, WProb p1, WProb p2, int nprob,
+             const int* __restrict__ strip_live, int N, int rows_per_chunk,
+             int chunks, float* __restrict__ partial, int width) {
+  static_assert(TR == 64 || TR == 32, "tile rows");
+  static_assert(WMAX_ROWS / WK <= 64, "a chunk's strips fit two ballots");
   constexpr bool F32 = sizeof(T) == 4;
-  __shared__ __align__(16) float xs[F32 ? WK * WT : (WK / 2) * WS2];
-  __shared__ __align__(16) float ys[F32 ? WK * WT : (WK / 2) * WS2];
+  constexpr int RM = TR / 16;  // f32: rows per thread; bf16: m16 tiles
+  // a stage: X rows [WK, XP] then Y rows [WK, YP] (elements of T)
+  constexpr int XP = F32 ? TR : TR + 8, YP = F32 ? WT : WT + 8;
+  constexpr int STAGE = WK * (XP + YP) * (int)sizeof(T) / 4;  // words
+  __shared__ __align__(16) float ring[WST * STAGE];
   __shared__ int steps[WMAX_ROWS / WK];
-  __shared__ int nsteps;
+  __shared__ int wcnt[2];
+  int blk = blockIdx.x, q = 0;
+  for (; q < nprob - 1; ++q) {
+    const int nb = chunks * wgrad_tiles(q == 0 ? p0 : p1, TR);
+    if (blk < nb) break;
+    blk -= nb;
+  }
+  const WProb p = q == 0 ? p0 : q == 1 ? p1 : p2;
+  const int M = p.m, C = p.c;
+  const T* X = (const T*)p.x;
+  const T* Y = (const T*)p.y;
   const int tiles_c = (C + WT - 1) / WT;
-  const int tiles = ((M + WT - 1) / WT) * tiles_c;
-  const int chunk = blockIdx.x / tiles, tl = blockIdx.x % tiles;
-  const int m0 = (tl / tiles_c) * WT, c0 = (tl % tiles_c) * WT;
-  const int tid = threadIdx.x;
+  const int tiles = ((M + TR - 1) / TR) * tiles_c;
+  const int chunk = blk / tiles, tl = blk % tiles;
+  const int m0 = (tl / tiles_c) * TR, c0 = (tl % tiles_c) * WT;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int r_lo = chunk * rows_per_chunk;
   const int r_hi = min(N, r_lo + rows_per_chunk);
-  if (tid == 0) {
-    int n = 0;
-    for (int r0 = r_lo; r0 < r_hi; r0 += WK)
-      if (strip_live[r0 / WK]) steps[n++] = r0;
-    nsteps = n;
+
+  // the chunk's live strips, in order: thread i < 64 reads strip i's flag
+  const int nst = (r_hi - r_lo + WK - 1) / WK;
+  bool lv = false;
+  unsigned bal = 0;
+  if (tid < 64) {
+    lv = tid < nst && strip_live[r_lo / WK + tid];
+    bal = __ballot_sync(0xffffffffu, lv);
+    if (lane == 0) wcnt[tid >> 5] = __popc(bal);
   }
   __syncthreads();
-  const int ns = nsteps;
-  float* prow = partial + (size_t)chunk * width + off;
+  if (lv)
+    steps[(tid >= 32 ? wcnt[0] : 0) + __popc(bal & ((1u << lane) - 1))] =
+        r_lo + tid * WK;
+  const int ns = wcnt[0] + wcnt[1];
+  __syncthreads();
+  float* prow = partial + (size_t)chunk * width + p.off;
 
-  // staging: f32 thread loads rows (tid / 64) + 4 i, column tid % 64;
-  // bf16 thread loads the row pair (tid / 32) and columns 2 (tid % 32) + e
-  float sx[4], sy[4];
-  auto load = [&](int r0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int r, cc;
+  // copies of EW elements (16 bytes for f32 rows of whole float4s, else 4:
+  // one f32 element or a bf16 column pair; bf16 rows of odd width are
+  // loaded directly); rows past the chunk, columns past the matrix zero
+  const bool vec = (((M | C) & 3) == 0 &&
+                    ((reinterpret_cast<size_t>(X) |
+                      reinterpret_cast<size_t>(Y)) & 15) == 0);
+  const bool wide = (((M | C) & 1) == 0 &&
+                     ((reinterpret_cast<size_t>(X) |
+                       reinterpret_cast<size_t>(Y)) & 3) == 0);
+  auto issue = [&](int s) {
+    if (s < ns) {
+      T* xd = reinterpret_cast<T*>(ring + (s % WST) * STAGE);
+      T* yd = xd + WK * XP;
+      const int r0 = steps[s];
       if constexpr (F32) {
-        r = r0 + (tid >> 6) + 4 * i;
-        cc = tid & 63;
+        if (vec) {
+          wgrad_copy<TR, 4, true>(xd, X, M, m0, r0, r_hi, XP);
+          wgrad_copy<WT, 4, true>(yd, Y, C, c0, r0, r_hi, YP);
+        } else {
+          wgrad_copy<TR, 1, true>(xd, X, M, m0, r0, r_hi, XP);
+          wgrad_copy<WT, 1, true>(yd, Y, C, c0, r0, r_hi, YP);
+        }
+      } else if (wide) {
+        wgrad_copy<TR, 2, true>(xd, X, M, m0, r0, r_hi, XP);
+        wgrad_copy<WT, 2, true>(yd, Y, C, c0, r0, r_hi, YP);
       } else {
-        r = r0 + 2 * (tid >> 5) + (i & 1);
-        cc = 2 * (tid & 31) + (i >> 1);
+        wgrad_copy<TR, 2, false>(xd, X, M, m0, r0, r_hi, XP);
+        wgrad_copy<WT, 2, false>(yd, Y, C, c0, r0, r_hi, YP);
       }
-      const bool ok = r < r_hi;
-      sx[i] = (ok && m0 + cc < M) ? ld(X, (size_t)r * M + m0 + cc) : 0.f;
-      sy[i] = (ok && c0 + cc < C) ? ld(Y, (size_t)r * C + c0 + cc) : 0.f;
     }
+    cp_async_commit();
   };
-  float acc[16];
+
+  float acc[TR / 4];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
-  if (ns > 0) load(steps[0]);
+  for (int i = 0; i < TR / 4; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int s = 0; s < WST - 1; ++s) issue(s);
   for (int s = 0; s < ns; ++s) {
-    __syncthreads();
+    cp_async_wait<WST - 2>();  // this thread's copies of step s landed
+    __syncthreads();           // everyone's; step s - 1 is consumed
+    issue(s + WST - 1);
+    const float* slot = ring + (s % WST) * STAGE;
     if constexpr (F32) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kk = (tid >> 6) + 4 * i, cc = tid & 63;
-        xs[kk * WT + cc] = sx[i];
-        ys[kk * WT + cc] = sy[i];
-      }
-    } else {
-      unsigned* xp = reinterpret_cast<unsigned*>(xs);
-      unsigned* yp = reinterpret_cast<unsigned*>(ys);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kp = tid >> 5, cc = 2 * (tid & 31) + e;
-        xp[kp * WS2 + cc] = pack_bf16(sx[2 * e], sx[2 * e + 1]);
-        yp[kp * WS2 + cc] = pack_bf16(sy[2 * e], sy[2 * e + 1]);
-      }
-    }
-    __syncthreads();
-    if (s + 1 < ns) load(steps[s + 1]);
-    if constexpr (F32) {
+      const float* xs = slot;
+      const float* ys = slot + WK * XP;
       const int tx = tid & 15, ty = tid >> 4;
 #pragma unroll
       for (int kk = 0; kk < WK; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(xs + kk * WT + 4 * ty);
-        const float4 b = *reinterpret_cast<const float4*>(ys + kk * WT + 4 * tx);
-        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+        float av[RM];
+        if constexpr (RM == 4) {
+          const float4 a =
+              *reinterpret_cast<const float4*>(xs + kk * TR + 4 * ty);
+          av[0] = a.x; av[1] = a.y; av[2] = a.z; av[3] = a.w;
+        } else {
+          const float2 a =
+              *reinterpret_cast<const float2*>(xs + kk * TR + 2 * ty);
+          av[0] = a.x; av[1] = a.y;
+        }
+        const float4 b =
+            *reinterpret_cast<const float4*>(ys + kk * WT + 4 * tx);
+        const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RM; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j)
             acc[i * 4 + j] = fmaf(av[i], bv[j], acc[i * 4 + j]);
       }
     } else {
-      const unsigned* xp = reinterpret_cast<const unsigned*>(xs);
-      const unsigned* yp = reinterpret_cast<const unsigned*>(ys);
-      const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-      const int mb = (warp & 3) * 16;
-      unsigned a[4] = {xp[t * WS2 + mb + g], xp[t * WS2 + mb + g + 8],
-                       xp[(t + 4) * WS2 + mb + g],
-                       xp[(t + 4) * WS2 + mb + g + 8]};
+      const unsigned short* xh = reinterpret_cast<const unsigned short*>(slot);
+      const unsigned short* yh = xh + WK * XP;
+      // the bf16 pair (row k, row k + 1) at column c, k in the low half
+      auto pair = [](const unsigned short* m, int pitch, int k, int c) {
+        return (unsigned)m[k * pitch + c] |
+               ((unsigned)m[(k + 1) * pitch + c] << 16);
+      };
+      const int warp = tid >> 5, g = lane >> 2, t = lane & 3;
+      const int mb = (warp % RM) * 16, ng = warp / RM;
+      const unsigned a[4] = {pair(xh, XP, 2 * t, mb + g),
+                             pair(xh, XP, 2 * t, mb + g + 8),
+                             pair(xh, XP, 2 * t + 8, mb + g),
+                             pair(xh, XP, 2 * t + 8, mb + g + 8)};
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int nb = (warp >> 2) * 32 + nt * 8 + g;
-        mma_bf16(&acc[nt * 4], a, yp[t * WS2 + nb], yp[(t + 4) * WS2 + nb]);
+      for (int nt = 0; nt < RM; ++nt) {
+        const int nb = ng * RM * 8 + nt * 8 + g;
+        mma_bf16(&acc[nt * 4], a, pair(yh, YP, 2 * t, nb),
+                 pair(yh, YP, 2 * t + 8, nb));
       }
     }
   }
+  cp_async_wait<0>();
   if constexpr (F32) {
     const int tx = tid & 15, ty = tid >> 4;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int m = m0 + 4 * ty + i, c = c0 + 4 * tx + j;
+        const int m = m0 + RM * ty + i, c = c0 + 4 * tx + j;
         if (m < M && c < C) prow[(size_t)m * C + c] = acc[i * 4 + j];
       }
   } else {
-    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int warp = tid >> 5, g = lane >> 2, t = lane & 3;
+    const int mb = (warp % RM) * 16, ng = warp / RM;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int nt = 0; nt < RM; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int m = m0 + (warp & 3) * 16 + g + (e >> 1) * 8;
-        const int c = c0 + (warp >> 2) * 32 + nt * 8 + 2 * t + (e & 1);
+        const int m = m0 + mb + g + (e >> 1) * 8;
+        const int c = c0 + ng * RM * 8 + nt * 8 + 2 * t + (e & 1);
         if (m < M && c < C) prow[(size_t)m * C + c] = acc[nt * 4 + e];
       }
   }
 }
 
+// The weight pass over nprob (1 to 3) problems: `chunks` row chunks of
+// rows_per_chunk rows, which the caller chooses (ops/fused_gcn.py
+// dw_chunks, ops/fused_layer.py gine_bwd_weight_shape) and this only
+// checks (a multiple of 16, at most WMAX_ROWS, covering the N rows once),
+// times each problem's tiles of tile_rows (64 or 32) x 64.
+template <typename T>
+static int launch_wgrad(const WProb* p, int nprob, const int* strip_live,
+                        int N, int rows_per_chunk, int chunks, int tile_rows,
+                        float* partial, int width, cudaStream_t st) {
+  if (nprob < 1 || nprob > 3 || rows_per_chunk <= 0 ||
+      rows_per_chunk % WK || rows_per_chunk > WMAX_ROWS ||
+      (N + rows_per_chunk - 1) / rows_per_chunk != chunks ||
+      (tile_rows != WT && tile_rows != WT / 2))
+    return (int)cudaErrorInvalidValue;
+  int nb = 0;
+  for (int q = 0; q < nprob; ++q) nb += chunks * wgrad_tiles(p[q], tile_rows);
+  const WProb p1 = nprob > 1 ? p[1] : p[0], p2 = nprob > 2 ? p[2] : p[0];
+  auto kernel =
+      tile_rows == WT ? wgrad_kernel<T, WT> : wgrad_kernel<T, WT / 2>;
+  kernel<<<nb, WNT, 0, st>>>(p[0], p1, p2, nprob, strip_live, N,
+                             rows_per_chunk, chunks, partial, width);
+  return (int)cudaGetLastError();
+}
+
 // sums[i] = sum over blocks, in block order, of partial[blk, i]; i < width.
+// sum_partials: one thread per column, its loads 16 rows at a time.
+// sum_partials_tiled: a block of SUM_NT threads per 32 columns, whose warps
+// stage up to SUM_ROWS rows at a time in shared memory (many loads in
+// flight on each of many SMs), and whose first warp adds them in row
+// order. Both add in block order, one thread per column, so they agree bit
+// for bit. The tiled kernel is taken for many rows of few columns (at least
+// SUM_TILE_MIN rows, at most SUM_TILE_MAX_WIDTH columns: the strip
+// partials of a batch of four tiles or more), where the column kernel
+// runs on a few SMs only; it is slower elsewhere, the weight passes'
+// chunk partials included (runs/port_sum_partials.py on an H100).
+constexpr int SUM_NT = 256, SUM_ROWS = 256, SUM_TILE_MIN = 64,
+              SUM_TILE_MAX_WIDTH = 4096;
+
 static __global__ void sum_partials(const float* __restrict__ partial,
                                     float* __restrict__ sums, int nblk,
                                     int width) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= width) return;
   float t = 0.f;
-  for (int blk = 0; blk < nblk; ++blk) t += partial[(size_t)blk * width + i];
+  int blk = 0;
+  for (; blk + 16 <= nblk; blk += 16) {
+    float v[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v[j] = partial[(size_t)(blk + j) * width + i];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) t += v[j];
+  }
+  for (; blk < nblk; ++blk) t += partial[(size_t)blk * width + i];
   sums[i] = t;
+}
+
+static __global__ void __launch_bounds__(SUM_NT)
+sum_partials_tiled(const float* __restrict__ partial, float* __restrict__ sums,
+                   int nblk, int width) {
+  __shared__ float tile[SUM_ROWS][33];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * 32 + lane;
+  float t = 0.f;
+  for (int b0 = 0; b0 < nblk; b0 += SUM_ROWS) {
+    const int nb = min(SUM_ROWS, nblk - b0);
+    __syncthreads();  // the previous rows are added
+#pragma unroll 8
+    for (int r = warp; r < nb; r += SUM_NT / 32)
+      tile[r][lane] = i < width ? partial[(size_t)(b0 + r) * width + i] : 0.f;
+    __syncthreads();
+    if (warp == 0) {
+      int r = 0;
+      for (; r + 16 <= nb; r += 16) {
+        float v[16];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) v[j] = tile[r + j][lane];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) t += v[j];
+      }
+      for (; r < nb; ++r) t += tile[r][lane];
+    }
+  }
+  if (warp == 0 && i < width) sums[i] = t;
 }
 
 static inline int launch_sum_partials(const float* partial, float* sums,
                                       int nblk, int width,
                                       cudaStream_t stream) {
-  sum_partials<<<(width + 255) / 256, 256, 0, stream>>>(partial, sums, nblk,
-                                                         width);
+  if (nblk >= SUM_TILE_MIN && width <= SUM_TILE_MAX_WIDTH)
+    sum_partials_tiled<<<(width + 31) / 32, SUM_NT, 0, stream>>>(
+        partial, sums, nblk, width);
+  else
+    sum_partials<<<(width + 255) / 256, 256, 0, stream>>>(partial, sums,
+                                                           nblk, width);
   return (int)cudaGetLastError();
 }
 

@@ -44,7 +44,7 @@
 // 0.22 GFLOP against 5.4 MB, 3.4 us. At this shape a launch is short and
 // the card wide: what bounds both is how many blocks they keep busy and
 // how long each waits on memory. K5f is two row-block launches on 16-row
-// strips (k5f_xw_kernel, k5f_adj_kernel), 64 strips x 3 column passes =
+// strips (k5f_xw_kernel, adj_pass_kernel), 64 strips x 3 column passes =
 // 192 blocks each at T = 4, where the first design ran 64 strip blocks
 // per pass on CUDA cores: the xw pass multiplies the strip's x rows by W
 // through the 64 KB f32 weight ring (two blocks share an SM; the 32 KB
@@ -85,8 +85,9 @@
 //   dW = xc^T @ dxw, detab = cnt^T @ gtc        (all f32)
 // As K1b, it runs as passes on one stream, each deterministic: (a) rows:
 // gt, gtc and the strip's dbias partial; (b) adjacency: dxw, K5f's
-// adjacency pass (k5f_adj_kernel) on gtc; (c) rows with W^T (transposed once): dxc and the prologue adjoint,
-// writing dx and xc and the strip's [da | db] partials; (d) weights: dW and
+// adjacency pass (adj_pass_kernel of fused_bn_common.cuh) on gtc; (c)
+// rows with W^T (transposed once): dxc and the prologue adjoint, writing
+// dx and xc and the strip's [da | db] partials; (d) weights: dW and
 // detab as two transposed-left problems of one atb_kernel launch over fixed
 // row chunks; then every partial is added in a fixed order (sum_partials).
 // No atomics: two runs are bit-identical. Nothing of the forward but x and
@@ -247,26 +248,21 @@ gcn_bn_bwd_rows_kernel(const T* __restrict__ dxw, const T* __restrict__ wt,
       });
 }
 
-// K5f's passes; the second is also K3b's adjacency pass.
+// K5f's passes; the second is also K3b's, K4b's and K1b's adjacency pass.
 //   k5f_xw_kernel, one block per (16-row strip, 128-column pass of xw):
 //     the strip's x rows as the operand, its pass of xw = rnd(x @ W) with W
 //     through the weight ring. A strip whose A rows are all zero writes
 //     zeros and no product: A is symmetric, so a live row weighs such a
 //     row of xw by an exact zero, and the zeros keep whatever the buffer
 //     held out of the live chunks that the strip's nodes share.
-//   k5f_adj_kernel, one block per (16-row strip, 128-column pass): its pass
-//     of out = rnd(A @ xw) over the strip's live 32-column chunks only; a
-//     strip with none writes zeros.
+//   adj_pass_kernel (fused_bn_common.cuh, shared with K4b and K1b), one
+//     block per (16-row strip, 128-column pass): its pass of out = rnd(A @
+//     xw) over the strip's live 32-column chunks only; a strip with none
+//     writes zeros.
 template <typename T>
 __host__ __device__ inline RbSmem k5f_xw_smem(int S, int D, int ring) {
   const int nch = (S + ACW - 1) / ACW;
   return rb_smem(S, nch, a_bytes<T>(R, D), 0, pass_bytes<T>(R, ring));
-}
-
-template <typename T>
-__host__ __device__ inline RbSmem k5f_adj_smem(int S, int ring) {
-  const int nch = (S + ACW - 1) / ACW;
-  return rb_smem(S, nch, a_bytes<T>(R, nch * ACW), 0, pass_bytes<T>(R, ring));
 }
 
 template <typename T>
@@ -299,60 +295,6 @@ k5f_xw_kernel(const T* __restrict__ x, const T* __restrict__ adj,
     const int r = e / RCW, j = e % RCW, c = cb + j;
     if (c < D) st(xw, (row0 + r) * D + c, scratch[r * CS + j]);
   }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(RNT, 2)
-k5f_adj_kernel(const T* __restrict__ xw, const T* __restrict__ adj,
-               T* __restrict__ out, int S, int D, int ring) {
-  extern __shared__ float smem_f[];  // 16-byte aligned
-  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
-  const RbSmem L = k5f_adj_smem<T>(S, ring);
-  int* flags = reinterpret_cast<int*>(smem + L.meta);
-  int* node = flags + 2 * L.nch;
-  int* width = node + L.maxc;
-  int* knode = width + L.maxc;
-  float* msk = reinterpret_cast<float*>(smem + L.msk);
-  T* ext = reinterpret_cast<T*>(smem + L.op0);
-  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
-  const size_t row0 = (size_t)blockIdx.x * R;
-  const int cb = blockIdx.y * RCW;  // this block's pass of out
-  const int nlive = adj_live_chunks(adj, row0, R, S, flags, node, width,
-                                    msk);
-  if (nlive == 0) {
-    for (int e = threadIdx.x; e < R * RCW; e += RNT) {
-      const int r = e / RCW, c = cb + e % RCW;
-      if (c < D) st(out, (row0 + r) * D + c, 0.f);
-    }
-    return;
-  }
-  const int KL = nlive * ACW, lda = a_lda(KL);
-  adj_operand<R, T>(adj, nullptr, row0, R, S, nlive, node, width, knode, ext,
-                    lda);
-  // xw streams through the ring: row k is node knode[k]'s
-  rb_pass_rr<T, R>(
-      ring, ext, lda, KL, cb, D, scratch,
-      [&](int k) { return xw + (size_t)knode[k] * D; }, rows_wide(D, xw));
-  for (int e = threadIdx.x; e < R * RCW; e += RNT) {
-    const int r = e / RCW, j = e % RCW, c = cb + j;
-    if (c < D) st(out, (row0 + r) * D + c, scratch[r * CS + j]);
-  }
-}
-
-// The adjacency pass at the 64 KB f32 ring (the 32 KB one where shared
-// memory does not fit).
-template <typename T>
-static int launch_k5f_adj(const void* xw, const void* adj, void* out, int N,
-                          int S, int D, cudaStream_t st) {
-  const RbShape sh = rb_shape(R, 1, [&](int, int rg) {
-    return k5f_adj_smem<T>(S, rg).total;
-  });
-  if (!sh.rb) return (int)cudaErrorInvalidValue;
-  cudaError_t e = set_smem(k5f_adj_kernel<T>, sh.bytes);
-  if (e != cudaSuccess) return (int)e;
-  k5f_adj_kernel<T><<<dim3(N / R, (D + RCW - 1) / RCW), RNT, sh.bytes, st>>>(
-      (const T*)xw, (const T*)adj, (T*)out, S, D, sh.ring);
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -396,7 +338,7 @@ static int gcn_fwd(const void* x, const void* adj, const void* w, void* xw,
   k5f_xw_kernel<T><<<dim3(N / R, (D + RCW - 1) / RCW), RNT, sh.bytes, st>>>(
       (const T*)x, (const T*)adj, (const T*)w, (T*)xw, S, D, sh.ring);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  return launch_k5f_adj<T>(xw, adj, out, N, S, D, st);
+  return launch_adj_pass<T>(xw, adj, AdjStore<T>{(T*)out, D}, N, S, D, st);
 }
 
 // K5b's strip pass: one block of RNT threads per (16-row strip, 128-column
@@ -497,10 +439,6 @@ static int gcn_bwd(const void* g, const void* x, const void* adj,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int N = T_ * S;
-  if (rows_per_chunk <= 0 || rows_per_chunk % WK ||
-      rows_per_chunk > WMAX_ROWS ||
-      (N + rows_per_chunk - 1) / rows_per_chunk != chunks)
-    return (int)cudaErrorInvalidValue;
   const RbShape sh = rb_shape(K5B_RB, 0, [&](int, int ring) {
     return k5b_smem<T>(S, D, ring).total;
   });
@@ -514,11 +452,10 @@ static int gcn_bwd(const void* g, const void* x, const void* adj,
       (const T*)g, (const T*)adj, (const T*)wt, (T*)dxw, (T*)dx, strip_live,
       S, D, sh.ring);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  const int tiles = ((D + WT - 1) / WT) * ((D + WT - 1) / WT);
-  wgrad_kernel<T><<<chunks * tiles, WNT, 0, st>>>(
-      (const T*)x, (const T*)dxw, strip_live, N, D, D, rows_per_chunk, part_w,
-      D * D, 0);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const WProb p = {x, dxw, D, D, 0};
+  err = launch_wgrad<T>(&p, 1, strip_live, N, rows_per_chunk, chunks, WT,
+                        part_w, D * D, st);
+  if (err) return err;
   return launch_sum_partials(part_w, dw, chunks, D * D, st);
 }
 
@@ -545,7 +482,8 @@ static int gcn_bn_bwd(const void* g, const float* ds, const void* x,
       (const T*)g, ds, (const T*)adj, (const T*)out, (T*)gtc, part_gt, S, D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  int err = launch_k5f_adj<T>(gtc, adj, dxw, N, S, D, st);
+  int err = launch_adj_pass<T>(gtc, adj, AdjStore<T>{(T*)dxw, D}, N, S, D,
+                               st);
   if (err) return err;
   if ((err = launch_transpose<T>(w, wt, D, D, st))) return err;
   const size_t bytes = ((size_t)R * D + KC * CW) * sizeof(float);

@@ -66,30 +66,46 @@
 //   da = sum dpre h, db = sum dpre, db1 = sum dmid, db2 = sum gt,
 //   dW1 = agg^T dmidc, dW2 = mid^T gtc, detab = cnt^T daggc  (all f32)
 // The TPU kernel holds a whole tile and carries the parameter sums across
-// its sequential grid. Here dx for a strip needs daggc for all 256 rows of
-// its tile, which a strip block does not have, so the backward is three
-// passes, each deterministic:
-//   (a) rows: per strip, gt, dmid, dagg (row-local; gtc and dmidc live in
-//       shared memory; W2^T and W1^T, transposed once per backward so that
-//       they stream row by row, go through the chunk), writing gtc, dmidc,
-//       daggc to scratch and the strip's db1 / db2 partials;
-//   (b) adjacency: per strip, dx = A_strip @ daggc_tile and the prologue
-//       adjoint, writing dh and the strip's da / db partials;
-//   (c) weights: dW1, dW2 and detab as transposed-left products over N
-//       (atb_kernel), the rows split in fixed chunks;
-// and every partial is added in a fixed order (sum_partials). No atomics:
-// two runs are bit-identical.
+// its sequential grid. Here dx for a strip needs daggc for all rows of its
+// tile, and dagg needs all D2 columns of dmid, so the backward is a chain
+// of launches on one stream, each deterministic, all on the row-block
+// products (fused_bn_common.cuh; FP32 FMA in f32, mma.sync m16n8k16 tensor
+// cores with f32 sums in bf16):
+//   * W1^T and W2^T, transposed once so that their rows stream;
+//   * the dmid launch, one block per (16-row strip, 128-column slice of
+//     dmid): gt and gtc for the strip's rows, then its slice of dmidc and
+//     of the strip's db1 partial (gine_bwd_dmid_kernel); the slice-0 block
+//     writes gtc, the db2 partial and the strip's live flag (0 when every
+//     gt value of the strip is exactly zero, padding rows included);
+//   * the dagg launch, one block per (strip, 128-column slice of dagg):
+//     daggc = rnd(dmidc @ W1^T) (gine_bwd_dagg_kernel);
+//   * the adjacency pass, K5f's (adj_pass_kernel, 16-row strips): dx =
+//     A_strip @ daggc over the strip's live 32-column chunks only, then the
+//     prologue adjoint, dh and the strip's [da | db] partials (BnAdjoint);
+//   * the weight pass (wgrad_kernel): dW1, dW2 and detab as three
+//     transposed-left problems of one launch over row chunks, strips whose
+//     flag is 0 skipped;
+// and every partial is added in a fixed order (sum_partials). Dead strips
+// (flag 0) write zeros in the dmid and dagg launches with no product. No
+// atomics: two runs are bit-identical. In f32 each output is one thread's
+// sum in the first design's order (products over k ascending; db1 and the
+// [da | db] partials each group of four rows, then the groups; db2 one
+// thread per column, rows ascending; the weight pass's chunks of at most
+// 1,024 rows, rows ascending), and a skipped term is an exact zero, so the
+// f32 results are bit-identical to the first design's (strip passes of 4
+// x 4 FMA tiles on CUDA cores, a dense adjacency strip, atb_kernel).
 //
 // Bound on the H100 at the pretraining shape (T = 22, D = 300, 4,696 real
 // rows of 5,632, f32): four dense products over the real rows, 4 x 2 x
 // 4,696 x 300 x 600 = 6.8 GFLOP, plus A @ daggc and cnt^T daggc by their
 // nonzeros, against about 40 MB moved: 0.10 ms at 67 TFLOP/s. In bf16 the
-// bytes set the bound (about 7 us). Its passes are 16-row strips of 4 x 4
-// FMA tiles on CUDA cores (strip_gemm), with no tensor cores and no
-// skipping of dead work; the weight products (atb_kernel, one 1,024-row
-// chunk per block) read agg, mid, gtc and dmidc back from device memory
-// (the TPU kernel has them in VMEM). wgrad_kernel, K5b's weight pass, is
-// the building block to move them onto.
+// bytes set the bound (about 7 us). What still holds it back (PERF.md):
+// the f32 weight pass, the largest launch, issues FMA on X and Y slabs that
+// every output tile re-reads; the f32 products of row blocks are bound by
+// shared-memory loads and cover the padded rows of live strips; dmidc, gtc
+// and daggc round-trip device memory (L2) between the launches; no wgmma,
+// no TMA. The f32 sums keep the first design's order (ROADMAP queue 2),
+// which rules out split-K and TF32.
 
 // K4f and K4b replace molclr_tpu/ops/fused_layer.py:_fwd_kernel and
 // _bwd_kernel, the unchained layer fused_gine_layer that the fine-tuning
@@ -99,11 +115,15 @@
 //   dmid = (g @ W2^T) * [mid > 0], dagg = rnd(rnd(dmid) @ W1^T),
 //   dh = rnd(A @ daggc), dW1 = agg^T dmidc, db1 = sum dmid,
 //   dW2 = mid^T g, db2 = sum g, detab = cnt^T daggc.
-// K4b is K1b's passes instantiated with BN = false (gt = g with no dsums
-// term, no prologue adjoint); nothing of BatchNorm is computed, and K4b
-// keeps K1b's three deterministic passes and its W^T transposes.
+// K4b is K1b's launches instantiated with BN = false (gt = g with no dsums
+// term, no prologue adjoint: its adjacency pass writes dh = rnd(dx), K5f's
+// function); nothing of BatchNorm is computed. At the fine-tuning shape (T
+// = 4) the dmid launch runs 64 x 5 = 320 blocks of 16 rows, the dagg and
+// adjacency launches 64 x 3, and the f32 weight pass (one 1,024-row chunk)
+// 32 x 64 output tiles, 200 blocks, so that each launch reaches the 132
+// SMs (the 40 live strips' 120 dagg and adjacency blocks excepted).
 //
-// K4f is two row-block launches (the kernels below gine_bwd's passes) of
+// K4f is two row-block launches (k4f_mid_kernel, k4f_out_kernel) of
 // 16-row blocks with the 64 KB f32 weight ring, so that two blocks share
 // an SM (the 32 KB ring where a wider layer does not fit). At the
 // fine-tuning shape (T = 4 tiles of 256, D = 300, D2 = 600):
@@ -456,168 +476,222 @@ static RbShape k4f_launch_shape(int launch, int S, int D, int D2) {
   });
 }
 
-// Backward pass (a): gt, dmid, dagg for one strip (row-local). w1t [D2, D]
-// and w2t [D, D2] are W1^T and W2^T, so that the chunks stream row by row.
-// K4b (BN false) takes gt = g itself: no gtc is written, and ds, adj, out
-// and gtc are not read.
-template <typename T, bool BN>
-__global__ void __launch_bounds__(NT)
-gine_bwd_rows_kernel(const T* __restrict__ g, const float* __restrict__ ds,
-                     const T* __restrict__ adj, const T* __restrict__ mid,
-                     const T* __restrict__ out, const T* __restrict__ w1t,
-                     const T* __restrict__ w2t, T* __restrict__ gtc,
-                     T* __restrict__ dmidc, T* __restrict__ daggc,
-                     float* __restrict__ partial, int S, int D, int D2) {
-  extern __shared__ float smem[];
-  const int strips = S / R;
-  const int tile = blockIdx.x / strips, strip = blockIdx.x % strips;
-  const size_t row0 = (size_t)tile * S + (size_t)strip * R;
-  float* gts = smem;             // [R, D]  gtc
-  float* dms = gts + R * D;      // [R, D2] dmidc
-  float* Bs = dms + R * D2;      // [KC, CW], epilogue scratch
-  float* msk = Bs + KC * CW;     // [R]
-  float* prow = partial + (size_t)blockIdx.x * (D2 + D);  // [db1 | db2]
+// K1b's and K4b's row passes, blocks of RNT threads on one 16-row strip
+// (BN: K1b).
+//   gine_bwd_dmid_kernel, one block per (strip, 128-column slice of dmid):
+//     gt for its rows over all D columns (K1b: g + m (ds0 + 2 out ds1), each
+//     operation rounded as the plain version rounds it; K4b: g) as the
+//     left operand gtc = rnd(gt) in shared memory; its slice of dmid =
+//     (gtc @ W2^T) [mid > 0] through the weight ring, dmidc = rnd(dmid), and
+//     the strip's db1 partial for the slice, its rows summed as the first
+//     design summed them (each group of four rows, then the groups in
+//     order). The slice-0 block writes gtc (K1b), the strip's db2 partial
+//     (one thread per column, rows ascending) and its live flag: 0 when
+//     every gt value of the strip is exactly zero, whatever its rows are (a
+//     padding row's g counts). A dead strip's blocks write dmidc = 0 and
+//     zero db1 partials and stop.
+//   gine_bwd_dagg_kernel, one block per (strip, 128-column slice of dagg):
+//     dmidc's rows as the operand, daggc = rnd(dmidc @ W1^T); a dead
+//     strip's blocks write zeros.
+// w1t [D2, D] and w2t [D, D2] are W1^T and W2^T, so that their rows
+// stream.
+template <typename T>
+__host__ __device__ inline RbSmem gine_bwd_dmid_smem(int D, int ring) {
+  return rb_smem(0, 0, a_bytes<T>(R, D), 0, pass_bytes<T>(R, ring));
+}
 
-  if constexpr (BN) {
-    if (threadIdx.x < R) {
-      const int r = threadIdx.x;
-      msk[r] = ld(adj, (row0 + r) * S + strip * R + r) > 0.f ? 1.f : 0.f;
-    }
-    __syncthreads();
+template <typename T>
+__host__ __device__ inline RbSmem gine_bwd_dagg_smem(int D2, int ring) {
+  return rb_smem(0, 0, a_bytes<T>(R, D2), 0, pass_bytes<T>(R, ring));
+}
+
+template <typename T, bool BN>
+__global__ void __launch_bounds__(RNT, 2)
+gine_bwd_dmid_kernel(const T* __restrict__ g, const float* __restrict__ ds,
+                     const T* __restrict__ adj, const T* __restrict__ mid,
+                     const T* __restrict__ out, const T* __restrict__ w2t,
+                     T* __restrict__ gtc, T* __restrict__ dmidc,
+                     int* __restrict__ strip_live,
+                     float* __restrict__ partial, int S, int D, int D2,
+                     int ring) {
+  extern __shared__ float smem_f[];  // 16-byte aligned
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  __shared__ int live;
+  const RbSmem L = gine_bwd_dmid_smem<T>(D, ring);
+  float* msk = reinterpret_cast<float*>(smem + L.msk);
+  T* ga = reinterpret_cast<T*>(smem + L.op0);
+  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
+  const int tid = threadIdx.x;
+  const size_t row0 = (size_t)blockIdx.x * R;
+  const int cb = blockIdx.y * RCW;  // this block's slice of dmid
+  const bool first = blockIdx.y == 0;
+  // the strip's [db1 | db2] partials
+  float* prow = partial + (size_t)blockIdx.x * (D2 + D);
+  const int lda = a_lda(D);
+  if (tid == 0) live = 0;
+  if (BN && tid < R) {
+    const size_t r = row0 + tid;
+    msk[tid] = ld(adj, r * S + r % S) > 0.f ? 1.f : 0.f;
   }
-  // K1b: gt = g + m (ds0 + 2 out ds1), each operation rounded as the plain
-  // version rounds it; K4b: gt = g. db2 = sum gt over the strip (uncast).
-  // (strip_gemm's first __syncthreads orders the gts writes before reads.)
-  for (int c = threadIdx.x; c < D; c += NT) {
+  a_zero_cols<R>(ga, lda, D, D);
+  __syncthreads();
+  for (int c = tid; c < D; c += RNT) {
+    float v[R];
     float s = 0.f;
+    bool nz = false;
+#pragma unroll
     for (int r = 0; r < R; ++r) {
-      const size_t i = (row0 + r) * D + c;
-      float v;
+      const size_t e = (row0 + r) * D + c;
+      float gt;
       if constexpr (BN) {
         const float t =
-            __fadd_rn(ds[c], __fmul_rn(2.f * ld(out, i), ds[D + c]));
-        const float gt = __fadd_rn(ld(g, i), msk[r] * t);
-        s += gt;
-        v = rnd<T>(gt);
-        st(gtc, i, v);
+            __fadd_rn(ds[c], __fmul_rn(2.f * ld(out, e), ds[D + c]));
+        gt = __fadd_rn(ld(g, e), msk[r] * t);
+        v[r] = rnd<T>(gt);
+        if (first) st(gtc, e, v[r]);
       } else {
-        v = ld(g, i);
-        s += v;
+        gt = v[r] = ld(g, e);
       }
-      gts[r * D + c] = v;
+      s += gt;
+      nz |= gt != 0.f;
     }
-    prow[D2 + c] = s;
+    if (first) prow[D2 + c] = s;
+    if (nz) live = 1;
+    // column c of the operand: k-major in f32 (R consecutive floats,
+    // stored as float4), row-major in bf16
+    if constexpr (sizeof(T) == 4) {
+      float4* a4 = reinterpret_cast<float4*>(ga) + (size_t)c * (R / 4);
+#pragma unroll
+      for (int q = 0; q < R / 4; ++q)
+        a4[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) a_put<R>(ga, lda, r, c, v[r]);
+    }
   }
-
-  // dmid = (gtc @ W2^T) * [mid > 0]; db1 = sum dmid (uncast)
-  strip_gemm(
-      gts, D, D, D2, Bs,
-      [&](int k, int c) -> T { return w2t[(size_t)k * D2 + c]; },
-      Identity(),
-      [&](int c0, float (&acc)[TM][TN]) {
-        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-        float s[1][TN];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) s[0][j] = 0.f;
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const int r = warp * TM + i;
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            const int c = c0 + lane + 32 * j;
-            if (c < D2) {
-              const size_t idx = (row0 + r) * D2 + c;
-              const float dm = ld(mid, idx) > 0.f ? acc[i][j] : 0.f;
-              s[0][j] += dm;
-              const float v = rnd<T>(dm);
-              dms[r * D2 + c] = v;
-              st(dmidc, idx, v);
-            }
-          }
-        }
-        float* const dst[1] = {prow};
-        colsum_epilogue<1>(c0, s, D2, Bs, dst);
-      });
-
-  // dagg = dmidc @ W1^T
-  strip_gemm(
-      dms, D2, D2, D, Bs,
-      [&](int k, int c) -> T { return w1t[(size_t)k * D + c]; },
-      Identity(),
-      [&](int c0, float (&acc)[TM][TN]) {
-        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            const int c = c0 + lane + 32 * j;
-            if (c < D)
-              st(daggc, (row0 + warp * TM + i) * D + c, rnd<T>(acc[i][j]));
-          }
-      });
+  __syncthreads();
+  if (first && tid == 0) strip_live[blockIdx.x] = live;
+  // thread tid < RCW: column cb + tid of the strip's db1 partial
+  const int pc = cb + tid;
+  const bool pown = tid < RCW && pc < D2;
+  if (!live) {
+    for (int e = tid; e < R * RCW; e += RNT) {
+      const int r = e / RCW, c = cb + e % RCW;
+      if (c < D2) st(dmidc, (row0 + r) * D2 + c, 0.f);
+    }
+    if (pown) prow[pc] = 0.f;
+    return;
+  }
+  rb_pass_wr<T, R>(ring, ga, lda, D, cb, D2, scratch, w2t, D2);
+  for (int e = tid; e < R * RCW; e += RNT) {
+    const int r = e / RCW, j = e % RCW, c = cb + j;
+    if (c < D2) {
+      const size_t i = (row0 + r) * D2 + c;
+      const float dm = ld(mid, i) > 0.f ? scratch[r * CS + j] : 0.f;
+      scratch[r * CS + j] = dm;
+      st(dmidc, i, dm);
+    }
+  }
+  __syncthreads();
+  if (pown) {
+    float t = 0.f;
+    for (int w = 0; w < 4; ++w) {
+      float s = 0.f;
+      for (int i = 0; i < 4; ++i) s += scratch[(4 * w + i) * CS + tid];
+      t += s;
+    }
+    prow[pc] = t;
+  }
 }
 
-// Backward pass (b): dx = A_strip @ daggc_tile. K1b then applies the
-// prologue adjoint and writes dh and the strip's [da | db] partials; K4b
-// writes dh = rnd(dx) (h, a, b and partial are not read).
-template <typename T, bool BN>
-__global__ void __launch_bounds__(NT)
-gine_bwd_adj_kernel(const T* __restrict__ daggc, const T* __restrict__ h,
-                    const float* __restrict__ a, const float* __restrict__ b,
-                    const T* __restrict__ adj, T* __restrict__ dh,
-                    float* __restrict__ partial, int S, int D, int relu_in) {
-  extern __shared__ float smem[];
-  const int strips = S / R;
-  const int tile = blockIdx.x / strips, strip = blockIdx.x % strips;
-  const size_t node0 = (size_t)tile * S;
-  const size_t row0 = node0 + (size_t)strip * R;
-  float* As = smem;              // [R, S]
-  float* Bs = As + R * S;        // [KC, CW], epilogue scratch
-  float* msk = Bs + KC * CW;     // [R]
-
-  load_a_strip(adj, tile, strip, S, As, msk);
-  strip_gemm(
-      As, S, S, D, Bs,
-      [&](int k, int c) -> T { return daggc[(node0 + k) * D + c]; },
-      Identity(),
-      [&](int c0, float (&acc)[TM][TN]) {
-        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-        if constexpr (BN) {
-          float s[2][TN];
-#pragma unroll
-          for (int j = 0; j < TN; ++j) s[0][j] = s[1][j] = 0.f;
-#pragma unroll
-          for (int i = 0; i < TM; ++i) {
-            const size_t r = row0 + warp * TM + i;
-#pragma unroll
-            for (int j = 0; j < TN; ++j) {
-              const int c = c0 + lane + 32 * j;
-              if (c < D) {
-                const float hf = ld(h, r * D + c);
-                const float dx = acc[i][j];
-                const float dpre =
-                    (!relu_in || prologue(hf, a[c], b[c], 0) > 0.f) ? dx
-                                                                    : 0.f;
-                st(dh, r * D + c, __fmul_rn(dpre, a[c]));
-                s[0][j] += dpre * hf;
-                s[1][j] += dpre;
-              }
-            }
-          }
-          float* prow = partial + (size_t)blockIdx.x * 2 * D;
-          float* const dst[2] = {prow, prow + D};
-          colsum_epilogue<2>(c0, s, D, Bs, dst);
-        } else {
-#pragma unroll
-          for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int j = 0; j < TN; ++j) {
-              const int c = c0 + lane + 32 * j;
-              if (c < D) st(dh, (row0 + warp * TM + i) * D + c, acc[i][j]);
-            }
-        }
-      });
+template <typename T>
+__global__ void __launch_bounds__(RNT, 2)
+gine_bwd_dagg_kernel(const T* __restrict__ dmidc, const T* __restrict__ w1t,
+                     const int* __restrict__ strip_live,
+                     T* __restrict__ daggc, int D, int D2, int ring) {
+  extern __shared__ float smem_f[];  // 16-byte aligned
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  const RbSmem L = gine_bwd_dagg_smem<T>(D2, ring);
+  T* ma = reinterpret_cast<T*>(smem + L.op0);
+  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
+  const size_t row0 = (size_t)blockIdx.x * R;
+  const int cb = blockIdx.y * RCW;  // this block's slice of dagg
+  if (!strip_live[blockIdx.x]) {
+    for (int e = threadIdx.x; e < R * RCW; e += RNT) {
+      const int r = e / RCW, c = cb + e % RCW;
+      if (c < D) st(daggc, (row0 + r) * D + c, 0.f);
+    }
+    return;
+  }
+  const int lda = a_lda(D2);
+  rows_to_a<R>(ma, lda, dmidc, row0, R, D2);
+  rb_pass_wr<T, R>(ring, ma, lda, D2, cb, D, scratch, w1t, D);
+  for (int e = threadIdx.x; e < R * RCW; e += RNT) {
+    const int r = e / RCW, j = e % RCW, c = cb + j;
+    if (c < D) st(daggc, (row0 + r) * D + c, scratch[r * CS + j]);
+  }
 }
+
+// A launch's f32 ring: the first whose block leaves room for a second on
+// its SM (the 64 KB ring, then the 32 KB one), else the first that fits.
+template <typename Bytes>
+static RbShape rb_shape_two(Bytes bytes) {
+  const size_t half = max_smem() / 2;
+  for (int ring = 1; ring < NRING; ++ring) {
+    const size_t b = bytes(R, ring);
+    if (b <= half) return {R, ring, b};
+  }
+  return rb_shape(R, 1, bytes);
+}
+
+// K1b's adjacency epilogue (adj_pass_kernel): dx = Cs, dpre = dx [h a + b
+// > 0 if relu_in], dh = rnd(dpre a), and the strip's [da | db] partials
+// (sum dpre h, sum dpre) at row row0 / 16 of partial [N / 16, 2 D], each
+// group of four rows summed, then the groups in order (the first design's
+// colsum_epilogue order).
+template <typename T>
+struct BnAdjoint {
+  const T* h;
+  const float* a;
+  const float* b;
+  T* dh;
+  float* partial;
+  int D, relu_in;
+  __device__ void operator()(size_t row0, int c0, float* Cs) const {
+    const int tid = threadIdx.x;
+    for (int e = tid; e < R * RCW; e += RNT) {
+      const int r = e / RCW, j = e % RCW, c = c0 + j;
+      if (c < D) {
+        const size_t i = (row0 + r) * D + c;
+        const float hf = ld(h, i), dx = Cs[r * CS + j];
+        const float dpre =
+            (!relu_in || prologue(hf, a[c], b[c], 0) > 0.f) ? dx : 0.f;
+        st(dh, i, __fmul_rn(dpre, a[c]));
+        Cs[r * CS + j] = dpre;
+      }
+    }
+    __syncthreads();
+    const int c = c0 + tid;
+    if (tid < RCW && c < D) {
+      float t0 = 0.f, t1 = 0.f;
+      for (int w = 0; w < 4; ++w) {
+        float s0 = 0.f, s1 = 0.f;
+        for (int i = 0; i < 4; ++i) {
+          const int r = 4 * w + i;
+          const float dpre = Cs[r * CS + tid];
+          const float hf = ld(h, (row0 + r) * D + c);
+          s0 += dpre * hf;
+          s1 += dpre;
+        }
+        t0 += s0;
+        t1 += s1;
+      }
+      float* prow = partial + (row0 / R) * 2 * D;
+      prow[c] = t0;
+      prow[D + c] = t1;
+    }
+  }
+};
 
 // K1f: the dead blocks' constant row, the row-block kernel, then the
 // fixed-order sum of the moment partials of its N / 16 strips. partial
@@ -677,66 +751,81 @@ static int gine_fwd(const void* h, const void* adj, const void* cnt,
   return (int)cudaGetLastError();
 }
 
-// K1b (BN) or K4b: the three passes and the fixed-order sums. Scratch: w1t
-// [D2, D], w2t [D, D2], gtc (K1b), daggc [N, D], dmidc [N, D2] (T) and the
-// partials. Outputs: dh [N, D] (T); sums_rows [D2 + D] = [db1 | db2];
-// sums_adj [2 D] = [da | db] (K1b); wgrad [D*D2 + D2*D + CNT_PAD*D] = [dW1
-// | dW2 | detab] (f32). K4b passes null for ds, h, a, b, out, gtc,
-// part_adj and sums_adj, and its dW2 multiplies g itself.
+// K1b (BN) or K4b: W1^T and W2^T, the dmid, dagg and adjacency passes, the
+// weight pass and the fixed-order sums. Scratch: w1t [D2, D], w2t [D, D2],
+// gtc (K1b), daggc [N, D], dmidc [N, D2] (T), strip_live [N / 16] and the
+// partials part_rows [N / 16, D2 + D], part_adj [N / 16, 2 D] (K1b),
+// part_w [chunks, width]. Outputs: dh [N, D] (T); sums_rows [D2 + D] =
+// [db1 | db2]; sums_adj [2 D] = [da | db] (K1b); wgrad [width = D*D2 +
+// D2*D + CNT_PAD*D] = [dW1 | dW2 | detab] (f32). The weight pass's chunks,
+// rows per chunk and tile rows are the caller's (ops/fused_layer.py
+// gine_bwd_weight_shape; launch_wgrad checks them). K4b passes null for ds,
+// h, a, b, out, gtc, part_adj and sums_adj, and its dW2 multiplies g
+// itself.
 template <typename T, bool BN>
 static int gine_bwd(const void* g, const float* ds, const void* h,
                     const float* a, const float* b, const void* adj,
                     const void* cnt, const void* agg, const void* mid,
                     const void* out, const void* w1, const void* w2,
                     void* w1t, void* w2t, void* gtc, void* dmidc, void* daggc,
-                    float* part_rows, float* part_adj, float* part_w,
-                    void* dh, float* sums_rows, float* sums_adj,
-                    float* wgrad, int T_, int S, int D, int D2, int relu_in,
-                    int chunks, void* stream) {
+                    int* strip_live, float* part_rows, float* part_adj,
+                    float* part_w, void* dh, float* sums_rows,
+                    float* sums_adj, float* wgrad, int T_, int S, int D,
+                    int D2, int relu_in, int chunks, int rows_per_chunk,
+                    int tile_rows, void* stream) {
   if (T_ <= 0 || S <= 0 || S % R || D <= 0 || D2 <= 0 || chunks <= 0)
     return (int)cudaErrorInvalidValue;
-  const int nblk = T_ * (S / R);
-  const int N = T_ * S;
+  const int N = T_ * S, nstrip = N / R;
   cudaStream_t st = (cudaStream_t)stream;
+  const RbShape sm = rb_shape_two([&](int, int rg) {
+    return gine_bwd_dmid_smem<T>(D, rg).total;
+  });
+  const RbShape sa = rb_shape_two([&](int, int rg) {
+    return gine_bwd_dagg_smem<T>(D2, rg).total;
+  });
+  if (!sm.rb || !sa.rb) return (int)cudaErrorInvalidValue;
 
   int err = launch_transpose<T>(w1, w1t, D, D2, st);
   if (err) return err;
   if ((err = launch_transpose<T>(w2, w2t, D2, D, st))) return err;
 
-  const size_t bytes_rows =
-      ((size_t)R * D + (size_t)R * D2 + KC * CW + R) * sizeof(float);
-  cudaError_t e = set_smem(gine_bwd_rows_kernel<T, BN>, bytes_rows);
+  cudaError_t e = set_smem(gine_bwd_dmid_kernel<T, BN>, sm.bytes);
   if (e != cudaSuccess) return (int)e;
-  gine_bwd_rows_kernel<T, BN><<<nblk, NT, bytes_rows, st>>>(
+  gine_bwd_dmid_kernel<T, BN>
+      <<<dim3(nstrip, (D2 + RCW - 1) / RCW), RNT, sm.bytes, st>>>(
       (const T*)g, ds, (const T*)adj, (const T*)mid, (const T*)out,
-      (const T*)w1t, (const T*)w2t, (T*)gtc, (T*)dmidc, (T*)daggc, part_rows,
-      S, D, D2);
+      (const T*)w2t, (T*)gtc, (T*)dmidc, strip_live, part_rows, S, D, D2,
+      sm.ring);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if ((e = set_smem(gine_bwd_dagg_kernel<T>, sa.bytes)) != cudaSuccess)
+    return (int)e;
+  gine_bwd_dagg_kernel<T>
+      <<<dim3(nstrip, (D + RCW - 1) / RCW), RNT, sa.bytes, st>>>(
+      (const T*)dmidc, (const T*)w1t, strip_live, (T*)daggc, D, D2, sa.ring);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  const size_t bytes_adj = ((size_t)R * S + KC * CW + R) * sizeof(float);
-  e = set_smem(gine_bwd_adj_kernel<T, BN>, bytes_adj);
-  if (e != cudaSuccess) return (int)e;
-  gine_bwd_adj_kernel<T, BN><<<nblk, NT, bytes_adj, st>>>(
-      (const T*)daggc, (const T*)h, a, b, (const T*)adj, (T*)dh, part_adj, S,
-      D, relu_in);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if constexpr (BN)
+    err = launch_adj_pass<T>(
+        daggc, adj,
+        BnAdjoint<T>{(const T*)h, a, b, (T*)dh, part_adj, D, relu_in}, N, S,
+        D, st);
+  else
+    err = launch_adj_pass<T>(daggc, adj, AdjStore<T>{(T*)dh, D}, N, S, D,
+                             st);
+  if (err) return err;
 
-  const AtB p_w1 = {agg, dmidc, D, D2, 0};
-  const AtB p_w2 = {mid, BN ? (const void*)gtc : g, D2, D, D * D2};
-  const AtB p_et = {cnt, daggc, CNT_PAD, D, 2 * D * D2};
   const int width = 2 * D * D2 + CNT_PAD * D;
-  int rows_per_chunk = (N + chunks - 1) / chunks;
-  rows_per_chunk = (rows_per_chunk + AKT - 1) / AKT * AKT;
-  const int nb = chunks * (atb_tiles(p_w1) + atb_tiles(p_w2) +
-                           atb_tiles(p_et));
-  atb_kernel<T><<<nb, ANT, 0, st>>>(p_w1, p_w2, p_et, 3, N, rows_per_chunk,
-                                    chunks, width, part_w);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const WProb p[3] = {{agg, dmidc, D, D2, 0},
+                      {mid, BN ? (const void*)gtc : g, D2, D, D * D2},
+                      {cnt, daggc, CNT_PAD, D, 2 * D * D2}};
+  err = launch_wgrad<T>(p, 3, strip_live, N, rows_per_chunk, chunks,
+                        tile_rows, part_w, width, st);
+  if (err) return err;
 
-  if ((err = launch_sum_partials(part_rows, sums_rows, nblk, D2 + D, st)))
+  if ((err = launch_sum_partials(part_rows, sums_rows, nstrip, D2 + D, st)))
     return err;
   if constexpr (BN) {
-    err = launch_sum_partials(part_adj, sums_adj, nblk, 2 * D, st);
+    err = launch_sum_partials(part_adj, sums_adj, nstrip, 2 * D, st);
     if (err) return err;
   }
   return launch_sum_partials(part_w, wgrad, chunks, width, st);
@@ -770,14 +859,16 @@ extern "C" {
       const float* b, const void* adj, const void* cnt, const void* agg,    \
       const void* mid, const void* out, const void* w1, const void* w2,     \
       void* w1t, void* w2t, void* gtc, void* dmidc, void* daggc,            \
-      float* part_rows, float* part_adj, float* part_w, void* dh,           \
-      float* sums_rows, float* sums_adj, float* wgrad, int T_, int S,       \
-      int D, int D2, int relu_in, int chunks, void* stream) {               \
+      int* strip_live, float* part_rows, float* part_adj, float* part_w,    \
+      void* dh, float* sums_rows, float* sums_adj, float* wgrad, int T_,    \
+      int S, int D, int D2, int relu_in, int chunks, int rows_per_chunk,    \
+      int tile_rows, void* stream) {                                        \
     return fbl::gine_bwd<T, true>(g, ds, h, a, b, adj, cnt, agg, mid, out,  \
                                   w1, w2, w1t, w2t, gtc, dmidc, daggc,      \
-                                  part_rows, part_adj, part_w, dh,          \
-                                  sums_rows, sums_adj, wgrad, T_, S, D, D2, \
-                                  relu_in, chunks, stream);                 \
+                                  strip_live, part_rows, part_adj, part_w,  \
+                                  dh, sums_rows, sums_adj, wgrad, T_, S, D, \
+                                  D2, relu_in, chunks, rows_per_chunk,      \
+                                  tile_rows, stream);                       \
   }
 
 // K4f: out (and the residual agg when not null; mid always, scratch when
@@ -797,14 +888,16 @@ extern "C" {
   int gine_bwd_##suffix(const void* g, const void* adj, const void* cnt,    \
                         const void* agg, const void* mid, const void* w1,   \
                         const void* w2, void* w1t, void* w2t, void* dmidc,  \
-                        void* daggc, float* part_rows, float* part_w,       \
-                        void* dh, float* sums_rows, float* wgrad, int T_,   \
-                        int S, int D, int D2, int chunks, void* stream) {   \
+                        void* daggc, int* strip_live, float* part_rows,     \
+                        float* part_w, void* dh, float* sums_rows,          \
+                        float* wgrad, int T_, int S, int D, int D2,         \
+                        int chunks, int rows_per_chunk, int tile_rows,      \
+                        void* stream) {                                     \
     return fbl::gine_bwd<T, false>(                                         \
         g, nullptr, nullptr, nullptr, nullptr, adj, cnt, agg, mid, nullptr, \
-        w1, w2, w1t, w2t, nullptr, dmidc, daggc, part_rows, nullptr,        \
-        part_w, dh, sums_rows, nullptr, wgrad, T_, S, D, D2, 0, chunks,     \
-        stream);                                                            \
+        w1, w2, w1t, w2t, nullptr, dmidc, daggc, strip_live, part_rows,     \
+        nullptr, part_w, dh, sums_rows, nullptr, wgrad, T_, S, D, D2, 0,    \
+        chunks, rows_per_chunk, tile_rows, stream);                         \
   }
 
 GINE_BN_FWD(f32, float)

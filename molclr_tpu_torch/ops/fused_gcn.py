@@ -40,6 +40,7 @@ from molclr_tpu_torch.ops.fused_layer import (
     STRIP_ROWS,
     adj_diag_mask,
     bn_prologue,
+    carve_scratch,
     check_layer_args,
     cuda_tiles,
     kernel_fn,
@@ -332,15 +333,12 @@ def fused_gcn_layer_bwd(g, x, adj, w):
     chunks, rows = dw_chunks(n, d, sm_count(g.device))
     dx = torch.empty_like(g)
     dw = torch.empty(d, d, dtype=torch.float32, device=g.device)
-    # one scratch allocation, cut at 256-byte offsets: W^T, dxw, the strip
-    # flags (int32) and the weight pass's chunk partials (f32)
+    # W^T, dxw, the strip flags (int32) and the weight pass's chunk
+    # partials (f32)
     es = g.element_size()
-    offs = [0]
-    for size in (d * d * es, n * d * es, 4 * (n // STRIP_ROWS),
-                 4 * chunks * d * d):
-        offs.append(offs[-1] + -(-size // 256) * 256)
-    scratch = torch.empty(offs[-1], dtype=torch.uint8, device=g.device)
-    wt, dxw, strip_live, part_w = (scratch.data_ptr() + o for o in offs[:4])
+    _buf, (wt, dxw, strip_live, part_w) = carve_scratch(
+        g.device, (d * d * es, n * d * es, 4 * (n // STRIP_ROWS),
+                   4 * chunks * d * d))
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(g.data_ptr(), x.data_ptr(), adj.data_ptr(), w.data_ptr(), wt,
              dxw, dx.data_ptr(), strip_live, part_w, dw.data_ptr(), t, s, d,

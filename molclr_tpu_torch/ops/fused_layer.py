@@ -312,9 +312,100 @@ def kernel_plan(adj: torch.Tensor, cnt: torch.Tensor | None = None,
         dense_chunks=nb * nch)
 
 
-# K1b splits the weight-gradient sums over N into chunks of this many rows
-# (per-chunk partials, then a fixed-order sum).
+# In f32 the weight pass of K1b and K4b sums over N in chunks of at most
+# this many rows (per-chunk partials, then a fixed-order sum), the first
+# design's chunks, so that its f32 sums keep their order.
 BWD_CHUNK_ROWS = 1024
+
+
+@functools.lru_cache(maxsize=None)
+def gine_bwd_weight_shape(n: int, d: int, d2: int, dtype: torch.dtype,
+                          sms: int = H100_SMS) -> tuple[int, int, int]:
+    """(chunks, rows per chunk, output tile rows) of K1b's and K4b's weight
+    pass over n rows (csrc/fused_bn_common.cuh wgrad_kernel over dW1 [d,
+    d2], dW2 [d2, d] and detab [CNT_PAD, d] in one launch, which takes them
+    as they are). Chunks are whole 16-row strips, at most DW_MAX_ROWS rows.
+    f32 keeps the first design's chunks (ceil(n / BWD_CHUNK_ROWS) of equal
+    size, so each output is the same ascending sum) and takes 32-row output
+    tiles where 64-row ones give fewer than two blocks per SM of a card with
+    `sms` SMs; bf16 takes 64 x 64 tiles and enough chunks for two blocks
+    per SM, as K5b's dw_chunks does."""
+    def tiles(tr):
+        return sum(-(-m // tr) * -(-c // DW_TILE)
+                   for m, c in ((d, d2), (d2, d), (CNT_PAD, d)))
+
+    if dtype == torch.float32:
+        want = -(-n // BWD_CHUNK_ROWS)
+    else:
+        want = max(-(-2 * sms // tiles(DW_TILE)), -(-n // DW_MAX_ROWS))
+        want = min(want, n // STRIP_ROWS)
+    rows = -(-(-(-n // want)) // STRIP_ROWS) * STRIP_ROWS
+    chunks = -(-n // rows)
+    tile_rows = DW_TILE
+    if dtype == torch.float32 and chunks * tiles(DW_TILE) < 2 * sms:
+        tile_rows = DW_TILE // 2
+    return chunks, rows, tile_rows
+
+
+def gine_bwd_gt(g, dsums, adj, out):
+    """The total output cotangent gt [N, D] (f32) that K1b computes and
+    fused_gine_bn_layer_bwd_plain sums into db2: g + m (ds0 + 2 out ds1).
+    For gine_bwd_plan; K4b's gt is g itself."""
+    m = adj_diag_mask(adj)
+    return g.float() + m * (dsums[0] + 2.0 * out.float() * dsums[1])
+
+
+def gine_bwd_plan(gt: torch.Tensor, adj: torch.Tensor, d2: int,
+                  dtype: torch.dtype | None = None,
+                  sms: int = H100_SMS) -> dict:
+    """What K1b's and K4b's passes skip and how they are launched, decided
+    as the kernels decide it (csrc/fused_gine_bn.cu gine_bwd): gt [N, D]
+    is the total cotangent (gine_bwd_gt for K1b, g for K4b), dtype the
+    activation type (gt's by default). Only the tests and chip_smoke.py
+    call it; the wrappers never do.
+
+    dead_strips [N / 16]    every gt value of the 16-row strip is exactly
+                            zero (padding rows count): the dmid and dagg
+                            launches write zeros there and the weight pass
+                            skips it
+    adj                     kernel_plan of the adjacency pass (16-row
+                            strips, no cnt): its strip_chunks, dead_strips,
+                            block_chunks and dense_chunks
+    dw_chunks, dw_rows, dw_tile_rows  gine_bwd_weight_shape
+    live_chunks [dw_chunks] a strip of the chunk is live
+    grids                   {launch: (strips, column slices)} of the
+                            dmid, dagg and adjacency launches, and the
+                            weight pass's {problem: (chunks, tile rows,
+                            tile columns)}"""
+    n, d = gt.shape
+    dtype = dtype or gt.dtype
+    dead = ~(gt != 0).reshape(n // STRIP_ROWS, STRIP_ROWS * d).any(dim=1)
+    chunks, rows, tile_rows = gine_bwd_weight_shape(n, d, d2, dtype, sms)
+    per = rows // STRIP_ROWS
+    live = torch.nn.functional.pad(~dead, (0, chunks * per - dead.shape[0]))
+    strips = n // STRIP_ROWS
+    grids = dict(dmid=(strips, -(-d2 // COL_SLICE)),
+                 dagg=(strips, -(-d // COL_SLICE)),
+                 adj=(strips, -(-d // COL_SLICE)),
+                 weights={k: (chunks, -(-m // tile_rows), -(-c // DW_TILE))
+                          for k, (m, c) in (("dw1", (d, d2)),
+                                            ("dw2", (d2, d)),
+                                            ("detab", (CNT_PAD, d)))})
+    return dict(dead_strips=dead, adj=kernel_plan(adj, None, STRIP_ROWS),
+                dw_chunks=chunks, dw_rows=rows, dw_tile_rows=tile_rows,
+                live_chunks=live.reshape(chunks, per).any(dim=1),
+                grids=grids)
+
+
+def carve_scratch(device, sizes):
+    """One scratch allocation on `device` cut at 256-byte offsets into
+    pieces of the given byte sizes: (the buffer, which must outlive the
+    launches, and the pieces' addresses)."""
+    offs = [0]
+    for size in sizes:
+        offs.append(offs[-1] + -(-size // 256) * 256)
+    buf = torch.empty(offs[-1], dtype=torch.uint8, device=device)
+    return buf, [buf.data_ptr() + o for o in offs[:-1]]
 
 
 def fused_gine_bn_layer_bwd(g, dsums, h, a, b, adj, cnt, agg, mid, out, w1,
@@ -338,26 +429,30 @@ def fused_gine_bn_layer_bwd(g, dsums, h, a, b, adj, cnt, agg, mid, out, w1,
                                              agg, mid, out, w1, w2, relu_in)
     t, s = cuda_tiles("fused_gine_bn_layer_bwd", g, adj)
     suffix = "f32" if g.dtype == torch.float32 else "bf16"
-    fn = kernel_fn("fused_gine_bn", f"gine_bn_bwd_{suffix}", 24, 6)
-    nblk = t * (s // strip_rows("fused_gine_bn"))
-    chunks = -(-n // BWD_CHUNK_ROWS)
+    fn = kernel_fn("fused_gine_bn", f"gine_bn_bwd_{suffix}", 25, 8)
+    strips, sms = n // STRIP_ROWS, sm_count(g.device)
+    chunks, rows, tile_rows = gine_bwd_weight_shape(n, d, d2, g.dtype, sms)
     width = 2 * d * d2 + CNT_PAD * d
-    f32 = dict(dtype=torch.float32, device=g.device)
-    gtc, daggc, dh = (torch.empty_like(g) for _ in range(3))
-    dmidc = g.new_empty(n, d2)
-    w1t, w2t = w1.new_empty(d2, d), w2.new_empty(d, d2)
-    part_rows = torch.empty(nblk, d2 + d, **f32)
-    part_adj = torch.empty(nblk, 2 * d, **f32)
-    part_w = torch.empty(chunks, width, **f32)
-    sums_rows = torch.empty(d2 + d, **f32)
-    sums_adj = torch.empty(2 * d, **f32)
-    wgrad = torch.empty(width, **f32)
+    es = g.element_size()
+    # W1^T, W2^T, gtc, dmidc, daggc, the strip flags (int32) and the
+    # partials of the row, adjacency and weight passes (f32)
+    _buf, (w1t, w2t, gtc, dmidc, daggc, live, part_rows, part_adj,
+           part_w) = carve_scratch(g.device, (
+               d2 * d * es, d * d2 * es, n * d * es, n * d2 * es, n * d * es,
+               4 * strips, 4 * strips * (d2 + d), 4 * strips * 2 * d,
+               4 * chunks * width))
+    dh = torch.empty_like(g)
+    # [db1 | db2], [da | db], [dW1 | dW2 | detab]
+    res = torch.empty(d2 + d + 2 * d + width, dtype=torch.float32,
+                      device=g.device)
+    sums_rows, sums_adj, wgrad = res.split([d2 + d, 2 * d, width])
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = fn(*(x.data_ptr() for x in (
-        g, dsums, h, a, b, adj, cnt, agg, mid, out, w1, w2, w1t, w2t, gtc,
-        dmidc, daggc, part_rows, part_adj, part_w, dh, sums_rows, sums_adj,
-        wgrad)),
-        t, s, d, d2, int(bool(relu_in)), chunks, stream)
+    err = fn(*(x.data_ptr() for x in (g, dsums, h, a, b, adj, cnt, agg, mid,
+                                      out, w1, w2)),
+             w1t, w2t, gtc, dmidc, daggc, live, part_rows, part_adj, part_w,
+             dh.data_ptr(), sums_rows.data_ptr(), sums_adj.data_ptr(),
+             wgrad.data_ptr(), t, s, d, d2, int(bool(relu_in)), chunks, rows,
+             tile_rows, stream)
     _build.check(err, "fused_gine_bn_layer_bwd")
     fused_gine_bn_layer_bwd.launches += 1
     dw1, dw2, detab = wgrad.split([d * d2, d2 * d, CNT_PAD * d])
@@ -531,22 +626,24 @@ def fused_gine_layer_bwd(g, adj, cnt, agg, mid, w1, w2):
         return fused_gine_layer_bwd_plain(g, adj, cnt, agg, mid, w1, w2)
     t, s = cuda_tiles("fused_gine_layer_bwd", g, adj)
     suffix = "f32" if g.dtype == torch.float32 else "bf16"
-    fn = kernel_fn("fused_gine_bn", f"gine_bwd_{suffix}", 16, 5)
-    nblk = t * (s // strip_rows("fused_gine_bn"))
-    chunks = -(-n // BWD_CHUNK_ROWS)
+    fn = kernel_fn("fused_gine_bn", f"gine_bwd_{suffix}", 17, 7)
+    strips, sms = n // STRIP_ROWS, sm_count(g.device)
+    chunks, rows, tile_rows = gine_bwd_weight_shape(n, d, d2, g.dtype, sms)
     width = 2 * d * d2 + CNT_PAD * d
-    f32 = dict(dtype=torch.float32, device=g.device)
-    daggc, dh = torch.empty_like(g), torch.empty_like(g)
-    dmidc = g.new_empty(n, d2)
-    w1t, w2t = w1.new_empty(d2, d), w2.new_empty(d, d2)
-    part_rows = torch.empty(nblk, d2 + d, **f32)
-    part_w = torch.empty(chunks, width, **f32)
-    sums_rows = torch.empty(d2 + d, **f32)
-    wgrad = torch.empty(width, **f32)
+    es = g.element_size()
+    # W1^T, W2^T, dmidc, daggc, the strip flags (int32) and the partials of
+    # the row and weight passes (f32)
+    _buf, (w1t, w2t, dmidc, daggc, live, part_rows, part_w) = carve_scratch(
+        g.device, (d2 * d * es, d * d2 * es, n * d2 * es, n * d * es,
+                   4 * strips, 4 * strips * (d2 + d), 4 * chunks * width))
+    dh = torch.empty_like(g)
+    res = torch.empty(d2 + d + width, dtype=torch.float32, device=g.device)
+    sums_rows, wgrad = res.split([d2 + d, width])
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = fn(*(x.data_ptr() for x in (
-        g, adj, cnt, agg, mid, w1, w2, w1t, w2t, dmidc, daggc, part_rows,
-        part_w, dh, sums_rows, wgrad)), t, s, d, d2, chunks, stream)
+    err = fn(*(x.data_ptr() for x in (g, adj, cnt, agg, mid, w1, w2)), w1t,
+             w2t, dmidc, daggc, live, part_rows, part_w, dh.data_ptr(),
+             sums_rows.data_ptr(), wgrad.data_ptr(), t, s, d, d2, chunks,
+             rows, tile_rows, stream)
     _build.check(err, "fused_gine_layer_bwd")
     fused_gine_layer_bwd.launches += 1
     dw1, dw2, detab = wgrad.split([d * d2, d2 * d, CNT_PAD * d])

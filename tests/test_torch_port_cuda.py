@@ -182,20 +182,24 @@ def test_backward_kernel_matches_plain(cuda, shape, dtype, relu_in):
 
 
 # The eight layer kernels beyond the reference width (D = 384, 512, 1,024
-# with D2 = 2 D; a tile of 512). The row-block kernels (K1f, K4f, K5f, K5b)
-# take a shallower f32 weight ring where the first does not fit, and K1f
-# then 16-row blocks (its rows expected here); the strip kernels (K1b, K3f, K3b, K4b) size their shared memory
-# from D and D2, and K1b's and K4b's row pass (16 x (D + D2) floats) is the
-# largest at 213 KB at D = 1,024. At D = 2,048 no K1f block fits in shared
-# memory and its wrapper raises, while K5b takes its shallower ring.
+# with D2 = 2 D; a tile of 512). The row-block kernels (K1f, K1b, K4f, K4b,
+# K5f, K5b) take a shallower f32 weight ring where the first does not fit,
+# and K1f then 16-row blocks (its rows expected here); the strip kernels
+# (K3f, K3b) size their shared memory from D. K1b's and K4b's dagg launch
+# holds a [16, D2] f32 operand: 1,280 / 2,560 fits with the 32 KB ring
+# (the first design's row pass, 16 x (D + D2) floats, stopped just above
+# D = 1,024). At D = 2,048 no K1f block fits in shared memory and its
+# wrapper raises, while K5b takes its shallower ring.
 WIDE = [((3, 256, 384, 8, "molecules"), 32),
         ((3, 256, 512, 8, "molecules"), 32),
         ((3, 512, 300, 8, "molecules"), 32),
         ((3, 128, 1024, 8, "molecules"), 16)]
 WIDEST = ((2, 128, 2048, 8, "molecules"), 0)
+WIDE_BWD = ((2, 128, 1280, 8, "molecules"), 0)
 WIDE_CASES = ([(k, *w) for k in ("k1f", "k1b", "k3f", "k3b", "k4f", "k4b",
                                   "k5f", "k5b") for w in WIDE]
-              + [("k1f", *WIDEST), ("k5b", *WIDEST)])
+              + [("k1f", *WIDEST), ("k5b", *WIDEST)]
+              + [("k1b", *WIDE_BWD), ("k4b", *WIDE_BWD)])
 
 
 def _wide_calls(kernel, x, pg, pc, g, dsums):
@@ -292,6 +296,59 @@ def test_wide_layer_kernels_match_plain(cuda, kernel, shape, rows, dtype):
             err = (a.float() - c.float()).abs().max().item()
             assert err <= rtol * c.float().abs().max().item(), (name, err)
             assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("tiles", [4, 22, 44])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["k1b", "k4b"])
+def test_gine_backward_at_the_trainers_tile_counts(cuda, tiles, dtype,
+                                                    kernel):
+    """K1b (relu_in off and on) and K4b at the full width (D = 300, D2 =
+    600, tile 256, molecule-like adjacency) and the trainers' tile counts
+    (T = 4 fine-tuning, 22 pretraining, 44 concat_views), with a cotangent
+    that is nonzero on padding rows (every tile's last rows and the padded
+    last tile's first strip: those strips stay live, and dW2 / db2 sum g
+    there), against the plain versions within 1e-4 / 3e-2 of max|plain|;
+    two runs bit-identical, one launch counted per call."""
+    dt = getattr(torch, dtype)
+    shape = (tiles, 256, 300, 8, "molecules")
+    x, pg, _ = _problem(_seed(shape) + 6, *shape)
+    x, pg = _to(x, cuda, dt), _to(pg, cuda, dt)
+    h, a, b, adj, cnt = (x[k] for k in ("h", "a", "b", "adj", "cnt"))
+    gen = torch.Generator().manual_seed(_seed(shape))
+    n, d = h.shape
+    g = torch.randn(n, d, generator=gen)
+    real = fused_layer.adj_diag_mask(adj.cpu()).bool().reshape(-1)
+    padding = ~real
+    padding[(tiles - 1) * 256 + 16:] = False   # the rest of the last tile
+    g = torch.where(real[:, None] | padding[:, None], g, 0.0).to(cuda, dt)
+    dsums = (0.05 * torch.randn(2, d, generator=gen)).to(cuda)
+    rtol = 1e-4 if dt == torch.float32 else 3e-2
+    calls = []
+    if kernel == "k1b":
+        for relu_in in (False, True):
+            out, _, agg, mid = fused_layer.fused_gine_bn_layer_fwd_plain(
+                *_gine_args(x, pg), relu_in)
+            calls.append((fused_layer.fused_gine_bn_layer_bwd,
+                          fused_layer.fused_gine_bn_layer_bwd_plain,
+                          (g, dsums, h, a, b, adj, cnt, agg, mid, out,
+                           pg["w1"], pg["w2"], relu_in)))
+    else:
+        _, agg, mid = fused_layer.fused_gine_layer_fwd_plain(
+            h, adj, cnt, pg["etab"], pg["w1"], pg["b1"], pg["w2"], pg["b2"])
+        calls.append((fused_layer.fused_gine_layer_bwd,
+                      fused_layer.fused_gine_layer_bwd_plain,
+                      (g, adj, cnt, agg, mid, pg["w1"], pg["w2"])))
+    for kern, plain, args in calls:
+        before = kern.launches
+        got, again, want = kern(*args), kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 2
+        for i, (u, v, w) in enumerate(zip(got, again, want)):
+            assert u.dtype == w.dtype and u.shape == w.shape, i
+            err = (u.float() - w.float()).abs().max().item()
+            assert err <= rtol * w.float().abs().max().item(), (i, err)
+            assert torch.equal(u, v), i
 
 
 @pytest.mark.parametrize("n,d", [(128, 32), (256, 256), (384, 100)])

@@ -1,13 +1,16 @@
-"""What the redesigned K1f, K4f, K5f and K5b skip, held to the plain
-versions and JAX.
+"""What the redesigned K1f, K4f, K5f, K5b, K4b and K1b skip, held to the
+plain versions and JAX.
 
 The row-block kernels skip work that the data they load shows to be dead:
 the all-zero 32-column chunks of an adjacency strip (with the features of
 their nodes), row blocks whose adjacency and count rows are all zero (K1f
 writes one constant row there, K4f agg = 0 and mid = rnd(relu(b1)), K5f
-zeros), and K5b's weight-pass row chunks and strips whose dxw rows are
-zero. `fused_layer.kernel_plan` and `fused_gcn.k5b_plan` state those
-decisions, `fused_layer.unchained_fwd_plan` K4f's and K5f's grids.
+zeros), K5b's weight-pass row chunks and strips whose dxw rows are zero,
+and the strips whose total cotangent gt is all zero in K4b and K1b (their
+dmid and dagg launches write zeros there, their weight pass skips them).
+`fused_layer.kernel_plan`, `fused_gcn.k5b_plan` and
+`fused_layer.gine_bwd_plan` state those decisions,
+`fused_layer.unchained_fwd_plan` K4f's and K5f's grids.
 Here, on packed batches of `synthetic_corpus` at tile 64 and 256, in f32
 and bf16:
 
@@ -16,13 +19,15 @@ and bf16:
     equals the plain version on the real inputs bit for bit (so the skipped
     work cannot change a result);
   * that restricted result agrees with JAX's Pallas kernel in interpreter
-    mode (`_bn_run_fwd`, `_fused_bwd`) within the tolerances of
+    mode (`_bn_run_fwd`, `_fused_bwd`, `_run_fwd`, `_run_bwd`,
+    `_bn_run_bwd`) within the tolerances of
     tests/test_torch_port_ops.py and tests/test_torch_port_finetune_ops.py:
     1e-5 (f32) and 3e-2 (bf16, one bf16 rounding of an intermediate) of
     max(1, max|jax|);
   * K5b's weight pass has enough blocks for two per SM of an H100 (132)
-    at the fine-tuning shape, and K4f's and K5f's launches cover every
-    output once and keep the card's SMs busy on the trainers' batches;
+    at the fine-tuning shape, and K4f's, K5f's, K4b's and K1b's launches
+    cover every output once and keep the card's SMs busy on the trainers'
+    batches;
   * the layout constants and every C entry point that the wrappers bind
     with `fused_layer.kernel_fn` agree with the kernels' sources.
 """
@@ -270,6 +275,121 @@ def test_k5f_skips_only_dead_work(packed, dtype):
                                              True), rtol)
 
 
+def _gine_bwd_problem(tile, adj, cnt, seed, dtype, pad_g):
+    """K1b's / K4b's inputs at small widths (D = 20, D2 = 40): random layer
+    inputs, the plain K1f forward's residuals (out, agg, mid) and a
+    cotangent g on the real rows; with pad_g also on one padding row of
+    each of the first two strips that hold no real row (a caller's g need
+    not be zero there). Returns (numpy inputs, torch inputs in dtype, the
+    strips given padding g)."""
+    n, d, d2 = adj.shape[0] * tile, 20, 40
+    rng = np.random.RandomState(seed)
+    etab = np.zeros((fused_layer.CNT_PAD, d), np.float32)
+    etab[:8] = 0.3 * rng.randn(8, d)
+    real = np.diagonal(adj.numpy(), axis1=1, axis2=2).reshape(-1) > 0
+    x = dict(h=rng.randn(n, d), a=rng.rand(d) + 0.5, b=0.2 * rng.randn(d),
+             adj=adj.numpy(), cnt=cnt.numpy(), etab=etab,
+             w1=0.3 * rng.randn(d, d2), b1=0.3 * rng.randn(d2),
+             w2=0.3 * rng.randn(d2, d), b2=0.1 * rng.randn(d),
+             g=rng.randn(n, d) * real[:, None],
+             dsums=0.05 * rng.randn(2, d))
+    padded = np.flatnonzero(~real.reshape(-1, fused_layer.STRIP_ROWS)
+                            .any(axis=1))[:2]
+    if pad_g:
+        for k in padded:
+            x["g"][k * fused_layer.STRIP_ROWS + 3] = rng.randn(d)
+    f32 = {"a", "b", "b1", "b2", "dsums"}
+    tx = {k: torch.tensor(np.asarray(v, np.float32)).to(
+        torch.float32 if k in f32 else dtype) for k, v in x.items()}
+    out, _, agg, mid = fused_layer.fused_gine_bn_layer_fwd_plain(
+        *(tx[k] for k in ("h", "a", "b", "adj", "cnt", "etab", "w1", "b1",
+                          "w2", "b2")), True)
+    tx.update(out=out, agg=agg, mid=mid)
+    return x, tx, (padded if pad_g else padded[:0])
+
+
+def _gine_bwd_skipped_inputs(tx, plan, tile):
+    """tx with what K1b's and K4b's passes never read replaced: the A
+    entries outside the live adjacency chunks zeroed, and the mid, agg and
+    cnt rows of the dead strips (the dmid launch writes zeros there without
+    reading mid, and the weight pass skips them) set to garbage."""
+    n = tx["g"].shape[0]
+    dead = _rows(plan["dead_strips"], fused_layer.STRIP_ROWS, n)[:, None]
+    mask = _chunk_mask(plan["adj"], tile)
+    return dict(tx, adj=torch.where(mask, tx["adj"], 0).to(tx["adj"].dtype),
+                **{k: torch.where(dead, GARBAGE, tx[k]).to(tx[k].dtype)
+                   for k in ("mid", "agg", "cnt")})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu_in", [False, True])
+@pytest.mark.parametrize("pad_g", [False, True])
+def test_k1b_skips_only_dead_work(packed, dtype, relu_in, pad_g):
+    """K1b's passes (gine_bwd_plan): the plain backward with the skipped
+    adjacency chunks zeroed and the mid, agg and cnt rows of the strips
+    whose gt is all zero replaced equals the full one bit for bit; strips
+    with nonzero g on padding rows stay live; JAX's `_bn_run_bwd` agrees
+    within the tolerance (dW2 and db2 included, which sum g on padding
+    rows)."""
+    jdt, tdt, rtol = DTYPES[dtype]
+    tile, adj, cnt = packed
+    x, tx, padded = _gine_bwd_problem(tile, adj, cnt, tile + 31, tdt, pad_g)
+    keys = ("g", "dsums", "h", "a", "b", "adj", "cnt", "agg", "mid", "out",
+            "w1", "w2")
+    full = fused_layer.fused_gine_bn_layer_bwd_plain(
+        *(tx[k] for k in keys), relu_in)
+
+    gt = fused_layer.gine_bwd_gt(tx["g"], tx["dsums"], tx["adj"], tx["out"])
+    plan = fused_layer.gine_bwd_plan(gt, tx["adj"], 40, tdt)
+    assert plan["dead_strips"].any()
+    assert plan["adj"]["block_chunks"] < plan["adj"]["dense_chunks"]
+    assert len(padded) == 2 * pad_g
+    assert not plan["dead_strips"][list(padded)].any()
+    rx = _gine_bwd_skipped_inputs(tx, plan, tile)
+    got = fused_layer.fused_gine_bn_layer_bwd_plain(
+        *(rx[k] for k in keys), relu_in)
+    for a, b in zip(got, full):
+        assert torch.equal(a, b)
+
+    f32 = {"a", "b", "dsums"}
+    jx = {k: jnp.asarray(np.asarray(tx[k].float(), np.float32),
+                         jnp.float32 if k in f32 else jdt) for k in keys}
+    ref = jax_fused_layer._bn_run_bwd(*(jx[k] for k in keys), relu_in, True)
+    for a, b in zip(got, ref):
+        assert_close(a, b, rtol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pad_g", [False, True])
+def test_k4b_skips_only_dead_work(packed, dtype, pad_g):
+    """K4b's passes (gine_bwd_plan with gt = g): the plain backward with
+    the skipped adjacency chunks zeroed and the mid, agg and cnt rows of
+    the strips whose g is all zero replaced equals the full one bit for
+    bit; strips with nonzero g on padding rows stay live; JAX's `_run_bwd`
+    agrees within the tolerance."""
+    jdt, tdt, rtol = DTYPES[dtype]
+    tile, adj, cnt = packed
+    _, tx, padded = _gine_bwd_problem(tile, adj, cnt, tile + 37, tdt, pad_g)
+    keys = ("g", "adj", "cnt", "agg", "mid", "w1", "w2")
+    full = fused_layer.fused_gine_layer_bwd_plain(*(tx[k] for k in keys))
+
+    plan = fused_layer.gine_bwd_plan(tx["g"], tx["adj"], 40)
+    assert plan["dead_strips"].any()
+    assert plan["adj"]["block_chunks"] < plan["adj"]["dense_chunks"]
+    assert len(padded) == 2 * pad_g
+    assert not plan["dead_strips"][list(padded)].any()
+    rx = _gine_bwd_skipped_inputs(tx, plan, tile)
+    got = fused_layer.fused_gine_layer_bwd_plain(*(rx[k] for k in keys))
+    for a, b in zip(got, full):
+        assert torch.equal(a, b)
+
+    jx = {k: jnp.asarray(np.asarray(tx[k].float(), np.float32), jdt)
+          for k in keys}
+    ref = jax_fused_layer._run_bwd(*(jx[k] for k in keys), True)
+    for a, b in zip(got, ref):
+        assert_close(a, b, rtol)
+
+
 @functools.lru_cache(maxsize=None)
 def _tiles_batch(t):
     """(adj, cnt) of a batch as the trainers pack it at tile 256 with t
@@ -319,6 +439,62 @@ def test_unchained_forward_plan_fills_the_card(t, sms):
     for name, blocks in busy.items():
         assert blocks >= sms or (name.startswith("k5f") and t == 4
                                  and strips == 40), (name, blocks)
+
+
+@pytest.mark.parametrize("t", [4, 22, 44])
+@pytest.mark.parametrize("sms", [78, 114, 132])
+def test_gine_bwd_plan_fills_the_card(t, sms):
+    """gine_bwd_plan at the reference widths (D = 300, D2 = 600, tile 256)
+    on the trainers' batches (T = 4: fine-tuning; 22: pretraining; 44:
+    concat_views' two views, here the pretraining batch twice), g on the
+    real rows: the dmid, dagg and adjacency launches cover every (row,
+    column) of their outputs once, and so do the weight pass's chunks and
+    tiles (f32: the first design's ceil(N / 1,024) chunks of at most 1,024
+    rows, equal up to one strip each); the blocks that do work reach the SM
+    count, but for the dagg and adjacency launches' three column slices of
+    the fine-tuning batch's 40 live strips (as K5f's)."""
+    s, d, d2 = 256, 300, 600
+    adj, _ = _tiles_batch(min(t, 22))
+    if t == 44:
+        adj = torch.cat([adj, adj])
+    n = t * s
+    real = fused_layer.adj_diag_mask(adj)
+    g = torch.randn(n, d, generator=torch.Generator().manual_seed(t)) * real
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = fused_layer.gine_bwd_plan(g, adj, d2, dtype, sms)
+        grids = plan["grids"]
+        for name, width in (("dmid", d2), ("dagg", d), ("adj", d)):
+            rows, slices = grids[name]
+            assert rows * 16 == n, name
+            cw = fused_layer.COL_SLICE
+            assert (slices - 1) * cw < width <= slices * cw, name
+        chunks, rows = plan["dw_chunks"], plan["dw_rows"]
+        assert rows % 16 == 0 and rows <= fused_layer.DW_MAX_ROWS
+        assert (chunks - 1) * rows < n <= chunks * rows
+        if dtype == torch.float32:
+            assert chunks == -(-n // fused_layer.BWD_CHUNK_ROWS)
+            assert rows <= fused_layer.BWD_CHUNK_ROWS
+            assert rows - (n - (chunks - 1) * rows) <= 16 * (chunks - 1)
+        tr = plan["dw_tile_rows"]
+        for name, (m, c) in (("dw1", (d, d2)), ("dw2", (d2, d)),
+                             ("detab", (fused_layer.CNT_PAD, d))):
+            ch, tm, tc = grids["weights"][name]
+            assert ch == chunks
+            assert (tm - 1) * tr < m <= tm * tr, name
+            assert (tc - 1) * fused_layer.DW_TILE < c <= \
+                tc * fused_layer.DW_TILE, name
+
+        live = int((~plan["dead_strips"]).sum())
+        adj_live = int((~plan["adj"]["dead_strips"]).sum())
+        tiles = sum(tm * tc for _, tm, tc in grids["weights"].values())
+        busy = {"dmid": live * grids["dmid"][1],
+                "dagg": live * grids["dagg"][1],
+                "adj": adj_live * grids["adj"][1],
+                "weights": int(plan["live_chunks"].sum()) * tiles}
+        for name, blocks in busy.items():
+            assert blocks >= sms or (name in ("dagg", "adj") and t == 4
+                                     and live == adj_live == 40), \
+                (dtype, name, blocks)
 
 
 @pytest.mark.parametrize("n,d", [(1024, 300), (1536, 300), (5632, 300),
