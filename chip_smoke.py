@@ -27,12 +27,20 @@ prints no result line):
               packed as the Pretrainer packs it: T = 22 tiles of 256,
               D = 300): K1f with its residuals and K1b against their plain
               versions in f32 and bf16, relu_in False and True; K2f and K2b
-              at 2B = 1,024 and 4,096 (D = 256) with and without dead pairs.
-              Two runs bit-identical; kernel, plain and library times; K1f's
-              and K1b's device time by kernel (torch.profiler over 20
-              launches) and the shares of work they skipped; K1b's host
-              time per wrapper call and which of the two sets its events
-              ms.
+              at 2B = 1,024, 2,048, 4,096 and 8,192 with D = 256 and at
+              4,096 with D = 512 (NTX_CASES), with and without dead pairs,
+              within NTX_RTOL of their plain versions, every row statistic
+              finite. Two runs bit-identical; kernel, plain and library
+              times (for K2, the closed form's forward and backward: the
+              crossover); K1f's, K1b's, K2f's and K2b's device time by
+              kernel (torch.profiler over 20 launches: K2f's mainloop and
+              merge, K2b's mainloop and sums) and the shares of work K1f
+              and K1b skipped; K1b's host time per wrapper call and which
+              of the two sets its events ms. Then resolve_ntxent('auto') at
+              B = 2,048
+              (2B = 4,096) forward and backward: K2f and K2b once each, the
+              loss within 1e-5 of the closed form's, the gradients within
+              1e-4 of the largest.
   5. step     the pretraining step at full width (GIN 5 x 300 / 512, B =
               512, node augmentation, f32, ntxent 'auto'): 3 steps on the
               card, each also run on the CPU's plain path from the card's
@@ -135,6 +143,7 @@ from molclr_tpu_torch.data.graphs import concat_views, pack_batch
 from molclr_tpu_torch.data.loader import featurize_many, spec_for_graphs
 from molclr_tpu_torch.data.motifs import encode_motif_vocab
 from molclr_tpu_torch.data.synthetic import synthetic_corpus
+from molclr_tpu_torch.losses import nt_xent_loss, resolve_ntxent
 from molclr_tpu_torch.models import FineTuneNet, MolCLRNet
 from molclr_tpu_torch.ops import _build, ntxent
 from molclr_tpu_torch.data.tasks import TASKS
@@ -874,17 +883,28 @@ def k2_bound_ms(n: int, d: int, backward: bool):
                                        else "operations")
 
 
+# phase 4's K2 cases: (2B, D); each with and without dead pairs
+NTX_CASES = ((1024, 256), (2048, 256), (4096, 256), (8192, 256),
+             (4096, 512))
+# the 'auto' check: 2B = 4,096, the first size at which 'auto' takes K2
+AUTO_B = 2048
+# the 'auto' loss against the closed form (rtol), and its gradients within
+# AUTO_GRAD_RTOL of the largest gradient (sums in another order)
+AUTO_LOSS_RTOL, AUTO_GRAD_RTOL = 1e-5, 1e-4
+
+
 def ntxent_phase(dev) -> dict:
-    """K2f and K2b at 2B = 1,024 and 4,096, D = 256, with and without dead
-    pairs, against their plain versions; the closed form's forward and
-    backward as the library yardstick (and the crossover)."""
+    """K2f and K2b at NTX_CASES, with and without dead pairs, against their
+    plain versions; the closed form's forward and backward as the library
+    yardstick (and the crossover); device us by launch (the mainloop, the
+    merge, the sums); then the 'auto' path at B = AUTO_B."""
     res = {"fwd": {"max_abs_err": 0.0, "cases": []},
            "bwd": {"max_abs_err": 0.0, "cases": []}}
     inv_t = 10.0
-    for n in (1024, 4096):
+    for n, d in NTX_CASES:
         for dead in (0, n // 16):
             gen = torch.Generator().manual_seed(n + dead)
-            reps = torch.randn(n, 256, generator=gen)
+            reps = torch.randn(n, d, generator=gen)
             reps = (reps / reps.norm(dim=1, keepdim=True)).to(dev)
             valid = torch.ones(n)
             if dead:
@@ -893,13 +913,17 @@ def ntxent_phase(dev) -> dict:
                 valid[pairs + n // 2] = 0
             valid = valid.to(dev)
             live = valid > 0
-            tag = dict(two_b=n, d=256, dead_rows=int((~live).sum()))
+            plan = ntxent.ntxent_plan(n, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+            tag = dict(two_b=n, d=d, dead_rows=int((~live).sum()),
+                       splits=plan["splits"])
             got = ntxent.ntxent_fwd(reps, valid, inv_t)
             again = ntxent.ntxent_fwd(reps, valid, inv_t)
             want = ntxent.ntxent_fwd_plain(reps, valid, inv_t)
             torch.cuda.synchronize()
             case = dict(tag, bit_identical=all(
                 torch.equal(u, v) for u, v in zip(got, again)))
+            case["finite"] = all(bool(torch.isfinite(x).all()) for x in got)
             per_got = (got[0] + torch.log(got[1]) - got[2])[live]
             per_want = (want[0] + torch.log(want[1]) - want[2])[live]
             case["err_per_row"], top = rel_err(per_got, per_want)
@@ -914,8 +938,12 @@ def ntxent_phase(dev) -> dict:
                     reps, valid, inv_t)),
                 library_ms=time_ms(lambda: closed_form_from_reps(
                     reps, valid, inv_t)))
-            case["bound_ms"], case["bound_by"] = k2_bound_ms(n, 256, False)
+            case["bound_ms"], case["bound_by"] = k2_bound_ms(n, d, False)
+            if not dead:
+                case["passes_us"] = pass_profile(
+                    lambda: ntxent.ntxent_fwd(reps, valid, inv_t))
             print(f"kernel k2f {json.dumps(case)}", flush=True)
+            check(case["finite"], f"K2f {tag}: a row statistic is not finite")
             check(case["err_per_row"] <= case["lim_per_row"],
                   f"K2f {tag}: error {case['err_per_row']}")
             check(abs(case["loss_kernel"] - case["loss_closed_form"])
@@ -945,7 +973,10 @@ def ntxent_phase(dev) -> dict:
                     reps, valid, inv_t, scale, m, l)),
                 library_ms=time_ms(lambda: torch.autograd.grad(
                     lib_loss, rq, retain_graph=True)))
-            case["bound_ms"], case["bound_by"] = k2_bound_ms(n, 256, True)
+            case["bound_ms"], case["bound_by"] = k2_bound_ms(n, d, True)
+            if not dead:
+                case["passes_us"] = pass_profile(lambda: ntxent.ntxent_bwd(
+                    reps, valid, inv_t, scale, m, l))
             print(f"kernel k2b {json.dumps(case)}", flush=True)
             check(case["err_dreps"] <= case["lim_dreps"],
                   f"K2b {tag}: error {case['err_dreps']} > "
@@ -957,7 +988,44 @@ def ntxent_phase(dev) -> dict:
             res["bwd"]["max_abs_err"] = max(res["bwd"]["max_abs_err"],
                                             case["err_dreps"])
             res["bwd"]["cases"].append(case)
+    res["auto"] = auto_ntxent_check(dev)
     return res
+
+
+def auto_ntxent_check(dev) -> dict:
+    """resolve_ntxent('auto') at B = AUTO_B on the card, forward and
+    backward, as the trainer calls it: K2f and K2b once each (and no other
+    kernel), the loss and the gradients of both views against the closed
+    form (losses.nt_xent_loss) on the same inputs."""
+    gen = torch.Generator().manual_seed(AUTO_B)
+    zi = torch.randn(AUTO_B, FEAT // 2, generator=gen)
+    zj = zi + 0.5 * torch.randn(AUTO_B, FEAT // 2, generator=gen)
+    out = {}
+    for name, fn in (("auto", resolve_ntxent("auto")),
+                     ("closed_form", nt_xent_loss)):
+        a, b = (z.to(dev).requires_grad_(True) for z in (zi, zj))
+        reset_counts()
+        loss = fn(a, b, 0.1, True)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[name] = (loss.item(), a.grad, b.grad, read_counts())
+    (la, ga, gb, counts), (lc, ca, cb, _) = out["auto"], out["closed_form"]
+    top = max(ca.abs().max().item(), cb.abs().max().item())
+    report = dict(b=AUTO_B, d=FEAT // 2, counts=counts, loss=la,
+                  loss_closed_form=lc,
+                  grad_err=max((ga - ca).abs().max().item(),
+                               (gb - cb).abs().max().item()),
+                  grad_top=top)
+    print(f"ntxent auto {json.dumps(report)}", flush=True)
+    for k, c in counts.items():
+        want = 1 if k in ("ntxent_fwd", "ntxent_bwd") else 0
+        check(c == want, f"'auto' at B = {AUTO_B}: {k} launched {c} times, "
+              f"expected {want}")
+    check(abs(la - lc) <= AUTO_LOSS_RTOL * abs(lc),
+          f"'auto' loss {la} vs closed form {lc}")
+    check(report["grad_err"] <= AUTO_GRAD_RTOL * top,
+          f"'auto' gradients differ by {report['grad_err']} (largest {top})")
+    return report
 
 
 # ---------------------------------------------------------------- phase 5

@@ -17,7 +17,9 @@ positives nor negatives, and the loss is the mean over valid rows.
 `ntxent_fwd` / `ntxent_bwd` launch the hand-written sm_90a kernels
 (csrc/ntxent.cu) on CUDA tensors and run the plain versions
 `ntxent_fwd_plain` / `ntxent_bwd_plain` (which mirror the Pallas kernels
-block by block) on CPU tensors.
+block by block) on CPU tensors. `ntxent_plan` cuts the similarity into the
+kernels' blocks (row tiles times column splits), and `split_stats_plain`
+with `merge_stats_plain` mirror K2f's per-split statistics and their merge.
 """
 
 from __future__ import annotations
@@ -28,10 +30,19 @@ import functools
 import torch
 
 from molclr_tpu_torch.ops import _build
+from molclr_tpu_torch.ops.fused_layer import H100_SMS, sm_count
 
 NEG = -1e30
-# rows per block of the kernels and columns per sweep step
+# the kernels' row and column tiles (csrc/ntxent.cu RB, CB) and the plain
+# versions' columns per sweep step
 BLK = 64
+# csrc/ntxent.cu: K2f's depth of an s chunk and ring stages (KC, NS), K2b's
+# (BKC, BNS), its output columns per block (DO) and column rows per product
+# chunk (PC)
+KC, STAGES, BWD_KC, BWD_STAGES, DO, PC = 32, 3, 64, 2, 256, 32
+# K2f blocks resident on one SM (64 threads and FWD_SMEM bytes each), which
+# ntxent_plan fills
+FWD_BLOCKS_PER_SM = 4
 # pairs per half are padded to a multiple of this (so 2B % 128 == 0)
 PAIR_MULTIPLE = 64
 
@@ -50,13 +61,19 @@ def _partner(n: int, device) -> torch.Tensor:
 def ntxent_fwd_plain(reps, valid, inv_t: float):
     """Per-row (m, l, pos) over the masked similarity (`_fwd_kernel`, all
     row blocks at once, the same column blocks in the same order)."""
+    return _sweep_stats(reps, valid, inv_t, 0, reps.shape[0])
+
+
+def _sweep_stats(reps, valid, inv_t: float, c0: int, c1: int):
+    """(m, l, pos) of every row over the columns [c0, c1), BLK at a time
+    in order."""
     n = reps.shape[0]
     rows = torch.arange(n, device=reps.device)
     partner = _partner(n, reps.device)
     m = torch.full((n,), NEG, device=reps.device)
     l = torch.zeros(n, device=reps.device)
     pos = torch.zeros(n, device=reps.device)
-    for j0 in range(0, n, BLK):
+    for j0 in range(c0, c1, BLK):
         cols = reps[j0:j0 + BLK]
         col_ids = rows[j0:j0 + BLK]
         s = (reps @ cols.t()) * inv_t
@@ -68,6 +85,50 @@ def ntxent_fwd_plain(reps, valid, inv_t: float):
         m_new = torch.maximum(m, s.max(dim=1).values)
         l = l * torch.exp(m - m_new) + torch.exp(s - m_new[:, None]).sum(dim=1)
         m = m_new
+    return m, l, pos
+
+
+def ntxent_plan(n: int, sms: int = H100_SMS) -> dict:
+    """How K2f and K2b cut the [n, n] similarity (csrc/ntxent.cu, which
+    takes the plan as it is and only checks it): one block per (BLK-row
+    tile, column split), a split being a contiguous run of
+    `tiles_per_split` BLK-column tiles (`runs`: [first, end) of each).
+    The splits are the most whose blocks fit one wave of
+    FWD_BLOCKS_PER_SM blocks on each of `sms` SMs (at least one), so the
+    blocks fill the card at 2B = 1,024 as at 8,192 and the partials stay
+    few. `smem_fwd` / `smem_bwd`: the kernels' shared memory in bytes,
+    the same for every D (K2b cuts D into slices of DO itself)."""
+    tiles = n // BLK
+    want = min(tiles, max(1, FWD_BLOCKS_PER_SM * sms // tiles))
+    tps = -(-tiles // want)
+    splits = -(-tiles // tps)         # no split is empty
+    bwd_stage = max(2 * BLK * (BWD_KC + 4), PC * (DO + 4))
+    return dict(rows=BLK, splits=splits, tiles_per_split=tps,
+                runs=tuple((s * tps, min((s + 1) * tps, tiles))
+                           for s in range(splits)),
+                smem_fwd=4 * STAGES * 2 * BLK * (KC + 4),
+                smem_bwd=4 * (BWD_STAGES * bwd_stage + BLK * (BLK + 4)))
+
+
+def split_stats_plain(reps, valid, inv_t: float, plan: dict):
+    """[splits, n] (m_s, l_s, pos_s): the plain sweep over each split's
+    columns alone, as K2f's blocks leave them."""
+    stats = [_sweep_stats(reps, valid, inv_t, a * BLK, b * BLK)
+             for a, b in plan["runs"]]
+    return tuple(torch.stack(x) for x in zip(*stats))
+
+
+def merge_stats_plain(m_s, l_s, pos_s):
+    """K2f's merge of the splits (ntxent_merge_kernel), in split order: m =
+    max m_s, l = sum l_s exp(m_s - m), pos = sum pos_s. A split whose
+    columns are all dead (m_s = -1e30, l_s its column count) adds 0 to a
+    live row and keeps a dead row's (m, l) finite."""
+    m = m_s.max(dim=0).values
+    l = torch.zeros_like(m)
+    pos = torch.zeros_like(m)
+    for s in range(m_s.shape[0]):
+        l = l + l_s[s] * torch.exp(m_s[s] - m)
+        pos = pos + pos_s[s]
     return m, l, pos
 
 
@@ -100,19 +161,25 @@ def ntxent_bwd_plain(reps, valid, inv_t: float, scale, m, l):
     return acc * inv_t
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the C entry points' parameters: (reps, valid, inv_t, outputs, scratch,
+# n, d, splits, tiles per split, shared bytes, stream)
+ARGTYPES = {
+    "ntxent_fwd": [_P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ntxent_bwd": [_P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel(fn: str):
-    lib = _build.load("ntxent")
-    f = getattr(lib, fn)
-    p, i, flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    f.argtypes = ([p, p, flt, p, p, p, i, i, p] if fn == "ntxent_fwd"
-                  else [p, p, flt, p, p, p, p, i, i, p])
+    f = getattr(_build.load("ntxent"), fn)
+    f.argtypes = ARGTYPES[fn]
     f.restype = ctypes.c_int
     return f
 
 
 def _check(name: str, reps, valid):
-    n, d = reps.shape
+    n, _ = reps.shape
     if reps.dtype != torch.float32 or valid.dtype != torch.float32:
         raise TypeError(f"{name}: reps and valid must be float32")
     if valid.shape != (n,) or valid.device != reps.device:
@@ -122,8 +189,6 @@ def _check(name: str, reps, valid):
     if n % (2 * PAIR_MULTIPLE):
         raise ValueError(f"{name}: 2B = {n} is not a multiple of "
                          f"{2 * PAIR_MULTIPLE}")
-    if reps.device.type == "cuda" and d > 256:
-        raise ValueError(f"{name}: the kernel takes D <= 256, got {d}")
     if reps.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for {reps.device}")
 
@@ -136,12 +201,17 @@ def ntxent_fwd(reps, valid, inv_t: float):
     if reps.device.type == "cpu":
         return ntxent_fwd_plain(reps, valid, inv_t)
     n, d = reps.shape
+    plan = ntxent_plan(n, sm_count(reps.device))
     m, l, pos = (torch.empty(n, dtype=torch.float32, device=reps.device)
                  for _ in range(3))
+    part = torch.empty(3, plan["splits"], n, dtype=torch.float32,
+                       device=reps.device)
     stream = torch.cuda.current_stream(reps.device).cuda_stream
     err = _kernel("ntxent_fwd")(reps.data_ptr(), valid.data_ptr(), inv_t,
                                 m.data_ptr(), l.data_ptr(), pos.data_ptr(),
-                                n, d, stream)
+                                part.data_ptr(), n, d, plan["splits"],
+                                plan["tiles_per_split"], plan["smem_fwd"],
+                                stream)
     _build.check(err, "ntxent_fwd")
     ntxent_fwd.launches += 1
     return m, l, pos
@@ -157,13 +227,18 @@ def ntxent_bwd(reps, valid, inv_t: float, scale, m, l):
     _check("ntxent_bwd", reps, valid)
     if reps.device.type == "cpu":
         return ntxent_bwd_plain(reps, valid, inv_t, scale, m, l)
+    n, d = reps.shape
+    plan = ntxent_plan(n, sm_count(reps.device))
     dreps = torch.empty_like(reps)
+    part = torch.empty(plan["splits"], n, d, dtype=torch.float32,
+                       device=reps.device)
     scale, m, l = (x.contiguous() for x in (scale, m, l))
     stream = torch.cuda.current_stream(reps.device).cuda_stream
     err = _kernel("ntxent_bwd")(reps.data_ptr(), valid.data_ptr(), inv_t,
                                 scale.data_ptr(), m.data_ptr(), l.data_ptr(),
-                                dreps.data_ptr(), reps.shape[0],
-                                reps.shape[1], stream)
+                                dreps.data_ptr(), part.data_ptr(), n, d,
+                                plan["splits"], plan["tiles_per_split"],
+                                plan["smem_bwd"], stream)
     _build.check(err, "ntxent_bwd")
     ntxent_bwd.launches += 1
     return dreps

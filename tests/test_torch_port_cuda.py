@@ -351,11 +351,14 @@ def test_gine_backward_at_the_trainers_tile_counts(cuda, tiles, dtype,
             assert torch.equal(u, v), i
 
 
-@pytest.mark.parametrize("n,d", [(128, 32), (256, 256), (384, 100)])
+@pytest.mark.parametrize("n,d", [(128, 32), (256, 256), (384, 100),
+                                 (1024, 300), (1024, 512), (512, 1024),
+                                 (4096, 256)])
 @pytest.mark.parametrize("dead", [0, 7])
 def test_ntxent_kernels_match_plain(cuda, n, d, dead):
     """K2f and K2b against their plain versions on the card, with dead
-    pairs; two runs bit-identical."""
+    pairs, at widths past the first design's D <= 256 (any D, as the
+    Pallas kernels); two runs bit-identical."""
     gen = torch.Generator().manual_seed(n + d + dead)
     reps = torch.randn(n, d, generator=gen)
     reps = (reps / reps.norm(dim=1, keepdim=True)).to(cuda)
@@ -365,6 +368,10 @@ def test_ntxent_kernels_match_plain(cuda, n, d, dead):
         valid[pairs] = 0
         valid[pairs + n // 2] = 0
     valid = valid.to(cuda)
+    _ntxent_against_plain(reps, valid)
+
+
+def _ntxent_against_plain(reps, valid):
     got = ntxent.ntxent_fwd(reps, valid, 10.0)
     again = ntxent.ntxent_fwd(reps, valid, 10.0)
     want = ntxent.ntxent_fwd_plain(reps, valid, 10.0)
@@ -381,6 +388,42 @@ def test_ntxent_kernels_match_plain(cuda, n, d, dead):
     torch.cuda.synchronize()
     assert torch.equal(dr, dr2)
     assert (dr - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    return got, dr
+
+
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_ntxent_all_dead_split_stays_finite(cuda, n):
+    """Every pair with a column in the second column split of the card's
+    plan is dead, so that split's statistics are all dead on every row:
+    the merged (m, l) stay finite on every row, dreps has no NaN, and the
+    loss and gradient match the closed form."""
+    plan = ntxent.ntxent_plan(n, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    a, b = plan["runs"][1]
+    gen = torch.Generator().manual_seed(n)
+    reps = torch.randn(n, 256, generator=gen)
+    reps = (reps / reps.norm(dim=1, keepdim=True)).to(cuda)
+    valid = torch.ones(n)
+    cols = torch.arange(a * ntxent.BLK, b * ntxent.BLK) % (n // 2)
+    valid[cols] = 0
+    valid[cols + n // 2] = 0
+    valid = valid.to(cuda)
+    (m, l, pos), dr = _ntxent_against_plain(reps, valid)
+    for x in (m, l, pos, dr):
+        assert torch.isfinite(x).all()
+    assert bool((l >= 1.0).all())
+    rq = reps.clone().requires_grad_(True)
+    sim = rq @ rq.t() * 10.0
+    dead = torch.eye(n, dtype=torch.bool, device=cuda) | (valid == 0)[None]
+    partner = torch.cat([torch.diagonal(sim, n // 2),
+                         torch.diagonal(sim, -n // 2)])
+    per_row = torch.logsumexp(sim.masked_fill(dead, float("-inf")), 1) \
+        - partner
+    closed = (per_row * valid).sum() / valid.sum()
+    (grad,) = torch.autograd.grad(closed, rq)
+    loss = ntxent.masked_mean(m, l, pos, valid)
+    assert abs(loss.item() - closed.item()) <= 1e-5 * abs(closed.item())
+    assert (dr - grad).abs().max().item() <= 1e-4 * grad.abs().max().item()
 
 
 def test_ntxent_kernel_loss_matches_closed_form_on_card(cuda):
