@@ -14,9 +14,9 @@ prints no result line):
               256, D 300), in f32 and bf16 with relu_in False and True;
               compare out and the moment sums, check that two kernel runs
               are bit-identical, and time the kernel, the plain version and
-              a cuBLAS matmul chain computing the same function; for K1f,
-              the shares of dead 32-row blocks and of adjacency chunks that
-              the launch skipped (kernel_plan).
+              a cuBLAS matmul chain computing the same function; the
+              shares of dead row blocks or strips and of adjacency chunks
+              that the launch skipped (kernel_plan, k3f_plan).
   3. slice    the serving path end to end: 1,024 synthetic SMILES through
               `molclr_tpu_torch.cli.embed.main` for a GIN and a GCN
               5 x 300 / 512 encoder with seeded random weights (and once
@@ -89,17 +89,21 @@ prints no result line):
  11. GCN training kernels, at the pretraining shape (phase 4's batch, T =
               22): K3f and K3b (fused_gcn_bn_layer's backward) against
               their plain versions in f32 and bf16, relu_in False and True;
-              two runs bit-identical; kernel, plain and library times.
+              two runs bit-identical; kernel, plain and library times,
+              device us per pass, host us per call and the shares of
+              strips, adjacency chunks and weight-pass row chunks they
+              skipped (k3f_plan, k3b_plan).
  12. GCN step: GCN pretraining at full width (5 x 300 / 512, B = 512, node
               augmentation, ntxent 'auto'): 3 card-vs-CPU steps in f32 and
               in bf16 with phase 5's limits, K3f 10 and K3b 10 launches per
               step and no other kernel; two identical card steps
               bit-identical; one normalize_gcn step card-vs-CPU; the step's
               time (f32, bf16), the host's time and a profile.
- 13. options: K4b at the dropout step's shape (T = 22) and K1b at
-              concat_views' (T = 44) against their plain versions in f32
-              and bf16 (phase 8's and phase 4's limits, two runs
-              bit-identical); then one card-vs-CPU step each at full width
+ 13. options: K4b at the dropout step's shape (T = 22), K1b at
+              concat_views' (T = 44) and K3f / K3b at GCN mix's (T = 47)
+              against their plain versions in f32 and bf16 (phase 8's,
+              phase 4's and phase 11's limits, two runs bit-identical);
+              then one card-vs-CPU step each at full width
               with launch counts for GIN subgraph, GIN mix and GCN mix augmentation (the views
               on the card bit-identical to the CPU's from the same keys;
               mix on the batch featurized with hydrogens), GIN with dropout
@@ -149,6 +153,8 @@ from molclr_tpu_torch.ops import _build, ntxent
 from molclr_tpu_torch.data.tasks import TASKS
 from molclr_tpu_torch.ops.fused_gcn import (
     fused_gcn_bn_layer,
+    k3b_plan,
+    k3f_plan,
     k5b_plan,
     fused_gcn_bn_layer_bwd,
     fused_gcn_bn_layer_bwd_plain,
@@ -475,6 +481,43 @@ def k5b_skipped(adj, d) -> dict:
                 dw_chunk_count=plan["dw_chunks"])
 
 
+def k3f_skipped(x, d) -> dict:
+    """K3f's blocks per launch (k3f_plan) and the shares of its 16-row
+    strips that are dead in the xw pass (A rows all zero: zeros written)
+    and in the adjacency pass (A and cnt rows all zero: rnd(bias) written),
+    and of the (strip, adjacency chunk) products that it skips, from the
+    plan helper on this launch's input."""
+    plan = k3f_plan(x["adj"].cpu(), x["cnt"].cpu(), d)
+    ap = plan["adj"]
+    return dict(blocks={k: v[0] * v[1] for k, v in plan["grids"].items()},
+                xw_dead_strips=float(plan["xw"]["dead_strips"].float()
+                                     .mean()),
+                adj_dead_strips=float(ap["dead_strips"].float().mean()),
+                a_chunks=1 - ap["block_chunks"] / ap["dense_chunks"])
+
+
+def k3b_skipped(x, d, dt) -> dict:
+    """K3b's blocks per launch (k3b_plan) and the shares of its strip
+    pass's dead strips and skipped (strip, adjacency chunk) products, of
+    the strips its weight pass skips (A and cnt rows all zero) and of the
+    weight pass's row chunks that load nothing, from the plan helper on
+    this launch's input and the card's SM count, as the wrapper plans the
+    weight pass."""
+    adj = x["adj"]
+    plan = k3b_plan(adj.cpu(), x["cnt"].cpu(), d, dt, sm_count(adj.device))
+    grids, ap = plan["grids"], plan["adj"]
+    blocks = {k: v[0] * v[1] for k, v in grids.items() if k != "weights"}
+    blocks["weights"] = sum(c * tm * tc for c, tm, tc in
+                            grids["weights"].values())
+    return dict(blocks=blocks,
+                adj_dead_strips=float(ap["dead_strips"].float().mean()),
+                a_chunks=1 - ap["block_chunks"] / ap["dense_chunks"],
+                dead_strips=float(plan["dead_strips"].float().mean()),
+                dw_chunks=1 - float(plan["live_chunks"].float().mean()),
+                dw_chunk_count=plan["dw_chunks"],
+                dw_tile_rows=plan["dw_tile_rows"])
+
+
 def unchained_skipped(x, d, d2, kernel) -> dict:
     """K4f's or K5f's blocks per launch (unchained_fwd_plan) and the shares
     of its 16-row blocks that are dead and of the (block, adjacency chunk)
@@ -577,8 +620,9 @@ def kernel_phase(dev) -> dict:
                     library_ms=time_ms(lambda: library[name](*args, relu_in)))
                 case["bound_ms"], case["bound_by"] = bound_ms(name, x, (
                     pg if name == "fused_gine_bn_layer" else pc), dt)
-                if name == "fused_gine_bn_layer":
-                    case["skipped"] = k1f_skipped(x, pg)
+                case["skipped"] = (k1f_skipped(x, pg)
+                                   if name == "fused_gine_bn_layer"
+                                   else k3f_skipped(x, x["h"].shape[1]))
                 print(f"kernel {name} {json.dumps(case)}", flush=True)
                 check(err_out <= lim_out, f"{name} {case['dtype']} relu_in="
                       f"{relu_in}: out error {err_out} > {lim_out}")
@@ -1880,7 +1924,9 @@ def gcn_train_kernel_phase(batch, dev) -> dict:
     """K3f and K3b at the pretraining shape (T = 22), f32 and bf16,
     relu_in False and True: K3f against its plain version, K3b against its
     plain version on K3f's output and a random cotangent; two runs
-    bit-identical; kernel, plain and library times and the bound."""
+    bit-identical; kernel, plain and library times and the bound; device
+    us per pass, host us per call and what each skipped (k3f_plan,
+    k3b_plan)."""
     gen = torch.Generator().manual_seed(SEED + 6)
     res = {"fwd": {"max_abs_err": 0.0, "cases": []},
            "bwd": {"max_abs_err": 0.0, "cases": []}}
@@ -1901,6 +1947,8 @@ def gcn_train_kernel_phase(batch, dev) -> dict:
                 lambda: gcn_library(*args, relu_in), KERNEL_RTOL[dt])
             case["bound_ms"], case["bound_by"] = bound_ms(
                 "fused_gcn_bn_layer", x, pc, dt)
+            paced(case, lambda: fused_gcn_bn_layer(*args, relu_in),
+                  k3f_skipped(x, d))
             print(f"kernel k3f_pretrain {json.dumps(case)}", flush=True)
             res["fwd"]["max_abs_err"] = max(res["fwd"]["max_abs_err"],
                                             case["err_out"])
@@ -1915,6 +1963,8 @@ def gcn_train_kernel_phase(batch, dev) -> dict:
                                              fused_gcn_bn_layer_bwd_plain(
                                                  *bargs)[0])[0]
             case["bound_ms"], case["bound_by"] = k3b_bound_ms(x, pc, dt)
+            paced(case, lambda: fused_gcn_bn_layer_bwd(*bargs),
+                  k3b_skipped(x, d, dt))
             print(f"kernel k3b {json.dumps(case)}", flush=True)
             res["bwd"]["max_abs_err"] = max(res["bwd"]["max_abs_err"],
                                             case["err_dx"])
@@ -2072,6 +2122,42 @@ def trainer_bwd_cases(batch, dev) -> dict:
     return res
 
 
+def gcn_mix_cases(batch, dev) -> dict:
+    """K3f and K3b at the GCN mix step's shape below (the pretraining batch
+    with hydrogens, T = 47), f32 and bf16, relu prologue: each against its
+    plain version within phase 11's limits, two runs bit-identical, with
+    what each skipped. No other kernel check reaches this tile count."""
+    gen = torch.Generator().manual_seed(SEED + 9)
+    res = {"k3f": [], "k3b": []}
+    for dt in (torch.float32, torch.bfloat16):
+        x, _, pc = layer_inputs(batch.to(dev), dt, gen)
+        args = gcn_args(x, pc)
+        n, d = x["h"].shape
+        g = (0.1 * torch.randn(n, d, generator=gen)).to(dev, dt)
+        dsums = (1e-3 * torch.randn(2, d, generator=gen)).to(dev)
+        tag = dict(dtype=str(dt).replace("torch.", ""), relu_in=True,
+                   tiles=x["adj"].shape[0], d=d)
+        case, (out, _) = kernel_case(
+            "K3f", tag, ("out", "sums"),
+            lambda: fused_gcn_bn_layer(*args, True),
+            lambda: fused_gcn_bn_layer_plain(*args, True),
+            lambda: gcn_library(*args, True), KERNEL_RTOL[dt])
+        case["skipped"] = k3f_skipped(x, d)
+        print(f"kernel k3f_mix {json.dumps(case)}", flush=True)
+        res["k3f"].append(case)
+        bargs = (g, dsums, x["h"], x["a"], x["b"], x["adj"], x["cnt"], out,
+                 pc["w"], True)
+        case, _ = kernel_case(
+            "K3b", tag, ("dx", "da", "db", "dw", "dbias", "detab"),
+            lambda: fused_gcn_bn_layer_bwd(*bargs),
+            lambda: fused_gcn_bn_layer_bwd_plain(*bargs),
+            lambda: gcn_bwd_library(*bargs), BWD_RTOL[dt])
+        case["skipped"] = k3b_skipped(x, d, dt)
+        print(f"kernel k3b_mix {json.dumps(case)}", flush=True)
+        res["k3b"].append(case)
+    return res
+
+
 def options_phase(dev) -> dict:
     """The other pretraining options at full width, each one card-vs-CPU
     step from the same state with phase 5's limits and its launch counts:
@@ -2082,10 +2168,12 @@ def options_phase(dev) -> dict:
     The BFS horizon is the one the Pretrainer derives for a corpus of this
     batch (max atoms - 1). Then the augmentation's time per step for
     node, subgraph and mix. First K4b and K1b at the dropout and
-    concat_views steps' shapes (trainer_bwd_cases)."""
+    concat_views steps' shapes (trainer_bwd_cases), K3f and K3b at the GCN
+    mix step's (gcn_mix_cases)."""
     plain = pretrain_batch()
     report = {"kernels": trainer_bwd_cases(plain[0], dev)}
     with_hs = pretrain_batch(add_hs=True)
+    report["gcn_mix_kernels"] = gcn_mix_cases(with_hs[0], dev)
     gin_bn = dict(fused_gine_bn_layer=2 * LAYERS,
                   fused_gine_bn_layer_bwd=2 * LAYERS)
     gcn_bn = dict(fused_gcn_bn_layer=2 * LAYERS,

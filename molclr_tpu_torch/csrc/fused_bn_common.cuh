@@ -1,34 +1,38 @@
-// Shared pieces of the BN-chained fused layer kernels (sm_90a).
+// Shared pieces of the fused layer kernels (sm_90a): K1f, K1b, K3f, K3b,
+// K4f, K4b, K5f and K5b.
 //
 // A TPU kernel of molclr_tpu/ops/fused_{layer,gcn}.py processes one whole
 // 256-node tile per sequential grid step, with the tile's adjacency block
-// and features resident in VMEM, and adds the masked output moments into
-// one resident [2, D] block. On Hopper neither carries over: a tile's A
-// (256 x 256) plus its features (256 x 300) do not fit a block's 227 KB of
-// shared memory, and blocks run in parallel in no order. So here
-//   * one block of 128 threads owns a STRIP of R = 16 rows of one tile
-//     (T * S/R blocks; 288 at the embed shape, small enough in shared
-//     memory that three run on each SM and all of them in one wave);
-//   * its left operand ([A strip | cnt rows], then its own intermediates)
-//     lives in shared memory as f32, and the right operand streams through
-//     a [KC x CW] shared chunk, column pass by column pass; each thread
-//     stages one column of the NEXT chunk in registers while the block
-//     multiplies the current one, so the loads overlap the products;
-//   * each block writes its masked moment partials to its own row of a
-//     [n_blocks, 2, D] scratch, and sum_partials adds the rows in block
-//     order: no atomics, so repeated runs are bit-identical.
-// These strip kernels (strip_gemm: plain f32 FMA loops, no tensor cores)
-// carry K3f and K3b's row passes, and atb_kernel K3b's weight pass. The
-// redesigned K1f, K4f, K5f, K5b, K4b and K1b run on the row-block products
-// further down (rb_pass, rb_pass_rows: 16- or 32-row blocks of 256
-// threads, FP32 FMA in f32 and mma.sync tensor cores in bf16, all-zero
-// adjacency chunks and dead rows skipped); one adjacency pass
-// (adj_pass_kernel, its epilogue a parameter) serves K5f, K3b, K4b and
-// K1b, and one weight pass (wgrad_kernel, up to three problems a launch)
-// K5b, K4b and K1b. What still holds the row-block products back in f32:
-// shared-memory loads (two wavefronts per eight FMA), padded rows of live
-// blocks, no wgmma or TMA. Every value is rounded to the activation type T
-// exactly where the Pallas kernels cast.
+// and features resident in VMEM, and adds the masked output moments and
+// the parameter gradients into resident blocks. On Hopper neither carries
+// over: a tile's A (256 x 256) plus its features (256 x 300) do not fit a
+// block's 227 KB of shared memory, and blocks run in parallel in no order.
+// So every layer kernel runs on row blocks (the second half of this file):
+//   * a block of 256 threads owns 16 rows (K1f: 32), one strip of a tile,
+//     holds its left operand in shared memory and multiplies it by a right
+//     operand (a weight, or the feature rows its adjacency operand reaches)
+//     streamed through a ring of cp.async stages, one 128-column slice at a
+//     time (rb_pass, rb_pass_rows): FP32 FMA on CUDA cores in f32 (no
+//     TF32), mma.sync m16n8k16 tensor cores with f32 sums in bf16;
+//   * a block multiplies only the 32-column chunks of its adjacency rows
+//     that hold a nonzero (adj_live_chunks, adj_operand), and strips whose
+//     rows are all dead compute no product;
+//   * one adjacency pass (adj_pass_kernel, its epilogue a parameter) serves
+//     K5f, K3f, K4b and K1b, and one weight pass (wgrad_kernel, up to three
+//     transposed-left problems a launch, dead strips skipped) K5b, K3b, K4b
+//     and K1b;
+//   * each block writes its partial sums (moments, vector gradients, a
+//     weight-pass chunk) to its own row of a scratch, and sum_partials adds
+//     the rows in a fixed order: no atomics, so repeated runs are
+//     bit-identical.
+// In f32 each output is one thread's sum over k in ascending order and each
+// strip's partials are summed as the first design's 16-row strip kernels
+// summed them (each group of four rows, then the groups), so the f32
+// results are bit-identical to that design's (a skipped term is an exact
+// zero). What still holds the products back in f32: shared-memory loads
+// (two wavefronts per eight FMA), padded rows of live blocks, no wgmma or
+// TMA. Every value is rounded to the activation type T exactly where the
+// Pallas kernels cast.
 
 #pragma once
 
@@ -40,19 +44,8 @@
 
 namespace fbl {
 
-constexpr int R = 16;        // rows per block (one strip of a tile)
-constexpr int CW = 128;      // output columns per pass
-constexpr int KC = 32;       // depth of one streamed right-operand chunk
-constexpr int NT = 128;      // threads per block: 4 warps
-constexpr int TM = 4;        // rows per thread: warp w owns rows 4w..4w+3
-constexpr int TN = 4;        // columns per thread: lane + 32 j, j < 4
-constexpr int NWARP = NT / 32;
+constexpr int R = 16;        // rows of a strip (the tile layout's unit)
 constexpr int CNT_PAD = 16;  // cnt columns / etab rows (ops/fused_layer.py)
-constexpr int RED = 2 * NWARP * CW;  // epilogue scratch, aliased on the chunk
-
-static_assert(NWARP * TM == R && 32 * TN == CW, "thread tiling");
-static_assert(NT == CW, "thread t stages column t of each chunk");
-static_assert(RED <= KC * CW, "epilogue scratch fits in the chunk buffer");
 
 __device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
@@ -84,242 +77,6 @@ __device__ __forceinline__ float prologue(float x, float a, float b,
   return relu_in ? fmaxf(v, 0.f) : v;
 }
 
-struct Identity {
-  __device__ float operator()(int, int, float v) const { return v; }
-};
-
-// C[R, ncols] = As[R, K] @ B[K, ncols], As in shared memory (row stride
-// lda). B element (k, c) is xf_b(k, c, tof(load_b(k, c))): load_b reads
-// the raw element (float or bf16) from device memory one chunk ahead into
-// registers, and nothing uses it until it is converted and transformed on
-// its way to the shared chunk, so the loads stay in flight during the
-// products. For each CW-wide column pass, epi(c0, acc) receives this
-// thread's TM x TN accumulators: rows warp * TM + i, columns
-// c0 + lane + 32 j (columns >= ncols hold garbage and must be skipped). A
-// warp reads one As address at a time (broadcast) and 32 consecutive Bs
-// words (no bank conflicts). All threads must call it; epi may call
-// __syncthreads and may reuse Bs as scratch (after a __syncthreads).
-template <typename LoadB, typename XfB, typename Epi>
-__device__ void strip_gemm(const float* As, int lda, int K, int ncols,
-                           float* Bs, LoadB load_b, XfB xf_b, Epi epi) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  for (int c0 = 0; c0 < ncols; c0 += CW) {
-    const int c = c0 + tid;  // the column this thread stages
-    const bool cok = c < ncols;
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-    using V = decltype(load_b(0, 0));
-    V stage[KC];
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk)
-      stage[kk] = (cok && kk < K) ? load_b(kk, c) : V();
-    for (int k0 = 0; k0 < K; k0 += KC) {
-      __syncthreads();  // the previous chunk (or epilogue scratch) is consumed
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        const int k = k0 + kk;
-        Bs[kk * CW + tid] = (cok && k < K) ? xf_b(k, c, tof(stage[kk])) : 0.f;
-      }
-      __syncthreads();
-      const int k1 = k0 + KC;
-      if (k1 < K) {  // next chunk's loads, in flight during the products
-#pragma unroll
-        for (int kk = 0; kk < KC; ++kk)
-          stage[kk] = (cok && k1 + kk < K) ? load_b(k1 + kk, c) : V();
-      }
-      const int kn = min(KC, K - k0);
-      const float* arow = As + (size_t)warp * TM * lda + k0;
-      for (int kk = 0; kk < kn; ++kk) {
-        float av[TM], bv[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) av[i] = arow[i * lda + kk];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) bv[j] = Bs[kk * CW + lane + 32 * j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-    epi(c0, acc);
-  }
-  __syncthreads();
-}
-
-// Load this block's [A strip | cnt rows] ([R, S + CNT_PAD], f32) into ext
-// and the node mask diag(A) > 0 of its rows into msk. Real nodes always
-// carry the slot-0 self-loop and padded rows are all-zero, so the diagonal
-// IS the node mask (molclr_tpu/ops/fused_layer.py _adj_diag_mask).
-template <typename T>
-__device__ void load_adj_strip(const T* adj, const T* cnt, int tile,
-                               int strip, int S, float* ext, float* msk) {
-  const int KA = S + CNT_PAD;
-  const size_t arow0 = ((size_t)tile * S + (size_t)strip * R) * S;
-  const size_t crow0 = ((size_t)tile * S + (size_t)strip * R) * CNT_PAD;
-  for (int e = threadIdx.x; e < R * KA; e += NT) {
-    const int r = e / KA, k = e % KA;
-    ext[e] = k < S ? ld(adj, arow0 + (size_t)r * S + k)
-                   : ld(cnt, crow0 + (size_t)r * CNT_PAD + (k - S));
-  }
-  __syncthreads();
-  if (threadIdx.x < R) {
-    const int r = threadIdx.x;
-    msk[r] = ext[r * KA + strip * R + r] > 0.f ? 1.f : 0.f;
-  }
-  // msk is read only after strip_gemm's next __syncthreads
-}
-
-// Column sums of a column pass over the strip's rows: s[v][j] is this
-// thread's sum over its TM rows of quantity v at column c0 + lane + 32 j.
-// The warps' sums meet in red[NV, NWARP, CW] (the chunk buffer, free once
-// every warp is past its products) and are added in warp order into
-// dst[v][c0 + tid] for c0 + tid < ncols. Called by all threads inside a
-// strip_gemm epilogue.
-template <int NV>
-__device__ void colsum_epilogue(int c0, const float (&s)[NV][TN], int ncols,
-                                float* red, float* const (&dst)[NV]) {
-  static_assert(NV * NWARP * CW <= KC * CW, "scratch fits the chunk buffer");
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  __syncthreads();  // every warp is done reading the chunk that red reuses
-#pragma unroll
-  for (int v = 0; v < NV; ++v)
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-      red[(v * NWARP + warp) * CW + lane + 32 * j] = s[v][j];
-  __syncthreads();
-  if (tid < CW && c0 + tid < ncols) {
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      float t = 0.f;
-      for (int w = 0; w < NWARP; ++w) t += red[(v * NWARP + w) * CW + tid];
-      dst[v][c0 + tid] = t;
-    }
-  }
-  // red is overwritten only after strip_gemm's next __syncthreads
-}
-
-// Column-pass epilogue shared by both layers: v = rnd(acc + bias[c]) is
-// written to out rows row0.., and the masked moments (sum m v, sum m v^2)
-// of the CAST values over this strip go to partial[blockIdx.x, {0,1}, c].
-template <typename T>
-__device__ void moment_epilogue(int c0, const float (&acc)[TM][TN],
-                                const float* bias, T* out, size_t row0,
-                                int D, const float* msk, float* red,
-                                float* partial) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float s[2][TN];
-#pragma unroll
-  for (int j = 0; j < TN; ++j) s[0][j] = s[1][j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = warp * TM + i;
-    const float m = msk[r];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = c0 + lane + 32 * j;
-      if (c < D) {
-        const float v = rnd<T>(acc[i][j] + bias[c]);
-        st(out, (row0 + r) * D + c, v);
-        const float ob = v * m;
-        s[0][j] += ob;
-        s[1][j] += ob * v;
-      }
-    }
-  }
-  float* prow = partial + (size_t)blockIdx.x * 2 * D;
-  float* const dst[2] = {prow, prow + D};
-  colsum_epilogue<2>(c0, s, D, red, dst);
-}
-
-// Weight-gradient products C[m, c] = sum_r X[r, m] * Y[r, c] over the rows
-// r of a [N, M] and a [N, C] matrix (the transposed-left products of a
-// backward pass). The row range splits into `chunks` fixed chunks; block
-// (chunk, 64 x 64 output tile) writes its chunk's sums to
-// partial[chunk, off + m * C + c], and sum_partials adds the chunks in
-// order: no atomics, and each output tile's work is one block's. Up to
-// three problems share one launch so that together they fill the card.
-struct AtB {
-  const void* x;  // [N, M]
-  const void* y;  // [N, C]
-  int m, c;       // output shape
-  int off;        // offset of this problem's output in a partial row
-};
-
-constexpr int AT = 64;    // output tile edge
-constexpr int AKT = 16;   // rows per staged chunk
-constexpr int ANT = 256;  // threads: 16 x 16, each a 4 x 4 sub-tile
-
-__host__ __device__ inline int atb_tiles(const AtB& p) {
-  return ((p.m + AT - 1) / AT) * ((p.c + AT - 1) / AT);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(ANT)
-atb_kernel(AtB p0, AtB p1, AtB p2, int nprob, int N, int rows_per_chunk,
-           int chunks, int width, float* __restrict__ partial) {
-  __shared__ float Xs[AKT][AT];
-  __shared__ float Ys[AKT][AT];
-  int blk = blockIdx.x;
-  AtB p = p0;
-  const AtB ps[3] = {p0, p1, p2};
-  int q = 0;
-  for (; q < nprob; ++q) {
-    const int nb = chunks * atb_tiles(ps[q]);
-    if (blk < nb) break;
-    blk -= nb;
-  }
-  if (q >= nprob) return;
-  p = ps[q];
-  const int tiles_c = (p.c + AT - 1) / AT;
-  const int chunk = blk / atb_tiles(p);
-  const int t = blk % atb_tiles(p);
-  const int m0 = (t / tiles_c) * AT, c0 = (t % tiles_c) * AT;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const T* X = (const T*)p.x;
-  const T* Y = (const T*)p.y;
-  const int r_lo = chunk * rows_per_chunk;
-  const int r_hi = min(N, r_lo + rows_per_chunk);
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int r0 = r_lo; r0 < r_hi; r0 += AKT) {
-    for (int e = tid; e < AKT * AT; e += ANT) {
-      const int kk = e / AT, mm = e % AT, r = r0 + kk;
-      Xs[kk][mm] = (r < r_hi && m0 + mm < p.m)
-                       ? ld(X, (size_t)r * p.m + m0 + mm) : 0.f;
-      Ys[kk][mm] = (r < r_hi && c0 + mm < p.c)
-                       ? ld(Y, (size_t)r * p.c + c0 + mm) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < AKT; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = Xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Ys[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* prow = partial + (size_t)chunk * width + p.off;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty + 16 * i, c = c0 + tx + 16 * j;
-      if (m < p.m && c < p.c) prow[(size_t)m * p.c + c] = acc[i][j];
-    }
-}
-
 // dst [cols, rows] = src [rows, cols]^T through a 32 x 32 shared tile
 // (blocks of 32 x 8 threads).
 template <typename T>
@@ -346,9 +103,9 @@ static inline int launch_transpose(const void* src, void* dst, int rows,
   return (int)cudaGetLastError();
 }
 
-// Ask for the largest shared-memory carveout, so that three blocks of the
-// size the kernels use fit on one SM, and allow `bytes` of dynamic shared
-// memory. The attributes cost microseconds of host time and the wrappers
+// Ask for the largest shared-memory carveout, so that as many blocks of the
+// size the kernels use as possible fit on one SM, and allow `bytes` of
+// dynamic shared memory. The attributes cost microseconds of host time and the wrappers
 // launch on every call, so a kernel's are set again only when a call needs
 // more than this process has set on the device.
 template <typename Kernel>
@@ -384,7 +141,7 @@ static inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// Row-block products (the redesigned K1f, K4f, K5f, K5b, K4b and K1b).
+// Row-block products (every layer kernel).
 //
 // A block of RNT = 256 threads (8 warps) owns RB rows (16 or 32) and
 // computes C[RB, ncols] = A[RB, K] @ B[K, ncols] in column passes of RCW =
@@ -485,6 +242,16 @@ static inline size_t max_smem() {
   return (size_t)v;
 }
 
+// SMs of the current device; 0 if the runtime cannot say.
+static inline int sm_count() {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return v;
+}
+
 // The shared memory of a row-block kernel, in order: the live-chunk lists
 // of adj_live_chunks (flags, node and width for up to maxc live chunks) and
 // the node of each of their columns (knode), the node mask (32 floats), two
@@ -534,6 +301,18 @@ static RbShape rb_shape(int rb0, int ring0, Bytes bytes) {
       if (b <= cap) return {rb, ring, b};
     }
   return {0, 0, 0};
+}
+
+// A launch's f32 ring: the first whose block leaves room for a second on
+// its SM (the 64 KB ring, then the 32 KB one), else the first that fits.
+template <typename Bytes>
+static RbShape rb_shape_two(Bytes bytes) {
+  const size_t half = max_smem() / 2;
+  for (int ring = 1; ring < NRING; ++ring) {
+    const size_t b = bytes(R, ring);
+    if (b <= half) return {R, ring, b};
+  }
+  return rb_shape(R, 1, bytes);
 }
 
 template <int RB>
@@ -1046,47 +825,71 @@ __device__ void adj_operand(const T* adj, const T* cnt, size_t row0,
   }
 }
 
+// Whether any of the cnt rows row0 .. row0 + nrows - 1 holds a nonzero,
+// decided by value (normalize_gcn weights the counts). `live` is a shared
+// int. All threads must call it; it begins and ends with a __syncthreads.
+template <typename T>
+__device__ bool cnt_rows_live(const T* cnt, size_t row0, int nrows,
+                              int* live) {
+  if (threadIdx.x == 0) *live = 0;
+  __syncthreads();
+  for (int e = threadIdx.x; e < nrows * CNT_PAD; e += RNT)
+    if (ld(cnt, row0 * CNT_PAD + e) != 0.f) *live = 1;
+  __syncthreads();
+  return *live != 0;
+}
+
+// The transform of rows_to_a that takes the rows as they are.
+struct AsIs {
+  __device__ float operator()(int, float v) const { return v; }
+};
+
 // Load rows row0 .. row0 + nrows - 1 of a row-major [*, K] matrix into an
-// A operand (row stride lda), zero in rows past nrows and in the columns up
-// to round_up(K, rkc). f32 operands are k-major, so the threads run along
-// the rows there (conflict-free stores; a row's loads meet in L1). All
-// threads must call it; a __syncthreads must follow before A is read
-// (rb_pass and rb_pass_rows begin with one).
-template <int RB, typename T>
+// A operand (row stride lda), element (r, k) as xf(k, value), zero in rows
+// past nrows and in the columns up to round_up(K, rkc). f32 operands are
+// k-major, so the threads run along the rows there (conflict-free stores; a
+// row's loads meet in L1). All threads must call it; a __syncthreads must
+// follow before A is read (rb_pass and rb_pass_rows begin with one).
+template <int RB, typename T, typename Xf = AsIs>
 __device__ void rows_to_a(T* A, int lda, const T* src, size_t row0,
-                          int nrows, int K) {
+                          int nrows, int K, Xf xf = Xf()) {
   const int kp = round_up(K, rkc<T>());
   for (int e = threadIdx.x; e < RB * kp; e += RNT) {
     const int r = sizeof(T) == 4 ? e % RB : e / kp;
     const int k = sizeof(T) == 4 ? e / RB : e % kp;
     a_put<RB>(A, lda, r, k,
-              r < nrows && k < K ? ld(src, (row0 + r) * K + k) : 0.f);
+              r < nrows && k < K ? xf(k, ld(src, (row0 + r) * K + k)) : 0.f);
   }
 }
 
-// The row-block adjacency pass: K5f's second pass, K3b's adjacency pass and
-// K4b's and K1b's. One block of RNT threads per (16-row strip, RCW-column
-// slice) computes Cs = A_strip @ X for its slice over the strip's live
-// 32-column chunks only, X's rows (the nodes of those chunks) gathered
-// through the weight ring; a strip with no live chunk has Cs = 0 with no
-// load and no product. Then all threads call epi(row0, c0, Cs), which
-// writes the slice from Cs[r * CS + j] (rows r < R, columns c0 + j < D) and
-// may overwrite Cs. In f32 each output is one thread's sum over the live
-// columns in ascending order, so a skipped chunk (exact zeros) leaves the
+// The row-block adjacency pass: K5f's second pass, K3f's (with the counts)
+// and K4b's and K1b's. One block of RNT threads per (16-row strip,
+// RCW-column slice) computes Cs = [A_strip | cnt rows] @ [X ; etab] for its
+// slice over the strip's live 32-column chunks only, X's rows (the nodes of
+// those chunks) and etab's gathered through the weight ring; cnt null: Cs =
+// A_strip @ X. A strip whose A rows (and cnt rows) are all zero has Cs = 0
+// with no load and no product. Then all threads call epi(row0, c0, Cs,
+// msk), which writes the slice from Cs[r * CS + j] (rows r < R, columns c0
+// + j < D; msk[r] the node mask diag(A) > 0 of row r) and may overwrite Cs.
+// In f32 each output is one thread's sum over the live columns, then the
+// counts, in ascending order, so a skipped chunk (exact zeros) leaves the
 // dense strip's bits.
 template <typename T>
-__host__ __device__ inline RbSmem adj_pass_smem(int S, int ring) {
+__host__ __device__ inline RbSmem adj_pass_smem(int S, int ring, bool cnt) {
   const int nch = (S + ACW - 1) / ACW;
-  return rb_smem(S, nch, a_bytes<T>(R, nch * ACW), 0, pass_bytes<T>(R, ring));
+  return rb_smem(S, nch, a_bytes<T>(R, nch * ACW + (cnt ? CNT_PAD : 0)), 0,
+                 pass_bytes<T>(R, ring));
 }
 
 template <typename T, typename Epi>
 __global__ void __launch_bounds__(RNT, 2)
-adj_pass_kernel(const T* __restrict__ x, const T* __restrict__ adj, Epi epi,
-                int S, int D, int ring) {
+adj_pass_kernel(const T* __restrict__ x, const T* __restrict__ adj,
+                const T* __restrict__ cnt, const T* __restrict__ etab,
+                Epi epi, int S, int D, int ring) {
   extern __shared__ float smem_f[];  // 16-byte aligned
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
-  const RbSmem L = adj_pass_smem<T>(S, ring);
+  __shared__ int cnt_live;
+  const RbSmem L = adj_pass_smem<T>(S, ring, cnt != nullptr);
   int* flags = reinterpret_cast<int*>(smem + L.meta);
   int* node = flags + 2 * L.nch;
   int* width = node + L.maxc;
@@ -1096,29 +899,37 @@ adj_pass_kernel(const T* __restrict__ x, const T* __restrict__ adj, Epi epi,
   float* scratch = reinterpret_cast<float*>(smem + L.scratch);
   const size_t row0 = (size_t)blockIdx.x * R;
   const int cb = blockIdx.y * RCW;  // this block's slice
+  const bool clive = cnt && cnt_rows_live(cnt, row0, R, &cnt_live);
   const int nlive = adj_live_chunks(adj, row0, R, S, flags, node, width,
                                     msk);
-  if (nlive == 0) {
+  if (nlive == 0 && !clive) {
     for (int e = threadIdx.x; e < R * RCW; e += RNT)
       scratch[(e / RCW) * CS + e % RCW] = 0.f;
     __syncthreads();
   } else {
-    const int KL = nlive * ACW, lda = a_lda(KL);
-    adj_operand<R, T>(adj, nullptr, row0, R, S, nlive, node, width, knode,
-                      ext, lda);
+    const int KL = nlive * ACW, K = KL + (cnt ? CNT_PAD : 0);
+    const int lda = a_lda(K);
+    adj_operand<R, T>(adj, cnt, row0, R, S, nlive, node, width, knode, ext,
+                      lda);
     rb_pass_rr<T, R>(
-        ring, ext, lda, KL, cb, D, scratch,
-        [&](int k) { return x + (size_t)knode[k] * D; }, rows_wide(D, x));
+        ring, ext, lda, K, cb, D, scratch,
+        [&](int k) {
+          return k < KL ? x + (size_t)knode[k] * D
+                        : etab + (size_t)(k - KL) * D;
+        },
+        rows_wide(D, x, etab));
   }
-  epi(row0, cb, scratch);
+  epi(row0, cb, scratch, msk);
 }
 
-// adj_pass_kernel's epilogue out = rnd(Cs) (K5f, K3b's dxw, K4b's dh).
+// adj_pass_kernel's epilogue out = rnd(Cs) (K5f, K4b's dh; K5b's strip
+// pass stores dx with it).
 template <typename T>
 struct AdjStore {
   T* out;
   int D;
-  __device__ void operator()(size_t row0, int c0, float* Cs) const {
+  __device__ void operator()(size_t row0, int c0, float* Cs,
+                             const float*) const {
     for (int e = threadIdx.x; e < R * RCW; e += RNT) {
       const int r = e / RCW, j = e % RCW, c = c0 + j;
       if (c < D) st(out, (row0 + r) * D + c, Cs[r * CS + j]);
@@ -1126,42 +937,99 @@ struct AdjStore {
   }
 };
 
+// The BatchNorm prologue's adjoint as an epilogue (K1b's adjacency pass,
+// K3b's strip pass): dx = Cs (f32, not rounded), dpre = dx [h a + b > 0 if
+// relu_in], dh = rnd(dpre a), the recomputed prologue output xc =
+// rnd(relu?(h a + b)) when xc is not null (K3b's weight pass multiplies
+// it), and the strip's [da | db] partials (sum dpre h, sum dpre) at row
+// row0 / 16 of partial [N / 16, 2 D], each group of four rows summed, then
+// the groups in order (the first design's order).
+template <typename T>
+struct BnAdjoint {
+  const T* h;
+  const float* a;
+  const float* b;
+  T* dh;
+  T* xc;
+  float* partial;
+  int D, relu_in;
+  __device__ void operator()(size_t row0, int c0, float* Cs,
+                             const float*) const {
+    const int tid = threadIdx.x;
+    for (int e = tid; e < R * RCW; e += RNT) {
+      const int r = e / RCW, j = e % RCW, c = c0 + j;
+      if (c < D) {
+        const size_t i = (row0 + r) * D + c;
+        const float hf = ld(h, i), dx = Cs[r * CS + j];
+        const float pre = prologue(hf, a[c], b[c], 0);
+        const float dpre = (!relu_in || pre > 0.f) ? dx : 0.f;
+        st(dh, i, __fmul_rn(dpre, a[c]));
+        if (xc) st(xc, i, relu_in ? fmaxf(pre, 0.f) : pre);
+        Cs[r * CS + j] = dpre;
+      }
+    }
+    __syncthreads();
+    const int c = c0 + tid;
+    if (tid < RCW && c < D) {
+      float t0 = 0.f, t1 = 0.f;
+      for (int w = 0; w < 4; ++w) {
+        float s0 = 0.f, s1 = 0.f;
+        for (int i = 0; i < 4; ++i) {
+          const int r = 4 * w + i;
+          const float dpre = Cs[r * CS + tid];
+          const float hf = ld(h, (row0 + r) * D + c);
+          s0 += dpre * hf;
+          s1 += dpre;
+        }
+        t0 += s0;
+        t1 += s1;
+      }
+      float* prow = partial + (row0 / R) * 2 * D;
+      prow[c] = t0;
+      prow[D + c] = t1;
+    }
+  }
+};
+
 // The adjacency pass over N rows at the 64 KB f32 ring (the 32 KB one
-// where shared memory does not fit).
+// where shared memory does not fit); cnt and etab null but for K3f.
 template <typename T, typename Epi>
 static int launch_adj_pass(const void* x, const void* adj, const Epi& epi,
-                           int N, int S, int D, cudaStream_t st) {
+                           int N, int S, int D, cudaStream_t st,
+                           const void* cnt = nullptr,
+                           const void* etab = nullptr) {
   const RbShape sh = rb_shape(R, 1, [&](int, int rg) {
-    return adj_pass_smem<T>(S, rg).total;
+    return adj_pass_smem<T>(S, rg, cnt != nullptr).total;
   });
   if (!sh.rb) return (int)cudaErrorInvalidValue;
   cudaError_t e = set_smem(adj_pass_kernel<T, Epi>, sh.bytes);
   if (e != cudaSuccess) return (int)e;
   adj_pass_kernel<T, Epi><<<dim3(N / R, (D + RCW - 1) / RCW), RNT, sh.bytes,
-                            st>>>((const T*)x, (const T*)adj, epi, S, D,
-                                  sh.ring);
+                            st>>>((const T*)x, (const T*)adj, (const T*)cnt,
+                                  (const T*)etab, epi, S, D, sh.ring);
   return (int)cudaGetLastError();
 }
 
-// Weight-gradient products for the redesigned backward passes (K5b, K4b,
-// K1b): C[m, c] = sum_r X[r, m] Y[r, c] over the rows of one chunk, for one
-// TR x 64 output tile per block (TR = 64, or 32 where the caller wants
-// more blocks than 64-row tiles give), written to partial[chunk, off + m *
-// C + c]; the caller adds the chunks in chunk order (sum_partials). Up to
-// three problems share one launch (block order: problem, chunk, tile). Each
+// Weight-gradient products of the backward passes (K5b, K3b, K4b, K1b):
+// C[m, c] = sum_r X[r, m] Y[r, c] over the rows of one chunk, for one TR x
+// 64 output tile per block (TR = 64, or 32 where the caller wants more
+// blocks than 64-row tiles give), written to partial[chunk, off + m * C +
+// c]; the caller adds the chunks in chunk order (sum_partials). Up to three
+// problems share one launch (block order: problem, chunk, tile). Each
 // 16-row step is one strip of the row space: a strip whose live flag is 0
-// (its Y rows are all zero, which the pass that wrote Y recorded) is
-// skipped, and a chunk with no live strip writes zeros without loading
-// anything. The block lists its live strips in parallel (a ballot over the
-// chunk's flags), then streams their X and Y rows through a ring of WST
-// shared-memory stages of one strip each (WST - 1 strips in flight) with
-// cp.async (16-byte copies for f32 rows of whole float4s, else 4-byte ones;
-// bf16 rows of odd width are loaded directly), one __syncthreads a step. f32 runs FP32 FMA
-// ((TR / 16) x 4 per thread, vector shared loads), each output one
-// thread's sum over the chunk's rows in ascending order, as atb_kernel
-// sums it; bf16 runs mma.sync m16n8k16 with X^T as the A
-// operand (warp w: m16 tile w % (TR / 16), TR / 16 n8 tiles of column
-// group w / (TR / 16)), its fragments paired from the staged rows.
+// (the pass that wrote Y recorded that every problem's rows there multiply
+// only zeros) is skipped, and a chunk with no live strip writes zeros
+// without loading anything. The block lists its live strips in parallel (a
+// ballot over the chunk's flags), then streams their X and Y rows through a
+// ring of WST shared-memory stages of one strip each (WST - 1 strips in
+// flight) with cp.async (16-byte copies for f32 rows of whole float4s, else
+// 4-byte ones; bf16 rows of odd width are loaded directly), one
+// __syncthreads a step. f32 runs FP32 FMA ((TR / 16) x 4 per thread, vector
+// shared loads), each output one thread's sum over the chunk's rows in
+// ascending order, as the first design's weight pass summed it; bf16 runs
+// mma.sync m16n8k16 with X^T as the A operand (warp w: m16 tile w % (TR /
+// 16), TR / 16 n8 tiles of column group w / (TR / 16)), its fragments
+// paired from the staged rows.
 constexpr int WT = 64;    // output tile columns (and rows at most)
 constexpr int WK = 16;    // rows per strip
 constexpr int WNT = 256;  // threads
@@ -1379,7 +1247,7 @@ wgrad_kernel(WProb p0, WProb p1, WProb p2, int nprob,
 
 // The weight pass over nprob (1 to 3) problems: `chunks` row chunks of
 // rows_per_chunk rows, which the caller chooses (ops/fused_gcn.py
-// dw_chunks, ops/fused_layer.py gine_bwd_weight_shape) and this only
+// dw_chunks, ops/fused_layer.py weight_pass_shape) and this only
 // checks (a multiple of 16, at most WMAX_ROWS, covering the N rows once),
 // times each problem's tiles of tile_rows (64 or 32) x 64.
 template <typename T>

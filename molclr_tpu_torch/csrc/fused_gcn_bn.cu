@@ -1,37 +1,49 @@
-// K3f: BN-chained fused GCN layer, forward, for sm_90a.
+// K3f and K3b: the BN-chained fused GCN layer, forward and backward, and
+// K5f and K5b: the unchained GCN layer of the fine-tuning trunk, for
+// sm_90a. All four run on the row-block products of fused_bn_common.cuh
+// (16-row strips, one block of 256 threads per (strip, 128-column slice),
+// FP32 FMA in f32, mma.sync m16n8k16 tensor cores with f32 sums in bf16,
+// all-zero 32-column adjacency chunks and dead strips skipped); K3f is K5f's
+// two launches with a BatchNorm prologue and a moment epilogue, K3b K5b's
+// launches with a gt pass before them and the prologue's adjoint as the
+// strip pass's epilogue. rnd() is the cast to the activation type T (float
+// or bf16), at the points where the Pallas kernels cast; every sum is f32.
 //
-// Replaces molclr_tpu/ops/fused_gcn.py:_bn_fwd_kernel (the Pallas TPU
+// K3f replaces molclr_tpu/ops/fused_gcn.py:_bn_fwd_kernel (the Pallas TPU
 // kernel behind fused_gcn_bn_layer). Per node row:
 //   y   = rnd(relu?(x * a + b))                 prologue: previous BN affine
 //   xw  = rnd(y @ W)
 //   out = rnd(A @ xw + cnt @ etab + bias)       etab: column-broadcast scalars
 //   sums += [sum m out, sum m out^2]            m = diag(A) > 0
-// rnd() is the cast to the activation type T (float or bf16); every sum is
-// f32.
+// A @ xw needs xw for the whole tile before any strip can use it, so K3f
+// is two launches on one stream and the fixed-order sum of the moments:
+//   * the xw pass (k5f_xw_kernel with BN): the strip's x rows go through
+//     the prologue as they are staged into the left operand, then are
+//     multiplied by W through the weight ring into an [N, D] scratch. A
+//     strip whose A rows are all zero writes zeros and no product: A is
+//     symmetric, so a live row weighs such a row of xw by an exact zero;
+//   * the adjacency pass (adj_pass_kernel with the counts): out = rnd([A
+//     live chunks | cnt rows] @ [xw rows of their nodes ; etab] + bias)
+//     and the strip's masked moment partials (BnMoments). A strip whose A
+//     and cnt rows are all zero computes no product: its rows are rnd(bias)
+//     and its partials 0;
+//   * sum_partials over the N / 16 strips, in strip order.
+// At the embed shape (T = 18 tiles of 256, D = 300) each launch runs 288
+// strips x 3 slices = 864 blocks of 64 KB (two to an SM; the 32 KB ring
+// where a wider layer does not fit).
 //
-// A @ xw needs xw for the WHOLE tile before any strip can use it, and a
-// tile does not fit one block. So the layer runs as two passes on the same
-// stream: gcn_xw_kernel computes xw = rnd(prologue(x) @ W) for 16-row
-// strips into an [N, D] scratch buffer that the wrapper allocates, then
-// gcn_bn_fwd_kernel computes out = [A strip | cnt] @ [xw tile ; etab] +
-// bias with the moment epilogue, as K1f does (fused_bn_common.cuh), and
-// sum_partials adds the per-block moments in block order. Shared memory at
-// S = 256, D = 300: 35 KB for the first pass, 34 KB for the second.
+// Bound on the H100 at the embed shape (f32): as a dense computation 1.58
+// GFLOP (y@W 0.83, A@xw 0.71, cnt@etab 0.04); the work this batch needs is
+// 0.43 GFLOP (y@W over the 2,358 real rows, the adjacency and counts by
+// their nonzeros), against 16 MB moved (x, out 5.5 MB each, A 4.7 MB, W
+// 0.36 MB). So it is bound by operations: 6.5 us at the 67 TFLOP/s f32
+// rate without tensor cores, against 4.9 us for the bytes. In bf16: 0.4 us
+// of operations at 989 TFLOP/s, 2.5 us for 8.2 MB. What holds it back: the
+// f32 products of 16-row blocks are bound by shared-memory loads; xw
+// round-trips device memory (L2) between the launches; each block scans
+// its adjacency rows and builds its operand before the first product; no
+// wgmma or TMA.
 //
-// Bound on the H100 at the embed shape (T = 18 tiles of 256, D = 300,
-// f32): as a dense computation 1.58 GFLOP (y@W 0.83, A@xw 0.71, cnt@etab
-// 0.04); the work this batch needs is 0.43 GFLOP (y@W over the 2,358 real
-// rows, the adjacency and counts by their nonzeros), against 16 MB moved
-// (x, out 5.5 MB each, A 4.7 MB, W 0.36 MB). So it is bound by operations:
-// 6.5 us at the 67 TFLOP/s f32 rate without tensor cores, against 4.9 us
-// for the bytes. In bf16: 0.4 us of operations at 989 TFLOP/s, 2.5 us for
-// 8.2 MB.
-//
-// What the simple design leaves on the table: no tensor cores (wgmma) and
-// no TMA; xw makes a round trip through device memory (5.5 MB each way in
-// f32); the dense A strip multiplies mostly zeros; W is re-read from L2 by
-// each of the 288 first-pass blocks.
-
 // K5f and K5b replace molclr_tpu/ops/fused_gcn.py:_fwd_kernel and
 // _bwd_kernel, the unchained layer fused_gcn_layer of the fine-tuning
 // trunk (the scalar edge term and the bias stay in PyTorch):
@@ -39,40 +51,27 @@
 //        kernel rounds it, never re-associated into (A @ x) @ W);
 //   K5b: dxw = rnd(A @ g), dx = rnd(dxw @ W^T), dW = x^T @ dxw in f32. x is
 //        the saved input; nothing else is recomputed.
+// K5f is K3f's two launches without the prologue, the counts and the
+// moments (the adjacency pass stores out = rnd(A @ xw)). K5b is four
+// launches:
+//   * W^T, transposed once;
+//   * the strip pass (k5b_strip_kernel), one block per (16-row strip,
+//     128-column slice of dx): the block multiplies only the live 32-column
+//     chunks of its A strip (a strip's rows reach the one to three
+//     molecules they belong to), keeps the strip's rounded dxw in shared
+//     memory and writes its own slice of it, then multiplies that slice of
+//     dx = dxw @ W^T (the cheap sparse A @ g is recomputed by each of a
+//     strip's blocks). A strip with no live chunk has dxw = 0 and flags
+//     itself dead. Its weight ring follows the grid (launch_strip_pass);
+//   * wgrad_kernel for dW: row chunks (dw_chunks in ops/fused_gcn.py: at
+//     least two blocks per SM) x 64 x 64 tiles, dead strips skipped;
+//   * sum_partials over the chunks, in chunk order. No atomics.
 // Bound on the H100 at the fine-tuning shape (T = 4, 619 real rows, D =
 // 300, f32): K5f 0.11 GFLOP against 3.9 MB, 1.7 us by operations; K5b
 // 0.22 GFLOP against 5.4 MB, 3.4 us. At this shape a launch is short and
 // the card wide: what bounds both is how many blocks they keep busy and
-// how long each waits on memory. K5f is two row-block launches on 16-row
-// strips (k5f_xw_kernel, adj_pass_kernel), 64 strips x 3 column passes =
-// 192 blocks each at T = 4, where the first design ran 64 strip blocks
-// per pass on CUDA cores: the xw pass multiplies the strip's x rows by W
-// through the 64 KB f32 weight ring (two blocks share an SM; the 32 KB
-// one where a wider layer does not fit), a strip whose A rows are all
-// zero (37.5 % at T = 4) writing zeros; the adjacency pass multiplies
-// only the strip's live 32-column chunks of A (14.3 % of them) by xw's
-// rows streamed through the same ring. In f32 each output is one thread's
-// sum in ascending k, so the results are bit-identical to the first
-// design's; bf16 runs mma.sync tensor cores. K5b's redesign (four
-// launches):
-//   * W^T, transposed once (1.3 us);
-//   * k5b_strip_kernel, one block per (16-row strip, 128-column pass of
-//     dx): 64 strips x 3 passes = 192 blocks at T = 4 (the strip pass of
-//     the first design ran 64). Each block multiplies only the live
-//     32-column chunks of its A strip (a strip's rows reach the one to
-//     three molecules they belong to), keeps the strip's rounded dxw in
-//     shared memory and writes its own column pass of it, then multiplies
-//     that pass of dx = dxw @ W^T (FP32 FMA in f32, mma.sync in bf16; the
-//     cheap sparse A @ g is recomputed by each of a strip's three blocks
-//     rather than using 8-row strips, whose A scan and products would
-//     halve the rows per W chunk). A strip with no live chunk writes zeros
-//     and flags itself dead;
-//   * wgrad_kernel for dW: 11 chunks of 96 rows x 25 tiles of 64 x 64 = 275
-//     blocks (dw_chunks in ops/fused_gcn.py: at least 2 x 132), loads
-//     staged a step ahead, dead strips skipped and dead chunks writing
-//     zeros, tensor cores in bf16;
-//   * sum_partials over the 11 chunks, in chunk order. No atomics.
-
+// how long each waits on memory.
+//
 // K3b replaces molclr_tpu/ops/fused_gcn.py:_bn_bwd_kernel, the backward of
 // K3f. Given the output cotangents (g [N, D], dsums [2, D]), the saved
 // input x, the forward's own output out and W:
@@ -83,95 +82,48 @@
 //   dx    = rnd(dpre * a); xc = rnd(relu?(pre)) (the forward's prologue)
 //   da = sum dpre x, db = sum dpre, dbias = sum gt (uncast, every row),
 //   dW = xc^T @ dxw, detab = cnt^T @ gtc        (all f32)
-// As K1b, it runs as passes on one stream, each deterministic: (a) rows:
-// gt, gtc and the strip's dbias partial; (b) adjacency: dxw, K5f's
-// adjacency pass (adj_pass_kernel of fused_bn_common.cuh) on gtc; (c)
-// rows with W^T (transposed once): dxc and the prologue adjoint, writing
-// dx and xc and the strip's [da | db] partials; (d) weights: dW and
-// detab as two transposed-left problems of one atb_kernel launch over fixed
-// row chunks; then every partial is added in a fixed order (sum_partials).
-// No atomics: two runs are bit-identical. Nothing of the forward but x and
-// out is read back; xc is recomputed from x, a and b.
+// It runs as launches on one stream, each deterministic:
+//   * the gt pass (gcn_bn_bwd_gt_kernel): gt, gtc and the strip's dbias
+//     partial over every row, padding included (memory-bound and small);
+//   * W^T, transposed once;
+//   * K5b's strip pass on gtc with the prologue's adjoint as its epilogue
+//     (BnAdjoint: dpre, dx, xc and the strip's [da | db] partials; a strip
+//     with no live chunk runs it on dxc = 0, so dx keeps its signed zeros).
+//     The strip's flag is 0 only when its A rows and its cnt rows are all
+//     zero (gtc is not zero on padding rows);
+//   * wgrad_kernel with dW = xc^T @ dxw and detab = cnt^T @ gtc in one
+//     launch, strips whose flag is 0 skipped (f32: the first design's
+//     chunks of at most 1,024 rows, ops/fused_gcn.py gcn_bn_bwd_weight_shape);
+//   * sum_partials for dbias, [da | db] and [dW | detab], each in a fixed
+//     order.
+// No atomics: two runs are bit-identical. In f32 every sum keeps the first
+// design's order (products over k ascending; the moment and [da | db]
+// partials each group of four rows, then the groups; the weight pass's
+// rows ascending in each chunk), and a skipped term is an exact zero, so
+// K3f's and K3b's f32 results are bit-identical to the first design's
+// (strip kernels of 4 x 4 FMA tiles on CUDA cores over a dense adjacency
+// strip, and a weight pass over the same row chunks).
 // Bound on the H100 at the pretraining shape (T = 22, 4,696 real rows of
 // 5,632, D = 300, f32): dxw @ W^T and xc^T @ dxw over the real rows are
 // 2 x 0.85 GFLOP, the adjacency and counts by their nonzeros a few
 // hundredths more, against about 33 MB moved: about 26 us by operations.
-// In bf16 the bytes set it. What the design leaves on the table is the
-// first K5b design's: no tensor cores outside the adjacency pass, a weight
-// pass of 180 blocks each summing 1,024 rows, and dxw, gtc and xc
-// round-tripping device memory between the passes (the TPU kernel has the
-// whole tile in VMEM).
+// In bf16 the bytes set it. What holds it back: the f32 products of 16-row
+// blocks are bound by shared-memory loads and cover the padded rows of live
+// strips; gtc, dxw and xc round-trip device memory (L2) between the
+// launches (the TPU kernel has the whole tile in VMEM); no wgmma or TMA.
 
 #include "fused_bn_common.cuh"
 
 namespace fbl {
 
-// K3f's first pass: xw = rnd(prologue(x) @ W) for one 16-row strip.
-template <typename T>
-__global__ void __launch_bounds__(NT)
-gcn_xw_kernel(const T* __restrict__ x, const float* __restrict__ a,
-              const float* __restrict__ b, const T* __restrict__ w,
-              T* __restrict__ xw, int D, int relu_in) {
-  extern __shared__ float smem[];
-  float* ys = smem;                            // [R, D] prologue rows
-  float* Bs = ys + R * D;                      // [KC, CW]
-  const size_t row0 = (size_t)blockIdx.x * R;
-  for (int e = threadIdx.x; e < R * D; e += NT) {
-    const int c = e % D;
-    ys[e] = rnd<T>(prologue(ld(x, row0 * D + e), a[c], b[c], relu_in));
-  }
-  // strip_gemm's first __syncthreads orders these writes before the reads
-  strip_gemm(
-      ys, D, D, D, Bs,
-      [&](int k, int c) -> T { return w[(size_t)k * D + c]; },
-      Identity(),
-      [&](int c0, float (&acc)[TM][TN]) {
-        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            const int c = c0 + lane + 32 * j;
-            if (c < D) st(xw, (row0 + warp * TM + i) * D + c, acc[i][j]);
-          }
-      });
-}
-
-// K3f's second pass: out = [A strip | cnt] @ [xw ; etab] + bias with the
-// moment epilogue.
-template <typename T>
-__global__ void __launch_bounds__(NT)
-gcn_adj_kernel(const T* __restrict__ xw, const T* __restrict__ adj,
-               const T* __restrict__ cnt, const T* __restrict__ etab,
-               const float* __restrict__ bias, T* __restrict__ out,
-               float* __restrict__ partial, int S, int D) {
-  extern __shared__ float smem[];
-  const int strips = S / R;
-  const int tile = blockIdx.x / strips, strip = blockIdx.x % strips;
-  const int KA = S + CNT_PAD;
-  const size_t node0 = (size_t)tile * S;
-  const size_t row0 = node0 + (size_t)strip * R;
-  float* ext = smem;                           // [R, KA] A strip | cnt
-  float* Bs = ext + R * KA;                    // [KC, CW], epilogue scratch
-  float* msk = Bs + KC * CW;                   // [R]
-
-  load_adj_strip(adj, cnt, tile, strip, S, ext, msk);
-  strip_gemm(
-      ext, KA, KA, D, Bs,
-      [&](int k, int c) -> T {
-        return k < S ? xw[(node0 + k) * D + c] : etab[(size_t)(k - S) * D + c];
-      },
-      Identity(),
-      [&](int c0, float (&acc)[TM][TN]) {
-        moment_epilogue<T>(c0, acc, bias, out, row0, D, msk, Bs, partial);
-      });
-}
-
-// K3b pass (a): gt = g + m (ds0 + 2 out ds1) for one strip, each operation
+// K3b's gt pass: gt = g + m (ds0 + 2 out ds1) for one strip, each operation
 // rounded as the plain version rounds it; gtc = rnd(gt) to scratch and the
-// strip's dbias partial sum gt (uncast) to partial[blockIdx.x, c].
+// strip's dbias partial sum gt (uncast) to partial[blockIdx.x, c]. Blocks
+// of GT_NT threads, one per strip.
+constexpr int GT_NT = 128;
+
 template <typename T>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(GT_NT)
 gcn_bn_bwd_gt_kernel(const T* __restrict__ g, const float* __restrict__ ds,
                      const T* __restrict__ adj, const T* __restrict__ out,
                      T* __restrict__ gtc, float* __restrict__ partial, int S,
@@ -186,7 +138,7 @@ gcn_bn_bwd_gt_kernel(const T* __restrict__ g, const float* __restrict__ ds,
   }
   __syncthreads();
   float* prow = partial + (size_t)blockIdx.x * D;
-  for (int c = threadIdx.x; c < D; c += NT) {
+  for (int c = threadIdx.x; c < D; c += GT_NT) {
     float s = 0.f;
     for (int r = 0; r < R; ++r) {
       const size_t i = (row0 + r) * D + c;
@@ -199,77 +151,24 @@ gcn_bn_bwd_gt_kernel(const T* __restrict__ g, const float* __restrict__ ds,
   }
 }
 
-// K3b pass (c): dxc = dxw @ W^T for one strip (wt = W^T streams row by row),
-// kept in f32, then the prologue adjoint: dx = rnd(dpre * a), the
-// recomputed prologue output xc = rnd(relu?(x a + b)) for the weight pass,
-// and the strip's [da | db] partials (sum dpre x, sum dpre).
-template <typename T>
-__global__ void __launch_bounds__(NT)
-gcn_bn_bwd_rows_kernel(const T* __restrict__ dxw, const T* __restrict__ wt,
-                       const T* __restrict__ x, const float* __restrict__ a,
-                       const float* __restrict__ b, T* __restrict__ dx,
-                       T* __restrict__ xc, float* __restrict__ partial, int D,
-                       int relu_in) {
-  extern __shared__ float smem[];
-  float* ys = smem;                            // [R, D] dxw rows
-  float* Bs = ys + R * D;                      // [KC, CW], epilogue scratch
-  const size_t row0 = (size_t)blockIdx.x * R;
-  for (int e = threadIdx.x; e < R * D; e += NT) ys[e] = ld(dxw, row0 * D + e);
-  // strip_gemm's first __syncthreads orders these writes before the reads
-  strip_gemm(
-      ys, D, D, D, Bs,
-      [&](int k, int c) -> T { return wt[(size_t)k * D + c]; },
-      Identity(),
-      [&](int c0, float (&acc)[TM][TN]) {
-        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-        float s[2][TN];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) s[0][j] = s[1][j] = 0.f;
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const size_t r = row0 + warp * TM + i;
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            const int c = c0 + lane + 32 * j;
-            if (c < D) {
-              const float xf = ld(x, r * D + c);
-              const float pre = prologue(xf, a[c], b[c], 0);
-              const float dpre = (!relu_in || pre > 0.f) ? acc[i][j] : 0.f;
-              st(dx, r * D + c, __fmul_rn(dpre, a[c]));
-              st(xc, r * D + c, relu_in ? fmaxf(pre, 0.f) : pre);
-              s[0][j] += dpre * xf;
-              s[1][j] += dpre;
-            }
-          }
-        }
-        float* prow = partial + (size_t)blockIdx.x * 2 * D;
-        float* const dst[2] = {prow, prow + D};
-        colsum_epilogue<2>(c0, s, D, Bs, dst);
-      });
-}
-
-// K5f's passes; the second is also K3b's, K4b's and K1b's adjacency pass.
-//   k5f_xw_kernel, one block per (16-row strip, 128-column pass of xw):
-//     the strip's x rows as the operand, its pass of xw = rnd(x @ W) with W
-//     through the weight ring. A strip whose A rows are all zero writes
-//     zeros and no product: A is symmetric, so a live row weighs such a
-//     row of xw by an exact zero, and the zeros keep whatever the buffer
-//     held out of the live chunks that the strip's nodes share.
-//   adj_pass_kernel (fused_bn_common.cuh, shared with K4b and K1b), one
-//     block per (16-row strip, 128-column pass): its pass of out = rnd(A @
-//     xw) over the strip's live 32-column chunks only; a strip with none
-//     writes zeros.
+// The xw pass of K5f and (BN) K3f, one block per (16-row strip, 128-column
+// slice of xw): the strip's x rows (BN: y = rnd(relu?(x a + b))) as the
+// operand, its slice of xw = rnd(operand @ W) with W through the weight
+// ring. A strip whose A rows are all zero writes zeros and no product
+// (see above); the zeros keep whatever the buffer held out of the live
+// chunks that the strip's nodes share.
 template <typename T>
 __host__ __device__ inline RbSmem k5f_xw_smem(int S, int D, int ring) {
   const int nch = (S + ACW - 1) / ACW;
   return rb_smem(S, nch, a_bytes<T>(R, D), 0, pass_bytes<T>(R, ring));
 }
 
-template <typename T>
+template <typename T, bool BN>
 __global__ void __launch_bounds__(RNT, 2)
-k5f_xw_kernel(const T* __restrict__ x, const T* __restrict__ adj,
+k5f_xw_kernel(const T* __restrict__ x, const float* __restrict__ a,
+              const float* __restrict__ b, const T* __restrict__ adj,
               const T* __restrict__ w, T* __restrict__ xw, int S, int D,
-              int ring) {
+              int relu_in, int ring) {
   extern __shared__ float smem_f[];  // 16-byte aligned
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
   const RbSmem L = k5f_xw_smem<T>(S, D, ring);
@@ -280,7 +179,7 @@ k5f_xw_kernel(const T* __restrict__ x, const T* __restrict__ adj,
   T* xa = reinterpret_cast<T*>(smem + L.op0);
   float* scratch = reinterpret_cast<float*>(smem + L.scratch);
   const size_t row0 = (size_t)blockIdx.x * R;
-  const int cb = blockIdx.y * RCW;  // this block's pass of xw
+  const int cb = blockIdx.y * RCW;  // this block's slice of xw
   if (adj_live_chunks(adj, row0, R, S, flags, node, width, msk) == 0) {
     for (int e = threadIdx.x; e < R * RCW; e += RNT) {
       const int r = e / RCW, c = cb + e % RCW;
@@ -289,7 +188,12 @@ k5f_xw_kernel(const T* __restrict__ x, const T* __restrict__ adj,
     return;
   }
   const int lda = a_lda(D);
-  rows_to_a<R>(xa, lda, x, row0, R, D);
+  if constexpr (BN)
+    rows_to_a<R>(xa, lda, x, row0, R, D, [=](int k, float v) {
+      return rnd<T>(prologue(v, a[k], b[k], relu_in));
+    });
+  else
+    rows_to_a<R>(xa, lda, x, row0, R, D);
   rb_pass_wr<T, R>(ring, xa, lda, D, cb, D, scratch, w, D);
   for (int e = threadIdx.x; e < R * RCW; e += RNT) {
     const int r = e / RCW, j = e % RCW, c = cb + j;
@@ -297,6 +201,70 @@ k5f_xw_kernel(const T* __restrict__ x, const T* __restrict__ adj,
   }
 }
 
+// The xw pass over N rows at the 64 KB f32 weight ring (the 32 KB one
+// where shared memory does not fit).
+template <typename T, bool BN>
+static int launch_xw_pass(const void* x, const float* a, const float* b,
+                          const void* adj, const void* w, void* xw, int N,
+                          int S, int D, int relu_in, cudaStream_t st) {
+  const RbShape sh = rb_shape(R, 1, [&](int, int rg) {
+    return k5f_xw_smem<T>(S, D, rg).total;
+  });
+  if (!sh.rb) return (int)cudaErrorInvalidValue;
+  cudaError_t e = set_smem(k5f_xw_kernel<T, BN>, sh.bytes);
+  if (e != cudaSuccess) return (int)e;
+  k5f_xw_kernel<T, BN><<<dim3(N / R, (D + RCW - 1) / RCW), RNT, sh.bytes,
+                         st>>>((const T*)x, a, b, (const T*)adj,
+                               (const T*)w, (T*)xw, S, D, relu_in, sh.ring);
+  return (int)cudaGetLastError();
+}
+
+// K3f's adjacency epilogue: out = rnd(Cs + bias), and the strip's masked
+// moment partials [sum m out, sum m out^2] of the cast out at row row0 /
+// 16 of partial [N / 16, 2 D], each group of four rows summed, then the
+// groups in order (the first design's order).
+template <typename T>
+struct BnMoments {
+  const float* bias;
+  T* out;
+  float* partial;
+  int D;
+  __device__ void operator()(size_t row0, int c0, float* Cs,
+                             const float* msk) const {
+    const int tid = threadIdx.x;
+    for (int e = tid; e < R * RCW; e += RNT) {
+      const int r = e / RCW, j = e % RCW, c = c0 + j;
+      if (c < D) {
+        const float v = rnd<T>(Cs[r * CS + j] + bias[c]);
+        Cs[r * CS + j] = v;
+        st(out, (row0 + r) * D + c, v);
+      }
+    }
+    __syncthreads();
+    const int c = c0 + tid;
+    if (tid < RCW && c < D) {
+      float t0 = 0.f, t1 = 0.f;
+      for (int w = 0; w < 4; ++w) {
+        float s0 = 0.f, s1 = 0.f;
+        for (int i = 0; i < 4; ++i) {
+          const int r = 4 * w + i;
+          const float v = Cs[r * CS + tid], ob = v * msk[r];
+          s0 += ob;
+          s1 += ob * v;
+        }
+        t0 += s0;
+        t1 += s1;
+      }
+      float* prow = partial + (row0 / R) * 2 * D;
+      prow[c] = t0;
+      prow[D + c] = t1;
+    }
+  }
+};
+
+// K3f: the xw pass into the scratch xw, the adjacency pass with the counts
+// and the moment epilogue, then the sum of the N / 16 strips' partials in
+// strip order.
 template <typename T>
 static int gcn_bn_fwd(const void* x, const float* a, const float* b,
                       const void* adj, const void* cnt, const void* etab,
@@ -305,51 +273,41 @@ static int gcn_bn_fwd(const void* x, const float* a, const float* b,
                       int relu_in, void* stream) {
   if (T_ <= 0 || S <= 0 || S % R || D <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int nrow_blk = T_ * S / R;
-  size_t bytes = ((size_t)R * D + KC * CW) * sizeof(float);
-  cudaError_t e = set_smem(gcn_xw_kernel<T>, bytes);
-  if (e != cudaSuccess) return (int)e;
-  gcn_xw_kernel<T><<<nrow_blk, NT, bytes, st>>>(
-      (const T*)x, a, b, (const T*)w, (T*)xw, D, relu_in);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  bytes = ((size_t)R * (S + CNT_PAD) + KC * CW + R) * sizeof(float);
-  if ((e = set_smem(gcn_adj_kernel<T>, bytes)) != cudaSuccess) return (int)e;
-  gcn_adj_kernel<T><<<nrow_blk, NT, bytes, st>>>(
-      (const T*)xw, (const T*)adj, (const T*)cnt, (const T*)etab, bias,
-      (T*)out, partial, S, D);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  return launch_sum_partials(partial, sums, nrow_blk, 2 * D, st);
+  const int N = T_ * S;
+  int err = launch_xw_pass<T, true>(x, a, b, adj, w, xw, N, S, D, relu_in,
+                                    st);
+  if (err) return err;
+  err = launch_adj_pass<T>(xw, adj, BnMoments<T>{bias, (T*)out, partial, D},
+                           N, S, D, st, cnt, etab);
+  if (err) return err;
+  return launch_sum_partials(partial, sums, N / R, 2 * D, st);
 }
 
-// K5f: xw = rnd(x @ W) into the scratch xw at the 64 KB f32 weight ring
-// (the 32 KB one where shared memory does not fit), then out = rnd(A @ xw).
+// K5f: xw = rnd(x @ W) into the scratch xw, then out = rnd(A @ xw).
 template <typename T>
 static int gcn_fwd(const void* x, const void* adj, const void* w, void* xw,
                    void* out, int T_, int S, int D, void* stream) {
   if (T_ <= 0 || S <= 0 || S % R || D <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int N = T_ * S;
-  const RbShape sh = rb_shape(R, 1, [&](int, int rg) {
-    return k5f_xw_smem<T>(S, D, rg).total;
-  });
-  if (!sh.rb) return (int)cudaErrorInvalidValue;
-  cudaError_t e = set_smem(k5f_xw_kernel<T>, sh.bytes);
-  if (e != cudaSuccess) return (int)e;
-  k5f_xw_kernel<T><<<dim3(N / R, (D + RCW - 1) / RCW), RNT, sh.bytes, st>>>(
-      (const T*)x, (const T*)adj, (const T*)w, (T*)xw, S, D, sh.ring);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  int err = launch_xw_pass<T, false>(x, nullptr, nullptr, adj, w, xw, N, S,
+                                     D, 0, st);
+  if (err) return err;
   return launch_adj_pass<T>(xw, adj, AdjStore<T>{(T*)out, D}, N, S, D, st);
 }
 
-// K5b's strip pass: one block of RNT threads per (16-row strip, 128-column
-// pass of dx). The block finds the live 32-column chunks of its A strip,
-// computes dxw = rnd(A @ g) for its strip over those chunks only and for all
-// D columns (the next product needs the whole row; every column pass of the
-// strip recomputes this cheap sparse product), keeps it in shared memory as
-// the left operand and writes its own column pass of it, then computes its
-// pass of dx = rnd(dxw @ W^T) (wt = W^T, transposed once). A strip with no
-// live chunk has dxw = dx = 0: it writes zeros and records strip_live = 0
-// for the weight pass. Shared memory: the chunk list, the node mask, the A
+// The strip pass of K5b and K3b: one block of RNT threads per (16-row
+// strip, 128-column slice of dx). The block finds the live 32-column chunks
+// of its A strip, computes dxw = rnd(A @ g) for its strip over those chunks
+// only and for all D columns (the next product needs the whole row; every
+// slice of the strip recomputes this cheap sparse product), keeps it in
+// shared memory as the left operand and writes its own slice of it, then
+// computes its slice of dx = dxw @ W^T (wt = W^T, transposed once) into Cs
+// and calls epi(row0, c0, Cs, msk) (K5b: AdjStore, dx = rnd(Cs); K3b:
+// BnAdjoint). A strip with no live chunk has dxw = 0: it writes zeros and
+// runs the epilogue on Cs = 0. The slice-0 block writes the strip's flag
+// for the weight pass: 0 when its A rows are all zero and (cnt not null)
+// so are its cnt rows. Shared memory: the chunk list, the node mask, the A
 // chunks [16, live * 32], the dxw operand [16, D] and the pass scratch.
 constexpr int K5B_RB = 16;
 
@@ -360,15 +318,16 @@ __host__ __device__ inline RbSmem k5b_smem(int S, int D, int ring) {
                  a_bytes<T>(K5B_RB, D), pass_bytes<T>(K5B_RB, ring));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(RNT)
+template <typename T, typename Epi>
+__global__ void __launch_bounds__(RNT, 2)
 k5b_strip_kernel(const T* __restrict__ g, const T* __restrict__ adj,
-                 const T* __restrict__ wt, T* __restrict__ dxw,
-                 T* __restrict__ dx, int* __restrict__ strip_live, int S,
-                 int D, int ring) {
+                 const T* __restrict__ cnt, const T* __restrict__ wt,
+                 T* __restrict__ dxw, Epi epi, int* __restrict__ strip_live,
+                 int S, int D, int ring) {
   constexpr int RB = K5B_RB;
   extern __shared__ float smem_f[];  // 16-byte aligned
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  __shared__ int cnt_live;
   const RbSmem L = k5b_smem<T>(S, D, ring);
   int* flags = reinterpret_cast<int*>(smem + L.meta);
   int* node = flags + 2 * L.nch;
@@ -380,18 +339,19 @@ k5b_strip_kernel(const T* __restrict__ g, const T* __restrict__ adj,
   float* scratch = reinterpret_cast<float*>(smem + L.scratch);
   const int tid = threadIdx.x;
   const size_t row0 = (size_t)blockIdx.x * RB;
-  const int cb = blockIdx.y * RCW;  // this block's column pass of dx
+  const int cb = blockIdx.y * RCW;  // this block's slice of dx
+  const bool clive = cnt && cnt_rows_live(cnt, row0, RB, &cnt_live);
   const int nlive = adj_live_chunks(adj, row0, RB, S, flags, node, width,
                                     msk);
-  if (blockIdx.y == 0 && tid == 0) strip_live[blockIdx.x] = nlive > 0;
+  if (blockIdx.y == 0 && tid == 0) strip_live[blockIdx.x] = nlive > 0 || clive;
   if (nlive == 0) {
     for (int e = tid; e < RB * RCW; e += RNT) {
-      const int r = e / RCW, c = cb + e % RCW;
-      if (c < D) {
-        st(dxw, (row0 + r) * D + c, 0.f);
-        st(dx, (row0 + r) * D + c, 0.f);
-      }
+      const int r = e / RCW, j = e % RCW, c = cb + j;
+      if (c < D) st(dxw, (row0 + r) * D + c, 0.f);
+      scratch[r * CS + j] = 0.f;
     }
+    __syncthreads();
+    epi(row0, cb, scratch, msk);
     return;
   }
   const int KL = nlive * ACW, lda1 = a_lda(KL), lda2 = a_lda(D);
@@ -415,21 +375,40 @@ k5b_strip_kernel(const T* __restrict__ g, const T* __restrict__ adj,
     __syncthreads();
     cs_to_a<RB>(da, lda2, c0, D, scratch);
   }
-  // dx = rnd(dxw @ W^T), this block's column pass
+  // this block's slice of dxw @ W^T
   rb_pass_wr<T, RB>(ring, da, lda2, D, cb, D, scratch, wt, D);
-  for (int e = tid; e < RB * RCW; e += RNT) {
-    const int r = e / RCW, j = e % RCW, c = cb + j;
-    if (c < D) st(dx, (row0 + r) * D + c, scratch[r * CS + j]);
-  }
+  epi(row0, cb, scratch, msk);
 }
 
-// K5b: W^T, the strip pass (the f32 weight ring 0 where it fits in shared
-// memory, else ring 1), the weight pass dW = x^T @ dxw (wgrad_kernel:
+// The strip pass over N rows. Its f32 weight ring: where the grid is at
+// most two blocks per SM (the fine-tuning batches), the 96 KB one, a block
+// alone on its SM with the deepest pipeline; else the ring that leaves room
+// for two blocks on an SM (rb_shape_two), so that one block's adjacency
+// scan and products overlap another's (the pretraining batches).
+template <typename T, typename Epi>
+static int launch_strip_pass(const void* g, const void* adj, const void* cnt,
+                             const void* wt, void* dxw, const Epi& epi,
+                             int* strip_live, int N, int S, int D,
+                             cudaStream_t st) {
+  const dim3 grid(N / K5B_RB, (D + RCW - 1) / RCW);
+  auto bytes = [&](int, int ring) { return k5b_smem<T>(S, D, ring).total; };
+  const RbShape sh = (int)(grid.x * grid.y) <= 2 * sm_count()
+                         ? rb_shape(K5B_RB, 0, bytes)
+                         : rb_shape_two(bytes);
+  if (!sh.rb) return (int)cudaErrorInvalidValue;
+  cudaError_t e = set_smem(k5b_strip_kernel<T, Epi>, sh.bytes);
+  if (e != cudaSuccess) return (int)e;
+  k5b_strip_kernel<T, Epi><<<grid, RNT, sh.bytes, st>>>(
+      (const T*)g, (const T*)adj, (const T*)cnt, (const T*)wt, (T*)dxw, epi,
+      strip_live, S, D, sh.ring);
+  return (int)cudaGetLastError();
+}
+
+// K5b: W^T, the strip pass, the weight pass dW = x^T @ dxw (wgrad_kernel:
 // `chunks` row chunks of rows_per_chunk rows, which the caller chooses
-// (ops/fused_gcn.py dw_chunks) and this only checks: a multiple of 16, at
-// most WMAX_ROWS, covering the N rows once; times the 64 x 64 tiles of dW;
-// strips with strip_live = 0 skipped) and the sum of the chunk partials in
-// chunk order.
+// (ops/fused_gcn.py dw_chunks) and launch_wgrad only checks; times the 64 x
+// 64 tiles of dW; strips with strip_live = 0 skipped) and the sum of the
+// chunk partials in chunk order.
 template <typename T>
 static int gcn_bwd(const void* g, const void* x, const void* adj,
                    const void* w, void* wt, void* dxw, void* dx,
@@ -439,19 +418,11 @@ static int gcn_bwd(const void* g, const void* x, const void* adj,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int N = T_ * S;
-  const RbShape sh = rb_shape(K5B_RB, 0, [&](int, int ring) {
-    return k5b_smem<T>(S, D, ring).total;
-  });
-  if (!sh.rb) return (int)cudaErrorInvalidValue;
   int err = launch_transpose<T>(w, wt, D, D, st);
   if (err) return err;
-  cudaError_t e = set_smem(k5b_strip_kernel<T>, sh.bytes);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(N / K5B_RB, (D + RCW - 1) / RCW);
-  k5b_strip_kernel<T><<<grid, RNT, sh.bytes, st>>>(
-      (const T*)g, (const T*)adj, (const T*)wt, (T*)dxw, (T*)dx, strip_live,
-      S, D, sh.ring);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  err = launch_strip_pass<T>(g, adj, nullptr, wt, dxw,
+                             AdjStore<T>{(T*)dx, D}, strip_live, N, S, D, st);
+  if (err) return err;
   const WProb p = {x, dxw, D, D, 0};
   err = launch_wgrad<T>(&p, 1, strip_live, N, rows_per_chunk, chunks, WT,
                         part_w, D * D, st);
@@ -459,50 +430,45 @@ static int gcn_bwd(const void* g, const void* x, const void* adj,
   return launch_sum_partials(part_w, dw, chunks, D * D, st);
 }
 
-// K3b: passes (a)-(d) and the fixed-order sums. Scratch: wt [D, D], gtc,
-// dxw, xc [N, D] (T) and the partials part_gt [nblk, D], part_adj [nblk,
-// 2 D], part_w [chunks, D*D + CNT_PAD*D]. Outputs: dx [N, D] (T), dbias
-// [D], sums_adj [2 D] = [da | db] and wgrad [D*D + CNT_PAD*D] = [dW |
-// detab] (f32).
+// K3b: the gt pass, W^T, the strip pass with the prologue's adjoint, the
+// weight pass over dW and detab and the fixed-order sums. Scratch: wt [D,
+// D], gtc, dxw, xc [N, D] (T), strip_live [N / 16] and the partials
+// part_gt [N / 16, D], part_adj [N / 16, 2 D], part_w [chunks, D*D +
+// CNT_PAD*D]. Outputs: dx [N, D] (T), dbias [D], sums_adj [2 D] = [da |
+// db] and wgrad [D*D + CNT_PAD*D] = [dW | detab] (f32). The weight pass's
+// chunks, rows per chunk and tile rows are the caller's (ops/fused_gcn.py
+// gcn_bn_bwd_weight_shape; launch_wgrad checks them).
 template <typename T>
 static int gcn_bn_bwd(const void* g, const float* ds, const void* x,
                       const float* a, const float* b, const void* adj,
                       const void* cnt, const void* out, const void* w,
                       void* wt, void* gtc, void* dxw, void* xc,
-                      float* part_gt, float* part_adj, float* part_w,
-                      void* dx, float* dbias, float* sums_adj, float* wgrad,
-                      int T_, int S, int D, int relu_in, int chunks,
+                      int* strip_live, float* part_gt, float* part_adj,
+                      float* part_w, void* dx, float* dbias, float* sums_adj,
+                      float* wgrad, int T_, int S, int D, int relu_in,
+                      int chunks, int rows_per_chunk, int tile_rows,
                       void* stream) {
   if (T_ <= 0 || S <= 0 || S % R || D <= 0 || chunks <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int nblk = T_ * S / R;
-  const int N = T_ * S;
-  gcn_bn_bwd_gt_kernel<T><<<nblk, NT, 0, st>>>(
+  const int N = T_ * S, nstrip = N / R;
+  gcn_bn_bwd_gt_kernel<T><<<nstrip, GT_NT, 0, st>>>(
       (const T*)g, ds, (const T*)adj, (const T*)out, (T*)gtc, part_gt, S, D);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  int err = launch_adj_pass<T>(gtc, adj, AdjStore<T>{(T*)dxw, D}, N, S, D,
-                               st);
+  int err = (int)cudaGetLastError();
   if (err) return err;
   if ((err = launch_transpose<T>(w, wt, D, D, st))) return err;
-  const size_t bytes = ((size_t)R * D + KC * CW) * sizeof(float);
-  if ((e = set_smem(gcn_bn_bwd_rows_kernel<T>, bytes)) != cudaSuccess)
-    return (int)e;
-  gcn_bn_bwd_rows_kernel<T><<<nblk, NT, bytes, st>>>(
-      (const T*)dxw, (const T*)wt, (const T*)x, a, b, (T*)dx, (T*)xc,
-      part_adj, D, relu_in);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  const AtB p_w = {xc, dxw, D, D, 0};
-  const AtB p_et = {cnt, gtc, CNT_PAD, D, D * D};
+  err = launch_strip_pass<T>(
+      gtc, adj, cnt, wt, dxw,
+      BnAdjoint<T>{(const T*)x, a, b, (T*)dx, (T*)xc, part_adj, D, relu_in},
+      strip_live, N, S, D, st);
+  if (err) return err;
   const int width = D * D + CNT_PAD * D;
-  int rows_per_chunk = (N + chunks - 1) / chunks;
-  rows_per_chunk = (rows_per_chunk + AKT - 1) / AKT * AKT;
-  atb_kernel<T><<<chunks * (atb_tiles(p_w) + atb_tiles(p_et)), ANT, 0, st>>>(
-      p_w, p_et, p_et, 2, N, rows_per_chunk, chunks, width, part_w);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if ((err = launch_sum_partials(part_gt, dbias, nblk, D, st))) return err;
-  if ((err = launch_sum_partials(part_adj, sums_adj, nblk, 2 * D, st)))
+  const WProb p[2] = {{xc, dxw, D, D, 0}, {cnt, gtc, CNT_PAD, D, D * D}};
+  err = launch_wgrad<T>(p, 2, strip_live, N, rows_per_chunk, chunks,
+                        tile_rows, part_w, width, st);
+  if (err) return err;
+  if ((err = launch_sum_partials(part_gt, dbias, nstrip, D, st))) return err;
+  if ((err = launch_sum_partials(part_adj, sums_adj, nstrip, 2 * D, st)))
     return err;
   return launch_sum_partials(part_w, wgrad, chunks, width, st);
 }
@@ -538,13 +504,15 @@ extern "C" {
       const void* g, const float* ds, const void* x, const float* a,        \
       const float* b, const void* adj, const void* cnt, const void* out,    \
       const void* w, void* wt, void* gtc, void* dxw, void* xc,              \
-      float* part_gt, float* part_adj, float* part_w, void* dx,             \
-      float* dbias, float* sums_adj, float* wgrad, int T_, int S, int D,    \
-      int relu_in, int chunks, void* stream) {                              \
+      int* strip_live, float* part_gt, float* part_adj, float* part_w,      \
+      void* dx, float* dbias, float* sums_adj, float* wgrad, int T_, int S, \
+      int D, int relu_in, int chunks, int rows_per_chunk, int tile_rows,    \
+      void* stream) {                                                       \
     return fbl::gcn_bn_bwd<T>(g, ds, x, a, b, adj, cnt, out, w, wt, gtc,    \
-                              dxw, xc, part_gt, part_adj, part_w, dx,       \
-                              dbias, sums_adj, wgrad, T_, S, D, relu_in,    \
-                              chunks, stream);                              \
+                              dxw, xc, strip_live, part_gt, part_adj,       \
+                              part_w, dx, dbias, sums_adj, wgrad, T_, S, D, \
+                              relu_in, chunks, rows_per_chunk, tile_rows,   \
+                              stream);                                      \
   }
 
 GCN_ENTRIES(f32, float)

@@ -93,7 +93,8 @@
 // thread per column, rows ascending; the weight pass's chunks of at most
 // 1,024 rows, rows ascending), and a skipped term is an exact zero, so the
 // f32 results are bit-identical to the first design's (strip passes of 4
-// x 4 FMA tiles on CUDA cores, a dense adjacency strip, atb_kernel).
+// x 4 FMA tiles on CUDA cores, a dense adjacency strip, a weight pass over
+// the same row chunks).
 //
 // Bound on the H100 at the pretraining shape (T = 22, D = 300, 4,696 real
 // rows of 5,632, f32): four dense products over the real rows, 4 x 2 x
@@ -241,14 +242,11 @@ k1f_kernel(const T* __restrict__ h, const float* __restrict__ a,
   // blockIdx.x * RB / 16 of partial
   float* prow = partial + (size_t)blockIdx.x * (RB / R) * (2 * D);
 
-  if (tid == 0) cnt_live = 0;
-  __syncthreads();
-  for (int e = tid; e < nrows * CNT_PAD; e += RNT)
-    if (ld(cnt, row0 * CNT_PAD + e) != 0.f) cnt_live = 1;
+  const bool clive = cnt_rows_live(cnt, row0, nrows, &cnt_live);
   const int nlive = adj_live_chunks(adj, row0, nrows, S, flags, node, width,
                                     msk);
 
-  if (nlive == 0 && !cnt_live) {
+  if (nlive == 0 && !clive) {
     // A dead block: agg = 0, so every row is mid = rnd(relu(b1)) and the
     // constant row out = rnd(mid @ W2 + b2) that k1f_dead_row_kernel left
     // in dead_row; zero moment partials (no row is a node).
@@ -394,13 +392,10 @@ k4f_mid_kernel(const T* __restrict__ h, const T* __restrict__ adj,
   const int cb = blockIdx.y * RCW;  // this block's slice of mid
   T* const agg_w = blockIdx.y == 0 ? agg_out : nullptr;
 
-  if (tid == 0) cnt_live = 0;
-  __syncthreads();
-  for (int e = tid; e < R * CNT_PAD; e += RNT)
-    if (ld(cnt, row0 * CNT_PAD + e) != 0.f) cnt_live = 1;
+  const bool clive = cnt_rows_live(cnt, row0, R, &cnt_live);
   const int nlive = adj_live_chunks(adj, row0, R, S, flags, node, width,
                                     msk);
-  if (nlive == 0 && !cnt_live) {
+  if (nlive == 0 && !clive) {
     if (agg_w)
       for (int e = tid; e < R * D; e += RNT) st(agg_w, row0 * D + e, 0.f);
     for (int e = tid; e < R * RCW; e += RNT) {
@@ -632,67 +627,6 @@ gine_bwd_dagg_kernel(const T* __restrict__ dmidc, const T* __restrict__ w1t,
   }
 }
 
-// A launch's f32 ring: the first whose block leaves room for a second on
-// its SM (the 64 KB ring, then the 32 KB one), else the first that fits.
-template <typename Bytes>
-static RbShape rb_shape_two(Bytes bytes) {
-  const size_t half = max_smem() / 2;
-  for (int ring = 1; ring < NRING; ++ring) {
-    const size_t b = bytes(R, ring);
-    if (b <= half) return {R, ring, b};
-  }
-  return rb_shape(R, 1, bytes);
-}
-
-// K1b's adjacency epilogue (adj_pass_kernel): dx = Cs, dpre = dx [h a + b
-// > 0 if relu_in], dh = rnd(dpre a), and the strip's [da | db] partials
-// (sum dpre h, sum dpre) at row row0 / 16 of partial [N / 16, 2 D], each
-// group of four rows summed, then the groups in order (the first design's
-// colsum_epilogue order).
-template <typename T>
-struct BnAdjoint {
-  const T* h;
-  const float* a;
-  const float* b;
-  T* dh;
-  float* partial;
-  int D, relu_in;
-  __device__ void operator()(size_t row0, int c0, float* Cs) const {
-    const int tid = threadIdx.x;
-    for (int e = tid; e < R * RCW; e += RNT) {
-      const int r = e / RCW, j = e % RCW, c = c0 + j;
-      if (c < D) {
-        const size_t i = (row0 + r) * D + c;
-        const float hf = ld(h, i), dx = Cs[r * CS + j];
-        const float dpre =
-            (!relu_in || prologue(hf, a[c], b[c], 0) > 0.f) ? dx : 0.f;
-        st(dh, i, __fmul_rn(dpre, a[c]));
-        Cs[r * CS + j] = dpre;
-      }
-    }
-    __syncthreads();
-    const int c = c0 + tid;
-    if (tid < RCW && c < D) {
-      float t0 = 0.f, t1 = 0.f;
-      for (int w = 0; w < 4; ++w) {
-        float s0 = 0.f, s1 = 0.f;
-        for (int i = 0; i < 4; ++i) {
-          const int r = 4 * w + i;
-          const float dpre = Cs[r * CS + tid];
-          const float hf = ld(h, (row0 + r) * D + c);
-          s0 += dpre * hf;
-          s1 += dpre;
-        }
-        t0 += s0;
-        t1 += s1;
-      }
-      float* prow = partial + (row0 / R) * 2 * D;
-      prow[c] = t0;
-      prow[D + c] = t1;
-    }
-  }
-};
-
 // K1f: the dead blocks' constant row, the row-block kernel, then the
 // fixed-order sum of the moment partials of its N / 16 strips. partial
 // holds N / 16 + 1 rows of [2, D]: the last keeps the constant row.
@@ -807,8 +741,9 @@ static int gine_bwd(const void* g, const float* ds, const void* h,
   if constexpr (BN)
     err = launch_adj_pass<T>(
         daggc, adj,
-        BnAdjoint<T>{(const T*)h, a, b, (T*)dh, part_adj, D, relu_in}, N, S,
-        D, st);
+        BnAdjoint<T>{(const T*)h, a, b, (T*)dh, nullptr, part_adj, D,
+                     relu_in},
+        N, S, D, st);
   else
     err = launch_adj_pass<T>(daggc, adj, AdjStore<T>{(T*)dh, D}, N, S, D,
                              st);

@@ -32,8 +32,8 @@ import torch
 
 from molclr_tpu_torch.ops import _build
 from molclr_tpu_torch.ops.fused_layer import (
-    BWD_CHUNK_ROWS,
     CNT_PAD,
+    COL_SLICE,
     DW_MAX_ROWS,
     DW_TILE,
     H100_SMS,
@@ -47,7 +47,7 @@ from molclr_tpu_torch.ops.fused_layer import (
     kernel_plan,
     masked_moments,
     sm_count,
-    strip_rows,
+    weight_pass_shape,
 )
 
 
@@ -64,13 +64,17 @@ def fused_gcn_bn_layer_plain(x, a, b, adj, cnt, etab, w, bias,
                              relu_in: bool = False):
     """The plain PyTorch version of the layer: the same arithmetic and
     cast points as the kernel. Returns (out [N, D], sums [2, D] f32)."""
-    dt = x.dtype
+    xw = (bn_prologue(x, a, b, relu_in).float() @ w.float()).to(x.dtype)
+    return gcn_bn_out_plain(xw, adj, cnt, etab, bias)
+
+
+def gcn_bn_out_plain(xw, adj, cnt, etab, bias):
+    """The plain version of K3f's adjacency pass on its xw [N, D]: out =
+    rnd(A @ xw + cnt @ etab + bias) and its masked moments."""
     t, s, _ = adj.shape
-    n, d = x.shape
-    y = bn_prologue(x, a, b, relu_in)
-    xw = (y.float() @ w.float()).to(dt)
+    n, d = xw.shape
     out = torch.bmm(adj.float(), xw.float().reshape(t, s, d)).reshape(n, d)
-    outc = (out + cnt.float() @ etab.float() + bias).to(dt)
+    outc = (out + cnt.float() @ etab.float() + bias).to(xw.dtype)
     return outc, masked_moments(outc, adj)
 
 
@@ -111,13 +115,13 @@ def fused_gcn_bn_layer_fwd(x, a, b, adj, cnt, etab, w, bias, relu_in: bool):
                                         relu_in)
     n, d = x.shape
     t, s = cuda_tiles("fused_gcn_bn_layer", x, adj, "fused_gcn_bn")
-    strip = strip_rows("fused_gcn_bn")
     suffix = "f32" if x.dtype == torch.float32 else "bf16"
     fn = kernel_fn("fused_gcn_bn", f"gcn_bn_fwd_{suffix}", 12, 4)
     out = torch.empty_like(x)
     xw = torch.empty_like(x)
     sums = torch.empty(2, d, dtype=torch.float32, device=x.device)
-    partial = torch.empty(t * (s // strip), 2, d, dtype=torch.float32,
+    # one [2, D] row of moment partials per 16-row strip
+    partial = torch.empty(n // STRIP_ROWS, 2, d, dtype=torch.float32,
                           device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), adj.data_ptr(),
@@ -127,6 +131,57 @@ def fused_gcn_bn_layer_fwd(x, a, b, adj, cnt, etab, w, bias, relu_in: bool):
     _build.check(err, "fused_gcn_bn_layer")
     fused_gcn_bn_layer.launches += 1
     return out, sums
+
+
+def gcn_bn_bwd_weight_shape(n: int, d: int, dtype: torch.dtype,
+                            sms: int = H100_SMS) -> tuple[int, int, int]:
+    """fused_layer.weight_pass_shape of K3b's weight pass: dW [d, d] and
+    detab [CNT_PAD, d] in one launch."""
+    return weight_pass_shape(n, ((d, d), (CNT_PAD, d)), dtype, sms)
+
+
+def k3f_plan(adj: torch.Tensor, cnt: torch.Tensor, d: int) -> dict:
+    """What K3f skips on this batch and its grids, decided as its launches
+    decide it from the data they load (tests and chip_smoke.py only; the
+    wrapper never calls it): `xw` is kernel_plan of the xw pass (16-row
+    strips whose A rows are all zero write zeros), `adj` of the adjacency
+    pass (its dead strips also have all-zero cnt rows: rows rnd(bias)), and
+    grids {launch: (strips, column slices)}."""
+    n = adj.shape[0] * adj.shape[1]
+    grid = (n // STRIP_ROWS, -(-d // COL_SLICE))
+    return dict(xw=kernel_plan(adj, None, STRIP_ROWS),
+                adj=kernel_plan(adj, cnt, STRIP_ROWS),
+                grids=dict(xw=grid, adj=grid))
+
+
+def k3b_plan(adj: torch.Tensor, cnt: torch.Tensor, d: int,
+             dtype: torch.dtype = torch.float32,
+             sms: int = H100_SMS) -> dict:
+    """What K3b skips on this batch and how it is launched (tests and
+    chip_smoke.py only): `adj` is kernel_plan of the strip pass (dxw = 0
+    with no product on strips whose A rows are all zero); dead_strips [N /
+    16] the strips that the weight pass skips (A and cnt rows all zero:
+    their dxw and cnt rows multiply only zeros); dw_chunks, dw_rows,
+    dw_tile_rows (gcn_bn_bwd_weight_shape) with live_chunks [dw_chunks], a
+    strip of the chunk is live; grids {launch: (strips, column slices)} of
+    the gt and strip passes and the weight pass's {problem: (chunks, tile
+    rows, tile columns)}."""
+    n = adj.shape[0] * adj.shape[1]
+    strips = n // STRIP_ROWS
+    plan = kernel_plan(adj, None, STRIP_ROWS)
+    dead = plan["dead_strips"] & ~(cnt != 0).reshape(
+        strips, STRIP_ROWS * CNT_PAD).any(dim=1)
+    chunks, rows, tile_rows = gcn_bn_bwd_weight_shape(n, d, dtype, sms)
+    per = rows // STRIP_ROWS
+    live = torch.nn.functional.pad(~dead, (0, chunks * per - strips))
+    grids = dict(gt=(strips, 1), strip=(strips, -(-d // COL_SLICE)),
+                 weights={k: (chunks, -(-m // tile_rows), -(-c // DW_TILE))
+                          for k, (m, c) in (("dw", (d, d)),
+                                            ("detab", (CNT_PAD, d)))})
+    return dict(adj=plan, dead_strips=dead, dw_chunks=chunks, dw_rows=rows,
+                dw_tile_rows=tile_rows,
+                live_chunks=live.reshape(chunks, per).any(dim=1),
+                grids=grids)
 
 
 def fused_gcn_bn_layer_bwd(g, dsums, x, a, b, adj, cnt, out, w,
@@ -147,24 +202,29 @@ def fused_gcn_bn_layer_bwd(g, dsums, x, a, b, adj, cnt, out, w,
                                             w, relu_in)
     t, s = cuda_tiles("fused_gcn_bn_layer_bwd", g, adj, "fused_gcn_bn")
     suffix = "f32" if g.dtype == torch.float32 else "bf16"
-    fn = kernel_fn("fused_gcn_bn", f"gcn_bn_bwd_{suffix}", 20, 5)
-    nblk = t * (s // strip_rows("fused_gcn_bn"))
-    chunks = -(-n // BWD_CHUNK_ROWS)
+    fn = kernel_fn("fused_gcn_bn", f"gcn_bn_bwd_{suffix}", 21, 7)
+    strips = n // STRIP_ROWS
+    chunks, rows, tile_rows = gcn_bn_bwd_weight_shape(n, d, g.dtype,
+                                                      sm_count(g.device))
     width = d * d + CNT_PAD * d
-    f32 = dict(dtype=torch.float32, device=g.device)
-    wt = w.new_empty(d, d)
-    gtc, dxw, xc, dx = (torch.empty_like(g) for _ in range(4))
-    part_gt = torch.empty(nblk, d, **f32)
-    part_adj = torch.empty(nblk, 2 * d, **f32)
-    part_w = torch.empty(chunks, width, **f32)
-    dbias = torch.empty(d, **f32)
-    sums_adj = torch.empty(2 * d, **f32)
-    wgrad = torch.empty(width, **f32)
+    es = g.element_size()
+    # W^T, gtc, dxw, xc, the strip flags (int32) and the partials of the gt,
+    # strip and weight passes (f32)
+    _buf, (wt, gtc, dxw, xc, live, part_gt, part_adj, part_w) = \
+        carve_scratch(g.device, (d * d * es, n * d * es, n * d * es,
+                                 n * d * es, 4 * strips, 4 * strips * d,
+                                 4 * strips * 2 * d, 4 * chunks * width))
+    dx = torch.empty_like(g)
+    # dbias, [da | db], [dW | detab]
+    res = torch.empty(d + 2 * d + width, dtype=torch.float32,
+                      device=g.device)
+    dbias, sums_adj, wgrad = res.split([d, 2 * d, width])
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = fn(*(v.data_ptr() for v in (
-        g, dsums, x, a, b, adj, cnt, out, w, wt, gtc, dxw, xc, part_gt,
-        part_adj, part_w, dx, dbias, sums_adj, wgrad)),
-        t, s, d, int(bool(relu_in)), chunks, stream)
+    err = fn(*(v.data_ptr() for v in (g, dsums, x, a, b, adj, cnt, out, w)),
+             wt, gtc, dxw, xc, live, part_gt, part_adj, part_w,
+             dx.data_ptr(), dbias.data_ptr(), sums_adj.data_ptr(),
+             wgrad.data_ptr(), t, s, d, int(bool(relu_in)), chunks, rows,
+             tile_rows, stream)
     _build.check(err, "fused_gcn_bn_layer_bwd")
     fused_gcn_bn_layer_bwd.launches += 1
     dw, detab = wgrad.split([d * d, CNT_PAD * d])

@@ -319,20 +319,19 @@ BWD_CHUNK_ROWS = 1024
 
 
 @functools.lru_cache(maxsize=None)
-def gine_bwd_weight_shape(n: int, d: int, d2: int, dtype: torch.dtype,
-                          sms: int = H100_SMS) -> tuple[int, int, int]:
-    """(chunks, rows per chunk, output tile rows) of K1b's and K4b's weight
-    pass over n rows (csrc/fused_bn_common.cuh wgrad_kernel over dW1 [d,
-    d2], dW2 [d2, d] and detab [CNT_PAD, d] in one launch, which takes them
-    as they are). Chunks are whole 16-row strips, at most DW_MAX_ROWS rows.
-    f32 keeps the first design's chunks (ceil(n / BWD_CHUNK_ROWS) of equal
+def weight_pass_shape(n: int, problems: tuple, dtype: torch.dtype,
+                      sms: int = H100_SMS) -> tuple[int, int, int]:
+    """(chunks, rows per chunk, output tile rows) of a backward's weight
+    pass over n rows (csrc/fused_bn_common.cuh wgrad_kernel over the
+    problems' outputs ((m, c), ...) in one launch, which takes them as they
+    are). Chunks are whole 16-row strips, at most DW_MAX_ROWS rows. f32
+    keeps the first design's chunks (ceil(n / BWD_CHUNK_ROWS) of equal
     size, so each output is the same ascending sum) and takes 32-row output
     tiles where 64-row ones give fewer than two blocks per SM of a card with
     `sms` SMs; bf16 takes 64 x 64 tiles and enough chunks for two blocks
     per SM, as K5b's dw_chunks does."""
     def tiles(tr):
-        return sum(-(-m // tr) * -(-c // DW_TILE)
-                   for m, c in ((d, d2), (d2, d), (CNT_PAD, d)))
+        return sum(-(-m // tr) * -(-c // DW_TILE) for m, c in problems)
 
     if dtype == torch.float32:
         want = -(-n // BWD_CHUNK_ROWS)
@@ -345,6 +344,13 @@ def gine_bwd_weight_shape(n: int, d: int, d2: int, dtype: torch.dtype,
     if dtype == torch.float32 and chunks * tiles(DW_TILE) < 2 * sms:
         tile_rows = DW_TILE // 2
     return chunks, rows, tile_rows
+
+
+def gine_bwd_weight_shape(n: int, d: int, d2: int, dtype: torch.dtype,
+                          sms: int = H100_SMS) -> tuple[int, int, int]:
+    """weight_pass_shape of K1b's and K4b's weight pass: dW1 [d, d2], dW2
+    [d2, d] and detab [CNT_PAD, d]."""
+    return weight_pass_shape(n, ((d, d2), (d2, d), (CNT_PAD, d)), dtype, sms)
 
 
 def gine_bwd_gt(g, dsums, adj, out):

@@ -39,12 +39,15 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _problem(seed, tiles, s, d, padded_rows, layout="random"):
+def _problem(seed, tiles, s, d, padded_rows, layout="random",
+             normalized=False):
     """Random block-diagonal symmetric adjacency with self-loops on real
     rows; the last `padded_rows` rows of every tile are padding. With
     layout "molecules" each tile holds small molecules (6-20 atoms, bonds
     within a molecule only), so most 32-column chunks of a strip are zero,
-    and the last tile is padding in full."""
+    and the last tile is padding in full. `normalized` scales A by dis_i
+    dis_j and the counts by per-node weights, as normalize_gcn hands them
+    to the GCN layer."""
     rng = np.random.RandomState(seed)
     n, pad = tiles * s, fused_layer.CNT_PAD
     adj = np.zeros((tiles, s, s), np.float32)
@@ -69,6 +72,10 @@ def _problem(seed, tiles, s, d, padded_rows, layout="random"):
     cnt = np.zeros((n, pad), np.float32)
     cnt[:, :8] = rng.randint(0, 3, (n, 8))
     cnt[~real] = 0
+    if normalized:
+        dis = 1.0 / np.sqrt(np.maximum(adj.sum(2), 1.0))
+        adj = adj * dis[:, :, None] * dis[:, None, :]
+        cnt = cnt * rng.rand(n, 1)
     x = dict(h=rng.randn(n, d), a=rng.rand(d) + 0.5, b=0.2 * rng.randn(d),
              adj=adj, cnt=cnt)
     etab = np.zeros((pad, d))
@@ -182,10 +189,9 @@ def test_backward_kernel_matches_plain(cuda, shape, dtype, relu_in):
 
 
 # The eight layer kernels beyond the reference width (D = 384, 512, 1,024
-# with D2 = 2 D; a tile of 512). The row-block kernels (K1f, K1b, K4f, K4b,
-# K5f, K5b) take a shallower f32 weight ring where the first does not fit,
-# and K1f then 16-row blocks (its rows expected here); the strip kernels
-# (K3f, K3b) size their shared memory from D. K1b's and K4b's dagg launch
+# with D2 = 2 D; a tile of 512). The row-block kernels take a shallower f32
+# weight ring where the first does not fit, and K1f then 16-row blocks (its
+# rows expected here). K1b's and K4b's dagg launch
 # holds a [16, D2] f32 operand: 1,280 / 2,560 fits with the 32 KB ring
 # (the first design's row pass, 16 x (D + D2) floats, stopped just above
 # D = 1,024). At D = 2,048 no K1f block fits in shared memory and its
@@ -479,13 +485,21 @@ def test_trunk_gets_gradients_on_card(cuda):
             assert g.abs().max() > 0, (gnn, normalize, k)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+# K3b's shapes: SHAPES, the GCN mix step's tile count (T = 47) at the full
+# width, and the normalize_gcn weights (A scaled by dis_i dis_j, weighted
+# counts) on molecule-like tiles
+GCN_BWD_SHAPES = SHAPES + [(47, 256, 300, 8, "molecules"),
+                           (3, 256, 300, 8, "molecules", True)]
+
+
+@pytest.mark.parametrize("shape", GCN_BWD_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("relu_in", [False, True])
 def test_gcn_backward_kernel_matches_plain(cuda, shape, dtype, relu_in):
     """K3b against its plain version on the card, on K3f's output and
-    random cotangents, ragged widths and padded rows included; two runs
-    bit-identical, one launch counted per call."""
+    random cotangents, ragged widths, padded rows, the GCN mix step's 47
+    tiles and the normalize_gcn weights included; two runs bit-identical,
+    one launch counted per call."""
     dt = getattr(torch, dtype)
     x, _, pc = _problem(_seed(shape) + 4, *shape)
     x, p = _to(x, cuda, dt), _to(pc, cuda, dt)

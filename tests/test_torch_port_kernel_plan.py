@@ -1,5 +1,5 @@
-"""What the redesigned K1f, K4f, K5f, K5b, K4b and K1b skip, held to the
-plain versions and JAX.
+"""What the redesigned layer kernels (K1f, K1b, K3f, K3b, K4f, K4b, K5f,
+K5b) skip, held to the plain versions and JAX.
 
 The row-block kernels skip work that the data they load shows to be dead:
 the all-zero 32-column chunks of an adjacency strip (with the features of
@@ -7,10 +7,14 @@ their nodes), row blocks whose adjacency and count rows are all zero (K1f
 writes one constant row there, K4f agg = 0 and mid = rnd(relu(b1)), K5f
 zeros), K5b's weight-pass row chunks and strips whose dxw rows are zero,
 and the strips whose total cotangent gt is all zero in K4b and K1b (their
-dmid and dagg launches write zeros there, their weight pass skips them).
-`fused_layer.kernel_plan`, `fused_gcn.k5b_plan` and
-`fused_layer.gine_bwd_plan` state those decisions,
-`fused_layer.unchained_fwd_plan` K4f's and K5f's grids.
+dmid and dagg launches write zeros there, their weight pass skips them);
+K3f's xw and adjacency passes skip strips as K5f's do (the adjacency pass
+with the counts: a strip whose A and cnt rows are all zero writes
+rnd(bias)), and K3b's weight pass the strips whose A and cnt rows are all
+zero. `fused_layer.kernel_plan`, `fused_gcn.k5b_plan`,
+`fused_layer.gine_bwd_plan`, `fused_gcn.k3f_plan` and `fused_gcn.k3b_plan`
+state those decisions, `fused_layer.unchained_fwd_plan` K4f's and K5f's
+grids.
 Here, on packed batches of `synthetic_corpus` at tile 64 and 256, in f32
 and bf16:
 
@@ -20,14 +24,14 @@ and bf16:
     work cannot change a result);
   * that restricted result agrees with JAX's Pallas kernel in interpreter
     mode (`_bn_run_fwd`, `_fused_bwd`, `_run_fwd`, `_run_bwd`,
-    `_bn_run_bwd`) within the tolerances of
+    `_bn_run_bwd` of fused_layer and fused_gcn) within the tolerances of
     tests/test_torch_port_ops.py and tests/test_torch_port_finetune_ops.py:
     1e-5 (f32) and 3e-2 (bf16, one bf16 rounding of an intermediate) of
     max(1, max|jax|);
   * K5b's weight pass has enough blocks for two per SM of an H100 (132)
-    at the fine-tuning shape, and K4f's, K5f's, K4b's and K1b's launches
-    cover every output once and keep the card's SMs busy on the trainers'
-    batches;
+    at the fine-tuning shape, and K4f's, K5f's, K4b's, K1b's and K3b's
+    launches cover every output once and keep the card's SMs busy on the
+    trainers' batches;
   * the layout constants and every C entry point that the wrappers bind
     with `fused_layer.kernel_fn` agree with the kernels' sources.
 """
@@ -390,6 +394,141 @@ def test_k4b_skips_only_dead_work(packed, dtype, pad_g):
         assert_close(a, b, rtol)
 
 
+def _gcn_problem(tile, adj, cnt, seed, dtype, normalized):
+    """K3's inputs at a small width (D = 20): random layer inputs, the
+    column-broadcast scalar edge tables, the plain K3f forward's output and
+    a cotangent g on every row (padding included: K3b's gt pass sums it
+    into dbias and its weight pass multiplies gtc by cnt). `normalized`
+    scales A by dis_i dis_j and the counts by per-node weights, as
+    normalize_gcn hands them to the layer. Returns (numpy inputs, torch
+    inputs in dtype)."""
+    n, d = adj.shape[0] * tile, 20
+    rng = np.random.RandomState(seed)
+    a_np, c_np = adj.numpy(), cnt.numpy()
+    if normalized:
+        dis = 1.0 / np.sqrt(np.maximum(a_np.sum(2), 1.0))
+        a_np = a_np * dis[:, :, None] * dis[:, None, :]
+        c_np = c_np * rng.rand(n, 1)
+    col = np.zeros((fused_layer.CNT_PAD, 1))
+    col[:8] = rng.randn(8, 1)
+    x = dict(x=rng.randn(n, d), a=rng.rand(d) + 0.5, b=0.2 * rng.randn(d),
+             adj=a_np, cnt=c_np, etab=np.repeat(col, d, axis=1),
+             w=rng.randn(d, d) / d ** 0.5, bias=0.1 * rng.randn(d),
+             g=rng.randn(n, d), dsums=0.05 * rng.randn(2, d))
+    f32 = {"a", "b", "bias", "dsums"}
+    tx = {k: torch.tensor(np.asarray(v, np.float32)).to(
+        torch.float32 if k in f32 else dtype) for k, v in x.items()}
+    return x, tx
+
+
+GCN_FWD = ("x", "a", "b", "adj", "cnt", "etab", "w", "bias")
+GCN_BWD = ("g", "dsums", "x", "a", "b", "adj", "cnt", "out", "w")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu_in", [False, True])
+@pytest.mark.parametrize("normalized", [False, True])
+def test_k3f_skips_only_dead_work(packed, dtype, relu_in, normalized):
+    """K3f's two launches (k3f_plan): the plain adjacency pass
+    (gcn_bn_out_plain) on the xw that the xw pass leaves (computed from x
+    rows replaced by garbage on the strips whose A rows are all zero, then
+    zero on those strips, as the pass writes them, and garbage on the
+    nodes that no live adjacency chunk reaches), with the skipped chunks
+    zeroed, equals the full plain forward bit for bit; the out rows of the
+    adjacency pass's dead strips (A and cnt rows all zero) are rnd(bias),
+    their moments 0; JAX's `_bn_run_fwd` agrees within the tolerance. With
+    normalize_gcn's weights the dead strips are the same (liveness is
+    decided by value)."""
+    jdt, tdt, rtol = DTYPES[dtype]
+    tile, adj, cnt = packed
+    x, tx = _gcn_problem(tile, adj, cnt, tile + 41, tdt, normalized)
+    n, d = tx["x"].shape
+    full = fused_gcn.fused_gcn_bn_layer_plain(*(tx[k] for k in GCN_FWD),
+                                              relu_in)
+
+    plan = fused_gcn.k3f_plan(tx["adj"], tx["cnt"], d)
+    assert plan["grids"] == {"xw": (n // 16, 1), "adj": (n // 16, 1)}
+    xw_dead = _rows(plan["xw"]["dead_strips"], fused_layer.STRIP_ROWS, n)
+    adj_dead = _rows(plan["adj"]["dead_strips"], fused_layer.STRIP_ROWS, n)
+    assert xw_dead.any() and adj_dead.any()
+    assert torch.equal(plan["xw"]["dead_strips"],
+                       fused_layer.kernel_plan(adj, None, 16)["dead_strips"])
+    assert plan["adj"]["block_chunks"] < plan["adj"]["dense_chunks"]
+    mask = _chunk_mask(plan["adj"], tile)
+    used = _used_nodes(plan["adj"], tile)
+    rx = torch.where(xw_dead[:, None], GARBAGE, tx["x"]).to(tdt)
+    xw = (fused_layer.bn_prologue(rx, tx["a"], tx["b"], relu_in).float()
+          @ tx["w"].float()).to(tdt)
+    xw = torch.where(xw_dead[:, None], 0.0, xw)
+    xw = torch.where(used[:, None], xw, GARBAGE).to(tdt)
+    got = fused_gcn.gcn_bn_out_plain(
+        xw, torch.where(mask, tx["adj"], 0).to(tdt), tx["cnt"], tx["etab"],
+        tx["bias"])
+    for a, b in zip(got, full):
+        assert torch.equal(a, b)
+    out = got[0]
+    assert torch.equal(out[adj_dead], tx["bias"].to(tdt).expand(
+        int(adj_dead.sum()), -1))
+
+    jx = {k: jnp.asarray(np.asarray(tx[k].float(), np.float32),
+                         jnp.float32 if k in ("a", "b", "bias") else jdt)
+          for k in GCN_FWD}
+    ref = jax_fused_gcn._bn_run_fwd(*(jx[k] for k in GCN_FWD), relu_in,
+                                    True)
+    for a, b in zip(got, ref):
+        assert_close(a, b, rtol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu_in", [False, True])
+@pytest.mark.parametrize("normalized", [False, True])
+def test_k3b_skips_only_dead_work(packed, dtype, relu_in, normalized):
+    """K3b's launches (k3b_plan): the plain backward with the skipped
+    adjacency chunks zeroed and the x and out rows of the strips that its
+    weight pass skips (A and cnt rows all zero: the strip pass runs its
+    epilogue there on dxc = 0, and their gt is g) replaced by garbage
+    equals the full one bit for bit; with their g rows replaced too, every
+    output but dbias does (the gt pass sums every row of g into dbias, as
+    the kernel does); g is nonzero on padding rows and no strip is flagged
+    by it. JAX's `_bn_run_bwd` agrees within the tolerance."""
+    jdt, tdt, rtol = DTYPES[dtype]
+    tile, adj, cnt = packed
+    x, tx = _gcn_problem(tile, adj, cnt, tile + 43, tdt, normalized)
+    n, d = tx["x"].shape
+    tx["out"], _ = fused_gcn.fused_gcn_bn_layer_plain(
+        *(tx[k] for k in GCN_FWD), relu_in)
+    full = fused_gcn.fused_gcn_bn_layer_bwd_plain(
+        *(tx[k] for k in GCN_BWD), relu_in)
+
+    plan = fused_gcn.k3b_plan(tx["adj"], tx["cnt"], d, tdt)
+    dead = _rows(plan["dead_strips"], fused_layer.STRIP_ROWS, n)
+    assert dead.any() and (tx["g"][dead] != 0).any()
+    assert torch.equal(plan["adj"]["dead_strips"] & ~plan["dead_strips"],
+                       torch.zeros_like(plan["dead_strips"]))
+    assert plan["adj"]["block_chunks"] < plan["adj"]["dense_chunks"]
+    mask = _chunk_mask(plan["adj"], tile)
+    rx = dict(tx, adj=torch.where(mask, tx["adj"], 0).to(tdt),
+              **{k: torch.where(dead[:, None], GARBAGE, tx[k]).to(tdt)
+                 for k in ("x", "out")})
+    got = fused_gcn.fused_gcn_bn_layer_bwd_plain(
+        *(rx[k] for k in GCN_BWD), relu_in)
+    for a, b in zip(got, full):
+        assert torch.equal(a, b)
+    rx["g"] = torch.where(dead[:, None], GARBAGE, tx["g"]).to(tdt)
+    again = fused_gcn.fused_gcn_bn_layer_bwd_plain(
+        *(rx[k] for k in GCN_BWD), relu_in)
+    for i, (a, b) in enumerate(zip(again, full)):
+        assert torch.equal(a, b) != (i == 4), i
+
+    f32 = {"a", "b", "dsums"}
+    jx = {k: jnp.asarray(np.asarray(tx[k].float(), np.float32),
+                         jnp.float32 if k in f32 else jdt) for k in GCN_BWD}
+    ref = jax_fused_gcn._bn_run_bwd(*(jx[k] for k in GCN_BWD), relu_in,
+                                    True)
+    for a, b in zip(got, ref):
+        assert_close(a, b, rtol)
+
+
 @functools.lru_cache(maxsize=None)
 def _tiles_batch(t):
     """(adj, cnt) of a batch as the trainers pack it at tile 256 with t
@@ -495,6 +634,52 @@ def test_gine_bwd_plan_fills_the_card(t, sms):
             assert blocks >= sms or (name in ("dagg", "adj") and t == 4
                                      and live == adj_live == 40), \
                 (dtype, name, blocks)
+
+
+@pytest.mark.parametrize("t", [22, 47])
+@pytest.mark.parametrize("sms", [78, 114, 132])
+def test_k3b_plan_fills_the_card(t, sms):
+    """k3b_plan at the reference width (D = 300, tile 256) on the GCN
+    trainers' tile counts (T = 22: pretraining; 47: GCN mix, here the
+    pretraining batch twice and three of its tiles): the gt and strip
+    passes cover every (row, column) once, and so do the weight pass's
+    chunks and tiles; f32 keeps the first design's ceil(N / 1,024) chunks
+    of at most 1,024 rows, equal up to one strip each; in f32 and bf16 the
+    weight pass launches at least two blocks per SM and its blocks that
+    load rows reach the SM count, as do the strip pass's live blocks."""
+    s, d = 256, 300
+    adj, cnt = _tiles_batch(22)
+    if t == 47:
+        adj = torch.cat([adj, adj, adj[:3]])
+        cnt = torch.cat([cnt, cnt, cnt[:3 * s]])
+    n = t * s
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = fused_gcn.k3b_plan(adj, cnt, d, dtype, sms)
+        grids = plan["grids"]
+        for name, width in (("gt", 1), ("strip", d)):
+            rows, slices = grids[name]
+            assert rows * 16 == n, name
+            cw = fused_layer.COL_SLICE if name == "strip" else width
+            assert (slices - 1) * cw < width <= slices * cw, name
+        chunks, rows = plan["dw_chunks"], plan["dw_rows"]
+        assert rows % 16 == 0 and rows <= fused_layer.DW_MAX_ROWS
+        assert (chunks - 1) * rows < n <= chunks * rows
+        if dtype == torch.float32:
+            assert chunks == -(-n // fused_layer.BWD_CHUNK_ROWS)
+            assert rows - (n - (chunks - 1) * rows) <= 16 * (chunks - 1)
+        tr = plan["dw_tile_rows"]
+        for name, (m, c) in (("dw", (d, d)),
+                             ("detab", (fused_layer.CNT_PAD, d))):
+            ch, tm, tc = grids["weights"][name]
+            assert ch == chunks
+            assert (tm - 1) * tr < m <= tm * tr, name
+            assert (tc - 1) * fused_layer.DW_TILE < c <= \
+                tc * fused_layer.DW_TILE, name
+        tiles = sum(tm * tc for _, tm, tc in grids["weights"].values())
+        assert chunks * tiles >= 2 * sms, dtype
+        assert int(plan["live_chunks"].sum()) * tiles >= sms, dtype
+        live = int((~plan["adj"]["dead_strips"]).sum())
+        assert live * grids["strip"][1] >= sms
 
 
 @pytest.mark.parametrize("n,d", [(1024, 300), (1536, 300), (5632, 300),
