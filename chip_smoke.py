@@ -56,9 +56,14 @@ prints no result line):
               of the device time by kernel.
   7. cli      `molclr_tpu_torch.cli.pretrain` on 4,096 synthetic molecules,
               B = 512: two epochs of a three-epoch schedule, then
-              `--resume latest` for the third; metrics.jsonl records, K1b
-              launches = 10 per training step, the step count and LR
-              schedule continue.
+              `--resume latest` for the third, on the default path (tile-
+              units, steps after the first two replayed as a CUDA graph)
+              and with --device-cache-mb 0 (host streaming, eager steps);
+              metrics.jsonl records, K1b launches = 10 per eager step and
+              10 captured per replayed step (the total, captured x replays,
+              is derived: a replay counts nothing; phase 15 watches
+              replays launch the kernels), the step count and LR schedule
+              continue.
   8. fine-tune kernels, at the fine-tuning shape (a batch of 32 molecules
               of the synthetic BBBP stand-in with their hydrogens, packed
               as the FineTuner packs a training batch: T = 4 tiles of 256,
@@ -112,7 +117,33 @@ prints no result line):
               augmentation's stream, host and device time per step for
               node, subgraph and mix.
  14. gcn cli: `molclr_tpu_torch.cli.pretrain --model gcn --aug mix` as
-              phase 7 runs the GIN CLI (two epochs, then a resume).
+              phase 7 runs the GIN CLI (two epochs, then a resume), on both
+              paths.
+ 15. resident: the Pretrainer's default one-card path at full width (B =
+              512, node augmentation) on phase 7's 4,096-molecule corpus:
+              first the host path's step timed on the host by part (key
+              draws, batch upload, augmentation, forward, backward, Adam;
+              GIN and GCN, f32); the tile-unit plan and the stack's MB wide
+              and narrow; on one batch of the units path (T = 20 tile-units
+              regrouped by concat_units, with per-unit graph slots and
+              sentinel bonds) K1f / K1b / K3f / K3b against their plain
+              versions (f32 and bf16, relu_in False and True, phases 4's
+              and 11's limits) and one card-vs-CPU step each of GIN and
+              GCN, f32 and bf16 (phase 5's limits); 10 units-path steps run
+              eagerly and replayed as a CUDA graph from the same state, GIN
+              and GCN, chain and fused Adam: losses, parameters, BatchNorm
+              stats and Adam moments bit-identical, the wrappers' counts
+              captured per step equal to an eager step's, and the
+              profiler's launches of the port's kernels per replayed step
+              equal to those per eager step; then the step's time (median
+              of CUDA events over 25 steps at each step's end in the
+              Pretrainer's own epoch loop), molecules/s, message-edges/s,
+              the host's time per step and a torch.profiler breakdown for
+              the host path, resident eager and resident graphed, GIN and
+              GCN, f32 and bf16 (the port's kernels launched per replayed
+              step as per eager step); and the graphed f32 step with the
+              chain against the fused Adam, 10 alternating rounds of 25
+              steps each.
 
 It prints one JSON line listing the kernels, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. It needs one
@@ -141,10 +172,14 @@ import torch
 from molclr_tpu_torch.cli import embed
 from molclr_tpu_torch.cli import finetune as finetune_cli
 from molclr_tpu_torch.cli import pretrain as pretrain_cli
-from molclr_tpu_torch.data.augment import AUG_DELTA_FIELDS, paired_augment
+from molclr_tpu_torch.data.augment import AUG_DELTA_FIELDS, \
+    draw_paired_keys, paired_augment, paired_augment_keys
 from molclr_tpu_torch.data.featurize import NUM_BOND_DIRS, NUM_BOND_TYPES
 from molclr_tpu_torch.data.graphs import concat_views, pack_batch
-from molclr_tpu_torch.data.loader import featurize_many, spec_for_graphs
+from molclr_tpu_torch.data.loader import featurize_many, \
+    read_pretrain_smiles, spec_for_graphs
+from molclr_tpu_torch.data.regroup import concat_units, \
+    epoch_unit_orders, unit_stack_bytes, wire_dtypes
 from molclr_tpu_torch.data.motifs import encode_motif_vocab
 from molclr_tpu_torch.data.synthetic import synthetic_corpus
 from molclr_tpu_torch.losses import nt_xent_loss, resolve_ntxent
@@ -196,8 +231,10 @@ from molclr_tpu_torch.train.checkpoints import latest_checkpoint, \
     transfer_state
 from molclr_tpu_torch.train.config import FineTuneConfig, ModelConfig, \
     PretrainConfig
-from molclr_tpu_torch.train.pretrain import TRAIN_STREAM, build_model, \
-    step_generator, train_step
+from molclr_tpu_torch.train.graphed import GRAPH_WARMUP_STEPS
+from molclr_tpu_torch.train.optim import load_optimizer_state
+from molclr_tpu_torch.train.pretrain import TRAIN_STREAM, Pretrainer, \
+    build_model, step_generator, train_step
 
 SEED = 0
 TILE, EMB, FEAT, LAYERS, BATCH, N_MOLS = 256, 300, 512, 5, 256, 1024
@@ -1364,6 +1401,10 @@ def profile_steps(step_fn, steps: int = 5) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
     for e in prof.key_averages():
+        if getattr(e, "is_user_annotation", False):
+            # a record_function range (Optimizer.step#Adam.step) spans
+            # kernels counted in their own rows
+            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
@@ -1371,12 +1412,15 @@ def profile_steps(step_fn, steps: int = 5) -> dict:
             rows.append((e.key, us, e.count))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    # the port's own kernels by function name, template arguments summed
-    port = {}
-    for k, us, _ in rows:
+    # the port's own kernels by function name, template arguments summed:
+    # device ms and launches per step
+    port, port_launches = {}, {}
+    for k, us, c in rows:
         m = re.search(r"(?:fbl|ntx)::(\w+)", k)
         if m:
             port[m.group(1)] = port.get(m.group(1), 0.0) + us / steps / 1e3
+            port_launches[m.group(1)] = (port_launches.get(m.group(1), 0)
+                                         + c)
     return dict(window_steps=steps, wall_ms_per_step=wall_us / steps / 1e3,
                 device_ms_per_step=busy / steps / 1e3,
                 device_busy_share=busy / wall_us if wall_us else None,
@@ -1384,17 +1428,64 @@ def profile_steps(step_fn, steps: int = 5) -> dict:
                 top=[dict(name=k[:80], ms_per_step=us / steps / 1e3,
                           launches_per_step=c / steps)
                      for k, us, c in rows[:12]],
-                port_ms_per_step=port)
+                port_ms_per_step=port, port_launches=port_launches)
 
 
 # ---------------------------------------------------------------- phase 7
 
 
+@contextlib.contextmanager
+def trainers(seen: list):
+    """Collect every Pretrainer whose train() runs inside the block (the
+    CLI builds its own)."""
+    train = Pretrainer.train
+
+    def collecting(self, *args, **kwargs):
+        seen.append(self)
+        return train(self, *args, **kwargs)
+
+    Pretrainer.train = collecting
+    try:
+        yield seen
+    finally:
+        Pretrainer.train = train
+
+
+def trainer_path(pre) -> str:
+    if pre._units:
+        return "units"
+    return "host" if pre._stack is None else "resident"
+
+
+def graph_record(pre) -> dict | None:
+    """A Pretrainer's CUDA graph: launches captured (those of
+    steps_per_replay steps) and replays; None where it ran eager."""
+    g = pre.graphed
+    if g is None:
+        return None
+    return dict(steps_per_replay=g.k, replays=g.replays,
+                captured=g.launches)
+
+
 def cli_phase(tmp: str, name: str = "pretrain_ckpt", extra_args=(),
               gnn: str = "gin") -> dict:
-    """The pretrain CLI on the card: two epochs of a three-epoch schedule,
-    then --resume latest for the third (`extra_args` choose the model and
-    the augmentation; the checkpoints go to tmp/name)."""
+    """The pretrain CLI on the card, on its default path (tile-units, each
+    step after GRAPH_WARMUP_STEPS replayed as a CUDA graph) into tmp/name
+    and with --device-cache-mb 0 (host streaming, eager steps) into
+    tmp/name_host."""
+    return {path: cli_run(tmp, name if path == "units" else f"{name}_host",
+                          [*extra_args, *extra], gnn, path)
+            for path, extra in (("units", []),
+                                ("host", ["--device-cache-mb", "0"]))}
+
+
+def cli_run(tmp: str, name: str, extra_args, gnn: str, path: str) -> dict:
+    """Two epochs of a three-epoch schedule, then --resume latest for the
+    third (`extra_args` choose the model, the augmentation and the path;
+    the checkpoints go to tmp/name). The trainer must take `path`; the
+    backward kernel must launch 2 x LAYERS times per eager step and be
+    captured 2 x LAYERS times per replayed step (launches = eager steps x
+    2 LAYERS + captured x replays)."""
     corpus = os.path.join(tmp, "pretrain.txt")
     ckpt = os.path.join(tmp, name)
     base = ["--synthetic", "4096", "--data", corpus, "--ckpt-dir", ckpt,
@@ -1407,13 +1498,22 @@ def cli_phase(tmp: str, name: str = "pretrain_ckpt", extra_args=(),
     report = {}
     for tag, extra in (("first", ["--stop-after-epoch", "2"]),
                        ("resumed", ["--resume", "latest"])):
+        seen = []
         reset_counts()
         t0 = time.perf_counter()
-        rc = pretrain_cli.main(base + extra)
+        with trainers(seen):
+            rc = pretrain_cli.main(base + extra)
         torch.cuda.synchronize()
         report[f"{tag}_s"] = time.perf_counter() - t0
         check(rc == 0, f"pretrain CLI {tag} returned {rc}")
         report[f"{tag}_counts"] = read_counts()
+        check(len(seen) == 1, f"{name} {tag}: {len(seen)} trainers")
+        report[f"{tag}_path"] = trainer_path(seen[0])
+        report[f"{tag}_graph"] = graph_record(seen[0])
+        check(report[f"{tag}_path"] == path, f"{name} {tag}: took the "
+              f"{report[f'{tag}_path']} path, expected {path}")
+        check((report[f"{tag}_graph"] is not None) == (path == "units"),
+              f"{name} {tag}: graph {report[f'{tag}_graph']}")
     with open(os.path.join(ckpt, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     report["records"] = recs
@@ -1428,11 +1528,28 @@ def cli_phase(tmp: str, name: str = "pretrain_ckpt", extra_args=(),
     sched = optim.warmup_then_cosine(5e-4, spe, 3, 1)
     check(all(r["lr"] == sched(r["step"]) for r in recs),
           "the LR schedule does not continue across the resume")
+    per_step = 2 * LAYERS
     for tag, steps in (("first", 2 * spe), ("resumed", spe)):
-        c = report[f"{tag}_counts"]
-        check(c[bwd] == 2 * LAYERS * steps and c[other] == 0,
+        c, g = report[f"{tag}_counts"], report[f"{tag}_graph"]
+        replayed = g["replays"] * g["steps_per_replay"] if g else 0
+        captured = g["captured"][bwd] if g else 0
+        if g:
+            check(captured == per_step * g["steps_per_replay"]
+                  and replayed > 0,
+                  f"{name} {tag}: {bwd} captured {captured} times in a "
+                  f"graph of {g['steps_per_replay']} steps")
+        want = per_step * (steps - replayed) + captured
+        check(c[bwd] == want and c[other] == 0,
               f"{name} {tag}: {bwd} launched {c[bwd]} times for {steps} "
-              f"steps, {other} {c[other]} times")
+              f"steps ({replayed} replayed), expected {want}; {other} "
+              f"{c[other]} times")
+        # derived, not measured: the wrappers count once while a graph is
+        # captured, never on a replay (eager_vs_graphed and path_speed
+        # watch the replays launch the kernels)
+        report[f"{tag}_{bwd}_launches_derived"] = (
+            f"{steps - replayed} eager steps x {per_step} + {captured} "
+            f"captured x {g['replays'] if g else 0} replays = "
+            f"{per_step * (steps - replayed) + captured * (g['replays'] if g else 0)}")
     print(f"cli {name} {json.dumps(report)}", flush=True)
     return report
 
@@ -2214,6 +2331,456 @@ def options_phase(dev) -> dict:
     return report
 
 
+# --------------------------------------------------------------- phase 15
+
+# eager against graphed steps from the same state, and the speed window
+EQUAL_STEPS = 10
+# the data attributes a Pretrainer's setup_data sets, and those of its
+# tile-unit stack, which a fork shares
+DATA_ATTRS = ("spec", "max_waves", "train_iter", "valid_iter",
+              "_mean_real_nodes", "_mean_real_edges")
+STACK_ATTRS = ("_stack", "_units", "_units_per_batch", "_n_units",
+               "unit_spec", "_unit_stack_mb", "_device_cache_used_mb",
+               "_mean_real_nodes", "_mean_real_edges")
+
+
+def fork(base, cfg, stack: bool):
+    """A Pretrainer of cfg sharing base's featurized data and, when
+    `stack`, its uploaded tile-unit stack (no second featurization or
+    packing); its own model (seeded as setup_state seeds it) and Adam."""
+    pre = Pretrainer(cfg, base.device)
+    for k in DATA_ATTRS + (STACK_ATTRS if stack else ()):
+        setattr(pre, k, getattr(base, k))
+    if not stack:
+        pre._mean_real_nodes, pre._mean_real_edges = base.host_means
+    return pre.setup_state()
+
+
+def unit_orders(pre, epochs: int = 6) -> np.ndarray:
+    """The unit rows of the first `epochs` epochs' steps, in order."""
+    return np.concatenate([epoch_unit_orders(
+        pre._n_units, pre._units_per_batch, SEED, e)[: pre.steps_per_epoch]
+        for e in range(epochs)])
+
+
+def host_split(pre) -> dict:
+    """The host path's step (a host batch uploaded, node augmentation, both
+    forwards, the loss, the backward, Adam: the body of train_step) timed
+    on the host by part, without a synchronize: the host's time to queue
+    each part, median over SPEED_STEPS steps after WARM_STEPS; `pack` is
+    the time to pack the batch from its molecules (the packed-batch cache
+    does it once per batch)."""
+    cfg, model, opt, dev = pre.cfg, pre.model, pre.opt, pre.device
+    gb, _, ids = next(iter(pre.train_iter))
+    mols = [pre.train_iter.graphs[i] for i in ids]
+    t0 = time.perf_counter()
+    pack_batch(mols, pre.spec)
+    pack_ms = 1e3 * (time.perf_counter() - t0)
+    bw, mw = pre.spec.max_graph_bonds, pre.max_waves
+    loss_fn = resolve_ntxent(cfg.ntxent_impl)
+    names = ("keys", "upload", "augment", "forward", "backward", "adam")
+    parts = {k: [] for k in names + ("total",)}
+    for step in range(WARM_STEPS + SPEED_STEPS):
+        t = [time.perf_counter()]
+        keys = draw_paired_keys(cfg.aug, gb.num_nodes, gb.num_graphs,
+                                step_generator(cfg.seed, TRAIN_STREAM, step))
+        t.append(time.perf_counter())
+        bg = gb.to(dev)
+        t.append(time.perf_counter())
+        vi, vj = paired_augment_keys(bg, keys, cfg.aug, tile=TILE,
+                                     bond_window=bw, max_waves=mw)
+        t.append(time.perf_counter())
+        model.train()
+        _, zi = model(vi)
+        _, zj = model(vj)
+        loss = loss_fn(zi.float(), zj.float(), cfg.temperature,
+                       cfg.use_cosine_similarity, pair_mask=bg.graph_mask)
+        t.append(time.perf_counter())
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        t.append(time.perf_counter())
+        optim.set_lr(opt, cfg.init_lr)
+        opt.step()
+        t.append(time.perf_counter())
+        if step >= WARM_STEPS:
+            for k, a, b in zip(names, t, t[1:]):
+                parts[k].append(1e3 * (b - a))
+            parts["total"].append(1e3 * (t[-1] - t[0]))
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(loss)), f"host split: loss {loss}")
+    return dict({f"{k}_ms": statistics.median(v) for k, v in parts.items()},
+                pack_ms=pack_ms, steps=SPEED_STEPS)
+
+
+def model_state(pre) -> dict:
+    """Copies of the parameters, BatchNorm stats and Adam moments."""
+    out = {f"model.{k}": v.clone() for k, v in
+           pre.model.state_dict().items()}
+    sd = pre.opt.state_dict()
+    if "state" in sd:          # torch.optim.Adam
+        for i, st in sd["state"].items():
+            out.update({f"adam.{i}.{k}": v.clone() for k, v in st.items()})
+    else:                      # FusedAdam
+        out.update({f"adam.{k}": v.clone() for k, v in sd.items()})
+    return out
+
+
+def launches_agree(tag: str, per_e: dict, per_g: dict) -> dict:
+    """The port's kernels as the profiler saw them launched per step, by
+    kernel name: on replayed steps (per_g) exactly as on eager steps
+    (per_e), and some at all."""
+    check(per_e and per_g == per_e, f"{tag}: the port's kernels launched "
+          f"{per_g} times per replayed step, {per_e} per eager step")
+    return per_g
+
+
+def eager_vs_graphed(pre, tag: str) -> dict:
+    """EQUAL_STEPS units-path steps run eagerly and, from the same state
+    with the same optimizer object, replayed as a CUDA graph (after
+    GRAPH_WARMUP_STEPS eager steps that build the kernels and Adam's
+    state): losses, parameters, BatchNorm stats and Adam moments
+    bit-identical. Counts set to 0 just before each run and read just
+    after: the eager run's, counted per launch, and the graphed run's,
+    those of the capture alone (the wrappers count once, while capturing),
+    which must be one eager step's per step captured. The profiler
+    watches both runs but the capture: the port's kernels launched per
+    replayed step exactly as per eager step."""
+    log = lambda *_: None  # noqa: E731
+    orders = unit_orders(pre)
+    pre._resident_epoch(0, orders[:GRAPH_WARMUP_STEPS], log)
+    rows = orders[GRAPH_WARMUP_STEPS: GRAPH_WARMUP_STEPS + EQUAL_STEPS]
+    snap = (copy.deepcopy(pre.model.state_dict()),
+            copy.deepcopy(pre.opt.state_dict()), pre.step)
+    k, pre.graph_steps = pre.graph_steps, 0
+    reset_counts()
+    eager = []
+    prof_e = profile_steps(
+        lambda i: eager.extend(pre._resident_epoch(0, rows, log)), steps=1)
+    eager_counts = read_counts()
+    want = model_state(pre)
+    pre.model.load_state_dict(snap[0])
+    load_optimizer_state(pre.opt, copy.deepcopy(snap[1]))
+    pre.step, pre.graph_steps = snap[2], k
+    reset_counts()
+    graphed = pre._resident_epoch(0, rows[:k], log)     # the capture
+    prof_g = profile_steps(
+        lambda i: graphed.extend(pre._resident_epoch(0, rows[k:], log)),
+        steps=1)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    got = model_state(pre)
+    check(eager == graphed, f"{tag}: graphed losses {graphed} differ from "
+          f"eager {eager}")
+    differ = [n for n in want if not torch.equal(want[n], got[n])]
+    check(not differ, f"{tag}: graphed state differs from eager in {differ}")
+    g = graph_record(pre)
+    check(g is not None and g["replays"] == EQUAL_STEPS // k
+          and counts == g["captured"]
+          and all(c * EQUAL_STEPS == eager_counts[n] * k
+                  for n, c in counts.items()),
+          f"{tag}: graph {g}, captured counts {counts}, eager counts "
+          f"{eager_counts} over {EQUAL_STEPS} steps")
+    per_step = launches_agree(
+        tag, {n: c / EQUAL_STEPS for n, c in prof_e["port_launches"].items()},
+        {n: c / (EQUAL_STEPS - k)
+         for n, c in prof_g["port_launches"].items()})
+    report = dict(losses_eager=eager, losses_graphed=graphed,
+                  bit_identical=True, tensors_compared=len(want),
+                  graph=g, eager_launches=eager_counts,
+                  kernel_launches_per_step_profiled=per_step,
+                  launches_derived={n: c * g["replays"]
+                                    for n, c in counts.items() if c})
+    print(f"resident equal {tag} {json.dumps(report)}", flush=True)
+    return report
+
+
+def path_speed(pre, path: str, card: str) -> dict:
+    """One path's step on the card, driven through the Pretrainer's own
+    epoch loop (_host_epoch or _resident_epoch): CUDA events and host
+    clock marks at each step's end (Pretrainer._advance), WARM_STEPS steps
+    first. step_ms: median of the events' gaps; host_ms: median of the
+    host's gaps (its time to queue a step while the device keeps up);
+    the means over the window too; a torch.profiler breakdown of 5 more
+    steps, with the port's kernels' launches per step (the caller holds a
+    graphed path's against its eager path's)."""
+    log = lambda *_: None  # noqa: E731
+    if path == "host":
+        spe = pre.steps_per_epoch
+
+        def run(n):
+            for _ in range(-(-n // spe)):
+                pre._host_epoch(0, log)
+    else:
+        orders = unit_orders(pre)
+        at = [0]
+
+        def run(n):
+            pre._resident_epoch(0, orders[at[0]: at[0] + n], log)
+            at[0] += n
+    run(WARM_STEPS)
+    marks = []
+    advance = pre._advance
+
+    def marking(n, losses, epoch, log):
+        advance(n, losses, epoch, log)
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((e, time.perf_counter(), n))
+
+    torch.cuda.synchronize()
+    pre._advance = marking
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    marks.append((start, time.perf_counter(), 0))
+    run(SPEED_STEPS)
+    torch.cuda.synchronize()
+    del pre._advance
+    gaps = [(a[0].elapsed_time(b[0]) / b[2], 1e3 * (b[1] - a[1]) / b[2])
+            for a, b in zip(marks, marks[1:])]
+    steps = sum(m[2] for m in marks)
+    events_total = marks[0][0].elapsed_time(marks[-1][0])
+    host_total = 1e3 * (marks[-1][1] - marks[0][1])
+    before = pre.step
+    prof = profile_steps(lambda i: run(5), steps=1)
+    per = pre.step - before
+    ms = statistics.median(g[0] for g in gaps)
+    messages = 2 * LAYERS * (pre._mean_real_edges + pre._mean_real_nodes)
+    mols = (len(pre.train_iter.graphs) * pre._units_per_batch / pre._n_units
+            if pre._units else P_BATCH)
+    row = dict(card=card, path=path, model=pre.cfg.model.gnn_type,
+               dtype="bfloat16" if pre.cfg.model.bf16 else "float32",
+               adam=pre.cfg.adam_impl,
+               steps=steps, step_ms=ms, step_ms_mean=events_total / steps,
+               host_ms=statistics.median(g[1] for g in gaps),
+               host_ms_mean=host_total / steps,
+               message_edges_per_step=messages,
+               message_edges_per_s=messages / (ms / 1e3),
+               mol_per_step=mols, mol_per_s=mols / (ms / 1e3),
+               device_ms=prof["device_ms_per_step"] / per,
+               device_busy_share=prof["device_busy_share"],
+               graph=graph_record(pre),
+               profile=dict(prof, window_steps=per, top=[
+                   dict(t, ms_per_step=t["ms_per_step"] / per,
+                        launches_per_step=t["launches_per_step"] / per)
+                   for t in prof["top"]],
+                   wall_ms_per_step=prof["wall_ms_per_step"] / per,
+                   device_ms_per_step=prof["device_ms_per_step"] / per,
+                   port_ms_per_step={k: v / per for k, v in
+                                     prof["port_ms_per_step"].items()}),
+               port_launches_per_step={k: c / per for k, c in
+                                       prof["port_launches"].items()})
+    check(all(np.isfinite(x).all() for x in pre.epoch_losses),
+          f"{path}: non-finite loss")
+    print(f"resident speed {json.dumps(row)}", flush=True)
+    return row
+
+
+def units_kernel_cases(batch, dev) -> dict:
+    """K1f (with residuals) and K1b, K3f and K3b on the units path's batch
+    (T tile-units regrouped on the card by concat_units: per-unit graph
+    slots, sentinel bonds), f32 and bf16, relu prologue off and on: each
+    against its plain version within phases 4's and 11's limits, two runs
+    bit-identical."""
+    gen = torch.Generator().manual_seed(SEED + 10)
+    res = {"k1f": [], "k1b": [], "k3f": [], "k3b": []}
+    for dt in (torch.float32, torch.bfloat16):
+        x, pg, pc = layer_inputs(batch, dt, gen)
+        n, d = x["h"].shape
+        g = (0.1 * torch.randn(n, d, generator=gen)).to(dev, dt)
+        dsums = (1e-3 * torch.randn(2, d, generator=gen)).to(dev)
+        for relu_in in (False, True):
+            tag = dict(dtype=str(dt).replace("torch.", ""), relu_in=relu_in,
+                       tiles=x["adj"].shape[0], d=d)
+            args = gine_args(x, pg)
+            case, (out, _, agg, mid) = kernel_case(
+                "K1f units", tag, ("out", "sums", "agg", "mid"),
+                lambda: fused_gine_bn_layer_fwd(*args, relu_in,
+                                                residuals=True),
+                lambda: fused_gine_bn_layer_fwd_plain(*args, relu_in),
+                lambda: gine_library(*args, relu_in), KERNEL_RTOL[dt])
+            res["k1f"].append(case)
+            bargs = (g, dsums, x["h"], x["a"], x["b"], x["adj"], x["cnt"],
+                     agg, mid, out, pg["w1"], pg["w2"], relu_in)
+            case, _ = kernel_case(
+                "K1b units", tag, ("dh", "da", "db", "dw1", "db1", "dw2",
+                                   "db2", "detab"),
+                lambda: fused_gine_bn_layer_bwd(*bargs),
+                lambda: fused_gine_bn_layer_bwd_plain(*bargs),
+                lambda: gine_bwd_library(*bargs), BWD_RTOL[dt])
+            res["k1b"].append(case)
+            args = gcn_args(x, pc)
+            case, (out, _) = kernel_case(
+                "K3f units", tag, ("out", "sums"),
+                lambda: fused_gcn_bn_layer(*args, relu_in),
+                lambda: fused_gcn_bn_layer_plain(*args, relu_in),
+                lambda: gcn_library(*args, relu_in), KERNEL_RTOL[dt])
+            res["k3f"].append(case)
+            bargs = (g, dsums, x["h"], x["a"], x["b"], x["adj"], x["cnt"],
+                     out, pc["w"], relu_in)
+            case, _ = kernel_case(
+                "K3b units", tag, ("dx", "da", "db", "dw", "dbias", "detab"),
+                lambda: fused_gcn_bn_layer_bwd(*bargs),
+                lambda: fused_gcn_bn_layer_bwd_plain(*bargs),
+                lambda: gcn_bwd_library(*bargs), BWD_RTOL[dt])
+            res["k3b"].append(case)
+    for name, cases in res.items():
+        for case in cases:
+            print(f"kernel {name}_units {json.dumps(case)}", flush=True)
+    return res
+
+
+def units_steps_vs_cpu(batch, bw: int, dev) -> dict:
+    """One pretraining step on the units path's batch on the card against
+    the same step on the CPU from the same state with the same keys
+    (card_vs_cpu_steps: phase 5's limits), GIN and GCN, f32 and bf16, the
+    forward and backward kernel 2 x LAYERS times each."""
+    report = {}
+    # card_vs_cpu_steps takes a host batch (numpy fields)
+    host = type(batch)(**{k: v.cpu().numpy() for k, v in vars(batch).items()})
+    for gnn in ("gin", "gcn"):
+        fwd, bwd = (("fused_gine_bn_layer", "fused_gine_bn_layer_bwd")
+                    if gnn == "gin" else
+                    ("fused_gcn_bn_layer", "fused_gcn_bn_layer_bwd"))
+        for bf16 in (False, True):
+            tag = f"units_{gnn}_{'bfloat16' if bf16 else 'float32'}"
+            cfg = pretrain_cfg(bf16=bf16, gnn=gnn)
+            models, opts = card_and_cpu(cfg, dev)
+            report[tag] = card_vs_cpu_steps(
+                models, opts, cfg, host, dev, bw, 0, 1,
+                {fwd: 2 * LAYERS, bwd: 2 * LAYERS}, tag)
+            print(f"step {tag} {json.dumps(report[tag])}", flush=True)
+    return report
+
+
+# rounds of SPEED_STEPS graphed steps per Adam in adam_rounds
+ADAM_ROUNDS = 10
+
+
+def adam_rounds(base, gnn: str, card: str) -> dict:
+    """The graphed f32 step with the chain and the fused Adam, each from
+    its own fork of the same seeded state, timed by CUDA events in
+    2 x ADAM_ROUNDS blocks of SPEED_STEPS steps in the order chain, fused,
+    fused, chain, ... so that a drift of the card's clock falls on both:
+    ms per step per block, the medians, the quartile spread of each,
+    fused minus chain per pair of neighbouring blocks and the pairs fused
+    won."""
+    log = lambda *_: None  # noqa: E731
+    impls = ("chain", "fused")
+    pres = {a: fork(base, pretrain_cfg(gnn=gnn, adam_impl=a), True)
+            for a in impls}
+    need = WARM_STEPS + ADAM_ROUNDS * SPEED_STEPS
+    orders = unit_orders(base, -(-need // base.steps_per_epoch))
+    at = dict.fromkeys(impls, 0)
+
+    def block(a, n):
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        pres[a]._resident_epoch(0, orders[at[a]: at[a] + n], log)
+        e1.record()
+        torch.cuda.synchronize()
+        at[a] += n
+        return e0.elapsed_time(e1) / n
+
+    for a in impls:
+        block(a, WARM_STEPS)
+    ms = {a: [] for a in impls}
+    for r in range(ADAM_ROUNDS):
+        for a in (impls if r % 2 == 0 else impls[::-1]):
+            ms[a].append(block(a, SPEED_STEPS))
+    for a in impls:
+        check(pres[a].graphed is not None and all(
+            np.isfinite(x).all() for x in pres[a].epoch_losses),
+            f"adam rounds {gnn} {a}: graph {graph_record(pres[a])}")
+    diff = [f - c for c, f in zip(ms["chain"], ms["fused"])]
+    row = dict(card=card, model=gnn, dtype="float32",
+               steps_per_block=SPEED_STEPS, ms=ms,
+               median_ms={a: statistics.median(v) for a, v in ms.items()},
+               iqr_ms={a: float(np.subtract(*np.percentile(v, [75, 25])))
+                       for a, v in ms.items()},
+               fused_minus_chain_ms=diff,
+               fused_won=sum(d < 0 for d in diff), pairs=len(diff))
+    print(f"resident adam {json.dumps(row)}", flush=True)
+    return row
+
+
+def resident_phase(tmp: str, card: str, dev) -> dict:
+    """The Pretrainer's default one-card path at full width (5 x 300 /
+    512, B = 512, node augmentation) on phase 7's 4,096-molecule corpus:
+    first the host path's step split by part (GIN and GCN, f32), then the
+    unit plan and the stack's MB wide and narrow; K1f / K1b / K3f / K3b
+    against their plain versions and one step against the CPU on the
+    units path's own batch; EQUAL_STEPS eager against graphed steps for
+    GIN and GCN with chain and fused Adam; the step's speed on the host
+    path, resident eager and resident graphed, GIN and GCN, f32 and bf16
+    (and graphed f32 with the fused Adam), the port's kernels launched per
+    replayed step as per eager step; and the graphed f32 step with the
+    chain against the fused Adam in alternating rounds."""
+    log = lambda *_: None  # noqa: E731
+    smiles = read_pretrain_smiles(os.path.join(tmp, "pretrain.txt"))
+    base = Pretrainer(pretrain_cfg(), dev)
+    base.setup_data(smiles)
+    base.host_means = (base._mean_real_nodes, base._mean_real_edges)
+    report = {"host_split": {}}
+    for gnn in ("gin", "gcn"):
+        pre = fork(base, pretrain_cfg(gnn=gnn, device_cache_mb=0), False)
+        report["host_split"][gnn] = host_split(pre)
+        print(f"resident host_split {gnn} "
+              f"{json.dumps(report['host_split'][gnn])}", flush=True)
+    base.setup_state()
+    check(base.graph_steps == 1, f"graph steps {base.graph_steps}")
+    base._activate_units(log)
+    check(base._units, "the units path did not activate")
+    u, us = base._n_units, base.unit_spec
+    report["plan"] = dict(
+        units=u, units_per_step=base._units_per_batch,
+        steps_per_epoch=base.steps_per_epoch, unit_spec=str(us),
+        train_molecules=len(base.train_iter.graphs),
+        stack_mb_wide=unit_stack_bytes(us, u) / 2**20,
+        stack_mb_narrow=unit_stack_bytes(us, u, wire_dtypes(us)) / 2**20,
+        stack_mb_uploaded=base._unit_stack_mb)
+    print(f"resident plan {json.dumps(report['plan'])}", flush=True)
+    ubatch = concat_units(base._stack, torch.from_numpy(
+        unit_orders(base, 1)[0].astype(np.int64)).to(dev))
+    print(f"units batch: {ubatch.nbr.shape[0] // TILE} tiles, "
+          f"{int(ubatch.node_mask.sum())} atoms, "
+          f"{int(ubatch.edge_mask.sum())} directed bonds, "
+          f"{ubatch.num_graphs} graph slots", flush=True)
+    report["units_kernels"] = units_kernel_cases(ubatch, dev)
+    report["units_steps"] = units_steps_vs_cpu(
+        ubatch, base.spec.max_graph_bonds, dev)
+    report["equal"] = {}
+    for gnn in ("gin", "gcn"):
+        for adam in ("chain", "fused"):
+            tag = f"{gnn}_{adam}"
+            pre = fork(base, pretrain_cfg(gnn=gnn, adam_impl=adam), True)
+            report["equal"][tag] = eager_vs_graphed(pre, tag)
+    report["speed"] = []
+    for gnn in ("gin", "gcn"):
+        runs = [(bf16, path, kw) for bf16 in (False, True)
+                for path, kw in (("host", dict(device_cache_mb=0)),
+                                 ("resident_eager",
+                                  dict(steps_per_dispatch=1)),
+                                 ("resident_graphed", {}))]
+        # the graphed f32 step once more with the fused Adam
+        runs.append((False, "resident_graphed", dict(adam_impl="fused")))
+        rows = []
+        for bf16, path, kw in runs:
+            pre = fork(base, pretrain_cfg(bf16=bf16, gnn=gnn, **kw),
+                       path != "host")
+            rows.append(path_speed(pre, path, card))
+        for r in rows:
+            if r["path"] == "resident_graphed":
+                eager = next(e for e in rows if e["path"] == "resident_eager"
+                             and e["dtype"] == r["dtype"])
+                launches_agree(f"speed {gnn} {r['dtype']} {r['adam']}",
+                               eager["port_launches_per_step"],
+                               r["port_launches_per_step"])
+        report["speed"] += rows
+    report["adam"] = [adam_rounds(base, gnn, card) for gnn in ("gin", "gcn")]
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2274,6 +2841,8 @@ def main() -> int:
         phase("gcn cli")
         cli_phase(tmp, "pretrain_gcn_mix", ["--model", "gcn", "--aug", "mix"],
                   gnn="gcn")
+        phase("resident")
+        resident_phase(tmp, card, dev)
     phase("done")
 
     def row(name, source, replaces, launches, res, case):

@@ -3,7 +3,9 @@ molclr.py:180-199).
 
 Port of molclr_tpu/cli/pretrain.py with the flags that apply to one card.
 It trains on the first CUDA device unless --cpu is given (the kernels'
-plain versions), and raises when there is none.
+plain versions), and raises when there is none. By default it takes the
+units path with CUDA-graph steps on the card; --device-cache-mb 0 streams
+batches from the host, --steps-per-dispatch 1 runs eager steps.
 
     python -m molclr_tpu_torch.cli.pretrain --data corpus.txt --epochs 2
     python -m molclr_tpu_torch.cli.pretrain --synthetic 4096 --cpu
@@ -30,6 +32,29 @@ def main(argv=None) -> int:
     p.add_argument("--model", choices=["gin", "gcn"], default=None,
                    help="encoder")
     p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--steps-per-dispatch", type=int, default=None,
+                   help="training steps per CUDA graph replay on the "
+                        "resident paths (0 = auto: one, eager where a "
+                        "graph cannot capture the step; 1 = eager steps)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the first steps "
+                        "here")
+    p.add_argument("--device-cache-mb", type=int, default=None,
+                   help="device budget of the resident unit stack, batch "
+                        "cache and eval stack (0 = stream batches from the "
+                        "host)")
+    p.add_argument("--pack-cache-max-mols", type=int, default=None,
+                   help="corpora up to this size are eligible for the "
+                        "packed-batch cache and the resident stacks "
+                        "(default 500k)")
+    p.add_argument("--narrow-cache", choices=["auto", "on", "off"],
+                   default=None,
+                   help="store the tile-unit stack in int8 / int16 / uint8 "
+                        "where the unit spec fits (auto, on) or at full "
+                        "width (off); the numbers are identical")
+    p.add_argument("--replan-units-every", type=int, default=None,
+                   help="re-plan the tile-units from a fresh molecule "
+                        "shuffle every N epochs")
     p.add_argument("--resume", default=None, metavar="PATH|latest",
                    help="resume from a checkpoint; 'latest' picks the "
                         "newest full-state checkpoint in --ckpt-dir")
@@ -71,7 +96,13 @@ def main(argv=None) -> int:
                        ("save_every", "save_every_epochs"),
                        ("warm_up", "warm_up"),
                        ("stop_after_epoch", "stop_after_epochs"),
-                       ("seed", "seed")):
+                       ("seed", "seed"),
+                       ("steps_per_dispatch", "steps_per_dispatch"),
+                       ("profile_dir", "profile_dir"),
+                       ("device_cache_mb", "device_cache_mb"),
+                       ("pack_cache_max_mols", "pack_cache_max_mols"),
+                       ("narrow_cache", "narrow_cache"),
+                       ("replan_units_every", "replan_units_every")):
         value = getattr(args, flag)
         if value is not None:
             setattr(cfg, attr, value)

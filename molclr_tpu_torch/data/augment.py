@@ -34,7 +34,13 @@ Each kind is a pure function of the batch and its random inputs (int keys
 in [0, 2^20), hash salts, mix's per-graph fraction), so that given JAX's
 draws it gives JAX's views bit for bit; the `draw_*` functions draw those
 inputs from a torch.Generator on the CPU, so that a run on the card and
-one on the CPU see the same views.
+one on the CPU see the same views. A trainer may draw a window of steps'
+keys ahead, as one flat int64 row per step (`flatten_keys`; mix's f32
+fractions by their bits), upload the window once and unflatten each row
+on the device (`unflatten_keys`); `precompute_deltas_for` computes a
+window's views up front as the four AUG_DELTA_FIELDS (port of the JAX
+package's `view_delta`, `apply_view_delta`, `precompute_deltas_for`,
+`precompute_paired_deltas`), bit-identical to drawing them inline.
 """
 
 from __future__ import annotations
@@ -491,6 +497,42 @@ def draw_mix_keys(num_nodes: int, num_graphs: int,
     return key_s, views
 
 
+def draw_paired_keys(kind: str, num_nodes: int, num_graphs: int,
+                     generator: torch.Generator):
+    """The random inputs of one paired augmentation of `kind`, drawn on
+    the CPU in the order paired_augment draws them: node ((key_n, salts)
+    per view), subgraph (key_s, (key_t_i, key_t_j)), mix (key_s, per view
+    (f, key_t, key_n, salts)), none ()."""
+    if kind == "none":
+        return ()
+    if kind == "node":
+        return tuple(draw_node_keys(num_nodes, generator) for _ in range(2))
+    if kind == "subgraph":
+        return draw_subgraph_keys(num_nodes, generator)
+    if kind == "mix":
+        return draw_mix_keys(num_nodes, num_graphs, generator)
+    raise ValueError(f"unknown augmentation kind {kind!r}")
+
+
+def paired_augment_keys(batch, keys, kind: str = "node", tile: int = 0,
+                        bond_window: int = 0, bfs_stride: int = BFS_STRIDE,
+                        max_waves: int = 0):
+    """The two views of one base batch from drawn keys (draw_paired_keys'
+    structure, on any device): a pure function of (batch, keys)."""
+    if kind == "none":
+        return batch, batch
+    if kind == "node":
+        return tuple(node_augment(batch, *k, tile=tile,
+                                  bond_window=bond_window) for k in keys)
+    bfs = dict(max_waves=max_waves or 32, tile=tile, bfs_stride=bfs_stride)
+    if kind == "subgraph":
+        return paired_subgraph_augment(batch, *keys, **bfs)
+    if kind == "mix":
+        return paired_mix_augment(batch, *keys, bond_window=bond_window,
+                                  **bfs)
+    raise ValueError(f"unknown augmentation kind {kind!r}")
+
+
 def paired_augment(batch, generator: torch.Generator, kind: str = "node",
                    tile: int = 0, bond_window: int = 0,
                    bfs_stride: int = BFS_STRIDE,
@@ -502,23 +544,94 @@ def paired_augment(batch, generator: torch.Generator, kind: str = "node",
     their default, 32; trainers pass a corpus-derived bound, see
     Pretrainer.setup_data); bfs_stride is the waves per product on tiled
     batches."""
+    keys = draw_paired_keys(kind, batch.num_nodes, batch.num_graphs,
+                            generator)
+    return paired_augment_keys(batch, keys, kind, tile, bond_window,
+                               bfs_stride, max_waves)
+
+
+# ---- keys drawn ahead: one flat int64 row per step ----
+
+
+def _key_layout(kind: str, num_nodes: int, num_graphs: int):
+    """The structure of draw_paired_keys' result as (length, is_f32)
+    leaves."""
+    n, g = (num_nodes, False), (2, False)
     if kind == "none":
-        return batch, batch
+        return ()
     if kind == "node":
-        return tuple(node_augment(batch, *draw_node_keys(batch.num_nodes,
-                                                         generator),
-                                  tile=tile, bond_window=bond_window)
-                     for _ in range(2))
-    bfs = dict(max_waves=max_waves or 32, tile=tile, bfs_stride=bfs_stride)
+        return ((n, g), (n, g))
     if kind == "subgraph":
-        return paired_subgraph_augment(
-            batch, *draw_subgraph_keys(batch.num_nodes, generator), **bfs)
+        return (n, (n, n))
     if kind == "mix":
-        return paired_mix_augment(
-            batch, *draw_mix_keys(batch.num_nodes, batch.num_graphs,
-                                  generator),
-            bond_window=bond_window, **bfs)
+        view = ((num_graphs, True), n, n, g)
+        return (n, (view, view))
     raise ValueError(f"unknown augmentation kind {kind!r}")
+
+
+def _is_leaf(node) -> bool:
+    return bool(node) and isinstance(node[0], int)
+
+
+def flatten_keys(keys) -> torch.Tensor:
+    """draw_paired_keys' result as one int64 row: the int keys as they
+    are, mix's f32 fractions by their bits."""
+    parts = []
+
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            parts.append(node.view(torch.int32).long()
+                         if node.dtype == torch.float32 else node.long())
+        else:
+            for c in node:
+                walk(c)
+
+    walk(keys)
+    return torch.cat(parts) if parts else torch.zeros(0, dtype=torch.long)
+
+
+def unflatten_keys(kind: str, row: torch.Tensor, num_nodes: int,
+                   num_graphs: int):
+    """The inverse of flatten_keys: views of `row` (mix's fractions
+    reinterpreted as f32), bit-equal to the drawn keys."""
+    pos = 0
+
+    def build(node):
+        nonlocal pos
+        if not _is_leaf(node):
+            return tuple(build(c) for c in node)
+        length, is_f32 = node
+        x = row[pos: pos + length]
+        pos += length
+        return x.to(torch.int32).view(torch.float32) if is_f32 else x
+
+    return build(_key_layout(kind, num_nodes, num_graphs))
+
+
+def view_delta(view):
+    """The augmented fields of a view, as a tuple."""
+    return tuple(getattr(view, f) for f in AUG_DELTA_FIELDS)
+
+
+def precompute_deltas_for(get_batch, keys_for_step, n: int, kind: str,
+                          **kwargs):
+    """Both views' deltas for steps 0 .. n-1, stacked on a leading [n]
+    axis: step i augments get_batch(i) with keys_for_step(i)
+    (draw_paired_keys' structure). Equal, view for view, to paired_augment
+    of each step's batch with the generator its keys were drawn from.
+    kwargs go to paired_augment_keys."""
+    steps = [tuple(view_delta(v) for v in paired_augment_keys(
+        get_batch(i), keys_for_step(i), kind, **kwargs)) for i in range(n)]
+    return tuple(tuple(torch.stack([s[v][f] for s in steps])
+                       for f in range(len(AUG_DELTA_FIELDS)))
+                 for v in range(2))
+
+
+def precompute_paired_deltas(batch, keys_for_step, k: int, kind: str,
+                             **kwargs):
+    """precompute_deltas_for over one shared base batch."""
+    return precompute_deltas_for(lambda i: batch, keys_for_step, k, kind,
+                                 **kwargs)
 
 
 def apply_view_delta(batch, delta):

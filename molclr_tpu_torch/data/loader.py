@@ -1,10 +1,14 @@
 """Host data pipeline: corpus reader, bulk featurization, bucket sizing,
-and the epoch iterator.
+the epoch iterator, the prefetch thread and the batch upload.
 
 Port of molclr_tpu/data/loader.py (read_pretrain_smiles, featurize_many,
-spec_for_graphs, BatchIterator). Featurization runs the Python chem
-layer; the JAX package's C++ featurizer, which its tests hold to exact
-parity with it, is not ported yet, nor is its prefetch thread.
+spec_for_graphs, BatchIterator, prefetch_iter). Featurization runs the
+Python chem layer; the JAX package's C++ featurizer, which its tests hold
+to exact parity with it, is not ported yet. `device_batches` is the
+counterpart of the JAX Pretrainer's `_host_superbatches`: each batch is
+packed into pinned memory and copied to the card on a side stream, so
+that under prefetch_iter the next batch's packing and copy overlap the
+current step.
 """
 
 from __future__ import annotations
@@ -15,8 +19,11 @@ from typing import Iterator
 
 import numpy as np
 
+import torch
+
 from molclr_tpu_torch.data.featurize import MolGraph, featurize_smiles
-from molclr_tpu_torch.data.graphs import PackOverflow, PadSpec, pack_batch
+from molclr_tpu_torch.data.graphs import GraphBatch, PackOverflow, PadSpec, \
+    pack_batch
 
 
 def read_pretrain_smiles(path: str) -> list[str]:
@@ -182,6 +189,17 @@ class BatchIterator:
         """Advance the shuffle stream to `epoch` (resume)."""
         self._epoch = int(epoch)
 
+    def cached_epoch_order(self):
+        """The batch order of the next epoch over the cache, advancing the
+        epoch counter (the stream __iter__ would use); None before the
+        cache exists."""
+        if self._cache is None:
+            return None
+        rng = np.random.RandomState(self.seed + self._epoch)
+        self._epoch += 1
+        n = len(self._cache)
+        return rng.permutation(n) if self.shuffle else np.arange(n)
+
     def __iter__(self) -> Iterator:
         if self._cache is not None:
             rng = np.random.RandomState(self.seed + self._epoch)
@@ -206,3 +224,89 @@ class BatchIterator:
             self._cache = cache
             return
         yield from self._pack_epoch(order)
+
+
+def prefetch_iter(it, depth: int = 2):
+    """Run an iterator in a background thread with a bounded queue, so that
+    host packing overlaps the device's work (the reference overlaps through
+    DataLoader workers, config.yaml:25). A consumer that stops early
+    (an exception mid-epoch, the generator closed) stops the worker: its
+    puts time out and re-check a stop flag, so the thread never wedges
+    holding packed or device buffers."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+    end = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in it:
+                if not put(item):
+                    return
+            put(end)
+        except BaseException as e:  # raised again in the consumer
+            put(e)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+        t.join()
+    finally:
+        stop.set()
+
+
+def device_batches(it, device):
+    """(batch, event) on `device` for each (GraphBatch, labels, indices) of
+    `it`. On a CUDA device the batch is packed into pinned memory, copied
+    with non_blocking=True on a side stream and widened there (int64
+    indices, bool masks, as GraphBatch.to gives them); the event marks the
+    end of that work, and `ready` orders the consumer's stream after it.
+    Elsewhere it is batch.to(device) and no event."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        for gb, _, _ in it:
+            yield gb.to(device), None
+        return
+    stream = torch.cuda.Stream(device)
+    for gb, _, _ in it:
+        out = {}
+        with torch.cuda.stream(stream):
+            for name, v in vars(gb).items():
+                v = np.asarray(v)
+                host = torch.from_numpy(
+                    v if v.dtype == bool else v.astype(np.int32)).pin_memory()
+                x = host.to(device, non_blocking=True)
+                out[name] = x if v.dtype == bool else x.long()
+            done = torch.cuda.Event()
+            done.record(stream)
+        yield GraphBatch(**out), done
+
+
+def ready(batch: GraphBatch, event) -> GraphBatch:
+    """The batch of device_batches, usable on the current stream: wait for
+    its copy and tie its memory to this stream."""
+    if event is None:
+        return batch
+    stream = torch.cuda.current_stream(batch.atom_type.device)
+    stream.wait_event(event)
+    for v in vars(batch).values():
+        v.record_stream(stream)
+    return batch

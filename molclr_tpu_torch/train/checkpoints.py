@@ -111,6 +111,11 @@ def save_checkpoint(directory: str, step: int, state: dict) -> str:
     return path
 
 
+def train_meta_path(path: str) -> str:
+    """The sidecar stamp of a step_<n>.pt: step_<n>.train_meta.json."""
+    return os.path.splitext(path)[0] + ".train_meta.json"
+
+
 def load_checkpoint(path: str) -> dict:
     """A full-state checkpoint written by save_checkpoint, on the CPU."""
     return torch.load(path, map_location="cpu", weights_only=True)

@@ -2,10 +2,10 @@
 
 Port of molclr_tpu/train/config.py (`ModelConfig`, `PretrainConfig`,
 `pretrain_from_yaml`, `FineTuneConfig`, `finetune_from_yaml`), cut to the
-options the port runs: one card, the host streaming path. The YAML keys
-and the value names (`ntxent_impl` 'auto' / 'xla' / 'pallas') are the JAX
-package's, so one file serves both packages; keys for options the port
-does not have are ignored.
+options the port runs on one card. The YAML keys and the value names
+(`ntxent_impl` 'auto' / 'xla' / 'pallas', `adam_impl` 'chain' / 'fused')
+are the JAX package's, so one file serves both packages; keys for options
+the port does not have are ignored.
 """
 
 from __future__ import annotations
@@ -42,6 +42,11 @@ class PretrainConfig:
     ntxent_impl: str = "auto"       # 'auto' | 'xla' | 'pallas': the closed
                                     # form, the K2 kernels, or the kernels
                                     # for CUDA tensors at 2B >= 4096
+    adam_impl: str = "chain"        # 'chain' (torch.optim.Adam) | 'fused'
+                                    # (train/optim.py FusedAdam: one f32
+                                    # buffer, the same update). Checkpoints
+                                    # are stamped with it; a resume must
+                                    # use the same impl
     aug: str = "node"               # 'node' | 'subgraph' | 'mix' | 'none'
     max_waves: int = 0              # BFS horizon of subgraph / mix; 0 =
                                     # derive (max atoms per molecule - 1,
@@ -66,9 +71,43 @@ class PretrainConfig:
     ckpt_dir: str = "runs/pretrain"
     resume_from: str = ""           # config.yaml load_model
     seed: int = 0
+    steps_per_dispatch: int = 0     # 0 = auto: the resident paths replay
+                                    # each step as a CUDA graph on the card
+                                    # (train/graphed.py), eager where a
+                                    # graph cannot capture the step
+                                    # (dropout); 1 = eager steps; k > 1 = k
+                                    # steps per captured graph (raises where
+                                    # a graph cannot capture the step). The
+                                    # CPU and the host path run eager
+    aug_precompute: bool = True     # the JAX package's key, read from
+                                    # its YAML; changes nothing here (the
+                                    # resident paths always draw a window
+                                    # of steps' keys ahead and augment
+                                    # inline, in the graph on the card)
+    replan_units_every: int = 0     # > 0: every N epochs re-plan the
+                                    # tile-units from a fresh molecule
+                                    # shuffle (seed + 7919 * epoch; repack
+                                    # and upload). Resume reproduces it
+    fresh_compositions: bool = True # the resident path re-draws batch
+                                    # membership every epoch through the
+                                    # tile-unit regroup (data/regroup.py);
+                                    # False = the frozen batch cache (order
+                                    # reshuffled only). Needs tile > 0
     pack_cache_max_mols: int = 500_000  # cache packed batches across
                                     # epochs (compositions fixed after epoch
-                                    # 0, order reshuffled) up to this size
+                                    # 0, order reshuffled) up to this size;
+                                    # the resident stacks need the corpus
+                                    # to be at most this size too
+    prefetch: int = 2               # host-path batches packed and uploaded
+                                    # ahead in a background thread (0 = off)
+    device_cache_mb: int = 2048     # the device budget of the resident
+                                    # unit stack, batch cache and eval
+                                    # stack (0 = the host streaming path)
+    narrow_cache: str = "auto"      # 'auto' / 'on': store the unit stack
+                                    # in int8 / int16 / uint8 where the unit
+                                    # spec fits; 'off': int32 / bool
+    profile_dir: str = ""           # write a torch.profiler trace of the
+                                    # first steps of the first epoch here
     concat_views: bool = False      # True: both views in ONE forward
                                     # (joint BatchNorm statistics); False
                                     # runs them one after the other, as the
@@ -160,7 +199,17 @@ def pretrain_from_yaml(path: str) -> PretrainConfig:
     for k in ("data_path", "ckpt_dir"):
         if k in raw:
             setattr(cfg, k, raw[k])
+    for k in _DISPATCH_KEYS:
+        if k in raw:
+            setattr(cfg, k, type(getattr(cfg, k))(raw[k]))
     return cfg
+
+
+# the one-card dispatch options, read as top-level keys of the YAML
+_DISPATCH_KEYS = ("adam_impl", "steps_per_dispatch", "aug_precompute",
+                  "replan_units_every", "fresh_compositions", "prefetch",
+                  "device_cache_mb", "narrow_cache", "profile_dir",
+                  "pack_cache_max_mols")
 
 
 def finetune_from_yaml(path: str) -> FineTuneConfig:

@@ -17,11 +17,31 @@ Augmentation draws come from CPU torch.Generators seeded from (cfg.seed,
 step) (`step_generator`), so a resumed run redraws the same stream and a
 run on the card sees the same views as one on the CPU; dropout draws its
 masks on the model's device from generators seeded from (cfg.seed, step,
-view), one stream per view as JAX's rng_di / rng_dj. Not ported yet: the
-JAX Pretrainer's TPU dispatch machinery (scan folding, precomputed
-augmentation, device-resident caches and tile-unit regrouping, the narrow
-wire format, the prefetch thread, the on-disk corpus), data parallelism,
-TensorBoard and profiling.
+view), one stream per view as JAX's rng_di / rng_dj.
+
+The Pretrainer takes the JAX Pretrainer's one-card paths
+(molclr_tpu/train/pretrain.py), in its order of preference:
+  units     (fresh_compositions, tile > 0, device_cache_mb > 0, the
+            default) the train split packed once into tile-units and
+            uploaded, narrow where the unit spec allows
+            (`_upload_units`); every epoch draws fresh compositions
+            (`epoch_unit_orders`) and each step regroups T units on the
+            device (`concat_units`); `replan_units_every` re-plans the
+            units;
+  resident  (fresh_compositions False, or no units) after the first host
+            epoch, the cached batches uploaded once (`_maybe_upload_cache`)
+            and taken in the iterator's order;
+  host      (device_cache_mb 0, or over budget) batches packed in the
+            prefetch thread into pinned memory and copied on a side
+            stream.
+On the resident paths each window of KEY_WINDOW steps draws its
+augmentation keys on the host and uploads them once; on the card the
+steps are replayed as CUDA graphs (train/graphed.py, steps_per_dispatch)
+after GRAPH_WARMUP_STEPS eager ones; every step augments inline from its
+key row (aug_precompute is read for the JAX package's YAML and changes
+nothing here). Validation batches are uploaded once
+after the first pass. Not ported: the on-disk corpus and its native
+packer, data parallelism, TensorBoard.
 """
 
 from __future__ import annotations
@@ -33,24 +53,51 @@ import time
 import numpy as np
 import torch
 
-from molclr_tpu_torch.data.augment import paired_augment
+from molclr_tpu_torch.data.augment import (
+    draw_paired_keys,
+    flatten_keys,
+    paired_augment,
+    paired_augment_keys,
+    unflatten_keys,
+)
 from molclr_tpu_torch.data.graphs import concat_views
 from molclr_tpu_torch.data.loader import (
     BatchIterator,
+    device_batches,
     featurize_many,
+    prefetch_iter,
     read_pretrain_smiles,
+    ready,
     spec_for_graphs,
+)
+from molclr_tpu_torch.data.regroup import (
+    concat_units,
+    epoch_unit_orders,
+    pack_unit_stack,
+    stack_batches,
+    unit_stack_bytes,
+    upload_stack,
+    wire_dtypes,
 )
 from molclr_tpu_torch.losses import nt_xent_loss, resolve_ntxent
 from molclr_tpu_torch.models import MolCLRNet
 from molclr_tpu_torch.train import checkpoints as ckpt_lib
 from molclr_tpu_torch.train.config import PretrainConfig, to_dict
+from molclr_tpu_torch.train.graphed import (
+    GRAPH_WARMUP_STEPS,
+    GraphedSteps,
+    graph_blocker,
+)
 from molclr_tpu_torch.train.logging_util import MetricWriter
-from molclr_tpu_torch.train.optim import adam_torch, set_lr, \
-    warmup_then_cosine
+from molclr_tpu_torch.train.optim import load_optimizer_state, make_adam, \
+    set_lr, warmup_then_cosine
 
 # stream ids of step_generator
 TRAIN_STREAM, VALID_STREAM, DROPOUT_STREAM = 0, 1, 2
+# resident steps whose augmentation keys are drawn and uploaded at once
+KEY_WINDOW = 64
+# steps that profile_dir traces, from the first step of the run
+PROFILE_STEPS = 8
 
 
 def step_generator(seed: int, *ids: int, device="cpu") -> torch.Generator:
@@ -92,21 +139,29 @@ def _dropout_kw(model, cfg, step: int, view: int, masks) -> dict:
                                          view, device=dev))
 
 
-def train_step(model, opt, batch, cfg: PretrainConfig, step: int, lr: float,
-               views=None, bond_window: int = 0, max_waves: int = 0,
-               dropout_masks=None) -> torch.Tensor:
+def train_step(model, opt, batch, cfg: PretrainConfig, step: int,
+               lr: float | None, views=None, bond_window: int = 0,
+               max_waves: int = 0, dropout_masks=None,
+               keys=None) -> torch.Tensor:
     """One optimizer step on one base batch; returns the loss (a 0-d
     tensor on the batch's device, not synchronized). views = (vi, vj)
-    replaces the augmentation draw (as the JAX train_step's `views`);
-    dropout_masks replaces the dropout draw: per view a list of bool keep
-    masks [N, emb_dim], one per layer (with concat_views, one list for the
-    joint batch, [2N, emb_dim]). The LR is the schedule at the step count
-    before the update."""
+    replaces the augmentation draw (as the JAX train_step's `views`), keys
+    (draw_paired_keys' structure, on any device) replaces only the draw
+    from step_generator(cfg.seed, TRAIN_STREAM, step); dropout_masks
+    replaces the dropout draw: per view a list of bool keep masks [N,
+    emb_dim], one per layer (with concat_views, one list for the joint
+    batch, [2N, emb_dim]). The LR is the schedule at the step count before
+    the update; None leaves the optimizer's LR as it is (a CUDA graph's
+    step reads the LR tensor that set_lr fills before each replay)."""
     if views is None:
-        views = paired_augment(batch, step_generator(cfg.seed, TRAIN_STREAM,
-                                                     step),
-                               cfg.aug, tile=cfg.model.tile,
-                               bond_window=bond_window, max_waves=max_waves)
+        if keys is None:
+            keys = draw_paired_keys(
+                cfg.aug, batch.num_nodes, batch.num_graphs,
+                step_generator(cfg.seed, TRAIN_STREAM, step))
+        views = paired_augment_keys(batch, keys, cfg.aug,
+                                    tile=cfg.model.tile,
+                                    bond_window=bond_window,
+                                    max_waves=max_waves)
     vi, vj = views
     masks = dropout_masks or (None, None)
     model.train()
@@ -121,7 +176,8 @@ def train_step(model, opt, batch, cfg: PretrainConfig, step: int, lr: float,
     loss = _loss(resolve_ntxent(cfg.ntxent_impl), cfg, zi, zj, batch)
     opt.zero_grad(set_to_none=True)
     loss.backward()
-    set_lr(opt, lr)
+    if lr is not None:
+        set_lr(opt, lr)
     opt.step()
     return loss.detach()
 
@@ -142,13 +198,32 @@ def eval_step(model, batch, cfg: PretrainConfig, generator: torch.Generator,
 
 class Pretrainer:
     """setup_data -> setup_state -> train, on `device` (a CUDA device unless
-    the caller asks for the CPU)."""
+    the caller asks for the CPU). After train, `epoch_losses` holds each
+    epoch's step losses (f32) and, where steps were replayed, `graphed`
+    the GraphedSteps that replayed them."""
 
     def __init__(self, cfg: PretrainConfig, device):
         self.cfg = cfg
         self.device = torch.device(device)
         self.step = 0
         self._start_epoch = 0
+        # the device stack of the resident paths: tile-units (_units) or
+        # the cached batches, each step taking _units_per_batch rows
+        self._stack = None
+        self._units = False
+        self._units_per_batch = 0
+        self._n_units = 0
+        self.unit_spec = None
+        self._unit_stack_mb = 0.0
+        self._units_plan_epoch = 0
+        self._eval_stack = None
+        self._device_cache_used_mb = 0.0
+        self.graphed = None
+        self._eager_resident_steps = 0
+        self._graph_note = ""
+        self._profiler = None
+        self._profiled_steps = 0
+        self.epoch_losses: list[np.ndarray] = []
 
     # ---- data ----
     def setup_data(self, smiles: list[str] | None = None):
@@ -188,11 +263,32 @@ class Pretrainer:
         return self
 
     # ---- model / optimizer ----
+    def _resolve_graph_steps(self) -> int:
+        """Steps per CUDA graph on the resident paths (0: eager; always on
+        the CPU and where device_cache_mb 0 leaves only the host path)."""
+        cfg = self.cfg
+        k = cfg.steps_per_dispatch
+        if self.device.type != "cuda" or k == 1 or not cfg.device_cache_mb:
+            return 0
+        why = graph_blocker(cfg)
+        if why is None:
+            return max(1, k)
+        if k > 1:
+            raise ValueError(f"steps_per_dispatch={k} needs a CUDA graph, "
+                             f"which cannot capture this step: {why}")
+        self._graph_note = (f"steps_per_dispatch=0: resident steps run "
+                            f"eager, as a CUDA graph cannot capture them "
+                            f"({why})")
+        return 0
+
     def setup_state(self):
         cfg = self.cfg
         self.model = build_model(
             cfg, torch.Generator().manual_seed(cfg.seed)).to(self.device)
-        self.opt = adam_torch(self.model.parameters(), cfg.weight_decay)
+        self.graph_steps = self._resolve_graph_steps()
+        self.opt = make_adam(cfg.adam_impl, self.model.parameters(),
+                             cfg.weight_decay,
+                             capturable=self.graph_steps > 0)
         self.steps_per_epoch = max(1, len(self.train_iter))
         self.schedule = warmup_then_cosine(cfg.init_lr, self.steps_per_epoch,
                                            cfg.epochs, cfg.warm_up)
@@ -203,28 +299,142 @@ class Pretrainer:
     def _resume(self, path: str) -> None:
         """A reference .pth (weights only: optimizer, step and schedule
         start from zero) or a full-state step_<step>.pt (the run continues
-        its optimizer moments, step count, LR schedule and data stream)."""
+        its optimizer moments, step count, LR schedule and data stream).
+        A step_<step>.pt written with another adam_impl is refused before
+        anything loads (one without a stamp predates 'fused': 'chain')."""
         if path.endswith(".pth"):
             got = ckpt_lib.transfer_state(
                 ckpt_lib.load_torch_state_dict(path), self.model)
             if got["copied"] == 0:
                 raise ValueError(f"{path}: no tensor matches the model")
             return
+        saved_impl = "chain"
+        meta = ckpt_lib.train_meta_path(path)
+        if os.path.exists(meta):
+            with open(meta) as f:
+                saved_impl = json.load(f).get("adam_impl", "chain")
+        if saved_impl != self.cfg.adam_impl:
+            raise ValueError(
+                f"checkpoint {path} was written with adam_impl="
+                f"{saved_impl!r} but this run has adam_impl="
+                f"{self.cfg.adam_impl!r}; their optimizer states differ: "
+                f"set adam_impl={saved_impl!r} to resume")
         full = ckpt_lib.load_checkpoint(path)
         self.model.load_state_dict(full["model"])
-        self.opt.load_state_dict(full["optimizer"])
+        load_optimizer_state(self.opt, full["optimizer"])
         self.step = int(full["step"])
         self._start_epoch = int(full["epoch"]) + 1
         self.train_iter.set_epoch(self._start_epoch)
         self.valid_iter.set_epoch(self._start_epoch)
 
+    # ---- device stacks ----
+    def _upload_units(self, log, plan_seed: int | None = None) -> bool:
+        """Pack the train split into tile-units and upload the [U, ...]
+        stack, narrow unless narrow_cache is 'off' or the unit spec
+        exceeds the narrow dtypes. T = U // steps_per_epoch units per step
+        keep the schedule's steps per epoch. plan_seed replaces cfg.seed
+        as the molecule shuffle (a replan); a replan that fails any check
+        leaves the old stack in place. Returns True when the units path is
+        active."""
+        cfg = self.cfg
+        graphs = self.train_iter.graphs
+        if len(graphs) > cfg.pack_cache_max_mols:
+            return False
+        seed = cfg.seed if plan_seed is None else plan_seed
+        replan_mb = self._unit_stack_mb if self._units else 0.0
+        s_epoch = max(1, len(self.train_iter))
+        try:
+            stack, uspec, units = pack_unit_stack(
+                graphs, cfg.model.tile, cfg.max_degree, seed=seed)
+        except ValueError as e:
+            log(f"fresh-compositions unit packing unavailable ({e}); "
+                f"falling back to the frozen batch cache")
+            return False
+        u = len(units)
+        t = u // s_epoch
+        if t < 1:
+            log(f"{u} tile-units < {s_epoch} steps/epoch; falling back to "
+                f"the frozen batch cache")
+            return False
+        narrow = None if cfg.narrow_cache == "off" else wire_dtypes(uspec)
+        total_mb = unit_stack_bytes(uspec, u, narrow) / 2**20
+        if (self._device_cache_used_mb - replan_mb + total_mb
+                > cfg.device_cache_mb):
+            log(f"tile-unit stack {total_mb:.0f} MB exceeds "
+                f"device_cache_mb={cfg.device_cache_mb}; staying host-side")
+            return False
+        if self._units:
+            # a replan: release the old stack, and the graph reading it
+            self._device_cache_used_mb -= replan_mb
+            self._stack = self.graphed = None
+        self._stack = upload_stack(stack, self.device, narrow)
+        self._units = True
+        self.unit_spec = uspec
+        self._unit_stack_mb = total_mb
+        self._n_units, self._units_per_batch = u, t
+        self._device_cache_used_mb += total_mb
+        # throughput accounting: a step holds T / U of the corpus
+        self._mean_real_edges = sum(int(g.edge_src.shape[0])
+                                    for g in graphs) * t / u
+        self._mean_real_nodes = sum(int(g.n_atoms) for g in graphs) * t / u
+        log(f"uploaded {u}-unit stack ({total_mb:.1f} MB"
+            + (", narrow" if narrow else "")
+            + f", {t} units x {cfg.model.tile} nodes per step, {s_epoch} "
+            f"steps/epoch); epochs re-draw batch compositions on-device")
+        return True
+
+    def _maybe_upload_cache(self, log) -> None:
+        """After a full host epoch: the tile-unit stack where fresh
+        compositions allow it, else the cached batches as a [S, ...] stack
+        within device_cache_mb."""
+        cfg = self.cfg
+        cache = self.train_iter.cache
+        if self._stack is not None or not cfg.device_cache_mb or not cache:
+            return
+        if (cfg.fresh_compositions and cfg.model.tile > 0
+                and self._upload_units(log)):
+            return
+        stack = stack_batches([gb for gb, _, _ in cache])
+        total_mb = sum(v.nbytes for v in vars(stack).values()) / 2**20
+        if self._device_cache_used_mb + total_mb > cfg.device_cache_mb:
+            log(f"packed-batch cache {total_mb:.0f} MB exceeds "
+                f"device_cache_mb={cfg.device_cache_mb}; staying host-side")
+            return
+        self._stack = upload_stack(stack, self.device)
+        self._units, self._units_per_batch = False, 1
+        self._device_cache_used_mb += total_mb
+        log(f"uploaded {len(cache)}-batch cache ({total_mb:.1f} MB) to the "
+            f"device; epochs are now transfer-free")
+
+    def _maybe_upload_eval(self) -> None:
+        cache = self.valid_iter.cache
+        if not cache or not self.cfg.device_cache_mb:
+            return
+        stack = stack_batches([gb for gb, _, _ in cache])
+        total_mb = sum(v.nbytes for v in vars(stack).values()) / 2**20
+        if self._device_cache_used_mb + total_mb <= self.cfg.device_cache_mb:
+            self._device_cache_used_mb += total_mb
+            self._eval_stack = upload_stack(stack, self.device)
+
     # ---- loops ----
     def validate(self, epoch: int) -> float:
-        losses = [eval_step(self.model, batch.to(self.device), self.cfg,
-                            step_generator(self.cfg.seed, VALID_STREAM,
-                                           epoch, i),
+        """The mean validation loss, from the device-resident eval stack once
+        a first pass has filled the iterator's cache (the same batches and
+        keys, so the same bits)."""
+        cfg = self.cfg
+        if self._eval_stack is not None:
+            rows = torch.arange(self._eval_stack["graph_mask"].shape[0],
+                                device=self.device)
+            batches = (concat_units(self._eval_stack, rows[i: i + 1])
+                       for i in range(rows.shape[0]))
+        else:
+            batches = (b.to(self.device) for b, _, _ in self.valid_iter)
+        losses = [eval_step(self.model, batch, cfg,
+                            step_generator(cfg.seed, VALID_STREAM, epoch, i),
                             self.spec.max_graph_bonds, self.max_waves)
-                  for i, (batch, _, _) in enumerate(self.valid_iter)]
+                  for i, batch in enumerate(batches)]
+        if self._eval_stack is None:
+            self._maybe_upload_eval()
         return (float(np.float32(np.mean([float(x) for x in losses])))
                 if losses else float("nan"))
 
@@ -232,6 +442,156 @@ class Pretrainer:
         path = os.path.join(self.cfg.ckpt_dir, "best.pth")
         torch.save({k: v.cpu() for k, v in self.model.state_dict().items()},
                    path)
+
+    def _advance(self, n: int, losses: torch.Tensor, epoch: int,
+                 log) -> None:
+        """Count n steps just taken (losses: theirs), log where a multiple
+        of log_every_steps was passed, and stop the profiler after its
+        steps."""
+        every = self.cfg.log_every_steps
+        before, self.step = self.step, self.step + n
+        if self.step // every > before // every:
+            log(f"epoch {epoch} step {self.step} loss "
+                f"{float(losses[-1]):.4f} lr {self.schedule(self.step):.6f}")
+        if self._profiler is not None:
+            self._profiled_steps += n
+            if self._profiled_steps >= PROFILE_STEPS:
+                self._stop_profiler(log)
+
+    def _host_epoch(self, epoch: int, log) -> list[float]:
+        cfg = self.cfg
+        buf = torch.empty(len(self.train_iter), device=self.device)
+        batches = device_batches(self.train_iter, self.device)
+        if cfg.prefetch:
+            batches = prefetch_iter(batches, cfg.prefetch)
+        n = 0
+        for batch, event in batches:
+            loss = train_step(self.model, self.opt, ready(batch, event), cfg,
+                              self.step, self.schedule(self.step),
+                              bond_window=self.spec.max_graph_bonds,
+                              max_waves=self.max_waves)
+            buf[n].copy_(loss)
+            n += 1
+            self._advance(1, buf[:n], epoch, log)
+        return buf[:n].tolist()
+
+    def _batch_size(self) -> tuple[int, int]:
+        """(nodes, graphs) of a resident step's batch."""
+        t = self._units_per_batch
+        return (t * self._stack["atom_type"].shape[1],
+                t * self._stack["graph_mask"].shape[1])
+
+    def _key_window(self, start: int, n: int) -> torch.Tensor:
+        """The augmentation keys of steps start .. start + n - 1, one flat
+        row each (step_generator(seed, TRAIN_STREAM, step)), uploaded to
+        the device at once (from pinned memory on the card)."""
+        cfg = self.cfg
+        nodes, graphs = self._batch_size()
+        rows = torch.stack([flatten_keys(draw_paired_keys(
+            cfg.aug, nodes, graphs,
+            step_generator(cfg.seed, TRAIN_STREAM, start + j)))
+            for j in range(n)])
+        if self.device.type == "cuda":
+            rows = rows.pin_memory()
+        return rows.to(self.device, non_blocking=True)
+
+    def _resident_step(self, idx_row, key_row,
+                       lr: float | None) -> torch.Tensor:
+        """One step on T rows of the device stack, its views from its key
+        row."""
+        cfg = self.cfg
+        batch = concat_units(self._stack, idx_row)
+        keys = unflatten_keys(cfg.aug, key_row, batch.num_nodes,
+                              batch.num_graphs)
+        return train_step(self.model, self.opt, batch, cfg, self.step, lr,
+                          keys=keys, bond_window=self.spec.max_graph_bonds,
+                          max_waves=self.max_waves)
+
+    def _graph_body(self, idx_row, key_row) -> torch.Tensor:
+        return self._resident_step(idx_row, key_row, None)
+
+    def _resident_epoch(self, epoch: int, orders: np.ndarray,
+                        log) -> list[float]:
+        """One epoch over the device stack, orders [S, T] its rows per step:
+        windows of KEY_WINDOW steps (a multiple of the graph's steps), each
+        drawing its keys at once; graphed steps after the warm-up, else
+        eager steps. Only the [S, T] orders and the keys are uploaded."""
+        s = orders.shape[0]
+        idx = torch.from_numpy(orders.astype(np.int64)).to(self.device)
+        buf = torch.empty(s, device=self.device)
+        k = self.graph_steps
+        window = -(-KEY_WINDOW // k) * k if k else KEY_WINDOW
+        for lo in range(0, s, window):
+            w = min(window, s - lo)
+            keys = self._key_window(self.step, w)
+            j = 0
+            while j < w:
+                at = lo + j
+                if (k and j + k <= w
+                        and self._eager_resident_steps >= GRAPH_WARMUP_STEPS):
+                    if self.graphed is None:
+                        self.graphed = GraphedSteps(
+                            self._graph_body, k, idx.shape[1],
+                            keys.shape[1], self.device)
+                    set_lr(self.opt, self.schedule(self.step))
+                    buf[at: at + k].copy_(self.graphed.run(
+                        idx[at: at + k], keys[j: j + k]))
+                    n = k
+                else:
+                    buf[at].copy_(self._resident_step(
+                        idx[at], keys[j], self.schedule(self.step)))
+                    self._eager_resident_steps += 1
+                    n = 1
+                self._advance(n, buf[at: at + n], epoch, log)
+                j += n
+        return buf.tolist()
+
+    def _activate_units(self, log) -> None:
+        """The tile-unit stack up front (no host epoch first). A resumed
+        run of a replanning config packs once, with the seed of the last
+        replan at or before its first epoch, so that its compositions are
+        the uninterrupted run's."""
+        cfg = self.cfg
+        if (self._stack is not None or not cfg.fresh_compositions
+                or cfg.model.tile <= 0 or not cfg.device_cache_mb):
+            return
+        n = cfg.replan_units_every
+        last = (self._start_epoch // n) * n if n else 0
+        if last > 0:
+            if self._upload_units(log, plan_seed=cfg.seed + 7919 * last):
+                self._units_plan_epoch = last
+        else:
+            self._upload_units(log)
+
+    def _maybe_replan(self, epoch: int, log) -> None:
+        n = self.cfg.replan_units_every
+        if (self._units and n and epoch > 0 and epoch % n == 0
+                and self._units_plan_epoch != epoch):
+            if self._upload_units(log,
+                                  plan_seed=self.cfg.seed + 7919 * epoch):
+                self._units_plan_epoch = epoch
+
+    def _start_profiler(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=acts)
+        self._profiler.start()
+
+    def _stop_profiler(self, log) -> None:
+        if self._profiler is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        log(f"profiler trace of {self._profiled_steps} steps written to "
+            f"{path}")
 
     def train(self, log=print) -> list[dict]:
         cfg = self.cfg
@@ -241,28 +601,33 @@ class Pretrainer:
         writer = MetricWriter(cfg.ckpt_dir)
         best_val = float("inf")
         history = []
-        # message edges per step = 2 views x layers x (real directed edges
-        # + self-loops), bench.py's metric
-        edges_per_step = 2 * cfg.model.num_layers * (
-            self._mean_real_edges + self._mean_real_nodes)
+        if self._graph_note:
+            log(self._graph_note)
+        self._activate_units(log)
+        if cfg.profile_dir:
+            self._start_profiler()
         try:
             for epoch in range(self._start_epoch, cfg.epochs):
                 t0 = time.perf_counter()
-                losses = []
-                for batch, _, _ in self.train_iter:
-                    loss = train_step(self.model, self.opt,
-                                      batch.to(self.device), cfg, self.step,
-                                      self.schedule(self.step),
-                                      bond_window=self.spec.max_graph_bonds,
-                                      max_waves=self.max_waves)
-                    self.step += 1
-                    losses.append(loss)
-                    if self.step % cfg.log_every_steps == 0:
-                        log(f"epoch {epoch} step {self.step} loss "
-                            f"{float(loss):.4f} lr "
-                            f"{self.schedule(self.step):.6f}")
-                losses = [float(x) for x in losses]   # synchronizes
+                self._maybe_replan(epoch, log)
+                if self._stack is None:
+                    losses = self._host_epoch(epoch, log)
+                    self._maybe_upload_cache(log)
+                elif self._units:
+                    losses = self._resident_epoch(epoch, epoch_unit_orders(
+                        self._n_units, self._units_per_batch, cfg.seed,
+                        epoch)[: self.steps_per_epoch], log)
+                else:
+                    losses = self._resident_epoch(
+                        epoch, self.train_iter.cached_epoch_order()[:, None],
+                        log)
+                self._stop_profiler(log)
+                self.epoch_losses.append(np.asarray(losses, np.float32))
                 epoch_s = time.perf_counter() - t0
+                # message edges per step = 2 views x layers x (real
+                # directed edges + self-loops), bench.py's metric
+                edges_per_step = 2 * cfg.model.num_layers * (
+                    self._mean_real_edges + self._mean_real_nodes)
                 record = {"epoch": epoch,
                           "train_loss": (float(np.mean(losses)) if losses
                                          else float("nan")),
@@ -281,10 +646,12 @@ class Pretrainer:
                             and epoch + 1 >= cfg.stop_after_epochs
                             and epoch + 1 < cfg.epochs)
                 if (epoch + 1) % cfg.save_every_epochs == 0 or stopping:
-                    ckpt_lib.save_checkpoint(cfg.ckpt_dir, self.step, {
+                    path = ckpt_lib.save_checkpoint(cfg.ckpt_dir, self.step, {
                         "model": self.model.state_dict(),
                         "optimizer": self.opt.state_dict(),
                         "step": self.step, "epoch": epoch})
+                    with open(ckpt_lib.train_meta_path(path), "w") as f:
+                        json.dump({"adam_impl": cfg.adam_impl}, f)
                 history.append(record)
                 writer.record(record)
                 log(f"epoch {epoch}: {record}")
@@ -294,5 +661,6 @@ class Pretrainer:
                         f"{cfg.epochs} epochs; resume continues it)")
                     break
         finally:
+            self._stop_profiler(log)
             writer.close()
         return history

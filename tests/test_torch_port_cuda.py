@@ -11,7 +11,9 @@ Tolerances: kernel against its plain version on the same inputs, max error
 may round one intermediate the other way); the embed CLI on the card
 against --cpu, 1e-4 * max(1, max|cpu|); a training step's gradients on the
 card against the CPU, 1e-3 of each gradient's max + 1e-6 (f32 through
-three layers, a BatchNorm each)."""
+three layers, a BatchNorm each); a training step replayed as a CUDA graph
+against the same step run eagerly from the same state, with the same
+optimizer object: bit-identical (tolerance 0)."""
 
 import numpy as np
 import pytest
@@ -25,6 +27,12 @@ from molclr_tpu_torch.data.synthetic import synthetic_corpus
 from molclr_tpu_torch.models import MolCLRNet
 from molclr_tpu_torch.losses import nt_xent_loss
 from molclr_tpu_torch.ops import fused_gcn, fused_layer, ntxent
+from molclr_tpu_torch.data.regroup import epoch_unit_orders
+from molclr_tpu_torch.train import checkpoints as ckpt_lib
+from molclr_tpu_torch.train.config import ModelConfig, PretrainConfig
+from molclr_tpu_torch.train.graphed import GRAPH_WARMUP_STEPS, GraphedSteps
+from molclr_tpu_torch.train.optim import load_optimizer_state
+from molclr_tpu_torch.train.pretrain import Pretrainer
 
 pytestmark = pytest.mark.cuda
 
@@ -704,3 +712,197 @@ def test_finetune_trunk_gets_gradients_on_card(cuda, gnn):
         if not (k.endswith("mlp.2.bias") or (gnn == "gcn" and k.startswith(
                 "gnns.") and k.endswith(".bias"))):
             assert g.abs().max() > 0, k
+
+
+# ------------------------------------------------ CUDA-graph training steps
+
+
+def _resident_pretrainer(cuda, tmp_path, **kw):
+    """A small Pretrainer on the card with its tile-unit stack uploaded."""
+    model = dict(num_layers=2, emb_dim=32, feat_dim=64, tile=64)
+    model.update(kw.pop("model", {}))
+    cfg = PretrainConfig(batch_size=16, epochs=4, warm_up=1, valid_size=0.1,
+                         ckpt_dir=str(tmp_path / "ck"),
+                         model=ModelConfig(**model), **kw)
+    pre = Pretrainer(cfg, cuda).setup_data(synthetic_corpus(150, seed=3))
+    pre.setup_state()
+    pre._activate_units(lambda *_: None)
+    assert pre._units
+    return pre
+
+
+def _state(pre):
+    return ({k: v.clone() for k, v in pre.model.state_dict().items()},
+            {k: v.clone() if torch.is_tensor(v) else v
+             for k, v in _flat_opt_state(pre.opt).items()})
+
+
+def _flat_opt_state(opt):
+    sd = opt.state_dict()
+    if "state" not in sd:                     # FusedAdam
+        return sd
+    return {f"{i}.{k}": v for i, st in sd["state"].items()
+            for k, v in st.items()}
+
+
+def _eager_then_graphed(pre, rows):
+    """The rows' steps run eagerly and then, from the same state and with
+    the same optimizer object, replayed as a CUDA graph of
+    pre.graph_steps steps; returns both runs' (losses, state)."""
+    import copy
+
+    log = lambda *_: None  # noqa: E731
+    k = pre.graph_steps
+    orders = epoch_unit_orders(pre._n_units, pre._units_per_batch, 0, 0)
+    pre._resident_epoch(0, orders[:GRAPH_WARMUP_STEPS], log)
+    snap = (copy.deepcopy(pre.model.state_dict()),
+            copy.deepcopy(pre.opt.state_dict()), pre.step)
+    pre.graph_steps = 0
+    eager = (pre._resident_epoch(0, rows, log), _state(pre))
+    pre.model.load_state_dict(snap[0])
+    load_optimizer_state(pre.opt, copy.deepcopy(snap[1]))
+    pre.step = snap[2]
+    pre.graph_steps = k
+    graphed = (pre._resident_epoch(0, rows, log), _state(pre))
+    return eager, graphed
+
+
+@pytest.mark.parametrize("adam", ["chain", "fused"])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("gnn", ["gin", "gcn"])
+def test_graphed_steps_bit_identical_to_eager(cuda, tmp_path, gnn, bf16,
+                                              adam):
+    """Seven units-path steps (node augmentation) replayed as a CUDA graph
+    against the same steps run eagerly from the same state: the losses, parameters, BatchNorm stats and Adam moments
+    bit-identical; the graph captured once and replayed per step, its
+    captured launches those of one step."""
+    pre = _resident_pretrainer(cuda, tmp_path, adam_impl=adam,
+                               model=dict(gnn_type=gnn, bf16=bf16))
+    assert pre.graph_steps == 1
+    orders = epoch_unit_orders(pre._n_units, pre._units_per_batch, 0, 1)
+    (le, se), (lg, sg) = _eager_then_graphed(pre, orders[:7])
+    assert le == lg
+    for a, b in zip(se, sg):
+        for k in a:
+            assert torch.equal(a[k], b[k]) if torch.is_tensor(a[k]) \
+                else a[k] == b[k], k
+    assert pre.graphed.replays == 7
+    bwd = "fused_gine_bn_layer_bwd" if gnn == "gin" \
+        else "fused_gcn_bn_layer_bwd"
+    assert pre.graphed.launches[bwd] == 2 * 2
+
+
+def test_graph_of_several_steps_bit_identical_to_eager(cuda, tmp_path):
+    """steps_per_dispatch = 3: three steps per graph, an epoch's remainder
+    eager; the same bits as eager steps."""
+    pre = _resident_pretrainer(cuda, tmp_path, steps_per_dispatch=3)
+    assert pre.graph_steps == 3
+    orders = epoch_unit_orders(pre._n_units, pre._units_per_batch, 0, 1)
+    (le, se), (lg, sg) = _eager_then_graphed(pre, orders[:7])
+    assert le == lg
+    assert all(torch.equal(se[0][k], sg[0][k]) for k in se[0])
+    assert pre.graphed.replays == 2
+    assert pre.graphed.launches["fused_gine_bn_layer_bwd"] == 3 * 2 * 2
+
+
+def test_default_pretrainer_on_card_replays_the_units_path(cuda, tmp_path):
+    """The default config on the card: the units path, every step after
+    the warm-up replayed; device_cache_mb 0 streams from the host with
+    eager steps. Both learn to finite losses."""
+    pre = _resident_pretrainer(cuda, tmp_path / "u")
+    pre.train(log=lambda *_: None)
+    assert pre.graphed is not None
+    assert pre.graphed.replays == 4 * pre.steps_per_epoch - GRAPH_WARMUP_STEPS
+    assert np.isfinite(np.concatenate(pre.epoch_losses)).all()
+    cfg = PretrainConfig(batch_size=16, epochs=2, valid_size=0.1,
+                         device_cache_mb=0, ckpt_dir=str(tmp_path / "h"),
+                         model=ModelConfig(num_layers=2, emb_dim=32,
+                                           feat_dim=64, tile=64))
+    host = Pretrainer(cfg, cuda).setup_data(synthetic_corpus(150, seed=3))
+    host.setup_state().train(log=lambda *_: None)
+    assert host._stack is None and host.graphed is None
+    assert np.isfinite(np.concatenate(host.epoch_losses)).all()
+
+
+def test_frozen_cache_and_replanned_units_replay_on_card(cuda, tmp_path):
+    """The frozen batch cache (fresh_compositions False: host epoch 0,
+    then the cached batches uploaded and every later step replayed) and a
+    replan (replan_units_every 2: the new stack gets a new graph, which
+    replays the steps after it)."""
+    cfg = PretrainConfig(batch_size=16, epochs=3, warm_up=1, valid_size=0.1,
+                         fresh_compositions=False,
+                         ckpt_dir=str(tmp_path / "f"),
+                         model=ModelConfig(num_layers=2, emb_dim=32,
+                                           feat_dim=64, tile=64))
+    frozen = Pretrainer(cfg, cuda).setup_data(synthetic_corpus(150, seed=3))
+    frozen.setup_state().train(log=lambda *_: None)
+    assert frozen._stack is not None and not frozen._units
+    spe = frozen.steps_per_epoch
+    assert frozen.graphed.replays == 2 * spe - GRAPH_WARMUP_STEPS
+    assert np.isfinite(np.concatenate(frozen.epoch_losses)).all()
+    pre = _resident_pretrainer(cuda, tmp_path / "r", replan_units_every=2)
+    pre.train(log=lambda *_: None)
+    assert pre._units_plan_epoch == 2
+    assert pre.graphed.replays == 2 * pre.steps_per_epoch
+    assert np.isfinite(np.concatenate(pre.epoch_losses)).all()
+
+
+@pytest.mark.parametrize("first_mb,then_mb", [(0, 2048), (2048, 0)])
+def test_resume_across_host_and_graphed_paths(cuda, tmp_path, first_mb,
+                                              then_mb):
+    """A checkpoint written on the host path (device_cache_mb 0: eager
+    steps, an Adam that is not capturable, its step counts on the CPU)
+    resumes on the default units path (a capturable Adam, the steps after
+    the warm-up replayed), and one written there resumes on the host
+    path: the resumed run takes its epoch to finite losses, its Adam step
+    counts where its optimizer keeps them."""
+    smiles = synthetic_corpus(150, seed=3)
+
+    def run(cache_mb, **kw):
+        cfg = PretrainConfig(batch_size=16, epochs=2, warm_up=1,
+                             valid_size=0.1, device_cache_mb=cache_mb,
+                             ckpt_dir=str(tmp_path),
+                             model=ModelConfig(num_layers=2, emb_dim=32,
+                                               feat_dim=64, tile=64), **kw)
+        pre = Pretrainer(cfg, cuda).setup_data(smiles).setup_state()
+        pre.train(log=lambda *_: None)
+        return pre
+
+    first = run(first_mb, stop_after_epochs=1)
+    assert (first.graphed is not None) == (first_mb > 0)
+    then = run(then_mb,
+               resume_from=ckpt_lib.latest_checkpoint(str(tmp_path)))
+    assert then._start_epoch == 1 and len(then.epoch_losses) == 1
+    assert np.isfinite(then.epoch_losses[0]).all()
+    if then_mb:
+        assert then.graphed.replays == (then.steps_per_epoch
+                                        - GRAPH_WARMUP_STEPS)
+    else:
+        assert then.graphed is None
+    where = "cuda" if then_mb else "cpu"
+    assert all(st["step"].device.type == where
+               for st in then.opt.state.values())
+
+
+def test_a_capture_that_fails_raises(cuda, tmp_path):
+    """A step that reads a device value on the host cannot be captured:
+    the capture raises, in GraphedSteps and through Pretrainer.train."""
+    def body(idx, keys):
+        return torch.zeros((), device=cuda) + float(idx.sum())
+
+    runner = GraphedSteps(body, 1, 3, 4, cuda)
+    with pytest.raises(RuntimeError):
+        runner.run(torch.zeros(1, 3, dtype=torch.long, device=cuda),
+                   torch.zeros(1, 4, dtype=torch.long, device=cuda))
+    assert runner.graph is None
+    torch.cuda.synchronize()
+    pre = _resident_pretrainer(cuda, tmp_path)
+    inner = pre._graph_body
+
+    def syncing(idx, keys):
+        loss = inner(idx, keys)
+        return loss * float(loss)
+
+    pre._graph_body = syncing
+    with pytest.raises(RuntimeError):
+        pre.train(log=lambda *_: None)
