@@ -77,20 +77,34 @@ prints no result line):
               gine_bwd_plan).
   9. fine-tune steps: the FineTuner at the reference fine-tune model (5 x
               300 / 512, drop 0.3, batch 32, pred head 2 x softplus, f32),
-              GIN, GCN and GIN with the motif head: 3 steps on the card,
-              each also run on the CPU from the card's state with the same
-              dropout masks (losses, parameters, BatchNorm stats agree);
-              launches per step K4f 5, K4b 5 (GIN) or K5f 5, K5b 5 (GCN);
-              the eval forward of one validation batch ('max' sizing) and
-              the motif table, card against the CPU from the same state;
-              then the step's time (median of CUDA-event times over 25
-              steps), molecules/s, the host's time to queue a step, an
-              eval batch's time and the host's time to queue one, and a
-              profile of the GIN and GCN steps and eval batches.
+              GIN, GCN and GIN with the motif head: 3 steps on rows of the
+              resident train stack on the card, each also run on the CPU
+              from the card's state with the same dropout masks (losses,
+              parameters, BatchNorm stats agree); launches per step K4f 5,
+              K4b 5 (GIN) or K5f 5, K5b 5 (GCN); the eval forward of one
+              validation batch ('max' sizing) and the motif table, card
+              against the CPU from the same state; then for GIN f32, GCN
+              f32 and GIN bf16 the step on three paths: the host path (a
+              host batch uploaded per step, eager), resident eager and
+              resident graphed: step ms (CUDA events at each step's end,
+              median over 25 steps), host ms, the profiler's device ms and
+              busy share, the port's kernels per replayed step as per
+              eager step; an eval batch's time and the host's time to
+              queue one, and the validation split eager against one
+              replay.
+ 9b. ensembles: at full width (GIN f32, drop 0.3), BBBP with 3 seeds and
+              ClinTox 2 targets x 3 seeds: one step of all members card
+              against CPU, member by member; 10 graphed steps
+              bit-identical to 10 eager ones, with M x 5 launches of
+              K4f's and K4b's first kernels per replayed step as the
+              profiler counts them; the graphed step's ms against M times
+              the one-member graphed step.
  10. fine-tune cli: `molclr_tpu_torch.cli.finetune --allow-synthetic` for
               2 epochs in a temporary working directory: GIN warm-started
-              from phase 7's step_<n>.pt, then --model gcn, then --motifs;
-              every RESULT metric finite, every row stamped synthetic.
+              from phase 7's step_<n>.pt, then --model gcn, then --motifs,
+              then --n-seeds 3; every RESULT metric finite (with its std
+              over the seeds for --n-seeds), every row stamped
+              synthetic.
  11. GCN training kernels, at the pretraining shape (phase 4's batch, T =
               22): K3f and K3b (fused_gcn_bn_layer's backward) against
               their plain versions in f32 and bf16, relu_in False and True;
@@ -140,10 +154,13 @@ prints no result line):
               Pretrainer's own epoch loop), molecules/s, message-edges/s,
               the host's time per step and a torch.profiler breakdown for
               the host path, resident eager and resident graphed, GIN and
-              GCN, f32 and bf16 (the port's kernels launched per replayed
-              step as per eager step); and the graphed f32 step with the
-              chain against the fused Adam, 10 alternating rounds of 25
-              steps each.
+              GCN, f32 and bf16, and GIN with dropout 0.1 (the port's
+              kernels launched per replayed step as per eager step); 10
+              graphed steps bit-identical to 10 eager ones also for GIN
+              with dropout 0.1, subgraph, mix and concat_views, GCN with
+              normalize_gcn and mix, and GIN with the 'pallas' NT-Xent;
+              and the graphed f32 step with the chain against the fused
+              Adam, 10 alternating rounds of 25 steps each.
 
 It prints one JSON line listing the kernels, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. It needs one
@@ -175,7 +192,8 @@ from molclr_tpu_torch.cli import pretrain as pretrain_cli
 from molclr_tpu_torch.data.augment import AUG_DELTA_FIELDS, \
     draw_paired_keys, paired_augment, paired_augment_keys
 from molclr_tpu_torch.data.featurize import NUM_BOND_DIRS, NUM_BOND_TYPES
-from molclr_tpu_torch.data.graphs import concat_views, pack_batch
+from molclr_tpu_torch.data.graphs import GraphBatch, concat_views, \
+    pack_batch
 from molclr_tpu_torch.data.loader import featurize_many, \
     read_pretrain_smiles, spec_for_graphs
 from molclr_tpu_torch.data.regroup import concat_units, \
@@ -1388,19 +1406,31 @@ def pass_profile(fn, launches: int = 20) -> dict:
 
 def profile_steps(step_fn, steps: int = 5) -> dict:
     """torch.profiler over `steps` calls of step_fn(i): device time per
-    kernel name (top 12) and the device's busy share of the window."""
-    from torch.profiler import ProfilerActivity, profile
+    kernel name (top 12) and the device's busy share of the window. A
+    warm-up phase traces one small kernel and is discarded: the tracer can
+    miss the first kernels launched as it starts (one K4f of an eager
+    fine-tuning window was missed so), and the window counts launches."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    traces = []
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    with profile(activities=acts, schedule=schedule(wait=0, warmup=1,
+                                                    active=1, repeat=1),
+                 on_trace_ready=lambda p: traces.append(
+                     p.key_averages())) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         for step in range(steps):
             step_fn(step)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
+    check(len(traces) == 1, f"profiler: {len(traces)} traces, expected 1")
     rows = []
-    for e in prof.key_averages():
+    for e in traces[0]:
         if getattr(e, "is_user_annotation", False):
             # a record_function range (Optimizer.step#Adam.step) spans
             # kernels counted in their own rows
@@ -1742,38 +1772,57 @@ def finetune_kernel_phase(batch, dev) -> dict:
 
 
 def finetune_cfg(tmp: str, gnn: str = "gin", motifs: bool = False,
-                 bf16: bool = False) -> FineTuneConfig:
+                 bf16: bool = False, **kw) -> FineTuneConfig:
     """configs/finetune.yaml's fine-tuning run (BBBP, batch 32, 5 x 300 /
     512, drop 0.3, pred head 2 x softplus, tile 256) on the synthetic
-    stand-in fabricated under tmp."""
+    stand-in fabricated under tmp; kw sets FineTuneConfig fields
+    (task_name, n_seeds)."""
     return FineTuneConfig(
         data_root=os.path.join(tmp, "data"), synthetic_fallback=True,
         batch_size=FT_BATCH, ckpt_dir=os.path.join(tmp, "ft_runs"),
         use_motifs=motifs, model=ModelConfig(
             gnn_type=gnn, num_layers=LAYERS, emb_dim=EMB, feat_dim=FEAT,
-            drop_ratio=0.3, tile=TILE, bf16=bf16))
+            drop_ratio=0.3, tile=TILE, bf16=bf16), **kw)
 
 
-def finetuner(cfg, dev, shared):
+def finetuner(cfg, dev, shared: dict, targets=None):
+    """A FineTuner of cfg set up on the card, its task's featurization
+    shared through `shared` (task name -> SharedTaskData)."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)   # synthetic stand-in
-        if shared[0] is None:
-            shared[0] = ft_lib.SharedTaskData(cfg, TASKS[cfg.task_name])
-    return ft_lib.FineTuner(cfg, dev).setup_data(
-        shared=shared[0]).setup_state()
+        if cfg.task_name not in shared:
+            shared[cfg.task_name] = ft_lib.SharedTaskData(
+                cfg, TASKS[cfg.task_name])
+    return ft_lib.FineTuner(cfg, dev, targets=targets).setup_data(
+        shared=shared[cfg.task_name]).setup_state()
+
+
+def on_cpu(batch) -> GraphBatch:
+    """A GraphBatch of device tensors copied to the CPU."""
+    return GraphBatch(**{k: v.cpu() for k, v in vars(batch).items()})
+
+
+def train_rows(ft) -> torch.Tensor:
+    """The train stack filled for an epoch and its order as [S, 1] rows
+    on the card."""
+    _, order = ft._train_epoch_stack()
+    return torch.from_numpy(np.asarray(order, np.int64)[:, None]).to(
+        ft.device)
 
 
 def eval_agreement(ft, cpu_model, gnn: str, tag: str):
     """The eval path (drop 0.3 in eval mode: K4f / K5f without residuals)
-    on one validation batch, packed with 'max' sizing, on the card and on
-    the CPU from the card's state: predictions within SLICE_RTOL, and one
-    forward launch per layer. Returns (max error, the batch's tiles)."""
-    item = next(iter(ft.iters["valid"]))
-    batch, _, mot = ft._device_item("valid", *item)
+    on the validation stack's first batch ('max' sizing), on the card and
+    on the CPU from the card's state: predictions within SLICE_RTOL, and
+    one forward launch per layer. Returns (max error, the batch's
+    tiles)."""
+    stack = ft._split_stack("valid")
+    batch, _, mot = ft._take(stack, torch.zeros(1, dtype=torch.long,
+                                                device=ft.device))
     cpu_model.load_state_dict(
         {k: v.cpu() for k, v in ft.model.state_dict().items()})
     reset_counts()
-    pred_g = ft_lib.predict(ft.model, batch, mot)
+    pred_g = ft_lib.predict([ft.model], batch, mot)[0]
     torch.cuda.synchronize()
     counts = read_counts()
     want = {k: LAYERS for k, v in FT_KERNELS.items()
@@ -1781,8 +1830,8 @@ def eval_agreement(ft, cpu_model, gnn: str, tag: str):
     for name, c in counts.items():
         check(c == want.get(name, 0), f"{tag} eval: {name} launched {c} "
               f"times, expected {want.get(name, 0)}")
-    pred_c = ft_lib.predict(cpu_model, item[0].to("cpu"),
-                            tuple(m.cpu() for m in mot))
+    pred_c = ft_lib.predict([cpu_model], on_cpu(batch),
+                            tuple(m.cpu() for m in mot))[0]
     err = float((pred_g.cpu() - pred_c).abs().max())
     lim = SLICE_RTOL * max(1.0, float(pred_c.abs().max()))
     check(bool(torch.isfinite(pred_g).all()) and err <= lim,
@@ -1808,128 +1857,319 @@ def motif_table_agreement(ft, cpu_model, tag: str) -> float:
     return err
 
 
-def finetune_step_phase(dev, tmp: str, shared: list) -> dict:
+def members_vs_cpu(ft, idx, tag: str, want: dict, step: int = 0) -> dict:
+    """One step of all of ft's members on the train stack's row idx on the
+    card, and of CPU copies of them (the card's state and Adam moments)
+    with the same dropout masks: each member's loss within
+    STEP_LOSS_RTOL, its state as state_agreement holds it; the kernels
+    launched as `want` says (0 if absent)."""
+    cfg = ft.cfg
+    lr = max(cfg.init_lr, cfg.init_base_lr)
+    batch, lab, mot = ft._take(ft._stacks["train"], idx)
+    cpu_models = [copy.deepcopy(m).to("cpu") for m in ft.models]
+    cpu_opt = optim.two_group_adam(cpu_models, cfg.init_lr,
+                                   cfg.init_base_lr, cfg.weight_decay)
+    load_optimizer_state(cpu_opt, copy.deepcopy(ft.opt.state_dict()))
+    masks = [[torch.rand(batch.nbr.shape[0], EMB, generator=gen) < 0.7
+              for _ in range(LAYERS)] for gen in (
+        torch.Generator().manual_seed(SEED + 5 + 1000 * step + s)
+        for s in range(cfg.n_seeds))]
+    reset_counts()
+    loss_g = ft_lib.train_step(ft.models, ft.opt, batch, lab, mot,
+                               ft.task.loss, [[m.to(ft.device) for m in ms]
+                                              for ms in masks],
+                               cfg.n_seeds)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    loss_c = ft_lib.train_step(cpu_models, cpu_opt, on_cpu(batch),
+                               lab.cpu(), tuple(m.cpu() for m in mot),
+                               ft.task.loss, masks, cfg.n_seeds)
+    for name, c in counts.items():
+        check(c == want.get(name, 0), f"{tag} step {step}: {name} "
+              f"launched {c} times, expected {want.get(name, 0)}")
+    row = dict(losses=[loss_g.tolist(), loss_c.tolist()], counts=counts,
+               fraction_off=[], grad_off=[], max_param_diff=[],
+               running_stats_over_limit=[])
+    for m, (card, cpu) in enumerate(zip(ft.models, cpu_models)):
+        g, c = float(loss_g[m]), float(loss_c[m])
+        check(abs(g - c) <= STEP_LOSS_RTOL * abs(c),
+              f"{tag} step {step} member {m}: loss card {g} cpu {c}")
+        worst, top, stat, gworst = state_agreement(
+            card, cpu, step, lr, f"{tag} step {step} member {m}",
+            card.dtype)
+        row["fraction_off"].append(worst)
+        row["grad_off"].append(gworst)
+        row["max_param_diff"].append(top)
+        row["running_stats_over_limit"].append(stat)
+    return row
+
+
+def finetune_step_phase(dev, tmp: str, shared: dict) -> dict:
     """3 fine-tuning steps on the card for GIN, GCN and GIN with the motif
-    head; before each, the CPU takes the card's state (weights, BatchNorm
-    stats, Adam moments) and runs the same step with the same dropout
-    masks on its plain path. Launch counts per step."""
+    head, each on a row of the resident train stack; before each, the CPU
+    takes the card's state (weights, BatchNorm stats, Adam moments) and
+    runs the same step with the same dropout masks on its plain path.
+    Launch counts per step."""
     report = {}
     totals = dict.fromkeys(ALL_FNS, 0)
-    mgen = torch.Generator().manual_seed(SEED + 5)
     for gnn, motifs in (("gin", False), ("gcn", False), ("gin", True)):
         tag = gnn + ("_motifs" if motifs else "")
-        cfg = finetune_cfg(tmp, gnn, motifs)
-        ft = finetuner(cfg, dev, shared)
-        lr = max(cfg.init_lr, cfg.init_base_lr)
-        cpu_model = copy.deepcopy(ft.model).to("cpu")
-        cpu_opt = optim.two_group_adam(cpu_model, cfg.init_lr,
-                                       cfg.init_base_lr, cfg.weight_decay)
-        items = []
-        for item in ft.iters["train"]:
-            items.append(item)
-            if len(items) == FT_STEPS:
-                break
-        row = {"losses": [], "counts": [], "fraction_off": [],
-               "grad_off": [], "max_param_diff": [],
-               "running_stats_over_limit": [],
-               "motif_vocab": ft.motif_vocab.size if motifs else 0}
+        ft = finetuner(finetune_cfg(tmp, gnn, motifs), dev, shared)
+        rows = train_rows(ft)
+        row = {"motif_vocab": ft.motif_vocab.size if motifs else 0}
         if motifs:
-            row["motif_table_err"] = motif_table_agreement(ft, cpu_model, tag)
+            row["motif_table_err"] = motif_table_agreement(
+                ft, copy.deepcopy(ft.model).to("cpu"), tag)
         want = {k: LAYERS for k, v in FT_KERNELS.items()
                 if v["model"] == gnn}
-        for step, item in enumerate(items):
-            batch, lab, mot = ft._device_item("train", *item)
-            cpu_args = (item[0].to("cpu"), lab.cpu(),
-                        tuple(m.cpu() for m in mot))
-            cpu_model.load_state_dict(
-                {k: v.cpu() for k, v in ft.model.state_dict().items()})
-            cpu_opt.load_state_dict(copy.deepcopy(ft.opt.state_dict()))
-            n = batch.nbr.shape[0]
-            masks = [torch.rand(n, EMB, generator=mgen) < 0.7
-                     for _ in range(LAYERS)]
-            reset_counts()
-            loss_g = ft_lib.train_step(
-                ft.model, ft.opt, batch, lab, mot, ft.task.loss,
-                dropout_masks=[m.to(dev) for m in masks])
-            torch.cuda.synchronize()
-            counts = read_counts()
-            loss_c = ft_lib.train_step(cpu_model, cpu_opt, *cpu_args,
-                                       ft.task.loss, dropout_masks=masks)
-            row["losses"].append([loss_g.item(), loss_c.item()])
-            row["counts"].append(counts)
-            for name, c in counts.items():
-                check(c == want.get(name, 0), f"{tag} step {step}: {name} "
-                      f"launched {c} times, expected {want.get(name, 0)}")
+        steps = [members_vs_cpu(ft, rows[step], tag, want, step)
+                 for step in range(FT_STEPS)]
+        for k in ("losses", "counts", "fraction_off", "grad_off",
+                  "max_param_diff", "running_stats_over_limit"):
+            row[k] = [st[k] for st in steps]
+        for st in steps:
+            for name, c in st["counts"].items():
                 totals[name] += c
-            check(abs(loss_g.item() - loss_c.item())
-                  <= STEP_LOSS_RTOL * abs(loss_c.item()),
-                  f"{tag} step {step}: loss card {loss_g.item()} cpu "
-                  f"{loss_c.item()}")
-            worst, top, stat, gworst = state_agreement(
-                ft.model, cpu_model, step, lr, f"{tag} step {step}")
-            row["fraction_off"].append(worst)
-            row["grad_off"].append(gworst)
-            row["max_param_diff"].append(top)
-            row["running_stats_over_limit"].append(stat)
         row["eval_err"], row["eval_tiles"] = eval_agreement(
-            ft, cpu_model, gnn, tag)
+            ft, copy.deepcopy(ft.model).to("cpu"), gnn, tag)
         report[tag] = row
         print(f"finetune step {tag} {json.dumps(row)}", flush=True)
     report["launches"] = totals
     return report
 
 
-def finetune_speed_phase(dev, tmp: str, card: str, shared: list) -> dict:
-    """The fine-tuning step's time on the card (median of CUDA-event times
-    over 25 steps after 5 warm-up steps, dropout drawn on the card), the
-    host's time to queue a step, an eval batch's forward (events ms and
-    the host's ms to queue one), and a profile of the GIN and the GCN f32
-    step and eval batch."""
+def device_item(ft, batch, lab, idx):
+    """A host train batch of ft's iterator on the card as the FineTuner
+    uploaded it per step before its stacks: (batch, labels [G],
+    motifs)."""
+    labp = np.zeros(ft.spec.n_graphs, np.float32)
+    labp[: len(lab)] = lab
+    mot = ()
+    if ft.cfg.use_motifs:
+        mi, mm = ft._batch_motifs("train", idx)
+        mot = (torch.from_numpy(mi.astype(np.int64)).to(ft.device),
+               torch.from_numpy(mm).to(ft.device))
+    return batch.to(ft.device), torch.from_numpy(labp).to(ft.device), mot
+
+
+def ft_stepper(ft, path: str):
+    """run(i): step i of a path, all of ft's members. 'host': a packed host
+    batch uploaded per step and an eager step with the plain (not
+    capturable) Adam, the FineTuner's path before its stacks; 'resident
+    eager' / 'resident_graphed': the train stack's rows through
+    _run_steps, eager or replayed."""
+    if path == "host":
+        cfg = ft.cfg
+        items = []
+        for item in ft.iters["train"]:
+            items.append(item)
+        opt = optim.two_group_adam(ft.models, cfg.init_lr,
+                                   cfg.init_base_lr, cfg.weight_decay)
+
+        def run(i):
+            batch, lab, mot = device_item(ft, *items[i % len(items)])
+            return ft_lib.train_step(ft.models, opt, batch, lab, mot,
+                                     ft.task.loss,
+                                     ft.seed_masks(batch.num_nodes),
+                                     cfg.n_seeds)
+        return run
+    ft.graphed = path == "resident_graphed"
+    rows = train_rows(ft)
+
+    def run(i):
+        j = i % rows.shape[0]
+        return ft._run_steps(rows[j: j + 1])
+    return run
+
+
+def ft_path_speed(ft, path: str, card: str, tag: str) -> dict:
+    """One fine-tuning path's step on the card (ft_stepper), WARM_STEPS
+    steps first: CUDA events and host clock marks at each step's end;
+    step_ms the median of the events' gaps over SPEED_STEPS steps, host_ms
+    the median of the host's (its time to queue a step while the device
+    keeps up); a torch.profiler breakdown of PROFILED_STEPS more steps:
+    device ms and busy share, the port's kernels per step."""
+    run = ft_stepper(ft, path)
+    for i in range(WARM_STEPS):
+        run(i)
+    torch.cuda.synchronize()
+    marks = []
+    for i in range(WARM_STEPS, WARM_STEPS + SPEED_STEPS + 1):
+        loss = run(i)
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((e, time.perf_counter()))
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(loss).all()), f"{tag} {path}: loss {loss}")
+    gaps = [(a[0].elapsed_time(b[0]), 1e3 * (b[1] - a[1]))
+            for a, b in zip(marks, marks[1:])]
+    ms = statistics.median(g[0] for g in gaps)
+    prof = profile_steps(lambda i: run(100 + i), steps=PROFILED_STEPS)
+    mols = FT_BATCH
+    row = dict(card=card, tag=tag, path=path, model=ft.cfg.model.gnn_type,
+               dtype="bfloat16" if ft.cfg.model.bf16 else "float32",
+               members=ft.n_members, steps=SPEED_STEPS, step_ms=ms,
+               host_ms=statistics.median(g[1] for g in gaps),
+               mol_per_s=mols / (ms / 1e3),
+               device_ms=prof["device_ms_per_step"],
+               device_busy_share=prof["device_busy_share"],
+               port_launches_per_step={
+                   k: c / prof["window_steps"]
+                   for k, c in prof["port_launches"].items()},
+               profile=prof)
+    if path == "resident_graphed":
+        row["graph"] = dict(replays=ft._train_graph.replays,
+                            captured=ft._train_graph.launches)
+    print(f"finetune speed {json.dumps(row)}", flush=True)
+    return row
+
+
+def finetune_speed_phase(dev, tmp: str, card: str, shared: dict) -> dict:
+    """The fine-tuning step's time on the card for GIN f32, GCN f32 and GIN
+    bf16 on three paths (ft_path_speed): the host path, resident eager and
+    resident graphed, one after the other on one FineTuner; the port's
+    kernels per replayed step as per eager step; then an eval batch's
+    forward (events ms, the host's ms to queue one) and the whole
+    validation split eager against one replay (host ms to the predictions
+    on the host)."""
     report = {}
     for gnn, bf16 in (("gin", False), ("gcn", False), ("gin", True)):
-        cfg = finetune_cfg(tmp, gnn, bf16=bf16)
-        ft = finetuner(cfg, dev, shared)
-        item = next(iter(ft.iters["train"]))
-        batch, lab, mot = ft._device_item("train", *item)
-
-        def step():
-            return ft_lib.train_step(ft.model, ft.opt, batch, lab, mot,
-                                     ft.task.loss, generator=ft.dropout_gen)
-
-        for _ in range(WARM_STEPS):
-            step()
-        torch.cuda.synchronize()
-        events, host = [], []
-        for _ in range(SPEED_STEPS):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            e0.record()
-            loss = step()
-            e1.record()
-            host.append(1e3 * (time.perf_counter() - t0))
-            events.append((e0, e1))
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(loss)), f"{gnn} bf16={bf16}: loss {loss}")
-        ms = statistics.median(a.elapsed_time(b) for a, b in events)
-        ebatch, _, emot = ft._device_item("valid",
-                                          *next(iter(ft.iters["valid"])))
-        row = dict(card=card, model=gnn,
-                   dtype="bfloat16" if bf16 else "float32",
-                   step_ms=ms, host_ms=statistics.median(host),
-                   steps=SPEED_STEPS, tiles=batch.nbr.shape[0] // TILE,
-                   mol_per_s=int(item[0].graph_mask.sum()) / (ms / 1e3),
-                   eval_tiles=ebatch.nbr.shape[0] // TILE,
-                   eval_batch_ms=time_ms(lambda: ft_lib.predict(
-                       ft.model, ebatch, emot)),
-                   eval_host_ms=host_us(lambda: ft_lib.predict(
-                       ft.model, ebatch, emot)) / 1e3)
+        tag = f"{gnn}_{'bfloat16' if bf16 else 'float32'}"
+        ft = finetuner(finetune_cfg(tmp, gnn, bf16=bf16), dev, shared)
+        rows = {path: ft_path_speed(ft, path, card, tag)
+                for path in ("host", "resident_eager", "resident_graphed")}
+        launches_agree(f"finetune speed {tag}",
+                       rows["resident_eager"]["port_launches_per_step"],
+                       rows["resident_graphed"]["port_launches_per_step"])
+        stack = ft._split_stack("valid")
+        ebatch, _, emot = ft._take(stack, torch.zeros(
+            1, dtype=torch.long, device=dev))
+        ft.predictions("valid")                      # capture
+        split_eager = host_us(lambda: ft._predict_split("valid").cpu(),
+                              reps=10) / 1e3
+        split_graphed = host_us(lambda: ft.predictions("valid"),
+                                reps=10) / 1e3
+        rows["eval"] = dict(
+            card=card, tag=tag, eval_tiles=ebatch.nbr.shape[0] // TILE,
+            eval_batches=int(stack.labels.shape[0]),
+            eval_batch_ms=time_ms(lambda: ft_lib.predict(
+                ft.models, ebatch, emot)),
+            eval_host_ms=host_us(lambda: ft_lib.predict(
+                ft.models, ebatch, emot)) / 1e3,
+            split_eager_ms=split_eager, split_graphed_ms=split_graphed)
         if not bf16:
-            row["profile"] = profile_steps(lambda i: step())
-            row["eval_profile"] = profile_steps(lambda i: ft_lib.predict(
-                ft.model, ebatch, emot), steps=20)
-        report[f"{gnn}_{row['dtype']}"] = row
-        print(f"finetune speed {json.dumps(row)}", flush=True)
+            rows["eval"]["eval_profile"] = profile_steps(
+                lambda i: ft_lib.predict(ft.models, ebatch, emot), steps=20)
+        print(f"finetune eval {json.dumps(rows['eval'])}", flush=True)
+        report[tag] = rows
+    return report
+
+
+# ------------------------------------------------------------ phase 9b
+
+# the seed ensembles: BBBP with 3 seeds and ClinTox 2 targets x 3 seeds
+ENSEMBLES = (("bbbp_3_seeds", "BBBP", None),
+             ("clintox_2x3", "ClinTox", ["CT_TOX", "FDA_APPROVED"]))
+
+
+def ft_state(ft) -> dict:
+    """Copies of every member's parameters and BatchNorm stats and of the
+    Adam moments and step counts."""
+    out = {f"m{i}.{k}": v for i, st in enumerate(ft.member_states())
+           for k, v in st.items()}
+    out.update({f"adam.{i}.{k}": v.clone() for i, st in
+                ft.opt.state_dict()["state"].items() for k, v in st.items()})
+    return out
+
+
+def ft_eager_vs_graphed(ft, rows, tag: str) -> dict:
+    """EQUAL_STEPS steps of all members run eagerly and, from the same
+    state, Adam moments and dropout generator states, through the graph
+    (after GRAPH_WARMUP_STEPS eager steps): losses, parameters, BatchNorm
+    stats and Adam moments bit-identical. The wrappers' counts of the
+    capture are one step's, M x LAYERS per layer kernel; the profiler,
+    over the last PROFILED_STEPS steps of each run, counts the port's
+    kernels per replayed step as per eager step, M x LAYERS launches of
+    each layer kernel's first pass."""
+    m = ft.n_members
+    ft.graphed = True
+    ft._run_steps(rows[:GRAPH_WARMUP_STEPS])
+    snap = (ft.member_states(), copy.deepcopy(ft.opt.state_dict()),
+            [g.get_state() for g in ft.dropout_gens])
+    rows = rows[GRAPH_WARMUP_STEPS: GRAPH_WARMUP_STEPS + EQUAL_STEPS]
+    split = EQUAL_STEPS - PROFILED_STEPS
+    ft.graphed = False
+    eager = [ft._run_steps(rows[:split])]
+    prof_e = profile_steps(
+        lambda i: eager.append(ft._run_steps(rows[split:])), steps=1)
+    want = ft_state(ft)
+    ft.load_member_states(snap[0])
+    load_optimizer_state(ft.opt, copy.deepcopy(snap[1]))
+    for g, st in zip(ft.dropout_gens, snap[2]):
+        g.set_state(st)
+    ft.graphed = True
+    graphed = [ft._run_steps(rows[:split])]       # the capture, replays
+    prof_g = profile_steps(
+        lambda i: graphed.append(ft._run_steps(rows[split:])), steps=1)
+    torch.cuda.synchronize()
+    got = ft_state(ft)
+    check(torch.equal(torch.cat(eager), torch.cat(graphed)),
+          f"{tag}: graphed losses differ from eager")
+    differ = [n for n in want if not torch.equal(want[n], got[n])]
+    check(not differ, f"{tag}: graphed state differs from eager in "
+          f"{differ}")
+    fwd = ("fused_gcn_layer" if ft.cfg.model.gnn_type == "gcn"
+           else "fused_gine_layer")
+    captured = ft._train_graph.launches
+    check(captured[fwd] == m * LAYERS
+          and captured[fwd + "_bwd"] == m * LAYERS,
+          f"{tag}: captured {captured}, expected {m * LAYERS} each")
+    per_step = launches_agree(
+        tag, {n: c / PROFILED_STEPS
+              for n, c in prof_e["port_launches"].items()},
+        {n: c / PROFILED_STEPS
+         for n, c in prof_g["port_launches"].items()})
+    first = (("k5f_xw_kernel", "k5b_strip_kernel")
+             if fwd == "fused_gcn_layer"
+             else ("k4f_mid_kernel", "gine_bwd_dmid_kernel"))
+    check(all(per_step.get(k) == m * LAYERS for k in first),
+          f"{tag}: per replayed step {per_step}, expected {m * LAYERS} of "
+          f"{first}")
+    return dict(members=m, bit_identical=True, tensors_compared=len(want),
+                losses=torch.cat(eager).tolist(), captured=captured,
+                kernel_launches_per_step_profiled=per_step)
+
+
+def ensemble_phase(dev, tmp: str, card: str, shared: dict,
+                   one_member: dict) -> dict:
+    """The seed ensembles at full width (GIN f32, dropout 0.3): BBBP with 3
+    seeds (M = 3) and ClinTox with 2 targets x 3 seeds (M = 6). One step
+    of all members card against CPU, member by member (members_vs_cpu);
+    EQUAL_STEPS graphed steps bit-identical to eager ones with M x 5
+    launches of K4f and K4b per replayed step (ft_eager_vs_graphed); the
+    graphed step's time against M times the one-member graphed step of
+    `one_member` (ft_path_speed's row)."""
+    report = {}
+    for tag, task, targets in ENSEMBLES:
+        t0 = time.perf_counter()
+        cfg = finetune_cfg(tmp, task_name=task, n_seeds=3)
+        ft = finetuner(cfg, dev, shared, targets)
+        m = ft.n_members
+        rows = train_rows(ft)
+        want = dict(fused_gine_layer=m * LAYERS,
+                    fused_gine_layer_bwd=m * LAYERS)
+        row = dict(card=card, members=m,
+                   step_vs_cpu=members_vs_cpu(ft, rows[0], tag, want))
+        row["equal"] = ft_eager_vs_graphed(ft, rows[1:], tag)
+        speed = ft_path_speed(ft, "resident_graphed", card, tag)
+        row.update(step_ms=speed["step_ms"], host_ms=speed["host_ms"],
+                   device_ms=speed["device_ms"],
+                   device_busy_share=speed["device_busy_share"],
+                   one_member_step_ms=one_member["step_ms"],
+                   m_times_one_member_ms=m * one_member["step_ms"],
+                   seconds=time.perf_counter() - t0)
+        report[tag] = row
+        print(f"ensemble {tag} {json.dumps(row)}", flush=True)
     return report
 
 
@@ -1939,7 +2179,9 @@ def finetune_speed_phase(dev, tmp: str, card: str, shared: list) -> dict:
 def finetune_cli_phase(tmp: str) -> dict:
     """cli.finetune for 2 epochs of configs/finetune.yaml on the synthetic
     stand-in, in a temporary working directory: GIN warm-started from
-    phase 7's newest step_<n>.pt, then --model gcn, then --motifs."""
+    phase 7's newest step_<n>.pt, then --model gcn, then --motifs, then
+    --n-seeds 3 (RESULT with the std over the seeds, the CSV row with
+    it)."""
     pre = latest_checkpoint(os.path.join(tmp, "pretrain_ckpt"))
     check(pre is not None, "no step_<n>.pt from the pretrain CLI phase")
     config = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1953,7 +2195,9 @@ def finetune_cli_phase(tmp: str) -> dict:
     try:
         for tag, extra, model in (("gin_warm", ["--pretrained", pre], "gin"),
                                   ("gcn", ["--model", "gcn"], "gcn"),
-                                  ("gin_motifs", ["--motifs"], "gin")):
+                                  ("gin_motifs", ["--motifs"], "gin"),
+                                  ("gin_3_seeds", ["--n-seeds", "3"],
+                                   "gin")):
             reset_counts()
             out = io.StringIO()
             t0 = time.perf_counter()
@@ -1964,16 +2208,19 @@ def finetune_cli_phase(tmp: str) -> dict:
             sec = time.perf_counter() - t0
             text = out.getvalue()
             check(rc == 0, f"finetune CLI {tag} returned {rc}")
-            results = re.findall(r"^RESULT (\S+): (\S+) = (\S+)$", text, re.M)
-            check(len(results) == 1 and np.isfinite(float(results[0][2])),
+            results = re.findall(
+                r"^RESULT (\S+): (\S+) = (\S+)(?: \+- (\S+))?$", text, re.M)
+            seeds = tag == "gin_3_seeds"
+            check(len(results) == 1 and np.isfinite(float(results[0][2]))
+                  and bool(results[0][3]) == seeds,
                   f"finetune CLI {tag}: RESULT lines {results}")
             prefix = os.path.basename(pre) if tag == "gin_warm" \
                 else "scratch"
             csv_name = f"{prefix}_BBBP_finetune.csv"
             with open(os.path.join("experiments", csv_name)) as f:
                 row = f.read().splitlines()[-1].split(",")
-            check(row[-1] == "synthetic=true",
-                  f"finetune CLI {tag}: CSV row {row} not stamped synthetic")
+            check(row[-1] == "synthetic=true" and len(row) == 3 + seeds,
+                  f"finetune CLI {tag}: CSV row {row}")
             with open(os.path.join("runs", "finetune", "BBBP_p_np",
                                    "metrics.jsonl")) as f:
                 recs = [json.loads(line) for line in f][-3:]
@@ -2333,8 +2580,17 @@ def options_phase(dev) -> dict:
 
 # --------------------------------------------------------------- phase 15
 
-# eager against graphed steps from the same state, and the speed window
-EQUAL_STEPS = 10
+# eager against graphed steps from the same state, and the speed window;
+# the profiler watches the last PROFILED_STEPS of each run
+EQUAL_STEPS, PROFILED_STEPS = 10, 3
+# the options whose steps replay on the card, each held to its eager steps
+# on the units path (mix, which featurizes with hydrogens, has a base of
+# its own)
+OPTION_GRAPHS = (("gin_dropout", dict(drop_ratio=0.1)),
+                 ("gin_subgraph", dict(aug="subgraph")),
+                 ("gcn_normalize", dict(gnn="gcn", normalize_gcn=True)),
+                 ("gin_concat_views", dict(concat_views=True)),
+                 ("gin_pallas", dict(ntxent_impl="pallas")))
 # the data attributes a Pretrainer's setup_data sets, and those of its
 # tile-unit stack, which a fork shares
 DATA_ATTRS = ("spec", "max_waves", "train_iter", "valid_iter",
@@ -2443,29 +2699,30 @@ def eager_vs_graphed(pre, tag: str) -> dict:
     after: the eager run's, counted per launch, and the graphed run's,
     those of the capture alone (the wrappers count once, while capturing),
     which must be one eager step's per step captured. The profiler
-    watches both runs but the capture: the port's kernels launched per
-    replayed step exactly as per eager step."""
+    watches the last PROFILED_STEPS steps of each run: the port's kernels
+    launched per replayed step exactly as per eager step."""
     log = lambda *_: None  # noqa: E731
+    t0 = time.perf_counter()
     orders = unit_orders(pre)
     pre._resident_epoch(0, orders[:GRAPH_WARMUP_STEPS], log)
     rows = orders[GRAPH_WARMUP_STEPS: GRAPH_WARMUP_STEPS + EQUAL_STEPS]
     snap = (copy.deepcopy(pre.model.state_dict()),
             copy.deepcopy(pre.opt.state_dict()), pre.step)
     k, pre.graph_steps = pre.graph_steps, 0
+    split = EQUAL_STEPS - PROFILED_STEPS
     reset_counts()
-    eager = []
-    prof_e = profile_steps(
-        lambda i: eager.extend(pre._resident_epoch(0, rows, log)), steps=1)
+    eager = pre._resident_epoch(0, rows[:split], log)
+    prof_e = profile_steps(lambda i: eager.extend(
+        pre._resident_epoch(0, rows[split:], log)), steps=1)
     eager_counts = read_counts()
     want = model_state(pre)
     pre.model.load_state_dict(snap[0])
     load_optimizer_state(pre.opt, copy.deepcopy(snap[1]))
     pre.step, pre.graph_steps = snap[2], k
     reset_counts()
-    graphed = pre._resident_epoch(0, rows[:k], log)     # the capture
-    prof_g = profile_steps(
-        lambda i: graphed.extend(pre._resident_epoch(0, rows[k:], log)),
-        steps=1)
+    graphed = pre._resident_epoch(0, rows[:split], log)  # the capture
+    prof_g = profile_steps(lambda i: graphed.extend(
+        pre._resident_epoch(0, rows[split:], log)), steps=1)
     torch.cuda.synchronize()
     counts = read_counts()
     got = model_state(pre)
@@ -2481,15 +2738,17 @@ def eager_vs_graphed(pre, tag: str) -> dict:
           f"{tag}: graph {g}, captured counts {counts}, eager counts "
           f"{eager_counts} over {EQUAL_STEPS} steps")
     per_step = launches_agree(
-        tag, {n: c / EQUAL_STEPS for n, c in prof_e["port_launches"].items()},
-        {n: c / (EQUAL_STEPS - k)
+        tag, {n: c / PROFILED_STEPS
+              for n, c in prof_e["port_launches"].items()},
+        {n: c / PROFILED_STEPS
          for n, c in prof_g["port_launches"].items()})
     report = dict(losses_eager=eager, losses_graphed=graphed,
                   bit_identical=True, tensors_compared=len(want),
                   graph=g, eager_launches=eager_counts,
                   kernel_launches_per_step_profiled=per_step,
                   launches_derived={n: c * g["replays"]
-                                    for n, c in counts.items() if c})
+                                    for n, c in counts.items() if c},
+                  seconds=time.perf_counter() - t0)
     print(f"resident equal {tag} {json.dumps(report)}", flush=True)
     return report
 
@@ -2500,9 +2759,9 @@ def path_speed(pre, path: str, card: str) -> dict:
     clock marks at each step's end (Pretrainer._advance), WARM_STEPS steps
     first. step_ms: median of the events' gaps; host_ms: median of the
     host's gaps (its time to queue a step while the device keeps up);
-    the means over the window too; a torch.profiler breakdown of 5 more
-    steps, with the port's kernels' launches per step (the caller holds a
-    graphed path's against its eager path's)."""
+    the means over the window too; a torch.profiler breakdown of
+    PROFILED_STEPS more steps, with the port's kernels' launches per step
+    (the caller holds a graphed path's against its eager path's)."""
     log = lambda *_: None  # noqa: E731
     if path == "host":
         spe = pre.steps_per_epoch
@@ -2541,7 +2800,7 @@ def path_speed(pre, path: str, card: str) -> dict:
     events_total = marks[0][0].elapsed_time(marks[-1][0])
     host_total = 1e3 * (marks[-1][1] - marks[0][1])
     before = pre.step
-    prof = profile_steps(lambda i: run(5), steps=1)
+    prof = profile_steps(lambda i: run(PROFILED_STEPS), steps=1)
     per = pre.step - before
     ms = statistics.median(g[0] for g in gaps)
     messages = 2 * LAYERS * (pre._mean_real_edges + pre._mean_real_nodes)
@@ -2549,7 +2808,7 @@ def path_speed(pre, path: str, card: str) -> dict:
             if pre._units else P_BATCH)
     row = dict(card=card, path=path, model=pre.cfg.model.gnn_type,
                dtype="bfloat16" if pre.cfg.model.bf16 else "float32",
-               adam=pre.cfg.adam_impl,
+               adam=pre.cfg.adam_impl, drop_ratio=pre.cfg.model.drop_ratio,
                steps=steps, step_ms=ms, step_ms_mean=events_total / steps,
                host_ms=statistics.median(g[1] for g in gaps),
                host_ms_mean=host_total / steps,
@@ -2755,6 +3014,17 @@ def resident_phase(tmp: str, card: str, dev) -> dict:
             tag = f"{gnn}_{adam}"
             pre = fork(base, pretrain_cfg(gnn=gnn, adam_impl=adam), True)
             report["equal"][tag] = eager_vs_graphed(pre, tag)
+    # every option that replays on the card, against its eager steps
+    for tag, kw in OPTION_GRAPHS:
+        report["equal"][tag] = eager_vs_graphed(
+            fork(base, pretrain_cfg(**kw), True), tag)
+    # mix featurizes with hydrogens: a base of its own
+    mix = Pretrainer(pretrain_cfg(aug="mix"), dev)
+    mix.setup_data(smiles).setup_state()
+    mix._activate_units(log)
+    report["equal"]["gin_mix"] = eager_vs_graphed(mix, "gin_mix")
+    report["equal"]["gcn_mix"] = eager_vs_graphed(
+        fork(mix, pretrain_cfg(aug="mix", gnn="gcn"), True), "gcn_mix")
     report["speed"] = []
     for gnn in ("gin", "gcn"):
         runs = [(bf16, path, kw) for bf16 in (False, True)
@@ -2762,8 +3032,13 @@ def resident_phase(tmp: str, card: str, dev) -> dict:
                                  ("resident_eager",
                                   dict(steps_per_dispatch=1)),
                                  ("resident_graphed", {}))]
-        # the graphed f32 step once more with the fused Adam
+        # the graphed f32 step once more with the fused Adam, and GIN's
+        # dropout 0.1 step eager and graphed
         runs.append((False, "resident_graphed", dict(adam_impl="fused")))
+        if gnn == "gin":
+            runs += [(False, path, dict(kw, drop_ratio=0.1)) for path, kw in
+                     (("resident_eager", dict(steps_per_dispatch=1)),
+                      ("resident_graphed", {}))]
         rows = []
         for bf16, path, kw in runs:
             pre = fork(base, pretrain_cfg(bf16=bf16, gnn=gnn, **kw),
@@ -2772,8 +3047,10 @@ def resident_phase(tmp: str, card: str, dev) -> dict:
         for r in rows:
             if r["path"] == "resident_graphed":
                 eager = next(e for e in rows if e["path"] == "resident_eager"
-                             and e["dtype"] == r["dtype"])
-                launches_agree(f"speed {gnn} {r['dtype']} {r['adam']}",
+                             and e["dtype"] == r["dtype"]
+                             and e["drop_ratio"] == r["drop_ratio"])
+                launches_agree(f"speed {gnn} {r['dtype']} {r['adam']} drop "
+                               f"{r['drop_ratio']}",
                                eager["port_launches_per_step"],
                                r["port_launches_per_step"])
         report["speed"] += rows
@@ -2826,10 +3103,13 @@ def main() -> int:
         phase("fine-tune kernels")
         ft_kernels = finetune_kernel_phase(fbatch.to(dev), dev)
         phase("fine-tune steps")
-        shared = [None]
+        shared = {}
         ft_step = finetune_step_phase(dev, tmp, shared)
         phase("fine-tune speed")
-        finetune_speed_phase(dev, tmp, card, shared)
+        ft_speed = finetune_speed_phase(dev, tmp, card, shared)
+        phase("ensembles")
+        ensemble_phase(dev, tmp, card, shared,
+                       ft_speed["gin_float32"]["resident_graphed"])
         phase("fine-tune cli")
         finetune_cli_phase(tmp)
         phase("gcn training kernels")

@@ -1,7 +1,7 @@
 """MoleculeNet fine-tuning CLI (replaces `python finetune.py`, ref
-finetune.py:398-506): trains one model per target column and appends the
-results to experiments/<ckpt>_<task>_finetune.csv under the current
-directory.
+finetune.py:398-506): trains every target column (in one run where the
+columns keep the same rows), --n-seeds seeds each, and appends the results
+to experiments/<ckpt>_<task>_finetune.csv under the current directory.
 
 Port of molclr_tpu/cli/finetune.py, with its flags and RESULT lines. It
 trains on the first CUDA device unless --cpu is given (the kernels' plain
@@ -37,7 +37,8 @@ def main(argv=None) -> int:
     p.add_argument("--motifs", action="store_true",
                    help="use the motif (clique) attention head")
     p.add_argument("--n-seeds", type=int, default=None,
-                   help="> 1 (the seed ensemble) is not ported and raises")
+                   help="seeds per target column, trained side by side "
+                        "(the CSV row then carries their std)")
     p.add_argument("--allow-synthetic", action="store_true",
                    help="permit fabricating a synthetic stand-in CSV when "
                         "the task CSV is missing (results are stamped "

@@ -34,8 +34,8 @@ def main(argv=None) -> int:
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--steps-per-dispatch", type=int, default=None,
                    help="training steps per CUDA graph replay on the "
-                        "resident paths (0 = auto: one, eager where a "
-                        "graph cannot capture the step; 1 = eager steps)")
+                        "resident paths (0 = auto: one; 1 = eager "
+                        "steps)")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of the first steps "
                         "here")

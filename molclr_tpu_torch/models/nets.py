@@ -58,17 +58,26 @@ def _linear(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
                                 lin.bias.to(dtype))
 
 
+def draw_keep(shape, rate: float, generator: torch.Generator | None,
+              device) -> torch.Tensor:
+    """A boolean keep mask of `shape`, each element kept with probability
+    1 - rate, drawn from `generator` on `device`."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
 def dropout(h: torch.Tensor, rate: float, keep=None,
             generator: torch.Generator | None = None) -> torch.Tensor:
     """flax nn.Dropout in train mode: where(keep, h / (1 - rate), 0) in h's
     dtype, with 1 - rate cast to h's dtype first (as JAX casts the weakly
-    typed scalar), keep drawn with probability 1 - rate from `generator`
-    (on h's device) unless the boolean mask `keep` [N, D] is given."""
-    p = 1.0 - rate
+    typed scalar), keep drawn by draw_keep from `generator` (on h's
+    device) unless the boolean mask `keep` [N, D] is given."""
     if keep is None:
-        keep = torch.rand(h.shape, generator=generator,
-                          device=h.device) < p
-    return torch.where(keep, h / h.new_tensor(p), 0)
+        keep = draw_keep(h.shape, rate, generator, h.device)
+    # the divisor as a tensor of h's dtype filled on h's device: a true
+    # division by 1 - rate rounded to that dtype, and no host copy (which
+    # a CUDA graph cannot capture)
+    scale = torch.full((), 1.0 - rate, dtype=h.dtype, device=h.device)
+    return torch.where(keep, h / scale, 0)
 
 
 class Encoder(nn.Module):
@@ -166,6 +175,16 @@ class Encoder(nn.Module):
                 h = dropout(h, self.drop_ratio, None if dropout_masks is None
                             else dropout_masks[layer], generator)
         return h
+
+    def keep_masks(self, n: int, generator: torch.Generator
+                   ) -> list[torch.Tensor]:
+        """The keep masks [n, emb_dim] that a train-mode trunk on a batch
+        of n nodes draws from `generator`, one per layer, in its order (so
+        that trunk(batch, dropout_masks=these) equals trunk(batch,
+        generator=generator) from the same generator state)."""
+        dev = next(self.parameters()).device
+        return [draw_keep((n, self.emb_dim), self.drop_ratio, generator,
+                          dev) for _ in range(self.num_layers)]
 
     def encode(self, batch, dropout_masks=None,
                generator: torch.Generator | None = None) -> torch.Tensor:

@@ -73,12 +73,9 @@ class PretrainConfig:
     seed: int = 0
     steps_per_dispatch: int = 0     # 0 = auto: the resident paths replay
                                     # each step as a CUDA graph on the card
-                                    # (train/graphed.py), eager where a
-                                    # graph cannot capture the step
-                                    # (dropout); 1 = eager steps; k > 1 = k
-                                    # steps per captured graph (raises where
-                                    # a graph cannot capture the step). The
-                                    # CPU and the host path run eager
+                                    # (train/graphed.py); 1 = eager steps;
+                                    # k > 1 = k steps per captured graph.
+                                    # The CPU and the host path run eager
     aug_precompute: bool = True     # the JAX package's key, read from
                                     # its YAML; changes nothing here (the
                                     # resident paths always draw a window
@@ -140,8 +137,17 @@ class FineTuneConfig:
     synthetic_fallback: bool = False  # opt-in: fabricate a synthetic CSV
                                     # when the task CSV is absent; results
                                     # are then stamped synthetic=true
-    n_seeds: int = 1                # > 1 (the JAX package's vmapped seed
-                                    # ensemble) is not ported and raises
+    repack_each_epoch: bool = True  # re-draw the train batches'
+                                    # compositions every epoch (reference
+                                    # DataLoader semantics) and refill the
+                                    # device stack; False freezes them after
+                                    # epoch 0 (one upload, reshuffled order)
+    n_seeds: int = 1                # > 1: a seed ensemble, members trained
+                                    # side by side on the same batches
+    batch_targets: bool = True      # multi-target tasks whose columns keep
+                                    # the same rows: all columns in one run
+                                    # (members = targets x seeds); else the
+                                    # per-target loop
 
 
 _REF_MODEL_KEYS = {"num_layer": "num_layers", "drop_ratio": "drop_ratio",

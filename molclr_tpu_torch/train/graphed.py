@@ -1,27 +1,35 @@
 """Training steps replayed as CUDA graphs: the counterpart of the JAX
-Pretrainer's scan-folded dispatches (`multi_step_units`,
+package's scan-folded dispatches (the Pretrainer's `multi_step_units`,
 `multi_step_resident`, `multi_step`, molclr_tpu/train/pretrain.py:357-406,
-`steps_per_dispatch`).
+`steps_per_dispatch`; the FineTuner's `multi_train` and `multi_predict`,
+molclr_tpu/train/finetune.py:483-507).
 
-On the resident paths a step's inputs are all on the device: the stack of
-tile-units (or of cached batches), a row of unit indices and a row of
+On the resident paths a step's inputs are all on the device: a stack of
+tile-units or of packed batches, a row of stack indices, a row of
 augmentation keys (data/regroup.py, data/augment.py), and the optimizer's
-LR and step count (train/optim.py). So one whole step (`concat_units`,
-both views, both forwards, the loss, the backward and Adam) can be
+LR and step count (train/optim.py). So one whole step (the batch's take,
+the views, every forward, the loss, the backward and Adam) can be
 captured once with `torch.cuda.graph` and replayed: before each replay a
-few device copies fill the static index and key buffers and the trainer
-fills the LR tensor; the loss lands in a static buffer that the trainer
-copies out. The host's time per step falls from the launches of some
-thousand kernels to that of a replay.
+few device copies fill the static input buffers; the step's output (a
+loss, the members' losses, a split's predictions) lands in a static
+buffer that the caller copies out. The host's time per step falls from
+the launches of some thousand kernels to that of a replay.
 
-The Pretrainer runs its first GRAPH_WARMUP_STEPS resident steps eagerly
+Dropout draws its keep masks with torch.rand from torch.Generators on the
+card. Each such generator is registered with the graph
+(`CUDAGraph.register_generator_state`): a replay then reads the
+generator's seed and offset as they stand and advances the offset by what
+the captured draws consume, so it draws the masks that an eager step from
+the same generator state draws. A caller may reseed a registered
+generator between replays (the Pretrainer's per-step dropout streams).
+
+The trainers run their first GRAPH_WARMUP_STEPS resident steps eagerly
 (they build the kernels and warm the allocator, and Adam creates its
-state), then captures `k` steps (steps_per_dispatch, 1 under 'auto') and
-replays them. A replay runs the kernels the eager step runs, on the same
-inputs, so it gives the same bits. The kernel wrappers count a launch
-when they launch, which during a capture happens once: `launches` records
-the counts of the capture, which each replay repeats. A capture that
-fails raises; nothing falls back.
+state), then capture and replay. A replay runs the kernels the eager step
+runs, on the same inputs, so it gives the same bits. The kernel wrappers
+count a launch when they launch, which during a capture happens once:
+`launches` records the counts of the capture, which each replay repeats.
+A capture that fails raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -30,14 +38,6 @@ import torch
 
 # eager resident steps of a run before the first capture
 GRAPH_WARMUP_STEPS = 2
-
-
-def graph_blocker(cfg) -> str | None:
-    """Why a graph cannot capture this config's training step, or None."""
-    if cfg.model.drop_ratio > 0:
-        return ("dropout draws its masks from per-step device generators, "
-                "which a replay would repeat")
-    return None
 
 
 def launch_counts() -> dict[str, int]:
@@ -54,20 +54,26 @@ def launch_counts() -> dict[str, int]:
 
 
 class GraphedSteps:
-    """`k` training steps captured as one CUDA graph.
+    """`k` steps captured as one CUDA graph.
 
-    body(idx_row, key_row) runs one step from a [T] row of unit indices
-    and a [K] row of keys on the device and returns its loss (0-d); it
-    must read everything else from tensors that outlive the graph. The
-    first `run` captures; every `run` copies its rows into the static
-    buffers and replays. The loss buffer is overwritten by the next run."""
+    body(j, *rows) runs step j (0 .. k - 1) of the graph from one row of
+    each static input and returns its output (a tensor of shape `out`); it
+    must read everything else from tensors that outlive the graph. `rows`
+    gives each static input's per-step (shape, dtype); `generators` are
+    the torch.Generators on the card that the body draws from. The first
+    `run` captures; every `run` copies its rows into the static buffers
+    and replays. The output buffer [k, *out] is overwritten by the next
+    run."""
 
-    def __init__(self, body, k: int, units: int, key_len: int, device):
+    def __init__(self, body, k: int, rows, device, out=(),
+                 generators=()):
         self.body = body
         self.k = k
-        self.idx = torch.zeros(k, units, dtype=torch.long, device=device)
-        self.keys = torch.zeros(k, key_len, dtype=torch.long, device=device)
-        self.loss = torch.zeros(k, dtype=torch.float32, device=device)
+        self.inputs = [torch.zeros((k,) + tuple(shape), dtype=dtype,
+                                   device=device) for shape, dtype in rows]
+        self.out = torch.zeros((k,) + tuple(out), dtype=torch.float32,
+                               device=device)
+        self.generators = tuple(generators)
         self.graph = None
         self.replays = 0
         self.launches: dict[str, int] = {}
@@ -75,21 +81,23 @@ class GraphedSteps:
     def _capture(self) -> None:
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
         with torch.cuda.graph(graph):
             for j in range(self.k):
-                self.loss[j].copy_(self.body(self.idx[j], self.keys[j]))
+                self.out[j].copy_(self.body(j, *(x[j] for x in
+                                                   self.inputs)))
         after = launch_counts()
         self.launches = {k: after[k] - before[k] for k in after}
         self.graph = graph
 
-    def run(self, idx_rows: torch.Tensor,
-            key_rows: torch.Tensor) -> torch.Tensor:
-        """The k steps of idx_rows [k, T] and key_rows [k, K]; returns the
-        static [k] loss buffer."""
-        self.idx.copy_(idx_rows)
-        self.keys.copy_(key_rows)
+    def run(self, *rows: torch.Tensor) -> torch.Tensor:
+        """The k steps of `rows` (one [k, *shape] tensor per static
+        input); returns the static [k, *out] output buffer."""
+        for buf, row in zip(self.inputs, rows, strict=True):
+            buf.copy_(row)
         if self.graph is None:
             self._capture()
         self.graph.replay()
         self.replays += 1
-        return self.loss
+        return self.out

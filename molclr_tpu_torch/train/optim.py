@@ -167,16 +167,30 @@ def load_optimizer_state(opt, state: dict) -> None:
 HEAD_PREFIXES = ("pred_head", "motif_", "out_lin")
 
 
-def two_group_adam(model: torch.nn.Module, head_lr: float, base_lr: float,
-                   weight_decay: float = 0.0) -> torch.optim.Adam:
-    """torch.optim.Adam with two parameter groups: the head (parameters
-    whose state-dict name starts with one of HEAD_PREFIXES) at head_lr and
-    the rest at base_lr, both with weight_decay. The grouping is structural
-    as in the JAX package (the reference's name match misses GIN heads,
-    quirk Q6)."""
-    head, base = [], []
-    for name, p in model.named_parameters():
-        (head if name.startswith(HEAD_PREFIXES) else base).append(p)
-    return torch.optim.Adam(
-        [{"params": head, "lr": head_lr}, {"params": base, "lr": base_lr}],
-        betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+def two_group_adam(models, head_lr: float, base_lr: float,
+                   weight_decay: float = 0.0,
+                   quirk_q6_single_group: bool = False,
+                   capturable: bool = False) -> torch.optim.Adam:
+    """torch.optim.Adam with two parameter groups over one model or a list
+    of them (the members of an ensemble: Adam is elementwise, so one
+    optimizer over all members steps each as its own would): the head
+    (parameters whose state-dict name starts with one of HEAD_PREFIXES) at
+    head_lr and the rest at base_lr, both with weight_decay. The grouping
+    is structural as in the JAX package (the reference's name match misses
+    GIN heads, quirk Q6); quirk_q6_single_group reproduces the miss: one
+    group at base_lr. capturable=True (parameters on the card) keeps the
+    step counts on the device, for CUDA graphs."""
+    if isinstance(models, torch.nn.Module):
+        models = [models]
+    named = [(name, p) for model in models
+             for name, p in model.named_parameters()]
+    if quirk_q6_single_group:
+        groups = [{"params": [p for _, p in named], "lr": base_lr}]
+    else:
+        head = [name.startswith(HEAD_PREFIXES) for name, _ in named]
+        groups = [{"params": [p for (_, p), h in zip(named, head) if h],
+                   "lr": head_lr},
+                  {"params": [p for (_, p), h in zip(named, head) if not h],
+                   "lr": base_lr}]
+    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay, capturable=capturable)

@@ -17,7 +17,8 @@ Augmentation draws come from CPU torch.Generators seeded from (cfg.seed,
 step) (`step_generator`), so a resumed run redraws the same stream and a
 run on the card sees the same views as one on the CPU; dropout draws its
 masks on the model's device from generators seeded from (cfg.seed, step,
-view), one stream per view as JAX's rng_di / rng_dj.
+view), one stream per view as JAX's rng_di / rng_dj (in a CUDA graph, from
+generators registered with it and reseeded so before each replay).
 
 The Pretrainer takes the JAX Pretrainer's one-card paths
 (molclr_tpu/train/pretrain.py), in its order of preference:
@@ -83,11 +84,7 @@ from molclr_tpu_torch.losses import nt_xent_loss, resolve_ntxent
 from molclr_tpu_torch.models import MolCLRNet
 from molclr_tpu_torch.train import checkpoints as ckpt_lib
 from molclr_tpu_torch.train.config import PretrainConfig, to_dict
-from molclr_tpu_torch.train.graphed import (
-    GRAPH_WARMUP_STEPS,
-    GraphedSteps,
-    graph_blocker,
-)
+from molclr_tpu_torch.train.graphed import GRAPH_WARMUP_STEPS, GraphedSteps
 from molclr_tpu_torch.train.logging_util import MetricWriter
 from molclr_tpu_torch.train.optim import load_optimizer_state, make_adam, \
     set_lr, warmup_then_cosine
@@ -100,15 +97,19 @@ KEY_WINDOW = 64
 PROFILE_STEPS = 8
 
 
+def step_seed(seed: int, *ids: int) -> int:
+    """The seed of step_generator(seed, *ids)."""
+    words = np.random.SeedSequence([seed, *ids]).generate_state(2)
+    return (int(words[0]) << 31) ^ int(words[1])
+
+
 def step_generator(seed: int, *ids: int, device="cpu") -> torch.Generator:
     """A torch.Generator on `device` seeded from (seed, *ids): the
     augmentation draws of one train step (TRAIN_STREAM, step) or one
     validation batch (VALID_STREAM, epoch, i) on the CPU, the dropout
     masks of one view of a train step (DROPOUT_STREAM, step, view) on the
     model's device."""
-    words = np.random.SeedSequence([seed, *ids]).generate_state(2)
-    return torch.Generator(device=device).manual_seed(
-        (int(words[0]) << 31) ^ int(words[1]))
+    return torch.Generator(device=device).manual_seed(step_seed(seed, *ids))
 
 
 def build_model(cfg: PretrainConfig, generator: torch.Generator | None = None
@@ -126,14 +127,18 @@ def _loss(loss_fn, cfg, zi, zj, batch):
                    cfg.use_cosine_similarity, pair_mask=batch.graph_mask)
 
 
-def _dropout_kw(model, cfg, step: int, view: int, masks) -> dict:
+def _dropout_kw(model, cfg, step: int, view: int, masks,
+                generators) -> dict:
     """The dropout inputs of one forward: the given keep masks, or (with
-    drop_ratio > 0) a generator on the model's device for (cfg.seed,
-    step, view); nothing at drop_ratio 0."""
+    drop_ratio > 0) the view's generator of `generators`, or else a
+    generator on the model's device for (cfg.seed, step, view); nothing
+    at drop_ratio 0."""
     if masks is not None:
         return dict(dropout_masks=masks)
     if model.drop_ratio == 0.0:
         return {}
+    if generators is not None:
+        return dict(generator=generators[view])
     dev = next(model.parameters()).device
     return dict(generator=step_generator(cfg.seed, DROPOUT_STREAM, step,
                                          view, device=dev))
@@ -141,8 +146,8 @@ def _dropout_kw(model, cfg, step: int, view: int, masks) -> dict:
 
 def train_step(model, opt, batch, cfg: PretrainConfig, step: int,
                lr: float | None, views=None, bond_window: int = 0,
-               max_waves: int = 0, dropout_masks=None,
-               keys=None) -> torch.Tensor:
+               max_waves: int = 0, dropout_masks=None, keys=None,
+               dropout_generators=None) -> torch.Tensor:
     """One optimizer step on one base batch; returns the loss (a 0-d
     tensor on the batch's device, not synchronized). views = (vi, vj)
     replaces the augmentation draw (as the JAX train_step's `views`), keys
@@ -150,9 +155,12 @@ def train_step(model, opt, batch, cfg: PretrainConfig, step: int,
     from step_generator(cfg.seed, TRAIN_STREAM, step); dropout_masks
     replaces the dropout draw: per view a list of bool keep masks [N,
     emb_dim], one per layer (with concat_views, one list for the joint
-    batch, [2N, emb_dim]). The LR is the schedule at the step count before
-    the update; None leaves the optimizer's LR as it is (a CUDA graph's
-    step reads the LR tensor that set_lr fills before each replay)."""
+    batch, [2N, emb_dim]); dropout_generators (one per view, seeded as
+    step_generator(cfg.seed, DROPOUT_STREAM, step, view)) replace the
+    generators the step would make. The LR is the schedule at the step
+    count before the update; None leaves the optimizer's LR as it is (a
+    CUDA graph's step reads the LR tensor that set_lr fills before each
+    replay)."""
     if views is None:
         if keys is None:
             keys = draw_paired_keys(
@@ -164,15 +172,16 @@ def train_step(model, opt, batch, cfg: PretrainConfig, step: int,
                                     max_waves=max_waves)
     vi, vj = views
     masks = dropout_masks or (None, None)
+    gens = dropout_generators
     model.train()
     if cfg.concat_views:
         _, z = model(concat_views(vi, vj),
-                     **_dropout_kw(model, cfg, step, 0, masks[0]))
+                     **_dropout_kw(model, cfg, step, 0, masks[0], gens))
         g = batch.num_graphs
         zi, zj = z[:g], z[g:]
     else:
-        _, zi = model(vi, **_dropout_kw(model, cfg, step, 0, masks[0]))
-        _, zj = model(vj, **_dropout_kw(model, cfg, step, 1, masks[1]))
+        _, zi = model(vi, **_dropout_kw(model, cfg, step, 0, masks[0], gens))
+        _, zj = model(vj, **_dropout_kw(model, cfg, step, 1, masks[1], gens))
     loss = _loss(resolve_ntxent(cfg.ntxent_impl), cfg, zi, zj, batch)
     opt.zero_grad(set_to_none=True)
     loss.backward()
@@ -219,8 +228,8 @@ class Pretrainer:
         self._eval_stack = None
         self._device_cache_used_mb = 0.0
         self.graphed = None
+        self._graph_gens = []
         self._eager_resident_steps = 0
-        self._graph_note = ""
         self._profiler = None
         self._profiled_steps = 0
         self.epoch_losses: list[np.ndarray] = []
@@ -270,16 +279,7 @@ class Pretrainer:
         k = cfg.steps_per_dispatch
         if self.device.type != "cuda" or k == 1 or not cfg.device_cache_mb:
             return 0
-        why = graph_blocker(cfg)
-        if why is None:
-            return max(1, k)
-        if k > 1:
-            raise ValueError(f"steps_per_dispatch={k} needs a CUDA graph, "
-                             f"which cannot capture this step: {why}")
-        self._graph_note = (f"steps_per_dispatch=0: resident steps run "
-                            f"eager, as a CUDA graph cannot capture them "
-                            f"({why})")
-        return 0
+        return max(1, k)
 
     def setup_state(self):
         cfg = self.cfg
@@ -495,8 +495,8 @@ class Pretrainer:
             rows = rows.pin_memory()
         return rows.to(self.device, non_blocking=True)
 
-    def _resident_step(self, idx_row, key_row,
-                       lr: float | None) -> torch.Tensor:
+    def _resident_step(self, idx_row, key_row, lr: float | None,
+                       dropout_generators=None) -> torch.Tensor:
         """One step on T rows of the device stack, its views from its key
         row."""
         cfg = self.cfg
@@ -505,10 +505,38 @@ class Pretrainer:
                               batch.num_graphs)
         return train_step(self.model, self.opt, batch, cfg, self.step, lr,
                           keys=keys, bond_window=self.spec.max_graph_bonds,
-                          max_waves=self.max_waves)
+                          max_waves=self.max_waves,
+                          dropout_generators=dropout_generators)
 
-    def _graph_body(self, idx_row, key_row) -> torch.Tensor:
-        return self._resident_step(idx_row, key_row, None)
+    def _graph_body(self, j: int, idx_row, key_row) -> torch.Tensor:
+        """Step j of a graph: with dropout, its views' masks come from the
+        graph's generators of step j, which _resident_epoch reseeds before
+        each replay."""
+        return self._resident_step(idx_row, key_row, None,
+                                   self._graph_gens[j] if self._graph_gens
+                                   else None)
+
+    def _new_graph(self, k: int, units: int, key_len: int) -> GraphedSteps:
+        """The GraphedSteps of k resident steps, with (under dropout) two
+        generators per step on the card, one per view."""
+        self._graph_gens = []
+        if self.cfg.model.drop_ratio > 0:
+            self._graph_gens = [tuple(torch.Generator(device=self.device)
+                                      for _ in range(2)) for _ in range(k)]
+        return GraphedSteps(self._graph_body, k,
+                            [((units,), torch.long),
+                             ((key_len,), torch.long)], self.device,
+                            generators=[g for pair in self._graph_gens
+                                        for g in pair])
+
+    def _reseed_graph_gens(self) -> None:
+        """Seed step j's generators as step_generator(cfg.seed,
+        DROPOUT_STREAM, self.step + j, view): the streams that eager steps
+        draw from."""
+        for j, pair in enumerate(self._graph_gens):
+            for view, gen in enumerate(pair):
+                gen.manual_seed(step_seed(self.cfg.seed, DROPOUT_STREAM,
+                                          self.step + j, view))
 
     def _resident_epoch(self, epoch: int, orders: np.ndarray,
                         log) -> list[float]:
@@ -530,10 +558,10 @@ class Pretrainer:
                 if (k and j + k <= w
                         and self._eager_resident_steps >= GRAPH_WARMUP_STEPS):
                     if self.graphed is None:
-                        self.graphed = GraphedSteps(
-                            self._graph_body, k, idx.shape[1],
-                            keys.shape[1], self.device)
+                        self.graphed = self._new_graph(k, idx.shape[1],
+                                                       keys.shape[1])
                     set_lr(self.opt, self.schedule(self.step))
+                    self._reseed_graph_gens()
                     buf[at: at + k].copy_(self.graphed.run(
                         idx[at: at + k], keys[j: j + k]))
                     n = k
@@ -601,8 +629,6 @@ class Pretrainer:
         writer = MetricWriter(cfg.ckpt_dir)
         best_val = float("inf")
         history = []
-        if self._graph_note:
-            log(self._graph_note)
         self._activate_units(log)
         if cfg.profile_dir:
             self._start_profiler()

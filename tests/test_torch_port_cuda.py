@@ -29,7 +29,9 @@ from molclr_tpu_torch.losses import nt_xent_loss
 from molclr_tpu_torch.ops import fused_gcn, fused_layer, ntxent
 from molclr_tpu_torch.data.regroup import epoch_unit_orders
 from molclr_tpu_torch.train import checkpoints as ckpt_lib
-from molclr_tpu_torch.train.config import ModelConfig, PretrainConfig
+from molclr_tpu_torch.train.config import FineTuneConfig, ModelConfig, \
+    PretrainConfig
+from molclr_tpu_torch.train.finetune import FineTuner
 from molclr_tpu_torch.train.graphed import GRAPH_WARMUP_STEPS, GraphedSteps
 from molclr_tpu_torch.train.optim import load_optimizer_state
 from molclr_tpu_torch.train.pretrain import Pretrainer
@@ -887,10 +889,11 @@ def test_resume_across_host_and_graphed_paths(cuda, tmp_path, first_mb,
 def test_a_capture_that_fails_raises(cuda, tmp_path):
     """A step that reads a device value on the host cannot be captured:
     the capture raises, in GraphedSteps and through Pretrainer.train."""
-    def body(idx, keys):
+    def body(j, idx, keys):
         return torch.zeros((), device=cuda) + float(idx.sum())
 
-    runner = GraphedSteps(body, 1, 3, 4, cuda)
+    runner = GraphedSteps(body, 1, [((3,), torch.long), ((4,), torch.long)],
+                          cuda)
     with pytest.raises(RuntimeError):
         runner.run(torch.zeros(1, 3, dtype=torch.long, device=cuda),
                    torch.zeros(1, 4, dtype=torch.long, device=cuda))
@@ -899,10 +902,136 @@ def test_a_capture_that_fails_raises(cuda, tmp_path):
     pre = _resident_pretrainer(cuda, tmp_path)
     inner = pre._graph_body
 
-    def syncing(idx, keys):
-        loss = inner(idx, keys)
+    def syncing(j, idx, keys):
+        loss = inner(j, idx, keys)
         return loss * float(loss)
 
     pre._graph_body = syncing
     with pytest.raises(RuntimeError):
         pre.train(log=lambda *_: None)
+    torch.cuda.synchronize()
+    ft = _finetuner(cuda, tmp_path / "ft")
+    step = ft._step
+
+    def syncing_step(j, idx):
+        losses = step(j, idx)
+        return losses * float(losses.sum())
+
+    ft._step = syncing_step
+    with pytest.raises(RuntimeError):
+        ft.train(log=lambda *_: None)
+
+
+@pytest.mark.parametrize("adam", ["chain", "fused"])
+@pytest.mark.parametrize("dispatch,k", [(0, 1), (3, 3)])
+def test_graphed_dropout_steps_bit_identical_to_eager(cuda, tmp_path,
+                                                      dispatch, k, adam):
+    """Pretraining with dropout 0.1: seven units-path steps replayed as a
+    CUDA graph of k steps (its dropout generators registered and reseeded
+    per step before each replay) against the same steps run eagerly, each
+    drawing from a fresh generator of (seed, step, view): losses,
+    parameters, BatchNorm stats and Adam moments bit-identical; K4f and
+    K4b captured, 2 views x 2 layers per step."""
+    pre = _resident_pretrainer(cuda, tmp_path, steps_per_dispatch=dispatch,
+                               adam_impl=adam, model=dict(drop_ratio=0.1))
+    assert pre.graph_steps == k
+    orders = epoch_unit_orders(pre._n_units, pre._units_per_batch, 0, 1)
+    (le, se), (lg, sg) = _eager_then_graphed(pre, orders[:7])
+    assert le == lg
+    for a, b in zip(se, sg):
+        for key in a:
+            assert torch.equal(a[key], b[key]) if torch.is_tensor(a[key]) \
+                else a[key] == b[key], key
+    assert pre.graphed.launches["fused_gine_layer"] == k * 2 * 2
+    assert pre.graphed.launches["fused_gine_layer_bwd"] == k * 2 * 2
+    assert pre.graphed.launches["fused_gine_bn_layer"] == 0
+
+
+# ------------------------------------------- fine-tuning steps and eval
+
+
+def _finetuner(cuda, tmp, graphed=True, task="BBBP", targets=None,
+               **kw):
+    """A small FineTuner on the card (2 layers, emb 32, tile 64: the
+    synthetic task molecules carry hydrogens), dropout 0.3."""
+    model = dict(num_layers=2, emb_dim=32, feat_dim=64, tile=64,
+                 drop_ratio=0.3)
+    model.update(kw.pop("model", {}))
+    cfg = FineTuneConfig(task_name=task, data_root=str(tmp / "data"),
+                         synthetic_fallback=True, synthetic_n=240,
+                         batch_size=16, epochs=2, ckpt_dir=str(tmp / "ck"),
+                         model=ModelConfig(**model), **kw)
+    with pytest.warns(UserWarning, match="SYNTHETIC"):
+        ft = FineTuner(cfg, cuda, targets=targets, graphed=graphed)
+        ft.setup_data()
+    return ft.setup_state()
+
+
+def _finetune_state(ft):
+    out = {f"m{m}.{k}": v.clone() for m, model in enumerate(ft.models)
+           for k, v in model.state_dict().items()}
+    out.update({f"adam.{k}": v.clone() if torch.is_tensor(v) else v
+                for k, v in _flat_opt_state(ft.opt).items()})
+    return out
+
+
+@pytest.mark.parametrize("case", ["gin", "gcn", "motifs", "gin_3_seeds",
+                                  "clintox_2x2"])
+def test_graphed_finetune_steps_bit_identical_to_eager(cuda, tmp_path,
+                                                       case):
+    """Ten fine-tuning steps (dropout 0.3, all members) replayed as a CUDA
+    graph against the same steps run eagerly from the same state and the
+    same dropout generator states: the members' losses, parameters,
+    BatchNorm stats and Adam moments bit-identical; the capture holds one
+    step's launches, M x layers of each layer kernel."""
+    import copy
+
+    kw = dict(gin=dict(), gcn=dict(model=dict(gnn_type="gcn")),
+              motifs=dict(use_motifs=True), gin_3_seeds=dict(n_seeds=3),
+              clintox_2x2=dict(task="ClinTox", n_seeds=2,
+                               targets=["CT_TOX", "FDA_APPROVED"]))[case]
+    ft = _finetuner(cuda, tmp_path, **kw)
+    _, order = ft._train_epoch_stack()
+    rows = torch.from_numpy(np.asarray(order, np.int64)[:, None]).to(cuda)
+    assert rows.shape[0] >= GRAPH_WARMUP_STEPS + 10
+    ft._run_steps(rows[:GRAPH_WARMUP_STEPS])
+    snap = (ft.member_states(), copy.deepcopy(ft.opt.state_dict()),
+            [g.get_state() for g in ft.dropout_gens])
+    rows = rows[GRAPH_WARMUP_STEPS: GRAPH_WARMUP_STEPS + 10]
+    ft.graphed = False
+    eager = ft._run_steps(rows).cpu()
+    want = _finetune_state(ft)
+    ft.load_member_states(snap[0])
+    load_optimizer_state(ft.opt, copy.deepcopy(snap[1]))
+    for g, st in zip(ft.dropout_gens, snap[2]):
+        g.set_state(st)
+    ft.graphed = True
+    graphed = ft._run_steps(rows).cpu()
+    got = _finetune_state(ft)
+    assert torch.equal(eager, graphed)
+    assert [k for k in want if not (torch.equal(want[k], got[k])
+            if torch.is_tensor(want[k]) else want[k] == got[k])] == []
+    assert ft._train_graph.replays == 10
+    m, layers = ft.n_members, ft.cfg.model.num_layers
+    fwd = "fused_gcn_layer" if case == "gcn" else "fused_gine_layer"
+    assert ft._train_graph.launches[fwd] == m * layers
+    assert ft._train_graph.launches[fwd + "_bwd"] == m * layers
+
+
+def test_graphed_eval_bit_identical_to_eager(cuda, tmp_path):
+    """An evaluation replayed over the split's stack (three members, the
+    motif head) equals the eager pass bit for bit, and so do the metrics;
+    a second call replays the same graph."""
+    ft = _finetuner(cuda, tmp_path, use_motifs=True, n_seeds=3)
+    ft._train_epoch()
+    for split in ("valid", "test"):
+        ft._split_stack(split)
+        eager = ft._predict_split(split).cpu().numpy()
+        graphed = ft.predictions(split)
+        assert np.array_equal(eager, graphed)
+        assert np.array_equal(ft.predictions(split), graphed)
+        assert ft._eval_graphs[split].replays == 2
+    ft.graphed = False
+    want = ft.evaluate("valid")
+    ft.graphed = True
+    np.testing.assert_equal(ft.evaluate("valid"), want)

@@ -315,9 +315,9 @@ def test_train_steps_match_jax_finetuner(tmp_path, gnn, use_motifs):
                                       rng)
         motifs_t = ((torch.from_numpy(item[2].astype(np.int64)),
                      torch.from_numpy(item[3])) if use_motifs else ())
-        loss = train_step(net, opt, _port_batch(item[0]),
+        loss = train_step([net], opt, _port_batch(item[0]),
                           torch.from_numpy(item[1]), motifs_t, "ce",
-                          dropout_masks=masks)
+                          seed_masks=[masks])[0]
         np.testing.assert_allclose(float(loss), float(jloss),
                                    rtol=1e-5 if step == 0 else 1e-4,
                                    err_msg=f"loss at step {step}")
@@ -329,7 +329,7 @@ def test_train_steps_match_jax_finetuner(tmp_path, gnn, use_motifs):
     # the same state gives the same validation metric
     ft.state = state
     port = FineTuner(_port_cfg(ft.cfg), "cpu").setup_data()
-    port.model = _port_model(ft)
+    port.models = [_port_model(ft)]
     got, want = port.evaluate("valid"), ft.evaluate("valid")
     assert got["n"] == want["n"] > 0
     assert abs(got["metric"] - want["metric"]) <= 1e-6, (got, want)
@@ -448,7 +448,8 @@ def test_cli_finetune_without_cpu_raises_when_no_gpu(tmp_path, monkeypatch):
 
 def test_warm_start_sources(tmp_path):
     """A reference .pth and a step_<n>.pt load; a directory without
-    step_<n>.pt (an Orbax checkpoint) raises NotImplementedError."""
+    step_<n>.pt (an Orbax checkpoint) raises NotImplementedError; a seed
+    ensemble is no longer refused."""
     net = FineTuneNet(task="regression", **SMALL)
     torch.save(net.state_dict(), tmp_path / "m.pth")
     got = ckpt_lib.load_pretrained_state(str(tmp_path / "m.pth"))
@@ -459,8 +460,7 @@ def test_warm_start_sources(tmp_path):
         ckpt_lib.load_pretrained_state(path)
     with pytest.raises(FileNotFoundError):
         ckpt_lib.load_pretrained_state(str(tmp_path / "missing.pth"))
-    with pytest.raises(NotImplementedError, match="n_seeds"):
-        FineTuner(FineTuneConfig(n_seeds=3), "cpu")
+    assert FineTuner(FineTuneConfig(n_seeds=3), "cpu").n_members == 3
 
 
 def test_finetuner_defaults_to_the_card(monkeypatch):

@@ -482,23 +482,21 @@ def test_fused_adam_pretrainer_tracks_chain(tmp_path):
 
 def test_graph_steps_follow_steps_per_dispatch():
     """Steps per CUDA graph: none on the CPU, at 1 or on the host path
-    (device_cache_mb 0); one under 'auto' and k at k on the card; dropout (which a graph cannot capture) runs
-    eager under 'auto' with a note and raises when k > 1 asks for it."""
+    (device_cache_mb 0); one under 'auto' and k at k on the card, with
+    dropout too (its generators are registered with the graph)."""
     def steps(device, k, drop=0.0, cache_mb=2048):
         cfg = PretrainConfig(steps_per_dispatch=k, device_cache_mb=cache_mb,
                              model=ModelConfig(drop_ratio=drop))
-        pre = Pretrainer(cfg, device)
-        return pre._resolve_graph_steps(), pre._graph_note
+        return Pretrainer(cfg, device)._resolve_graph_steps()
 
-    assert steps("cpu", 0) == (0, "")
-    assert steps("cuda", 1) == (0, "")
-    assert steps("cuda", 0, cache_mb=0) == (0, "")
-    assert steps("cuda", 0) == (1, "")
-    assert steps("cuda", 3) == (3, "")
-    got, note = steps("cuda", 0, drop=0.1)
-    assert got == 0 and "dropout" in note
-    with pytest.raises(ValueError, match="steps_per_dispatch=3"):
-        steps("cuda", 3, drop=0.1)
+    assert steps("cpu", 0) == 0
+    assert steps("cpu", 0, drop=0.1) == 0
+    assert steps("cuda", 1) == 0
+    assert steps("cuda", 0, cache_mb=0) == 0
+    assert steps("cuda", 0) == 1
+    assert steps("cuda", 3) == 3
+    assert steps("cuda", 0, drop=0.1) == 1
+    assert steps("cuda", 3, drop=0.1) == 3
 
 
 def test_cli_dispatch_flags_reach_the_config(tmp_path):
