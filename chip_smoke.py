@@ -161,6 +161,35 @@ prints no result line):
               normalize_gcn and mix, and GIN with the 'pallas' NT-Xent;
               and the graphed f32 step with the chain against the fused
               Adam, 10 alternating rounds of 25 steps each.
+ 16. corpus: the native featurizer and packer (native/, built with g++
+              before phase 1 into build/native/; the seconds printed) and
+              the on-disk corpus. Native against Python featurization on
+              20,000 synthetic molecules and edge cases (drugs, aromatic
+              rings, invalid SMILES), without and with hydrogens: the
+              same molecules, every array equal, mol/s of each; the native
+              packer against pack_batch(prefer_native=False) on one B =
+              512 batch, every field equal, ms per batch of each. A
+              100,000-molecule corpus through `cli.featurize --synthetic`
+              (its mol/s), the train split's tile-unit plan and stack MB
+              wide and narrow, projected to PubChem-10M; a 20,000-molecule
+              --add-hs corpus. Phase 7's 4,096 SMILES as the text file and
+              as a corpus: the same split, PadSpec, unit spec and unit
+              stacks (wide and narrow), and 10 graphed GIN f32 steps with
+              bit-identical losses, parameters, BatchNorm stats and Adam
+              moments. `cli.pretrain --data <corpus>` at full width (GIN,
+              B = 512, node augmentation, f32, --pack-cache-max-mols
+              1,000,000) as phase 7 runs it (two epochs, then a resume; K1b
+              10 per eager step, 10 captured per replay), then --model gcn
+              --aug mix for one epoch on the --add-hs corpus (K3f and K3b).
+              The streaming path (--pack-cache-max-mols 10,000): the first
+              streamed batch equals the Python pack_batch of the same
+              molecules, one epoch with one native indexed pack per step
+              and K1f / K1b 10 per step, the host's pack ms per batch, and
+              the step's ms, host ms, device ms and busy share as phase 15
+              measures them over 25 streamed steps.
+
+Phase 3's embed CLI featurizes with the native featurizer, which phase 16
+holds to the Python one.
 
 It prints one JSON line listing the kernels, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. It needs one
@@ -172,6 +201,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import io
+import itertools
 import json
 import math
 import os
@@ -186,18 +216,23 @@ import warnings
 import numpy as np
 import torch
 
+from molclr_tpu_torch import native
 from molclr_tpu_torch.cli import embed
+from molclr_tpu_torch.cli import featurize as featurize_cli
 from molclr_tpu_torch.cli import finetune as finetune_cli
 from molclr_tpu_torch.cli import pretrain as pretrain_cli
+from molclr_tpu_torch.data import corpus as corpus_lib
 from molclr_tpu_torch.data.augment import AUG_DELTA_FIELDS, \
     draw_paired_keys, paired_augment, paired_augment_keys
-from molclr_tpu_torch.data.featurize import NUM_BOND_DIRS, NUM_BOND_TYPES
+from molclr_tpu_torch.data.featurize import NUM_BOND_DIRS, NUM_BOND_TYPES, \
+    featurize_smiles
 from molclr_tpu_torch.data.graphs import GraphBatch, concat_views, \
     pack_batch
 from molclr_tpu_torch.data.loader import featurize_many, \
     read_pretrain_smiles, spec_for_graphs
 from molclr_tpu_torch.data.regroup import concat_units, \
-    epoch_unit_orders, unit_stack_bytes, wire_dtypes
+    epoch_unit_orders, pack_unit_stack, pack_unit_stack_corpus, \
+    plan_corpus_units, unit_stack_bytes, wire_dtypes
 from molclr_tpu_torch.data.motifs import encode_motif_vocab
 from molclr_tpu_torch.data.synthetic import synthetic_corpus
 from molclr_tpu_torch.losses import nt_xent_loss, resolve_ntxent
@@ -1509,16 +1544,20 @@ def cli_phase(tmp: str, name: str = "pretrain_ckpt", extra_args=(),
                                 ("host", ["--device-cache-mb", "0"]))}
 
 
-def cli_run(tmp: str, name: str, extra_args, gnn: str, path: str) -> dict:
+def cli_run(tmp: str, name: str, extra_args, gnn: str, path: str,
+            data: str | None = None) -> dict:
     """Two epochs of a three-epoch schedule, then --resume latest for the
     third (`extra_args` choose the model, the augmentation and the path;
-    the checkpoints go to tmp/name). The trainer must take `path`; the
+    the checkpoints go to tmp/name), on phase 7's 4,096 synthetic SMILES
+    or on `data`, an on-disk corpus. The trainer must take `path`; the
     backward kernel must launch 2 x LAYERS times per eager step and be
     captured 2 x LAYERS times per replayed step (launches = eager steps x
     2 LAYERS + captured x replays)."""
-    corpus = os.path.join(tmp, "pretrain.txt")
     ckpt = os.path.join(tmp, name)
-    base = ["--synthetic", "4096", "--data", corpus, "--ckpt-dir", ckpt,
+    source = (["--data", data] if data else
+              ["--synthetic", "4096", "--data",
+               os.path.join(tmp, "pretrain.txt")])
+    base = [*source, "--ckpt-dir", ckpt,
             "--batch-size", str(P_BATCH), "--epochs", "3", "--warm-up", "1",
             "--save-every", "1", *extra_args]
     bwd = ("fused_gine_bn_layer_bwd" if gnn == "gin"
@@ -1542,6 +1581,8 @@ def cli_run(tmp: str, name: str, extra_args, gnn: str, path: str) -> dict:
         report[f"{tag}_graph"] = graph_record(seen[0])
         check(report[f"{tag}_path"] == path, f"{name} {tag}: took the "
               f"{report[f'{tag}_path']} path, expected {path}")
+        check(isinstance(seen[0].train_iter.graphs, corpus_lib.CorpusSubset)
+              == bool(data), f"{name} {tag}: read the wrong source")
         check((report[f"{tag}_graph"] is not None) == (path == "units"),
               f"{name} {tag}: graph {report[f'{tag}_graph']}")
     with open(os.path.join(ckpt, "metrics.jsonl")) as f:
@@ -3058,6 +3099,327 @@ def resident_phase(tmp: str, card: str, dev) -> dict:
     return report
 
 
+# --------------------------------------------------------------- phase 16
+
+CORPUS_MOLS, CORPUS_HS_MOLS, AGREE_MOLS = 100_000, 20_000, 20_000
+PUBCHEM_MOLS = 10_000_000      # the reference protocol's corpus
+STREAM_MAX_MOLS = 10_000       # --pack-cache-max-mols of the stream run
+PACK_REPS = 20
+EDGE_SMILES = [
+    "CC(=O)Oc1ccccc1C(=O)O", "Cn1cnc2c1c(=O)n(C)c(=O)n2C",
+    "CC1(C)S[C@@H]2[C@H](NC(=O)Cc3ccccc3)C(=O)N2[C@H]1C(=O)O",
+    "CN[C@H]1CC[C@@H](c2ccc(Cl)c(Cl)c2)c2ccccc21", "[NH4+].[Cl-]",
+    "F/C=C\\F", "O=S(=O)(N)c1ccccc1", "C%10CC%10", "[13CH4]",
+    "c1ccc(cc1)c1ccccc1", "c1ccc-2c(c1)-c1ccccc1-2", "c1ccc1", "cc",
+    "c1ccccccc1", "c1cc1C", "", "C1CC", "((", "[Zz]", "xyz",
+    "c1ccccc1c1", "C==C", "CC==O", "C=#C", "C/=C"]
+
+
+def graphs_equal(a, b) -> bool:
+    return all(getattr(a, f).dtype == getattr(b, f).dtype
+               and np.array_equal(getattr(a, f), getattr(b, f))
+               for f in ("atom_type", "chirality", "edge_src", "edge_dst",
+                         "bond_type", "bond_dir"))
+
+
+def batch_fields_equal(tag: str, got: dict, want: dict) -> None:
+    differ = [f for f in want if not (got[f].dtype == want[f].dtype
+                                      and np.array_equal(got[f], want[f]))]
+    check(not differ, f"{tag}: fields {differ} differ")
+
+
+def featurizer_agreement(card: str) -> dict:
+    """Native against the Python featurizer on AGREE_MOLS synthetic
+    molecules and EDGE_SMILES, without and with hydrogens: the same
+    molecules kept, every array equal; mol/s of each on this host. The
+    native packer against the Python packer on one B = 512 batch, every
+    field equal; ms per packed batch of each."""
+    smiles = synthetic_corpus(AGREE_MOLS, seed=SEED + 16) + EDGE_SMILES
+    report = dict(card=card, molecules=len(smiles))
+    for add_hs in (False, True):
+        t0 = time.perf_counter()
+        graphs, kept = native.featurize_corpus_native(smiles, add_hs)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py = [featurize_smiles(s, add_hs) for s in smiles]
+        python_s = time.perf_counter() - t0
+        check(kept == [i for i, g in enumerate(py) if g is not None],
+              f"add_hs={add_hs}: native kept other molecules than Python")
+        check(all(graphs_equal(g, py[i]) for g, i in zip(graphs, kept)),
+              f"add_hs={add_hs}: native arrays differ from Python's")
+        for s in EDGE_SMILES:
+            one, want = native.featurize_smiles_native(s, add_hs), \
+                featurize_smiles(s, add_hs)
+            check((one is None) == (want is None)
+                  and (one is None or graphs_equal(one, want)),
+                  f"{s!r} add_hs={add_hs}: native differs from Python")
+        report[f"add_hs_{add_hs}"] = dict(
+            kept=len(kept), native_mol_per_s=len(smiles) / native_s,
+            python_mol_per_s=len(smiles) / python_s,
+            speedup=python_s / native_s)
+    graphs, _ = featurize_many(synthetic_corpus(P_BATCH, seed=7))
+    spec = spec_for_graphs(graphs, P_BATCH, slack=1.05, tile=TILE)
+    got, want = pack_batch(graphs, spec), pack_batch(graphs, spec,
+                                                     prefer_native=False)
+    batch_fields_equal("packer", vars(got), vars(want))
+    report["pack_native_ms"] = 1e3 * statistics.median(
+        timed(lambda: pack_batch(graphs, spec)) for _ in range(PACK_REPS))
+    report["pack_python_ms"] = 1e3 * statistics.median(
+        timed(lambda: pack_batch(graphs, spec, prefer_native=False))
+        for _ in range(5))
+    print(f"corpus agreement {json.dumps(report)}", flush=True)
+    return report
+
+
+def timed(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def featurize_run(argv) -> dict:
+    """cli.featurize with its output captured (and echoed): its mol/s is
+    the rate its last line prints."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = featurize_cli.main(argv)
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    check(rc == 0, f"featurize {argv} returned {rc}")
+    m = re.search(r"built .*: (\d+) molecules, (\d+) atoms, (\d+) directed "
+                  r"edges in ([\d.]+)s \(([\d,]+) mol/s\)", out)
+    check(m is not None, f"featurize {argv}: no result line")
+    return dict(molecules=int(m[1]), atoms=int(m[2]), directed_edges=int(m[3]),
+                seconds=float(m[4]), mol_per_s=int(m[5].replace(",", "")))
+
+
+def corpus_builds(tmp: str, card: str) -> dict:
+    """A CORPUS_MOLS corpus and a CORPUS_HS_MOLS --add-hs corpus through
+    cli.featurize --synthetic; the train split's tile-unit plan and stack
+    MB wide and narrow (as the Pretrainer plans it), projected to
+    PUBCHEM_MOLS by the ratio of molecules."""
+    report = {"card": card}
+    for tag, n, extra in (("corpus100k", CORPUS_MOLS, []),
+                          ("corpus20k_hs", CORPUS_HS_MOLS, ["--add-hs"])):
+        row = featurize_run([os.path.join(tmp, f"{tag}.txt"),
+                             os.path.join(tmp, f"{tag}.mtpu"),
+                             "--synthetic", str(n), *extra])
+        check(row["molecules"] > 0.99 * n, f"{tag}: {row}")
+        report[tag] = row
+    path = os.path.join(tmp, "corpus100k.mtpu")
+    pre = Pretrainer(pretrain_cfg(data_path=path), "cpu").setup_data()
+    train = pre.train_iter.graphs
+    groups, uspec = plan_corpus_units(train, TILE, seed=SEED)
+    u = len(groups)
+    wide = unit_stack_bytes(uspec, u) / 2**20
+    narrow = unit_stack_bytes(uspec, u, wire_dtypes(uspec)) / 2**20
+    scale = PUBCHEM_MOLS / len(train)
+    report["plan"] = dict(
+        train_molecules=len(train),
+        atoms_per_molecule=float(train.atom_counts.mean()), units=u,
+        unit_spec=str(uspec), stack_mb_wide=wide, stack_mb_narrow=narrow,
+        pubchem_10m_units=u * scale, pubchem_10m_mb_wide=wide * scale,
+        pubchem_10m_mb_narrow=narrow * scale)
+    print(f"corpus builds {json.dumps(report)}", flush=True)
+    return report
+
+
+def text_vs_corpus(tmp: str, dev) -> dict:
+    """Phase 7's 4,096 SMILES as the text file and as the corpus built
+    from it: the Pretrainer takes the same train and valid molecules, the
+    same PadSpec and unit spec, bit-identical unit stacks (wide and
+    narrow on the host, narrow as uploaded), and EQUAL_STEPS graphed GIN
+    f32 steps give bit-identical losses, parameters, BatchNorm stats and
+    Adam moments."""
+    log = lambda *_: None  # noqa: E731
+    text = os.path.join(tmp, "pretrain.txt")
+    cdir = os.path.join(tmp, "pretrain.mtpu")
+    corpus_lib.build_corpus(iter(read_pretrain_smiles(text)), cdir)
+    pres = []
+    for src in (text, cdir):
+        pre = Pretrainer(pretrain_cfg(data_path=src), dev)
+        pre.setup_data().setup_state()
+        pre._activate_units(log)
+        check(pre._units, f"{src}: the units path did not activate")
+        pres.append(pre)
+    a, b = pres
+    check(isinstance(b.train_iter.graphs, corpus_lib.CorpusSubset),
+          "the corpus run did not read the corpus")
+    smiles = read_pretrain_smiles(text)
+    _, kept = featurize_many(smiles)               # the text file's
+    _, parsed = featurize_many(smiles, max_degree=1 << 20)  # the corpus's
+    kept, parsed = np.asarray(kept), np.asarray(parsed)
+    order = np.random.RandomState(SEED).permutation(len(kept))
+    n_valid = int(len(kept) * a.cfg.valid_size)
+    check(np.array_equal(kept[order[n_valid:]],
+                         parsed[b.train_iter.graphs.ids])
+          and np.array_equal(kept[order[:n_valid]],
+                             parsed[b.valid_iter.graphs.ids]),
+          "text and corpus splits differ")
+    check(a.spec == b.spec and a.unit_spec == b.unit_spec
+          and (a._n_units, a._units_per_batch)
+          == (b._n_units, b._units_per_batch),
+          f"specs differ: {a.spec} / {b.spec}, {a.unit_spec} / "
+          f"{b.unit_spec}")
+    for f in a._stack:
+        check(torch.equal(a._stack[f], b._stack[f]),
+              f"uploaded unit stacks differ in {f}")
+    wide_t = vars(pack_unit_stack(a.train_iter.graphs, TILE, seed=SEED)[0])
+    for narrow in (None, wire_dtypes(a.unit_spec)):
+        stack, _, _ = pack_unit_stack_corpus(b.train_iter.graphs, TILE,
+                                             seed=SEED, narrow=narrow)
+        want = {f: (np.asarray(v).astype(narrow[f]) if narrow
+                    else np.asarray(v)) for f, v in wide_t.items()}
+        batch_fields_equal(f"unit stack narrow={narrow is not None}",
+                           stack, want)
+    rows = unit_orders(a, 2)[:EQUAL_STEPS]
+    losses = [pre._resident_epoch(0, rows, log) for pre in pres]
+    check(losses[0] == losses[1], f"losses differ: {losses}")
+    sa, sb = model_state(a), model_state(b)
+    differ = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    check(not differ, f"states differ in {differ}")
+    graphs = [graph_record(pre) for pre in pres]
+    check(all(g is not None and g["replays"] > 0 for g in graphs),
+          f"not graphed: {graphs}")
+    report = dict(molecules=len(parsed), train=len(b.train_iter.graphs),
+                  spec=str(a.spec), unit_spec=str(a.unit_spec),
+                  units=a._n_units, losses=losses[0], tensors=len(sa),
+                  graph=graphs[1], bit_identical=True)
+    print(f"corpus text_vs_corpus {json.dumps(report)}", flush=True)
+    return report
+
+
+def corpus_gcn_mix(tmp: str) -> dict:
+    """--model gcn --aug mix for one epoch on the --add-hs corpus, on the
+    units path: K3f and K3b 2 x LAYERS per eager step and captured so per
+    replayed step (K3f also 2 x LAYERS per validation batch), no GIN
+    kernel; metrics.jsonl finite."""
+    ckpt = os.path.join(tmp, "corpus_gcn_mix")
+    seen = []
+    reset_counts()
+    with trainers(seen):
+        rc = pretrain_cli.main([
+            "--data", os.path.join(tmp, "corpus20k_hs.mtpu"), "--ckpt-dir",
+            ckpt, "--batch-size", str(P_BATCH), "--epochs", "1",
+            "--warm-up", "1", "--model", "gcn", "--aug", "mix"])
+    torch.cuda.synchronize()
+    check(rc == 0, f"gcn mix CLI returned {rc}")
+    counts = read_counts()
+    pre = seen[0]
+    check(trainer_path(pre) == "units" and isinstance(
+        pre.train_iter.graphs, corpus_lib.CorpusSubset),
+        f"gcn mix took the {trainer_path(pre)} path")
+    g = graph_record(pre)
+    steps = pre.step
+    replayed = g["replays"] * g["steps_per_replay"] if g else 0
+    valid = len(pre.valid_iter)
+    for name in ("fused_gcn_bn_layer", "fused_gcn_bn_layer_bwd"):
+        captured = g["captured"][name] if g else 0
+        want = 2 * LAYERS * (steps - replayed) + captured
+        if name == "fused_gcn_bn_layer":
+            want += 2 * LAYERS * valid
+        check(counts[name] == want, f"gcn mix: {name} {counts[name]}, "
+              f"expected {want}")
+    check(counts["fused_gine_bn_layer"] == counts[
+        "fused_gine_bn_layer_bwd"] == 0, f"gcn mix: {counts}")
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    check(len(recs) == 1 and all(np.isfinite(recs[0][k]) for k in
+                                 ("train_loss", "valid_loss")),
+          f"gcn mix records {recs}")
+    report = dict(steps=steps, valid_batches=valid, graph=g, counts=counts,
+                  record=recs[0])
+    print(f"corpus gcn_mix {json.dumps(report)}", flush=True)
+    return report
+
+
+def stream_phase(tmp: str, card: str, dev) -> dict:
+    """The host path streaming from the CORPUS_MOLS corpus (pack_cache_max
+    _mols STREAM_MAX_MOLS): the first streamed batch equals the Python
+    pack_batch of the same molecules; the host's ms to pack (and narrow)
+    a batch; one epoch with one native indexed call and K1f / K1b 2 x
+    LAYERS launches per step (K1f also 2 x LAYERS per validation batch),
+    finite metrics; then the step's ms (CUDA
+    events, median over SPEED_STEPS steps of the Pretrainer's epoch loop),
+    host ms, the profiler's device ms and busy share."""
+    log = lambda *_: None  # noqa: E731
+    cfg = pretrain_cfg(data_path=os.path.join(tmp, "corpus100k.mtpu"),
+                       epochs=1, pack_cache_max_mols=STREAM_MAX_MOLS,
+                       ckpt_dir=os.path.join(tmp, "corpus_stream"))
+    pre = Pretrainer(cfg, dev).setup_data().setup_state()
+    it = pre.train_iter
+    check(not it.cache_packed and len(it.graphs) > STREAM_MAX_MOLS,
+          "the stream run would cache its batches")
+    wire = wire_dtypes(pre.spec)
+    stream = pre._stream_batches()
+    t0 = time.perf_counter()
+    first = [next(stream) for _ in range(PACK_REPS)]
+    pack_ms = 1e3 * (time.perf_counter() - t0) / PACK_REPS
+    stream.close()
+    it.set_epoch(0)
+    sub = it.graphs
+    order = np.random.RandomState(SEED).permutation(len(sub))[:P_BATCH]
+    py = pack_batch([sub[i] for i in order], pre.spec, prefer_native=False)
+    batch_fields_equal("first streamed batch", first[0], {
+        f: np.asarray(v).astype(wire[f]) for f, v in vars(py).items()})
+    calls = native.calls["pack_batch_indexed"]
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = pre.train(log=log)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    counts = read_counts()
+    steps = hist[0]["steps"]
+    check(pre._stack is None and steps == len(it) > 0,
+          f"stream: {steps} steps, stack {pre._stack is not None}")
+    check(native.calls["pack_batch_indexed"] - calls == steps,
+          f"stream: {native.calls['pack_batch_indexed'] - calls} indexed "
+          f"packs for {steps} steps")
+    valid = len(pre.valid_iter)
+    check(counts["fused_gine_bn_layer_bwd"] == 2 * LAYERS * steps
+          and counts["fused_gine_bn_layer"] == 2 * LAYERS * (steps + valid),
+          f"stream: {counts} for {steps} steps and {valid} validation "
+          f"batches")
+    check(np.isfinite(hist[0]["train_loss"])
+          and np.isfinite(hist[0]["valid_loss"]), f"stream: {hist}")
+    # the speed of SPEED_STEPS-step epochs of the same stream
+    full = pre._stream_batches
+    pre._stream_batches = lambda: itertools.islice(full(), SPEED_STEPS)
+    pre.steps_per_epoch = SPEED_STEPS
+    speed = path_speed(pre, "host", card)
+    report = dict(card=card, train_molecules=len(sub), steps=steps,
+                  valid_batches=valid, epoch_s=epoch_s, record=hist[0],
+                  counts=counts, indexed_packs=steps, host_pack_ms=pack_ms,
+                  step_ms=speed["step_ms"], host_ms=speed["host_ms"],
+                  device_ms=speed["device_ms"],
+                  device_busy_share=speed["device_busy_share"],
+                  mol_per_s=speed["mol_per_s"],
+                  message_edges_per_s=speed["message_edges_per_s"])
+    print(f"corpus stream {json.dumps(report)}", flush=True)
+    return report
+
+
+def corpus_phase(tmp: str, card: str, dev, native_build_s: float) -> dict:
+    """Phase 16: the native library, featurizer agreement, corpus builds,
+    text against corpus, the corpus CLI and the streaming path."""
+    t0 = time.perf_counter()
+    check(native.lib_path().exists(), "the native library was not built")
+    report = dict(card=card, native_build_s=native_build_s)
+    print(f"corpus build: native library {native.lib_path().name} in "
+          f"{native_build_s:.2f} s", flush=True)
+    report["agreement"] = featurizer_agreement(card)
+    report["builds"] = corpus_builds(tmp, card)
+    report["text_vs_corpus"] = text_vs_corpus(tmp, dev)
+    report["cli"] = cli_run(tmp, "corpus_cli", ["--pack-cache-max-mols",
+                                                "1000000"], "gin", "units",
+                            data=os.path.join(tmp, "corpus100k.mtpu"))
+    report["gcn_mix"] = corpus_gcn_mix(tmp)
+    report["stream"] = stream_phase(tmp, card, dev)
+    report["seconds"] = time.perf_counter() - t0
+    print(f"phase corpus took {report['seconds']:.1f} s", flush=True)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3074,9 +3436,11 @@ def main() -> int:
         print(f"phase {name} at {time.perf_counter() - t_start:.1f} s",
               flush=True)
 
+    native_build_s = native.build()
     built = _build.build_all()
     print(f"build: {time.perf_counter() - t_start:.2f} s "
-          f"{json.dumps(built)}", flush=True)
+          f"{json.dumps(built)}; native featurizer {native_build_s:.2f} s",
+          flush=True)
 
     phase("kernels")
     kernels = kernel_phase(dev)
@@ -3123,6 +3487,8 @@ def main() -> int:
                   gnn="gcn")
         phase("resident")
         resident_phase(tmp, card, dev)
+        phase("corpus")
+        corpus_phase(tmp, card, dev, native_build_s)
     phase("done")
 
     def row(name, source, replaces, launches, res, case):

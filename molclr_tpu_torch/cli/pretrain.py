@@ -5,8 +5,14 @@ Port of molclr_tpu/cli/pretrain.py with the flags that apply to one card.
 It trains on the first CUDA device unless --cpu is given (the kernels'
 plain versions), and raises when there is none. By default it takes the
 units path with CUDA-graph steps on the card; --device-cache-mb 0 streams
-batches from the host, --steps-per-dispatch 1 runs eager steps.
+batches from the host, --steps-per-dispatch 1 runs eager steps. --data
+names a SMILES text file, featurized at the start, or an on-disk corpus
+that cli.featurize built, memory-mapped (a corpus above
+--pack-cache-max-mols streams its batches from the maps). --no-native
+featurizes a text file and packs with the Python chem layer and packer.
 
+    python -m molclr_tpu_torch.cli.featurize corpus.txt corpus.mtpu
+    python -m molclr_tpu_torch.cli.pretrain --data corpus.mtpu --epochs 2
     python -m molclr_tpu_torch.cli.pretrain --data corpus.txt --epochs 2
     python -m molclr_tpu_torch.cli.pretrain --synthetic 4096 --cpu
 """
@@ -23,7 +29,9 @@ def main(argv=None) -> int:
         description="MolCLR contrastive pretraining on one GPU (PyTorch)")
     p.add_argument("--config", default="configs/pretrain.yaml",
                    help="YAML config (reference config.yaml keys accepted)")
-    p.add_argument("--data", default=None, help="override corpus path")
+    p.add_argument("--data", default=None,
+                   help="override corpus path: a SMILES text file or an "
+                        "on-disk corpus directory (cli.featurize)")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--aug", choices=["node", "subgraph", "mix"],
@@ -73,6 +81,10 @@ def main(argv=None) -> int:
     p.add_argument("--synthetic", type=int, default=0, metavar="N",
                    help="generate an N-molecule synthetic corpus if the "
                         "data path is missing")
+    p.add_argument("--no-native", action="store_true",
+                   help="featurize a SMILES file with the Python chem layer "
+                        "(dataset.num_workers processes) and pack with the "
+                        "Python packer, not the native library")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU with the kernels' plain versions")
     args = p.parse_args(argv)
@@ -133,7 +145,8 @@ def main(argv=None) -> int:
                                   seed=cfg.seed)
 
     print(f"device: {device}")
-    pre = Pretrainer(cfg, device).setup_data()
+    pre = Pretrainer(cfg, device,
+                     prefer_native=not args.no_native).setup_data()
     print(f"bucket: {pre.spec}")
     pre.setup_state()
     if pre.step:

@@ -1,7 +1,8 @@
 """Flat-packed, statically-shaped batched molecular graphs.
 
 Port of molclr_tpu/data/graphs.py (PadSpec, PackOverflow, pack_batch, the
-packing bit-identical; concat_shards and concat_views on torch tensors).
+packing bit-identical, by default through the native packer; concat_shards
+and concat_views on torch tensors).
 Every batch of B molecules is packed into ONE
 padded graph with fixed shapes, carrying two adjacency views:
 
@@ -120,6 +121,14 @@ class PackOverflow(ValueError):
     pass
 
 
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """A field stored narrow (int8 / int16 indices, uint8 masks) or at
+    full width as GraphBatch.to gives it: int64 indices, bool masks."""
+    if x.dtype in (torch.bool, torch.uint8):
+        return x.bool()
+    return x.long()
+
+
 def concat_shards(batches: list) -> GraphBatch:
     """S same-shape GraphBatches of torch tensors as ONE packed batch, with
     node, graph and bond ids renumbered globally: segment i's ids shift by
@@ -156,26 +165,41 @@ def concat_views(a: GraphBatch, b: GraphBatch) -> GraphBatch:
     return concat_shards([a, b])
 
 
-def pack_batch(graphs: list[MolGraph], spec: PadSpec) -> GraphBatch:
+def check_totals(n_graphs: int, total_nodes: int, total_edges: int,
+                 spec: PadSpec) -> None:
+    """PackOverflow where a batch's totals exceed the spec's capacities,
+    checked before either packer runs (graphs, then nodes, then edges)."""
+    if n_graphs > spec.n_graphs:
+        raise PackOverflow(f"{n_graphs} graphs > capacity {spec.n_graphs}")
+    if total_nodes > spec.n_nodes:
+        raise PackOverflow(f"{total_nodes} nodes > capacity {spec.n_nodes}")
+    if total_edges > spec.n_edges:
+        raise PackOverflow(f"{total_edges} edges > capacity {spec.n_edges}")
+
+
+def pack_batch(graphs: list[MolGraph], spec: PadSpec,
+               prefer_native: bool = True) -> GraphBatch:
     """Pack molecules into one padded GraphBatch.
 
     Raises PackOverflow if the molecules exceed the bucket's node/edge/graph
     capacity, a node exceeds max_degree, or (tile > 0) a molecule exceeds
-    the tile."""
+    the tile. The native packer (native/, bit for bit the same, with the
+    same PackOverflow messages: BatchIterator reads from them which bound
+    was exceeded) packs unless the caller asks for this Python
+    implementation (prefer_native=False); a failed build of the native
+    library, or a spec beyond its node slots, raises."""
     if spec.max_graph_bonds:
         worst = max((g.edge_src.shape[0] // 2 for g in graphs), default=0)
         if worst > spec.max_graph_bonds:
             raise PackOverflow(
                 f"a molecule has {worst} bonds > spec.max_graph_bonds "
                 f"{spec.max_graph_bonds} (the windowed bond-ranking bound)")
-    if len(graphs) > spec.n_graphs:
-        raise PackOverflow(f"{len(graphs)} graphs > capacity {spec.n_graphs}")
-    total_nodes = sum(g.n_atoms for g in graphs)
-    total_edges = sum(g.edge_src.shape[0] for g in graphs)
-    if total_nodes > spec.n_nodes:
-        raise PackOverflow(f"{total_nodes} nodes > capacity {spec.n_nodes}")
-    if total_edges > spec.n_edges:
-        raise PackOverflow(f"{total_edges} edges > capacity {spec.n_edges}")
+    if prefer_native and graphs:
+        from molclr_tpu_torch import native
+
+        return native.pack_batch_native(graphs, spec)
+    check_totals(len(graphs), sum(g.n_atoms for g in graphs),
+                 sum(g.edge_src.shape[0] for g in graphs), spec)
 
     N, E, G, K = spec.n_nodes, spec.n_edges, spec.n_graphs, spec.ell_slots
     B = spec.n_bonds

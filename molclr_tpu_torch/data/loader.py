@@ -2,11 +2,12 @@
 the epoch iterator, the prefetch thread and the batch upload.
 
 Port of molclr_tpu/data/loader.py (read_pretrain_smiles, featurize_many,
-spec_for_graphs, BatchIterator, prefetch_iter). Featurization runs the
-Python chem layer; the JAX package's C++ featurizer, which its tests hold
-to exact parity with it, is not ported yet. `device_batches` is the
-counterpart of the JAX Pretrainer's `_host_superbatches`: each batch is
-packed into pinned memory and copied to the card on a side stream, so
+spec_for_graphs, BatchIterator, prefetch_iter). Featurization and packing
+run the native C++ library (native/, bit for bit the Python chem layer and
+packer) unless the caller asks for Python. `device_batches` is the
+counterpart of the JAX Pretrainer's `_host_superbatches`: each host batch
+(a GraphBatch, or a dict of its fields in narrow wire dtypes) is copied
+to the card from pinned memory on a side stream and widened there, so
 that under prefetch_iter the next batch's packing and copy overlap the
 current step.
 """
@@ -23,7 +24,7 @@ import torch
 
 from molclr_tpu_torch.data.featurize import MolGraph, featurize_smiles
 from molclr_tpu_torch.data.graphs import GraphBatch, PackOverflow, PadSpec, \
-    pack_batch
+    pack_batch, widen
 
 
 def read_pretrain_smiles(path: str) -> list[str]:
@@ -40,12 +41,30 @@ def read_pretrain_smiles(path: str) -> list[str]:
 
 
 def featurize_many(smiles: list[str], add_hs: bool = False,
-                   max_degree: int = 6):
+                   max_degree: int = 6, processes: int = 0,
+                   prefer_native: bool = True):
     """Featurize a corpus; returns (graphs, kept_indices). Molecules that
-    fail to parse or exceed max_degree are dropped."""
+    fail to parse or exceed max_degree are dropped. The native batch
+    featurizer runs unless prefer_native=False asks for the Python chem
+    layer, which then runs in a pool of `processes` (spawned) processes
+    where processes > 1."""
+    if prefer_native:
+        from molclr_tpu_torch import native
+
+        feats = [None] * len(smiles)
+        for g, i in zip(*native.featurize_corpus_native(smiles, add_hs)):
+            feats[i] = g
+    elif processes and processes > 1:
+        from multiprocessing import get_context
+
+        with get_context("spawn").Pool(processes) as pool:
+            feats = pool.starmap(featurize_smiles,
+                                 [(s, add_hs) for s in smiles],
+                                 chunksize=2048)
+    else:
+        feats = [featurize_smiles(s, add_hs) for s in smiles]
     graphs, kept = [], []
-    for i, s in enumerate(smiles):
-        g = featurize_smiles(s, add_hs)
+    for i, g in enumerate(feats):
         if g is None or (g.n_atoms and g.max_degree > max_degree):
             continue
         graphs.append(g)
@@ -69,10 +88,20 @@ def spec_for_graphs(graphs: list[MolGraph], batch_size: int,
     rely on.
 
     max_degree is a cap: the spec uses the corpus's own maximum degree
-    when smaller. tile > 0 requests tile-aligned packing (see PadSpec)."""
-    data_max_deg = max((g.max_degree for g in graphs), default=max_degree)
-    atoms = np.array([g.n_atoms for g in graphs])
-    edges = np.array([g.edge_src.shape[0] for g in graphs])
+    when smaller. tile > 0 requests tile-aligned packing (see PadSpec).
+    `graphs` may be a list of MolGraphs or a DiskCorpus / CorpusSubset
+    (data/corpus.py), whose vectorized atom_counts / edge_counts /
+    max_degrees size it without a Python object per molecule."""
+    if hasattr(graphs, "atom_counts"):
+        atoms = np.asarray(graphs.atom_counts)
+        edges = np.asarray(graphs.edge_counts)
+        data_max_deg = (int(np.asarray(graphs.max_degrees).max())
+                        if len(atoms) else max_degree)
+    else:
+        data_max_deg = max((g.max_degree for g in graphs),
+                           default=max_degree)
+        atoms = np.array([g.n_atoms for g in graphs])
+        edges = np.array([g.edge_src.shape[0] for g in graphs])
     max_degree = min(max_degree, max(1, data_max_deg))
     if len(atoms) == 0:
         atoms, edges = np.array([1]), np.array([2])
@@ -136,6 +165,7 @@ class BatchIterator:
     drop_last: bool = True
     seed: int = 0
     cache_packed: bool = False
+    prefer_native: bool = True      # False: the Python packer
 
     def __post_init__(self):
         if self.batch_size is None:
@@ -158,7 +188,8 @@ class BatchIterator:
             dropped = 0
             while True:
                 try:
-                    gb = pack_batch(batch_graphs, self.spec)
+                    gb = pack_batch(batch_graphs, self.spec,
+                                    prefer_native=self.prefer_native)
                     break
                 except PackOverflow as e:
                     # evict the molecule responsible for the violated bound
@@ -273,28 +304,36 @@ def prefetch_iter(it, depth: int = 2):
         stop.set()
 
 
-def device_batches(it, device):
-    """(batch, event) on `device` for each (GraphBatch, labels, indices) of
-    `it`. On a CUDA device the batch is packed into pinned memory, copied
-    with non_blocking=True on a side stream and widened there (int64
-    indices, bool masks, as GraphBatch.to gives them); the event marks the
-    end of that work, and `ready` orders the consumer's stream after it.
-    Elsewhere it is batch.to(device) and no event."""
+def _fields(batch) -> dict:
+    return batch if isinstance(batch, dict) else vars(batch)
+
+
+def device_batches(batches, device):
+    """(batch, event) on `device` for each host batch of `batches`: a
+    GraphBatch of numpy arrays, or a dict of its fields in narrow wire
+    dtypes (regroup.wire_dtypes; uint8 masks). On a CUDA device each field
+    is copied from pinned memory with non_blocking=True on a side stream
+    (int32 where it was wider) and widened there to int64 indices and bool
+    masks, as GraphBatch.to gives them; the event marks the end of that
+    work, and `ready` orders the consumer's stream after it. Elsewhere the
+    fields are widened on the host and no event."""
     device = torch.device(device)
     if device.type != "cuda":
-        for gb, _, _ in it:
-            yield gb.to(device), None
+        for b in batches:
+            yield GraphBatch(**{k: widen(torch.from_numpy(np.asarray(v)))
+                                .to(device)
+                                for k, v in _fields(b).items()}), None
         return
     stream = torch.cuda.Stream(device)
-    for gb, _, _ in it:
+    for b in batches:
         out = {}
         with torch.cuda.stream(stream):
-            for name, v in vars(gb).items():
+            for name, v in _fields(b).items():
                 v = np.asarray(v)
-                host = torch.from_numpy(
-                    v if v.dtype == bool else v.astype(np.int32)).pin_memory()
-                x = host.to(device, non_blocking=True)
-                out[name] = x if v.dtype == bool else x.long()
+                if v.dtype.itemsize > 4:
+                    v = v.astype(np.int32)
+                host = torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                out[name] = widen(host.to(device, non_blocking=True))
             done = torch.cuda.Event()
             done.record(stream)
         yield GraphBatch(**out), done

@@ -23,8 +23,10 @@ the unit spec. `concat_units` widens each field after the take, to int64
 and bool as `GraphBatch.to` has them, and adds the offsets after the
 widening.
 
-`plan_corpus_units` and `pack_unit_stack_corpus` of the JAX module need
-the on-disk corpus, which the port does not have yet.
+For an on-disk corpus (data/corpus.py), `plan_corpus_units` plans the
+units from the corpus's vectorized counts and `pack_unit_stack_corpus`
+packs them with the native packer straight from the memory maps, narrow
+where asked, without a Python object per molecule.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from dataclasses import fields
 import numpy as np
 import torch
 
-from molclr_tpu_torch.data.graphs import GraphBatch, PadSpec, pack_batch
+from molclr_tpu_torch.data.graphs import GraphBatch, PadSpec, pack_batch, \
+    widen
 
 
 def plan_units(graphs, tile: int) -> list[list]:
@@ -75,7 +78,8 @@ def stack_batches(batches) -> GraphBatch:
                          for f in fields(GraphBatch)})
 
 
-def pack_unit_stack(graphs, tile: int, max_degree: int = 6, seed: int = 0):
+def pack_unit_stack(graphs, tile: int, max_degree: int = 6, seed: int = 0,
+                    prefer_native: bool = True):
     """Pack a corpus into the [U, ...] tile-unit stack (host, once).
     Returns (stack: a GraphBatch of numpy arrays with leading axis U,
     unit spec, units). The molecules are shuffled once (seeded) before
@@ -83,7 +87,7 @@ def pack_unit_stack(graphs, tile: int, max_degree: int = 6, seed: int = 0):
     order = np.random.RandomState(seed).permutation(len(graphs))
     groups = plan_units([graphs[i] for i in order], tile)
     uspec = unit_spec_for(groups, tile, max_degree)
-    units = [pack_batch(gr, uspec) for gr in groups]
+    units = [pack_batch(gr, uspec, prefer_native) for gr in groups]
     return stack_batches(units), uspec, units
 
 
@@ -130,25 +134,21 @@ def unit_stack_bytes(uspec: PadSpec, n_units: int,
     return total * n_units
 
 
-def upload_stack(stack: GraphBatch, device,
+def upload_stack(stack, device,
                  narrow: dict | None = None) -> dict[str, torch.Tensor]:
-    """A host stack as the device stack: each field in its narrow dtype,
-    or at full width (int32, bool)."""
+    """A host stack (a GraphBatch, or a dict of its fields) as the device
+    stack: each field in its narrow dtype, or at full width (int32,
+    bool)."""
     out = {}
     for f in fields(GraphBatch):
-        v = np.asarray(getattr(stack, f.name))
+        v = np.asarray(stack[f.name] if isinstance(stack, dict)
+                       else getattr(stack, f.name))
         if narrow is not None:
             v = v.astype(narrow[f.name])
         elif v.dtype != bool:
             v = v.astype(np.int32)
         out[f.name] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
     return out
-
-
-def _widen(x: torch.Tensor) -> torch.Tensor:
-    if x.dtype in (torch.bool, torch.uint8):
-        return x.bool()
-    return x.long()
 
 
 def concat_units(stack: dict[str, torch.Tensor],
@@ -167,7 +167,7 @@ def concat_units(stack: dict[str, torch.Tensor],
               "bond_graph": g, "edge_bond": bmax, "nbr_bond": bmax}
     out = {}
     for f in fields(GraphBatch):
-        y = _widen(torch.index_select(stack[f.name], 0, idx))
+        y = widen(torch.index_select(stack[f.name], 0, idx))
         if f.name in shifts:
             o = off.reshape((t,) + (1,) * (y.dim() - 1)) * shifts[f.name]
             if f.name.endswith("_bond"):
@@ -190,3 +190,53 @@ def epoch_unit_orders(n_units: int, units_per_batch: int, seed: int,
     perm = rng.permutation(n_units).astype(np.int32)
     s = n_units // units_per_batch
     return perm[: s * units_per_batch].reshape(s, units_per_batch)
+
+
+def plan_corpus_units(subset, tile: int, max_degree: int = 6,
+                      seed: int = 0):
+    """plan_units over a CorpusSubset from its vectorized counts: first-fit
+    over a seeded shuffle of the subset, as pack_unit_stack shuffles a
+    list. Returns (id_groups: one int32 array of corpus molecule ids per
+    unit, the unit PadSpec)."""
+    if len(subset) == 0:
+        raise ValueError("cannot plan tile-units for an empty subset")
+    order = np.random.RandomState(seed).permutation(len(subset))
+    ids = np.asarray(subset.ids)[order].astype(np.int32)
+    atoms = np.asarray(subset.atom_counts)[order]
+    edges = np.asarray(subset.edge_counts)[order]
+    if int(atoms.max()) > tile:
+        raise ValueError(
+            f"molecule with {int(atoms.max())} atoms exceeds tile {tile}")
+    bounds = [0]
+    acc = 0
+    for i, c in enumerate(atoms.tolist()):
+        if acc + c > tile:
+            bounds.append(i)
+            acc = 0
+        acc += c
+    bounds.append(len(atoms))
+    bounds = np.asarray(bounds, np.int64)
+    sizes = np.diff(bounds)
+    group_edges = np.add.reduceat(edges, bounds[:-1])
+    e_t = -(-int(group_edges.max()) // 2) * 2
+    uspec = PadSpec(n_graphs=int(sizes.max()), n_nodes=tile,
+                    n_edges=max(e_t, 2), max_degree=max_degree, tile=tile,
+                    max_graph_bonds=int(edges.max()) // 2)
+    return [ids[bounds[i]:bounds[i + 1]]
+            for i in range(len(bounds) - 1)], uspec
+
+
+def pack_unit_stack_corpus(subset, tile: int, max_degree: int = 6,
+                           seed: int = 0, narrow: dict | None = None,
+                           progress=None):
+    """pack_unit_stack for a CorpusSubset: the plan of plan_corpus_units,
+    packed by the native packer from the memory maps. Returns (stack: a
+    dict of [U, ...] arrays, in the `narrow` dtypes where given, unit
+    spec, U). The Pretrainer runs these two steps itself, to check its
+    device budget between them."""
+    from molclr_tpu_torch import native
+
+    id_groups, uspec = plan_corpus_units(subset, tile, max_degree, seed)
+    stack = native.pack_unit_stack_indexed(
+        subset.corpus, id_groups, uspec, narrow=narrow, progress=progress)
+    return stack, uspec, len(id_groups)

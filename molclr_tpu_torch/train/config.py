@@ -71,6 +71,10 @@ class PretrainConfig:
     ckpt_dir: str = "runs/pretrain"
     resume_from: str = ""           # config.yaml load_model
     seed: int = 0
+    featurize_processes: int = 2    # processes of the Python featurizer
+                                    # (Pretrainer(prefer_native=False),
+                                    # --no-native; the native one runs in
+                                    # one call)
     steps_per_dispatch: int = 0     # 0 = auto: the resident paths replay
                                     # each step as a CUDA graph on the card
                                     # (train/graphed.py); 1 = eager steps;
@@ -202,6 +206,8 @@ def pretrain_from_yaml(path: str) -> PretrainConfig:
     for k in ("valid_size", "data_path"):
         if k in ds:
             setattr(cfg, k, ds[k])
+    if "num_workers" in ds:
+        cfg.featurize_processes = max(1, int(ds["num_workers"]))
     for k in ("data_path", "ckpt_dir"):
         if k in raw:
             setattr(cfg, k, raw[k])

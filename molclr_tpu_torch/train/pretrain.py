@@ -34,15 +34,22 @@ The Pretrainer takes the JAX Pretrainer's one-card paths
             and taken in the iterator's order;
   host      (device_cache_mb 0, or over budget) batches packed in the
             prefetch thread into pinned memory and copied on a side
-            stream.
+            stream; from an on-disk corpus above pack_cache_max_mols,
+            each batch packed by one native call straight from the
+            memory maps and narrowed to the wire dtypes on the host, then
+            widened on the card (`_stream_batches`, JAX's
+            `_native_superbatches`).
+The corpus is a SMILES list or text file, featurized at the start, or an
+on-disk corpus (data/corpus.py, cfg.data_path a directory that
+cli.featurize built), memory-mapped: its split, spec and unit plan come
+from its vectorized counts, and its tile-units are packed from the maps.
 On the resident paths each window of KEY_WINDOW steps draws its
 augmentation keys on the host and uploads them once; on the card the
 steps are replayed as CUDA graphs (train/graphed.py, steps_per_dispatch)
 after GRAPH_WARMUP_STEPS eager ones; every step augments inline from its
 key row (aug_precompute is read for the JAX package's YAML and changes
 nothing here). Validation batches are uploaded once
-after the first pass. Not ported: the on-disk corpus and its native
-packer, data parallelism, TensorBoard.
+after the first pass. Not ported: data parallelism, TensorBoard.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ import time
 import numpy as np
 import torch
 
+from molclr_tpu_torch import native
 from molclr_tpu_torch.data.augment import (
     draw_paired_keys,
     flatten_keys,
@@ -61,6 +69,8 @@ from molclr_tpu_torch.data.augment import (
     paired_augment_keys,
     unflatten_keys,
 )
+from molclr_tpu_torch.data.corpus import CorpusSubset, DiskCorpus, \
+    is_disk_corpus
 from molclr_tpu_torch.data.graphs import concat_views
 from molclr_tpu_torch.data.loader import (
     BatchIterator,
@@ -75,6 +85,7 @@ from molclr_tpu_torch.data.regroup import (
     concat_units,
     epoch_unit_orders,
     pack_unit_stack,
+    plan_corpus_units,
     stack_batches,
     unit_stack_bytes,
     upload_stack,
@@ -209,11 +220,15 @@ class Pretrainer:
     """setup_data -> setup_state -> train, on `device` (a CUDA device unless
     the caller asks for the CPU). After train, `epoch_losses` holds each
     epoch's step losses (f32) and, where steps were replayed, `graphed`
-    the GraphedSteps that replayed them."""
+    the GraphedSteps that replayed them. prefer_native=False featurizes a
+    SMILES corpus with the Python chem layer (in cfg.featurize_processes
+    processes) and packs with the Python packer."""
 
-    def __init__(self, cfg: PretrainConfig, device):
+    def __init__(self, cfg: PretrainConfig, device,
+                 prefer_native: bool = True):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.prefer_native = prefer_native
         self.step = 0
         self._start_epoch = 0
         # the device stack of the resident paths: tile-units (_units) or
@@ -236,39 +251,71 @@ class Pretrainer:
 
     # ---- data ----
     def setup_data(self, smiles: list[str] | None = None):
-        """Featurize and split the corpus: an explicit `smiles` list, or the
-        SMILES text file cfg.data_path."""
+        """Split the corpus: an explicit `smiles` list or the SMILES text
+        file cfg.data_path, featurized here; or the on-disk corpus that
+        cfg.data_path names, memory-mapped (molecules above max_degree
+        left out, as featurize_many leaves them out of a text file, so
+        that both give the same split of the same molecules)."""
         cfg = self.cfg
-        if smiles is None:
-            smiles = read_pretrain_smiles(cfg.data_path)
-        graphs, _ = featurize_many(smiles, add_hs=(cfg.aug == "mix"),
-                                   max_degree=cfg.max_degree)
-        order = np.random.RandomState(cfg.seed).permutation(len(graphs))
-        n_valid = int(len(graphs) * cfg.valid_size)
-        valid_ids, train_ids = order[:n_valid], order[n_valid:]
-        train = [graphs[i] for i in train_ids]
-        valid = [graphs[i] for i in valid_ids]
-        self.spec = spec_for_graphs(graphs, cfg.batch_size, cfg.max_degree,
+        if smiles is None and is_disk_corpus(cfg.data_path):
+            if not self.prefer_native:
+                raise ValueError(
+                    f"{cfg.data_path} is an on-disk corpus, which only the "
+                    f"native packer reads; drop --no-native")
+            corpus = DiskCorpus(cfg.data_path)
+            if bool(corpus.meta.get("add_hs")) != (cfg.aug == "mix"):
+                raise ValueError(
+                    f"corpus {cfg.data_path} was built with add_hs="
+                    f"{corpus.meta.get('add_hs')} but aug={cfg.aug!r} "
+                    f"needs add_hs={cfg.aug == 'mix'}; rebuild with "
+                    f"cli.featurize --add-hs accordingly")
+            keep = np.flatnonzero(
+                np.asarray(corpus.max_degrees) <= cfg.max_degree)
+            order = keep[np.random.RandomState(cfg.seed).permutation(
+                len(keep))]
+            n_valid = int(len(order) * cfg.valid_size)
+            train = CorpusSubset(corpus, order[n_valid:])
+            valid = CorpusSubset(corpus, order[:n_valid])
+            sized = CorpusSubset(corpus, keep)
+            atoms = train.atom_counts
+            edges = train.edge_counts
+            max_atoms = int(sized.atom_counts.max()) if len(keep) else 2
+        else:
+            if smiles is None:
+                smiles = read_pretrain_smiles(cfg.data_path)
+            graphs, _ = featurize_many(smiles, add_hs=(cfg.aug == "mix"),
+                                       max_degree=cfg.max_degree,
+                                       processes=cfg.featurize_processes,
+                                       prefer_native=self.prefer_native)
+            order = np.random.RandomState(cfg.seed).permutation(len(graphs))
+            n_valid = int(len(graphs) * cfg.valid_size)
+            train = [graphs[i] for i in order[n_valid:]]
+            valid = [graphs[i] for i in order[:n_valid]]
+            sized = graphs
+            atoms = np.array([g.n_atoms for g in train])
+            edges = np.array([g.edge_src.shape[0] for g in train])
+            max_atoms = max((g.n_atoms for g in graphs), default=2)
+        self.spec = spec_for_graphs(sized, cfg.batch_size, cfg.max_degree,
                                     cfg.pad_slack, cfg.pad_quantile,
                                     tile=cfg.model.tile,
                                     sizing=cfg.pad_sizing)
-        self._mean_real_nodes = (float(np.mean([g.n_atoms for g in train]))
-                                 * cfg.batch_size if train else 0.0)
-        self._mean_real_edges = (float(np.mean(
-            [g.edge_src.shape[0] for g in train])) * cfg.batch_size
-            if train else 0.0)
+        self._mean_real_nodes = (float(atoms.mean()) * cfg.batch_size
+                                 if len(train) else 0.0)
+        self._mean_real_edges = (float(edges.mean()) * cfg.batch_size
+                                 if len(train) else 0.0)
         # BFS horizon of subgraph / mix: max atoms - 1 bounds every graph's
         # eccentricity, so the wave sweep never under-removes (capped at
         # 2000 so that the wave key (max_waves + 1) * 2^20 stays in int32)
-        max_atoms = max((g.n_atoms for g in graphs), default=2)
         self.max_waves = (cfg.max_waves if cfg.max_waves > 0
                           else max(1, min(max_atoms - 1, 2000)))
         self.train_iter = BatchIterator(
             train, self.spec, shuffle=True, drop_last=True, seed=cfg.seed,
-            cache_packed=0 < len(train) <= cfg.pack_cache_max_mols)
+            cache_packed=0 < len(train) <= cfg.pack_cache_max_mols,
+            prefer_native=self.prefer_native)
         self.valid_iter = BatchIterator(
             valid, self.spec, shuffle=False, drop_last=False, seed=cfg.seed,
-            cache_packed=0 < len(valid) <= cfg.pack_cache_max_mols)
+            cache_packed=0 < len(valid) <= cfg.pack_cache_max_mols,
+            prefer_native=self.prefer_native)
         return self
 
     # ---- model / optimizer ----
@@ -334,8 +381,11 @@ class Pretrainer:
         exceeds the narrow dtypes. T = U // steps_per_epoch units per step
         keep the schedule's steps per epoch. plan_seed replaces cfg.seed
         as the molecule shuffle (a replan); a replan that fails any check
-        leaves the old stack in place. Returns True when the units path is
-        active."""
+        leaves the old stack in place, its budget counted as released for
+        the check. A split of an on-disk corpus is planned from its counts,
+        checked against the budget, then packed by the native packer from
+        the memory maps, narrow where allowed. Returns True when the units
+        path is active."""
         cfg = self.cfg
         graphs = self.train_iter.graphs
         if len(graphs) > cfg.pack_cache_max_mols:
@@ -343,14 +393,21 @@ class Pretrainer:
         seed = cfg.seed if plan_seed is None else plan_seed
         replan_mb = self._unit_stack_mb if self._units else 0.0
         s_epoch = max(1, len(self.train_iter))
+        corpus = isinstance(graphs, CorpusSubset)
         try:
-            stack, uspec, units = pack_unit_stack(
-                graphs, cfg.model.tile, cfg.max_degree, seed=seed)
+            if corpus:
+                id_groups, uspec = plan_corpus_units(
+                    graphs, cfg.model.tile, cfg.max_degree, seed=seed)
+                u = len(id_groups)
+            else:
+                stack, uspec, units = pack_unit_stack(
+                    graphs, cfg.model.tile, cfg.max_degree, seed=seed,
+                    prefer_native=self.prefer_native)
+                u = len(units)
         except ValueError as e:
             log(f"fresh-compositions unit packing unavailable ({e}); "
                 f"falling back to the frozen batch cache")
             return False
-        u = len(units)
         t = u // s_epoch
         if t < 1:
             log(f"{u} tile-units < {s_epoch} steps/epoch; falling back to "
@@ -360,9 +417,21 @@ class Pretrainer:
         total_mb = unit_stack_bytes(uspec, u, narrow) / 2**20
         if (self._device_cache_used_mb - replan_mb + total_mb
                 > cfg.device_cache_mb):
-            log(f"tile-unit stack {total_mb:.0f} MB exceeds "
+            log(f"tile-unit stack {total_mb:.0f} MB "
+                f"({'narrow' if narrow else 'full-width'}) exceeds "
                 f"device_cache_mb={cfg.device_cache_mb}; staying host-side")
             return False
+        if corpus:
+            t0 = time.perf_counter()
+            stack = native.pack_unit_stack_indexed(
+                graphs.corpus, id_groups, uspec, narrow=narrow)
+            log(f"packed {u} units from the memory-mapped corpus in "
+                f"{time.perf_counter() - t0:.1f} s ({total_mb:.1f} MB, "
+                f"{unit_stack_bytes(uspec, u) / 2**20:.1f} MB full width)")
+            atoms, edges = graphs.atom_counts, graphs.edge_counts
+        else:
+            atoms = np.array([g.n_atoms for g in graphs])
+            edges = np.array([g.edge_src.shape[0] for g in graphs])
         if self._units:
             # a replan: release the old stack, and the graph reading it
             self._device_cache_used_mb -= replan_mb
@@ -374,9 +443,8 @@ class Pretrainer:
         self._n_units, self._units_per_batch = u, t
         self._device_cache_used_mb += total_mb
         # throughput accounting: a step holds T / U of the corpus
-        self._mean_real_edges = sum(int(g.edge_src.shape[0])
-                                    for g in graphs) * t / u
-        self._mean_real_nodes = sum(int(g.n_atoms) for g in graphs) * t / u
+        self._mean_real_edges = int(edges.sum()) * t / u
+        self._mean_real_nodes = int(atoms.sum()) * t / u
         log(f"uploaded {u}-unit stack ({total_mb:.1f} MB"
             + (", narrow" if narrow else "")
             + f", {t} units x {cfg.model.tile} nodes per step, {s_epoch} "
@@ -458,10 +526,37 @@ class Pretrainer:
             if self._profiled_steps >= PROFILE_STEPS:
                 self._stop_profiler(log)
 
+    def _stream_batches(self):
+        """The host batches of one epoch of the host path: from an on-disk
+        corpus whose train split is not cached (above pack_cache_max_mols),
+        one native call per batch straight from the memory maps, in the
+        shuffle stream of BatchIterator.__iter__ (its epoch counter
+        advances the same way, so that a resume draws the same batches),
+        each batch narrowed to the wire dtypes here, in the prefetch
+        thread; else the iterator's packed batches."""
+        it = self.train_iter
+        if it.cache_packed or not isinstance(it.graphs, CorpusSubset):
+            for gb, _, _ in it:
+                yield gb
+            return
+        sub, b = it.graphs, it.batch_size
+        rng = np.random.RandomState(it.seed + it._epoch)
+        it.set_epoch(it._epoch + 1)
+        order = rng.permutation(len(sub))
+        stop = len(sub) - len(sub) % b        # drop_last
+        ids = sub.ids[order[:stop]].reshape(-1, b)
+        wire = wire_dtypes(self.spec)
+        packer = native.IndexedPacker(sub.corpus, self.spec)
+        for row in ids:
+            fields_ = vars(packer.batch(row))
+            if wire is not None:
+                fields_ = {k: v.astype(wire[k]) for k, v in fields_.items()}
+            yield fields_
+
     def _host_epoch(self, epoch: int, log) -> list[float]:
         cfg = self.cfg
         buf = torch.empty(len(self.train_iter), device=self.device)
-        batches = device_batches(self.train_iter, self.device)
+        batches = device_batches(self._stream_batches(), self.device)
         if cfg.prefetch:
             batches = prefetch_iter(batches, cfg.prefetch)
         n = 0
