@@ -187,6 +187,30 @@ prints no result line):
               and K1f / K1b 10 per step, the host's pack ms per batch, and
               the step's ms, host ms, device ms and busy share as phase 15
               measures them over 25 streamed steps.
+ 17. model options: the JAX package's ELL trunk (tile 0), pool max,
+              LinkFineTuneNet and TensorBoard scalars. gine_aggregate and
+              gcn_aggregate (norm None and normalize_gcn) forward and
+              backward on phase 5's B = 512 batch packed at tile 0 (D =
+              300), f32 and bf16: two card runs bit-identical, the CPU
+              within ELL_RTOL, ms per forward + backward; graph_pool max
+              on phase 4's batch with planted ties, card equal to the CPU
+              and to itself bit for bit; the embed CLI at --tile 0 on
+              phase 3's 1,024 SMILES and four above 256 atoms (GIN, GCN:
+              all embedded, no kernel launched, against --cpu and against
+              --tile 256 on the 1,024, mol/s of both and the forward's);
+              three tile-0 GIN steps at full width card against CPU (phase
+              5's limits, no kernel) and two identical steps
+              bit-identical, one GCN normalize_gcn step; the Pretrainer at
+              tile 0 (a host epoch, then the cached batches resident): 10
+              graphed steps bit-identical to eager ones and the graphed
+              step's ms, host ms, device ms and busy share beside phase
+              15's units-path GIN f32 step; pool max at tile 256: one step
+              card against CPU (K1f 10, K1b 10) and 10 graphed units-path
+              steps against eager; LinkFineTuneNet at the fine-tune model
+              on phase 8's molecules, card against CPU with the same keep
+              masks, tile 256 (K4f 5, K4b 5) and tile 0 (no kernel); and
+              whether torch.utils.tensorboard imports and what the writer
+              did.
 
 Phase 3's embed CLI featurizes with the native featurizer, which phase 16
 holds to the Python one.
@@ -236,8 +260,8 @@ from molclr_tpu_torch.data.regroup import concat_units, \
 from molclr_tpu_torch.data.motifs import encode_motif_vocab
 from molclr_tpu_torch.data.synthetic import synthetic_corpus
 from molclr_tpu_torch.losses import nt_xent_loss, resolve_ntxent
-from molclr_tpu_torch.models import FineTuneNet, MolCLRNet
-from molclr_tpu_torch.ops import _build, ntxent
+from molclr_tpu_torch.models import FineTuneNet, LinkFineTuneNet, MolCLRNet
+from molclr_tpu_torch.ops import _build, ntxent, scatter_free
 from molclr_tpu_torch.data.tasks import TASKS
 from molclr_tpu_torch.ops.fused_gcn import (
     fused_gcn_bn_layer,
@@ -277,7 +301,9 @@ from molclr_tpu_torch.ops.fused_layer import (
     unchained_fwd_plan,
 )
 from molclr_tpu_torch.ops.scatter_free import _counts
-from molclr_tpu_torch.ops.tile_dense import build_tile_adjacency
+from molclr_tpu_torch.ops.segment import graph_pool
+from molclr_tpu_torch.ops.tile_dense import build_tile_adjacency, \
+    gcn_normalization
 from molclr_tpu_torch.train import finetune as ft_lib
 from molclr_tpu_torch.train import optim
 from molclr_tpu_torch.train.checkpoints import latest_checkpoint, \
@@ -285,6 +311,7 @@ from molclr_tpu_torch.train.checkpoints import latest_checkpoint, \
 from molclr_tpu_torch.train.config import FineTuneConfig, ModelConfig, \
     PretrainConfig
 from molclr_tpu_torch.train.graphed import GRAPH_WARMUP_STEPS
+from molclr_tpu_torch.train.logging_util import MetricWriter
 from molclr_tpu_torch.train.optim import load_optimizer_state
 from molclr_tpu_torch.train.pretrain import TRAIN_STREAM, Pretrainer, \
     build_model, step_generator, train_step
@@ -728,9 +755,9 @@ def kernel_phase(dev) -> dict:
 # ---------------------------------------------------------------- phase 3
 
 
-def packed_batches(graphs, dev):
+def packed_batches(graphs, dev, tile: int = TILE):
     """The corpus in embed batches, packed as the CLI packs them, on dev."""
-    spec = spec_for_graphs(graphs, BATCH, tile=TILE, sizing="max")
+    spec = spec_for_graphs(graphs, BATCH, tile=tile, sizing="max")
     return [pack_batch(graphs[lo:lo + BATCH], spec).to(dev)
             for lo in range(0, len(graphs), BATCH)]
 
@@ -750,14 +777,15 @@ def write_checkpoint(model_type: str, graphs, path: str, dev) -> None:
     torch.save({k: v.cpu() for k, v in model.state_dict().items()}, path)
 
 
-def forward_throughput(model_type: str, graphs, ckpt: str, dev) -> dict:
+def forward_throughput(model_type: str, graphs, ckpt: str, dev,
+                       tile: int = TILE) -> dict:
     """Device-side serving rate: the model forward over the corpus's
     pre-packed batches already on the card (no featurization)."""
     model = MolCLRNet(num_layers=LAYERS, emb_dim=EMB, feat_dim=FEAT,
-                      gnn_type=model_type, tile=TILE)
+                      gnn_type=model_type, tile=tile)
     transfer_state(torch.load(ckpt, weights_only=True), model)
     model = model.to(dev).eval()
-    batches = packed_batches(graphs, dev)
+    batches = packed_batches(graphs, dev, tile)
     messages = sum(int(b.nbr_mask.sum()) for b in batches) * LAYERS
     with torch.no_grad():
         for b in batches:
@@ -1167,14 +1195,16 @@ def auto_ntxent_check(dev) -> dict:
 
 def pretrain_cfg(bf16: bool = False, ntxent_impl: str = "auto",
                  gnn: str = "gin", drop_ratio: float = 0.0,
-                 normalize_gcn: bool = False, **kw):
+                 normalize_gcn: bool = False, tile: int = TILE,
+                 pool: str = "mean", **kw):
     """The full-width pretraining config (B = 512, 5 x 300 / 512, tile
-    256); kw sets PretrainConfig fields (aug, concat_views)."""
+    256 unless asked); kw sets PretrainConfig fields (aug,
+    concat_views)."""
     return PretrainConfig(
         batch_size=P_BATCH, ntxent_impl=ntxent_impl,
         model=ModelConfig(num_layers=LAYERS, emb_dim=EMB, feat_dim=FEAT,
-                          tile=TILE, bf16=bf16, gnn_type=gnn,
-                          drop_ratio=drop_ratio,
+                          tile=tile, bf16=bf16, gnn_type=gnn,
+                          drop_ratio=drop_ratio, pool=pool,
                           normalize_gcn=normalize_gcn), **kw)
 
 
@@ -2653,8 +2683,13 @@ def fork(base, cfg, stack: bool):
     return pre.setup_state()
 
 
-def unit_orders(pre, epochs: int = 6) -> np.ndarray:
-    """The unit rows of the first `epochs` epochs' steps, in order."""
+def stack_orders(pre, epochs: int = 6) -> np.ndarray:
+    """The stack rows of the first `epochs` epochs' steps, in order: the
+    tile-unit rows on the units path, the cached batches' order on the
+    resident batch cache (the ELL trunk's, tile 0)."""
+    if not pre._units:
+        return np.concatenate([pre.train_iter.cached_epoch_order()
+                               for _ in range(epochs)])[:, None]
     return np.concatenate([epoch_unit_orders(
         pre._n_units, pre._units_per_batch, SEED, e)[: pre.steps_per_epoch]
         for e in range(epochs)])
@@ -2722,12 +2757,15 @@ def model_state(pre) -> dict:
     return out
 
 
-def launches_agree(tag: str, per_e: dict, per_g: dict) -> dict:
+def launches_agree(tag: str, per_e: dict, per_g: dict,
+                   some: bool = True) -> dict:
     """The port's kernels as the profiler saw them launched per step, by
     kernel name: on replayed steps (per_g) exactly as on eager steps
-    (per_e), and some at all."""
-    check(per_e and per_g == per_e, f"{tag}: the port's kernels launched "
-          f"{per_g} times per replayed step, {per_e} per eager step")
+    (per_e), and some at all unless `some` is False (the ELL trunk
+    launches none)."""
+    check(bool(per_e) == some and per_g == per_e, f"{tag}: the port's "
+          f"kernels launched {per_g} times per replayed step, {per_e} per "
+          f"eager step")
     return per_g
 
 
@@ -2744,7 +2782,7 @@ def eager_vs_graphed(pre, tag: str) -> dict:
     launched per replayed step exactly as per eager step."""
     log = lambda *_: None  # noqa: E731
     t0 = time.perf_counter()
-    orders = unit_orders(pre)
+    orders = stack_orders(pre)
     pre._resident_epoch(0, orders[:GRAPH_WARMUP_STEPS], log)
     rows = orders[GRAPH_WARMUP_STEPS: GRAPH_WARMUP_STEPS + EQUAL_STEPS]
     snap = (copy.deepcopy(pre.model.state_dict()),
@@ -2782,7 +2820,8 @@ def eager_vs_graphed(pre, tag: str) -> dict:
         tag, {n: c / PROFILED_STEPS
               for n, c in prof_e["port_launches"].items()},
         {n: c / PROFILED_STEPS
-         for n, c in prof_g["port_launches"].items()})
+         for n, c in prof_g["port_launches"].items()},
+        some=pre.cfg.model.tile > 0)
     report = dict(losses_eager=eager, losses_graphed=graphed,
                   bit_identical=True, tensors_compared=len(want),
                   graph=g, eager_launches=eager_counts,
@@ -2811,7 +2850,7 @@ def path_speed(pre, path: str, card: str) -> dict:
             for _ in range(-(-n // spe)):
                 pre._host_epoch(0, log)
     else:
-        orders = unit_orders(pre)
+        orders = stack_orders(pre)
         at = [0]
 
         def run(n):
@@ -2969,7 +3008,7 @@ def adam_rounds(base, gnn: str, card: str) -> dict:
     pres = {a: fork(base, pretrain_cfg(gnn=gnn, adam_impl=a), True)
             for a in impls}
     need = WARM_STEPS + ADAM_ROUNDS * SPEED_STEPS
-    orders = unit_orders(base, -(-need // base.steps_per_epoch))
+    orders = stack_orders(base, -(-need // base.steps_per_epoch))
     at = dict.fromkeys(impls, 0)
 
     def block(a, n):
@@ -3041,7 +3080,7 @@ def resident_phase(tmp: str, card: str, dev) -> dict:
         stack_mb_uploaded=base._unit_stack_mb)
     print(f"resident plan {json.dumps(report['plan'])}", flush=True)
     ubatch = concat_units(base._stack, torch.from_numpy(
-        unit_orders(base, 1)[0].astype(np.int64)).to(dev))
+        stack_orders(base, 1)[0].astype(np.int64)).to(dev))
     print(f"units batch: {ubatch.nbr.shape[0] // TILE} tiles, "
           f"{int(ubatch.node_mask.sum())} atoms, "
           f"{int(ubatch.edge_mask.sum())} directed bonds, "
@@ -3272,7 +3311,7 @@ def text_vs_corpus(tmp: str, dev) -> dict:
                     else np.asarray(v)) for f, v in wide_t.items()}
         batch_fields_equal(f"unit stack narrow={narrow is not None}",
                            stack, want)
-    rows = unit_orders(a, 2)[:EQUAL_STEPS]
+    rows = stack_orders(a, 2)[:EQUAL_STEPS]
     losses = [pre._resident_epoch(0, rows, log) for pre in pres]
     check(losses[0] == losses[1], f"losses differ: {losses}")
     sa, sb = model_state(a), model_state(b)
@@ -3420,6 +3459,373 @@ def corpus_phase(tmp: str, card: str, dev, native_build_s: float) -> dict:
     return report
 
 
+# --------------------------------------------------------------- phase 17
+
+# molecules above the 256-atom tile, which only the ELL trunk (tile 0)
+# takes: a 300-atom chain, a cyclohexane ring with a 274-atom tail (280
+# atoms), a benzene ring with a 264-atom tail, an amino alcohol chain
+BIG_SMILES = ["C" * 300, "C1CCCCC1" + "C" * 274, "c1ccccc1" + "C" * 264,
+              "OC" + "C" * 268 + "N"]
+# the ELL aggregations on the card against the CPU, max |card - cpu| over
+# max(1, max |cpu|): f32 1e-6 (the K slot sums run in the same order on
+# both, elementwise; the count products and the tables' gradients sum in
+# another order); bf16 1e-2: the slot sums round each add in bf16 on both
+# devices, and a count product accumulated in f32 in another order can
+# round the other way, one bf16 ulp (2^-8, 3.9e-3 relative) of an element
+ELL_RTOL = {torch.float32: 1e-6, torch.bfloat16: 1e-2}
+
+
+def ell_batch(graphs, tile: int = 0) -> GraphBatch:
+    """graphs packed as the Pretrainer packs a B = 512 batch ('total'
+    sizing, the capped slack 1.05) at `tile`, on the host."""
+    return pack_batch(graphs, spec_for_graphs(graphs, len(graphs),
+                                              slack=1.05, tile=tile))
+
+
+def ell_run(op: str, batch, dt, dev):
+    """One forward and backward of gine_aggregate / gcn_aggregate (norm
+    None or the normalize_gcn weights) at D = 300 on `dev`, from seeded
+    CPU draws; returns (out, dh, d t_type, d t_dir) on the CPU and a
+    closure that reruns forward and backward (for timing)."""
+    gen = torch.Generator().manual_seed(SEED + 17)
+    n, cols = batch.num_nodes, EMB if op == "gine" else 1
+    h, tt, td, g = (torch.randn(shape, generator=gen).to(dev, dt)
+                    for shape in ((n, EMB), (NUM_BOND_TYPES, cols),
+                                  (NUM_BOND_DIRS, cols), (n, EMB)))
+    extra = (batch.nbr, batch.nbr_bond_type, batch.nbr_bond_dir,
+             batch.nbr_mask)
+    fn = scatter_free.gine_aggregate
+    if op != "gine":
+        fn = scatter_free.gcn_aggregate
+        norm = None
+        if op == "gcn_normalize":
+            _, norm = gcn_normalization(batch.nbr, batch.nbr_mask, dt)
+        extra += (norm,)
+    prim = [x.requires_grad_() for x in (h, tt, td)]
+
+    def run():
+        for x in prim:
+            x.grad = None
+        out = fn(*prim, *extra)
+        out.backward(g)
+        return out
+
+    out = run()
+    return [out.detach().cpu()] + [x.grad.cpu() for x in prim], run
+
+
+def ell_op_cases(graphs, card: str, dev) -> dict:
+    """(a) The ELL aggregations on phase 5's batch packed at tile 0, f32
+    and bf16: forward and backward on the card twice (bit-identical) and
+    on the CPU (within ELL_RTOL), the card's ms per forward + backward."""
+    batch = ell_batch(graphs)
+    bg, bc = batch.to(dev), batch.to("cpu")
+    report = {}
+    for op in ("gine", "gcn", "gcn_normalize"):
+        for dt in (torch.float32, torch.bfloat16):
+            tag = f"{op}_{str(dt)[6:]}"
+            first, run = ell_run(op, bg, dt, dev)
+            second, _ = ell_run(op, bg, dt, dev)
+            want, _ = ell_run(op, bc, dt, "cpu")
+            check(all(torch.equal(a, b) for a, b in zip(first, second)),
+                  f"ell {tag}: two card runs differ")
+            errs = {}
+            for name, a, b in zip(("out", "dh", "dt_type", "dt_dir"),
+                                  first, want):
+                err, top = rel_err(a, b)
+                errs[name] = err / max(1.0, top)
+                check(errs[name] <= ELL_RTOL[dt], f"ell {tag} {name}: "
+                      f"|card - cpu| {err} of {top}")
+            ms = time_ms(run)
+            report[tag] = dict(rel_err=errs, fwd_bwd_ms=ms)
+            print(f"options ell {tag} {json.dumps(report[tag])}",
+                  flush=True)
+            print(f"options timing ell {tag} forward + backward {ms:.4f} "
+                  f"ms; {card}", flush=True)
+    report["nodes"], report["slots"] = batch.num_nodes, batch.nbr.shape[1]
+    return report
+
+
+def pool_max_cases(batch, dev) -> dict:
+    """(b) graph_pool(method='max') on phase 4's batch (tile 256, 512
+    graphs) at D = 300 with ties planted (atom 1 of each molecule a copy
+    of atom 0): forward and backward on the card equal to the CPU's bit
+    for bit (the max is exact and the tie split a count), the card's two
+    runs too; f32 and bf16."""
+    real = np.flatnonzero(batch.node_mask)
+    first = torch.as_tensor(real[np.unique(batch.node_graph[real],
+                                           return_index=True)[1]])
+    gen = torch.Generator().manual_seed(SEED + 18)
+    h = torch.randn(batch.num_nodes, EMB, generator=gen)
+    h[first + 1] = h[first]
+    g = torch.randn(batch.num_graphs, EMB, generator=gen)
+    report = {}
+    for dt in (torch.float32, torch.bfloat16):
+        runs = []
+        for where in (dev, dev, torch.device("cpu")):
+            b = batch.to(where)
+            x = h.to(where, dt, copy=True).requires_grad_()
+            out = graph_pool(x, b.node_graph, b.node_mask, b.num_graphs,
+                             method="max")
+            out.backward(g.to(where, dt))
+            runs.append((out.detach().cpu(), x.grad.cpu()))
+        same = [torch.equal(a, b) for a, b in zip(runs[0], runs[1])]
+        cpu = [torch.equal(a, b) for a, b in zip(runs[0], runs[2])]
+        check(all(same) and all(cpu), f"pool max {dt}: card runs equal "
+              f"{same}, equal to the CPU {cpu}")
+        split = runs[0][1][first].float()
+        check(torch.equal(split, runs[0][1][first + 1].float())
+              and bool(split.abs().max() > 0),
+              f"pool max {dt}: the tied atoms' gradients differ")
+        report[str(dt)[6:]] = dict(equal_to_cpu=True, bit_identical=True,
+                                   tied_pairs=int(first.numel()))
+    print(f"options pool_max {json.dumps(report)}", flush=True)
+    return report
+
+
+def embed_tile0_cases(tmp: str, card: str, dev) -> dict:
+    """(c) The embed CLI at --tile 0 on phase 3's 1,024 SMILES and
+    BIG_SMILES with phase 3's checkpoints, GIN and GCN: every molecule
+    embedded, no kernel launched, within SLICE_RTOL of the --cpu run; the
+    1,024 within 1e-4 * max(1, |x|) of the --tile 256 run; both runs'
+    mol/s, and the forward's over pre-packed batches at tile 0."""
+    smiles = synthetic_corpus(N_MOLS, seed=SEED) + BIG_SMILES
+    corpus = os.path.join(tmp, "corpus_big.txt")
+    with open(corpus, "w") as f:
+        f.write("\n".join(smiles) + "\n")
+    graphs, _ = featurize_many(smiles)
+    report = {}
+    for model_type in ("gin", "gcn"):
+        ckpt = os.path.join(tmp, f"{model_type}.pth")
+        base = ["--checkpoint", ckpt, "--model", model_type, "--layers",
+                str(LAYERS), "--emb-dim", str(EMB), "--feat-dim", str(FEAT),
+                "--batch-size", str(BATCH)]
+        out = {k: os.path.join(tmp, f"{model_type}_big_{k}.npy")
+               for k in ("ell", "tile", "cpu")}
+        counts, sec = embed_run([corpus, out["ell"], *base, "--tile", "0"])
+        check(not any(counts.values()), f"embed --tile 0 {model_type}: "
+              f"kernels launched {counts}")
+        _, sec_tile = embed_run([corpus, out["tile"], *base, "--tile",
+                                 str(TILE)])
+        embed_run([corpus, out["cpu"], *base, "--tile", "0", "--cpu"])
+        ell, tiled, cpu = (np.load(out[k]) for k in ("ell", "tile", "cpu"))
+        check(ell.shape == (len(smiles), FEAT)
+              and bool(np.isfinite(ell).all()),
+              f"embed --tile 0 {model_type}: {ell.shape}, expected every "
+              f"one of {len(smiles)} molecules embedded and finite")
+        err = float(np.abs(ell - cpu).max())
+        lim = SLICE_RTOL * max(1.0, float(np.abs(cpu).max()))
+        check(err <= lim, f"embed --tile 0 {model_type}: |card - cpu| "
+              f"{err} > {lim}")
+        check(tiled.shape == (N_MOLS, FEAT), f"embed --tile {TILE}: "
+              f"{tiled.shape}")
+        over = float((np.abs(ell[:N_MOLS] - tiled)
+                      / np.maximum(1.0, np.abs(tiled))).max())
+        check(over <= 1e-4, f"embed {model_type}: tile 0 against tile "
+              f"{TILE} {over} of max(1, |x|)")
+        row = dict(card=card, molecules=len(smiles), err_vs_cpu=err,
+                   limit=lim, rel_err_vs_tile=over, cli_s=sec,
+                   cli_mol_per_s=len(smiles) / sec, cli_tile_s=sec_tile,
+                   cli_tile_mol_per_s=N_MOLS / sec_tile)
+        row.update(forward_throughput(model_type, graphs, ckpt, dev,
+                                      tile=0))
+        report[model_type] = row
+        print(f"options embed {model_type} {json.dumps(row)}", flush=True)
+        print(f"options timing embed {model_type} CLI --tile 0 "
+              f"{row['cli_mol_per_s']:.1f} mol/s, --tile {TILE} "
+              f"{row['cli_tile_mol_per_s']:.1f} mol/s, forward at tile 0 "
+              f"{row['forward_mol_per_s']:.1f} mol/s; {card}", flush=True)
+    return report
+
+
+def ell_step_cases(graphs, dev) -> dict:
+    """(d) Three full-width GIN steps at tile 0 (B = 512, node, f32) card
+    against CPU under phase 5's limits, no kernel launched, and two
+    identical card steps bit-identical; (f) one GCN normalize_gcn step."""
+    batch = ell_batch(graphs)
+    bw = spec_for_graphs(graphs, len(graphs), slack=1.05,
+                         tile=0).max_graph_bonds
+    report = {}
+    for tag, kw, steps in (("gin", {}, P_STEPS),
+                           ("gcn_normalize", dict(gnn="gcn",
+                                                  normalize_gcn=True), 1)):
+        cfg = pretrain_cfg(tile=0, **kw)
+        models, opts = card_and_cpu(cfg, dev)
+        rep = card_vs_cpu_steps(models, opts, cfg, batch, dev, bw, 0, steps,
+                                {}, f"ell step {tag}")
+        if tag == "gin":
+            bit_identical_steps(models["card"], opts["card"], cfg,
+                                batch.to(dev), bw, steps, "ell step")
+            rep["bit_identical_steps"] = True
+        report[tag] = rep
+        print(f"options ell step {tag} {json.dumps(rep)}", flush=True)
+    return report
+
+
+def ell_resident_cases(tmp: str, card: str, dev, units_row) -> dict:
+    """(e) The Pretrainer at tile 0 on phase 7's corpus and BIG_SMILES:
+    no tile-units, a host epoch, then the cached batches resident;
+    EQUAL_STEPS graphed steps bit-identical to eager ones, no kernel
+    launched; the graphed step's speed (phase 15's method) beside phase
+    15's units-path GIN f32 graphed step."""
+    log = lambda *_: None  # noqa: E731
+    smiles = read_pretrain_smiles(os.path.join(tmp, "pretrain.txt"))
+    pre = Pretrainer(pretrain_cfg(tile=0), dev)
+    pre.setup_data(smiles + BIG_SMILES).setup_state()
+    pre._activate_units(log)
+    check(not pre._units, "tile 0 took the units path")
+    pre._host_epoch(0, log)
+    pre._maybe_upload_cache(log)
+    check(pre._stack is not None, "tile 0: the batch cache was not "
+          "uploaded")
+    big = int((pre._stack["graph_n_nodes"] > TILE).sum())
+    report = dict(cached_batches=int(pre._stack["graph_mask"].shape[0]),
+                  cached_molecules_over_tile=big)
+    report["equal"] = eager_vs_graphed(pre, "gin_tile0")
+    row = path_speed(pre, "resident_graphed", card)
+    report["speed"] = row
+    report["units_graphed"] = {k: units_row[k] for k in (
+        "step_ms", "host_ms", "device_ms", "device_busy_share",
+        "message_edges_per_s", "mol_per_s")}
+    print(f"options timing resident graphed step tile 0: {row['step_ms']:.3f}"
+          f" ms (host {row['host_ms']:.3f}, device {row['device_ms']:.3f}, "
+          f"busy {row['device_busy_share']:.3f}); units path tile {TILE}: "
+          f"{units_row['step_ms']:.3f} ms (host {units_row['host_ms']:.3f}, "
+          f"device {units_row['device_ms']:.3f}, busy "
+          f"{units_row['device_busy_share']:.3f}); {card}", flush=True)
+    return report
+
+
+def pool_max_step_cases(tmp: str, batch, spec, dev) -> dict:
+    """(g) pool max at tile 256 (GIN): one step card against CPU on phase
+    4's batch (K1f 10, K1b 10), and EQUAL_STEPS units-path steps graphed
+    against eager on phase 7's corpus, bit-identical."""
+    log = lambda *_: None  # noqa: E731
+    cfg = pretrain_cfg(pool="max")
+    models, opts = card_and_cpu(cfg, dev)
+    want = dict(fused_gine_bn_layer=2 * LAYERS,
+                fused_gine_bn_layer_bwd=2 * LAYERS)
+    report = dict(step=card_vs_cpu_steps(
+        models, opts, cfg, batch, dev, spec.max_graph_bonds, 0, 1, want,
+        "pool max step"))
+    pre = Pretrainer(cfg, dev)
+    pre.setup_data(read_pretrain_smiles(os.path.join(tmp, "pretrain.txt")))
+    pre.setup_state()
+    pre._activate_units(log)
+    check(pre._units, "pool max: the units path did not activate")
+    report["equal"] = eager_vs_graphed(pre, "gin_pool_max")
+    return report
+
+
+def link_cases(dev) -> dict:
+    """(h) LinkFineTuneNet at configs/finetune.yaml's model (5 x 300 / 512,
+    drop 0.3, pred head 2 x softplus) on phase 8's 32 molecules: forward
+    and backward of the task's CE loss on the card and on the CPU with
+    the same keep masks, at tile 256 (K4f 5, K4b 5) and tile 0 (no
+    kernel): h and the scores within SLICE_RTOL, gradients within
+    STEP_GRAD_RTOL of the largest (phase 5's rule for a step's
+    gradients), the label table's gradient nonzero."""
+    graphs, _ = featurize_many(synthetic_corpus(FT_MOLS, seed=SEED),
+                               add_hs=True)
+    labels = torch.randint(0, 2, (FT_BATCH,),
+                           generator=torch.Generator().manual_seed(SEED))
+    report = {}
+    for tile in (TILE, 0):
+        batch = pack_batch(graphs[:FT_BATCH], spec_for_graphs(
+            graphs, FT_BATCH, tile=tile))
+        masks = None
+        out = {}
+        for where in ("card", "cpu"):
+            d = dev if where == "card" else torch.device("cpu")
+            model = LinkFineTuneNet(
+                num_layers=LAYERS, emb_dim=EMB, feat_dim=FEAT,
+                drop_ratio=0.3, tile=tile,
+                generator=torch.Generator().manual_seed(SEED + 5))
+            model = model.to(d).train()
+            if masks is None:
+                masks = model.keep_masks(batch.num_nodes, torch.Generator(
+                    device=d).manual_seed(SEED + 6))
+            b = batch.to(d)
+            lab = torch.zeros(b.num_graphs)
+            lab[:FT_BATCH] = labels.float()
+            reset_counts()
+            h, pred = model(b, dropout_masks=[m.to(d) for m in masks])
+            ft_lib.compute_loss(pred.float(), lab.to(d), b.graph_mask,
+                                "ce").backward()
+            if where == "card":
+                torch.cuda.synchronize()
+                counts = read_counts()
+            out[where] = (h.detach().cpu(), pred.detach().cpu(), {
+                k: p.grad.cpu() for k, p in model.named_parameters()})
+        want = (dict(fused_gine_layer=LAYERS, fused_gine_layer_bwd=LAYERS)
+                if tile else {})
+        for name, c in counts.items():
+            check(c == want.get(name, 0), f"link tile {tile}: {name} "
+                  f"launched {c} times, expected {want.get(name, 0)}")
+        errs = {}
+        for what, a, b in zip(("h", "pred"), out["card"], out["cpu"]):
+            err, top = rel_err(a, b)
+            errs[what] = err / max(1.0, top)
+            check(errs[what] <= SLICE_RTOL, f"link tile {tile} {what}: "
+                  f"{err} of {top}")
+        gc, gp = out["card"][2], out["cpu"][2]
+        gmax = max(g.abs().max().item() for g in gp.values())
+        gworst = max((gc[k] - gp[k]).abs().max().item() for k in gp) / gmax
+        check(gworst <= STEP_GRAD_RTOL[torch.float32],
+              f"link tile {tile}: gradients {gworst} of the largest")
+        check(bool(gc["label_embedding"].abs().max() > 0),
+              f"link tile {tile}: no label_embedding gradient")
+        report[f"tile_{tile}"] = dict(counts=counts, rel_err=errs,
+                                      grad_off=gworst)
+    print(f"options link {json.dumps(report)}", flush=True)
+    return report
+
+
+def tensorboard_case(tmp: str) -> dict:
+    """(i) Whether torch.utils.tensorboard imports here, and what
+    MetricWriter(tensorboard=True) did: event files written, or the one
+    line that says none are."""
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+        importable, why = True, None
+    except ImportError as e:
+        importable, why = False, str(e)
+    run_dir = os.path.join(tmp, "tensorboard")
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        w = MetricWriter(run_dir, tensorboard=True)
+        w.scalars(1, train_loss=0.5, validation_loss=float("nan"))
+        w.close()
+    events = [f for f in os.listdir(run_dir) if "tfevents" in f]
+    check(bool(events) == importable and (importable or "writing no "
+                                          "TensorBoard" in said.getvalue()),
+          f"tensorboard: importable {importable}, events {events}, said "
+          f"{said.getvalue()!r}")
+    report = dict(importable=importable, import_error=why,
+                  event_files=len(events), said=said.getvalue().strip())
+    print(f"options tensorboard {json.dumps(report)}", flush=True)
+    return report
+
+
+def model_options_phase(tmp: str, card: str, dev, batch, spec,
+                        units_row) -> dict:
+    """Phase 17: the JAX package's model options on the card."""
+    t0 = time.perf_counter()
+    graphs, _ = featurize_many(synthetic_corpus(P_BATCH, seed=7))
+    report = dict(card=card)
+    report["ell_ops"] = ell_op_cases(graphs, card, dev)
+    report["pool_max"] = pool_max_cases(batch, dev)
+    report["embed"] = embed_tile0_cases(tmp, card, dev)
+    report["ell_steps"] = ell_step_cases(graphs, dev)
+    report["ell_resident"] = ell_resident_cases(tmp, card, dev, units_row)
+    report["pool_max_steps"] = pool_max_step_cases(tmp, batch, spec, dev)
+    report["link"] = link_cases(dev)
+    report["tensorboard"] = tensorboard_case(tmp)
+    report["seconds"] = time.perf_counter() - t0
+    print(f"phase options took {report['seconds']:.1f} s", flush=True)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3486,9 +3892,15 @@ def main() -> int:
         cli_phase(tmp, "pretrain_gcn_mix", ["--model", "gcn", "--aug", "mix"],
                   gnn="gcn")
         phase("resident")
-        resident_phase(tmp, card, dev)
+        resident = resident_phase(tmp, card, dev)
         phase("corpus")
         corpus_phase(tmp, card, dev, native_build_s)
+        phase("model options")
+        units_row = next(r for r in resident["speed"]
+                         if r["model"] == "gin" and r["dtype"] == "float32"
+                         and r["path"] == "resident_graphed"
+                         and r["adam"] == "chain" and not r["drop_ratio"])
+        model_options_phase(tmp, card, dev, batch, spec, units_row)
     phase("done")
 
     def row(name, source, replaces, launches, res, case):

@@ -5,7 +5,8 @@ a pretrained encoder from a torch .pth state dict, featurize an input
 corpus, and write the pooled molecular embeddings (feat_lin output `h`,
 or the projection `z` with --projection) as .npy, with a sidecar
 .smiles.txt of the kept SMILES. The trunk runs the BN-chained fused
-layers, which are CUDA kernels on the card. It runs on the first CUDA
+layers, which are CUDA kernels on the card, or with --tile 0 the ELL
+trunk's PyTorch ops. It runs on the first CUDA
 device unless --cpu is given, and raises when there is none.
 
     python -m molclr_tpu_torch.cli.embed corpus.txt out.npy --checkpoint model.pth
@@ -43,7 +44,9 @@ def main(argv=None) -> int:
     p.add_argument("--batch-size", type=int, default=256)
     p.add_argument("--tile", type=int, default=256,
                    help="tile-dense aggregation tile size (a multiple of "
-                        "16 on the GPU)")
+                        "16 on the GPU; molecules larger than the tile are "
+                        "skipped); 0 = the ELL trunk, which embeds every "
+                        "molecule whatever its size")
     p.add_argument("--projection", action="store_true",
                    help="emit the contrastive projection z instead of h")
     p.add_argument("--cpu", action="store_true",

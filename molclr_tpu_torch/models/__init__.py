@@ -4,9 +4,11 @@ from molclr_tpu_torch.models.layers import GCNConv, GINEConv, MaskedBatchNorm
 from molclr_tpu_torch.models.nets import (
     Encoder,
     FineTuneNet,
+    LinkFineTuneNet,
     MolCLRNet,
     MotifFineTuneNet,
 )
 
 __all__ = ["Encoder", "FineTuneNet", "GCNConv", "GINEConv",
-           "MaskedBatchNorm", "MolCLRNet", "MotifFineTuneNet"]
+           "LinkFineTuneNet", "MaskedBatchNorm", "MolCLRNet",
+           "MotifFineTuneNet"]

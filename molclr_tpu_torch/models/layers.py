@@ -14,11 +14,15 @@ reference state dict loads directly:
   BatchNorm torch BatchNorm1d semantics (eps 1e-5, momentum 0.1, biased
             variance to normalize, unbiased in the running stats) over
             real nodes only.
-Each conv has two fused modes, as in the JAX package: BN-chained (it takes
-the previous BatchNorm's affine (a, b, relu_in) as its prologue and returns
-its output with the masked moments that feed the next MaskedBatchNorm),
-and unchained (one fused layer call; BatchNorm, relu and dropout follow
-outside the kernel), which the trunk runs when drop_ratio > 0.
+Each conv has two fused modes on the tile-dense trunk, as in the JAX
+package: BN-chained (it takes the previous BatchNorm's affine (a, b,
+relu_in) as its prologue and returns its output with the masked moments
+that feed the next MaskedBatchNorm), and unchained (one fused layer call;
+BatchNorm, relu and dropout follow outside the kernel), which the trunk
+runs when drop_ratio > 0. Without an adjacency (the ELL trunk, tile 0)
+each conv aggregates over the batch's ELL view with
+ops/scatter_free.py's gine_aggregate / gcn_aggregate and runs its dense
+parts as PyTorch ops, the JAX layers' path without the fused kernels.
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ from molclr_tpu_torch.ops.fused_layer import (
     pack_cnt,
     pack_etab,
 )
-from molclr_tpu_torch.ops.scatter_free import _counts
+from molclr_tpu_torch.ops.scatter_free import _counts, gcn_aggregate, \
+    gine_aggregate
 from molclr_tpu_torch.ops.tile_dense import (
     gcn_edge_term,
     gcn_normalization,
@@ -52,6 +57,13 @@ def edge_counts(batch, w: torch.Tensor) -> torch.Tensor:
     dtype."""
     return pack_cnt(_counts(batch.nbr_bond_type, w, NUM_BOND_TYPES),
                     _counts(batch.nbr_bond_dir, w, NUM_BOND_DIRS))
+
+
+def linear_in(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """Dense layer computed in `dtype` with f32 parameters cast to it (the
+    JAX package's dense(dtype=...) semantics)."""
+    return nn.functional.linear(x.to(dtype), lin.weight.to(dtype),
+                                lin.bias.to(dtype))
 
 
 @torch.no_grad()
@@ -149,13 +161,21 @@ class GINEConv(nn.Module):
         xavier_uniform_(self.edge_embedding1.weight, generator)
         xavier_uniform_(self.edge_embedding2.weight, generator)
 
-    def forward(self, h, adj, cnt, bn_in=None):
+    def forward(self, h, adj, cnt, bn_in=None, batch=None):
         """h [N, D]; adj/cnt from the trunk. With bn_in = (a, b, relu_in)
         of the previous BatchNorm (h its raw input) the BN-chained kernel
         runs and returns (out [N, D], sums [2, D]); without it the
-        unchained kernel returns out [N, D]. Both compute in h's dtype."""
+        unchained kernel returns out [N, D]; with adj None, `batch`'s ELL
+        view is aggregated by gine_aggregate and the MLP follows. All
+        compute in h's dtype."""
         dt = h.dtype
         lin0, lin1 = self.mlp[0], self.mlp[2]
+        if adj is None:
+            agg = gine_aggregate(
+                h, self.edge_embedding1.weight.to(dt),
+                self.edge_embedding2.weight.to(dt), batch.nbr,
+                batch.nbr_bond_type, batch.nbr_bond_dir, batch.nbr_mask)
+            return linear_in(lin1, torch.relu(linear_in(lin0, agg, dt)), dt)
         etab = pack_etab(self.edge_embedding1.weight,
                          self.edge_embedding2.weight, dt)
         w1 = lin0.weight.t().to(dt).contiguous()
@@ -195,10 +215,21 @@ class GCNConv(nn.Module):
         in h's dtype, as the JAX package does; with normalize it scales adj
         and weights the counts itself, from `batch`'s ELL view in h's dtype
         (as the JAX layer does per layer). The BN-chained mode takes adj
-        and cnt already normalized by the trunk."""
+        and cnt already normalized by the trunk. With adj None, x = h @ W
+        is aggregated over `batch`'s ELL view by gcn_aggregate."""
         dt = h.dtype
         e1, e2 = self.edge_embedding1.weight, self.edge_embedding2.weight
         w = self.weight.to(dt).contiguous()
+        if adj is None:
+            norm = None
+            if self.normalize:
+                # mask * dis[nbr] * dis[n]: the same slot weights as the
+                # unmasked norm, the mask being 0 or 1
+                _, norm = gcn_normalization(batch.nbr, batch.nbr_mask, dt)
+            out = gcn_aggregate(h @ w, e1.to(dt), e2.to(dt), batch.nbr,
+                                batch.nbr_bond_type, batch.nbr_bond_dir,
+                                batch.nbr_mask, norm)
+            return out + self.bias.to(dt)
         if bn_in is None:
             if self.normalize:
                 dis, wn = gcn_normalization(batch.nbr, batch.nbr_mask, dt)

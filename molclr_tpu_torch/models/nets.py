@@ -1,8 +1,8 @@
 """Encoder trunk, the pretraining network and the fine-tune networks.
 
-Port of molclr_tpu/models/nets.py (`GNNTrunk` on its two fused paths,
-`MolCLRNet`, `_pred_head`, `FineTuneNet`, `MotifFineTuneNet`). Shapes and
-semantics follow the reference:
+Port of molclr_tpu/models/nets.py (`GNNTrunk` on its two fused paths and
+its ELL path, `MolCLRNet`, `_pred_head`, `FineTuneNet`, `LinkFineTuneNet`,
+`MotifFineTuneNet`). Shapes and semantics follow the reference:
   trunk    h = Emb_type(x0) + Emb_chir(x1); num_layer x [conv -> BN ->
            dropout(relu)] with no relu after the last BN; mean pool;
            feat_lin (ginet_molclr.py:98-114, gcn_molclr.py:139-155)
@@ -10,13 +10,16 @@ semantics follow the reference:
            (ginet_molclr.py:92-96,117)
   FineTune pred head feat -> feat/2 -> act [x pred_n_layer] -> out_dim, out
            dim 2 (classification logits) or 1 (ginet_finetune.py:96-127)
+  Link     label_embedding [2, feat] ~ N(0, 1), label_lin (feat -> feat);
+           one pred head on cat(h, label_lin(label_embedding)[y]) [2 feat]
+           -> 1 for each label y, out [G, 2] (ginet_finetune_link.py:52-162)
   Motif    motif_embedding(num_motifs, feat); attention pool with gate =
            Linear(feat, 1) over each molecule's motifs and its own pooled
            feature; motif_lin; pred head on cat(h, hp) [2 feat]
            (ginet_finetune_mp.py:79,104-107,141-165)
 The state-dict keys are the reference's (x_embedding1/2, gnns.{i}.*,
-batch_norms.{i}.*, feat_lin, out_lin.{0,2}, pred_head.{2i}, motif_*), so a
-reference .pth loads directly.
+batch_norms.{i}.*, feat_lin, out_lin.{0,2}, pred_head.{2i}, label_*,
+motif_*), so a reference .pth loads directly.
 
 The trunk takes the JAX package's two fused paths. With drop_ratio == 0
 it is BN-chained: every conv layer is one kernel call that applies the
@@ -26,6 +29,10 @@ drop_ratio > 0 (fine-tuning) it is unchained: each conv layer is one
 fused_gine_layer / fused_gcn_layer call, then BatchNorm, relu and dropout.
 The choice depends on the configuration alone, as in the JAX package, so
 an eval-mode forward at drop_ratio 0.3 runs the unchained kernels too.
+With tile 0 the trunk takes the JAX package's ELL path (`resolve_fused` is
+False there): no tile adjacency, every layer an ELL aggregation with its
+dense parts in PyTorch (no hand-written kernel), then BatchNorm, relu and
+dropout, whatever drop_ratio is; it takes molecules of any size.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from molclr_tpu_torch.models.layers import (
     GINEConv,
     MaskedBatchNorm,
     edge_counts,
+    linear_in,
     reset_linear_,
     xavier_uniform_,
 )
@@ -49,13 +57,6 @@ from molclr_tpu_torch.ops.tile_dense import (
     gcn_normalization,
     normalize_tile_adjacency,
 )
-
-
-def _linear(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
-    """Dense layer computed in `dtype` with f32 parameters cast to it (the
-    JAX package's dense(dtype=...) semantics)."""
-    return nn.functional.linear(x.to(dtype), lin.weight.to(dtype),
-                                lin.bias.to(dtype))
 
 
 def draw_keep(shape, rate: float, generator: torch.Generator | None,
@@ -89,8 +90,9 @@ class Encoder(nn.Module):
     Initial weights come from `generator` (a CPU torch.Generator); build
     the model on the CPU and move it with .to(device). normalize_gcn
     applies GCN's symmetric normalization (the GIN trunk ignores it, as
-    the JAX model does). tile == 0 (the ELL gather path of the JAX model)
-    is not ported yet and raises NotImplementedError."""
+    the JAX model does). tile > 0 runs the tile-dense fused kernels on a
+    batch packed with PadSpec(tile=tile); tile == 0 the ELL path.
+    pool is 'mean', 'add' or 'max'."""
 
     def __init__(self, num_layers: int = 5, emb_dim: int = 300,
                  feat_dim: int = 512, gnn_type: str = "gin",
@@ -100,9 +102,8 @@ class Encoder(nn.Module):
         super().__init__()
         if gnn_type not in ("gin", "gcn"):
             raise ValueError(f"unknown gnn_type {gnn_type!r}")
-        if tile <= 0:
-            raise NotImplementedError("tile == 0 (ELL gather path) is not "
-                                      "ported yet")
+        if tile < 0:
+            raise ValueError(f"tile must be 0 (ELL) or positive, not {tile}")
         self.num_layers, self.emb_dim, self.feat_dim = \
             num_layers, emb_dim, feat_dim
         self.gnn_type, self.pool, self.dtype, self.tile = \
@@ -136,16 +137,19 @@ class Encoder(nn.Module):
         h = (embed_lookup(self.x_embedding1.weight, batch.atom_type)
              + embed_lookup(self.x_embedding2.weight, batch.chirality))
         h = torch.where(mask, h.to(dt), 0)
-        adj = build_tile_adjacency(batch.nbr, batch.nbr_mask, self.tile,
-                                   dtype=dt)
-        w = batch.nbr_mask.to(dt)
-        chained = self.drop_ratio == 0.0
-        if chained and self.normalize_gcn:
-            # bake the symmetric normalization into the shared adjacency
-            # and edge counts once (the unchained GCNConv does it per layer)
-            dis, w = gcn_normalization(batch.nbr, batch.nbr_mask, dt)
-            adj = normalize_tile_adjacency(adj, dis)
-        cnt = edge_counts(batch, w)
+        adj = cnt = None
+        chained = self.drop_ratio == 0.0 and self.tile > 0
+        if self.tile:
+            adj = build_tile_adjacency(batch.nbr, batch.nbr_mask, self.tile,
+                                       dtype=dt)
+            w = batch.nbr_mask.to(dt)
+            if chained and self.normalize_gcn:
+                # bake the symmetric normalization into the shared
+                # adjacency and edge counts once (the unchained GCNConv
+                # does it per layer)
+                dis, w = gcn_normalization(batch.nbr, batch.nbr_mask, dt)
+                adj = normalize_tile_adjacency(adj, dis)
+            cnt = edge_counts(batch, w)
         last = self.num_layers - 1
         if chained:
             count = batch.node_mask.float().sum()
@@ -162,13 +166,12 @@ class Encoder(nn.Module):
                 else:
                     h, relu_in = out, True
             return h
-        drop = self.training
+        drop = self.training and self.drop_ratio > 0
         if drop and dropout_masks is None and generator is None:
             raise ValueError("training with dropout needs dropout_masks or "
                              "a generator")
-        extra = dict(batch=batch) if self.normalize_gcn else {}
         for layer, (conv, bn) in enumerate(zip(self.gnns, self.batch_norms)):
-            h = bn(conv(h, adj, cnt, **extra), batch.node_mask)
+            h = bn(conv(h, adj, cnt, batch=batch), batch.node_mask)
             if layer != last:
                 h = torch.relu(h)
             if drop:
@@ -192,7 +195,7 @@ class Encoder(nn.Module):
         h = self.trunk(batch, dropout_masks, generator)
         hg = graph_pool(h, batch.node_graph, batch.node_mask,
                         batch.num_graphs, batch.graph_n_nodes, self.pool)
-        return _linear(self.feat_lin, hg, self.dtype)
+        return linear_in(self.feat_lin, hg, self.dtype)
 
 
 class MolCLRNet(Encoder):
@@ -211,8 +214,8 @@ class MolCLRNet(Encoder):
         (h [G, feat_dim], z [G, feat_dim // 2])."""
         hg = self.encode(batch, dropout_masks, generator)
         cd = self.dtype
-        z = torch.relu(_linear(self.out_lin[0], hg, cd))
-        return hg, _linear(self.out_lin[2], z, cd)
+        z = torch.relu(linear_in(self.out_lin[0], hg, cd))
+        return hg, linear_in(self.out_lin[2], z, cd)
 
 
 _ACTIVATIONS = {"softplus": nn.Softplus, "relu": nn.ReLU}
@@ -234,7 +237,7 @@ def _pred_head(feat_in: int, feat_dim: int, out_dim: int, pred_n_layer: int,
 
 def _apply_head(head: nn.Sequential, x: torch.Tensor, dtype) -> torch.Tensor:
     for mod in head:
-        x = _linear(mod, x, dtype) if isinstance(mod, nn.Linear) else mod(x)
+        x = linear_in(mod, x, dtype) if isinstance(mod, nn.Linear) else mod(x)
     return x
 
 
@@ -258,6 +261,39 @@ class FineTuneNet(Encoder):
     def forward(self, batch, dropout_masks=None, generator=None):
         hg = self.encode(batch, dropout_masks, generator)
         return hg, _apply_head(self.pred_head, hg, self.dtype)
+
+
+class LinkFineTuneNet(Encoder):
+    """The label-embedding ("link") fine-tune network: each molecule's
+    pooled feature is concatenated with label_lin(label_embedding[y]) for
+    y in {0, 1}, and each pair runs through one shared pred head [2 feat]
+    -> 1; forward returns (h [G, feat_dim], pred [G, 2]). The label table,
+    label_lin and the head compute in f32 (the JAX model's dense layers
+    without a dtype promote a bf16 h to f32)."""
+
+    def __init__(self, *args, pred_n_layer: int = 2,
+                 pred_act: str = "softplus",
+                 generator: torch.Generator | None = None, **kwargs):
+        super().__init__(*args, generator=generator, **kwargs)
+        f = self.feat_dim
+        self.label_embedding = nn.Parameter(torch.empty(2, f))
+        with torch.no_grad():
+            self.label_embedding.normal_(generator=generator)
+        self.label_lin = nn.Linear(f, f)
+        xavier_uniform_(self.label_lin.weight, generator)
+        with torch.no_grad():
+            self.label_lin.bias.zero_()
+        self.pred_head = _pred_head(2 * f, f, 1, pred_n_layer, pred_act,
+                                    generator)
+
+    def forward(self, batch, dropout_masks=None, generator=None):
+        hg = self.encode(batch, dropout_masks, generator)
+        lab = self.label_lin(self.label_embedding)             # [2, F]
+        g, f = hg.shape[0], self.feat_dim
+        scores = [_apply_head(self.pred_head, torch.cat(
+            [hg.float(), lab[y].expand(g, f)], dim=-1), torch.float32)
+            for y in range(2)]
+        return hg, torch.cat(scores, dim=-1)
 
 
 class _AttentionPool(nn.Module):

@@ -48,15 +48,16 @@ def transfer_state(src: dict, model: torch.nn.Module) -> dict:
 
 def state_dict_from_jax(params: dict, batch_stats: dict | None = None
                         ) -> dict[str, torch.Tensor]:
-    """Flax MolCLRNet / FineTuneNet / MotifFineTuneNet trees (numpy
-    leaves) -> the port's state dict.
+    """Flax MolCLRNet / FineTuneNet / LinkFineTuneNet / MotifFineTuneNet
+    trees (numpy leaves) -> the port's state dict.
 
     Dense kernels [in, out] are transposed to torch Linear weights
     [out, in]; the GCN `weight` (used as x @ W) is kept as it is; BatchNorm
     scale/bias/mean/var become weight/bias/running_mean/running_var;
     pred_i / pred_out become pred_head.{2i} (pred_out last), motif_gate
-    motif_pool.gate_nn.0. The number of layers, the conv type and the head
-    depth are read from the tree."""
+    motif_pool.gate_nn.0; label_embedding and label_lin keep their names.
+    The number of layers, the conv type and the head depth are read from
+    the tree."""
     def t(a):
         return torch.tensor(np.ascontiguousarray(np.asarray(a)))
 
@@ -86,7 +87,8 @@ def state_dict_from_jax(params: dict, batch_stats: dict | None = None
             state[f"batch_norms.{i}.running_var"] = t(sbn["var"])
     dense = [("feat_lin", "feat_lin"), ("out_lin_0", "out_lin.0"),
              ("out_lin_1", "out_lin.2"), ("motif_lin", "motif_lin"),
-             ("motif_gate", "motif_pool.gate_nn.0")]
+             ("motif_gate", "motif_pool.gate_nn.0"),
+             ("label_lin", "label_lin")]
     hidden = sorted(int(k.split("_")[1]) for k in params
                     if k.startswith("pred_") and k != "pred_out")
     dense += [(f"pred_{i}", f"pred_head.{2 * i}") for i in hidden]
@@ -97,6 +99,8 @@ def state_dict_from_jax(params: dict, batch_stats: dict | None = None
             state[f"{key}.bias"] = t(params[name]["bias"])
     if "motif_embedding" in params:
         state["motif_embedding.weight"] = t(params["motif_embedding"])
+    if "label_embedding" in params:
+        state["label_embedding"] = t(params["label_embedding"])
     return state
 
 
@@ -159,7 +163,8 @@ def load_pretrained_state(path: str) -> dict[str, torch.Tensor]:
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is a directory: Orbax checkpoints of the JAX package "
-            f"are not read yet; pass a .pth or a step_<n>.pt")
+            f"are not read yet (the next item of ROADMAP.md's modules to "
+            f"port); pass a .pth or a step_<n>.pt")
     if not os.path.exists(path):
         raise FileNotFoundError(f"pretrained checkpoint not found: {path!r}")
     if _STEP_FILE.match(os.path.basename(path)):

@@ -5,7 +5,9 @@ Port of molclr_tpu/train/config.py (`ModelConfig`, `PretrainConfig`,
 options the port runs on one card. The YAML keys and the value names
 (`ntxent_impl` 'auto' / 'xla' / 'pallas', `adam_impl` 'chain' / 'fused')
 are the JAX package's, so one file serves both packages; keys for options
-the port does not have are ignored.
+the port does not have are ignored. The top-level key `tensorboard` sets
+the dataclasses' field of that name (the JAX package's YAML readers leave
+it at its default).
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ class ModelConfig:
     normalize_gcn: bool = False     # True fixes quirk Q2
     bf16: bool = False              # bfloat16 activations (params stay f32)
     tile: int = 256                 # tile-dense aggregation, tile-aligned
-                                    # packing (a multiple of 16 on the card)
+                                    # packing (a multiple of 16 on the
+                                    # card); 0 = the ELL trunk, any size
 
 
 @dataclass
@@ -113,6 +116,7 @@ class PretrainConfig:
                                     # (joint BatchNorm statistics); False
                                     # runs them one after the other, as the
                                     # reference does (molclr.py:57-60)
+    tensorboard: bool = False       # also write TB scalars into ckpt_dir
 
 
 @dataclass
@@ -146,6 +150,8 @@ class FineTuneConfig:
                                     # DataLoader semantics) and refill the
                                     # device stack; False freezes them after
                                     # epoch 0 (one upload, reshuffled order)
+    tensorboard: bool = False       # also write TB scalars into the run's
+                                    # directory under ckpt_dir
     n_seeds: int = 1                # > 1: a seed ensemble, members trained
                                     # side by side on the same batches
     batch_targets: bool = True      # multi-target tasks whose columns keep
@@ -214,6 +220,8 @@ def pretrain_from_yaml(path: str) -> PretrainConfig:
     for k in _DISPATCH_KEYS:
         if k in raw:
             setattr(cfg, k, type(getattr(cfg, k))(raw[k]))
+    if "tensorboard" in raw:
+        cfg.tensorboard = bool(raw["tensorboard"])
     return cfg
 
 
@@ -253,6 +261,8 @@ def finetune_from_yaml(path: str) -> FineTuneConfig:
     for k in ("valid_size", "test_size", "splitting"):
         if k in ds:
             setattr(cfg, k, ds[k])
+    if "tensorboard" in raw:
+        cfg.tensorboard = bool(raw["tensorboard"])
     return cfg
 
 

@@ -686,7 +686,7 @@ class FineTuner:
     def train(self, log=print) -> dict:
         cfg = self.cfg
         run_dir = os.path.join(cfg.ckpt_dir, f"{cfg.task_name}_{self.target}")
-        writer = MetricWriter(run_dir)
+        writer = MetricWriter(run_dir, tensorboard=cfg.tensorboard)
         direction = METRIC_DIRECTION[self.task.metric]
         best = np.full(self.n_members, -np.inf)
         best_state = None
@@ -717,6 +717,8 @@ class FineTuner:
                         round(pt["metric"], 4) for pt in val["per_target"]]
                 history.append(record)
                 writer.record(record)
+                writer.scalars(epoch, train_loss=record["train_loss"],
+                               **{f"valid_{val['name']}": val["metric"]})
                 log(f"[{cfg.task_name}/{self.target}] {record}")
             self.final_state = self.member_states()
             # every validation metric NaN: the final states

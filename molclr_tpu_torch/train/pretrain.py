@@ -49,7 +49,10 @@ steps are replayed as CUDA graphs (train/graphed.py, steps_per_dispatch)
 after GRAPH_WARMUP_STEPS eager ones; every step augments inline from its
 key row (aug_precompute is read for the JAX package's YAML and changes
 nothing here). Validation batches are uploaded once
-after the first pass. Not ported: data parallelism, TensorBoard.
+after the first pass. With tile 0 (the ELL trunk) there are no tile-units:
+the first epoch takes the host path and the later ones the resident
+cached batches, as in the JAX Pretrainer. TensorBoard scalars (cfg.tensorboard)
+carry the JAX Pretrainer's tags at its steps. Not ported: data parallelism.
 """
 
 from __future__ import annotations
@@ -721,7 +724,7 @@ class Pretrainer:
         os.makedirs(cfg.ckpt_dir, exist_ok=True)
         with open(os.path.join(cfg.ckpt_dir, "config.json"), "w") as f:
             json.dump(to_dict(cfg), f, indent=2, default=str)
-        writer = MetricWriter(cfg.ckpt_dir)
+        writer = MetricWriter(cfg.ckpt_dir, tensorboard=cfg.tensorboard)
         best_val = float("inf")
         history = []
         self._activate_units(log)
@@ -775,6 +778,11 @@ class Pretrainer:
                         json.dump({"adam_impl": cfg.adam_impl}, f)
                 history.append(record)
                 writer.record(record)
+                writer.scalars(self.step, train_loss=record["train_loss"],
+                               cosine_lr_decay=record["lr"],
+                               validation_loss=record.get("valid_loss",
+                                                          float("nan")),
+                               edges_per_sec=record["edges_per_sec"])
                 log(f"epoch {epoch}: {record}")
                 if stopping:
                     log(f"stop_after_epochs={cfg.stop_after_epochs}: "

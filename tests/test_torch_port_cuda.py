@@ -26,13 +26,15 @@ from molclr_tpu_torch.data.loader import spec_for_graphs
 from molclr_tpu_torch.data.synthetic import synthetic_corpus
 from molclr_tpu_torch.models import MolCLRNet
 from molclr_tpu_torch.losses import nt_xent_loss
-from molclr_tpu_torch.ops import fused_gcn, fused_layer, ntxent
+from molclr_tpu_torch.ops import fused_gcn, fused_layer, ntxent, \
+    scatter_free, segment
 from molclr_tpu_torch.data.regroup import epoch_unit_orders
 from molclr_tpu_torch.train import checkpoints as ckpt_lib
 from molclr_tpu_torch.train.config import FineTuneConfig, ModelConfig, \
     PretrainConfig
 from molclr_tpu_torch.train.finetune import FineTuner
-from molclr_tpu_torch.train.graphed import GRAPH_WARMUP_STEPS, GraphedSteps
+from molclr_tpu_torch.train.graphed import GRAPH_WARMUP_STEPS, \
+    GraphedSteps, launch_counts
 from molclr_tpu_torch.train.optim import load_optimizer_state
 from molclr_tpu_torch.train.pretrain import Pretrainer
 
@@ -747,16 +749,19 @@ def _flat_opt_state(opt):
             for k, v in st.items()}
 
 
-def _eager_then_graphed(pre, rows):
+def _eager_then_graphed(pre, rows, warm=None):
     """The rows' steps run eagerly and then, from the same state and with
     the same optimizer object, replayed as a CUDA graph of
-    pre.graph_steps steps; returns both runs' (losses, state)."""
+    pre.graph_steps steps; returns both runs' (losses, state). `warm`: the
+    rows of the eager warm-up steps (default: the units path's first)."""
     import copy
 
     log = lambda *_: None  # noqa: E731
     k = pre.graph_steps
-    orders = epoch_unit_orders(pre._n_units, pre._units_per_batch, 0, 0)
-    pre._resident_epoch(0, orders[:GRAPH_WARMUP_STEPS], log)
+    if warm is None:
+        warm = epoch_unit_orders(pre._n_units, pre._units_per_batch, 0,
+                                 0)[:GRAPH_WARMUP_STEPS]
+    pre._resident_epoch(0, warm, log)
     snap = (copy.deepcopy(pre.model.state_dict()),
             copy.deepcopy(pre.opt.state_dict()), pre.step)
     pre.graph_steps = 0
@@ -967,6 +972,36 @@ def _finetuner(cuda, tmp, graphed=True, task="BBBP", targets=None,
     return ft.setup_state()
 
 
+def _ft_eager_then_graphed(ft, cuda):
+    """Ten steps after the warm-up run eagerly and then, from the same
+    state and dropout generator states, replayed as a CUDA graph: the
+    members' losses, parameters, BatchNorm stats and Adam moments
+    bit-identical, ten replays."""
+    import copy
+
+    _, order = ft._train_epoch_stack()
+    rows = torch.from_numpy(np.asarray(order, np.int64)[:, None]).to(cuda)
+    assert rows.shape[0] >= GRAPH_WARMUP_STEPS + 10
+    ft._run_steps(rows[:GRAPH_WARMUP_STEPS])
+    snap = (ft.member_states(), copy.deepcopy(ft.opt.state_dict()),
+            [g.get_state() for g in ft.dropout_gens])
+    rows = rows[GRAPH_WARMUP_STEPS: GRAPH_WARMUP_STEPS + 10]
+    ft.graphed = False
+    eager = ft._run_steps(rows).cpu()
+    want = _finetune_state(ft)
+    ft.load_member_states(snap[0])
+    load_optimizer_state(ft.opt, copy.deepcopy(snap[1]))
+    for g, st in zip(ft.dropout_gens, snap[2]):
+        g.set_state(st)
+    ft.graphed = True
+    graphed = ft._run_steps(rows).cpu()
+    got = _finetune_state(ft)
+    assert torch.equal(eager, graphed)
+    assert [k for k in want if not (torch.equal(want[k], got[k])
+            if torch.is_tensor(want[k]) else want[k] == got[k])] == []
+    assert ft._train_graph.replays == 10
+
+
 def _finetune_state(ft):
     out = {f"m{m}.{k}": v.clone() for m, model in enumerate(ft.models)
            for k, v in model.state_dict().items()}
@@ -991,27 +1026,7 @@ def test_graphed_finetune_steps_bit_identical_to_eager(cuda, tmp_path,
               clintox_2x2=dict(task="ClinTox", n_seeds=2,
                                targets=["CT_TOX", "FDA_APPROVED"]))[case]
     ft = _finetuner(cuda, tmp_path, **kw)
-    _, order = ft._train_epoch_stack()
-    rows = torch.from_numpy(np.asarray(order, np.int64)[:, None]).to(cuda)
-    assert rows.shape[0] >= GRAPH_WARMUP_STEPS + 10
-    ft._run_steps(rows[:GRAPH_WARMUP_STEPS])
-    snap = (ft.member_states(), copy.deepcopy(ft.opt.state_dict()),
-            [g.get_state() for g in ft.dropout_gens])
-    rows = rows[GRAPH_WARMUP_STEPS: GRAPH_WARMUP_STEPS + 10]
-    ft.graphed = False
-    eager = ft._run_steps(rows).cpu()
-    want = _finetune_state(ft)
-    ft.load_member_states(snap[0])
-    load_optimizer_state(ft.opt, copy.deepcopy(snap[1]))
-    for g, st in zip(ft.dropout_gens, snap[2]):
-        g.set_state(st)
-    ft.graphed = True
-    graphed = ft._run_steps(rows).cpu()
-    got = _finetune_state(ft)
-    assert torch.equal(eager, graphed)
-    assert [k for k in want if not (torch.equal(want[k], got[k])
-            if torch.is_tensor(want[k]) else want[k] == got[k])] == []
-    assert ft._train_graph.replays == 10
+    _ft_eager_then_graphed(ft, cuda)
     m, layers = ft.n_members, ft.cfg.model.num_layers
     fwd = "fused_gcn_layer" if case == "gcn" else "fused_gine_layer"
     assert ft._train_graph.launches[fwd] == m * layers
@@ -1035,3 +1050,159 @@ def test_graphed_eval_bit_identical_to_eager(cuda, tmp_path):
     want = ft.evaluate("valid")
     ft.graphed = True
     np.testing.assert_equal(ft.evaluate("valid"), want)
+
+
+# ------------------------------------- model options: the ELL trunk, max pool
+
+def _ell_case(op, dt, dev, seed=4):
+    """A packed batch at tile 0 (a 300-atom chain among drug-like
+    molecules) and random h, tables and cotangent on `dev`; returns the
+    inputs, the op's extra arguments and the cotangent."""
+    smiles = synthetic_corpus(60, seed=seed) + ["C" * 300]
+    graphs = [featurize_smiles(s) for s in smiles]
+    b = pack_batch(graphs, spec_for_graphs(graphs, len(graphs), tile=0,
+                                           sizing="max")).to(dev)
+    gen = torch.Generator().manual_seed(seed)
+    n, d = b.num_nodes, 64
+    cols = d if op == "gine" else 1
+    h, tt, td, g = (torch.randn(shape, generator=gen).to(dev, dt)
+                    for shape in ((n, d), (5, cols), (3, cols), (n, d)))
+    extra = (b.nbr, b.nbr_bond_type, b.nbr_bond_dir, b.nbr_mask)
+    if op == "gcn_norm":
+        deg = b.nbr_mask.sum(dim=1).to(dt)
+        dis = torch.rsqrt(torch.clamp(deg, min=1.0))
+        extra += (dis[b.nbr] * dis[:, None],)
+    return (h, tt, td), extra, g
+
+
+@pytest.mark.parametrize("op", ["gine", "gcn", "gcn_norm"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ell_aggregations_on_card_repeat_and_match_cpu(cuda, op, dtype):
+    """gine_aggregate / gcn_aggregate forward and backward on the card:
+    two runs bit-identical (no atomics), and against the same call on the
+    CPU within 1e-6 (f32) / 1e-2 (bf16) of the largest value."""
+    dt = getattr(torch, dtype)
+    fn = scatter_free.gine_aggregate if op == "gine" \
+        else scatter_free.gcn_aggregate
+    outs = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        prim, extra, g = _ell_case(op, dt, dev)
+        prim = [p.requires_grad_() for p in prim]
+        out = fn(*prim, *extra)
+        out.backward(g)
+        outs.append([out.detach().cpu()] + [p.grad.cpu() for p in prim])
+    rtol = 1e-6 if dtype == "float32" else 1e-2
+    for a, b, c in zip(*outs):
+        assert torch.equal(a, b)
+        err = float((a.float() - c.float()).abs().max())
+        assert err <= rtol * max(1.0, float(c.float().abs().max())), err
+
+
+def test_graph_pool_max_on_card_repeats_and_matches_cpu(cuda):
+    """graph_pool(method='max') with planted ties (nodes copied within
+    their graph): forward and backward equal to the CPU's bit for bit
+    (the max is exact, the tie split a one-hot count), two runs
+    identical."""
+    smiles = synthetic_corpus(40, seed=5)
+    graphs = [featurize_smiles(s) for s in smiles]
+    b = pack_batch(graphs, spec_for_graphs(graphs, 48, tile=64,
+                                           sizing="max"))
+    gen = torch.Generator().manual_seed(3)
+    h = torch.randn(b.nbr.shape[0], 300, generator=gen)
+    real = np.flatnonzero(b.node_mask)
+    first = torch.as_tensor(real[np.unique(b.node_graph[real],
+                                           return_index=True)[1]])
+    h[first + 1] = h[first]                 # ties: atoms 0 and 1 of each
+    g = torch.randn(48, 300, generator=gen)
+    outs = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        bd = b.to(dev)
+        x = h.to(dev, copy=True).requires_grad_()
+        out = segment.graph_pool(x, bd.node_graph, bd.node_mask, 48,
+                                 method="max")
+        out.backward(g.to(dev))
+        outs.append((out.detach().cpu(), x.grad.cpu()))
+    for a, b2, c in zip(*outs):
+        assert torch.equal(a, b2) and torch.equal(a, c)
+    assert torch.equal(outs[0][1][first], outs[0][1][first + 1])
+
+
+@pytest.mark.parametrize("case", ["gin_tile0", "gcn_norm_tile0_max",
+                                  "gin_max"])
+def test_graphed_option_steps_bit_identical_to_eager(cuda, tmp_path, case):
+    """Seven resident steps replayed as a CUDA graph against the same steps
+    run eagerly from the same state: the ELL trunk at tile 0 (the cached
+    batches after a host epoch; GIN, and GCN with normalize_gcn and pool
+    max, no layer kernel launched) and pool max on the units path (GIN,
+    K1b per layer and view). Losses, parameters, BatchNorm stats and Adam
+    moments bit-identical."""
+    model = dict(gin_tile0=dict(tile=0),
+                 gcn_norm_tile0_max=dict(tile=0, gnn_type="gcn",
+                                         normalize_gcn=True, pool="max"),
+                 gin_max=dict(pool="max"))[case]
+    log = lambda *_: None  # noqa: E731
+    if model.get("tile", 64):
+        pre = _resident_pretrainer(cuda, tmp_path, model=model)
+        rows, warm = epoch_unit_orders(pre._n_units, pre._units_per_batch,
+                                       0, 1)[:7], None
+    else:
+        cfg = PretrainConfig(batch_size=16, epochs=4, warm_up=1,
+                             valid_size=0.1, ckpt_dir=str(tmp_path / "ck"),
+                             model=ModelConfig(num_layers=2, emb_dim=32,
+                                               feat_dim=64, **model))
+        pre = Pretrainer(cfg, cuda).setup_data(
+            synthetic_corpus(150, seed=3) + ["C" * 300])
+        pre.setup_state()
+        pre._activate_units(log)
+        assert not pre._units
+        pre._host_epoch(0, log)
+        pre._maybe_upload_cache(log)
+        order = pre.train_iter.cached_epoch_order()[:, None]
+        warm, rows = order[:GRAPH_WARMUP_STEPS], order[:7]
+    before = launch_counts()
+    (le, se), (lg, sg) = _eager_then_graphed(pre, rows, warm)
+    assert le == lg and np.isfinite(le).all()
+    for a, b in zip(se, sg):
+        for k in a:
+            assert torch.equal(a[k], b[k]) if torch.is_tensor(a[k]) \
+                else a[k] == b[k], k
+    assert pre.graphed.replays == 7
+    if model.get("tile", 64):
+        assert pre.graphed.launches["fused_gine_bn_layer_bwd"] == 2 * 2
+    else:
+        assert launch_counts() == before
+        assert not any(pre.graphed.launches.values())
+
+
+@pytest.mark.parametrize("pool", ["mean", "max"])
+def test_graphed_finetune_steps_tile0_bit_identical_to_eager(cuda, tmp_path,
+                                                             pool):
+    """The FineTuner on the ELL trunk (tile 0, dropout 0.3): ten graphed
+    steps bit-identical to ten eager ones, no layer kernel launched."""
+    ft = _finetuner(cuda, tmp_path, model=dict(tile=0, pool=pool))
+    before = launch_counts()
+    _ft_eager_then_graphed(ft, cuda)
+    assert launch_counts() == before
+
+
+def test_embed_cli_tile0_on_card_matches_cpu(cuda, tmp_path):
+    """`cli.embed --tile 0` on the card embeds a 300-atom chain with the
+    rest, no layer kernel launched, within 1e-4 * max(1, max|cpu|) of the
+    --cpu run."""
+    smiles = synthetic_corpus(30, seed=21) + ["C" * 300]
+    corpus = tmp_path / "corpus.txt"
+    corpus.write_text("\n".join(smiles) + "\n")
+    model = MolCLRNet(num_layers=2, emb_dim=32, feat_dim=64, tile=0,
+                      generator=torch.Generator().manual_seed(9))
+    ckpt = tmp_path / "m.pth"
+    torch.save(model.state_dict(), ckpt)
+    args = ["--checkpoint", str(ckpt), "--layers", "2", "--emb-dim", "32",
+            "--feat-dim", "64", "--batch-size", "16", "--tile", "0"]
+    before = launch_counts()
+    assert port_embed.main([str(corpus), str(tmp_path / "g.npy"), *args]) == 0
+    assert launch_counts() == before
+    assert port_embed.main([str(corpus), str(tmp_path / "c.npy"), *args,
+                            "--cpu"]) == 0
+    emb, ref = np.load(tmp_path / "g.npy"), np.load(tmp_path / "c.npy")
+    assert emb.shape == ref.shape == (31, 64)
+    assert np.abs(emb - ref).max() <= 1e-4 * max(1.0, np.abs(ref).max())

@@ -162,11 +162,15 @@ def test_transfer_state_copies_matching_shapes_only():
 
 @pytest.mark.parametrize("option", [dict(tile=0)])
 def test_unported_options_raise(option):
-    # (drop_ratio > 0, the unchained trunk, is ported: it is held to the
-    # JAX package in tests/test_torch_port_finetune.py; normalize_gcn in
-    # test_normalize_gcn_matches_jax below)
-    with pytest.raises(NotImplementedError):
-        MolCLRNet(**{**SMALL, **option})
+    # tile 0 (the ELL trunk) was the last model option the port lacked: it
+    # builds now and is held to the JAX package in
+    # tests/test_torch_port_options.py (drop_ratio > 0, the unchained
+    # trunk, in tests/test_torch_port_finetune.py; normalize_gcn in
+    # test_normalize_gcn_matches_jax below); a negative tile, which
+    # neither package takes, raises
+    assert MolCLRNet(**{**SMALL, **option}).tile == 0
+    with pytest.raises(ValueError, match="tile"):
+        MolCLRNet(**{**SMALL, "tile": -TILE})
 
 
 @pytest.mark.parametrize("gnn", ["gin", "gcn"])
