@@ -211,6 +211,27 @@ prints no result line):
               masks, tile 256 (K4f 5, K4b 5) and tile 0 (no kernel); and
               whether torch.utils.tensorboard imports and what the writer
               did.
+ 18. data parallelism and the Orbax reader. (b) DP_RANKS processes of
+              this script (`--dp-rank`) share the card through gloo over
+              CUDA tensors, DP_B = 1,024 molecules each (a global 2B of
+              4,096: 'auto' runs K2f / K2b on the gathered pairs): three
+              eager GIN steps, then three GCN, each rank's card step held
+              to the same rank's DP step on the CPU (plain versions) by
+              phase 5's limits from the card's state, K1f 10 / K1b 10 (or
+              K3f 10 / K3b 10) and K2f 1 / K2b 1 per step, the ranks'
+              states bit-identical after every step, the shared card's ms
+              recorded (two processes: no speed figure). (a) World 1 on
+              NCCL: the pretrain CLI with data_axis (configs/pretrain.yaml
+              plus data_axis) as phase 7 runs it, units path, graphed, with
+              a resume; then a DP Pretrainer on phase 7's corpus: two DP
+              steps against two one-card steps on the same batches and
+              views, bit for bit (DP_COLLECTIVES all-reduces per step), 10
+              graphed steps bit-identical to eager ones, and the graphed DP
+              step's ms, host ms, device ms and busy share beside phase
+              15's one-card units-path step. (c) tests/data/orbax/ (the
+              JAX package's Orbax checkpoints) read without JAX, and the
+              embed CLI from its GIN step directory against JAX's
+              embeddings within SLICE_RTOL.
 
 Phase 3's embed CLI featurizes with the native featurizer, which phase 16
 holds to the Python one.
@@ -241,6 +262,7 @@ import numpy as np
 import torch
 
 from molclr_tpu_torch import native
+from molclr_tpu_torch.native import zstd
 from molclr_tpu_torch.cli import embed
 from molclr_tpu_torch.cli import featurize as featurize_cli
 from molclr_tpu_torch.cli import finetune as finetune_cli
@@ -255,8 +277,8 @@ from molclr_tpu_torch.data.graphs import GraphBatch, concat_views, \
 from molclr_tpu_torch.data.loader import featurize_many, \
     read_pretrain_smiles, spec_for_graphs
 from molclr_tpu_torch.data.regroup import concat_units, \
-    epoch_unit_orders, pack_unit_stack, pack_unit_stack_corpus, \
-    plan_corpus_units, unit_stack_bytes, wire_dtypes
+    pack_unit_stack, pack_unit_stack_corpus, plan_corpus_units, \
+    unit_stack_bytes, wire_dtypes
 from molclr_tpu_torch.data.motifs import encode_motif_vocab
 from molclr_tpu_torch.data.synthetic import synthetic_corpus
 from molclr_tpu_torch.losses import nt_xent_loss, resolve_ntxent
@@ -304,6 +326,9 @@ from molclr_tpu_torch.ops.scatter_free import _counts
 from molclr_tpu_torch.ops.segment import graph_pool
 from molclr_tpu_torch.ops.tile_dense import build_tile_adjacency, \
     gcn_normalization
+from molclr_tpu_torch.parallel import DPGroup, destroy_distributed, \
+    init_distributed
+from molclr_tpu_torch.parallel.multihost import free_port
 from molclr_tpu_torch.train import finetune as ft_lib
 from molclr_tpu_torch.train import optim
 from molclr_tpu_torch.train.checkpoints import latest_checkpoint, \
@@ -313,6 +338,7 @@ from molclr_tpu_torch.train.config import FineTuneConfig, ModelConfig, \
 from molclr_tpu_torch.train.graphed import GRAPH_WARMUP_STEPS
 from molclr_tpu_torch.train.logging_util import MetricWriter
 from molclr_tpu_torch.train.optim import load_optimizer_state
+from molclr_tpu_torch.train.orbax import read_step_dir
 from molclr_tpu_torch.train.pretrain import TRAIN_STREAM, Pretrainer, \
     build_model, step_generator, train_step
 
@@ -1271,26 +1297,31 @@ def state_agreement(card_model, cpu_model, step: int, lr: float,
     return worst, top, stat, gworst
 
 
-def card_and_cpu(cfg, dev):
-    """The same seeded model and an Adam on the card and on the CPU."""
+def card_and_cpu(cfg, dev, dps=None):
+    """The same seeded model and an Adam on the card and on the CPU (under
+    data parallelism each built with its DPGroup of `dps`)."""
     models, opts = {}, {}
     for where in ("card", "cpu"):
         models[where] = build_model(cfg, torch.Generator().manual_seed(
-            SEED + 2)).to(dev if where == "card" else "cpu")
+            SEED + 2), dps and dps[where]).to(dev if where == "card"
+                                              else "cpu")
         opts[where] = optim.adam_torch(models[where].parameters(),
                                        cfg.weight_decay)
     return models, opts
 
 
 def card_vs_cpu_steps(models, opts, cfg, batch, dev, bw, first, steps, want,
-                      tag, max_waves=0, masks=None) -> dict:
+                      tag, max_waves=0, masks=None, dps=None) -> dict:
     """`steps` train steps on the card from step `first`; before each, the
     CPU takes the card's state (weights, BatchNorm stats, Adam moments) and
     runs the same step with the same augmentation keys (and the same
     dropout masks, masks(step) -> per-view lists, when given) on its plain
     path: losses within STEP_LOSS_RTOL, parameters and BatchNorm stats as
     state_agreement holds them; every kernel launched as `want` says per
-    step (0 if absent). Returns the report, with the launches totalled."""
+    step (0 if absent). Under data parallelism (`dps`: the card's and the
+    CPU's DPGroup of this rank) both run the rank's DP step, its streams
+    seeded with the rank. Returns the report, with the launches
+    totalled."""
     lr = cfg.init_lr
     bg, bc = batch.to(dev), batch.to("cpu")
     report = {"losses": [], "counts": [], "fraction_off": [],
@@ -1302,17 +1333,20 @@ def card_vs_cpu_steps(models, opts, cfg, batch, dev, bw, first, steps, want,
             {k: v.cpu() for k, v in models["card"].state_dict().items()})
         opts["cpu"].load_state_dict(copy.deepcopy(opts["card"].state_dict()))
         mk = masks(step) if masks else None
+        stream = () if dps is None else (dps["card"].rank,)
         reset_counts()
         loss_g = train_step(models["card"], opts["card"], bg, cfg, step, lr,
                             bond_window=bw, max_waves=max_waves,
                             dropout_masks=mk and [
-                                [m.to(dev) for m in v] for v in mk])
+                                [m.to(dev) for m in v] for v in mk],
+                            dp=dps and dps["card"], stream=stream)
         torch.cuda.synchronize()
         counts = read_counts()
         t0 = time.perf_counter()
         loss_c = train_step(models["cpu"], opts["cpu"], bc, cfg, step, lr,
                             bond_window=bw, max_waves=max_waves,
-                            dropout_masks=mk)
+                            dropout_masks=mk, dp=dps and dps["cpu"],
+                            stream=stream)
         report["cpu_step_s"] = time.perf_counter() - t0
         report["losses"].append([loss_g.item(), loss_c.item()])
         report["counts"].append(counts)
@@ -2690,9 +2724,7 @@ def stack_orders(pre, epochs: int = 6) -> np.ndarray:
     if not pre._units:
         return np.concatenate([pre.train_iter.cached_epoch_order()
                                for _ in range(epochs)])[:, None]
-    return np.concatenate([epoch_unit_orders(
-        pre._n_units, pre._units_per_batch, SEED, e)[: pre.steps_per_epoch]
-        for e in range(epochs)])
+    return np.concatenate([pre._unit_orders(e) for e in range(epochs)])
 
 
 def host_split(pre) -> dict:
@@ -3826,6 +3858,297 @@ def model_options_phase(tmp: str, card: str, dev, batch, spec,
     return report
 
 
+# ---------------------------------------------------------------- phase 18
+
+# (b): images per rank, so that the global 2B = 2 x DP_B x DP_RANKS is
+# 4,096, where 'auto' takes K2f / K2b on the gathered projections
+DP_RANKS, DP_B, DP_STEPS = 2, 1024, 3
+DP_TIMEOUT_S = 400
+# per rank and GIN step: 2 views x LAYERS BatchNorm moment sums forward and
+# backward, the pairs' gather forward and backward, the pair mask's gather,
+# the gradient mean
+DP_COLLECTIVES = 4 * LAYERS + 4
+ORBAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "data", "orbax")
+
+
+def dp_config(tmp: str) -> str:
+    """configs/pretrain.yaml with data_axis: data, in tmp."""
+    import yaml
+
+    with open("configs/pretrain.yaml") as f:
+        raw = yaml.safe_load(f)
+    raw["data_axis"] = "data"
+    path = os.path.join(tmp, "pretrain_dp.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def dp_vs_one_card(pre, dev) -> dict:
+    """Two steps from the same seeded state on the same units-path batches
+    and views: the world-1 DP step (its collectives on the NCCL group)
+    against the one-card step, loss, gradients, parameters and BatchNorm
+    stats bit for bit."""
+    cfg1, cfgd = pretrain_cfg(), pretrain_cfg(data_axis="data")
+    models, opts = {}, {}
+    for tag, cfg, dp in (("one", cfg1, None), ("dp", cfgd, pre.dp)):
+        models[tag] = build_model(cfg, torch.Generator().manual_seed(
+            SEED + 2), dp).to(dev)
+        opts[tag] = optim.adam_torch(models[tag].parameters(),
+                                     cfg.weight_decay)
+    bw, mw = pre.spec.max_graph_bonds, pre.max_waves
+    losses = []
+    for step, row in enumerate(pre._unit_orders(1)[:2]):
+        batch = concat_units(pre._stack, torch.as_tensor(row, device=dev))
+        keys = draw_paired_keys(cfg1.aug, batch.num_nodes, batch.num_graphs,
+                                step_generator(SEED, TRAIN_STREAM, step))
+        views = paired_augment_keys(batch, keys, cfg1.aug, tile=TILE,
+                                    bond_window=bw, max_waves=mw)
+        c0 = pre.dp.collectives
+        got = {tag: train_step(models[tag], opts[tag], batch,
+                               cfg1 if tag == "one" else cfgd, step,
+                               cfg1.init_lr, views=views, bond_window=bw,
+                               max_waves=mw, dp=pre.dp if tag == "dp"
+                               else None) for tag in ("one", "dp")}
+        check(pre.dp.collectives - c0 == DP_COLLECTIVES,
+              f"dp world 1: {pre.dp.collectives - c0} collectives in a step")
+        check(torch.equal(got["one"], got["dp"]), f"dp world 1 step {step}: "
+              f"loss {got['dp'].item()} against {got['one'].item()}")
+        one, dp = models["one"], models["dp"]
+        differ = [k for k, v in one.state_dict().items()
+                  if not torch.equal(v, dp.state_dict()[k])]
+        differ += [k for (k, p), q in zip(one.named_parameters(),
+                                          dp.parameters())
+                   if not torch.equal(p.grad, q.grad)]
+        check(not differ, f"dp world 1 step {step}: differs in {differ}")
+        losses.append(got["one"].item())
+    return dict(steps=len(losses), losses=losses, bit_identical=True,
+                collectives_per_step=DP_COLLECTIVES)
+
+
+def dp_world1_cases(tmp: str, card: str, dev, units_row: dict) -> dict:
+    """(a) World 1 on NCCL: the pretrain CLI with data_axis through the
+    default units path (graphed) with a resume (cli_run's checks); then in
+    this process, on the CLI's group, a DP Pretrainer on phase 7's corpus:
+    one eager step's collectives, EQUAL_STEPS graphed steps bit-identical
+    to eager ones, its speed beside phase 15's one-card units path, and
+    the DP step against the one-card step bit for bit."""
+    import torch.distributed as dist
+
+    log = lambda *_: None  # noqa: E731
+    report = dict(cli=cli_run(tmp, "pretrain_dp_world1",
+                              ["--config", dp_config(tmp), "--distributed"],
+                              "gin", "units"))
+    check(not dist.is_initialized(), "dp world 1: the CLI left its group")
+    dp = init_distributed(backend="nccl", log=log)
+    check(dp.world == 1 and dist.get_backend() == "nccl",
+          f"dp world 1: {dp}")
+    pre = Pretrainer(pretrain_cfg(data_axis="data"), dev, dp=dp)
+    pre.setup_data(read_pretrain_smiles(os.path.join(tmp, "pretrain.txt")))
+    pre.setup_state()
+    pre._activate_units(log)
+    check(pre._units and pre.graph_steps > 0,
+          "dp world 1: the units path with graphs did not activate")
+    # before the Pretrainer's own steps, which must capture their graph
+    # after eager_vs_graphed's warm-up, as in phase 15
+    report["dp_vs_one_card"] = dp_vs_one_card(pre, dev)
+    report["equal"] = eager_vs_graphed(pre, "dp_world1")
+    per_step = {k: c / EQUAL_STEPS
+                for k, c in report["equal"]["eager_launches"].items() if c}
+    check(per_step == {"fused_gine_bn_layer": 2 * LAYERS,
+                       "fused_gine_bn_layer_bwd": 2 * LAYERS},
+          f"dp world 1: launches per eager step {per_step}")
+    report["speed"] = path_speed(pre, "resident_graphed", card)
+    report["one_card_units_row"] = {k: units_row[k] for k in (
+        "step_ms", "host_ms", "device_ms", "device_busy_share")}
+    sp = report["speed"]
+    print(f"dp world 1 (NCCL): graphed step {sp['step_ms']:.3f} ms, host "
+          f"{sp['host_ms']:.3f}, device {sp['device_ms']:.3f}, busy "
+          f"{sp['device_busy_share']:.3f}; one-card units path "
+          f"{units_row['step_ms']:.3f} / {units_row['host_ms']:.3f} / "
+          f"{units_row['device_ms']:.3f} / "
+          f"{units_row['device_busy_share']:.3f}; {card}", flush=True)
+    return report
+
+
+def ranks_bit_identical(model, dp) -> bool:
+    """Whether every rank holds this model's state bit for bit: the
+    elementwise max and min across the ranks equal this rank's values."""
+    flat = torch.cat([v.detach().reshape(-1).double()
+                      for v in model.state_dict().values()])
+    hi = dp.all_reduce_(flat.clone(), torch.distributed.ReduceOp.MAX)
+    lo = dp.all_reduce_(flat.clone(), torch.distributed.ReduceOp.MIN)
+    return bool(torch.equal(hi, flat) and torch.equal(lo, flat))
+
+
+def dp_rank_main(rank: int, port: int, out_dir: str,
+                 dev=torch.device("cuda", 0)) -> int:
+    """(b), one rank: DP_RANKS processes share the card through gloo over
+    CUDA tensors. GIN, then GCN, at full width with DP_B molecules per
+    rank: DP_STEPS eager steps, each card step from the state of the CPU
+    twin that runs the same rank's step with the plain versions (gloo on
+    CPU tensors): the STEP_* limits, the launches per step, the ranks'
+    states bit-identical after each step; then the card step's time
+    (two processes on one card: a record, not a speed figure)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dps = {"card": init_distributed(
+        f"127.0.0.1:{port}", DP_RANKS, rank, backend="gloo", device=dev,
+        timeout_s=DP_TIMEOUT_S)}
+    dps["cpu"] = DPGroup(rank, DP_RANKS, "gloo", "cpu")
+    graphs, _ = featurize_many(synthetic_corpus(DP_RANKS * DP_B,
+                                                seed=SEED + 11))
+    spec = spec_for_graphs(graphs, DP_B, tile=TILE)
+    batch = pack_batch(graphs[rank * DP_B: (rank + 1) * DP_B], spec)
+    report = dict(rank=rank, spec=str(spec))
+    try:
+        for gnn, layer in (("gin", "fused_gine_bn_layer"),
+                           ("gcn", "fused_gcn_bn_layer")):
+            want = {layer: 2 * LAYERS, f"{layer}_bwd": 2 * LAYERS,
+                    "ntxent_fwd": 1, "ntxent_bwd": 1}
+            cfg = pretrain_cfg(gnn=gnn, data_axis="data")
+            cfg.batch_size = DP_B
+            models, opts = card_and_cpu(cfg, dev, dps)
+            steps = []
+            for step in range(DP_STEPS):
+                steps.append(card_vs_cpu_steps(
+                    models, opts, cfg, batch, dev, spec.max_graph_bonds,
+                    step, 1, want, f"dp {gnn} rank {rank}", dps=dps))
+                check(ranks_bit_identical(models["card"], dps["card"]),
+                      f"dp {gnn} step {step}: the ranks' states differ")
+            bg = batch.to(dev)
+            times = []
+            for step in range(DP_STEPS, 2 * DP_STEPS):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                train_step(models["card"], opts["card"], bg, cfg, step,
+                           cfg.init_lr, bond_window=spec.max_graph_bonds,
+                           dp=dps["card"], stream=(rank,))
+                e1.record()
+                torch.cuda.synchronize()
+                times.append(e0.elapsed_time(e1))
+            report[gnn] = dict(steps=steps, shared_card_step_ms=times,
+                               ranks_bit_identical=True)
+    finally:
+        destroy_distributed()
+    with open(os.path.join(out_dir, f"dp_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def dp_two_rank_cases(tmp: str) -> dict:
+    """(b) DP_RANKS processes of this script (`--dp-rank`), all done within
+    DP_TIMEOUT_S or killed; their reports."""
+    port = free_port()
+    logs = [os.path.join(tmp, f"dp_rank{r}.log") for r in range(DP_RANKS)]
+    files = [open(path, "wb") for path in logs]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+         str(port), tmp], stdout=f, stderr=subprocess.STDOUT)
+        for r, f in enumerate(files)]
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p, f in zip(procs, files):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+    for r, (p, path) in enumerate(zip(procs, logs)):
+        with open(path, errors="replace") as f:
+            out = f.read()
+        check(p.returncode == 0, f"dp rank {r} exited {p.returncode}:\n"
+              f"{out[-3000:]}")
+    reports = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(tmp, f"dp_rank{r}.json")) as f:
+            reports.append(json.load(f))
+    summary = {}
+    for gnn in ("gin", "gcn"):
+        losses = [[s["losses"] for s in rep[gnn]["steps"]]
+                  for rep in reports]
+        check(all(x == losses[0] for x in losses),
+              f"dp {gnn}: the ranks' losses differ: {losses}")
+        summary[gnn] = [dict(
+            rank=rep["rank"], losses=[s["losses"][0] for s in
+                                      rep[gnn]["steps"]],
+            counts=rep[gnn]["steps"][0]["counts"][0],
+            fraction_off=max(s["fraction_off"][0] for s in rep[gnn]["steps"]),
+            grad_off=max(s["grad_off"][0] for s in rep[gnn]["steps"]),
+            max_param_diff=max(s["max_param_diff"][0]
+                               for s in rep[gnn]["steps"]),
+            shared_card_step_ms=rep[gnn]["shared_card_step_ms"])
+            for rep in reports]
+    print(f"dp two ranks {json.dumps(summary)}", flush=True)
+    return dict(ranks=reports, summary=summary)
+
+
+def orbax_cases(tmp: str, card: str) -> dict:
+    """(c) The JAX package's Orbax fixture (tests/data/orbax, written by
+    runs/write_orbax_fixture.py) read on this machine, which has no JAX,
+    Orbax, tensorstore or zstandard: the zstd decoder's g++ build (0 where
+    it was built), the read's time, and cli.embed
+    --checkpoint <dir> on the card against JAX's embeddings within
+    SLICE_RTOL (phase 3's limit), K1f launched once per layer."""
+    step = os.path.join(ORBAX_FIXTURE, "gin", "step_0")
+    build_s = native.build(zstd.SRC)
+    t0 = time.perf_counter()
+    tree = read_step_dir(step)
+    read_s = time.perf_counter() - t0
+    n_leaves = sum(1 for part in ("params", "batch_stats")
+                   for _ in _leaves(tree[part]))
+    two = read_step_dir(os.path.join(ORBAX_FIXTURE, "two_process", "step_2"))
+    check(np.array_equal(two["params"]["sharded"], np.arange(
+        48, dtype=np.float32).reshape(8, 6)), "orbax: the two-process "
+          "fixture's sharded leaf reads wrong")
+    out = os.path.join(tmp, "orbax_embed.npy")
+    counts, sec = embed_run([os.path.join(ORBAX_FIXTURE, "smiles.txt"), out,
+                             "--checkpoint", step, "--layers", "2",
+                             "--emb-dim", "64", "--feat-dim", "128"])
+    got = np.load(out)
+    ref = np.load(os.path.join(ORBAX_FIXTURE, "embeddings.npy"))
+    check(got.shape == ref.shape, f"orbax embed: {got.shape} {ref.shape}")
+    err = float(np.abs(got - ref).max()) / max(1.0, float(np.abs(ref).max()))
+    check(err <= SLICE_RTOL, f"orbax embed: {err} of JAX's embeddings")
+    check(counts["fused_gine_bn_layer"] == 2,
+          f"orbax embed: launches {counts}")
+    report = dict(card=card, zstd_build_s=build_s, read_s=read_s,
+                  leaves=n_leaves,
+                  embed_s=sec, rel_err=err, launches=counts)
+    print(f"dp orbax {json.dumps(report)}", flush=True)
+    return report
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def dp_phase(tmp: str, card: str, dev, units_row: dict) -> dict:
+    """Phase 18: data parallelism on the card, and the Orbax reader."""
+    t0 = time.perf_counter()
+    report = dict(card=card)
+    report["two_ranks"] = dp_two_rank_cases(tmp)
+    report["world1"] = dp_world1_cases(tmp, card, dev, units_row)
+    destroy_distributed()
+    report["orbax"] = orbax_cases(tmp, card)
+    report["seconds"] = time.perf_counter() - t0
+    print(f"dp {json.dumps({k: v for k, v in report.items() if k != 'world1'})}",
+          flush=True)
+    print(f"phase dp took {report['seconds']:.1f} s", flush=True)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3901,6 +4224,8 @@ def main() -> int:
                          and r["path"] == "resident_graphed"
                          and r["adam"] == "chain" and not r["drop_ratio"])
         model_options_phase(tmp, card, dev, batch, spec, units_row)
+        phase("data parallelism")
+        dp_phase(tmp, card, dev, units_row)
     phase("done")
 
     def row(name, source, replaces, launches, res, case):
@@ -3956,4 +4281,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        # one rank of phase 18 (b), started by dp_two_rank_cases
+        raise SystemExit(dp_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                      sys.argv[4]))
     raise SystemExit(main())

@@ -1,7 +1,9 @@
 """Batch inference CLI: encode SMILES into embedding vectors on the GPU.
 
 Port of molclr_tpu/cli/embed.py with the same arguments and outputs: load
-a pretrained encoder from a torch .pth state dict, featurize an input
+a pretrained encoder from a torch .pth state dict or from an Orbax step
+directory that the JAX package wrote (read by train/orbax.py, without
+JAX), featurize an input
 corpus, and write the pooled molecular embeddings (feat_lin output `h`,
 or the projection `z` with --projection) as .npy, with a sidecar
 .smiles.txt of the kept SMILES. The trunk runs the BN-chained fused
@@ -36,7 +38,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="molclr-embed")
     p.add_argument("input", help="SMILES file (one per line / CSV last col)")
     p.add_argument("output", help="output .npy path ([n, feat_dim] fp32)")
-    p.add_argument("--checkpoint", required=True, help="torch .pth file")
+    p.add_argument("--checkpoint", required=True,
+                   help="torch .pth file, or an Orbax step directory of "
+                        "the JAX package")
     p.add_argument("--model", choices=["gin", "gcn"], default="gin")
     p.add_argument("--layers", type=int, default=5)
     p.add_argument("--emb-dim", type=int, default=300)
@@ -53,10 +57,6 @@ def main(argv=None) -> int:
                    help="run on the CPU with the kernels' plain versions")
     args = p.parse_args(argv)
 
-    if os.path.isdir(args.checkpoint) or not args.checkpoint.endswith(".pth"):
-        raise ValueError(
-            f"{args.checkpoint!r}: the port reads torch .pth state dicts "
-            f"only; Orbax checkpoint directories are not supported yet")
     device = resolve_device(args.cpu)
 
     import numpy as np
@@ -90,8 +90,12 @@ def main(argv=None) -> int:
                       emb_dim=args.emb_dim, feat_dim=args.feat_dim,
                       tile=args.tile,
                       generator=torch.Generator().manual_seed(0))
-    tstats = ckpt_lib.transfer_state(
-        ckpt_lib.load_torch_state_dict(args.checkpoint), model)
+    if args.checkpoint.endswith(".pth"):
+        state = ckpt_lib.load_torch_state_dict(args.checkpoint)
+    else:
+        # an Orbax step directory of the JAX package (read without JAX)
+        state = ckpt_lib.load_orbax_state(args.checkpoint)
+    tstats = ckpt_lib.transfer_state(state, model)
     print(f"transferred {tstats['copied']} param leaves "
           f"({len(tstats['skipped'])} skipped)")
     if tstats["copied"] == 0:

@@ -11,10 +11,20 @@ that cli.featurize built, memory-mapped (a corpus above
 --pack-cache-max-mols streams its batches from the maps). --no-native
 featurizes a text file and packs with the Python chem layer and packer.
 
+Data parallelism: a config with `data_axis` (the JAX package's key) trains
+over torch.distributed ranks, one process per GPU (NCCL) or per CPU
+process with --cpu (gloo). The group comes from the --dist-* flags (as the
+JAX CLI's), from torchrun's environment, or is this one process;
+--distributed asks for it and needs data_axis in the config.
+
     python -m molclr_tpu_torch.cli.featurize corpus.txt corpus.mtpu
     python -m molclr_tpu_torch.cli.pretrain --data corpus.mtpu --epochs 2
     python -m molclr_tpu_torch.cli.pretrain --data corpus.txt --epochs 2
     python -m molclr_tpu_torch.cli.pretrain --synthetic 4096 --cpu
+    torchrun --nproc-per-node 8 -m molclr_tpu_torch.cli.pretrain \
+        --config dp.yaml --distributed
+    python -m molclr_tpu_torch.cli.pretrain --config dp.yaml --cpu \
+        --dist-coordinator 127.0.0.1:29500 --dist-nproc 2 --dist-procid 0
 """
 
 from __future__ import annotations
@@ -87,11 +97,21 @@ def main(argv=None) -> int:
                         "Python packer, not the native library")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU with the kernels' plain versions")
+    p.add_argument("--distributed", action="store_true",
+                   help="data-parallel pretraining over torch.distributed "
+                        "ranks (needs data_axis in the config): the group "
+                        "comes from the --dist-* flags or torchrun's "
+                        "environment; NCCL on GPUs, gloo with --cpu")
+    p.add_argument("--dist-coordinator", default=None, metavar="HOST:PORT",
+                   help="rank 0's address (with --dist-nproc and "
+                        "--dist-procid)")
+    p.add_argument("--dist-nproc", type=int, default=None,
+                   help="number of ranks")
+    p.add_argument("--dist-procid", type=int, default=None,
+                   help="this process's rank")
     args = p.parse_args(argv)
 
     from molclr_tpu_torch.cli.embed import resolve_device
-
-    device = resolve_device(args.cpu)
 
     from molclr_tpu_torch.train.checkpoints import latest_checkpoint
     from molclr_tpu_torch.train.config import PretrainConfig, \
@@ -120,6 +140,23 @@ def main(argv=None) -> int:
             setattr(cfg, attr, value)
     if args.model:
         cfg.model.gnn_type = args.model
+    dist_flags = (args.distributed or args.dist_coordinator is not None
+                  or args.dist_nproc is not None
+                  or args.dist_procid is not None)
+    if dist_flags and not cfg.data_axis:
+        p.error("--distributed / --dist-* train data-parallel: set "
+                "data_axis in the config (as the JAX package's CLI needs)")
+    dp = None
+    if cfg.data_axis:
+        from molclr_tpu_torch.parallel import init_distributed
+
+        dp = init_distributed(args.dist_coordinator, args.dist_nproc,
+                              args.dist_procid,
+                              backend="gloo" if args.cpu else "nccl",
+                              device="cpu" if args.cpu else None)
+        device = dp.device
+    else:
+        device = resolve_device(args.cpu)
     if args.resume == "latest":
         latest = latest_checkpoint(cfg.ckpt_dir)
         if latest is None:
@@ -136,23 +173,36 @@ def main(argv=None) -> int:
         if not args.data:
             root, ext = os.path.splitext(cfg.data_path)
             cfg.data_path = f"{root}_{args.synthetic}{ext}"
-        if not os.path.exists(cfg.data_path):
+        if (not os.path.exists(cfg.data_path)
+                and (dp is None or dp.rank == 0)):
             from molclr_tpu_torch.data.synthetic import write_pretrain_corpus
 
             print(f"generating synthetic corpus ({args.synthetic} "
                   f"molecules) -> {cfg.data_path}")
-            write_pretrain_corpus(cfg.data_path, args.synthetic,
-                                  seed=cfg.seed)
+            tmp = f"{cfg.data_path}.{os.getpid()}.tmp"
+            write_pretrain_corpus(tmp, args.synthetic, seed=cfg.seed)
+            os.replace(tmp, cfg.data_path)
+        if dp is not None:
+            # the other ranks read the corpus once rank 0 has written it
+            from molclr_tpu_torch.parallel import agree_ints
+
+            agree_ints((0,), dp)
 
     print(f"device: {device}")
-    pre = Pretrainer(cfg, device,
-                     prefer_native=not args.no_native).setup_data()
-    print(f"bucket: {pre.spec}")
-    pre.setup_state()
-    if pre.step:
-        print(f"resumed from {cfg.resume_from} at step {pre.step}, epoch "
-              f"{pre._start_epoch}")
-    pre.train()
+    try:
+        pre = Pretrainer(cfg, device, prefer_native=not args.no_native,
+                         dp=dp).setup_data()
+        print(f"bucket: {pre.spec}")
+        pre.setup_state()
+        if pre.step:
+            print(f"resumed from {cfg.resume_from} at step {pre.step}, "
+                  f"epoch {pre._start_epoch}")
+        pre.train()
+    finally:
+        if dp is not None:
+            from molclr_tpu_torch.parallel import destroy_distributed
+
+            destroy_distributed()
     return 0
 
 

@@ -79,14 +79,22 @@ def stack_batches(batches) -> GraphBatch:
 
 
 def pack_unit_stack(graphs, tile: int, max_degree: int = 6, seed: int = 0,
-                    prefer_native: bool = True):
+                    prefer_native: bool = True, uspec: PadSpec | None = None):
     """Pack a corpus into the [U, ...] tile-unit stack (host, once).
     Returns (stack: a GraphBatch of numpy arrays with leading axis U,
     unit spec, units). The molecules are shuffled once (seeded) before
-    grouping, so that units mix the corpus."""
+    grouping, so that units mix the corpus. `uspec` packs with a spec the
+    ranks agreed on (data parallelism: every rank's units have one shape);
+    it raises where it is smaller than this corpus needs."""
     order = np.random.RandomState(seed).permutation(len(graphs))
     groups = plan_units([graphs[i] for i in order], tile)
-    uspec = unit_spec_for(groups, tile, max_degree)
+    local = unit_spec_for(groups, tile, max_degree)
+    if uspec is None:
+        uspec = local
+    elif (uspec.n_graphs < local.n_graphs or uspec.n_edges < local.n_edges
+          or uspec.max_graph_bonds < local.max_graph_bonds):
+        raise ValueError(f"agreed unit spec {uspec} smaller than local "
+                         f"requirements {local}")
     units = [pack_batch(gr, uspec, prefer_native) for gr in groups]
     return stack_batches(units), uspec, units
 

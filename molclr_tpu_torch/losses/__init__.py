@@ -4,8 +4,8 @@ the hand-written kernel (ops/ntxent.py).
 Port of molclr_tpu/losses and of `resolve_ntxent` (molclr_tpu/parallel/
 dp.py). The implementation names are the JAX package's, so one YAML serves
 both packages: 'xla' is the closed form, 'pallas' the kernel (K2f/K2b,
-CUDA on the card), 'auto' the kernel for CUDA tensors at 2B >= 4096 and
-the closed form otherwise.
+CUDA on the card), 'auto' the kernel for CUDA tensors at a global 2B >=
+4096 and the closed form otherwise.
 """
 
 from __future__ import annotations
@@ -17,9 +17,12 @@ from molclr_tpu_torch.ops.ntxent import nt_xent_kernel
 AUTO_KERNEL_MIN_2B = 4096
 
 
-def resolve_ntxent(impl: str):
-    """The loss callable (zis, zjs, temperature, use_cosine, pair_mask) for
-    PretrainConfig.ntxent_impl."""
+def resolve_ntxent(impl: str, world: int = 1):
+    """The loss callable (zis, zjs, temperature, use_cosine, pair_mask, dp)
+    for PretrainConfig.ntxent_impl. Under data parallelism (dp, a
+    parallel.DPGroup of `world` ranks) the callable gathers every rank's
+    pairs before the loss, and 'auto' judges the global 2B = 2 B world, as
+    the JAX package's resolve_ntxent(impl, n_devices) does."""
     if impl == "xla":
         return nt_xent_loss
     if impl == "pallas":
@@ -28,13 +31,13 @@ def resolve_ntxent(impl: str):
         raise ValueError(f"unknown ntxent_impl {impl!r}")
 
     def auto_loss(zis, zjs, temperature=0.1, use_cosine=True,
-                  pair_mask=None):
-        if (zis.device.type == "cuda"
-                and 2 * zis.shape[0] >= AUTO_KERNEL_MIN_2B):
-            return nt_xent_kernel(zis, zjs, temperature, use_cosine,
-                                  pair_mask=pair_mask)
-        return nt_xent_loss(zis, zjs, temperature, use_cosine,
-                            pair_mask=pair_mask)
+                  pair_mask=None, dp=None):
+        two_b = 2 * zis.shape[0] * (world if dp is not None else 1)
+        loss = (nt_xent_kernel if (zis.device.type == "cuda"
+                                   and two_b >= AUTO_KERNEL_MIN_2B)
+                else nt_xent_loss)
+        return loss(zis, zjs, temperature, use_cosine, pair_mask=pair_mask,
+                    dp=dp)
 
     return auto_loss
 

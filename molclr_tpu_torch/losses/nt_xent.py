@@ -1,8 +1,10 @@
 """NT-Xent (normalized temperature-scaled cross-entropy) contrastive loss,
 closed form.
 
-Port of molclr_tpu/losses/nt_xent.py (single device; the all-gather over
-a mesh axis comes with multi-GPU training). With representations
+Port of molclr_tpu/losses/nt_xent.py. Under data parallelism (dp, a
+parallel.DPGroup) both views and the pair mask are first gathered from
+every rank, so the negatives span the global batch and every rank computes
+the same loss (JAX's all_gather over the mesh axis). With representations
 r = [zjs; zis] (2B rows) and pairwise similarity s,
 
     loss_i = -s(i, partner(i))/T + logsumexp_{j != i} s(i, j)/T
@@ -21,10 +23,15 @@ from molclr_tpu_torch.ops.ntxent import cosine_normalize
 
 def nt_xent_loss(zis: torch.Tensor, zjs: torch.Tensor,
                  temperature: float = 0.1, use_cosine: bool = True,
-                 pair_mask: torch.Tensor | None = None) -> torch.Tensor:
+                 pair_mask: torch.Tensor | None = None,
+                 dp=None) -> torch.Tensor:
     """zis, zjs: [B, D] projections of the two augmented views; pair_mask:
-    optional [B] bool of real (non-padding) pairs. Returns the scalar
-    loss."""
+    optional [B] bool of real (non-padding) pairs; dp: the DPGroup whose
+    ranks' pairs are gathered first. Returns the scalar loss."""
+    if dp is not None:
+        from molclr_tpu_torch.parallel.dp import gather_pairs
+
+        zis, zjs, pair_mask = gather_pairs(zis, zjs, pair_mask, dp)
     b = zis.shape[0]
     reps = torch.cat([zjs, zis], dim=0)           # [2B, D], reference order
     if use_cosine:

@@ -97,13 +97,18 @@ class MaskedBatchNorm(nn.Module):
                               previous kernel accumulated; returns the f32
                               affine pair (a, b) with normalize(x) == x*a+b.
     Training mode takes the batch statistics and updates the running stats
-    in place; eval mode uses the running stats."""
+    in place; eval mode uses the running stats. Under data parallelism
+    (dp, a parallel.DPGroup: the JAX layer's axis_name) training mode sums
+    the moments (total, total_sq, count) across the ranks first, in one
+    differentiable all_reduce, so every rank normalizes with the global
+    batch's statistics and keeps the same running stats."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
-                 momentum: float = 0.1):
+                 momentum: float = 0.1, dp=None):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.dp = dp
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -115,6 +120,14 @@ class MaskedBatchNorm(nn.Module):
         """(mean, 1 / sqrt(var + eps)) of the batch in training mode (and
         the running-stat update), of the running stats in eval mode."""
         if self.training:
+            if self.dp is not None:
+                from molclr_tpu_torch.parallel.dp import sum_across_ranks
+
+                d = total.shape[0]
+                summed = sum_across_ranks(torch.cat(
+                    [total, total_sq, count.reshape(1)]), self.dp)
+                total, total_sq, count = (summed[:d], summed[d: 2 * d],
+                                          summed[2 * d])
             count = torch.clamp(count, min=1.0)
             mean = total / count
             var = torch.clamp(total_sq / count - mean ** 2, min=0.0)

@@ -92,13 +92,16 @@ class Encoder(nn.Module):
     applies GCN's symmetric normalization (the GIN trunk ignores it, as
     the JAX model does). tile > 0 runs the tile-dense fused kernels on a
     batch packed with PadSpec(tile=tile); tile == 0 the ELL path.
-    pool is 'mean', 'add' or 'max'."""
+    pool is 'mean', 'add' or 'max'. dp (a parallel.DPGroup, the JAX
+    model's bn_axis_name) makes every BatchNorm sum its training moments
+    across the data-parallel ranks."""
 
     def __init__(self, num_layers: int = 5, emb_dim: int = 300,
                  feat_dim: int = 512, gnn_type: str = "gin",
                  pool: str = "mean", drop_ratio: float = 0.0,
                  normalize_gcn: bool = False, dtype=torch.float32,
-                 tile: int = 256, generator: torch.Generator | None = None):
+                 tile: int = 256, generator: torch.Generator | None = None,
+                 dp=None):
         super().__init__()
         if gnn_type not in ("gin", "gcn"):
             raise ValueError(f"unknown gnn_type {gnn_type!r}")
@@ -122,7 +125,7 @@ class Encoder(nn.Module):
                      for _ in range(num_layers))
         self.gnns = nn.ModuleList(convs)
         self.batch_norms = nn.ModuleList(
-            MaskedBatchNorm(emb_dim) for _ in range(num_layers))
+            MaskedBatchNorm(emb_dim, dp=dp) for _ in range(num_layers))
         self.feat_lin = reset_linear_(nn.Linear(emb_dim, feat_dim), g)
 
     def trunk(self, batch, dropout_masks=None,

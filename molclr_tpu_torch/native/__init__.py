@@ -50,31 +50,35 @@ _lock = threading.Lock()
 _lib = None
 
 
-def lib_path() -> Path:
+def lib_path(src: Path | None = None) -> Path:
+    """Where the library of `src` (default: the featurizer) is built."""
+    src = SRC if src is None else src
     h = hashlib.sha256(" ".join([CXX, *CXX_FLAGS]).encode())
-    h.update(SRC.read_bytes())
-    return BUILD_DIR / f"libfeaturizer_{h.hexdigest()[:16]}.so"
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> float:
-    """Compile the library if it is missing; the seconds it took (0.0 when
-    it was there). Raises RuntimeError with the compiler's output."""
-    lib = lib_path()
+def build(src: Path | None = None) -> float:
+    """Compile the library of `src` (default: the featurizer) if it is
+    missing; the seconds it took (0.0 when it was there). Raises
+    RuntimeError with the compiler's output."""
+    src = SRC if src is None else src
+    lib = lib_path(src)
     if lib.exists():
         return 0.0
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run([CXX, *CXX_FLAGS, "-o", str(tmp), str(SRC)],
+        proc = subprocess.run([CXX, *CXX_FLAGS, "-o", str(tmp), str(src)],
                               capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"building the native featurizer with {CXX} "
+        raise RuntimeError(f"building {src.name} with {CXX} "
                            f"failed: {e}") from e
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"building the native featurizer failed ({CXX} exit "
+            f"building {src.name} failed ({CXX} exit "
             f"{proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, lib)
     return time.perf_counter() - t0

@@ -273,10 +273,16 @@ class _NTXentCore(torch.autograd.Function):
 
 
 def nt_xent_kernel(zis, zjs, temperature: float = 0.1,
-                   use_cosine: bool = True, pair_mask=None):
+                   use_cosine: bool = True, pair_mask=None, dp=None):
     """Drop-in for losses.nt_xent_loss through the kernels
     (`nt_xent_pallas`). Any B: both halves are padded with dead pairs to a
-    multiple of 64 pairs, so 2B is a multiple of 128."""
+    multiple of 64 pairs, so 2B is a multiple of 128. Under data
+    parallelism (dp) the kernels run on the pairs gathered from every
+    rank, as the JAX kernel's axis_name gathers them."""
+    if dp is not None:
+        from molclr_tpu_torch.parallel.dp import gather_pairs
+
+        zis, zjs, pair_mask = gather_pairs(zis, zjs, pair_mask, dp)
     b = zis.shape[0]
     pad = (-b) % PAIR_MULTIPLE
     if pad:

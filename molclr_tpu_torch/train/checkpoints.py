@@ -9,9 +9,11 @@ the JAX package's import_torch_params: it turns a Flax (params,
 batch_stats) tree of numpy arrays, of any of the networks, into this
 schema. Full training state (model, optimizer, step, epoch) is one torch
 file `step_<step>.pt` per checkpoint, where the JAX package writes an
-Orbax directory `step_<step>`; Orbax directories are not read yet.
-`resolve_pretrained` and `load_pretrained_state` find and read a
-fine-tuning warm start: a reference .pth or the port's own step_<n>.pt.
+Orbax directory `step_<step>`, which the port reads (train/orbax.py, no
+JAX needed) but does not write. `resolve_pretrained` and
+`load_pretrained_state` find and read a warm start: a reference .pth, the
+port's own step_<n>.pt or an Orbax step directory of the JAX package (its
+params and batch_stats through state_dict_from_jax).
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import numpy as np
 import torch
 
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
+# a checkpoint name: the port's step_<n>.pt or the JAX package's step_<n>/
+_STEP_NAME = re.compile(r"^step_(\d+)(\.pt)?$")
 
 
 def load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:
@@ -126,22 +130,27 @@ def load_checkpoint(path: str) -> dict:
 
 
 def latest_checkpoint(directory: str) -> str | None:
-    """The step_<step>.pt with the largest step in `directory`, or None."""
+    """The checkpoint with the largest step in `directory`: a step_<n>.pt
+    of the port or a step_<n> Orbax directory of the JAX package (the .pt
+    where both have the step); None when there is none."""
     if not os.path.isdir(directory):
         return None
-    steps = [int(m.group(1)) for m in map(_STEP_FILE.match,
-                                          os.listdir(directory)) if m]
-    if not steps:
+    found = []
+    for name in os.listdir(directory):
+        m = _STEP_NAME.match(name)
+        if m and (m.group(2) or os.path.isdir(os.path.join(directory, name))):
+            found.append((int(m.group(1)), bool(m.group(2)), name))
+    if not found:
         return None
-    return os.path.join(directory, f"step_{max(steps)}.pt")
+    return os.path.join(directory, max(found)[2])
 
 
 def resolve_pretrained(path: str) -> str:
     """Resolve a warm-start spec to a loadable checkpoint path, as the JAX
     package does: everything the reference's `fine_tune_from` key accepts
     (a bare name is ./ckpt/<name>/checkpoints/model.pth, finetune.py:249),
-    an explicit file, or a directory holding step_<n>.pt files (the newest
-    is taken)."""
+    an explicit file or Orbax step directory, or a directory holding
+    step_<n>.pt files or step_<n> directories (the newest is taken)."""
     if not path:
         return path
     for cand in (path, os.path.join(path, "checkpoints", "model.pth"),
@@ -155,16 +164,26 @@ def resolve_pretrained(path: str) -> str:
     return path
 
 
+def load_orbax_state(path: str) -> dict[str, torch.Tensor]:
+    """The state dict of the JAX package's Orbax step directory `path`: its
+    params (the whole tree where it has no `params`) and batch_stats, as
+    molclr_tpu's FineTuner and cli.embed read them, carried onto the
+    port's schema."""
+    from molclr_tpu_torch.train.orbax import read_step_dir
+
+    tree = read_step_dir(path)
+    return state_dict_from_jax(tree.get("params", tree),
+                               tree.get("batch_stats") or None)
+
+
 def load_pretrained_state(path: str) -> dict[str, torch.Tensor]:
     """The model state dict of a warm start: a reference .pth state dict,
-    or the model of a full-state step_<n>.pt written by the port's
-    pretraining. A directory (an Orbax checkpoint of the JAX package)
-    raises NotImplementedError."""
+    the model of a full-state step_<n>.pt written by the port's
+    pretraining, or an Orbax step directory written by the JAX package."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory: Orbax checkpoints of the JAX package "
-            f"are not read yet (the next item of ROADMAP.md's modules to "
-            f"port); pass a .pth or a step_<n>.pt")
+        # read as an Orbax step directory: one without _METADATA raises
+        # OrbaxFormatError naming it
+        return load_orbax_state(path)
     if not os.path.exists(path):
         raise FileNotFoundError(f"pretrained checkpoint not found: {path!r}")
     if _STEP_FILE.match(os.path.basename(path)):

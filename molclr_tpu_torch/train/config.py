@@ -72,6 +72,9 @@ class PretrainConfig:
                                     # forced; resume continues it)
     log_every_steps: int = 50       # molclr.py:116
     ckpt_dir: str = "runs/pretrain"
+    data_axis: str = ""             # data parallelism over torch.distributed
+                                    # ranks when set (the JAX mesh axis's
+                                    # name; '' = one card)
     resume_from: str = ""           # config.yaml load_model
     seed: int = 0
     featurize_processes: int = 2    # processes of the Python featurizer
@@ -214,7 +217,7 @@ def pretrain_from_yaml(path: str) -> PretrainConfig:
             setattr(cfg, k, ds[k])
     if "num_workers" in ds:
         cfg.featurize_processes = max(1, int(ds["num_workers"]))
-    for k in ("data_path", "ckpt_dir"):
+    for k in ("data_path", "ckpt_dir", "data_axis"):
         if k in raw:
             setattr(cfg, k, raw[k])
     for k in _DISPATCH_KEYS:

@@ -23,6 +23,15 @@ the captured draws consume, so it draws the masks that an eager step from
 the same generator state draws. A caller may reseed a registered
 generator between replays (the Pretrainer's per-step dropout streams).
 
+A data-parallel step (parallel/dp.py) replays too when its group runs
+NCCL: its all-reduces (BatchNorm moments, the gathered pairs, the
+gradient mean) are captured on the capturing stream and rerun by each
+replay, on the buffers the capture allocated. The communicator exists
+before any capture: init_distributed runs one all-reduce at once, and the
+eager warm-up steps run every collective of the step. A gloo group
+stages its collectives through the host and cannot be captured; the
+Pretrainer runs its steps eager there.
+
 The trainers run their first GRAPH_WARMUP_STEPS resident steps eagerly
 (they build the kernels and warm the allocator, and Adam creates its
 state), then capture and replay. A replay runs the kernels the eager step

@@ -52,7 +52,28 @@ nothing here). Validation batches are uploaded once
 after the first pass. With tile 0 (the ELL trunk) there are no tile-units:
 the first epoch takes the host path and the later ones the resident
 cached batches, as in the JAX Pretrainer. TensorBoard scalars (cfg.tensorboard)
-carry the JAX Pretrainer's tags at its steps. Not ported: data parallelism.
+carry the JAX Pretrainer's tags at its steps.
+
+Data parallelism (cfg.data_axis, the JAX Pretrainer's data_axis paths) runs
+one rank per process (parallel/, `dp`: a DPGroup from init_distributed),
+as the JAX package's multi-process runs do with one device per process:
+each rank keeps its corpus_shard_range slice of the seeded split
+(`_process_shard`), the steps per epoch are the fewest any rank has (the
+schedule counts optimizer steps), and a step sums the BatchNorm moments
+across the ranks, gathers both views' projections before the loss and
+averages the gradients before Adam (parallel/dp.py). The three DP paths:
+units (each rank packs its own tile-units, seed + 7 rank, with a unit
+spec agreed by max, keeps the fewest units any rank has and draws its
+orders from seed + 104729 (rank + 1)); resident (each rank keeps the
+fewest cached batches any rank has, in its iterator's order); host (each
+rank trains the agreed number of its own batches per epoch). Augmentation
+and dropout streams add the rank to their seeds. Each decision that one
+rank could take alone (a stack over budget, a plan that fails) is agreed
+across the ranks, so that none waits in a collective its peers skip. Only
+rank 0 writes config.json, metrics, TensorBoard and checkpoints; every
+rank validates its own split and resumes. On the card the DP step is
+replayed as a CUDA graph on NCCL (its collectives captured); on gloo it
+runs eager.
 """
 
 from __future__ import annotations
@@ -74,7 +95,7 @@ from molclr_tpu_torch.data.augment import (
 )
 from molclr_tpu_torch.data.corpus import CorpusSubset, DiskCorpus, \
     is_disk_corpus
-from molclr_tpu_torch.data.graphs import concat_views
+from molclr_tpu_torch.data.graphs import PadSpec, concat_views
 from molclr_tpu_torch.data.loader import (
     BatchIterator,
     device_batches,
@@ -89,17 +110,21 @@ from molclr_tpu_torch.data.regroup import (
     epoch_unit_orders,
     pack_unit_stack,
     plan_corpus_units,
+    plan_units,
     stack_batches,
+    unit_spec_for,
     unit_stack_bytes,
     upload_stack,
     wire_dtypes,
 )
 from molclr_tpu_torch.losses import nt_xent_loss, resolve_ntxent
 from molclr_tpu_torch.models import MolCLRNet
+from molclr_tpu_torch.parallel import dp as dp_lib
+from molclr_tpu_torch.parallel.multihost import corpus_shard_range
 from molclr_tpu_torch.train import checkpoints as ckpt_lib
 from molclr_tpu_torch.train.config import PretrainConfig, to_dict
 from molclr_tpu_torch.train.graphed import GRAPH_WARMUP_STEPS, GraphedSteps
-from molclr_tpu_torch.train.logging_util import MetricWriter
+from molclr_tpu_torch.train.logging_util import MetricWriter, NullWriter
 from molclr_tpu_torch.train.optim import load_optimizer_state, make_adam, \
     set_lr, warmup_then_cosine
 
@@ -126,27 +151,30 @@ def step_generator(seed: int, *ids: int, device="cpu") -> torch.Generator:
     return torch.Generator(device=device).manual_seed(step_seed(seed, *ids))
 
 
-def build_model(cfg: PretrainConfig, generator: torch.Generator | None = None
-                ) -> MolCLRNet:
+def build_model(cfg: PretrainConfig, generator: torch.Generator | None = None,
+                dp=None) -> MolCLRNet:
+    """The pretraining network of cfg.model; dp (a DPGroup) makes its
+    BatchNorm layers sum their moments across the ranks."""
     m = cfg.model
     return MolCLRNet(num_layers=m.num_layers, emb_dim=m.emb_dim,
                      feat_dim=m.feat_dim, gnn_type=m.gnn_type, pool=m.pool,
                      drop_ratio=m.drop_ratio, normalize_gcn=m.normalize_gcn,
                      dtype=torch.bfloat16 if m.bf16 else torch.float32,
-                     tile=m.tile, generator=generator)
+                     tile=m.tile, generator=generator, dp=dp)
 
 
-def _loss(loss_fn, cfg, zi, zj, batch):
+def _loss(loss_fn, cfg, zi, zj, batch, dp=None):
     return loss_fn(zi.float(), zj.float(), cfg.temperature,
-                   cfg.use_cosine_similarity, pair_mask=batch.graph_mask)
+                   cfg.use_cosine_similarity, pair_mask=batch.graph_mask,
+                   dp=dp)
 
 
 def _dropout_kw(model, cfg, step: int, view: int, masks,
-                generators) -> dict:
+                generators, stream=()) -> dict:
     """The dropout inputs of one forward: the given keep masks, or (with
     drop_ratio > 0) the view's generator of `generators`, or else a
-    generator on the model's device for (cfg.seed, step, view); nothing
-    at drop_ratio 0."""
+    generator on the model's device for (cfg.seed, step, view, *stream);
+    nothing at drop_ratio 0."""
     if masks is not None:
         return dict(dropout_masks=masks)
     if model.drop_ratio == 0.0:
@@ -155,13 +183,13 @@ def _dropout_kw(model, cfg, step: int, view: int, masks,
         return dict(generator=generators[view])
     dev = next(model.parameters()).device
     return dict(generator=step_generator(cfg.seed, DROPOUT_STREAM, step,
-                                         view, device=dev))
+                                         view, *stream, device=dev))
 
 
 def train_step(model, opt, batch, cfg: PretrainConfig, step: int,
                lr: float | None, views=None, bond_window: int = 0,
                max_waves: int = 0, dropout_masks=None, keys=None,
-               dropout_generators=None) -> torch.Tensor:
+               dropout_generators=None, dp=None, stream=()) -> torch.Tensor:
     """One optimizer step on one base batch; returns the loss (a 0-d
     tensor on the batch's device, not synchronized). views = (vi, vj)
     replaces the augmentation draw (as the JAX train_step's `views`), keys
@@ -174,12 +202,16 @@ def train_step(model, opt, batch, cfg: PretrainConfig, step: int,
     generators the step would make. The LR is the schedule at the step
     count before the update; None leaves the optimizer's LR as it is (a
     CUDA graph's step reads the LR tensor that set_lr fills before each
-    replay)."""
+    replay). Under data parallelism dp (a DPGroup; the model built with
+    it) the loss is the global one over every rank's pairs and the
+    gradients are averaged over the ranks before the update; `stream`
+    (the rank) extends the seeds of the step's generators.
+    """
     if views is None:
         if keys is None:
             keys = draw_paired_keys(
                 cfg.aug, batch.num_nodes, batch.num_graphs,
-                step_generator(cfg.seed, TRAIN_STREAM, step))
+                step_generator(cfg.seed, TRAIN_STREAM, step, *stream))
         views = paired_augment_keys(batch, keys, cfg.aug,
                                     tile=cfg.model.tile,
                                     bond_window=bond_window,
@@ -189,16 +221,22 @@ def train_step(model, opt, batch, cfg: PretrainConfig, step: int,
     gens = dropout_generators
     model.train()
     if cfg.concat_views:
-        _, z = model(concat_views(vi, vj),
-                     **_dropout_kw(model, cfg, step, 0, masks[0], gens))
+        _, z = model(concat_views(vi, vj), **_dropout_kw(
+            model, cfg, step, 0, masks[0], gens, stream))
         g = batch.num_graphs
         zi, zj = z[:g], z[g:]
     else:
-        _, zi = model(vi, **_dropout_kw(model, cfg, step, 0, masks[0], gens))
-        _, zj = model(vj, **_dropout_kw(model, cfg, step, 1, masks[1], gens))
-    loss = _loss(resolve_ntxent(cfg.ntxent_impl), cfg, zi, zj, batch)
+        _, zi = model(vi, **_dropout_kw(model, cfg, step, 0, masks[0], gens,
+                                        stream))
+        _, zj = model(vj, **_dropout_kw(model, cfg, step, 1, masks[1], gens,
+                                        stream))
+    world = 1 if dp is None else dp.world
+    loss = _loss(resolve_ntxent(cfg.ntxent_impl, world), cfg, zi, zj, batch,
+                 dp)
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    if dp is not None:
+        dp_lib.mean_grads(model.parameters(), dp)
     if lr is not None:
         set_lr(opt, lr)
     opt.step()
@@ -225,13 +263,27 @@ class Pretrainer:
     epoch's step losses (f32) and, where steps were replayed, `graphed`
     the GraphedSteps that replayed them. prefer_native=False featurizes a
     SMILES corpus with the Python chem layer (in cfg.featurize_processes
-    processes) and packs with the Python packer."""
+    processes) and packs with the Python packer. cfg.data_axis trains
+    data-parallel over the ranks of `dp` (parallel.init_distributed's
+    DPGroup, on this rank's device), which it requires."""
 
     def __init__(self, cfg: PretrainConfig, device,
-                 prefer_native: bool = True):
+                 prefer_native: bool = True, dp=None):
+        if bool(cfg.data_axis) != (dp is not None):
+            raise ValueError(
+                "data_axis trains data-parallel and needs the rank's "
+                "DPGroup (parallel.init_distributed), and a DPGroup needs "
+                f"data_axis (data_axis={cfg.data_axis!r}, dp={dp})")
         self.cfg = cfg
         self.device = torch.device(device)
         self.prefer_native = prefer_native
+        self.dp = dp
+        # the rank, appended to the seeds of the augmentation and dropout
+        # streams (JAX folds the device index into the step's key)
+        self._stream = () if dp is None else (dp.rank,)
+        self.is_main = dp is None or dp.rank == 0
+        # DP: the fewest cached batches any rank has (the resident path)
+        self._dp_shard_size = 0
         self.step = 0
         self._start_epoch = 0
         # the device stack of the resident paths: tile-units (_units) or
@@ -277,8 +329,10 @@ class Pretrainer:
             order = keep[np.random.RandomState(cfg.seed).permutation(
                 len(keep))]
             n_valid = int(len(order) * cfg.valid_size)
-            train = CorpusSubset(corpus, order[n_valid:])
-            valid = CorpusSubset(corpus, order[:n_valid])
+            train_ids, valid_ids = self._process_shard(order[n_valid:],
+                                                       order[:n_valid])
+            train = CorpusSubset(corpus, train_ids)
+            valid = CorpusSubset(corpus, valid_ids)
             sized = CorpusSubset(corpus, keep)
             atoms = train.atom_counts
             edges = train.edge_counts
@@ -292,8 +346,10 @@ class Pretrainer:
                                        prefer_native=self.prefer_native)
             order = np.random.RandomState(cfg.seed).permutation(len(graphs))
             n_valid = int(len(graphs) * cfg.valid_size)
-            train = [graphs[i] for i in order[n_valid:]]
-            valid = [graphs[i] for i in order[:n_valid]]
+            train_ids, valid_ids = self._process_shard(order[n_valid:],
+                                                       order[:n_valid])
+            train = [graphs[i] for i in train_ids]
+            valid = [graphs[i] for i in valid_ids]
             sized = graphs
             atoms = np.array([g.n_atoms for g in train])
             edges = np.array([g.edge_src.shape[0] for g in train])
@@ -321,25 +377,54 @@ class Pretrainer:
             prefer_native=self.prefer_native)
         return self
 
+    def _process_shard(self, train_ids, valid_ids):
+        """Data parallelism: every rank draws the same seeded split and
+        keeps its contiguous corpus_shard_range slice of each part (the
+        JAX Pretrainer's _process_shard); one card: both as they are."""
+        if self.dp is None:
+            return train_ids, valid_ids
+        rank, world = self.dp.rank, self.dp.world
+        rt = corpus_shard_range(len(train_ids), rank, world)
+        rv = corpus_shard_range(len(valid_ids), rank, world)
+        return (train_ids[rt.start: rt.stop], valid_ids[rv.start: rv.stop])
+
+    def _agree(self, ok: bool) -> bool:
+        """A choice every rank must take alike (a stack uploaded or not):
+        true where it holds on every rank; one card: as it is."""
+        if self.dp is None:
+            return ok
+        return bool(dp_lib.agree_ints((int(ok),), self.dp, op="min")[0])
+
     # ---- model / optimizer ----
     def _resolve_graph_steps(self) -> int:
         """Steps per CUDA graph on the resident paths (0: eager; always on
-        the CPU and where device_cache_mb 0 leaves only the host path)."""
+        the CPU, where device_cache_mb 0 leaves only the host path, and on
+        gloo, whose collectives stage through the host and cannot be
+        captured)."""
         cfg = self.cfg
         k = cfg.steps_per_dispatch
         if self.device.type != "cuda" or k == 1 or not cfg.device_cache_mb:
+            return 0
+        if self.dp is not None and self.dp.backend != "nccl":
             return 0
         return max(1, k)
 
     def setup_state(self):
         cfg = self.cfg
         self.model = build_model(
-            cfg, torch.Generator().manual_seed(cfg.seed)).to(self.device)
+            cfg, torch.Generator().manual_seed(cfg.seed),
+            self.dp).to(self.device)
         self.graph_steps = self._resolve_graph_steps()
         self.opt = make_adam(cfg.adam_impl, self.model.parameters(),
                              cfg.weight_decay,
                              capturable=self.graph_steps > 0)
         self.steps_per_epoch = max(1, len(self.train_iter))
+        if self.dp is not None:
+            # one optimizer step takes one batch of every rank: the
+            # schedule counts optimizer steps, and every rank bakes the
+            # same one (the fewest batches any rank has)
+            (self.steps_per_epoch,) = dp_lib.agree_ints(
+                (self.steps_per_epoch,), self.dp, op="min")
         self.schedule = warmup_then_cosine(cfg.init_lr, self.steps_per_epoch,
                                            cfg.epochs, cfg.warm_up)
         if cfg.resume_from:
@@ -347,14 +432,15 @@ class Pretrainer:
         return self
 
     def _resume(self, path: str) -> None:
-        """A reference .pth (weights only: optimizer, step and schedule
-        start from zero) or a full-state step_<step>.pt (the run continues
-        its optimizer moments, step count, LR schedule and data stream).
-        A step_<step>.pt written with another adam_impl is refused before
+        """A reference .pth or an Orbax step directory of the JAX package
+        (weights only: optimizer, step and schedule start from zero) or a
+        full-state step_<step>.pt (the run continues its optimizer
+        moments, step count, LR schedule and data stream). A
+        step_<step>.pt written with another adam_impl is refused before
         anything loads (one without a stamp predates 'fused': 'chain')."""
-        if path.endswith(".pth"):
+        if path.endswith(".pth") or os.path.isdir(path):
             got = ckpt_lib.transfer_state(
-                ckpt_lib.load_torch_state_dict(path), self.model)
+                ckpt_lib.load_pretrained_state(path), self.model)
             if got["copied"] == 0:
                 raise ValueError(f"{path}: no tensor matches the model")
             return
@@ -454,27 +540,120 @@ class Pretrainer:
             f"steps/epoch); epochs re-draw batch compositions on-device")
         return True
 
+    def _upload_units_dp(self, log) -> bool:
+        """The DP units path (the JAX Pretrainer's _maybe_upload_units_dp
+        in a multi-process run, one device per process): this rank packs
+        the tile-units of its own train split, seeded with seed + 7 rank,
+        with a unit spec agreed by max across the ranks; it keeps the
+        fewest units any rank has (U_dev) and takes T = U_dev // S units
+        per step, S the agreed steps per epoch. A split of an on-disk
+        corpus is planned from its counts and packed natively. Every
+        choice is agreed, so all ranks take the path or none does."""
+        cfg, dp = self.cfg, self.dp
+        graphs = self.train_iter.graphs
+        seed = cfg.seed + 7 * dp.rank
+        corpus = isinstance(graphs, CorpusSubset)
+        local = None
+        if len(graphs) <= cfg.pack_cache_max_mols:
+            try:
+                if corpus:
+                    id_groups, local = plan_corpus_units(
+                        graphs, cfg.model.tile, cfg.max_degree, seed=seed)
+                else:
+                    order = np.random.RandomState(seed).permutation(
+                        len(graphs))
+                    local = unit_spec_for(
+                        plan_units([graphs[i] for i in order],
+                                   cfg.model.tile),
+                        cfg.model.tile, cfg.max_degree)
+            except ValueError as e:
+                log(f"DP fresh-compositions unit packing unavailable "
+                    f"({e}); falling back to the frozen batch cache")
+        if not self._agree(local is not None):
+            return False
+        g_t, e_t, mb = dp_lib.agree_ints(
+            (local.n_graphs, local.n_edges, local.max_graph_bonds), dp,
+            op="max")
+        uspec = PadSpec(n_graphs=g_t, n_nodes=cfg.model.tile, n_edges=e_t,
+                        max_degree=cfg.max_degree, tile=cfg.model.tile,
+                        max_graph_bonds=mb)
+        if corpus:
+            u = len(id_groups)
+        else:
+            stack, _, units = pack_unit_stack(
+                graphs, cfg.model.tile, cfg.max_degree, seed=seed,
+                prefer_native=self.prefer_native, uspec=uspec)
+            u = len(units)
+        u_dev, dropped = dp_lib.shard_unit_stack(u, dp)
+        s_dp = self.steps_per_epoch
+        t = u_dev // s_dp
+        narrow = None if cfg.narrow_cache == "off" else wire_dtypes(uspec)
+        total_mb = unit_stack_bytes(uspec, u_dev, narrow) / 2**20
+        fits = self._device_cache_used_mb + total_mb <= cfg.device_cache_mb
+        if not self._agree(t >= 1 and fits):
+            log(f"DP tile-units: {u_dev} per rank over {s_dp} steps/epoch "
+                f"({total_mb:.1f} MB per rank, device_cache_mb="
+                f"{cfg.device_cache_mb}) on this rank or another; falling "
+                f"back to the frozen batch cache")
+            return False
+        if corpus:
+            stack = native.pack_unit_stack_indexed(
+                graphs.corpus, id_groups[:u_dev], uspec, narrow=narrow)
+            atoms, edges = graphs.atom_counts, graphs.edge_counts
+        else:
+            stack = {f: np.asarray(v)[:u_dev] for f, v in vars(stack).items()}
+            atoms = np.array([g.n_atoms for g in graphs])
+            edges = np.array([g.edge_src.shape[0] for g in graphs])
+        self._stack = upload_stack(stack, self.device, narrow)
+        self._units = True
+        self.unit_spec = uspec
+        self._unit_stack_mb = total_mb
+        self._n_units, self._units_per_batch = u_dev, t
+        self._device_cache_used_mb += total_mb
+        self._mean_real_edges = int(edges.sum()) * t / u
+        self._mean_real_nodes = int(atoms.sum()) * t / u
+        log(f"rank {dp.rank}: uploaded {u_dev}-unit stack ({total_mb:.1f} "
+            f"MB{', narrow' if narrow else ''}, {t} units x "
+            f"{cfg.model.tile} nodes per step, {s_dp} steps/epoch"
+            + (f", {dropped} remainder units dropped" if dropped else "")
+            + "); DP epochs re-draw batch compositions on-device")
+        return True
+
     def _maybe_upload_cache(self, log) -> None:
         """After a full host epoch: the tile-unit stack where fresh
         compositions allow it, else the cached batches as a [S, ...] stack
-        within device_cache_mb."""
+        within device_cache_mb (under data parallelism the fewest batches
+        any rank has, if every rank's fit)."""
         cfg = self.cfg
         cache = self.train_iter.cache
-        if self._stack is not None or not cfg.device_cache_mb or not cache:
+        if (self._stack is not None or not cfg.device_cache_mb
+                or not self._agree(bool(cache))):
             return
-        if (cfg.fresh_compositions and cfg.model.tile > 0
-                and self._upload_units(log)):
+        if cfg.fresh_compositions and cfg.model.tile > 0 and (
+                self._upload_units_dp(log) if self.dp is not None
+                else self._upload_units(log)):
             return
-        stack = stack_batches([gb for gb, _, _ in cache])
+        batches = [gb for gb, _, _ in cache]
+        dropped = 0
+        if self.dp is not None:
+            batches, self._dp_shard_size, dropped = \
+                dp_lib.shard_batch_cache(batches, self.dp)
+        stack = stack_batches(batches)
         total_mb = sum(v.nbytes for v in vars(stack).values()) / 2**20
-        if self._device_cache_used_mb + total_mb > cfg.device_cache_mb:
+        if not self._agree(self._device_cache_used_mb + total_mb
+                           <= cfg.device_cache_mb):
             log(f"packed-batch cache {total_mb:.0f} MB exceeds "
-                f"device_cache_mb={cfg.device_cache_mb}; staying host-side")
+                f"device_cache_mb={cfg.device_cache_mb}"
+                + (" on this rank or another" if self.dp else "")
+                + "; staying host-side")
             return
+        if dropped:
+            log(f"rank {self.dp.rank}: {dropped} remainder batches dropped "
+                f"at device granularity")
         self._stack = upload_stack(stack, self.device)
         self._units, self._units_per_batch = False, 1
         self._device_cache_used_mb += total_mb
-        log(f"uploaded {len(cache)}-batch cache ({total_mb:.1f} MB) to the "
+        log(f"uploaded {len(batches)}-batch cache ({total_mb:.1f} MB) to the "
             f"device; epochs are now transfer-free")
 
     def _maybe_upload_eval(self) -> None:
@@ -557,6 +736,9 @@ class Pretrainer:
             yield fields_
 
     def _host_epoch(self, epoch: int, log) -> list[float]:
+        """One epoch of the host path. Under data parallelism every rank
+        trains the agreed steps per epoch on its own batches and only
+        drains the rest (so that its iterator's cache fills)."""
         cfg = self.cfg
         buf = torch.empty(len(self.train_iter), device=self.device)
         batches = device_batches(self._stream_batches(), self.device)
@@ -564,10 +746,13 @@ class Pretrainer:
             batches = prefetch_iter(batches, cfg.prefetch)
         n = 0
         for batch, event in batches:
+            if self.dp is not None and n == self.steps_per_epoch:
+                continue
             loss = train_step(self.model, self.opt, ready(batch, event), cfg,
                               self.step, self.schedule(self.step),
                               bond_window=self.spec.max_graph_bonds,
-                              max_waves=self.max_waves)
+                              max_waves=self.max_waves, dp=self.dp,
+                              stream=self._stream)
             buf[n].copy_(loss)
             n += 1
             self._advance(1, buf[:n], epoch, log)
@@ -587,7 +772,7 @@ class Pretrainer:
         nodes, graphs = self._batch_size()
         rows = torch.stack([flatten_keys(draw_paired_keys(
             cfg.aug, nodes, graphs,
-            step_generator(cfg.seed, TRAIN_STREAM, start + j)))
+            step_generator(cfg.seed, TRAIN_STREAM, start + j, *self._stream)))
             for j in range(n)])
         if self.device.type == "cuda":
             rows = rows.pin_memory()
@@ -604,7 +789,8 @@ class Pretrainer:
         return train_step(self.model, self.opt, batch, cfg, self.step, lr,
                           keys=keys, bond_window=self.spec.max_graph_bonds,
                           max_waves=self.max_waves,
-                          dropout_generators=dropout_generators)
+                          dropout_generators=dropout_generators, dp=self.dp,
+                          stream=self._stream)
 
     def _graph_body(self, j: int, idx_row, key_row) -> torch.Tensor:
         """Step j of a graph: with dropout, its views' masks come from the
@@ -634,7 +820,7 @@ class Pretrainer:
         for j, pair in enumerate(self._graph_gens):
             for view, gen in enumerate(pair):
                 gen.manual_seed(step_seed(self.cfg.seed, DROPOUT_STREAM,
-                                          self.step + j, view))
+                                          self.step + j, view, *self._stream))
 
     def _resident_epoch(self, epoch: int, orders: np.ndarray,
                         log) -> list[float]:
@@ -672,6 +858,17 @@ class Pretrainer:
                 j += n
         return buf.tolist()
 
+    def _unit_orders(self, epoch: int) -> np.ndarray:
+        """The [S, T] unit rows of one epoch: the one-card stream, or under
+        data parallelism the rank's (seed + 104729 (rank + 1))."""
+        cfg = self.cfg
+        if self.dp is not None:
+            return dp_lib.unit_orders(self._n_units, self._units_per_batch,
+                                      cfg.seed, self.dp.rank, epoch,
+                                      self.steps_per_epoch)
+        return epoch_unit_orders(self._n_units, self._units_per_batch,
+                                 cfg.seed, epoch)[: self.steps_per_epoch]
+
     def _activate_units(self, log) -> None:
         """The tile-unit stack up front (no host epoch first). A resumed
         run of a replanning config packs once, with the seed of the last
@@ -682,6 +879,13 @@ class Pretrainer:
                 or cfg.model.tile <= 0 or not cfg.device_cache_mb):
             return
         n = cfg.replan_units_every
+        if self.dp is not None:
+            if n:
+                log("replan_units_every is not implemented for the DP units "
+                    "path (as in the JAX package); training on the epoch-0 "
+                    "unit plan (compositions still re-draw per epoch)")
+            self._upload_units_dp(log)
+            return
         last = (self._start_epoch // n) * n if n else 0
         if last > 0:
             if self._upload_units(log, plan_seed=cfg.seed + 7919 * last):
@@ -692,6 +896,7 @@ class Pretrainer:
     def _maybe_replan(self, epoch: int, log) -> None:
         n = self.cfg.replan_units_every
         if (self._units and n and epoch > 0 and epoch % n == 0
+                and self.dp is None
                 and self._units_plan_epoch != epoch):
             if self._upload_units(log,
                                   plan_seed=self.cfg.seed + 7919 * epoch):
@@ -721,10 +926,15 @@ class Pretrainer:
 
     def train(self, log=print) -> list[dict]:
         cfg = self.cfg
-        os.makedirs(cfg.ckpt_dir, exist_ok=True)
-        with open(os.path.join(cfg.ckpt_dir, "config.json"), "w") as f:
-            json.dump(to_dict(cfg), f, indent=2, default=str)
-        writer = MetricWriter(cfg.ckpt_dir, tensorboard=cfg.tensorboard)
+        if self.is_main:
+            # data parallelism: rank 0 writes for all (the ranks hold the
+            # same parameters)
+            os.makedirs(cfg.ckpt_dir, exist_ok=True)
+            with open(os.path.join(cfg.ckpt_dir, "config.json"), "w") as f:
+                json.dump(to_dict(cfg), f, indent=2, default=str)
+            writer = MetricWriter(cfg.ckpt_dir, tensorboard=cfg.tensorboard)
+        else:
+            writer = NullWriter()
         best_val = float("inf")
         history = []
         self._activate_units(log)
@@ -738,13 +948,14 @@ class Pretrainer:
                     losses = self._host_epoch(epoch, log)
                     self._maybe_upload_cache(log)
                 elif self._units:
-                    losses = self._resident_epoch(epoch, epoch_unit_orders(
-                        self._n_units, self._units_per_batch, cfg.seed,
-                        epoch)[: self.steps_per_epoch], log)
+                    losses = self._resident_epoch(epoch, self._unit_orders(
+                        epoch), log)
                 else:
-                    losses = self._resident_epoch(
-                        epoch, self.train_iter.cached_epoch_order()[:, None],
-                        log)
+                    order = self.train_iter.cached_epoch_order()
+                    if self.dp is not None:
+                        order = dp_lib.cache_orders(order,
+                                                    self._dp_shard_size)
+                    losses = self._resident_epoch(epoch, order[:, None], log)
                 self._stop_profiler(log)
                 self.epoch_losses.append(np.asarray(losses, np.float32))
                 epoch_s = time.perf_counter() - t0
@@ -763,13 +974,14 @@ class Pretrainer:
                 if (epoch + 1) % cfg.eval_every_epochs == 0:
                     val = self.validate(epoch)
                     record["valid_loss"] = val
-                    if val < best_val:
+                    if val < best_val and self.is_main:
                         best_val = val
                         self._save_best()
                 stopping = (cfg.stop_after_epochs
                             and epoch + 1 >= cfg.stop_after_epochs
                             and epoch + 1 < cfg.epochs)
-                if (epoch + 1) % cfg.save_every_epochs == 0 or stopping:
+                if ((epoch + 1) % cfg.save_every_epochs == 0
+                        or stopping) and self.is_main:
                     path = ckpt_lib.save_checkpoint(cfg.ckpt_dir, self.step, {
                         "model": self.model.state_dict(),
                         "optimizer": self.opt.state_dict(),

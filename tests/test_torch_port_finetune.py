@@ -55,6 +55,7 @@ from molclr_tpu_torch.train import metrics
 from molclr_tpu_torch.train.config import FineTuneConfig, ModelConfig, \
     finetune_from_yaml
 from molclr_tpu_torch.train.finetune import FineTuner, train_step
+from molclr_tpu_torch.train.orbax import OrbaxFormatError
 from molclr_tpu_torch.train.optim import two_group_adam
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -447,8 +448,9 @@ def test_cli_finetune_without_cpu_raises_when_no_gpu(tmp_path, monkeypatch):
 
 
 def test_warm_start_sources(tmp_path):
-    """A reference .pth and a step_<n>.pt load; a directory without
-    step_<n>.pt (an Orbax checkpoint) raises NotImplementedError; a seed
+    """A reference .pth and a step_<n>.pt load; a step_<n> directory that
+    is not an Orbax checkpoint (no _METADATA) raises naming it (Orbax
+    checkpoints themselves load: tests/test_torch_port_orbax.py); a seed
     ensemble is no longer refused."""
     net = FineTuneNet(task="regression", **SMALL)
     torch.save(net.state_dict(), tmp_path / "m.pth")
@@ -456,7 +458,8 @@ def test_warm_start_sources(tmp_path):
     assert torch.equal(got["feat_lin.weight"], net.feat_lin.weight)
     (tmp_path / "orbax" / "step_3").mkdir(parents=True)
     path = ckpt_lib.resolve_pretrained(str(tmp_path / "orbax"))
-    with pytest.raises(NotImplementedError, match="Orbax"):
+    assert path == str(tmp_path / "orbax" / "step_3")
+    with pytest.raises(OrbaxFormatError, match="_METADATA.*Orbax"):
         ckpt_lib.load_pretrained_state(path)
     with pytest.raises(FileNotFoundError):
         ckpt_lib.load_pretrained_state(str(tmp_path / "missing.pth"))
