@@ -1,9 +1,10 @@
 """Fresh per-epoch batch compositions on the device-resident path.
 
 Port of molclr_tpu/data/regroup.py (`plan_units`, `unit_spec_for`,
-`pack_unit_stack`, `concat_units`, `epoch_unit_orders`,
-`unit_stack_bytes`) and of the narrow wire dtypes of
-molclr_tpu/train/pretrain.py (`_wire_dtypes`, `_widen_fn`).
+`pack_unit_stack`, split here into `plan_unit_groups` and `pack_units`,
+`concat_units`, `epoch_unit_orders`, `unit_stack_bytes`) and of the
+narrow wire dtypes of molclr_tpu/train/pretrain.py (`_wire_dtypes`,
+`_widen_fn`).
 
 The reference re-draws batch MEMBERSHIP every epoch (its DataLoader
 reshuffles molecules, dataset/dataset.py:179-183). The corpus is packed
@@ -78,25 +79,31 @@ def stack_batches(batches) -> GraphBatch:
                          for f in fields(GraphBatch)})
 
 
+def plan_unit_groups(graphs, tile: int, max_degree: int = 6, seed: int = 0):
+    """plan_units over a seeded shuffle of the molecules, so that units mix
+    the corpus (the in-memory twin of plan_corpus_units). Returns (groups,
+    the unit PadSpec that covers them)."""
+    order = np.random.RandomState(seed).permutation(len(graphs))
+    groups = plan_units([graphs[i] for i in order], tile)
+    return groups, unit_spec_for(groups, tile, max_degree)
+
+
+def pack_units(groups, uspec: PadSpec, prefer_native: bool = True):
+    """Planned groups packed with one unit spec: (the [U, ...] stack, a
+    GraphBatch of numpy arrays; the units)."""
+    units = [pack_batch(gr, uspec, prefer_native) for gr in groups]
+    return stack_batches(units), units
+
+
 def pack_unit_stack(graphs, tile: int, max_degree: int = 6, seed: int = 0,
-                    prefer_native: bool = True, uspec: PadSpec | None = None):
+                    prefer_native: bool = True):
     """Pack a corpus into the [U, ...] tile-unit stack (host, once).
     Returns (stack: a GraphBatch of numpy arrays with leading axis U,
     unit spec, units). The molecules are shuffled once (seeded) before
-    grouping, so that units mix the corpus. `uspec` packs with a spec the
-    ranks agreed on (data parallelism: every rank's units have one shape);
-    it raises where it is smaller than this corpus needs."""
-    order = np.random.RandomState(seed).permutation(len(graphs))
-    groups = plan_units([graphs[i] for i in order], tile)
-    local = unit_spec_for(groups, tile, max_degree)
-    if uspec is None:
-        uspec = local
-    elif (uspec.n_graphs < local.n_graphs or uspec.n_edges < local.n_edges
-          or uspec.max_graph_bonds < local.max_graph_bonds):
-        raise ValueError(f"agreed unit spec {uspec} smaller than local "
-                         f"requirements {local}")
-    units = [pack_batch(gr, uspec, prefer_native) for gr in groups]
-    return stack_batches(units), uspec, units
+    grouping, so that units mix the corpus."""
+    groups, uspec = plan_unit_groups(graphs, tile, max_degree, seed)
+    stack, units = pack_units(groups, uspec, prefer_native)
+    return stack, uspec, units
 
 
 def wire_dtypes(spec: PadSpec) -> dict | None:

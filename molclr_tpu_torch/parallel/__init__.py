@@ -12,7 +12,6 @@ from molclr_tpu_torch.parallel.dp import (
     mean_grads,
     resolve_ntxent,
     shard_batch_cache,
-    shard_unit_stack,
     sum_across_ranks,
     unit_orders,
 )
@@ -25,5 +24,5 @@ from molclr_tpu_torch.parallel.multihost import (
 __all__ = ["DPGroup", "agree_ints", "cache_orders", "corpus_shard_range",
            "destroy_distributed", "gather_pairs", "gather_rows",
            "init_distributed", "mean_grads", "resolve_ntxent",
-           "shard_batch_cache", "shard_unit_stack", "sum_across_ranks",
+           "shard_batch_cache", "sum_across_ranks",
            "unit_orders"]

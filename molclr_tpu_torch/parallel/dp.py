@@ -33,9 +33,10 @@ buffer and sums: exact, since every element has one nonzero addend. At
 world 1 every collective adds nothing, so the step is bit for bit the
 one-card step; nothing skips the process group there.
 
-Also here: each rank's share of a batch cache and of a unit stack
-(`shard_batch_cache`, `shard_unit_stack`: the JAX package's multi-process
-contract, one device per process), and the per-rank orders of an epoch
+Also here: each rank's share of a batch cache (`shard_batch_cache`: the
+JAX package's multi-process contract, one device per process; a unit
+stack's share is agreed where the Pretrainer plans it), and the per-rank
+orders of an epoch
 (`cache_orders`, `unit_orders`; the JAX Pretrainer's _dp_epoch_orders and
 its DP units epoch, pretrain.py:974-1000, 1117-1130).
 """
@@ -54,19 +55,17 @@ UNIT_ORDER_STRIDE = 104729
 
 
 class DPGroup:
-    """One rank's view of the data-parallel group: its rank, the world
-    size, the backend, the torch.distributed process group (None: the
-    default group) and the device its collectives' tensors live on.
+    """One rank's view of the data-parallel group (the default
+    torch.distributed process group): its rank, the world size, the
+    backend and the device its collectives' tensors live on.
     `collectives` counts the all_reduce calls this rank has made.
 
     A model holding one (its MaskedBatchNorm layers) deep-copies to a
     model holding the same group."""
 
-    def __init__(self, rank: int, world: int, backend: str, device,
-                 group=None):
+    def __init__(self, rank: int, world: int, backend: str, device):
         self.rank, self.world, self.backend = int(rank), int(world), backend
         self.device = torch.device(device)
-        self.group = group
         self.collectives = 0
 
     def __deepcopy__(self, memo):
@@ -79,7 +78,7 @@ class DPGroup:
     def all_reduce_(self, x: torch.Tensor, op=dist.ReduceOp.SUM
                     ) -> torch.Tensor:
         """Reduce x in place across the ranks (no autograd)."""
-        dist.all_reduce(x, op=op, group=self.group)
+        dist.all_reduce(x, op=op)
         self.collectives += 1
         return x
 
@@ -185,16 +184,6 @@ def shard_batch_cache(batches: list, dp: DPGroup) -> tuple[list, int, int]:
     return batches[:s], s, len(batches) - s
 
 
-def shard_unit_stack(n_units: int, dp: DPGroup) -> tuple[int, int]:
-    """This rank's units of its own unit stack: U_dev = the fewest any rank
-    has (multihost.shard_unit_stack_global); returns (U_dev, the number
-    dropped)."""
-    (u_dev,) = agree_ints((n_units,), dp, op="min")
-    if u_dev == 0:
-        raise ValueError(f"a rank has no tile-units (this one {n_units})")
-    return u_dev, n_units - u_dev
-
-
 def cache_orders(order: np.ndarray, s: int) -> np.ndarray:
     """The rank's batch order of one epoch over its S cached batches: the
     iterator's shuffle of its batches with the dropped remainder left out
@@ -215,5 +204,5 @@ def unit_orders(n_units: int, units_per_batch: int, seed: int, rank: int,
 
 __all__ = ["DPGroup", "UNIT_ORDER_STRIDE", "agree_ints", "cache_orders",
            "gather_pairs", "gather_rows", "mean_grads", "resolve_ntxent",
-           "shard_batch_cache", "shard_unit_stack", "sum_across_ranks",
+           "shard_batch_cache", "sum_across_ranks",
            "unit_orders"]

@@ -10,7 +10,8 @@ over with one device per process:
   - small host integers (the unit spec by max, steps per epoch by min) are
     agreed across the ranks (dp.agree_ints);
   - every rank keeps its own batches or units, the remainder dropped at
-    device granularity (dp.shard_batch_cache, dp.shard_unit_stack).
+    device granularity (dp.shard_batch_cache; the Pretrainer's
+    _upload_units for its units).
 
 The backend is the caller's explicit choice: NCCL for CUDA devices, gloo
 for the CPU (and for several ranks sharing one card, where NCCL refuses a

@@ -36,6 +36,7 @@ from __future__ import annotations
 import ast
 import json
 import os
+import posixpath
 from dataclasses import dataclass
 
 import numpy as np
@@ -109,7 +110,9 @@ class _Ref:
 
 def _file_table(c: _Cursor, base: str) -> list[tuple[str, str]]:
     """A data file table: (path, base path) of each file, both relative to
-    the store's root, the table's own paths being relative to `base`."""
+    the store's root, the table's own paths being relative to `base`. A
+    path that is absolute or leaves the root is refused: a checkpoint is
+    input, and the reader opens no file outside its store."""
     n = c.varint("num_files")
     prefix = [0] + c.varints(max(0, n - 1), "path_prefix_length")
     suffix = c.varints(n, "path_suffix_length")
@@ -122,7 +125,14 @@ def _file_table(c: _Cursor, base: str) -> list[tuple[str, str]]:
         if base_len[i] > len(path):
             c.fail("base_path_length", "longer than the path")
         prev = path
-        p = path.decode()
+        try:
+            p = path.decode()
+        except UnicodeDecodeError:
+            c.fail("path_suffix", f"path {bytes(path)!r} is not UTF-8")
+        norm = posixpath.normpath(base + p)
+        if posixpath.isabs(norm) or norm == ".." or norm.startswith("../"):
+            c.fail("path_suffix", f"data file path {base + p!r} leaves the "
+                                  f"store's root")
         out.append((base + p, base + p[: base_len[i]]))
     return out
 

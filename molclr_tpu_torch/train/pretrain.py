@@ -78,6 +78,7 @@ runs eager.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -95,7 +96,7 @@ from molclr_tpu_torch.data.augment import (
 )
 from molclr_tpu_torch.data.corpus import CorpusSubset, DiskCorpus, \
     is_disk_corpus
-from molclr_tpu_torch.data.graphs import PadSpec, concat_views
+from molclr_tpu_torch.data.graphs import concat_views
 from molclr_tpu_torch.data.loader import (
     BatchIterator,
     device_batches,
@@ -108,11 +109,10 @@ from molclr_tpu_torch.data.loader import (
 from molclr_tpu_torch.data.regroup import (
     concat_units,
     epoch_unit_orders,
-    pack_unit_stack,
+    pack_units,
     plan_corpus_units,
-    plan_units,
+    plan_unit_groups,
     stack_batches,
-    unit_spec_for,
     unit_stack_bytes,
     upload_stack,
     wire_dtypes,
@@ -388,12 +388,17 @@ class Pretrainer:
         rv = corpus_shard_range(len(valid_ids), rank, world)
         return (train_ids[rt.start: rt.stop], valid_ids[rv.start: rv.stop])
 
+    def _agree_ints(self, vals, op: str) -> tuple[int, ...]:
+        """Host integers every rank must take alike, agreed by `op` ('max'
+        or 'min') across the ranks; one card: as they are."""
+        if self.dp is None:
+            return tuple(int(v) for v in vals)
+        return dp_lib.agree_ints(vals, self.dp, op=op)
+
     def _agree(self, ok: bool) -> bool:
         """A choice every rank must take alike (a stack uploaded or not):
         true where it holds on every rank; one card: as it is."""
-        if self.dp is None:
-            return ok
-        return bool(dp_lib.agree_ints((int(ok),), self.dp, op="min")[0])
+        return bool(self._agree_ints((int(ok),), "min")[0])
 
     # ---- model / optimizer ----
     def _resolve_graph_steps(self) -> int:
@@ -418,13 +423,11 @@ class Pretrainer:
         self.opt = make_adam(cfg.adam_impl, self.model.parameters(),
                              cfg.weight_decay,
                              capturable=self.graph_steps > 0)
-        self.steps_per_epoch = max(1, len(self.train_iter))
-        if self.dp is not None:
-            # one optimizer step takes one batch of every rank: the
-            # schedule counts optimizer steps, and every rank bakes the
-            # same one (the fewest batches any rank has)
-            (self.steps_per_epoch,) = dp_lib.agree_ints(
-                (self.steps_per_epoch,), self.dp, op="min")
+        # one optimizer step takes one batch of every rank: the schedule
+        # counts optimizer steps, and every rank bakes the same one (the
+        # fewest batches any rank has)
+        (self.steps_per_epoch,) = self._agree_ints(
+            (max(1, len(self.train_iter)),), "min")
         self.schedule = warmup_then_cosine(cfg.init_lr, self.steps_per_epoch,
                                            cfg.epochs, cfg.warm_up)
         if cfg.resume_from:
@@ -468,35 +471,44 @@ class Pretrainer:
         """Pack the train split into tile-units and upload the [U, ...]
         stack, narrow unless narrow_cache is 'off' or the unit spec
         exceeds the narrow dtypes. T = U // steps_per_epoch units per step
-        keep the schedule's steps per epoch. plan_seed replaces cfg.seed
-        as the molecule shuffle (a replan); a replan that fails any check
-        leaves the old stack in place, its budget counted as released for
-        the check. A split of an on-disk corpus is planned from its counts,
-        checked against the budget, then packed by the native packer from
-        the memory maps, narrow where allowed. Returns True when the units
+        keep the schedule's steps per epoch. The units are planned, then
+        checked against the budget, then packed: a split of an on-disk
+        corpus from its counts and by the native packer from the memory
+        maps. plan_seed replaces cfg.seed as the molecule shuffle (a
+        replan); a replan that fails any check leaves the old stack in
+        place, its budget counted as released for the check.
+
+        Under data parallelism (the JAX Pretrainer's _maybe_upload_units_dp
+        in a multi-process run, one device per process) each rank plans
+        its own split seeded with seed + 7 rank; the ranks agree the unit
+        spec by max and U by min (the remainder units are dropped), and
+        every choice, so all ranks take the path or none does. On one card
+        every agreement is the value itself. Returns True when the units
         path is active."""
         cfg = self.cfg
         graphs = self.train_iter.graphs
-        if len(graphs) > cfg.pack_cache_max_mols:
-            return False
-        seed = cfg.seed if plan_seed is None else plan_seed
+        rank = 0 if self.dp is None else self.dp.rank
+        seed = cfg.seed + 7 * rank if plan_seed is None else plan_seed
         replan_mb = self._unit_stack_mb if self._units else 0.0
-        s_epoch = max(1, len(self.train_iter))
+        s_epoch = self.steps_per_epoch
         corpus = isinstance(graphs, CorpusSubset)
-        try:
-            if corpus:
-                id_groups, uspec = plan_corpus_units(
-                    graphs, cfg.model.tile, cfg.max_degree, seed=seed)
-                u = len(id_groups)
-            else:
-                stack, uspec, units = pack_unit_stack(
-                    graphs, cfg.model.tile, cfg.max_degree, seed=seed,
-                    prefer_native=self.prefer_native)
-                u = len(units)
-        except ValueError as e:
-            log(f"fresh-compositions unit packing unavailable ({e}); "
-                f"falling back to the frozen batch cache")
+        groups = None
+        if len(graphs) <= cfg.pack_cache_max_mols:
+            plan = plan_corpus_units if corpus else plan_unit_groups
+            try:
+                groups, local = plan(graphs, cfg.model.tile, cfg.max_degree,
+                                     seed=seed)
+            except ValueError as e:
+                log(f"fresh-compositions unit packing unavailable ({e}); "
+                    f"falling back to the frozen batch cache")
+        if not self._agree(groups is not None):
             return False
+        g_t, e_t, mb = self._agree_ints(
+            (local.n_graphs, local.n_edges, local.max_graph_bonds), "max")
+        uspec = dataclasses.replace(local, n_graphs=g_t, n_edges=e_t,
+                                    max_graph_bonds=mb)
+        (u,) = self._agree_ints((len(groups),), "min")
+        dropped = len(groups) - u
         t = u // s_epoch
         if t < 1:
             log(f"{u} tile-units < {s_epoch} steps/epoch; falling back to "
@@ -504,21 +516,24 @@ class Pretrainer:
             return False
         narrow = None if cfg.narrow_cache == "off" else wire_dtypes(uspec)
         total_mb = unit_stack_bytes(uspec, u, narrow) / 2**20
-        if (self._device_cache_used_mb - replan_mb + total_mb
-                > cfg.device_cache_mb):
+        if not self._agree(self._device_cache_used_mb - replan_mb + total_mb
+                           <= cfg.device_cache_mb):
             log(f"tile-unit stack {total_mb:.0f} MB "
                 f"({'narrow' if narrow else 'full-width'}) exceeds "
-                f"device_cache_mb={cfg.device_cache_mb}; staying host-side")
+                f"device_cache_mb={cfg.device_cache_mb}"
+                + (" on this rank or another" if self.dp else "")
+                + "; staying host-side")
             return False
         if corpus:
             t0 = time.perf_counter()
             stack = native.pack_unit_stack_indexed(
-                graphs.corpus, id_groups, uspec, narrow=narrow)
+                graphs.corpus, groups[:u], uspec, narrow=narrow)
             log(f"packed {u} units from the memory-mapped corpus in "
                 f"{time.perf_counter() - t0:.1f} s ({total_mb:.1f} MB, "
                 f"{unit_stack_bytes(uspec, u) / 2**20:.1f} MB full width)")
             atoms, edges = graphs.atom_counts, graphs.edge_counts
         else:
+            stack, _ = pack_units(groups[:u], uspec, self.prefer_native)
             atoms = np.array([g.n_atoms for g in graphs])
             edges = np.array([g.edge_src.shape[0] for g in graphs])
         if self._units:
@@ -531,92 +546,16 @@ class Pretrainer:
         self._unit_stack_mb = total_mb
         self._n_units, self._units_per_batch = u, t
         self._device_cache_used_mb += total_mb
-        # throughput accounting: a step holds T / U of the corpus
-        self._mean_real_edges = int(edges.sum()) * t / u
-        self._mean_real_nodes = int(atoms.sum()) * t / u
-        log(f"uploaded {u}-unit stack ({total_mb:.1f} MB"
+        # throughput accounting: a step holds T of the split's units
+        self._mean_real_edges = int(edges.sum()) * t / len(groups)
+        self._mean_real_nodes = int(atoms.sum()) * t / len(groups)
+        log(("" if self.dp is None else f"rank {rank}: ")
+            + f"uploaded {u}-unit stack ({total_mb:.1f} MB"
             + (", narrow" if narrow else "")
             + f", {t} units x {cfg.model.tile} nodes per step, {s_epoch} "
-            f"steps/epoch); epochs re-draw batch compositions on-device")
-        return True
-
-    def _upload_units_dp(self, log) -> bool:
-        """The DP units path (the JAX Pretrainer's _maybe_upload_units_dp
-        in a multi-process run, one device per process): this rank packs
-        the tile-units of its own train split, seeded with seed + 7 rank,
-        with a unit spec agreed by max across the ranks; it keeps the
-        fewest units any rank has (U_dev) and takes T = U_dev // S units
-        per step, S the agreed steps per epoch. A split of an on-disk
-        corpus is planned from its counts and packed natively. Every
-        choice is agreed, so all ranks take the path or none does."""
-        cfg, dp = self.cfg, self.dp
-        graphs = self.train_iter.graphs
-        seed = cfg.seed + 7 * dp.rank
-        corpus = isinstance(graphs, CorpusSubset)
-        local = None
-        if len(graphs) <= cfg.pack_cache_max_mols:
-            try:
-                if corpus:
-                    id_groups, local = plan_corpus_units(
-                        graphs, cfg.model.tile, cfg.max_degree, seed=seed)
-                else:
-                    order = np.random.RandomState(seed).permutation(
-                        len(graphs))
-                    local = unit_spec_for(
-                        plan_units([graphs[i] for i in order],
-                                   cfg.model.tile),
-                        cfg.model.tile, cfg.max_degree)
-            except ValueError as e:
-                log(f"DP fresh-compositions unit packing unavailable "
-                    f"({e}); falling back to the frozen batch cache")
-        if not self._agree(local is not None):
-            return False
-        g_t, e_t, mb = dp_lib.agree_ints(
-            (local.n_graphs, local.n_edges, local.max_graph_bonds), dp,
-            op="max")
-        uspec = PadSpec(n_graphs=g_t, n_nodes=cfg.model.tile, n_edges=e_t,
-                        max_degree=cfg.max_degree, tile=cfg.model.tile,
-                        max_graph_bonds=mb)
-        if corpus:
-            u = len(id_groups)
-        else:
-            stack, _, units = pack_unit_stack(
-                graphs, cfg.model.tile, cfg.max_degree, seed=seed,
-                prefer_native=self.prefer_native, uspec=uspec)
-            u = len(units)
-        u_dev, dropped = dp_lib.shard_unit_stack(u, dp)
-        s_dp = self.steps_per_epoch
-        t = u_dev // s_dp
-        narrow = None if cfg.narrow_cache == "off" else wire_dtypes(uspec)
-        total_mb = unit_stack_bytes(uspec, u_dev, narrow) / 2**20
-        fits = self._device_cache_used_mb + total_mb <= cfg.device_cache_mb
-        if not self._agree(t >= 1 and fits):
-            log(f"DP tile-units: {u_dev} per rank over {s_dp} steps/epoch "
-                f"({total_mb:.1f} MB per rank, device_cache_mb="
-                f"{cfg.device_cache_mb}) on this rank or another; falling "
-                f"back to the frozen batch cache")
-            return False
-        if corpus:
-            stack = native.pack_unit_stack_indexed(
-                graphs.corpus, id_groups[:u_dev], uspec, narrow=narrow)
-            atoms, edges = graphs.atom_counts, graphs.edge_counts
-        else:
-            stack = {f: np.asarray(v)[:u_dev] for f, v in vars(stack).items()}
-            atoms = np.array([g.n_atoms for g in graphs])
-            edges = np.array([g.edge_src.shape[0] for g in graphs])
-        self._stack = upload_stack(stack, self.device, narrow)
-        self._units = True
-        self.unit_spec = uspec
-        self._unit_stack_mb = total_mb
-        self._n_units, self._units_per_batch = u_dev, t
-        self._device_cache_used_mb += total_mb
-        self._mean_real_edges = int(edges.sum()) * t / u
-        self._mean_real_nodes = int(atoms.sum()) * t / u
-        log(f"rank {dp.rank}: uploaded {u_dev}-unit stack ({total_mb:.1f} "
-            f"MB{', narrow' if narrow else ''}, {t} units x "
-            f"{cfg.model.tile} nodes per step, {s_dp} steps/epoch"
+            f"steps/epoch"
             + (f", {dropped} remainder units dropped" if dropped else "")
-            + "); DP epochs re-draw batch compositions on-device")
+            + "); epochs re-draw batch compositions on-device")
         return True
 
     def _maybe_upload_cache(self, log) -> None:
@@ -629,9 +568,8 @@ class Pretrainer:
         if (self._stack is not None or not cfg.device_cache_mb
                 or not self._agree(bool(cache))):
             return
-        if cfg.fresh_compositions and cfg.model.tile > 0 and (
-                self._upload_units_dp(log) if self.dp is not None
-                else self._upload_units(log)):
+        if (cfg.fresh_compositions and cfg.model.tile > 0
+                and self._upload_units(log)):
             return
         batches = [gb for gb, _, _ in cache]
         dropped = 0
@@ -884,7 +822,7 @@ class Pretrainer:
                 log("replan_units_every is not implemented for the DP units "
                     "path (as in the JAX package); training on the epoch-0 "
                     "unit plan (compositions still re-draw per epoch)")
-            self._upload_units_dp(log)
+            self._upload_units(log)
             return
         last = (self._start_epoch // n) * n if n else 0
         if last > 0:

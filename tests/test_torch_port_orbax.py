@@ -18,8 +18,8 @@ molclr_tpu_torch/train/orbax.py).
   warm-started from state_dict_from_jax of the same trees;
 - cli.embed --checkpoint <dir> --cpu against the JAX package's cli.embed
   on the same directory (tests/test_torch_port_embed.py's tolerance);
-- truncated and corrupted files and a zarr3 checkpoint raise, naming the
-  file.
+- truncated and corrupted files, a zarr3 checkpoint and a manifest that
+  names a data file outside the store raise, naming the file.
 """
 
 import os
@@ -45,8 +45,8 @@ from molclr_tpu_torch.native import zstd
 from molclr_tpu_torch.train import checkpoints as ckpt_lib
 from molclr_tpu_torch.train.config import FineTuneConfig, ModelConfig
 from molclr_tpu_torch.train.finetune import FineTuner
-from molclr_tpu_torch.train.orbax import OcdbtStore, OrbaxFormatError, \
-    read_step_dir
+from molclr_tpu_torch.train.orbax import MANIFEST_MAGIC, OcdbtStore, \
+    OrbaxFormatError, _Cursor, _file_table, read_step_dir
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURE = ROOT / "tests" / "data" / "orbax"
@@ -319,6 +319,49 @@ def test_truncated_and_corrupted_files_raise_naming_them(tmp_path):
               key=lambda p: p.stat().st_size)
     big.write_bytes(big.read_bytes()[:100])
     with pytest.raises(OrbaxFormatError, match=f"{big.name}.*truncated"):
+        read_step_dir(str(d))
+
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while v >= 0x80:
+        out.append(v & 0x7F | 0x80)
+        v >>= 7
+    out.append(v)
+    return bytes(out)
+
+
+@pytest.mark.parametrize("escape", ["../", "/"])
+def test_manifest_path_outside_the_store_raises(tmp_path, escape):
+    """A manifest whose data file table names a path that is absolute or
+    leaves the store's root is refused before any such file is opened."""
+    d = _copy(tmp_path)
+    manifest = d / "manifest.ocdbt"
+    where = str(manifest)
+    body = OcdbtStore(str(d))._envelope(manifest.read_bytes(),
+                                         MANIFEST_MAGIC, where)
+    c = _Cursor(body, where)
+    c.raw(16, "uuid")
+    c.varints(3, "kind, inline, node bytes")
+    c.fixed(1, "arity")
+    if c.varint("compression_method") == 1:
+        c.fixed(4, "zstd_level")
+    start = c.pos
+    files = _file_table(c, "")
+    paths = [(escape + p).encode() for p, _ in files]
+    table = (_varint(len(paths)) + b"".join(_varint(0) for _ in paths[1:])
+             + b"".join(_varint(len(p)) for p in paths)
+             + b"".join(_varint(0) for _ in paths) + b"".join(paths))
+    body = body[:start] + table + body[c.pos:]
+    # the envelope: magic, length, format version 0, no compression, body,
+    # crc32c of everything before it
+    length = 4 + 8 + 2 + len(body) + 4
+    head = (MANIFEST_MAGIC.to_bytes(4, "big") + length.to_bytes(8, "little")
+            + _varint(0) + _varint(0))
+    raw = head + body
+    manifest.write_bytes(raw + zstd.crc32c(raw).to_bytes(4, "little"))
+    with pytest.raises(OrbaxFormatError,
+                       match="manifest.ocdbt: field 'path_suffix'.*leaves"):
         read_step_dir(str(d))
 
 
