@@ -232,6 +232,30 @@ prints no result line):
               JAX package's Orbax checkpoints) read without JAX, and the
               embed CLI from its GIN step directory against JAX's
               embeddings within SLICE_RTOL.
+ 19. partitioned: node-row-sharded giant-batch pretraining
+              (parallel/partition.py) and the sharded aggregations
+              (parallel/edgepart.py). (a) PART_RANKS processes of this
+              script (`--part-rank`) share the card through gloo over
+              CUDA tensors, each holding its segment (shard_graph_batch)
+              of one giant batch: PART_RANKS x 512 molecules of phase 7's
+              corpus, each shard packed as the Pretrainer packs B = 512 at
+              tile 256, concat_shards (a global 2B of 4,096). Three eager
+              GIN partitioned steps and one GCN step, each rank's card step
+              held to its CPU partitioned step (plain versions) from the
+              card's state by phase 5's limits, K1f 10 / K1b 10 (K3f 10 /
+              K3b 10) and K2f 1 / K2b 1 per step, PART_COLLECTIVES
+              all-reduces per step, the ranks' states bit-identical after
+              every step, the shared card's ms (no speed figure); one aug
+              'none' partitioned step against the one-card step on the
+              whole giant batch on the card (phase 5's limits). (b)
+              edgepart's gather, halo and tile variants at D = 300 across
+              the ranks (phase 5's batch at tile 0 for the first two, the
+              halo its largest molecule, tile 256 for the third): forward
+              and backward against the single-rank gine_aggregate on the
+              card within ELL_RTOL, two runs bit-identical, no all-reduce
+              in the tile variant, the all-reduce bytes per layer. (c)
+              World 1 on NCCL: two partitioned steps bit-identical to two
+              one-card steps.
 
 Phase 3's embed CLI featurizes with the native featurizer, which phase 16
 holds to the Python one.
@@ -245,6 +269,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import io
 import itertools
 import json
@@ -272,8 +297,8 @@ from molclr_tpu_torch.data.augment import AUG_DELTA_FIELDS, \
     draw_paired_keys, paired_augment, paired_augment_keys
 from molclr_tpu_torch.data.featurize import NUM_BOND_DIRS, NUM_BOND_TYPES, \
     featurize_smiles
-from molclr_tpu_torch.data.graphs import GraphBatch, concat_views, \
-    pack_batch
+from molclr_tpu_torch.data.graphs import GraphBatch, concat_shards, \
+    concat_views, pack_batch
 from molclr_tpu_torch.data.loader import featurize_many, \
     read_pretrain_smiles, spec_for_graphs
 from molclr_tpu_torch.data.regroup import concat_units, \
@@ -326,8 +351,9 @@ from molclr_tpu_torch.ops.scatter_free import _counts
 from molclr_tpu_torch.ops.segment import graph_pool
 from molclr_tpu_torch.ops.tile_dense import build_tile_adjacency, \
     gcn_normalization
-from molclr_tpu_torch.parallel import DPGroup, destroy_distributed, \
-    init_distributed
+from molclr_tpu_torch.parallel import DPGroup, build_sharded_layer, \
+    destroy_distributed, init_distributed, partitioned_train_step, \
+    shard_ell_rows, shard_graph_batch
 from molclr_tpu_torch.parallel.multihost import free_port
 from molclr_tpu_torch.train import finetune as ft_lib
 from molclr_tpu_torch.train import optim
@@ -340,7 +366,7 @@ from molclr_tpu_torch.train.logging_util import MetricWriter
 from molclr_tpu_torch.train.optim import load_optimizer_state
 from molclr_tpu_torch.train.orbax import read_step_dir
 from molclr_tpu_torch.train.pretrain import TRAIN_STREAM, Pretrainer, \
-    build_model, step_generator, train_step
+    build_model, forward_backward, step_generator, train_step
 
 SEED = 0
 TILE, EMB, FEAT, LAYERS, BATCH, N_MOLS = 256, 300, 512, 5, 256, 1024
@@ -1249,14 +1275,16 @@ def params_of(model) -> dict:
 
 
 def state_agreement(card_model, cpu_model, step: int, lr: float,
-                    what: str, dt=torch.float32
+                    what: str, dt=torch.float32, hold_share: bool = True
                     ) -> tuple[float, float, float, float]:
     """Check the card's state against the CPU's after the same step from
     the same state (each model's .grad holds its step's gradients), with
-    the limits above for activation dtype dt. Returns (the largest share
-    of a tensor's real-gradient elements off, the largest parameter
-    difference, the largest BatchNorm difference over its limit, the
-    largest gradient difference over the model's largest gradient)."""
+    the limits above for activation dtype dt (hold_share False: the share
+    of real-gradient elements off is returned, not held to
+    STEP_FRAC_OFF). Returns (the largest share of a tensor's
+    real-gradient elements off, the largest parameter difference, the
+    largest BatchNorm difference over its limit, the largest gradient
+    difference over the model's largest gradient)."""
     grads = {k: p.grad for k, p in cpu_model.named_parameters()}
     card_grads = {k: p.grad for k, p in card_model.named_parameters()}
     gmax = max(g.abs().max().item() for g in grads.values())
@@ -1291,7 +1319,8 @@ def state_agreement(card_model, cpu_model, step: int, lr: float,
         n_bad = int((diff[real] > 5e-5 + 2e-4 * v.double()[real].abs())
                     .sum())
         worst = max(worst, n_bad / max(n_real, 1))
-        check(n_bad <= max(1, math.ceil(STEP_FRAC_OFF[dt] * n_real)),
+        check(not hold_share
+              or n_bad <= max(1, math.ceil(STEP_FRAC_OFF[dt] * n_real)),
               f"{what}: {k} has {n_bad} of its {n_real} real-gradient "
               f"elements off the CPU's")
     return worst, top, stat, gworst
@@ -1311,7 +1340,8 @@ def card_and_cpu(cfg, dev, dps=None):
 
 
 def card_vs_cpu_steps(models, opts, cfg, batch, dev, bw, first, steps, want,
-                      tag, max_waves=0, masks=None, dps=None) -> dict:
+                      tag, max_waves=0, masks=None, dps=None,
+                      part=False) -> dict:
     """`steps` train steps on the card from step `first`; before each, the
     CPU takes the card's state (weights, BatchNorm stats, Adam moments) and
     runs the same step with the same augmentation keys (and the same
@@ -1320,8 +1350,9 @@ def card_vs_cpu_steps(models, opts, cfg, batch, dev, bw, first, steps, want,
     state_agreement holds them; every kernel launched as `want` says per
     step (0 if absent). Under data parallelism (`dps`: the card's and the
     CPU's DPGroup of this rank) both run the rank's DP step, its streams
-    seeded with the rank. Returns the report, with the launches
-    totalled."""
+    seeded with the rank; with part, the rank's partitioned step on its
+    segment of a giant batch (batch: shard_graph_batch's). Returns the
+    report, with the launches totalled."""
     lr = cfg.init_lr
     bg, bc = batch.to(dev), batch.to("cpu")
     report = {"losses": [], "counts": [], "fraction_off": [],
@@ -1335,18 +1366,28 @@ def card_vs_cpu_steps(models, opts, cfg, batch, dev, bw, first, steps, want,
         mk = masks(step) if masks else None
         stream = () if dps is None else (dps["card"].rank,)
         reset_counts()
-        loss_g = train_step(models["card"], opts["card"], bg, cfg, step, lr,
-                            bond_window=bw, max_waves=max_waves,
-                            dropout_masks=mk and [
-                                [m.to(dev) for m in v] for v in mk],
-                            dp=dps and dps["card"], stream=stream)
+        if part:
+            loss_g = partitioned_train_step(
+                models["card"], opts["card"], bg, cfg, step, lr,
+                dps["card"], bond_window=bw, max_waves=max_waves)
+        else:
+            loss_g = train_step(models["card"], opts["card"], bg, cfg, step,
+                                lr, bond_window=bw, max_waves=max_waves,
+                                dropout_masks=mk and [
+                                    [m.to(dev) for m in v] for v in mk],
+                                dp=dps and dps["card"], stream=stream)
         torch.cuda.synchronize()
         counts = read_counts()
         t0 = time.perf_counter()
-        loss_c = train_step(models["cpu"], opts["cpu"], bc, cfg, step, lr,
-                            bond_window=bw, max_waves=max_waves,
-                            dropout_masks=mk, dp=dps and dps["cpu"],
-                            stream=stream)
+        if part:
+            loss_c = partitioned_train_step(
+                models["cpu"], opts["cpu"], bc, cfg, step, lr, dps["cpu"],
+                bond_window=bw, max_waves=max_waves)
+        else:
+            loss_c = train_step(models["cpu"], opts["cpu"], bc, cfg, step,
+                                lr, bond_window=bw, max_waves=max_waves,
+                                dropout_masks=mk, dp=dps and dps["cpu"],
+                                stream=stream)
         report["cpu_step_s"] = time.perf_counter() - t0
         report["losses"].append([loss_g.item(), loss_c.item()])
         report["counts"].append(counts)
@@ -4038,17 +4079,18 @@ def dp_rank_main(rank: int, port: int, out_dir: str,
     return 0
 
 
-def dp_two_rank_cases(tmp: str) -> dict:
-    """(b) DP_RANKS processes of this script (`--dp-rank`), all done within
-    DP_TIMEOUT_S or killed; their reports."""
+def run_script_ranks(flag: str, world: int, tmp: str, timeout_s: float,
+                     tag: str) -> list:
+    """`world` processes of this script (`flag RANK PORT TMP`), all done
+    within timeout_s or killed; their reports (TMP/<tag>_rank<r>.json)."""
     port = free_port()
-    logs = [os.path.join(tmp, f"dp_rank{r}.log") for r in range(DP_RANKS)]
+    logs = [os.path.join(tmp, f"{tag}_rank{r}.log") for r in range(world)]
     files = [open(path, "wb") for path in logs]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+        [sys.executable, os.path.abspath(__file__), flag, str(r),
          str(port), tmp], stdout=f, stderr=subprocess.STDOUT)
         for r, f in enumerate(files)]
-    deadline = time.monotonic() + DP_TIMEOUT_S
+    deadline = time.monotonic() + timeout_s
     try:
         for p in procs:
             try:
@@ -4064,12 +4106,20 @@ def dp_two_rank_cases(tmp: str) -> dict:
     for r, (p, path) in enumerate(zip(procs, logs)):
         with open(path, errors="replace") as f:
             out = f.read()
-        check(p.returncode == 0, f"dp rank {r} exited {p.returncode}:\n"
+        check(p.returncode == 0, f"{tag} rank {r} exited {p.returncode}:\n"
               f"{out[-3000:]}")
     reports = []
-    for r in range(DP_RANKS):
-        with open(os.path.join(tmp, f"dp_rank{r}.json")) as f:
+    for r in range(world):
+        with open(os.path.join(tmp, f"{tag}_rank{r}.json")) as f:
             reports.append(json.load(f))
+    return reports
+
+
+def dp_two_rank_cases(tmp: str) -> dict:
+    """(b) DP_RANKS processes of this script (`--dp-rank`), all done within
+    DP_TIMEOUT_S or killed; their reports."""
+    reports = run_script_ranks("--dp-rank", DP_RANKS, tmp, DP_TIMEOUT_S,
+                               "dp")
     summary = {}
     for gnn in ("gin", "gcn"):
         losses = [[s["losses"] for s in rep[gnn]["steps"]]
@@ -4146,6 +4196,374 @@ def dp_phase(tmp: str, card: str, dev, units_row: dict) -> dict:
     print(f"dp {json.dumps({k: v for k, v in report.items() if k != 'world1'})}",
           flush=True)
     print(f"phase dp took {report['seconds']:.1f} s", flush=True)
+    return report
+
+
+# ---------------------------------------------------------------- phase 19
+
+# (a): PART_RANKS processes share the card; the giant batch is PART_RANKS
+# shards of P_BATCH molecules of phase 7's corpus, each packed as the
+# Pretrainer packs B = 512 at tile 256, concatenated (a global 2B of
+# 4,096: 'auto' runs K2f / K2b on the gathered pairs)
+PART_RANKS, PART_STEPS = 4, 3
+PART_TIMEOUT_S = 400
+# per rank and GIN step: the data-parallel step's all-reduces and the
+# running statistics' mean
+PART_COLLECTIVES = DP_COLLECTIVES + 1
+
+
+def part_giant_batch():
+    """PART_RANKS shards of P_BATCH molecules of phase 7's corpus
+    (synthetic_corpus(4096, seed=0)), each packed with one spec as the
+    Pretrainer sizes B = 512 at tile 256 ('total', the capped slack 1.05),
+    concatenated: (the concat_shards batch of CPU tensors, the spec)."""
+    graphs, _ = featurize_many(synthetic_corpus(4096, seed=0)[
+        : PART_RANKS * P_BATCH])
+    spec = spec_for_graphs(graphs, P_BATCH, slack=1.05, tile=TILE)
+    shards = [pack_batch(graphs[i * P_BATCH: (i + 1) * P_BATCH], spec)
+              for i in range(PART_RANKS)]
+    for sh in shards:
+        check(int(sh.graph_mask.sum()) == P_BATCH,
+              "partitioned: a shard dropped molecules")
+    return concat_shards([sh.to("cpu") for sh in shards]), spec
+
+
+def part_edge_batches(world: int):
+    """Phase 5's B = 512 molecules packed at tile 0 (rows a multiple of
+    the world) and at tile 256 (tiles a multiple of the world), on the
+    host."""
+    graphs, _ = featurize_many(synthetic_corpus(P_BATCH, seed=7))
+    out = {}
+    for tile in (0, TILE):
+        spec = spec_for_graphs(graphs, P_BATCH, slack=1.05, tile=tile)
+        unit = world * (tile or 1)
+        spec = dataclasses.replace(spec, n_nodes=-(-spec.n_nodes // unit)
+                                   * unit)
+        out[tile] = pack_batch(graphs, spec)
+    return out, max(g.n_atoms for g in graphs)
+
+
+def part_edge_cases(dp, dev) -> dict:
+    """(b) edgepart's three variants at D = 300 across the ranks on the
+    card: gather and halo on phase 5's batch at tile 0 (halo the largest
+    molecule's atoms), the tile variant at tile 256; forward and backward
+    (the tables' partials summed across the ranks) against the
+    single-rank gine_aggregate on the card within ELL_RTOL, two runs
+    bit-identical, the tile variant without a collective; the all-reduce
+    bytes per layer, forward and backward, and the ms of a forward and
+    backward on the shared card."""
+    batches, halo = part_edge_batches(dp.world)
+    report = dict(halo_rows=halo)
+    for variant, tile in (("gather", 0), ("halo", 0), ("tile", TILE)):
+        batch = batches[tile].to(dev)
+        n = batch.num_nodes
+        n_local = n // dp.world
+        check(halo <= n_local, f"partitioned edge: halo {halo} > "
+              f"{n_local} rows per rank")
+        gen = torch.Generator().manual_seed(SEED + 19)
+        h, tt, td, g = (torch.randn(shape, generator=gen).to(dev)
+                        for shape in ((n, EMB), (NUM_BOND_TYPES, EMB),
+                                      (NUM_BOND_DIRS, EMB), (n, EMB)))
+        h = h * batch.node_mask[:, None]
+        prim = [x.clone().requires_grad_() for x in (h, tt, td)]
+        ref_out = scatter_free.gine_aggregate(
+            *prim, batch.nbr, batch.nbr_bond_type, batch.nbr_bond_dir,
+            batch.nbr_mask)
+        ref_out.backward(g)
+        rows = slice(dp.rank * n_local, (dp.rank + 1) * n_local)
+        ref = [ref_out.detach()[rows], prim[0].grad[rows], prim[1].grad,
+               prim[2].grad]
+        shard = {k: v[dp.rank] for k, v in shard_ell_rows(batch,
+                                                          dp.world).items()}
+        layer = build_sharded_layer(dp, variant, halo=halo, tile=TILE)
+
+        def run():
+            loc = [h[rows].clone().requires_grad_(), tt.clone()
+                   .requires_grad_(), td.clone().requires_grad_()]
+            c0, b0 = dp.collectives, dp.reduced_bytes
+            out = layer(*loc, shard["nbr"], shard["nbr_bond_type"],
+                        shard["nbr_bond_dir"], shard["nbr_mask"])
+            c1, b1 = dp.collectives, dp.reduced_bytes
+            out.backward(g[rows])
+            c2, b2 = dp.collectives, dp.reduced_bytes
+            got = [out.detach(), loc[0].grad, dp.all_reduce_(loc[1].grad),
+                   dp.all_reduce_(loc[2].grad)]
+            return got, (c1 - c0, c2 - c1), (b1 - b0, b2 - b1)
+
+        first, calls, sent = run()
+        second, _, _ = run()
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              f"partitioned edge {variant}: two runs differ")
+        errs = {}
+        for name, a, b in zip(("out", "dh", "dt_type", "dt_dir"), first,
+                              ref):
+            err, top = rel_err(a, b)
+            errs[name] = err / max(1.0, top)
+            check(errs[name] <= ELL_RTOL[torch.float32],
+                  f"partitioned edge {variant} {name}: |sharded - single| "
+                  f"{err} of {top}")
+        want_calls = (0, 0) if variant == "tile" else (1, 1)
+        check(calls == want_calls, f"partitioned edge {variant}: "
+              f"all-reduces {calls}, expected {want_calls}")
+        times = []
+        for _ in range(5):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            run()
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        report[variant] = dict(
+            rows=n, rows_per_rank=n_local, rel_err=errs, all_reduces=calls,
+            reduced_bytes=sent, shared_card_fwd_bwd_ms=times,
+            ppermute_bytes=(2 * halo * EMB * 4 if variant == "halo"
+                            else None))
+    return report
+
+
+def part_one_card_none(cfg, shard, cat, dps, dev) -> dict:
+    """The aug 'none' partitioned step on the card against the one-card
+    step on the whole giant batch on the card (rank 0), from the same
+    seeded state: the return_grads call against the one-card gradients
+    (loss within STEP_LOSS_RTOL, each tensor's gradient within
+    STEP_GRAD_RTOL of the largest, as JAX holds its partitioned step to
+    its unsharded one at the gradient), then one step each: the loss, the
+    parameters within Adam's envelope and the BatchNorm stats as
+    state_agreement holds them; the share of real-gradient elements off
+    is recorded (a 2,048-molecule batch sums four times the atoms of
+    phase 5's per embedding row, and a sign flip of a gradient near 1e-4
+    moves a whole Adam step). K1f 10 / K1b 10 / K2f 1 / K2b 1 launches
+    per step on both."""
+    cfg_n = dataclasses.replace(cfg, aug="none")
+    model_p, one = (build_model(cfg, torch.Generator().manual_seed(
+        SEED + 3), d).to(dev) for d in (dps["card"], None))
+    opt_p = optim.adam_torch(model_p.parameters(), cfg.weight_decay)
+    opt_1 = optim.adam_torch(one.parameters(), cfg.weight_decay)
+    sg = shard.to(dev)
+    loss_rg, grads_p = partitioned_train_step(
+        model_p, opt_p, sg, cfg_n, 0, cfg.init_lr, dps["card"],
+        return_grads=True)
+    reset_counts()
+    loss_p = partitioned_train_step(model_p, opt_p, sg, cfg_n, 0,
+                                    cfg.init_lr, dps["card"])
+    torch.cuda.synchronize()
+    counts_p = read_counts()
+    check(torch.equal(loss_rg, loss_p), "partitioned none: the return_grads "
+          "call moved the state")
+    report = dict(loss_partitioned=loss_p.item(),
+                  counts={k: v for k, v in counts_p.items() if v})
+    if dps["card"].rank != 0:
+        return report
+    bc = cat.to(dev)
+    snap = copy.deepcopy(one.state_dict())
+    loss_fb = forward_backward(one, opt_1, bc, cfg_n, 0)
+    grads_1 = {k: p.grad.clone() for k, p in one.named_parameters()}
+    one.load_state_dict(snap)
+    reset_counts()
+    loss_1 = train_step(one, opt_1, bc, cfg_n, 0, cfg.init_lr)
+    torch.cuda.synchronize()
+    counts_1 = read_counts()
+    report["counts_one_card"] = {k: v for k, v in counts_1.items() if v}
+    for c in (counts_p, counts_1):
+        check({k: v for k, v in c.items() if v} == {
+            "fused_gine_bn_layer": 2 * LAYERS,
+            "fused_gine_bn_layer_bwd": 2 * LAYERS, "ntxent_fwd": 1,
+            "ntxent_bwd": 1}, f"partitioned none: launches {c}")
+    check(torch.equal(loss_fb.detach(), loss_1), "partitioned none: the "
+          "one-card forward_backward and step differ")
+    check(abs(loss_p.item() - loss_1.item())
+          <= STEP_LOSS_RTOL * abs(loss_1.item()),
+          f"partitioned none: loss {loss_p.item()} against the one-card "
+          f"step's {loss_1.item()}")
+    gmax = max(g.abs().max().item() for g in grads_1.values())
+    gworst = 0.0
+    for k, g in grads_1.items():
+        off = (grads_p[k] - g).abs().max().item()
+        gworst = max(gworst, off / gmax)
+        check(off <= STEP_GRAD_RTOL[torch.float32] * gmax,
+              f"partitioned none: {k} gradient differs by {off} (the "
+              f"largest gradient {gmax})")
+    off, top, stat, _ = state_agreement(
+        model_p, one.cpu(), 0, cfg.init_lr,
+        "partitioned none against one card", hold_share=False)
+    report.update(loss_one_card=loss_1.item(), grad_off=gworst,
+                  fraction_off=off, max_param_diff=top,
+                  running_stats_over_limit=stat)
+    return report
+
+
+def part_rank_main(rank: int, port: int, out_dir: str,
+                   dev=torch.device("cuda", 0)) -> int:
+    """(a) and (b), one rank: PART_RANKS processes share the card through
+    gloo over CUDA tensors. GIN: PART_STEPS eager partitioned steps on the
+    rank's segment of the giant batch, each card step from the state of
+    the CPU twin that runs the same rank's partitioned step with the plain
+    versions: the STEP_* limits, K1f 10 / K1b 10 / K2f 1 / K2b 1 per step,
+    PART_COLLECTIVES all-reduces, the ranks' states bit-identical after
+    every step; the card step's ms (PART_RANKS processes on one card: a
+    record, not a speed figure). GCN: one such step (K3f 10 / K3b 10).
+    Then one aug 'none' step against the one-card step on the whole giant
+    batch (part_one_card_none), and edgepart (part_edge_cases)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or PART_RANKS)
+                              // PART_RANKS))
+    dps = {"card": init_distributed(
+        f"127.0.0.1:{port}", PART_RANKS, rank, backend="gloo", device=dev,
+        timeout_s=PART_TIMEOUT_S)}
+    dps["cpu"] = DPGroup(rank, PART_RANKS, "gloo", "cpu")
+    t0 = time.perf_counter()
+    cat, spec = part_giant_batch()
+    shard = shard_graph_batch(cat, dps["card"], device="cpu", tile=TILE)
+    report = dict(rank=rank, spec=str(spec), giant_rows=cat.num_nodes,
+                  shard_rows=shard.num_nodes, setup_s=time.perf_counter()
+                  - t0)
+    bw = spec.max_graph_bonds
+    try:
+        for gnn, layer, steps in (("gin", "fused_gine_bn_layer", PART_STEPS),
+                                  ("gcn", "fused_gcn_bn_layer", 1)):
+            want = {layer: 2 * LAYERS, f"{layer}_bwd": 2 * LAYERS,
+                    "ntxent_fwd": 1, "ntxent_bwd": 1}
+            cfg = pretrain_cfg(gnn=gnn)
+            models, opts = card_and_cpu(cfg, dev, dps)
+            rec = []
+            for step in range(steps):
+                c0 = dps["card"].collectives
+                rec.append(card_vs_cpu_steps(
+                    models, opts, cfg, shard, dev, bw, step, 1, want,
+                    f"partitioned {gnn} rank {rank}", dps=dps, part=True))
+                calls = dps["card"].collectives - c0
+                check(calls == PART_COLLECTIVES, f"partitioned {gnn} step "
+                      f"{step}: {calls} all-reduces")
+                check(ranks_bit_identical(models["card"], dps["card"]),
+                      f"partitioned {gnn} step {step}: the ranks' states "
+                      f"differ")
+            report[gnn] = dict(steps=rec, all_reduces=PART_COLLECTIVES,
+                               ranks_bit_identical=True)
+            if gnn == "gin":
+                sg, times = shard.to(dev), []
+                for step in range(steps, 2 * steps):
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    partitioned_train_step(models["card"], opts["card"], sg,
+                                           cfg, step, cfg.init_lr,
+                                           dps["card"], bond_window=bw)
+                    e1.record()
+                    torch.cuda.synchronize()
+                    times.append(e0.elapsed_time(e1))
+                report[gnn]["shared_card_step_ms"] = times
+                report["none"] = part_one_card_none(cfg, shard, cat, dps,
+                                                    dev)
+        report["edge"] = part_edge_cases(dps["card"], dev)
+    finally:
+        destroy_distributed()
+    with open(os.path.join(out_dir, f"part_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def part_ranks_cases(tmp: str) -> dict:
+    """(a), (b): PART_RANKS processes of this script (`--part-rank`); the
+    ranks' losses equal, their summary."""
+    reports = run_script_ranks("--part-rank", PART_RANKS, tmp,
+                               PART_TIMEOUT_S, "part")
+    summary = dict(giant_rows=reports[0]["giant_rows"],
+                   shard_rows=reports[0]["shard_rows"])
+    for gnn in ("gin", "gcn"):
+        losses = [[s["losses"] for s in rep[gnn]["steps"]]
+                  for rep in reports]
+        check(all(x == losses[0] for x in losses),
+              f"partitioned {gnn}: the ranks' losses differ: {losses}")
+        summary[gnn] = dict(
+            losses=[s["losses"][0] for s in reports[0][gnn]["steps"]],
+            counts={k: v for k, v in reports[0][gnn]["steps"][0]["counts"][
+                0].items() if v},
+            all_reduces=reports[0][gnn]["all_reduces"],
+            fraction_off=max(s["fraction_off"][0] for rep in reports
+                             for s in rep[gnn]["steps"]),
+            grad_off=max(s["grad_off"][0] for rep in reports
+                         for s in rep[gnn]["steps"]),
+            max_param_diff=max(s["max_param_diff"][0] for rep in reports
+                               for s in rep[gnn]["steps"]))
+    summary["gin"]["shared_card_step_ms"] = [
+        rep["gin"]["shared_card_step_ms"] for rep in reports]
+    summary["none"] = reports[0]["none"]
+    summary["edge"] = {v: {k: reports[0]["edge"][v][k] for k in (
+        "rows", "rows_per_rank", "rel_err", "all_reduces", "reduced_bytes",
+        "ppermute_bytes")} | {"shared_card_fwd_bwd_ms": [
+            rep["edge"][v]["shared_card_fwd_bwd_ms"] for rep in reports]}
+        for v in ("gather", "halo", "tile")}
+    summary["edge"]["halo_rows"] = reports[0]["edge"]["halo_rows"]
+    return dict(ranks=reports, summary=summary)
+
+
+def part_world1_cases(dev) -> dict:
+    """(c) World 1 on NCCL: two partitioned steps on phase 5's batch (its
+    shard_graph_batch at world 1 is itself) bit-identical to two one-card
+    steps from the same state on the same views, PART_COLLECTIVES
+    all-reduces per step."""
+    dp = init_distributed(backend="nccl", log=lambda *_: None)
+    check(dp.world == 1, f"partitioned world 1: {dp}")
+    try:
+        batch, spec = pretrain_batch()
+        bw = spec.max_graph_bonds
+        cfg = pretrain_cfg()
+        models, opts = {}, {}
+        for tag, d in (("one", None), ("part", dp)):
+            models[tag] = build_model(cfg, torch.Generator().manual_seed(
+                SEED + 2), d).to(dev)
+            opts[tag] = optim.adam_torch(models[tag].parameters(),
+                                         cfg.weight_decay)
+        bg = batch.to(dev)
+        shard = shard_graph_batch(concat_shards([batch.to("cpu")]), dp,
+                                  tile=TILE)
+        losses = []
+        for step in range(2):
+            keys = draw_paired_keys(cfg.aug, bg.num_nodes, bg.num_graphs,
+                                    step_generator(SEED, TRAIN_STREAM, step))
+            views = paired_augment_keys(bg, keys, cfg.aug, tile=TILE,
+                                        bond_window=bw)
+            c0 = dp.collectives
+            got = dict(
+                one=train_step(models["one"], opts["one"], bg, cfg, step,
+                               cfg.init_lr, views=views, bond_window=bw),
+                part=partitioned_train_step(models["part"], opts["part"],
+                                            shard, cfg, step, cfg.init_lr,
+                                            dp, views=views,
+                                            bond_window=bw))
+            check(dp.collectives - c0 == PART_COLLECTIVES,
+                  f"partitioned world 1: {dp.collectives - c0} all-reduces")
+            check(torch.equal(got["one"], got["part"]),
+                  f"partitioned world 1 step {step}: loss "
+                  f"{got['part'].item()} against {got['one'].item()}")
+            one, part = models["one"], models["part"]
+            differ = [k for k, v in one.state_dict().items()
+                      if not torch.equal(v, part.state_dict()[k])]
+            differ += [k for (k, p), q in zip(one.named_parameters(),
+                                              part.parameters())
+                       if not torch.equal(p.grad, q.grad)]
+            check(not differ, f"partitioned world 1 step {step}: differs "
+                  f"in {differ}")
+            losses.append(got["one"].item())
+    finally:
+        destroy_distributed()
+    return dict(steps=2, losses=losses, bit_identical=True,
+                all_reduces_per_step=PART_COLLECTIVES)
+
+
+def part_phase(tmp: str, card: str, dev) -> dict:
+    """Phase 19: node-row-sharded giant-batch pretraining and sharded
+    aggregation on the card."""
+    t0 = time.perf_counter()
+    report = dict(card=card)
+    report["ranks"] = part_ranks_cases(tmp)
+    report["world1"] = part_world1_cases(dev)
+    report["seconds"] = time.perf_counter() - t0
+    summary = dict(report, ranks=report["ranks"]["summary"])
+    print(f"partitioned {json.dumps(summary)}", flush=True)
+    print(f"phase partitioned took {report['seconds']:.1f} s", flush=True)
     return report
 
 
@@ -4226,6 +4644,8 @@ def main() -> int:
         model_options_phase(tmp, card, dev, batch, spec, units_row)
         phase("data parallelism")
         dp_phase(tmp, card, dev, units_row)
+        phase("partitioned")
+        part_phase(tmp, card, dev)
     phase("done")
 
     def row(name, source, replaces, launches, res, case):
@@ -4285,4 +4705,8 @@ if __name__ == "__main__":
         # one rank of phase 18 (b), started by dp_two_rank_cases
         raise SystemExit(dp_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                                       sys.argv[4]))
+    if sys.argv[1:2] == ["--part-rank"]:
+        # one rank of phase 19 (a) and (b), started by part_ranks_cases
+        raise SystemExit(part_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                        sys.argv[4]))
     raise SystemExit(main())

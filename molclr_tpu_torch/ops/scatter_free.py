@@ -80,17 +80,29 @@ def _matmul(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
     return (a.float() @ b.float()).to(out_dtype)
 
 
+def _add_edge_terms(out, t_type, t_dir, bt, bd, w) -> torch.Tensor:
+    """out + cnt_type @ t_type + cnt_dir @ t_dir, each product accumulated
+    in f32 and cast to out's dtype, added in that order (the GINE edge
+    embeddings of the slots weighted by w)."""
+    dt = out.dtype
+    out = out + _matmul(_counts(bt, w, t_type.shape[0]), t_type.to(dt), dt)
+    return out + _matmul(_counts(bd, w, t_dir.shape[0]), t_dir.to(dt), dt)
+
+
+def _edge_table_grads(g, bt, bd, mask, n_type: int, n_dir: int):
+    """The two GINE edge tables' gradients cnt^T @ g, in f32."""
+    gf, wf = g.float(), mask.float()
+    return _counts(bt, wf, n_type).t() @ gf, _counts(bd, wf, n_dir).t() @ gf
+
+
 class _GineAggregate(torch.autograd.Function):
     """The JAX `gine_aggregate` with its custom VJP (`_gine_bwd`)."""
 
     @staticmethod
     def forward(ctx, h, t_type, t_dir, nbr, bt, bd, mask):
         w = mask.to(h.dtype)
-        out = _weighted_gather_sum(h, nbr, w)
-        out = out + _matmul(_counts(bt, w, t_type.shape[0]),
-                            t_type.to(h.dtype), h.dtype)
-        out = out + _matmul(_counts(bd, w, t_dir.shape[0]),
-                            t_dir.to(h.dtype), h.dtype)
+        out = _add_edge_terms(_weighted_gather_sum(h, nbr, w), t_type, t_dir,
+                              bt, bd, w)
         ctx.save_for_backward(nbr, bt, bd, mask)
         ctx.meta = (t_type.shape[0], t_dir.shape[0], h.dtype, t_type.dtype,
                     t_dir.dtype)
@@ -102,10 +114,7 @@ class _GineAggregate(torch.autograd.Function):
         n_type, n_dir, h_dt, tt_dt, td_dt = ctx.meta
         # dh: the symmetric adjacency's gather of the cotangent
         dh = _weighted_gather_sum(g, nbr, mask.to(g.dtype)).to(h_dt)
-        # the tables: cnt^T @ g in f32
-        gf, wf = g.float(), mask.float()
-        dt = _counts(bt, wf, n_type).t() @ gf
-        dd = _counts(bd, wf, n_dir).t() @ gf
+        dt, dd = _edge_table_grads(g, bt, bd, mask, n_type, n_dir)
         return dh, dt.to(tt_dt), dd.to(td_dt), None, None, None, None
 
 

@@ -39,6 +39,10 @@ stack's share is agreed where the Pretrainer plans it), and the per-rank
 orders of an epoch
 (`cache_orders`, `unit_orders`; the JAX Pretrainer's _dp_epoch_orders and
 its DP units epoch, pretrain.py:974-1000, 1117-1130).
+
+The node-row-sharded step (partition.py) runs this step's arithmetic on
+each rank's segment of ONE giant batch; edgepart.py's aggregations gather
+rows with `all_gather_rows`, the gather above without autograd.
 """
 
 from __future__ import annotations
@@ -58,7 +62,8 @@ class DPGroup:
     """One rank's view of the data-parallel group (the default
     torch.distributed process group): its rank, the world size, the
     backend and the device its collectives' tensors live on.
-    `collectives` counts the all_reduce calls this rank has made.
+    `collectives` counts the all_reduce calls this rank has made and
+    `reduced_bytes` the bytes of the buffers it handed them.
 
     A model holding one (its MaskedBatchNorm layers) deep-copies to a
     model holding the same group."""
@@ -67,6 +72,7 @@ class DPGroup:
         self.rank, self.world, self.backend = int(rank), int(world), backend
         self.device = torch.device(device)
         self.collectives = 0
+        self.reduced_bytes = 0
 
     def __deepcopy__(self, memo):
         return self
@@ -80,6 +86,7 @@ class DPGroup:
         """Reduce x in place across the ranks (no autograd)."""
         dist.all_reduce(x, op=op)
         self.collectives += 1
+        self.reduced_bytes += x.numel() * x.element_size()
         return x
 
 
@@ -107,14 +114,22 @@ class _GatherRows(torch.autograd.Function):
     def forward(ctx, x, dp: DPGroup):
         b = x.shape[0]
         ctx.dp, ctx.rows = dp, (dp.rank * b, (dp.rank + 1) * b)
-        buf = x.new_zeros((dp.world * b,) + tuple(x.shape[1:]))
-        buf[ctx.rows[0]: ctx.rows[1]] = x
-        return dp.all_reduce_(buf)
+        return all_gather_rows(x, dp)
 
     @staticmethod
     def backward(ctx, g):
         g = ctx.dp.all_reduce_(g.clone(memory_format=torch.contiguous_format))
         return g[ctx.rows[0]: ctx.rows[1]], None
+
+
+def all_gather_rows(x: torch.Tensor, dp: DPGroup) -> torch.Tensor:
+    """[B, ...] per rank -> [world * B, ...], rank r's rows at r * B, with
+    no autograd: the rank's rows written into a zeroed buffer, summed
+    across the ranks (exact: every element has one nonzero addend)."""
+    b = x.shape[0]
+    buf = x.new_zeros((dp.world * b,) + tuple(x.shape[1:]))
+    buf[dp.rank * b: (dp.rank + 1) * b] = x
+    return dp.all_reduce_(buf)
 
 
 def sum_across_ranks(x: torch.Tensor, dp: DPGroup) -> torch.Tensor:
@@ -202,7 +217,8 @@ def unit_orders(n_units: int, units_per_batch: int, seed: int, rank: int,
                              epoch)[:steps]
 
 
-__all__ = ["DPGroup", "UNIT_ORDER_STRIDE", "agree_ints", "cache_orders",
+__all__ = ["DPGroup", "UNIT_ORDER_STRIDE", "agree_ints", "all_gather_rows",
+           "cache_orders",
            "gather_pairs", "gather_rows", "mean_grads", "resolve_ntxent",
            "shard_batch_cache", "sum_across_ranks",
            "unit_orders"]

@@ -186,27 +186,14 @@ def _dropout_kw(model, cfg, step: int, view: int, masks,
                                          view, *stream, device=dev))
 
 
-def train_step(model, opt, batch, cfg: PretrainConfig, step: int,
-               lr: float | None, views=None, bond_window: int = 0,
-               max_waves: int = 0, dropout_masks=None, keys=None,
-               dropout_generators=None, dp=None, stream=()) -> torch.Tensor:
-    """One optimizer step on one base batch; returns the loss (a 0-d
-    tensor on the batch's device, not synchronized). views = (vi, vj)
-    replaces the augmentation draw (as the JAX train_step's `views`), keys
-    (draw_paired_keys' structure, on any device) replaces only the draw
-    from step_generator(cfg.seed, TRAIN_STREAM, step); dropout_masks
-    replaces the dropout draw: per view a list of bool keep masks [N,
-    emb_dim], one per layer (with concat_views, one list for the joint
-    batch, [2N, emb_dim]); dropout_generators (one per view, seeded as
-    step_generator(cfg.seed, DROPOUT_STREAM, step, view)) replace the
-    generators the step would make. The LR is the schedule at the step
-    count before the update; None leaves the optimizer's LR as it is (a
-    CUDA graph's step reads the LR tensor that set_lr fills before each
-    replay). Under data parallelism dp (a DPGroup; the model built with
-    it) the loss is the global one over every rank's pairs and the
-    gradients are averaged over the ranks before the update; `stream`
-    (the rank) extends the seeds of the step's generators.
-    """
+def forward_backward(model, opt, batch, cfg: PretrainConfig, step: int,
+                     views=None, bond_window: int = 0, max_waves: int = 0,
+                     dropout_masks=None, keys=None, dropout_generators=None,
+                     dp=None, stream=()) -> torch.Tensor:
+    """train_step up to the update: both views through the model in train
+    mode (its BatchNorm running stats updated), the loss, the gradients
+    into the parameters' .grad (averaged over the ranks under dp). Returns
+    the loss with its graph; the arguments are train_step's."""
     if views is None:
         if keys is None:
             keys = draw_paired_keys(
@@ -237,6 +224,35 @@ def train_step(model, opt, batch, cfg: PretrainConfig, step: int,
     loss.backward()
     if dp is not None:
         dp_lib.mean_grads(model.parameters(), dp)
+    return loss
+
+
+def train_step(model, opt, batch, cfg: PretrainConfig, step: int,
+               lr: float | None, views=None, bond_window: int = 0,
+               max_waves: int = 0, dropout_masks=None, keys=None,
+               dropout_generators=None, dp=None, stream=()) -> torch.Tensor:
+    """One optimizer step on one base batch; returns the loss (a 0-d
+    tensor on the batch's device, not synchronized). views = (vi, vj)
+    replaces the augmentation draw (as the JAX train_step's `views`), keys
+    (draw_paired_keys' structure, on any device) replaces only the draw
+    from step_generator(cfg.seed, TRAIN_STREAM, step); dropout_masks
+    replaces the dropout draw: per view a list of bool keep masks [N,
+    emb_dim], one per layer (with concat_views, one list for the joint
+    batch, [2N, emb_dim]); dropout_generators (one per view, seeded as
+    step_generator(cfg.seed, DROPOUT_STREAM, step, view)) replace the
+    generators the step would make. The LR is the schedule at the step
+    count before the update; None leaves the optimizer's LR as it is (a
+    CUDA graph's step reads the LR tensor that set_lr fills before each
+    replay). Under data parallelism dp (a DPGroup; the model built with
+    it) the loss is the global one over every rank's pairs and the
+    gradients are averaged over the ranks before the update; `stream`
+    (the rank) extends the seeds of the step's generators.
+    """
+    loss = forward_backward(model, opt, batch, cfg, step, views=views,
+                            bond_window=bond_window, max_waves=max_waves,
+                            dropout_masks=dropout_masks, keys=keys,
+                            dropout_generators=dropout_generators, dp=dp,
+                            stream=stream)
     if lr is not None:
         set_lr(opt, lr)
     opt.step()

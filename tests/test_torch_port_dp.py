@@ -98,14 +98,29 @@ def _spawn(cmds, cwd, env, log_dir) -> list:
     """Run the commands at once, each writing to its own log file; wait
     until all are done or RANK_TIMEOUT_S has passed, then kill what is
     left. Per command: None if it exited 0, else the end of its log."""
+    return _wait(_start(cmds, cwd, env, log_dir))
+
+
+def _start(cmds, cwd, env, log_dir):
+    """Start the commands at once, each writing to its own log file; the
+    handle _wait takes, with the deadline RANK_TIMEOUT_S from now."""
     logs = [open(os.path.join(log_dir, f"rank{r}.log"), "wb")
             for r in range(len(cmds))]
     procs = [subprocess.Popen(c, cwd=cwd, env=env, stdout=f,
                               stderr=subprocess.STDOUT)
              for c, f in zip(cmds, logs)]
-    deadline = time.monotonic() + RANK_TIMEOUT_S
+    return procs, logs, time.monotonic() + RANK_TIMEOUT_S
+
+
+def _wait(started, kill: bool = False) -> list:
+    """Wait for _start's commands until its deadline (kill: not at all),
+    then kill what is left. Per command: None if it exited 0, else the
+    end of its log."""
+    procs, logs, deadline = started
     try:
         for p in procs:
+            if kill:
+                break
             try:
                 p.wait(timeout=max(1.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:

@@ -19,6 +19,21 @@ OUT/rank<RANK>.pt. Modes:
          the unit rows of epochs 0 and 1; then, with fresh_compositions
          off, the batch-cache shard size and the cache orders of epoch 1
          after one host epoch.
+  part   (tests/test_torch_port_partition.py) the node-row-sharded step:
+         each configuration of IN["configs"] concatenates its per-shard
+         batches (concat_shards), takes this rank's segment
+         (shard_graph_batch) and runs partitioned_train_step from the
+         given state on JAX-drawn views of the localized shard (or none):
+         optionally a return_grads call first (its loss, gradients and
+         whether the state stayed as it was), then its steps' losses,
+         states, step-0 gradients and Adam moments, and the all-reduces
+         per step. Then IN["edge"]: each edgepart variant's forward and
+         backward on this rank's rows (out, dh, the tables' partial
+         gradients and their sums across the ranks, the all-reduces and
+         bytes of the forward and backward).
+  part1  (WORLD 1) the partitioned step against the one-card step on the
+         same batch, views and state, two steps of each configuration,
+         and the return_grads call against the one-card gradients.
 """
 
 from __future__ import annotations
@@ -34,15 +49,17 @@ import torch  # noqa: E402
 
 from molclr_tpu_torch.data.augment import AUG_DELTA_FIELDS, \
     apply_view_delta  # noqa: E402
-from molclr_tpu_torch.data.graphs import GraphBatch  # noqa: E402
-from molclr_tpu_torch.parallel import destroy_distributed, \
-    init_distributed  # noqa: E402
+from molclr_tpu_torch.data.graphs import GraphBatch, \
+    concat_shards  # noqa: E402
+from molclr_tpu_torch.parallel import build_sharded_layer, \
+    destroy_distributed, init_distributed, localize_shard, \
+    partitioned_train_step, shard_ell_rows, shard_graph_batch  # noqa: E402
 from molclr_tpu_torch.train import optim  # noqa: E402
 from molclr_tpu_torch.train.checkpoints import transfer_state  # noqa: E402
 from molclr_tpu_torch.train.config import ModelConfig, \
     PretrainConfig  # noqa: E402
 from molclr_tpu_torch.train.pretrain import Pretrainer, build_model, \
-    train_step  # noqa: E402
+    forward_backward, train_step  # noqa: E402
 
 
 def port_views(bp: GraphBatch, deltas):
@@ -58,7 +75,7 @@ def state_np(model) -> dict:
             for k, v in model.state_dict().items()}
 
 
-def run_steps(c: dict, rank: int, dp) -> dict:
+def _setup(c: dict, dp):
     cfg = PretrainConfig(batch_size=c["batch_size"], warm_up=0,
                          init_lr=c["lr"], weight_decay=c["weight_decay"],
                          aug=c["aug"], ntxent_impl=c["impl"],
@@ -67,22 +84,108 @@ def run_steps(c: dict, rank: int, dp) -> dict:
     model = build_model(cfg, dp=dp)
     got = transfer_state(c["init"], model)
     assert got["skipped"] == [], got["skipped"]
-    opt = optim.adam_torch(model.parameters(), cfg.weight_decay)
+    return cfg, model, optim.adam_torch(model.parameters(), cfg.weight_decay)
+
+
+def _record(out: dict, model, opt, s: int, loss) -> None:
+    out["losses"].append(float(loss))
+    out["states"].append(state_np(model))
+    if s == 0:
+        out["grads0"] = {k: p.grad.numpy().copy()
+                         for k, p in model.named_parameters()}
+        out["mu0"] = {k: opt.state[p]["exp_avg"].numpy().copy()
+                      for k, p in model.named_parameters()}
+        out["nu0"] = {k: opt.state[p]["exp_avg_sq"].numpy().copy()
+                      for k, p in model.named_parameters()}
+
+
+def run_steps(c: dict, rank: int, dp) -> dict:
+    cfg, model, opt = _setup(c, dp)
     out = {"losses": [], "states": []}
     for s, step in enumerate(c["steps"]):
         bp = GraphBatch(**step["batches"][rank]).to("cpu")
         loss = train_step(model, opt, bp, cfg, s, cfg.init_lr,
                           views=port_views(bp, step["views"][rank]),
                           bond_window=c["bond_window"], dp=dp)
-        out["losses"].append(float(loss))
-        out["states"].append(state_np(model))
-        if s == 0:
-            out["grads0"] = {k: p.grad.numpy().copy()
-                             for k, p in model.named_parameters()}
-            out["mu0"] = {k: opt.state[p]["exp_avg"].numpy().copy()
-                          for k, p in model.named_parameters()}
-            out["nu0"] = {k: opt.state[p]["exp_avg_sq"].numpy().copy()
-                          for k, p in model.named_parameters()}
+        _record(out, model, opt, s, loss)
+    return out
+
+
+def run_partitioned(c: dict, rank: int, dp, one_card: bool = False) -> dict:
+    """The configuration's partitioned steps on this rank's segment of the
+    concatenated shards (one_card: the one-card train_step on the whole
+    concatenated batch, with the views of the same steps)."""
+    cfg, model, opt = _setup(c, None if one_card else dp)
+    cat = concat_shards([GraphBatch(**b).to("cpu") for b in c["shards"]])
+    shard = shard_graph_batch(cat, dp, device="cpu", tile=cfg.model.tile)
+    local = cat if one_card else localize_shard(shard, dp)
+    views = [None if v is None else port_views(local, v[rank])
+             for v in c["views"]]
+    kw = dict(bond_window=c["bond_window"])
+    out = {"losses": [], "states": []}
+    if c.get("return_grads"):
+        before = state_np(model)
+        if one_card:
+            loss = forward_backward(model, opt, local, cfg, 0,
+                                    views=views[0], **kw)
+            grads = {k: p.grad for k, p in model.named_parameters()}
+            model.load_state_dict({k: torch.from_numpy(v)
+                                   for k, v in before.items()})
+        else:
+            loss, grads = partitioned_train_step(
+                model, opt, shard, cfg, 0, cfg.init_lr, dp, views=views[0],
+                return_grads=True, **kw)
+        after = state_np(model)
+        out["rg"] = dict(loss=float(loss), grads={
+            k: g.numpy().copy() for k, g in grads.items()},
+            unchanged=all(np.array_equal(v, after[k])
+                          for k, v in before.items()),
+            opt_empty=len(opt.state) == 0)
+    c0 = dp.collectives
+    for s, v in enumerate(views):
+        if one_card:
+            loss = train_step(model, opt, local, cfg, s, cfg.init_lr,
+                              views=v, **kw)
+        else:
+            loss = partitioned_train_step(model, opt, shard, cfg, s,
+                                          cfg.init_lr, dp, views=v, **kw)
+        _record(out, model, opt, s, loss)
+    out["collectives_per_step"] = (dp.collectives - c0) / len(views)
+    return out
+
+
+def run_edgepart(e: dict, rank: int, dp) -> dict:
+    """Each variant's forward and backward on this rank's rows of e's
+    batches, h and cotangent."""
+    out = {}
+    for variant, packing in (("gather", "plain"), ("halo", "plain"),
+                             ("tile", "tiled")):
+        batch = GraphBatch(**e[packing]).to("cpu")
+        sh = {k: v[rank] for k, v in shard_ell_rows(batch,
+                                                    dp.world).items()}
+        rows = slice(rank * sh["nbr"].shape[0],
+                     (rank + 1) * sh["nbr"].shape[0])
+        h = torch.from_numpy(e[f"h_{packing}"][rows]).requires_grad_()
+        t1, t2 = (torch.from_numpy(e[k]).requires_grad_()
+                  for k in ("t1", "t2"))
+        layer = build_sharded_layer(dp, variant, halo=e["halo"],
+                                    tile=e["tile"])
+        c0, b0 = dp.collectives, dp.reduced_bytes
+        o = layer(h, t1, t2, sh["nbr"], sh["nbr_bond_type"],
+                  sh["nbr_bond_dir"], sh["nbr_mask"])
+        c1, b1 = dp.collectives, dp.reduced_bytes
+        o.backward(torch.from_numpy(e[f"cot_{packing}"][rows]))
+        c2, b2 = dp.collectives, dp.reduced_bytes
+        rec = dict(out=o.detach().numpy().copy(),
+                   dh=h.grad.numpy().copy(),
+                   dt1_partial=t1.grad.numpy().copy(),
+                   dt2_partial=t2.grad.numpy().copy(),
+                   collectives=(c1 - c0, c2 - c1),
+                   reduced_bytes=(b1 - b0, b2 - b1))
+        # the caller's sum of the tables' partial gradients
+        rec["dt1"] = dp.all_reduce_(t1.grad.clone()).numpy()
+        rec["dt2"] = dp.all_reduce_(t2.grad.clone()).numpy()
+        out[variant] = rec
     return out
 
 
@@ -133,6 +236,14 @@ def main() -> None:
                                   "one": run_steps(c, rank, None)}
         elif mode == "plan":
             out = plan(inp, rank, dp)
+        elif mode == "part":
+            out = {c["name"]: run_partitioned(c, rank, dp)
+                   for c in inp["configs"]}
+            out["edge"] = run_edgepart(inp["edge"], rank, dp)
+        elif mode == "part1":
+            out = {c["name"]: {"part": run_partitioned(c, rank, dp),
+                               "one": run_partitioned(c, rank, dp, True)}
+                   for c in inp["configs"]}
         else:
             raise ValueError(f"unknown mode {mode!r}")
     finally:
