@@ -74,7 +74,20 @@ prints no result line):
               launches), K4f's, K4b's and K5f's host time per wrapper call,
               and the shares of row blocks, strips, adjacency chunks and
               weight-pass row chunks they skipped (kernel_plan, k5b_plan,
-              gine_bwd_plan).
+              gine_bwd_plan). Then the same four with their member grid
+              axis at M = 3 and 6 members (MEMBER_COUNTS: each member its
+              own features, weights and cotangent, the adjacency and
+              counts shared), f32 and bf16: one launch equal bit for bit
+              to M one-member launches and within KERNEL_RTOL of the plain
+              version, its ms against the M-launch loop's, the plain
+              version's and a batched cuBLAS chain's, beside the bound of
+              M members' work with the adjacency read once. Then the
+              eight layer kernels (K1f, K1b, K3f, K3b, K4f, K4b, K5f, K5b)
+              at D = 2,048, D2 = 4,096 on 16 molecules packed at tiles 128
+              and 256, f32 and bf16: within KERNEL_RTOL of their plain
+              versions, two runs bit-identical, K1f's block rows and
+              split, and at tile 256 their ms, plain and library ms and
+              bounds.
   9. fine-tune steps: the FineTuner at the reference fine-tune model (5 x
               300 / 512, drop 0.3, batch 32, pred head 2 x softplus, f32),
               GIN, GCN and GIN with the motif head: 3 steps on rows of the
@@ -92,13 +105,20 @@ prints no result line):
               eager step; an eval batch's time and the host's time to
               queue one, and the validation split eager against one
               replay.
- 9b. ensembles: at full width (GIN f32, drop 0.3), BBBP with 3 seeds and
-              ClinTox 2 targets x 3 seeds: one step of all members card
-              against CPU, member by member; 10 graphed steps
-              bit-identical to 10 eager ones, with M x 5 launches of
-              K4f's and K4b's first kernels per replayed step as the
-              profiler counts them; the graphed step's ms against M times
-              the one-member graphed step.
+ 9b. ensembles: at full width (f32, drop 0.3), GIN BBBP with 3 seeds,
+              GIN ClinTox 2 targets x 3 seeds and GCN BBBP with 3 seeds,
+              the members' trunks in lockstep (one member-axis launch of
+              each layer kernel per layer): two steps of all members from
+              their fresh state bit for bit against each member stepped
+              alone (one-member launches, its own Adam, its seed's
+              masks); one step of all members card against CPU, member by
+              member, with 5 launches each of K4f and K4b (K5f and K5b);
+              10 graphed steps bit-identical to 10 eager ones, with 5
+              launches of K4f's and K4b's (K5f's and K5b's) first kernels
+              per replayed step as the profiler counts them; the graphed
+              step's ms, host ms, device ms and busy share against M times
+              the one-member graphed step, and the stacks' device ms
+              (timed alone, and the profile's cat copies).
  10. fine-tune cli: `molclr_tpu_torch.cli.finetune --allow-synthetic` for
               2 epochs in a temporary working directory: GIN warm-started
               from phase 7's step_<n>.pt, then --model gcn, then --motifs,
@@ -322,6 +342,10 @@ from molclr_tpu_torch.ops.fused_gcn import (
     fused_gcn_layer_bwd,
     fused_gcn_layer_bwd_plain,
     fused_gcn_layer_fwd,
+    fused_gcn_layer_members_bwd,
+    fused_gcn_layer_members_bwd_plain,
+    fused_gcn_layer_members_fwd,
+    fused_gcn_layer_members_plain,
     fused_gcn_layer_plain,
 )
 from molclr_tpu_torch.ops.fused_layer import (
@@ -339,9 +363,14 @@ from molclr_tpu_torch.ops.fused_layer import (
     fused_gine_layer_bwd_plain,
     fused_gine_layer_fwd,
     fused_gine_layer_fwd_plain,
+    fused_gine_layer_members_bwd,
+    fused_gine_layer_members_bwd_plain,
+    fused_gine_layer_members_fwd,
+    fused_gine_layer_members_fwd_plain,
     gine_bwd_gt,
     gine_bwd_plan,
     k1f_block_rows,
+    k1f_splits,
     kernel_plan,
     pack_cnt,
     sm_count,
@@ -397,7 +426,7 @@ KERNELS = {
 TRAIN_KERNELS = {
     "fused_gine_bn_layer_bwd": dict(
         fn=fused_gine_bn_layer_bwd,
-        source="molclr_tpu_torch/csrc/fused_gine_bn.cu",
+        source="molclr_tpu_torch/csrc/fused_gine_bwd.cu",
         replaces="molclr_tpu/ops/fused_layer.py:271"),
     "ntxent_fwd": dict(fn=ntxent.ntxent_fwd,
                        source="molclr_tpu_torch/csrc/ntxent.cu",
@@ -417,7 +446,7 @@ FT_KERNELS = {
         replaces="molclr_tpu/ops/fused_layer.py:59", model="gin"),
     "fused_gine_layer_bwd": dict(
         fn=fused_gine_layer_bwd,
-        source="molclr_tpu_torch/csrc/fused_gine_bn.cu",
+        source="molclr_tpu_torch/csrc/fused_gine_bwd.cu",
         replaces="molclr_tpu/ops/fused_layer.py:81", model="gin"),
     "fused_gcn_layer": dict(
         fn=fused_gcn_layer, source="molclr_tpu_torch/csrc/fused_gcn_bn.cu",
@@ -429,6 +458,16 @@ FT_KERNELS = {
 ALL_FNS = {**{k: v["fn"] for k, v in KERNELS.items()},
            **{k: v["fn"] for k, v in TRAIN_KERNELS.items()},
            **{k: v["fn"] for k, v in FT_KERNELS.items()}}
+# the fine-tuning kernels with their member grid axis (one launch over an
+# ensemble's members, the JAX FineTuner's vmapped pallas_call), counted in
+# the one-layer kernels' counters (`counter`); their main path is phase
+# 9b's ensemble step (`ensemble`)
+MEMBER_KERNELS = {
+    name.removesuffix("_bwd") + "_members"
+    + ("_bwd" if name.endswith("_bwd") else ""): dict(
+        spec, counter=name, ensemble=("bbbp_3_seeds" if spec["model"] == "gin"
+                                      else "gcn_bbbp_3_seeds"))
+    for name, spec in FT_KERNELS.items()}
 
 # the pretraining main path: bench.py's batch and model (B = 512, the
 # Pretrainer's 'total' sizing), 3 steps on the card and the CPU
@@ -520,15 +559,16 @@ def real_batch(dev):
     return pack_batch(graphs, spec).to(dev)
 
 
-def layer_inputs(batch, dt, gen):
-    """adj / cnt of a real packed batch in dtype dt, and seeded random
-    features, BatchNorm coefficients and weights at full width."""
+def layer_inputs(batch, dt, gen, d: int = EMB, tile: int = TILE):
+    """adj / cnt of a real packed batch (tile `tile`) in dtype dt, and
+    seeded random features, BatchNorm coefficients and weights at width d
+    (full width by default)."""
     dev = batch.nbr.device
-    adj = build_tile_adjacency(batch.nbr, batch.nbr_mask, TILE, dtype=dt)
+    adj = build_tile_adjacency(batch.nbr, batch.nbr_mask, tile, dtype=dt)
     w = batch.nbr_mask.to(dt)
     cnt = pack_cnt(_counts(batch.nbr_bond_type, w, NUM_BOND_TYPES),
                    _counts(batch.nbr_bond_dir, w, NUM_BOND_DIRS)).contiguous()
-    n, d = batch.nbr.shape[0], EMB
+    n = batch.nbr.shape[0]
 
     def u(*shape, bound):
         x = torch.rand(*shape, generator=gen) * 2 - 1
@@ -1591,8 +1631,12 @@ def profile_steps(step_fn, steps: int = 5) -> dict:
             port[m.group(1)] = port.get(m.group(1), 0.0) + us / steps / 1e3
             port_launches[m.group(1)] = (port_launches.get(m.group(1), 0)
                                          + c)
+    # torch.stack / torch.cat copies (the lockstep trunk's stacks among
+    # them)
+    cat_us = sum(us for k, us, _ in rows if "CatArrayBatchedCopy" in k)
     return dict(window_steps=steps, wall_ms_per_step=wall_us / steps / 1e3,
                 device_ms_per_step=busy / steps / 1e3,
+                cat_ms_per_step=cat_us / steps / 1e3,
                 device_busy_share=busy / wall_us if wall_us else None,
                 kernels=len(rows),
                 top=[dict(name=k[:80], ms_per_step=us / steps / 1e3,
@@ -1781,12 +1825,14 @@ def gcn_unchained_bwd_library(g, x, adj, w):
     return torch.mm(dxw, w.t()), torch.mm(x.t(), dxw)
 
 
-def unchained_bound_ms(name, x, p, dt):
+def unchained_bound_ms(name, x, p, dt, members: int = 1):
     """Least time for an unchained layer's work at these inputs: the dense
     products over the real rows, the adjacency and edge-count products by
     their nonzeros; bytes: each input read once and each output written
     once (K4f's residuals agg and mid are outputs on the training path;
-    K5f's x @ W is scratch)."""
+    K5f's x @ W is scratch). With `members` members on one batch (the
+    member-axis launch): each member's work and bytes, the adjacency and
+    the counts read once."""
     adj, cnt = x["adj"], x["cnt"]
     t, s, _ = adj.shape
     n, d = x["h"].shape
@@ -1796,7 +1842,8 @@ def unchained_bound_ms(name, x, p, dt):
     if name.startswith("fused_gine"):
         d2 = p["w1"].shape[1]
         mlp = 2 * 2 * n_real * d * d2
-        weights = t * s * s + n * CNT_PAD + 2 * d * d2   # A, cnt, W1, W2
+        shared = t * s * s + n * CNT_PAD                  # A, cnt
+        weights = 2 * d * d2                              # W1, W2
         if name == "fused_gine_layer":
             ops = mlp + sparse + edges
             act = 3 * n * d + n * d2 + CNT_PAD * d + weights
@@ -1807,13 +1854,15 @@ def unchained_bound_ms(name, x, p, dt):
             f32 = 2 * d * d2 + d2 + d + CNT_PAD * d
     else:
         dense = 2 * n_real * d * d
+        shared = t * s * s
         if name == "fused_gcn_layer":
-            ops, act, f32 = dense + sparse, 2 * n * d + t * s * s + d * d, 0
+            ops, act, f32 = dense + sparse, 2 * n * d + d * d, 0
         else:
             ops = 2 * dense + sparse
-            act, f32 = 3 * n * d + t * s * s + d * d, d * d
-    t_bytes = (act * x["h"].element_size() + f32 * 4) / HBM_BPS
-    t_ops = ops / PEAK_FLOPS[dt]
+            act, f32 = 3 * n * d + d * d, d * d
+    t_bytes = (((shared + members * act) * x["h"].element_size()
+                + members * f32 * 4) / HBM_BPS)
+    t_ops = members * ops / PEAK_FLOPS[dt]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1822,11 +1871,13 @@ def _tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def kernel_case(name, tag, names, run, plain, library, rtol):
+def kernel_case(name, tag, names, run, plain, library, rtol,
+                times=(5, 20)):
     """Run a kernel twice and its plain version once on the same inputs:
-    the error of each output against its limit, bit-identity, and the
-    kernel's, the plain version's and the library's times. Returns (case,
-    the kernel's outputs)."""
+    the error of each output against its limit, bit-identity, and (unless
+    `times` is None; else time_ms's loops and reps) the kernel's, the
+    plain version's and the library's times. Returns (case, the kernel's
+    outputs)."""
     got, again, want = _tuple(run()), _tuple(run()), _tuple(plain())
     torch.cuda.synchronize()
     case = dict(tag, bit_identical=all(torch.equal(u, v)
@@ -1837,8 +1888,9 @@ def kernel_case(name, tag, names, run, plain, library, rtol):
               f"plain version's {v.dtype} {tuple(v.shape)}")
         err, top = rel_err(u, v)
         case[f"err_{out}"], case[f"lim_{out}"] = err, rtol * top
-    case.update(ms=time_ms(run), plain_ms=time_ms(plain),
-                library_ms=time_ms(library))
+    if times:
+        case.update(ms=time_ms(run, *times), plain_ms=time_ms(plain, *times),
+                    library_ms=time_ms(library, *times))
     for out in names:
         check(case[f"err_{out}"] <= case[f"lim_{out}"],
               f"{name} {tag}: {out} error {case[f'err_{out}']} > "
@@ -1912,6 +1964,286 @@ def finetune_kernel_phase(batch, dev) -> dict:
             r["max_abs_err"] = max(r["max_abs_err"], case[first])
             r["cases"].append(case)
     return res
+
+
+# phase 8's member-axis cases: the ensembles' member counts (BBBP 3 seeds,
+# ClinTox 2 targets x 3 seeds)
+MEMBER_COUNTS = (3, 6)
+GINE_PARAMS = ("etab", "w1", "b1", "w2", "b2")
+
+
+def gine_members_library(h, adj, cnt, etab, w1, b1, w2, b2):
+    """K4f's function over M members as batched cuBLAS calls, the adjacency
+    broadcast over the members (yardstick only; the port never calls
+    it)."""
+    m, n, d = h.shape
+    t, s, _ = adj.shape
+    agg = torch.matmul(adj, h.view(m, t, s, d)).view(m, n, d)
+    agg = torch.baddbmm(agg, cnt.expand(m, -1, -1), etab)
+    mid = torch.baddbmm(b1[:, None].to(h.dtype), agg, w1).relu_()
+    return torch.baddbmm(b2[:, None].to(h.dtype), mid, w2), agg, mid
+
+
+def gine_members_bwd_library(g, adj, cnt, agg, mid, w1, w2):
+    """K4b's function over M members as batched cuBLAS calls (yardstick
+    only)."""
+    m, n, d = g.shape
+    t, s, _ = adj.shape
+    dmid = torch.bmm(g, w2.transpose(1, 2)).mul_(mid > 0)
+    dagg = torch.bmm(dmid, w1.transpose(1, 2))
+    dh = torch.matmul(adj, dagg.view(m, t, s, d)).view(m, n, d)
+    return (dh, torch.bmm(agg.transpose(1, 2), dmid), dmid.float().sum(1),
+            torch.bmm(mid.transpose(1, 2), g), g.float().sum(1),
+            torch.matmul(cnt.t(), dagg))
+
+
+def gcn_members_library(x, adj, w):
+    """K5f's function over M members, two batched cuBLAS calls (yardstick
+    only)."""
+    m, n, d = x.shape
+    t, s, _ = adj.shape
+    return torch.matmul(adj, torch.bmm(x, w).view(m, t, s, d)).view(m, n, d)
+
+
+def gcn_members_bwd_library(g, x, adj, w):
+    """K5b's function over M members (yardstick only)."""
+    m, n, d = g.shape
+    t, s, _ = adj.shape
+    dxw = torch.matmul(adj, g.view(m, t, s, d)).view(m, n, d)
+    return torch.bmm(dxw, w.transpose(1, 2)), torch.bmm(x.transpose(1, 2),
+                                                         dxw)
+
+
+def graph_ms(fn) -> float:
+    """time_ms of fn captured as a CUDA graph and replayed: the device's
+    time for its launches without the host's pace (as the graphed steps
+    run them)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay)
+
+
+def member_case(name, tag, names, run, loop, plain, library, rtol):
+    """A member-axis launch run twice, the loop of one-member launches it
+    replaces and the plain version (member by member) on the same inputs:
+    each output within rtol of the plain version's max, member m's output
+    equal to its one-member launch's bit for bit, two runs bit-identical;
+    the member launch's, the loop's, the plain version's and the
+    library's times, and the launch's and the loop's replayed as CUDA
+    graphs (graph_ms: the loop's eager time is paced by the host's M
+    wrapper calls). Returns (case, the launch's outputs)."""
+    got, again, want = _tuple(run()), _tuple(run()), _tuple(plain())
+    one = [_tuple(o) for o in loop()]
+    torch.cuda.synchronize()
+    case = dict(tag, bit_identical=all(torch.equal(u, v)
+                                       for u, v in zip(got, again)),
+                equal_to_single_launches=all(
+                    torch.equal(u[i], one[i][j]) for j, u in enumerate(got)
+                    for i in range(len(one))))
+    for out, u, v in zip(names, got, want):
+        check(u.dtype == v.dtype and u.shape == v.shape,
+              f"{name} {tag}: {out} is {u.dtype} {tuple(u.shape)}, the "
+              f"plain version's {v.dtype} {tuple(v.shape)}")
+        err, top = rel_err(u, v)
+        case[f"err_{out}"], case[f"lim_{out}"] = err, rtol * top
+    case.update(ms=time_ms(run), loop_ms=time_ms(loop),
+                graph_ms=graph_ms(run), loop_graph_ms=graph_ms(loop),
+                plain_ms=time_ms(plain), library_ms=time_ms(library))
+    for out in names:
+        check(case[f"err_{out}"] <= case[f"lim_{out}"],
+              f"{name} {tag}: {out} error {case[f'err_{out}']} > "
+              f"{case[f'lim_{out}']}")
+    check(case["bit_identical"], f"{name} {tag}: two runs differ")
+    check(case["equal_to_single_launches"], f"{name} {tag}: a member's "
+          f"output differs from its one-member launch's")
+    return case, got
+
+
+def member_kernel_phase(batch, dev) -> dict:
+    """K4f with residuals, K4b, K5f and K5b with their member grid axis at
+    the fine-tuning shape, M = 3 and 6 members (each its own features,
+    weights and cotangent, zero on padded rows; the adjacency and the
+    counts shared), f32 and bf16 (member_case): one launch against M
+    one-member launches bit for bit and the plain version within
+    KERNEL_RTOL; its time against the M-launch loop's; the bound of the M
+    members' work with the adjacency read once."""
+    gen = torch.Generator().manual_seed(SEED + 6)
+    res = {name: {"max_abs_err": 0.0, "cases": []} for name in MEMBER_KERNELS}
+    for dt in (torch.float32, torch.bfloat16):
+        for m in MEMBER_COUNTS:
+            members = [layer_inputs(batch, dt, gen) for _ in range(m)]
+            x0, pg0, pc0 = members[0]
+            adj, cnt = x0["adj"], x0["cnt"]
+            mask = adj_diag_mask(adj)
+            n, d = x0["h"].shape
+            h = torch.stack([(x["h"].float() * mask).to(dt)
+                             for x, _, _ in members])
+            g = torch.stack([((0.1 * torch.randn(n, d, generator=gen))
+                              .to(dev) * mask).to(dt) for _ in range(m)])
+            pg = {k: torch.stack([p[k] for _, p, _ in members])
+                  for k in GINE_PARAMS}
+            w = torch.stack([p["w"] for _, _, p in members])
+            tag = dict(dtype=str(dt).replace("torch.", ""), members=m,
+                       tiles=adj.shape[0], d=d)
+            rtol = KERNEL_RTOL[dt]
+            fargs = (h, adj, cnt, *(pg[k] for k in GINE_PARAMS))
+            cases = {}
+            cases["fused_gine_layer_members"], (_, agg, mid) = member_case(
+                "K4f members", tag, ("out", "agg", "mid"),
+                lambda: fused_gine_layer_members_fwd(*fargs, residuals=True),
+                lambda: [fused_gine_layer_fwd(
+                    h[i], adj, cnt, *(pg[k][i] for k in GINE_PARAMS),
+                    residuals=True) for i in range(m)],
+                lambda: fused_gine_layer_members_fwd_plain(*fargs),
+                lambda: gine_members_library(*fargs), rtol)
+            bargs = (g, adj, cnt, agg, mid, pg["w1"], pg["w2"])
+            cases["fused_gine_layer_members_bwd"], _ = member_case(
+                "K4b members", tag, ("dh", "dw1", "db1", "dw2", "db2",
+                                     "detab"),
+                lambda: fused_gine_layer_members_bwd(*bargs),
+                lambda: [fused_gine_layer_bwd(
+                    g[i], adj, cnt, agg[i], mid[i], pg["w1"][i],
+                    pg["w2"][i]) for i in range(m)],
+                lambda: fused_gine_layer_members_bwd_plain(*bargs),
+                lambda: gine_members_bwd_library(*bargs), rtol)
+            cases["fused_gcn_layer_members"], _ = member_case(
+                "K5f members", tag, ("out",),
+                lambda: fused_gcn_layer_members_fwd(h, adj, w),
+                lambda: [fused_gcn_layer_fwd(h[i], adj, w[i])
+                         for i in range(m)],
+                lambda: fused_gcn_layer_members_plain(h, adj, w),
+                lambda: gcn_members_library(h, adj, w), rtol)
+            cases["fused_gcn_layer_members_bwd"], _ = member_case(
+                "K5b members", tag, ("dx", "dw"),
+                lambda: fused_gcn_layer_members_bwd(g, h, adj, w),
+                lambda: [fused_gcn_layer_bwd(g[i], h[i], adj, w[i])
+                         for i in range(m)],
+                lambda: fused_gcn_layer_members_bwd_plain(g, h, adj, w),
+                lambda: gcn_members_bwd_library(g, h, adj, w), rtol)
+            one = dict(x0, h=h[0])
+            for name, case in cases.items():
+                spec = MEMBER_KERNELS[name]
+                case["bound_ms"], case["bound_by"] = unchained_bound_ms(
+                    spec["counter"], one,
+                    pg0 if spec["model"] == "gin" else pc0, dt, m)
+                print(f"kernel {name} {json.dumps(case)}", flush=True)
+                first = next(k for k in case if k.startswith("err_"))
+                r = res[name]
+                r["max_abs_err"] = max(r["max_abs_err"], case[first])
+                r["cases"].append(case)
+    return res
+
+
+# the widest layer the layer kernels are held at: D = 2,048, D2 = 4,096, on
+# WIDE_MOLS molecules of the fine-tuning stand-in packed at tiles 128 and
+# 256 (the f32 one-launch K1f stops at about D = 1,037 at S = 128, and the
+# [16, D2] operands of K4f's out launch and the dagg launch at about D2 =
+# 3,000: there K1f splits and those operands stream in K-chunks)
+WIDE_D, WIDE_MOLS, WIDE_TILES = 2048, 32, (128, 256)
+
+
+def wide_calls(x, pg, pc, g, dsums, dt) -> dict:
+    """{kernel: (output names, kernel call, plain call, library call,
+    (bound ms, bound by))} of the eight layer kernels on one problem,
+    relu_in True where a prologue exists; the backward kernels take the
+    plain forward's outputs as their residuals."""
+    h, a, b, adj, cnt = (x[k] for k in ("h", "a", "b", "adj", "cnt"))
+    gargs, cargs = gine_args(x, pg), gcn_args(x, pc)
+    uargs = (h, adj, cnt, pg["etab"], pg["w1"], pg["b1"], pg["w2"], pg["b2"])
+    out, _, agg, mid = fused_gine_bn_layer_fwd_plain(*gargs, True)
+    k1b = (g, dsums, h, a, b, adj, cnt, agg, mid, out, pg["w1"], pg["w2"],
+           True)
+    cout, _ = fused_gcn_bn_layer_plain(*cargs, True)
+    k3b = (g, dsums, h, a, b, adj, cnt, cout, pc["w"], True)
+    _, uagg, umid = fused_gine_layer_fwd_plain(*uargs)
+    k4b = (g, adj, cnt, uagg, umid, pg["w1"], pg["w2"])
+    k5 = (h, adj, pc["w"])
+    k5b = (g, h, adj, pc["w"])
+    return {
+        "fused_gine_bn_layer": (
+            ("out", "sums", "agg", "mid"),
+            lambda: fused_gine_bn_layer_fwd(*gargs, True, residuals=True),
+            lambda: fused_gine_bn_layer_fwd_plain(*gargs, True),
+            lambda: gine_library(*gargs, True),
+            bound_ms("fused_gine_bn_layer", x, pg, dt)),
+        "fused_gine_bn_layer_bwd": (
+            ("dh", "da", "db", "dw1", "db1", "dw2", "db2", "detab"),
+            lambda: fused_gine_bn_layer_bwd(*k1b),
+            lambda: fused_gine_bn_layer_bwd_plain(*k1b),
+            lambda: gine_bwd_library(*k1b), k1b_bound_ms(x, pg, dt)),
+        "fused_gcn_bn_layer": (
+            ("out", "sums"), lambda: fused_gcn_bn_layer(*cargs, True),
+            lambda: fused_gcn_bn_layer_plain(*cargs, True),
+            lambda: gcn_library(*cargs, True),
+            bound_ms("fused_gcn_bn_layer", x, pc, dt)),
+        "fused_gcn_bn_layer_bwd": (
+            ("dx", "da", "db", "dw", "dbias", "detab"),
+            lambda: fused_gcn_bn_layer_bwd(*k3b),
+            lambda: fused_gcn_bn_layer_bwd_plain(*k3b),
+            lambda: gcn_bwd_library(*k3b), k3b_bound_ms(x, pc, dt)),
+        "fused_gine_layer": (
+            ("out", "agg", "mid"),
+            lambda: fused_gine_layer_fwd(*uargs, residuals=True),
+            lambda: fused_gine_layer_fwd_plain(*uargs),
+            lambda: gine_unchained_library(*uargs),
+            unchained_bound_ms("fused_gine_layer", x, pg, dt)),
+        "fused_gine_layer_bwd": (
+            ("dh", "dw1", "db1", "dw2", "db2", "detab"),
+            lambda: fused_gine_layer_bwd(*k4b),
+            lambda: fused_gine_layer_bwd_plain(*k4b),
+            lambda: gine_unchained_bwd_library(*k4b),
+            unchained_bound_ms("fused_gine_layer_bwd", x, pg, dt)),
+        "fused_gcn_layer": (
+            ("out",), lambda: fused_gcn_layer_fwd(*k5),
+            lambda: fused_gcn_layer_plain(*k5),
+            lambda: gcn_unchained_library(*k5),
+            unchained_bound_ms("fused_gcn_layer", x, pc, dt)),
+        "fused_gcn_layer_bwd": (
+            ("dx", "dw"), lambda: fused_gcn_layer_bwd(*k5b),
+            lambda: fused_gcn_layer_bwd_plain(*k5b),
+            lambda: gcn_unchained_bwd_library(*k5b),
+            unchained_bound_ms("fused_gcn_layer_bwd", x, pc, dt)),
+    }
+
+
+def wide_kernel_phase(dev) -> list:
+    """The eight layer kernels at D = WIDE_D, D2 = 2 WIDE_D on WIDE_MOLS
+    molecules packed at each of WIDE_TILES, f32 and bf16 (kernel_case):
+    each within KERNEL_RTOL of its plain version, two runs bit-identical,
+    and at tile TILE the kernel's, the plain version's and the library's
+    times beside the bound; K1f's rows per block and whether it split."""
+    graphs, _ = featurize_many(synthetic_corpus(WIDE_MOLS, seed=SEED))
+    gen = torch.Generator().manual_seed(SEED + 7)
+    cases = []
+    for tile in WIDE_TILES:
+        batch = pack_batch(graphs, spec_for_graphs(graphs, WIDE_MOLS,
+                                                   tile=tile)).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            x, pg, pc = layer_inputs(batch, dt, gen, WIDE_D, tile)
+            n, d = x["h"].shape
+            g = (0.1 * torch.randn(n, d, generator=gen)).to(dev, dt)
+            dsums = (0.05 * torch.randn(2, d, generator=gen)).to(dev)
+            tag = dict(dtype=str(dt).replace("torch.", ""), tile=tile,
+                       tiles=x["adj"].shape[0], d=d, d2=2 * d)
+            calls = wide_calls(x, pg, pc, g, dsums, dt)
+            for name, (names, run, plain, library, bound) in calls.items():
+                case, _ = kernel_case(name, dict(tag, kernel=name), names,
+                                      run, plain, library, KERNEL_RTOL[dt],
+                                      times=(3, 3) if tile == TILE else None)
+                if tile == TILE:
+                    case["bound_ms"], case["bound_by"] = bound
+                if name == "fused_gine_bn_layer":
+                    case.update(block_rows=k1f_block_rows(dt, tile, d, 2 * d),
+                                split=k1f_splits(dt, tile, d, 2 * d))
+                print(f"wide {json.dumps(case)}", flush=True)
+                cases.append(case)
+    return cases
 
 
 # ---------------------------------------------------------------- phase 9
@@ -2213,9 +2545,14 @@ def finetune_speed_phase(dev, tmp: str, card: str, shared: dict) -> dict:
 
 # ------------------------------------------------------------ phase 9b
 
-# the seed ensembles: BBBP with 3 seeds and ClinTox 2 targets x 3 seeds
-ENSEMBLES = (("bbbp_3_seeds", "BBBP", None),
-             ("clintox_2x3", "ClinTox", ["CT_TOX", "FDA_APPROVED"]))
+# the seed ensembles: (tag, task, targets, model) of BBBP with 3 seeds (GIN
+# and GCN) and ClinTox 2 targets x 3 seeds (GIN)
+ENSEMBLES = (("bbbp_3_seeds", "BBBP", None, "gin"),
+             ("clintox_2x3", "ClinTox", ["CT_TOX", "FDA_APPROVED"], "gin"),
+             ("gcn_bbbp_3_seeds", "BBBP", None, "gcn"))
+# the first steps of an ensemble, held bit for bit to its members stepped
+# alone
+ALONE_STEPS = 2
 
 
 def ft_state(ft) -> dict:
@@ -2228,15 +2565,77 @@ def ft_state(ft) -> dict:
     return out
 
 
+def members_alone(ft, rows, tag: str) -> dict:
+    """ALONE_STEPS eager steps of all of ft's members from their fresh
+    state (the lockstep trunk: one member-axis launch of each layer kernel
+    per layer) against each member stepped alone on the same rows with its
+    seed's dropout masks (one-member launches) under an Adam of its own:
+    losses, parameters and BatchNorm stats bit for bit."""
+    cfg = ft.cfg
+    check(not ft.opt.state_dict()["state"], f"{tag}: not a fresh state")
+    alone = [copy.deepcopy(model) for model in ft.models]
+    opts = [optim.two_group_adam([model], cfg.init_lr, cfg.init_base_lr,
+                                 cfg.weight_decay, capturable=True)
+            for model in alone]
+    losses = []
+    for step in range(ALONE_STEPS):
+        batch, lab, mot = ft._take(ft._stacks["train"], rows[step])
+        masks = ft.seed_masks(batch.num_nodes)
+        together = ft_lib.train_step(ft.models, ft.opt, batch, lab, mot,
+                                     ft.task.loss, masks, cfg.n_seeds)
+        for m, (model, opt) in enumerate(zip(alone, opts)):
+            t, s = divmod(m, cfg.n_seeds)
+            one = ft_lib.train_step(
+                [model], opt, batch, lab[:, t] if lab.dim() == 2 else lab,
+                mot, ft.task.loss, None if masks is None else [masks[s]])
+            check(torch.equal(one[0], together[m]),
+                  f"{tag} step {step} member {m}: loss {together[m]} "
+                  f"stepped alone {one[0]}")
+        losses.append(together.tolist())
+    differ = [f"m{m}.{k}" for m, (a, b) in enumerate(zip(ft.models, alone))
+              for k, v in a.state_dict().items()
+              if not torch.equal(v, b.state_dict()[k])]
+    check(not differ, f"{tag}: the ensemble's state differs from its "
+          f"members' stepped alone in {differ}")
+    return dict(steps=ALONE_STEPS, bit_identical=True, losses=losses)
+
+
+def stack_ms(ft, idx) -> float:
+    """Device ms of the stacks that one lockstep step makes, timed alone as
+    a replayed CUDA graph (graph_ms, as the graphed step runs them) at
+    the batch of the train stack's row idx: per layer the members' inputs
+    and kernel parameters stacked for the member-axis call and the
+    members' output gradients stacked in the backward (unbind's
+    adjoint)."""
+    batch, _, _ = ft._take(ft._stacks["train"], idx)
+    model = ft.models[0]
+    dt, gin = model.dtype, model.gnn_type == "gin"
+    hs = [torch.zeros(batch.nbr.shape[0], model.emb_dim, dtype=dt,
+                      device=ft.device) for _ in ft.models]
+    layers = [[m.gnns[i] for m in ft.models] for i in range(LAYERS)]
+
+    @torch.no_grad()
+    def run():
+        for convs in layers:
+            torch.stack(hs)
+            if gin:
+                for x in zip(*(c.kernel_params(dt) for c in convs)):
+                    torch.stack(x)
+            else:
+                torch.stack([c.weight.to(dt) for c in convs])
+            torch.stack(hs)
+    return graph_ms(run)
+
+
 def ft_eager_vs_graphed(ft, rows, tag: str) -> dict:
     """EQUAL_STEPS steps of all members run eagerly and, from the same
     state, Adam moments and dropout generator states, through the graph
     (after GRAPH_WARMUP_STEPS eager steps): losses, parameters, BatchNorm
     stats and Adam moments bit-identical. The wrappers' counts of the
-    capture are one step's, M x LAYERS per layer kernel; the profiler,
-    over the last PROFILED_STEPS steps of each run, counts the port's
-    kernels per replayed step as per eager step, M x LAYERS launches of
-    each layer kernel's first pass."""
+    capture are one step's, LAYERS per layer kernel (one member-axis launch
+    a layer); the profiler, over the last PROFILED_STEPS steps of each run,
+    counts the port's kernels per replayed step as per eager step, LAYERS
+    launches of each layer kernel's first pass."""
     m = ft.n_members
     ft.graphed = True
     ft._run_steps(rows[:GRAPH_WARMUP_STEPS])
@@ -2267,9 +2666,8 @@ def ft_eager_vs_graphed(ft, rows, tag: str) -> dict:
     fwd = ("fused_gcn_layer" if ft.cfg.model.gnn_type == "gcn"
            else "fused_gine_layer")
     captured = ft._train_graph.launches
-    check(captured[fwd] == m * LAYERS
-          and captured[fwd + "_bwd"] == m * LAYERS,
-          f"{tag}: captured {captured}, expected {m * LAYERS} each")
+    check(captured[fwd] == LAYERS and captured[fwd + "_bwd"] == LAYERS,
+          f"{tag}: captured {captured}, expected {LAYERS} each")
     per_step = launches_agree(
         tag, {n: c / PROFILED_STEPS
               for n, c in prof_e["port_launches"].items()},
@@ -2278,8 +2676,8 @@ def ft_eager_vs_graphed(ft, rows, tag: str) -> dict:
     first = (("k5f_xw_kernel", "k5b_strip_kernel")
              if fwd == "fused_gcn_layer"
              else ("k4f_mid_kernel", "gine_bwd_dmid_kernel"))
-    check(all(per_step.get(k) == m * LAYERS for k in first),
-          f"{tag}: per replayed step {per_step}, expected {m * LAYERS} of "
+    check(all(per_step.get(k) == LAYERS for k in first),
+          f"{tag}: per replayed step {per_step}, expected {LAYERS} of "
           f"{first}")
     return dict(members=m, bit_identical=True, tensors_compared=len(want),
                 losses=torch.cat(eager).tolist(), captured=captured,
@@ -2288,31 +2686,40 @@ def ft_eager_vs_graphed(ft, rows, tag: str) -> dict:
 
 def ensemble_phase(dev, tmp: str, card: str, shared: dict,
                    one_member: dict) -> dict:
-    """The seed ensembles at full width (GIN f32, dropout 0.3): BBBP with 3
-    seeds (M = 3) and ClinTox with 2 targets x 3 seeds (M = 6). One step
-    of all members card against CPU, member by member (members_vs_cpu);
-    EQUAL_STEPS graphed steps bit-identical to eager ones with M x 5
-    launches of K4f and K4b per replayed step (ft_eager_vs_graphed); the
-    graphed step's time against M times the one-member graphed step of
-    `one_member` (ft_path_speed's row)."""
+    """The seed ensembles at full width (f32, dropout 0.3): GIN BBBP with 3
+    seeds (M = 3), GIN ClinTox with 2 targets x 3 seeds (M = 6) and GCN
+    BBBP with 3 seeds. ALONE_STEPS steps of all members bit for bit
+    against the members stepped alone (members_alone); one step card
+    against CPU, member by member, with 5 launches of each layer kernel
+    (members_vs_cpu); EQUAL_STEPS graphed steps bit-identical to eager
+    ones with 5 launches of each layer kernel per replayed step
+    (ft_eager_vs_graphed); the graphed step's time, host time, device time
+    and busy share against M times the one-member graphed step of
+    one_member[model] (ft_path_speed's row), and what the lockstep trunk's
+    stacks cost (stack_ms; the profile's CatArrayBatchedCopy ms per
+    step)."""
     report = {}
-    for tag, task, targets in ENSEMBLES:
+    for tag, task, targets, gnn in ENSEMBLES:
         t0 = time.perf_counter()
-        cfg = finetune_cfg(tmp, task_name=task, n_seeds=3)
+        cfg = finetune_cfg(tmp, gnn, task_name=task, n_seeds=3)
         ft = finetuner(cfg, dev, shared, targets)
         m = ft.n_members
         rows = train_rows(ft)
-        want = dict(fused_gine_layer=m * LAYERS,
-                    fused_gine_layer_bwd=m * LAYERS)
-        row = dict(card=card, members=m,
-                   step_vs_cpu=members_vs_cpu(ft, rows[0], tag, want))
-        row["equal"] = ft_eager_vs_graphed(ft, rows[1:], tag)
+        fwd = "fused_gine_layer" if gnn == "gin" else "fused_gcn_layer"
+        want = {fwd: LAYERS, fwd + "_bwd": LAYERS}
+        row = dict(card=card, model=gnn, members=m,
+                   alone=members_alone(ft, rows, tag))
+        row["step_vs_cpu"] = members_vs_cpu(ft, rows[ALONE_STEPS], tag,
+                                            want)
+        row["equal"] = ft_eager_vs_graphed(ft, rows[ALONE_STEPS + 1:], tag)
         speed = ft_path_speed(ft, "resident_graphed", card, tag)
         row.update(step_ms=speed["step_ms"], host_ms=speed["host_ms"],
                    device_ms=speed["device_ms"],
                    device_busy_share=speed["device_busy_share"],
-                   one_member_step_ms=one_member["step_ms"],
-                   m_times_one_member_ms=m * one_member["step_ms"],
+                   cat_ms_per_step=speed["profile"]["cat_ms_per_step"],
+                   stack_ms=stack_ms(ft, rows[0]),
+                   one_member_step_ms=one_member[gnn]["step_ms"],
+                   m_times_one_member_ms=m * one_member[gnn]["step_ms"],
                    seconds=time.perf_counter() - t0)
         report[tag] = row
         print(f"ensemble {tag} {json.dumps(row)}", flush=True)
@@ -4613,14 +5020,18 @@ def main() -> int:
               f"{int(fbatch.edge_mask.sum())} directed bonds", flush=True)
         phase("fine-tune kernels")
         ft_kernels = finetune_kernel_phase(fbatch.to(dev), dev)
+        members = member_kernel_phase(fbatch.to(dev), dev)
+        phase("wide kernels")
+        wide_kernel_phase(dev)
         phase("fine-tune steps")
         shared = {}
         ft_step = finetune_step_phase(dev, tmp, shared)
         phase("fine-tune speed")
         ft_speed = finetune_speed_phase(dev, tmp, card, shared)
         phase("ensembles")
-        ensemble_phase(dev, tmp, card, shared,
-                       ft_speed["gin_float32"]["resident_graphed"])
+        ens = ensemble_phase(dev, tmp, card, shared, {
+            gnn: ft_speed[f"{gnn}_float32"]["resident_graphed"]
+            for gnn in ("gin", "gcn")})
         phase("fine-tune cli")
         finetune_cli_phase(tmp)
         phase("gcn training kernels")
@@ -4692,6 +5103,14 @@ def main() -> int:
         rows.append(row(name, spec_k["source"], spec_k["replaces"],
                         ft_step["launches"][name], ft_kernels[name],
                         pick(ft_kernels[name]["cases"], dtype="float32")))
+    # the member-axis launches: BBBP's 3 seeds in f32, launched on phase
+    # 9b's ensemble step
+    for name, spec_k in MEMBER_KERNELS.items():
+        counts = ens[spec_k["ensemble"]]["step_vs_cpu"]["counts"]
+        rows.append(row(name, spec_k["source"], spec_k["replaces"],
+                        counts[spec_k["counter"]], members[name],
+                        pick(members[name]["cases"], dtype="float32",
+                             members=3)))
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

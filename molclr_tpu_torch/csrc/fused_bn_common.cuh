@@ -83,6 +83,9 @@ template <typename T>
 __global__ void transpose_kernel(const T* __restrict__ src,
                                  T* __restrict__ dst, int rows, int cols) {
   __shared__ float tile[32][33];
+  // member blockIdx.z of a stack of M matrices
+  src += (size_t)blockIdx.z * rows * cols;
+  dst += (size_t)blockIdx.z * rows * cols;
   int x = blockIdx.x * 32 + threadIdx.x, y = blockIdx.y * 32 + threadIdx.y;
   for (int j = 0; j < 32; j += 8)
     if (x < cols && y + j < rows)
@@ -96,8 +99,9 @@ __global__ void transpose_kernel(const T* __restrict__ src,
 
 template <typename T>
 static inline int launch_transpose(const void* src, void* dst, int rows,
-                                   int cols, cudaStream_t stream) {
-  const dim3 grid((cols + 31) / 32, (rows + 31) / 32), block(32, 8);
+                                   int cols, cudaStream_t stream,
+                                   int M = 1) {
+  const dim3 grid((cols + 31) / 32, (rows + 31) / 32, M), block(32, 8);
   transpose_kernel<T><<<grid, block, 0, stream>>>((const T*)src, (T*)dst,
                                                    rows, cols);
   return (int)cudaGetLastError();
@@ -286,10 +290,13 @@ __host__ __device__ inline RbSmem rb_smem(int S, int maxc, size_t op0,
 // (rb0, ring0 ..), (16, ring0 ..) whose shared memory bytes(rb, ring) fits
 // the device's per-block limit, so that a layer too wide for the plan's
 // shape gives up pipeline depth first, then rows. The order of every f32
-// sum is the same in each. rb = 0 when nothing fits.
+// sum is the same in each. rb = 0 when nothing fits. ka: the columns of a
+// left operand held at a time where it streams in K-chunks (rb_stream; 0:
+// held whole).
 struct RbShape {
   int rb, ring;
   size_t bytes;
+  int ka = 0;
 };
 
 template <typename Bytes>
@@ -313,6 +320,27 @@ static RbShape rb_shape_two(Bytes bytes) {
     if (b <= half) return {R, ring, b};
   }
   return rb_shape(R, 1, bytes);
+}
+
+// The shape of a launch whose left operand of depth K (rows of a matrix in
+// device memory) may stream through shared memory in K-chunks
+// (rb_pass_streamed): pick(K), the operand held whole as it always was,
+// where that fits; else pick(ka) for the widest chunk of 2,048, 1,024, 512
+// or 256 columns that fits. The chunks run in ascending k and carry their
+// sums in f32, so every sum keeps its order. rb = 0 when nothing fits.
+template <typename Pick>
+static RbShape rb_stream(int K, Pick pick) {
+  RbShape s = pick(K);
+  if (s.rb) return s;
+  for (int ka = 2048; ka >= 256; ka /= 2) {
+    if (ka >= K) continue;
+    s = pick(ka);
+    if (s.rb) {
+      s.ka = ka;
+      return s;
+    }
+  }
+  return RbShape{0, 0, 0};
 }
 
 template <int RB>
@@ -399,6 +427,53 @@ __device__ __forceinline__ void f32_to_cs(const float (&acc)[RB / 8][4],
         make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
 }
 
+// f32_to_cs's inverse: the accumulators of f32_chunk from Cs, so that a
+// pass continues the sums a previous pass left there.
+template <int RB>
+__device__ __forceinline__ void f32_from_cs(float (&acc)[RB / 8][4],
+                                            const float* Cs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane & 7, cg = 4 * warp + (lane >> 3);
+#pragma unroll
+  for (int i = 0; i < RB / 8; ++i) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(Cs + (rg * RB / 8 + i) * CS + 4 * cg);
+    acc[i][0] = v.x; acc[i][1] = v.y; acc[i][2] = v.z; acc[i][3] = v.w;
+  }
+}
+
+// The bf16 products' accumulators (warp w: m16 tile w % WM, 2 WM n8 tiles
+// from column (w / WM) 2 WM 8) into Cs, and back.
+template <int WM>
+__device__ __forceinline__ void mma_to_cs(const float (&acc)[2 * WM][4],
+                                          float* Cs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp % WM, nb = (warp / WM) * (2 * WM) * 8;
+#pragma unroll
+  for (int nt = 0; nt < 2 * WM; ++nt) {
+    float* r0 = Cs + (mt * 16 + g) * CS + nb + nt * 8 + 2 * t;
+    *reinterpret_cast<float2*>(r0) = make_float2(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<float2*>(r0 + 8 * CS) =
+        make_float2(acc[nt][2], acc[nt][3]);
+  }
+}
+
+template <int WM>
+__device__ __forceinline__ void mma_from_cs(float (&acc)[2 * WM][4],
+                                            const float* Cs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp % WM, nb = (warp / WM) * (2 * WM) * 8;
+#pragma unroll
+  for (int nt = 0; nt < 2 * WM; ++nt) {
+    const float* r0 = Cs + (mt * 16 + g) * CS + nb + nt * 8 + 2 * t;
+    const float2 lo = *reinterpret_cast<const float2*>(r0);
+    const float2 hi = *reinterpret_cast<const float2*>(r0 + 8 * CS);
+    acc[nt][0] = lo.x; acc[nt][1] = lo.y; acc[nt][2] = hi.x; acc[nt][3] = hi.y;
+  }
+}
+
 // The B transform of a pass that takes B as it is (see rb_pass).
 struct IdentityFor {
   __device__ auto operator()(int) const {
@@ -415,7 +490,10 @@ struct IdentityFor {
 // of a chunk issue back to back. Thread t stages column c0 + t % 128 of
 // half the rows of each chunk. All threads must call it; it returns after
 // a __syncthreads with Cs complete (scratch holds the chunk, then Cs).
-template <typename T, int RB, typename Load, typename XfFor>
+// With CONT the sums start from the Cs that the previous pass left (the
+// next K-chunk of one product, rb_pass_streamed) instead of 0.
+template <typename T, int RB, bool CONT = false, typename Load,
+          typename XfFor>
 __device__ void rb_pass(const T* A, int lda, int K, int c0, int ncols,
                         float* scratch, Load load, XfFor xf_for) {
   static_assert(RB == 16 || RB == 32, "row block");
@@ -450,6 +528,12 @@ __device__ void rb_pass(const T* A, int lda, int K, int c0, int ncols,
   for (int i = 0; i < (F32 ? RB / 8 : 2 * WM); ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  if constexpr (CONT) {  // read before the loop's first __syncthreads
+    if constexpr (F32)     // lets the chunk in
+      f32_from_cs<RB>(acc, scratch);
+    else
+      mma_from_cs<WM>(acc, scratch);
+  }
 
   for (int k0 = 0; k0 < K; k0 += KC) {
     __syncthreads();  // the previous chunk (or Cs) is consumed
@@ -504,19 +588,10 @@ __device__ void rb_pass(const T* A, int lda, int K, int c0, int ncols,
     }
   }
   __syncthreads();  // every warp is done with the chunk that Cs aliases
-  if constexpr (F32) {
+  if constexpr (F32)
     f32_to_cs<RB>(acc, scratch);
-  } else {
-    const int g = lane >> 2, t = lane & 3;
-    const int mt = warp % WM, nb = (warp / WM) * (2 * WM) * 8;
-#pragma unroll
-    for (int nt = 0; nt < 2 * WM; ++nt) {
-      float* r0 = scratch + (mt * 16 + g) * CS + nb + nt * 8 + 2 * t;
-      *reinterpret_cast<float2*>(r0) = make_float2(acc[nt][0], acc[nt][1]);
-      *reinterpret_cast<float2*>(r0 + 8 * CS) =
-          make_float2(acc[nt][2], acc[nt][3]);
-    }
-  }
+  else
+    mma_to_cs<WM>(acc, scratch);
   __syncthreads();
 }
 
@@ -551,13 +626,14 @@ __device__ __forceinline__ void cp_async_wait() {
 // else the rows are staged in registers by rb_pass). `wide`: every row
 // starts 16-byte (f32) or 4-byte (bf16) aligned (rows_wide). row(k) is
 // called for k < K only. It returns after a __syncthreads with Cs complete,
-// as rb_pass does.
-template <typename T, int RB, int NS = NST, int KR = 64, typename Row>
+// as rb_pass does; CONT as in rb_pass.
+template <typename T, int RB, int NS = NST, int KR = 64, bool CONT = false,
+          typename Row>
 __device__ void rb_pass_rows(const T* A, int lda, int K, int c0, int ncols,
                              float* scratch, Row row, bool wide) {
   if constexpr (sizeof(T) != 4) {
     if (!wide) {
-      rb_pass<T, RB>(
+      rb_pass<T, RB, CONT>(
           A, lda, K, c0, ncols, scratch,
           [&](int k, int c) -> T { return row(k)[c]; }, IdentityFor());
       return;
@@ -592,6 +668,7 @@ __device__ void rb_pass_rows(const T* A, int lda, int K, int c0, int ncols,
     for (int i = 0; i < 2 * WM; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    if constexpr (CONT) mma_from_cs<WM>(acc, scratch);
     const __nv_bfloat16* Ab = reinterpret_cast<const __nv_bfloat16*>(A);
     __syncthreads();  // the ring (or Cs) is no longer read
 #pragma unroll
@@ -624,13 +701,7 @@ __device__ void rb_pass_rows(const T* A, int lda, int K, int c0, int ncols,
     }
     cp_async_wait<0>();
     __syncthreads();
-#pragma unroll
-    for (int nt = 0; nt < 2 * WM; ++nt) {
-      float* r0 = scratch + (mt * 16 + g) * CS + nb + nt * 8 + 2 * t;
-      *reinterpret_cast<float2*>(r0) = make_float2(acc[nt][0], acc[nt][1]);
-      *reinterpret_cast<float2*>(r0 + 8 * CS) =
-          make_float2(acc[nt][2], acc[nt][3]);
-    }
+    mma_to_cs<WM>(acc, scratch);
     __syncthreads();
   } else {
     static_assert(NS >= 2 && KR % 8 == 0, "ring");
@@ -671,6 +742,7 @@ __device__ void rb_pass_rows(const T* A, int lda, int K, int c0, int ncols,
     for (int i = 0; i < RB / 8; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    if constexpr (CONT) f32_from_cs<RB>(acc, scratch);
     __syncthreads();  // the ring (or Cs) is no longer read
 #pragma unroll
     for (int s = 0; s < NS - 1; ++s) issue(s);
@@ -690,20 +762,23 @@ __device__ void rb_pass_rows(const T* A, int lda, int K, int c0, int ncols,
 }
 
 // rb_pass_rows with the f32 ring `ring` (ring_bytes; bf16 has one).
-template <typename T, int RB, typename Row>
+template <typename T, int RB, bool CONT = false, typename Row>
 __device__ void rb_pass_rr(int ring, const T* A, int lda, int K, int c0,
                            int ncols, float* scratch, Row row, bool wide) {
   if constexpr (sizeof(T) == 4) {
     if (ring == 1) {
-      rb_pass_rows<T, RB, 4, 32>(A, lda, K, c0, ncols, scratch, row, wide);
+      rb_pass_rows<T, RB, 4, 32, CONT>(A, lda, K, c0, ncols, scratch, row,
+                                       wide);
       return;
     }
     if (ring == 2) {
-      rb_pass_rows<T, RB, 2, 32>(A, lda, K, c0, ncols, scratch, row, wide);
+      rb_pass_rows<T, RB, 2, 32, CONT>(A, lda, K, c0, ncols, scratch, row,
+                                       wide);
       return;
     }
   }
-  rb_pass_rows<T, RB>(A, lda, K, c0, ncols, scratch, row, wide);
+  rb_pass_rows<T, RB, NST, 64, CONT>(A, lda, K, c0, ncols, scratch, row,
+                                     wide);
 }
 
 // Whether rows that start at p (and q) plus multiples of ld elements take
@@ -844,21 +919,67 @@ struct AsIs {
   __device__ float operator()(int, float v) const { return v; }
 };
 
-// Load rows row0 .. row0 + nrows - 1 of a row-major [*, K] matrix into an
-// A operand (row stride lda), element (r, k) as xf(k, value), zero in rows
-// past nrows and in the columns up to round_up(K, rkc). f32 operands are
-// k-major, so the threads run along the rows there (conflict-free stores; a
-// row's loads meet in L1). All threads must call it; a __syncthreads must
-// follow before A is read (rb_pass and rb_pass_rows begin with one).
+// Load columns k0 .. k0 + K - 1 of rows row0 .. row0 + nrows - 1 of a
+// row-major matrix of row stride lds into an A operand (row stride lda),
+// element (r, k) as xf(k0 + k, value), zero in rows past nrows and in the
+// columns up to round_up(K, rkc). f32 operands are k-major, so the threads
+// run along the rows there (conflict-free stores; a row's loads meet in
+// L1). All threads must call it; a __syncthreads must follow before A is
+// read (rb_pass and rb_pass_rows begin with one).
 template <int RB, typename T, typename Xf = AsIs>
-__device__ void rows_to_a(T* A, int lda, const T* src, size_t row0,
-                          int nrows, int K, Xf xf = Xf()) {
+__device__ void rows_to_a_cols(T* A, int lda, const T* src, int lds, int k0,
+                               size_t row0, int nrows, int K, Xf xf = Xf()) {
   const int kp = round_up(K, rkc<T>());
   for (int e = threadIdx.x; e < RB * kp; e += RNT) {
     const int r = sizeof(T) == 4 ? e % RB : e / kp;
     const int k = sizeof(T) == 4 ? e / RB : e % kp;
     a_put<RB>(A, lda, r, k,
-              r < nrows && k < K ? xf(k, ld(src, (row0 + r) * K + k)) : 0.f);
+              r < nrows && k < K
+                  ? xf(k0 + k, ld(src, (row0 + r) * lds + k0 + k)) : 0.f);
+  }
+}
+
+// rows_to_a_cols of whole rows of a row-major [*, K] matrix.
+template <int RB, typename T, typename Xf = AsIs>
+__device__ void rows_to_a(T* A, int lda, const T* src, size_t row0,
+                          int nrows, int K, Xf xf = Xf()) {
+  rows_to_a_cols<RB>(A, lda, src, K, 0, row0, nrows, K, xf);
+}
+
+// One column pass Cs = src[rows row0 .., :K] @ W[:K, c0 .. c0 + RCW) with
+// the f32 ring `ring`, W row-major of row stride ldw, its left operand the
+// RB rows of the row-major [*, K] matrix src in device memory (rows past
+// nrows zero): held in A whole (not STREAM: one rows_to_a, one rb_pass_wr,
+// as every launch that fits does), or (STREAM) ka columns at a time
+// (rb_stream), the chunks in ascending k, Cs zeroed first and each pass
+// continuing the sums in Cs in f32. So each f32 output is one thread's sum
+// over k in ascending order from 0 either way, and in bf16 the tensor-core
+// products run in the same order (ka a multiple of 64). A holds
+// a_bytes<T>(RB, STREAM ? ka : K). All threads must call it, before
+// anything else uses scratch; it returns after a __syncthreads with Cs
+// complete.
+template <typename T, int RB, bool STREAM>
+__device__ void rb_pass_streamed(int ring, int ka, T* A, const T* src,
+                                 size_t row0, int nrows, int K, int c0,
+                                 int ncols, float* scratch, const T* W,
+                                 int ldw) {
+  if constexpr (!STREAM) {
+    const int lda = a_lda(K);
+    rows_to_a<RB>(A, lda, src, row0, nrows, K);
+    rb_pass_wr<T, RB>(ring, A, lda, K, c0, ncols, scratch, W, ldw);
+  } else {
+    for (int e = threadIdx.x; e < RB * CS; e += RNT) scratch[e] = 0.f;
+    __syncthreads();
+    const bool wide = rows_wide(ldw, W);
+    for (int k0 = 0; k0 < K; k0 += ka) {
+      // (the previous pass ended in a __syncthreads after its last read of
+      // A)
+      const int kc = min(ka, K - k0), lda = a_lda(kc);
+      rows_to_a_cols<RB>(A, lda, src, K, k0, row0, nrows, kc);
+      rb_pass_rr<T, RB, true>(
+          ring, A, lda, kc, c0, ncols, scratch,
+          [=](int k) { return W + (size_t)(k0 + k) * ldw; }, wide);
+    }
   }
 }
 
@@ -873,7 +994,10 @@ __device__ void rows_to_a(T* A, int lda, const T* src, size_t row0,
 // + j < D; msk[r] the node mask diag(A) > 0 of row r) and may overwrite Cs.
 // In f32 each output is one thread's sum over the live columns, then the
 // counts, in ascending order, so a skipped chunk (exact zeros) leaves the
-// dense strip's bits.
+// dense strip's bits. With a members epilogue (Epi::kMembers), member
+// blockIdx.z of a stack reads x + z xs (the adjacency, the counts and etab
+// are shared) and the epilogue offsets what it writes; the one-layer
+// epilogues compile without either.
 template <typename T>
 __host__ __device__ inline RbSmem adj_pass_smem(int S, int ring, bool cnt) {
   const int nch = (S + ACW - 1) / ACW;
@@ -885,8 +1009,9 @@ template <typename T, typename Epi>
 __global__ void __launch_bounds__(RNT, 2)
 adj_pass_kernel(const T* __restrict__ x, const T* __restrict__ adj,
                 const T* __restrict__ cnt, const T* __restrict__ etab,
-                Epi epi, int S, int D, int ring) {
+                Epi epi, int S, int D, int ring, size_t xs) {
   extern __shared__ float smem_f[];  // 16-byte aligned
+  if constexpr (Epi::kMembers) x += blockIdx.z * xs;
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
   __shared__ int cnt_live;
   const RbSmem L = adj_pass_smem<T>(S, ring, cnt != nullptr);
@@ -926,14 +1051,29 @@ adj_pass_kernel(const T* __restrict__ x, const T* __restrict__ adj,
 // pass stores dx with it).
 template <typename T>
 struct AdjStore {
+  static constexpr bool kMembers = false;
   T* out;
   int D;
   __device__ void operator()(size_t row0, int c0, float* Cs,
-                             const float*) const {
+                             const float* msk) const {
     for (int e = threadIdx.x; e < R * RCW; e += RNT) {
       const int r = e / RCW, j = e % RCW, c = c0 + j;
       if (c < D) st(out, (row0 + r) * D + c, Cs[r * CS + j]);
     }
+  }
+};
+
+// AdjStore for member blockIdx.z of a stack of outputs ms elements apart
+// (the member-axis launches of K5f, K4b and K5b).
+template <typename T>
+struct AdjStoreMembers {
+  static constexpr bool kMembers = true;
+  T* out;
+  int D;
+  size_t ms;
+  __device__ void operator()(size_t row0, int c0, float* Cs,
+                             const float* msk) const {
+    AdjStore<T>{out + blockIdx.z * ms, D}(row0, c0, Cs, msk);
   }
 };
 
@@ -946,6 +1086,7 @@ struct AdjStore {
 // the groups in order (the first design's order).
 template <typename T>
 struct BnAdjoint {
+  static constexpr bool kMembers = false;
   const T* h;
   const float* a;
   const float* b;
@@ -992,21 +1133,23 @@ struct BnAdjoint {
 };
 
 // The adjacency pass over N rows at the 64 KB f32 ring (the 32 KB one
-// where shared memory does not fit); cnt and etab null but for K3f.
+// where shared memory does not fit), for M members whose x are N x D apart
+// (the epilogue's output likewise); cnt and etab null but for K3f.
 template <typename T, typename Epi>
 static int launch_adj_pass(const void* x, const void* adj, const Epi& epi,
                            int N, int S, int D, cudaStream_t st,
                            const void* cnt = nullptr,
-                           const void* etab = nullptr) {
+                           const void* etab = nullptr, int M = 1) {
   const RbShape sh = rb_shape(R, 1, [&](int, int rg) {
     return adj_pass_smem<T>(S, rg, cnt != nullptr).total;
   });
   if (!sh.rb) return (int)cudaErrorInvalidValue;
   cudaError_t e = set_smem(adj_pass_kernel<T, Epi>, sh.bytes);
   if (e != cudaSuccess) return (int)e;
-  adj_pass_kernel<T, Epi><<<dim3(N / R, (D + RCW - 1) / RCW), RNT, sh.bytes,
-                            st>>>((const T*)x, (const T*)adj, (const T*)cnt,
-                                  (const T*)etab, epi, S, D, sh.ring);
+  adj_pass_kernel<T, Epi>
+      <<<dim3(N / R, (D + RCW - 1) / RCW, M), RNT, sh.bytes, st>>>(
+          (const T*)x, (const T*)adj, (const T*)cnt, (const T*)etab, epi, S,
+          D, sh.ring, (size_t)N * D);
   return (int)cudaGetLastError();
 }
 
@@ -1029,7 +1172,9 @@ static int launch_adj_pass(const void* x, const void* adj, const Epi& epi,
 // ascending order, as the first design's weight pass summed it; bf16 runs
 // mma.sync m16n8k16 with X^T as the A operand (warp w: m16 tile w % (TR /
 // 16), TR / 16 n8 tiles of column group w / (TR / 16)), its fragments
-// paired from the staged rows.
+// paired from the staged rows. Member blockIdx.y of a stack of M problems
+// reads X + y xs, Y + y ys (a stride of 0 shares a matrix), its strips'
+// flags at y N / 16 and writes its partials y chunks width further.
 constexpr int WT = 64;    // output tile columns (and rows at most)
 constexpr int WK = 16;    // rows per strip
 constexpr int WNT = 256;  // threads
@@ -1042,6 +1187,7 @@ struct WProb {
   const void* y;  // [N, c]
   int m, c;       // output shape
   int off;        // offset of this problem's output in a partial row
+  size_t xs = 0, ys = 0;  // elements between members' x, y
 };
 
 __host__ __device__ inline int wgrad_tiles(const WProb& p, int tr) {
@@ -1081,7 +1227,7 @@ __device__ __forceinline__ void wgrad_copy(T* dst, const T* src, int cols,
 
 // (held to 64 registers, so that four blocks share an SM: faster at the
 // pretraining shape than the 80 registers it takes unbounded)
-template <typename T, int TR>
+template <typename T, int TR, bool MEM>
 __global__ void __launch_bounds__(WNT, 4)
 wgrad_kernel(WProb p0, WProb p1, WProb p2, int nprob,
              const int* __restrict__ strip_live, int N, int rows_per_chunk,
@@ -1106,6 +1252,12 @@ wgrad_kernel(WProb p0, WProb p1, WProb p2, int nprob,
   const int M = p.m, C = p.c;
   const T* X = (const T*)p.x;
   const T* Y = (const T*)p.y;
+  if constexpr (MEM) {  // member blockIdx.y
+    X += blockIdx.y * p.xs;
+    Y += blockIdx.y * p.ys;
+    strip_live += blockIdx.y * (N / WK);
+    partial += (size_t)blockIdx.y * chunks * width;
+  }
   const int tiles_c = (C + WT - 1) / WT;
   const int tiles = ((M + TR - 1) / TR) * tiles_c;
   const int chunk = blk / tiles, tl = blk % tiles;
@@ -1249,11 +1401,12 @@ wgrad_kernel(WProb p0, WProb p1, WProb p2, int nprob,
 // rows_per_chunk rows, which the caller chooses (ops/fused_gcn.py
 // dw_chunks, ops/fused_layer.py weight_pass_shape) and this only
 // checks (a multiple of 16, at most WMAX_ROWS, covering the N rows once),
-// times each problem's tiles of tile_rows (64 or 32) x 64.
+// times each problem's tiles of tile_rows (64 or 32) x 64, times M members.
 template <typename T>
 static int launch_wgrad(const WProb* p, int nprob, const int* strip_live,
                         int N, int rows_per_chunk, int chunks, int tile_rows,
-                        float* partial, int width, cudaStream_t st) {
+                        float* partial, int width, cudaStream_t st,
+                        int M = 1) {
   if (nprob < 1 || nprob > 3 || rows_per_chunk <= 0 ||
       rows_per_chunk % WK || rows_per_chunk > WMAX_ROWS ||
       (N + rows_per_chunk - 1) / rows_per_chunk != chunks ||
@@ -1262,14 +1415,19 @@ static int launch_wgrad(const WProb* p, int nprob, const int* strip_live,
   int nb = 0;
   for (int q = 0; q < nprob; ++q) nb += chunks * wgrad_tiles(p[q], tile_rows);
   const WProb p1 = nprob > 1 ? p[1] : p[0], p2 = nprob > 2 ? p[2] : p[0];
-  auto kernel =
-      tile_rows == WT ? wgrad_kernel<T, WT> : wgrad_kernel<T, WT / 2>;
-  kernel<<<nb, WNT, 0, st>>>(p[0], p1, p2, nprob, strip_live, N,
-                             rows_per_chunk, chunks, partial, width);
+  auto kernel = M > 1 ? (tile_rows == WT ? wgrad_kernel<T, WT, true>
+                                         : wgrad_kernel<T, WT / 2, true>)
+                      : (tile_rows == WT ? wgrad_kernel<T, WT, false>
+                                         : wgrad_kernel<T, WT / 2, false>);
+  kernel<<<dim3(nb, M), WNT, 0, st>>>(p[0], p1, p2, nprob, strip_live, N,
+                                      rows_per_chunk, chunks, partial,
+                                      width);
   return (int)cudaGetLastError();
 }
 
-// sums[i] = sum over blocks, in block order, of partial[blk, i]; i < width.
+// sums[i] = sum over blocks, in block order, of partial[blk, i]; i < width;
+// for member blockIdx.y of a stack, partial and sums nblk x width and width
+// further.
 // sum_partials: one thread per column, its loads 16 rows at a time.
 // sum_partials_tiled: a block of SUM_NT threads per 32 columns, whose warps
 // stage up to SUM_ROWS rows at a time in shared memory (many loads in
@@ -1283,9 +1441,13 @@ static int launch_wgrad(const WProb* p, int nprob, const int* strip_live,
 constexpr int SUM_NT = 256, SUM_ROWS = 256, SUM_TILE_MIN = 64,
               SUM_TILE_MAX_WIDTH = 4096;
 
-static __global__ void sum_partials(const float* __restrict__ partial,
-                                    float* __restrict__ sums, int nblk,
-                                    int width) {
+template <bool MEM>
+__global__ void sum_partials(const float* __restrict__ partial,
+                             float* __restrict__ sums, int nblk, int width) {
+  if constexpr (MEM) {
+    partial += (size_t)blockIdx.y * nblk * width;
+    sums += (size_t)blockIdx.y * width;
+  }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= width) return;
   float t = 0.f;
@@ -1301,10 +1463,15 @@ static __global__ void sum_partials(const float* __restrict__ partial,
   sums[i] = t;
 }
 
-static __global__ void __launch_bounds__(SUM_NT)
+template <bool MEM>
+__global__ void __launch_bounds__(SUM_NT)
 sum_partials_tiled(const float* __restrict__ partial, float* __restrict__ sums,
                    int nblk, int width) {
   __shared__ float tile[SUM_ROWS][33];
+  if constexpr (MEM) {
+    partial += (size_t)blockIdx.y * nblk * width;
+    sums += (size_t)blockIdx.y * width;
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int i = blockIdx.x * 32 + lane;
   float t = 0.f;
@@ -1332,12 +1499,14 @@ sum_partials_tiled(const float* __restrict__ partial, float* __restrict__ sums,
 
 static inline int launch_sum_partials(const float* partial, float* sums,
                                       int nblk, int width,
-                                      cudaStream_t stream) {
+                                      cudaStream_t stream, int M = 1) {
   if (nblk >= SUM_TILE_MIN && width <= SUM_TILE_MAX_WIDTH)
-    sum_partials_tiled<<<(width + 31) / 32, SUM_NT, 0, stream>>>(
-        partial, sums, nblk, width);
+    (M > 1 ? sum_partials_tiled<true> : sum_partials_tiled<false>)
+        <<<dim3((width + 31) / 32, M), SUM_NT, 0, stream>>>(partial, sums,
+                                                            nblk, width);
   else
-    sum_partials<<<(width + 255) / 256, 256, 0, stream>>>(partial, sums,
+    (M > 1 ? sum_partials<true> : sum_partials<false>)
+        <<<dim3((width + 255) / 256, M), 256, 0, stream>>>(partial, sums,
                                                            nblk, width);
   return (int)cudaGetLastError();
 }

@@ -71,6 +71,12 @@
 // 0.22 GFLOP against 5.4 MB, 3.4 us. At this shape a launch is short and
 // the card wide: what bounds both is how many blocks they keep busy and
 // how long each waits on memory.
+// Members: K5f and K5b take a stack of M layers that share the adjacency
+// (the JAX package's vmapped pallas_call over a seed / target ensemble) as
+// grid z (the weight pass's grid y): x, W, xw, out, g, W^T, dxw, dx, the
+// strip flags, the chunk partials and dW are per member, N x D, D x D, ...
+// elements apart, and member m's blocks do the one-layer launch's
+// arithmetic, so one launch over M members equals M launches bit for bit.
 //
 // K3b replaces molclr_tpu/ops/fused_gcn.py:_bn_bwd_kernel, the backward of
 // K3f. Given the output cotangents (g [N, D], dsums [2, D]), the saved
@@ -163,7 +169,7 @@ __host__ __device__ inline RbSmem k5f_xw_smem(int S, int D, int ring) {
   return rb_smem(S, nch, a_bytes<T>(R, D), 0, pass_bytes<T>(R, ring));
 }
 
-template <typename T, bool BN>
+template <typename T, bool BN, bool MEM>
 __global__ void __launch_bounds__(RNT, 2)
 k5f_xw_kernel(const T* __restrict__ x, const float* __restrict__ a,
               const float* __restrict__ b, const T* __restrict__ adj,
@@ -171,6 +177,12 @@ k5f_xw_kernel(const T* __restrict__ x, const float* __restrict__ a,
               int relu_in, int ring) {
   extern __shared__ float smem_f[];  // 16-byte aligned
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  if constexpr (MEM) {  // member blockIdx.z (K5f)
+    const size_t z = blockIdx.z, N = (size_t)gridDim.x * R;
+    x += z * N * D;
+    w += z * D * D;
+    xw += z * N * D;
+  }
   const RbSmem L = k5f_xw_smem<T>(S, D, ring);
   int* flags = reinterpret_cast<int*>(smem + L.meta);
   int* node = flags + 2 * L.nch;
@@ -201,21 +213,26 @@ k5f_xw_kernel(const T* __restrict__ x, const float* __restrict__ a,
   }
 }
 
-// The xw pass over N rows at the 64 KB f32 weight ring (the 32 KB one
-// where shared memory does not fit).
+// The xw pass over N rows of M members at the 64 KB f32 weight ring (the
+// 32 KB one where shared memory does not fit).
 template <typename T, bool BN>
 static int launch_xw_pass(const void* x, const float* a, const float* b,
                           const void* adj, const void* w, void* xw, int N,
-                          int S, int D, int relu_in, cudaStream_t st) {
+                          int S, int D, int relu_in, cudaStream_t st,
+                          int M = 1) {
   const RbShape sh = rb_shape(R, 1, [&](int, int rg) {
     return k5f_xw_smem<T>(S, D, rg).total;
   });
   if (!sh.rb) return (int)cudaErrorInvalidValue;
-  cudaError_t e = set_smem(k5f_xw_kernel<T, BN>, sh.bytes);
+  // (K3f launches one member; K5f's one-member instantiation compiles
+  // without the member offsets)
+  auto kernel = !BN && M > 1 ? k5f_xw_kernel<T, BN, !BN>
+                             : k5f_xw_kernel<T, BN, false>;
+  cudaError_t e = set_smem(kernel, sh.bytes);
   if (e != cudaSuccess) return (int)e;
-  k5f_xw_kernel<T, BN><<<dim3(N / R, (D + RCW - 1) / RCW), RNT, sh.bytes,
-                         st>>>((const T*)x, a, b, (const T*)adj,
-                               (const T*)w, (T*)xw, S, D, relu_in, sh.ring);
+  kernel<<<dim3(N / R, (D + RCW - 1) / RCW, M), RNT, sh.bytes, st>>>(
+      (const T*)x, a, b, (const T*)adj, (const T*)w, (T*)xw, S, D, relu_in,
+      sh.ring);
   return (int)cudaGetLastError();
 }
 
@@ -225,6 +242,7 @@ static int launch_xw_pass(const void* x, const float* a, const float* b,
 // groups in order (the first design's order).
 template <typename T>
 struct BnMoments {
+  static constexpr bool kMembers = false;
   const float* bias;
   T* out;
   float* partial;
@@ -283,16 +301,22 @@ static int gcn_bn_fwd(const void* x, const float* a, const float* b,
   return launch_sum_partials(partial, sums, N / R, 2 * D, st);
 }
 
-// K5f: xw = rnd(x @ W) into the scratch xw, then out = rnd(A @ xw).
+// K5f of M members: xw = rnd(x @ W) into the scratch xw, then out =
+// rnd(A @ xw).
 template <typename T>
 static int gcn_fwd(const void* x, const void* adj, const void* w, void* xw,
-                   void* out, int T_, int S, int D, void* stream) {
-  if (T_ <= 0 || S <= 0 || S % R || D <= 0) return (int)cudaErrorInvalidValue;
+                   void* out, int T_, int S, int D, int M, void* stream) {
+  if (T_ <= 0 || S <= 0 || S % R || D <= 0 || M <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int N = T_ * S;
   int err = launch_xw_pass<T, false>(x, nullptr, nullptr, adj, w, xw, N, S,
-                                     D, 0, st);
+                                     D, 0, st, M);
   if (err) return err;
+  if (M > 1)
+    return launch_adj_pass<T>(xw, adj,
+                              AdjStoreMembers<T>{(T*)out, D, (size_t)N * D},
+                              N, S, D, st, nullptr, nullptr, M);
   return launch_adj_pass<T>(xw, adj, AdjStore<T>{(T*)out, D}, N, S, D, st);
 }
 
@@ -328,6 +352,13 @@ k5b_strip_kernel(const T* __restrict__ g, const T* __restrict__ adj,
   extern __shared__ float smem_f[];  // 16-byte aligned
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
   __shared__ int cnt_live;
+  if constexpr (Epi::kMembers) {  // member blockIdx.z (K5b)
+    const size_t z = blockIdx.z, N = (size_t)gridDim.x * RB;
+    g += z * N * D;
+    wt += z * D * D;
+    dxw += z * N * D;
+    strip_live += z * gridDim.x;
+  }
   const RbSmem L = k5b_smem<T>(S, D, ring);
   int* flags = reinterpret_cast<int*>(smem + L.meta);
   int* node = flags + 2 * L.nch;
@@ -380,19 +411,20 @@ k5b_strip_kernel(const T* __restrict__ g, const T* __restrict__ adj,
   epi(row0, cb, scratch, msk);
 }
 
-// The strip pass over N rows. Its f32 weight ring: where the grid is at
-// most two blocks per SM (the fine-tuning batches), the 96 KB one, a block
-// alone on its SM with the deepest pipeline; else the ring that leaves room
-// for two blocks on an SM (rb_shape_two), so that one block's adjacency
-// scan and products overlap another's (the pretraining batches).
+// The strip pass over N rows of M members. Its f32 weight ring: where the
+// grid is at most two blocks per SM (one fine-tuning batch), the 96 KB
+// one, a block alone on its SM with the deepest pipeline; else the ring
+// that leaves room for two blocks on an SM (rb_shape_two), so that one
+// block's adjacency scan and products overlap another's (the pretraining
+// batches, the members of an ensemble). The ring sets no f32 sum's order.
 template <typename T, typename Epi>
 static int launch_strip_pass(const void* g, const void* adj, const void* cnt,
                              const void* wt, void* dxw, const Epi& epi,
                              int* strip_live, int N, int S, int D,
-                             cudaStream_t st) {
-  const dim3 grid(N / K5B_RB, (D + RCW - 1) / RCW);
+                             cudaStream_t st, int M = 1) {
+  const dim3 grid(N / K5B_RB, (D + RCW - 1) / RCW, M);
   auto bytes = [&](int, int ring) { return k5b_smem<T>(S, D, ring).total; };
-  const RbShape sh = (int)(grid.x * grid.y) <= 2 * sm_count()
+  const RbShape sh = (int)(grid.x * grid.y * grid.z) <= 2 * sm_count()
                          ? rb_shape(K5B_RB, 0, bytes)
                          : rb_shape_two(bytes);
   if (!sh.rb) return (int)cudaErrorInvalidValue;
@@ -409,25 +441,34 @@ static int launch_strip_pass(const void* g, const void* adj, const void* cnt,
 // (ops/fused_gcn.py dw_chunks) and launch_wgrad only checks; times the 64 x
 // 64 tiles of dW; strips with strip_live = 0 skipped) and the sum of the
 // chunk partials in chunk order.
+// M members: every buffer but adj is a stack of M.
 template <typename T>
 static int gcn_bwd(const void* g, const void* x, const void* adj,
                    const void* w, void* wt, void* dxw, void* dx,
                    int* strip_live, float* part_w, float* dw, int T_, int S,
-                   int D, int chunks, int rows_per_chunk, void* stream) {
-  if (T_ <= 0 || S <= 0 || S % R || D <= 0 || chunks <= 0)
+                   int D, int chunks, int rows_per_chunk, int M,
+                   void* stream) {
+  if (T_ <= 0 || S <= 0 || S % R || D <= 0 || chunks <= 0 || M <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int N = T_ * S;
-  int err = launch_transpose<T>(w, wt, D, D, st);
+  const size_t nd = (size_t)N * D;
+  int err = launch_transpose<T>(w, wt, D, D, st, M);
   if (err) return err;
-  err = launch_strip_pass<T>(g, adj, nullptr, wt, dxw,
-                             AdjStore<T>{(T*)dx, D}, strip_live, N, S, D, st);
+  if (M > 1)
+    err = launch_strip_pass<T>(g, adj, nullptr, wt, dxw,
+                               AdjStoreMembers<T>{(T*)dx, D, nd}, strip_live,
+                               N, S, D, st, M);
+  else
+    err = launch_strip_pass<T>(g, adj, nullptr, wt, dxw,
+                               AdjStore<T>{(T*)dx, D}, strip_live, N, S, D,
+                               st);
   if (err) return err;
-  const WProb p = {x, dxw, D, D, 0};
+  const WProb p = {x, dxw, D, D, 0, nd, nd};
   err = launch_wgrad<T>(&p, 1, strip_live, N, rows_per_chunk, chunks, WT,
-                        part_w, D * D, st);
+                        part_w, D * D, st, M);
   if (err) return err;
-  return launch_sum_partials(part_w, dw, chunks, D * D, st);
+  return launch_sum_partials(part_w, dw, chunks, D * D, st, M);
 }
 
 // K3b: the gt pass, W^T, the strip pass with the prologue's adjoint, the
@@ -488,17 +529,18 @@ extern "C" {
                               partial, sums, T_, S, D, relu_in, stream);    \
   }                                                                         \
   int gcn_fwd_##suffix(const void* x, const void* adj, const void* w,       \
-                       void* xw, void* out, int T_, int S, int D,           \
+                       void* xw, void* out, int T_, int S, int D, int M,    \
                        void* stream) {                                      \
-    return fbl::gcn_fwd<T>(x, adj, w, xw, out, T_, S, D, stream);           \
+    return fbl::gcn_fwd<T>(x, adj, w, xw, out, T_, S, D, M, stream);        \
   }                                                                         \
   int gcn_bwd_##suffix(const void* g, const void* x, const void* adj,       \
                        const void* w, void* wt, void* dxw, void* dx,        \
                        int* strip_live, float* part_w, float* dw, int T_,   \
-                       int S, int D, int chunks, int rows_per_chunk,        \
+                       int S, int D, int chunks, int rows_per_chunk, int M, \
                        void* stream) {                                      \
     return fbl::gcn_bwd<T>(g, x, adj, w, wt, dxw, dx, strip_live, part_w,   \
-                           dw, T_, S, D, chunks, rows_per_chunk, stream);   \
+                           dw, T_, S, D, chunks, rows_per_chunk, M,         \
+                           stream);                                         \
   }                                                                         \
   int gcn_bn_bwd_##suffix(                                                  \
       const void* g, const float* ds, const void* x, const float* a,        \

@@ -1,5 +1,6 @@
-// K1f and K1b: BN-chained fused GINE layer, forward and backward, for
-// sm_90a.
+// K1f and K4f: the fused GINE layers' forwards, BN-chained (K1f) and
+// unchained (K4f), for sm_90a; their backwards K1b and K4b are in
+// fused_gine_bwd.cu (its own library, so that the two build in parallel).
 //
 // K1f replaces molclr_tpu/ops/fused_layer.py:_bn_fwd_kernel (the Pallas TPU
 // kernel behind fused_gine_bn_layer). Per node row:
@@ -55,74 +56,12 @@
 // SMs draw on L2 at once); the MLP runs over padded rows of live blocks;
 // no TMA multicast of the weight chunks across a cluster, no wgmma.
 //
-// K1b replaces molclr_tpu/ops/fused_layer.py:_bn_bwd_kernel. Given the
-// output cotangents (g [N, D], dsums [2, D]) and the residuals:
-//   gt    = g + m * (ds0 + 2 out ds1)   (f32; gtc = rnd(gt))
-//   dmid  = (gtc @ W2^T) * [mid > 0]    (dmidc = rnd(dmid))
-//   dagg  = dmidc @ W1^T                (daggc = rnd(dagg))
-//   dx    = A @ daggc                   (A is symmetric: the adjoint of A@)
-//   dpre  = dx * [h a + b > 0 if relu_in]
-//   dh    = rnd(dpre * a)
-//   da = sum dpre h, db = sum dpre, db1 = sum dmid, db2 = sum gt,
-//   dW1 = agg^T dmidc, dW2 = mid^T gtc, detab = cnt^T daggc  (all f32)
-// The TPU kernel holds a whole tile and carries the parameter sums across
-// its sequential grid. Here dx for a strip needs daggc for all rows of its
-// tile, and dagg needs all D2 columns of dmid, so the backward is a chain
-// of launches on one stream, each deterministic, all on the row-block
-// products (fused_bn_common.cuh; FP32 FMA in f32, mma.sync m16n8k16 tensor
-// cores with f32 sums in bf16):
-//   * W1^T and W2^T, transposed once so that their rows stream;
-//   * the dmid launch, one block per (16-row strip, 128-column slice of
-//     dmid): gt and gtc for the strip's rows, then its slice of dmidc and
-//     of the strip's db1 partial (gine_bwd_dmid_kernel); the slice-0 block
-//     writes gtc, the db2 partial and the strip's live flag (0 when every
-//     gt value of the strip is exactly zero, padding rows included);
-//   * the dagg launch, one block per (strip, 128-column slice of dagg):
-//     daggc = rnd(dmidc @ W1^T) (gine_bwd_dagg_kernel);
-//   * the adjacency pass, K5f's (adj_pass_kernel, 16-row strips): dx =
-//     A_strip @ daggc over the strip's live 32-column chunks only, then the
-//     prologue adjoint, dh and the strip's [da | db] partials (BnAdjoint);
-//   * the weight pass (wgrad_kernel): dW1, dW2 and detab as three
-//     transposed-left problems of one launch over row chunks, strips whose
-//     flag is 0 skipped;
-// and every partial is added in a fixed order (sum_partials). Dead strips
-// (flag 0) write zeros in the dmid and dagg launches with no product. No
-// atomics: two runs are bit-identical. In f32 each output is one thread's
-// sum in the first design's order (products over k ascending; db1 and the
-// [da | db] partials each group of four rows, then the groups; db2 one
-// thread per column, rows ascending; the weight pass's chunks of at most
-// 1,024 rows, rows ascending), and a skipped term is an exact zero, so the
-// f32 results are bit-identical to the first design's (strip passes of 4
-// x 4 FMA tiles on CUDA cores, a dense adjacency strip, a weight pass over
-// the same row chunks).
-//
-// Bound on the H100 at the pretraining shape (T = 22, D = 300, 4,696 real
-// rows of 5,632, f32): four dense products over the real rows, 4 x 2 x
-// 4,696 x 300 x 600 = 6.8 GFLOP, plus A @ daggc and cnt^T daggc by their
-// nonzeros, against about 40 MB moved: 0.10 ms at 67 TFLOP/s. In bf16 the
-// bytes set the bound (about 7 us). What still holds it back (PERF.md):
-// the f32 weight pass, the largest launch, issues FMA on X and Y slabs that
-// every output tile re-reads; the f32 products of row blocks are bound by
-// shared-memory loads and cover the padded rows of live strips; dmidc, gtc
-// and daggc round-trip device memory (L2) between the launches; no wgmma,
-// no TMA. The f32 sums keep the first design's order (ROADMAP queue 2),
-// which rules out split-K and TF32.
-
-// K4f and K4b replace molclr_tpu/ops/fused_layer.py:_fwd_kernel and
-// _bwd_kernel, the unchained layer fused_gine_layer that the fine-tuning
-// trunk runs (drop_ratio > 0: BatchNorm, relu and dropout run outside):
+// K4f replaces molclr_tpu/ops/fused_layer.py:_fwd_kernel, the unchained
+// layer fused_gine_layer that the fine-tuning trunk runs (drop_ratio > 0:
+// BatchNorm, relu and dropout run outside):
 //   agg = rnd(A @ h + cnt @ etab), mid = rnd(relu(agg @ W1 + b1)),
-//   out = rnd(mid @ W2 + b2), with agg and mid written as residuals;
-//   dmid = (g @ W2^T) * [mid > 0], dagg = rnd(rnd(dmid) @ W1^T),
-//   dh = rnd(A @ daggc), dW1 = agg^T dmidc, db1 = sum dmid,
-//   dW2 = mid^T g, db2 = sum g, detab = cnt^T daggc.
-// K4b is K1b's launches instantiated with BN = false (gt = g with no dsums
-// term, no prologue adjoint: its adjacency pass writes dh = rnd(dx), K5f's
-// function); nothing of BatchNorm is computed. At the fine-tuning shape (T
-// = 4) the dmid launch runs 64 x 5 = 320 blocks of 16 rows, the dagg and
-// adjacency launches 64 x 3, and the f32 weight pass (one 1,024-row chunk)
-// 32 x 64 output tiles, 200 blocks, so that each launch reaches the 132
-// SMs (the 40 live strips' 120 dagg and adjacency blocks excepted).
+//   out = rnd(mid @ W2 + b2), with agg and mid written as residuals.
+// Its backward K4b, and K1b, are in fused_gine_bwd.cu.
 //
 // K4f is two row-block launches (k4f_mid_kernel, k4f_out_kernel) of
 // 16-row blocks with the 64 KB f32 weight ring, so that two blocks share
@@ -165,14 +104,25 @@ namespace fbl {
 // list, the node mask, the region X (stage 1's operand [A live chunks | cnt
 // rows], then mid), the agg operand and the pass scratch with the f32
 // weight ring `ring` (k1f_smem).
+//
+// Where not even a 16-row block holds mid [16, D2] beside agg (f32 above
+// about D = 1,037 at S = 128, bf16 about D2 = 4,000), K1f splits as K4f
+// does (k1f_split_shape): the block kernel with SPLIT stops after stage 2
+// and writes mid to device memory (the caller's scratch when it wants no
+// residuals), and k1f_out_kernel, one block per (16-row strip, 128-column
+// slice), computes out = rnd(mid @ W2 + b2) with mid streamed through
+// shared memory in K-chunks where it does not fit whole (rb_pass_streamed),
+// and the strip's moment partials for its columns in stage 3's order. Dead
+// rows run the product on their rnd(relu(b1)) rows, which in f32 gives the
+// dead row's bits (one thread's sum from 0 over k ascending).
 constexpr int K1F_RB = 32;
 
 template <typename T>
 __host__ __device__ inline RbSmem k1f_smem(int S, int D, int D2, int rb,
-                                           int ring) {
+                                           int ring, bool split = false) {
   const int nch = (S + ACW - 1) / ACW, maxc = (S % rb ? 2 : 1) * nch;
   const size_t x = a_bytes<T>(rb, maxc * ACW + CNT_PAD);
-  const size_t m = a_bytes<T>(rb, D2);
+  const size_t m = split ? 0 : a_bytes<T>(rb, D2);
   return rb_smem(S, maxc, x > m ? x : m, a_bytes<T>(rb, D),
                  pass_bytes<T>(rb, ring));
 }
@@ -186,6 +136,27 @@ template <typename T>
 static RbShape k1f_launch_shape(int S, int D, int D2) {
   return rb_shape(K1F_RB, 0, [&](int rb, int ring) {
     return k1f_smem<T>(S, D, D2, rb, ring).total;
+  });
+}
+
+// K4f's out launch (also K1f's split out launch): the [16, D2] mid rows
+// (ka columns of them where they stream) and the pass scratch.
+template <typename T>
+__host__ __device__ inline RbSmem k4f_out_smem(int D2, int ring) {
+  return rb_smem(0, 0, a_bytes<T>(R, D2), 0, pass_bytes<T>(R, ring));
+}
+
+// The split K1f where k1f_launch_shape finds no block: (block launch, out
+// launch), rb = 0 in either where it cannot launch.
+template <typename T>
+static void k1f_split_shape(int S, int D, int D2, RbShape* a, RbShape* b) {
+  *a = rb_shape(R, 0, [&](int, int ring) {
+    return k1f_smem<T>(S, D, D2, R, ring, true).total;
+  });
+  *b = rb_stream(D2, [&](int ka) {
+    return rb_shape(R, 1, [&](int, int rg) {
+      return k4f_out_smem<T>(ka, rg).total;
+    });
   });
 }
 
@@ -212,7 +183,7 @@ k1f_dead_row_kernel(const float* __restrict__ b1, const T* __restrict__ w2,
 // 128 registers so that two run on an SM (the pretraining shape's 150 live
 // blocks then take one round of the 132 SMs, for some register spills);
 // f32 blocks (217 KB) run one to an SM.
-template <typename T, int RB>
+template <typename T, int RB, bool SPLIT = false>
 __global__ void __launch_bounds__(RNT, sizeof(T) == 2 ? 2 : 1)
 k1f_kernel(const T* __restrict__ h, const float* __restrict__ a,
            const float* __restrict__ b, const T* __restrict__ adj,
@@ -226,7 +197,7 @@ k1f_kernel(const T* __restrict__ h, const float* __restrict__ a,
   extern __shared__ float smem_f[];  // 16-byte aligned
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
   __shared__ int cnt_live;
-  const RbSmem L = k1f_smem<T>(S, D, D2, RB, ring);
+  const RbSmem L = k1f_smem<T>(S, D, D2, RB, ring, SPLIT);
   int* flags = reinterpret_cast<int*>(smem + L.meta);
   int* node = flags + 2 * L.nch;
   int* width = node + L.maxc;
@@ -249,15 +220,17 @@ k1f_kernel(const T* __restrict__ h, const float* __restrict__ a,
   if (nlive == 0 && !clive) {
     // A dead block: agg = 0, so every row is mid = rnd(relu(b1)) and the
     // constant row out = rnd(mid @ W2 + b2) that k1f_dead_row_kernel left
-    // in dead_row; zero moment partials (no row is a node).
+    // in dead_row; zero moment partials (no row is a node). SPLIT: agg and
+    // mid only (k1f_out_kernel computes out and the partials).
     for (int e = tid; e < nrows * D; e += RNT) {
-      st(out, row0 * D + e, dead_row[e % D]);
+      if (!SPLIT) st(out, row0 * D + e, dead_row[e % D]);
       if (agg_out) st(agg_out, row0 * D + e, 0.f);
     }
     if (mid_out)
       for (int e = tid; e < nrows * D2; e += RNT)
         st(mid_out, row0 * D2 + e, rnd<T>(fmaxf(b1[e % D2], 0.f)));
-    for (int e = tid; e < (nrows / R) * 2 * D; e += RNT) prow[e] = 0.f;
+    if (!SPLIT)
+      for (int e = tid; e < (nrows / R) * 2 * D; e += RNT) prow[e] = 0.f;
     return;
   }
 
@@ -293,8 +266,8 @@ k1f_kernel(const T* __restrict__ h, const float* __restrict__ a,
   }
 
   // stage 2: mid = rnd(relu(agg @ W1 + b1)) into region X (stage 1's
-  // operand is dead)
-  a_zero_cols<RB>(xa, lda3, D2, D2);
+  // operand is dead); SPLIT: to mid_out only
+  if (!SPLIT) a_zero_cols<RB>(xa, lda3, D2, D2);
   for (int c0 = 0; c0 < D2; c0 += RCW) {
     rb_pass_wr<T, RB>(ring, ga, lda2, D, c0, D2, scratch, w1, D2);
     for (int e = tid; e < RB * RCW; e += RNT) {
@@ -306,8 +279,9 @@ k1f_kernel(const T* __restrict__ h, const float* __restrict__ a,
       }
     }
     __syncthreads();
-    cs_to_a<RB>(xa, lda3, c0, D2, scratch);
+    if (!SPLIT) cs_to_a<RB>(xa, lda3, c0, D2, scratch);
   }
+  if (SPLIT) return;
 
   // stage 3: out = rnd(mid @ W2 + b2) and the masked moments of the cast
   // out, summed over the block's rows in row order
@@ -344,6 +318,61 @@ k1f_kernel(const T* __restrict__ h, const float* __restrict__ a,
   }
 }
 
+// The split K1f's out launch: out = rnd(mid @ W2 + b2) for the strip's
+// slice of columns, mid held whole or (STREAM) ka columns at a time, and the
+// strip's moment partials [sum m out, sum m out^2] of the cast out for
+// those columns at row blockIdx.x of partial [N / 16, 2 D], each group of
+// four rows summed, then the groups in order (stage 3's order).
+template <typename T, bool STREAM>
+__global__ void __launch_bounds__(RNT, 2)
+k1f_out_kernel(const T* __restrict__ mid, const T* __restrict__ adj,
+               const T* __restrict__ w2, const float* __restrict__ b2,
+               T* __restrict__ out, float* __restrict__ partial, int S, int D,
+               int D2, int ring, int ka) {
+  extern __shared__ float smem_f[];  // 16-byte aligned
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  const RbSmem L = k4f_out_smem<T>(STREAM ? ka : D2, ring);
+  float* msk = reinterpret_cast<float*>(smem + L.msk);
+  T* ma = reinterpret_cast<T*>(smem + L.op0);
+  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
+  const int tid = threadIdx.x;
+  const size_t row0 = (size_t)blockIdx.x * R;
+  const int cb = blockIdx.y * RCW;  // this block's slice of out
+  if (tid < R) {
+    const size_t r = row0 + tid;
+    msk[tid] = ld(adj, r * S + r % S) > 0.f ? 1.f : 0.f;
+  }
+  rb_pass_streamed<T, R, STREAM>(ring, ka, ma, mid, row0, R, D2, cb, D,
+                                 scratch, w2, D);
+  for (int e = tid; e < R * RCW; e += RNT) {
+    const int r = e / RCW, j = e % RCW, c = cb + j;
+    if (c < D) {
+      const float v = rnd<T>(scratch[r * CS + j] + b2[c]);
+      scratch[r * CS + j] = v;
+      st(out, (row0 + r) * D + c, v);
+    }
+  }
+  __syncthreads();
+  const int c = cb + tid;
+  if (tid < RCW && c < D) {
+    float t0 = 0.f, t1 = 0.f;
+    for (int w = 0; w < 4; ++w) {
+      float s0 = 0.f, s1 = 0.f;
+      for (int i = 0; i < 4; ++i) {
+        const int r = 4 * w + i;
+        const float v = scratch[r * CS + tid], ob = v * msk[r];
+        s0 += ob;
+        s1 += ob * v;
+      }
+      t0 += s0;
+      t1 += s1;
+    }
+    float* prow = partial + (size_t)blockIdx.x * 2 * D;
+    prow[c] = t0;
+    prow[D + c] = t1;
+  }
+}
+
 // K4f: two launches of 16-row blocks (k4f_launch_shape: the 64 KB f32
 // ring, the 32 KB one where shared memory does not fit).
 //   k4f_mid_kernel, one block per (row block, 128-column slice of mid):
@@ -355,6 +384,15 @@ k1f_kernel(const T* __restrict__ h, const float* __restrict__ a,
 //   k4f_out_kernel, one block per (row block, 128-column slice of out):
 //     its mid rows as the operand, out = rnd(mid @ W2 + b2). Dead rows run
 //     the product on their rnd(relu(b1)) rows, as the first design did.
+//     Where [16, D2] mid rows do not fit in shared memory (f32 above about
+//     D2 = 3,000) they stream in K-chunks (rb_pass_streamed).
+// Members (MEM, where M > 1). Grid z is the member m of a stack of M
+// layers that share the adjacency and the counts (the JAX package's
+// vmapped pallas_call over a seed / target ensemble): h, etab, W1, b1, W2,
+// b2, agg, mid and out are m's, N x D, CNT_PAD x D, D x D2, D2, D2 x D, D,
+// N x D, N x D2 and N x D elements apart, and m's blocks do the one-layer
+// launch's arithmetic; the one-layer instantiation (not MEM) compiles
+// without the member offsets.
 template <typename T>
 __host__ __device__ inline RbSmem k4f_mid_smem(int S, int D, int ring) {
   const int nch = (S + ACW - 1) / ACW;
@@ -362,13 +400,8 @@ __host__ __device__ inline RbSmem k4f_mid_smem(int S, int D, int ring) {
                  a_bytes<T>(R, D), pass_bytes<T>(R, ring));
 }
 
-template <typename T>
-__host__ __device__ inline RbSmem k4f_out_smem(int D2, int ring) {
-  return rb_smem(0, 0, a_bytes<T>(R, D2), 0, pass_bytes<T>(R, ring));
-}
-
 // (two blocks an SM by registers; shared memory decides the rest)
-template <typename T>
+template <typename T, bool MEM>
 __global__ void __launch_bounds__(RNT, 2)
 k4f_mid_kernel(const T* __restrict__ h, const T* __restrict__ adj,
                const T* __restrict__ cnt, const T* __restrict__ etab,
@@ -378,6 +411,15 @@ k4f_mid_kernel(const T* __restrict__ h, const T* __restrict__ adj,
   extern __shared__ float smem_f[];  // 16-byte aligned
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
   __shared__ int cnt_live;
+  if constexpr (MEM) {  // member blockIdx.z (N = gridDim.x * 16 rows)
+    const size_t z = blockIdx.z, N = (size_t)gridDim.x * R;
+    h += z * N * D;
+    etab += z * CNT_PAD * D;
+    w1 += z * D * D2;
+    b1 += z * D2;
+    mid += z * N * D2;
+    if (agg_out) agg_out += z * N * D;
+  }
   const RbSmem L = k4f_mid_smem<T>(S, D, ring);
   int* flags = reinterpret_cast<int*>(smem + L.meta);
   int* node = flags + 2 * L.nch;
@@ -439,21 +481,27 @@ k4f_mid_kernel(const T* __restrict__ h, const T* __restrict__ adj,
   }
 }
 
-template <typename T>
+template <typename T, bool MEM, bool STREAM>
 __global__ void __launch_bounds__(RNT, 2)
 k4f_out_kernel(const T* __restrict__ mid, const T* __restrict__ w2,
                const float* __restrict__ b2, T* __restrict__ out, int D,
-               int D2, int ring) {
+               int D2, int ring, int ka) {
   extern __shared__ float smem_f[];  // 16-byte aligned
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
-  const RbSmem L = k4f_out_smem<T>(D2, ring);
+  if constexpr (MEM) {  // member blockIdx.z
+    const size_t z = blockIdx.z, N = (size_t)gridDim.x * R;
+    mid += z * N * D2;
+    w2 += z * D2 * D;
+    b2 += z * D;
+    out += z * N * D;
+  }
+  const RbSmem L = k4f_out_smem<T>(STREAM ? ka : D2, ring);
   T* ma = reinterpret_cast<T*>(smem + L.op0);
   float* scratch = reinterpret_cast<float*>(smem + L.scratch);
   const size_t row0 = (size_t)blockIdx.x * R;
   const int cb = blockIdx.y * RCW;  // this block's slice of out
-  const int lda = a_lda(D2);
-  rows_to_a<R>(ma, lda, mid, row0, R, D2);
-  rb_pass_wr<T, R>(ring, ma, lda, D2, cb, D, scratch, w2, D);
+  rb_pass_streamed<T, R, STREAM>(ring, ka, ma, mid, row0, R, D2, cb, D,
+                                 scratch, w2, D);
   for (int e = threadIdx.x; e < R * RCW; e += RNT) {
     const int r = e / RCW, j = e % RCW, c = cb + j;
     if (c < D)
@@ -462,174 +510,54 @@ k4f_out_kernel(const T* __restrict__ mid, const T* __restrict__ w2,
 }
 
 // K4f's f32 ring for its mid launch (0) or out launch (1): the 64 KB one,
-// or the 32 KB one where that does not fit.
+// or the 32 KB one where that does not fit; the out launch streams mid in
+// K-chunks where neither fits it whole.
 template <typename T>
 static RbShape k4f_launch_shape(int launch, int S, int D, int D2) {
-  return rb_shape(R, 1, [&](int, int rg) {
-    return launch == 0 ? k4f_mid_smem<T>(S, D, rg).total
-                       : k4f_out_smem<T>(D2, rg).total;
+  if (launch == 0)
+    return rb_shape(R, 1, [&](int, int rg) {
+      return k4f_mid_smem<T>(S, D, rg).total;
+    });
+  return rb_stream(D2, [&](int ka) {
+    return rb_shape(R, 1, [&](int, int rg) {
+      return k4f_out_smem<T>(ka, rg).total;
+    });
   });
-}
-
-// K1b's and K4b's row passes, blocks of RNT threads on one 16-row strip
-// (BN: K1b).
-//   gine_bwd_dmid_kernel, one block per (strip, 128-column slice of dmid):
-//     gt for its rows over all D columns (K1b: g + m (ds0 + 2 out ds1), each
-//     operation rounded as the plain version rounds it; K4b: g) as the
-//     left operand gtc = rnd(gt) in shared memory; its slice of dmid =
-//     (gtc @ W2^T) [mid > 0] through the weight ring, dmidc = rnd(dmid), and
-//     the strip's db1 partial for the slice, its rows summed as the first
-//     design summed them (each group of four rows, then the groups in
-//     order). The slice-0 block writes gtc (K1b), the strip's db2 partial
-//     (one thread per column, rows ascending) and its live flag: 0 when
-//     every gt value of the strip is exactly zero, whatever its rows are (a
-//     padding row's g counts). A dead strip's blocks write dmidc = 0 and
-//     zero db1 partials and stop.
-//   gine_bwd_dagg_kernel, one block per (strip, 128-column slice of dagg):
-//     dmidc's rows as the operand, daggc = rnd(dmidc @ W1^T); a dead
-//     strip's blocks write zeros.
-// w1t [D2, D] and w2t [D, D2] are W1^T and W2^T, so that their rows
-// stream.
-template <typename T>
-__host__ __device__ inline RbSmem gine_bwd_dmid_smem(int D, int ring) {
-  return rb_smem(0, 0, a_bytes<T>(R, D), 0, pass_bytes<T>(R, ring));
-}
-
-template <typename T>
-__host__ __device__ inline RbSmem gine_bwd_dagg_smem(int D2, int ring) {
-  return rb_smem(0, 0, a_bytes<T>(R, D2), 0, pass_bytes<T>(R, ring));
-}
-
-template <typename T, bool BN>
-__global__ void __launch_bounds__(RNT, 2)
-gine_bwd_dmid_kernel(const T* __restrict__ g, const float* __restrict__ ds,
-                     const T* __restrict__ adj, const T* __restrict__ mid,
-                     const T* __restrict__ out, const T* __restrict__ w2t,
-                     T* __restrict__ gtc, T* __restrict__ dmidc,
-                     int* __restrict__ strip_live,
-                     float* __restrict__ partial, int S, int D, int D2,
-                     int ring) {
-  extern __shared__ float smem_f[];  // 16-byte aligned
-  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
-  __shared__ int live;
-  const RbSmem L = gine_bwd_dmid_smem<T>(D, ring);
-  float* msk = reinterpret_cast<float*>(smem + L.msk);
-  T* ga = reinterpret_cast<T*>(smem + L.op0);
-  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
-  const int tid = threadIdx.x;
-  const size_t row0 = (size_t)blockIdx.x * R;
-  const int cb = blockIdx.y * RCW;  // this block's slice of dmid
-  const bool first = blockIdx.y == 0;
-  // the strip's [db1 | db2] partials
-  float* prow = partial + (size_t)blockIdx.x * (D2 + D);
-  const int lda = a_lda(D);
-  if (tid == 0) live = 0;
-  if (BN && tid < R) {
-    const size_t r = row0 + tid;
-    msk[tid] = ld(adj, r * S + r % S) > 0.f ? 1.f : 0.f;
-  }
-  a_zero_cols<R>(ga, lda, D, D);
-  __syncthreads();
-  for (int c = tid; c < D; c += RNT) {
-    float v[R];
-    float s = 0.f;
-    bool nz = false;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const size_t e = (row0 + r) * D + c;
-      float gt;
-      if constexpr (BN) {
-        const float t =
-            __fadd_rn(ds[c], __fmul_rn(2.f * ld(out, e), ds[D + c]));
-        gt = __fadd_rn(ld(g, e), msk[r] * t);
-        v[r] = rnd<T>(gt);
-        if (first) st(gtc, e, v[r]);
-      } else {
-        gt = v[r] = ld(g, e);
-      }
-      s += gt;
-      nz |= gt != 0.f;
-    }
-    if (first) prow[D2 + c] = s;
-    if (nz) live = 1;
-    // column c of the operand: k-major in f32 (R consecutive floats,
-    // stored as float4), row-major in bf16
-    if constexpr (sizeof(T) == 4) {
-      float4* a4 = reinterpret_cast<float4*>(ga) + (size_t)c * (R / 4);
-#pragma unroll
-      for (int q = 0; q < R / 4; ++q)
-        a4[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-    } else {
-#pragma unroll
-      for (int r = 0; r < R; ++r) a_put<R>(ga, lda, r, c, v[r]);
-    }
-  }
-  __syncthreads();
-  if (first && tid == 0) strip_live[blockIdx.x] = live;
-  // thread tid < RCW: column cb + tid of the strip's db1 partial
-  const int pc = cb + tid;
-  const bool pown = tid < RCW && pc < D2;
-  if (!live) {
-    for (int e = tid; e < R * RCW; e += RNT) {
-      const int r = e / RCW, c = cb + e % RCW;
-      if (c < D2) st(dmidc, (row0 + r) * D2 + c, 0.f);
-    }
-    if (pown) prow[pc] = 0.f;
-    return;
-  }
-  rb_pass_wr<T, R>(ring, ga, lda, D, cb, D2, scratch, w2t, D2);
-  for (int e = tid; e < R * RCW; e += RNT) {
-    const int r = e / RCW, j = e % RCW, c = cb + j;
-    if (c < D2) {
-      const size_t i = (row0 + r) * D2 + c;
-      const float dm = ld(mid, i) > 0.f ? scratch[r * CS + j] : 0.f;
-      scratch[r * CS + j] = dm;
-      st(dmidc, i, dm);
-    }
-  }
-  __syncthreads();
-  if (pown) {
-    float t = 0.f;
-    for (int w = 0; w < 4; ++w) {
-      float s = 0.f;
-      for (int i = 0; i < 4; ++i) s += scratch[(4 * w + i) * CS + tid];
-      t += s;
-    }
-    prow[pc] = t;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(RNT, 2)
-gine_bwd_dagg_kernel(const T* __restrict__ dmidc, const T* __restrict__ w1t,
-                     const int* __restrict__ strip_live,
-                     T* __restrict__ daggc, int D, int D2, int ring) {
-  extern __shared__ float smem_f[];  // 16-byte aligned
-  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
-  const RbSmem L = gine_bwd_dagg_smem<T>(D2, ring);
-  T* ma = reinterpret_cast<T*>(smem + L.op0);
-  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
-  const size_t row0 = (size_t)blockIdx.x * R;
-  const int cb = blockIdx.y * RCW;  // this block's slice of dagg
-  if (!strip_live[blockIdx.x]) {
-    for (int e = threadIdx.x; e < R * RCW; e += RNT) {
-      const int r = e / RCW, c = cb + e % RCW;
-      if (c < D) st(daggc, (row0 + r) * D + c, 0.f);
-    }
-    return;
-  }
-  const int lda = a_lda(D2);
-  rows_to_a<R>(ma, lda, dmidc, row0, R, D2);
-  rb_pass_wr<T, R>(ring, ma, lda, D2, cb, D, scratch, w1t, D);
-  for (int e = threadIdx.x; e < R * RCW; e += RNT) {
-    const int r = e / RCW, j = e % RCW, c = cb + j;
-    if (c < D) st(daggc, (row0 + r) * D + c, scratch[r * CS + j]);
-  }
 }
 
 // K1f: the dead blocks' constant row, the row-block kernel, then the
 // fixed-order sum of the moment partials of its N / 16 strips. partial
-// holds N / 16 + 1 rows of [2, D]: the last keeps the constant row.
+// holds N / 16 + 1 rows of [2, D]: the last keeps the constant row. Where
+// no block fits (k1f_launch_shape), the split design: the SPLIT block
+// kernel writes mid (not null: the caller's scratch without residuals),
+// k1f_out_kernel out and the partials, then the same sum.
+template <typename T>
+static int gine_bn_fwd_split(const void* h, const float* a, const float* b,
+                             const void* adj, const void* cnt,
+                             const void* etab, const void* w1,
+                             const float* b1, const void* w2,
+                             const float* b2, void* out, void* agg, void* mid,
+                             float* partial, float* sums, int N, int S,
+                             int D, int D2, int relu_in, cudaStream_t st) {
+  RbShape sa, sb;
+  k1f_split_shape<T>(S, D, D2, &sa, &sb);
+  if (!sa.rb || !sb.rb || !mid) return (int)cudaErrorInvalidValue;
+  cudaError_t e = set_smem(k1f_kernel<T, R, true>, sa.bytes);
+  if (e != cudaSuccess) return (int)e;
+  k1f_kernel<T, R, true><<<N / R, RNT, sa.bytes, st>>>(
+      (const T*)h, a, b, (const T*)adj, (const T*)cnt, (const T*)etab,
+      (const T*)w1, b1, (const T*)w2, b2, (T*)out, (T*)agg, (T*)mid, partial,
+      nullptr, N, S, D, D2, relu_in, sa.ring);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  auto outk = sb.ka ? k1f_out_kernel<T, true> : k1f_out_kernel<T, false>;
+  if ((e = set_smem(outk, sb.bytes)) != cudaSuccess) return (int)e;
+  outk<<<dim3(N / R, (D + RCW - 1) / RCW), RNT, sb.bytes, st>>>(
+      (const T*)mid, (const T*)adj, (const T*)w2, b2, (T*)out, partial, S, D,
+      D2, sb.ring, sb.ka);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  return launch_sum_partials(partial, sums, N / R, 2 * D, st);
+}
+
 template <typename T>
 static int gine_bn_fwd(const void* h, const float* a, const float* b,
                        const void* adj, const void* cnt, const void* etab,
@@ -640,13 +568,16 @@ static int gine_bn_fwd(const void* h, const float* a, const float* b,
   if (T_ <= 0 || S <= 0 || S % R || D <= 0 || D2 <= 0)
     return (int)cudaErrorInvalidValue;
   const int N = T_ * S;
+  cudaStream_t st = (cudaStream_t)stream;
   const RbShape shape = k1f_launch_shape<T>(S, D, D2);
-  if (!shape.rb) return (int)cudaErrorInvalidValue;
+  if (!shape.rb)
+    return gine_bn_fwd_split<T>(h, a, b, adj, cnt, etab, w1, b1, w2, b2, out,
+                                agg, mid, partial, sums, N, S, D, D2,
+                                relu_in, st);
   const int nblk = (N + shape.rb - 1) / shape.rb;
   auto kernel = shape.rb == K1F_RB ? k1f_kernel<T, K1F_RB> : k1f_kernel<T, R>;
   cudaError_t e = set_smem(kernel, shape.bytes);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = (cudaStream_t)stream;
   float* dead_row = partial + (size_t)(N / R) * 2 * D;
   k1f_dead_row_kernel<T><<<(D + RNT - 1) / RNT, RNT, 0, st>>>(
       b1, (const T*)w2, b2, dead_row, D, D2);
@@ -659,120 +590,54 @@ static int gine_bn_fwd(const void* h, const float* a, const float* b,
   return launch_sum_partials(partial, sums, N / R, 2 * D, st);
 }
 
-// K4f: the mid launch, then the out launch. mid is written in full (the
+// K4f of M members (stacked as k4f_mid_kernel says; M = 1: one layer):
+// the mid launch, then the out launch. mid is written in full (the
 // caller's scratch when it wants no residuals); agg only when not null.
 template <typename T>
 static int gine_fwd(const void* h, const void* adj, const void* cnt,
                     const void* etab, const void* w1, const float* b1,
                     const void* w2, const float* b2, void* out, void* agg,
-                    void* mid, int T_, int S, int D, int D2, void* stream) {
-  if (T_ <= 0 || S <= 0 || S % R || D <= 0 || D2 <= 0 || !mid)
+                    void* mid, int T_, int S, int D, int D2, int M,
+                    void* stream) {
+  if (T_ <= 0 || S <= 0 || S % R || D <= 0 || D2 <= 0 || M <= 0 || !mid)
     return (int)cudaErrorInvalidValue;
   const int N = T_ * S;
   cudaStream_t st = (cudaStream_t)stream;
   const RbShape a = k4f_launch_shape<T>(0, S, D, D2);
   const RbShape b = k4f_launch_shape<T>(1, S, D, D2);
   if (!a.rb || !b.rb) return (int)cudaErrorInvalidValue;
-  cudaError_t e = set_smem(k4f_mid_kernel<T>, a.bytes);
+  const bool mem = M > 1;
+  auto midk = mem ? k4f_mid_kernel<T, true> : k4f_mid_kernel<T, false>;
+  auto outk = mem ? (b.ka ? k4f_out_kernel<T, true, true>
+                          : k4f_out_kernel<T, true, false>)
+                  : (b.ka ? k4f_out_kernel<T, false, true>
+                          : k4f_out_kernel<T, false, false>);
+  cudaError_t e = set_smem(midk, a.bytes);
   if (e != cudaSuccess) return (int)e;
-  k4f_mid_kernel<T><<<dim3(N / R, (D2 + RCW - 1) / RCW), RNT, a.bytes, st>>>(
+  midk<<<dim3(N / R, (D2 + RCW - 1) / RCW, M), RNT, a.bytes, st>>>(
       (const T*)h, (const T*)adj, (const T*)cnt, (const T*)etab,
       (const T*)w1, b1, (T*)agg, (T*)mid, S, D, D2, a.ring);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if ((e = set_smem(k4f_out_kernel<T>, b.bytes)) != cudaSuccess) return (int)e;
-  k4f_out_kernel<T><<<dim3(N / R, (D + RCW - 1) / RCW), RNT, b.bytes, st>>>(
-      (const T*)mid, (const T*)w2, b2, (T*)out, D, D2, b.ring);
+  if ((e = set_smem(outk, b.bytes)) != cudaSuccess) return (int)e;
+  outk<<<dim3(N / R, (D + RCW - 1) / RCW, M), RNT, b.bytes, st>>>(
+      (const T*)mid, (const T*)w2, b2, (T*)out, D, D2, b.ring, b.ka);
   return (int)cudaGetLastError();
-}
-
-// K1b (BN) or K4b: W1^T and W2^T, the dmid, dagg and adjacency passes, the
-// weight pass and the fixed-order sums. Scratch: w1t [D2, D], w2t [D, D2],
-// gtc (K1b), daggc [N, D], dmidc [N, D2] (T), strip_live [N / 16] and the
-// partials part_rows [N / 16, D2 + D], part_adj [N / 16, 2 D] (K1b),
-// part_w [chunks, width]. Outputs: dh [N, D] (T); sums_rows [D2 + D] =
-// [db1 | db2]; sums_adj [2 D] = [da | db] (K1b); wgrad [width = D*D2 +
-// D2*D + CNT_PAD*D] = [dW1 | dW2 | detab] (f32). The weight pass's chunks,
-// rows per chunk and tile rows are the caller's (ops/fused_layer.py
-// gine_bwd_weight_shape; launch_wgrad checks them). K4b passes null for ds,
-// h, a, b, out, gtc, part_adj and sums_adj, and its dW2 multiplies g
-// itself.
-template <typename T, bool BN>
-static int gine_bwd(const void* g, const float* ds, const void* h,
-                    const float* a, const float* b, const void* adj,
-                    const void* cnt, const void* agg, const void* mid,
-                    const void* out, const void* w1, const void* w2,
-                    void* w1t, void* w2t, void* gtc, void* dmidc, void* daggc,
-                    int* strip_live, float* part_rows, float* part_adj,
-                    float* part_w, void* dh, float* sums_rows,
-                    float* sums_adj, float* wgrad, int T_, int S, int D,
-                    int D2, int relu_in, int chunks, int rows_per_chunk,
-                    int tile_rows, void* stream) {
-  if (T_ <= 0 || S <= 0 || S % R || D <= 0 || D2 <= 0 || chunks <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int N = T_ * S, nstrip = N / R;
-  cudaStream_t st = (cudaStream_t)stream;
-  const RbShape sm = rb_shape_two([&](int, int rg) {
-    return gine_bwd_dmid_smem<T>(D, rg).total;
-  });
-  const RbShape sa = rb_shape_two([&](int, int rg) {
-    return gine_bwd_dagg_smem<T>(D2, rg).total;
-  });
-  if (!sm.rb || !sa.rb) return (int)cudaErrorInvalidValue;
-
-  int err = launch_transpose<T>(w1, w1t, D, D2, st);
-  if (err) return err;
-  if ((err = launch_transpose<T>(w2, w2t, D2, D, st))) return err;
-
-  cudaError_t e = set_smem(gine_bwd_dmid_kernel<T, BN>, sm.bytes);
-  if (e != cudaSuccess) return (int)e;
-  gine_bwd_dmid_kernel<T, BN>
-      <<<dim3(nstrip, (D2 + RCW - 1) / RCW), RNT, sm.bytes, st>>>(
-      (const T*)g, ds, (const T*)adj, (const T*)mid, (const T*)out,
-      (const T*)w2t, (T*)gtc, (T*)dmidc, strip_live, part_rows, S, D, D2,
-      sm.ring);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if ((e = set_smem(gine_bwd_dagg_kernel<T>, sa.bytes)) != cudaSuccess)
-    return (int)e;
-  gine_bwd_dagg_kernel<T>
-      <<<dim3(nstrip, (D + RCW - 1) / RCW), RNT, sa.bytes, st>>>(
-      (const T*)dmidc, (const T*)w1t, strip_live, (T*)daggc, D, D2, sa.ring);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  if constexpr (BN)
-    err = launch_adj_pass<T>(
-        daggc, adj,
-        BnAdjoint<T>{(const T*)h, a, b, (T*)dh, nullptr, part_adj, D,
-                     relu_in},
-        N, S, D, st);
-  else
-    err = launch_adj_pass<T>(daggc, adj, AdjStore<T>{(T*)dh, D}, N, S, D,
-                             st);
-  if (err) return err;
-
-  const int width = 2 * D * D2 + CNT_PAD * D;
-  const WProb p[3] = {{agg, dmidc, D, D2, 0},
-                      {mid, BN ? (const void*)gtc : g, D2, D, D * D2},
-                      {cnt, daggc, CNT_PAD, D, 2 * D * D2}};
-  err = launch_wgrad<T>(p, 3, strip_live, N, rows_per_chunk, chunks,
-                        tile_rows, part_w, width, st);
-  if (err) return err;
-
-  if ((err = launch_sum_partials(part_rows, sums_rows, nstrip, D2 + D, st)))
-    return err;
-  if constexpr (BN) {
-    err = launch_sum_partials(part_adj, sums_adj, nstrip, 2 * D, st);
-    if (err) return err;
-  }
-  return launch_sum_partials(part_w, wgrad, chunks, width, st);
 }
 
 }  // namespace fbl
 
 extern "C" {
 
-// K1f: gine_bn_fwd_*, and the rows per block it launches with at a shape
-// (0 where it cannot launch), which the plan of what it skips needs.
+// K1f: gine_bn_fwd_*, the rows per block it launches with at a shape (0
+// where it cannot launch), which the plan of what it skips needs, and
+// whether it takes the split design there (1: mid must not be null).
 #define GINE_BN_FWD(suffix, T)                                              \
+  int gine_bn_fwd_split_##suffix(int S, int D, int D2) {                    \
+    if (fbl::k1f_launch_shape<T>(S, D, D2).rb) return 0;                    \
+    fbl::RbShape a, b;                                                      \
+    fbl::k1f_split_shape<T>(S, D, D2, &a, &b);                              \
+    return a.rb && b.rb;                                                    \
+  }                                                                         \
   int gine_bn_fwd_##suffix(const void* h, const float* a, const float* b,   \
                            const void* adj, const void* cnt,                \
                            const void* etab, const void* w1,                \
@@ -785,63 +650,27 @@ extern "C" {
                                relu_in, stream);                            \
   }                                                                         \
   int gine_bn_fwd_rows_##suffix(int S, int D, int D2) {                     \
-    return fbl::k1f_launch_shape<T>(S, D, D2).rb;                          \
-  }
-
-#define GINE_BN_BWD(suffix, T)                                              \
-  int gine_bn_bwd_##suffix(                                                 \
-      const void* g, const float* ds, const void* h, const float* a,        \
-      const float* b, const void* adj, const void* cnt, const void* agg,    \
-      const void* mid, const void* out, const void* w1, const void* w2,     \
-      void* w1t, void* w2t, void* gtc, void* dmidc, void* daggc,            \
-      int* strip_live, float* part_rows, float* part_adj, float* part_w,    \
-      void* dh, float* sums_rows, float* sums_adj, float* wgrad, int T_,    \
-      int S, int D, int D2, int relu_in, int chunks, int rows_per_chunk,    \
-      int tile_rows, void* stream) {                                        \
-    return fbl::gine_bwd<T, true>(g, ds, h, a, b, adj, cnt, agg, mid, out,  \
-                                  w1, w2, w1t, w2t, gtc, dmidc, daggc,      \
-                                  strip_live, part_rows, part_adj, part_w,  \
-                                  dh, sums_rows, sums_adj, wgrad, T_, S, D, \
-                                  D2, relu_in, chunks, rows_per_chunk,      \
-                                  tile_rows, stream);                       \
+    const int rb = fbl::k1f_launch_shape<T>(S, D, D2).rb;                  \
+    return rb ? rb : gine_bn_fwd_split_##suffix(S, D, D2) ? fbl::R : 0;     \
   }
 
 // K4f: out (and the residual agg when not null; mid always, scratch when
-// the caller wants no residuals) of the unchained layer.
+// the caller wants no residuals) of the unchained layer, for M members
+// stacked along the first axis of every argument but adj and cnt (M = 1:
+// one layer).
 #define GINE_FWD(suffix, T)                                                 \
   int gine_fwd_##suffix(const void* h, const void* adj, const void* cnt,    \
                         const void* etab, const void* w1, const float* b1,  \
                         const void* w2, const float* b2, void* out,         \
                         void* agg, void* mid, int T_, int S, int D, int D2, \
-                        void* stream) {                                     \
+                        int M, void* stream) {                              \
     return fbl::gine_fwd<T>(h, adj, cnt, etab, w1, b1, w2, b2, out, agg,    \
-                            mid, T_, S, D, D2, stream);                     \
-  }
-
-// K4b: dh, [db1 | db2] and [dW1 | dW2 | detab] of the unchained layer.
-#define GINE_BWD(suffix, T)                                                 \
-  int gine_bwd_##suffix(const void* g, const void* adj, const void* cnt,    \
-                        const void* agg, const void* mid, const void* w1,   \
-                        const void* w2, void* w1t, void* w2t, void* dmidc,  \
-                        void* daggc, int* strip_live, float* part_rows,     \
-                        float* part_w, void* dh, float* sums_rows,          \
-                        float* wgrad, int T_, int S, int D, int D2,         \
-                        int chunks, int rows_per_chunk, int tile_rows,      \
-                        void* stream) {                                     \
-    return fbl::gine_bwd<T, false>(                                         \
-        g, nullptr, nullptr, nullptr, nullptr, adj, cnt, agg, mid, nullptr, \
-        w1, w2, w1t, w2t, nullptr, dmidc, daggc, strip_live, part_rows,     \
-        nullptr, part_w, dh, sums_rows, nullptr, wgrad, T_, S, D, D2, 0,    \
-        chunks, rows_per_chunk, tile_rows, stream);                         \
+                            mid, T_, S, D, D2, M, stream);                  \
   }
 
 GINE_BN_FWD(f32, float)
 GINE_BN_FWD(bf16, __nv_bfloat16)
-GINE_BN_BWD(f32, float)
-GINE_BN_BWD(bf16, __nv_bfloat16)
 GINE_FWD(f32, float)
 GINE_FWD(bf16, __nv_bfloat16)
-GINE_BWD(f32, float)
-GINE_BWD(bf16, __nv_bfloat16)
 
 }  // extern "C"

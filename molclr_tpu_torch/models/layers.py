@@ -19,7 +19,10 @@ package: BN-chained (it takes the previous BatchNorm's affine (a, b,
 relu_in) as its prologue and returns its output with the masked moments
 that feed the next MaskedBatchNorm), and unchained (one fused layer call;
 BatchNorm, relu and dropout follow outside the kernel), which the trunk
-runs when drop_ratio > 0. Without an adjacency (the ELL trunk, tile 0)
+runs when drop_ratio > 0; `members_forward` runs the unchained mode of M
+convs of one configuration (an ensemble's members) as one member-axis
+kernel call, the JAX FineTuner's vmapped layer. Without an adjacency (the
+ELL trunk, tile 0)
 each conv aggregates over the batch's ELL view with
 ops/scatter_free.py's gine_aggregate / gcn_aggregate and runs its dense
 parts as PyTorch ops, the JAX layers' path without the fused kernels.
@@ -34,11 +37,13 @@ from molclr_tpu_torch.data.featurize import NUM_BOND_DIRS, NUM_BOND_TYPES
 from molclr_tpu_torch.ops.fused_gcn import (
     fused_gcn_bn_layer,
     fused_gcn_layer,
+    fused_gcn_layer_members,
     pack_gcn_etab,
 )
 from molclr_tpu_torch.ops.fused_layer import (
     fused_gine_bn_layer,
     fused_gine_layer,
+    fused_gine_layer_members,
     pack_cnt,
     pack_etab,
 )
@@ -189,17 +194,35 @@ class GINEConv(nn.Module):
                 self.edge_embedding2.weight.to(dt), batch.nbr,
                 batch.nbr_bond_type, batch.nbr_bond_dir, batch.nbr_mask)
             return linear_in(lin1, torch.relu(linear_in(lin0, agg, dt)), dt)
-        etab = pack_etab(self.edge_embedding1.weight,
-                         self.edge_embedding2.weight, dt)
-        w1 = lin0.weight.t().to(dt).contiguous()
-        w2 = lin1.weight.t().to(dt).contiguous()
+        etab, w1, b1, w2, b2 = (x.contiguous()
+                                for x in self.kernel_params(dt))
         if bn_in is None:
-            return fused_gine_layer(h, adj.to(dt), cnt.to(dt), etab, w1,
-                                    lin0.bias.float(), w2, lin1.bias.float())
+            return fused_gine_layer(h, adj.to(dt), cnt.to(dt), etab, w1, b1,
+                                    w2, b2)
         a, b, relu_in = bn_in
-        return fused_gine_bn_layer(h, a, b, adj, cnt.to(dt), etab, w1,
-                                   lin0.bias.float(), w2, lin1.bias.float(),
-                                   relu_in)
+        return fused_gine_bn_layer(h, a, b, adj, cnt.to(dt), etab, w1, b1,
+                                   w2, b2, relu_in)
+
+    def kernel_params(self, dt):
+        """The fused kernels' (etab, W1, b1, W2, b2): the edge tables and
+        the MLP's weights [in, out] in dtype dt, the biases f32."""
+        lin0, lin1 = self.mlp[0], self.mlp[2]
+        return (pack_etab(self.edge_embedding1.weight,
+                          self.edge_embedding2.weight, dt),
+                lin0.weight.t().to(dt), lin0.bias.float(),
+                lin1.weight.t().to(dt), lin1.bias.float())
+
+    @staticmethod
+    def members_forward(convs, hs, adj, cnt, batch=None):
+        """The unchained mode of M convs on one batch: their inputs hs and
+        kernel parameters stacked, one fused_gine_layer_members call, each
+        member's output [N, D] (what conv(h, adj, cnt) gives, bit for
+        bit)."""
+        dt = hs[0].dtype
+        params = (torch.stack(x) for x in zip(
+            *(c.kernel_params(dt) for c in convs)))
+        return fused_gine_layer_members(torch.stack(hs), adj.to(dt),
+                                        cnt.to(dt), *params).unbind(0)
 
 
 class GCNConv(nn.Module):
@@ -244,13 +267,40 @@ class GCNConv(nn.Module):
                                 batch.nbr_mask, norm)
             return out + self.bias.to(dt)
         if bn_in is None:
-            if self.normalize:
-                dis, wn = gcn_normalization(batch.nbr, batch.nbr_mask, dt)
-                adj = normalize_tile_adjacency(adj, dis)
-                cnt = edge_counts(batch, wn)
+            adj, cnt = self.unchained_graph(adj, cnt, batch, dt)
             out = fused_gcn_layer(h, adj.to(dt), w)
-            return out + gcn_edge_term(e1, e2, cnt, dt) + self.bias.to(dt)
+            return self.edge_and_bias(out, cnt)
         a, b, relu_in = bn_in
         return fused_gcn_bn_layer(
             h, a, b, adj, cnt.to(dt), pack_gcn_etab(e1, e2, h.shape[1], dt),
             w, self.bias.float(), relu_in)
+
+    def unchained_graph(self, adj, cnt, batch, dt):
+        """The unchained mode's adjacency and counts: with normalize, adj
+        scaled and the counts weighted from `batch`'s ELL view in dtype dt
+        (as the JAX layer does per layer); else as given."""
+        if not self.normalize:
+            return adj, cnt
+        dis, wn = gcn_normalization(batch.nbr, batch.nbr_mask, dt)
+        return normalize_tile_adjacency(adj, dis), edge_counts(batch, wn)
+
+    def edge_and_bias(self, out, cnt):
+        """The unchained mode's scalar edge term and bias added to the
+        kernel's A @ (h @ W), in out's dtype."""
+        dt = out.dtype
+        return (out + gcn_edge_term(self.edge_embedding1.weight,
+                                    self.edge_embedding2.weight, cnt, dt)
+                + self.bias.to(dt))
+
+    @staticmethod
+    def members_forward(convs, hs, adj, cnt, batch=None):
+        """The unchained mode of M convs of one configuration on one batch:
+        their inputs and weights stacked, one fused_gcn_layer_members call,
+        then each member's edge term and bias (what conv(h, adj, cnt,
+        batch=batch) gives, bit for bit)."""
+        dt = hs[0].dtype
+        adj, cnt = convs[0].unchained_graph(adj, cnt, batch, dt)
+        out = fused_gcn_layer_members(
+            torch.stack(hs), adj.to(dt),
+            torch.stack([c.weight.to(dt) for c in convs]))
+        return [c.edge_and_bias(o, cnt) for c, o in zip(convs, out.unbind(0))]

@@ -29,6 +29,12 @@ drop_ratio > 0 (fine-tuning) it is unchained: each conv layer is one
 fused_gine_layer / fused_gcn_layer call, then BatchNorm, relu and dropout.
 The choice depends on the configuration alone, as in the JAX package, so
 an eval-mode forward at drop_ratio 0.3 runs the unchained kernels too.
+An ensemble's members (models of one configuration on one batch, the JAX
+FineTuner's vmapped member axis) run their unchained tile trunks in
+lockstep (`member_trunks`): per layer one member-axis kernel call over the
+stacked inputs and weights, each member's BatchNorm, relu and dropout on
+its own slice, and each member's node embeddings equal to its own trunk's
+bit for bit.
 With tile 0 the trunk takes the JAX package's ELL path (`resolve_fused` is
 False there): no tile adjacency, every layer an ELL aggregation with its
 dense parts in PyTorch (no hand-written kernel), then BatchNorm, relu and
@@ -128,6 +134,13 @@ class Encoder(nn.Module):
             MaskedBatchNorm(emb_dim, dp=dp) for _ in range(num_layers))
         self.feat_lin = reset_linear_(nn.Linear(emb_dim, feat_dim), g)
 
+    def embed_nodes(self, batch) -> torch.Tensor:
+        """The trunk's input [N, emb_dim]: atom plus chirality embeddings
+        in the activation dtype, zero on padding rows."""
+        h = (embed_lookup(self.x_embedding1.weight, batch.atom_type)
+             + embed_lookup(self.x_embedding2.weight, batch.chirality))
+        return torch.where(batch.node_mask[:, None], h.to(self.dtype), 0)
+
     def trunk(self, batch, dropout_masks=None,
               generator: torch.Generator | None = None) -> torch.Tensor:
         """Node embeddings [N, emb_dim]. In training mode with drop_ratio >
@@ -137,9 +150,7 @@ class Encoder(nn.Module):
         required."""
         dt = self.dtype
         mask = batch.node_mask[:, None]
-        h = (embed_lookup(self.x_embedding1.weight, batch.atom_type)
-             + embed_lookup(self.x_embedding2.weight, batch.chirality))
-        h = torch.where(mask, h.to(dt), 0)
+        h = self.embed_nodes(batch)
         adj = cnt = None
         chained = self.drop_ratio == 0.0 and self.tile > 0
         if self.tile:
@@ -169,18 +180,8 @@ class Encoder(nn.Module):
                 else:
                     h, relu_in = out, True
             return h
-        drop = self.training and self.drop_ratio > 0
-        if drop and dropout_masks is None and generator is None:
-            raise ValueError("training with dropout needs dropout_masks or "
-                             "a generator")
-        for layer, (conv, bn) in enumerate(zip(self.gnns, self.batch_norms)):
-            h = bn(conv(h, adj, cnt, batch=batch), batch.node_mask)
-            if layer != last:
-                h = torch.relu(h)
-            if drop:
-                h = dropout(h, self.drop_ratio, None if dropout_masks is None
-                            else dropout_masks[layer], generator)
-        return h
+        return unchained_layers([self], [h], adj, cnt, batch,
+                                [dropout_masks], generator)[0]
 
     def keep_masks(self, n: int, generator: torch.Generator
                    ) -> list[torch.Tensor]:
@@ -193,12 +194,74 @@ class Encoder(nn.Module):
                           dev) for _ in range(self.num_layers)]
 
     def encode(self, batch, dropout_masks=None,
-               generator: torch.Generator | None = None) -> torch.Tensor:
-        """Pooled molecule features after feat_lin [G, feat_dim]."""
-        h = self.trunk(batch, dropout_masks, generator)
+               generator: torch.Generator | None = None,
+               h: torch.Tensor | None = None) -> torch.Tensor:
+        """Pooled molecule features after feat_lin [G, feat_dim]; h: the
+        node embeddings when member_trunks computed them, else the trunk
+        runs here."""
+        if h is None:
+            h = self.trunk(batch, dropout_masks, generator)
         hg = graph_pool(h, batch.node_graph, batch.node_mask,
                         batch.num_graphs, batch.graph_n_nodes, self.pool)
         return linear_in(self.feat_lin, hg, self.dtype)
+
+
+def unchained_layers(models, hs, adj, cnt, batch, dropout_masks,
+                     generator: torch.Generator | None = None) -> list:
+    """The unchained trunk's layers (conv, BatchNorm, relu but after the
+    last, dropout in training mode) of M members of one configuration on
+    one batch, from their inputs hs. One member: each conv its own kernel
+    call (or, with adj None, its ELL aggregation). M > 1 on a tile
+    adjacency: per layer one member-axis call over the stacked inputs and
+    weights (the convs' members_forward, the JAX FineTuner's vmapped
+    layer), then each member's BatchNorm, relu and dropout on its slice;
+    dropout then takes each member's keep masks from dropout_masks[m] (one
+    bool [N, emb_dim] per layer). Returns each member's node embeddings,
+    those of its own trunk bit for bit."""
+    first = models[0]
+    drop = first.training and first.drop_ratio > 0
+    lockstep = len(models) > 1 and adj is not None
+    for masks in dropout_masks:
+        if drop and masks is None and (generator is None or lockstep):
+            raise ValueError("training with dropout needs dropout_masks"
+                             + ("" if lockstep else " or a generator"))
+    last = first.num_layers - 1
+    for layer in range(first.num_layers):
+        convs = [model.gnns[layer] for model in models]
+        if lockstep:
+            outs = type(convs[0]).members_forward(convs, hs, adj, cnt, batch)
+        else:
+            outs = [conv(h, adj, cnt, batch=batch)
+                    for conv, h in zip(convs, hs)]
+        hs = []
+        for model, out, masks in zip(models, outs, dropout_masks):
+            h = model.batch_norms[layer](out, batch.node_mask)
+            if layer != last:
+                h = torch.relu(h)
+            if drop:
+                h = dropout(h, first.drop_ratio,
+                            None if masks is None else masks[layer],
+                            generator)
+            hs.append(h)
+    return hs
+
+
+def member_trunks(models, batch, dropout_masks=None) -> list:
+    """The node embeddings of an ensemble's members (models of one
+    configuration, in one mode) on one batch, from one lockstep pass of
+    their unchained tile trunks (unchained_layers; dropout_masks[m] member
+    m's keep masks in training mode); None for each member where that is
+    not their path (one member, the BN-chained or the ELL trunk: each runs
+    its own trunk in its forward)."""
+    first = models[0]
+    if len(models) < 2 or not (first.tile > 0 and first.drop_ratio > 0):
+        return [None] * len(models)
+    adj = build_tile_adjacency(batch.nbr, batch.nbr_mask, first.tile,
+                               dtype=first.dtype)
+    cnt = edge_counts(batch, batch.nbr_mask.to(first.dtype))
+    return unchained_layers(
+        models, [model.embed_nodes(batch) for model in models], adj, cnt,
+        batch, dropout_masks or [None] * len(models))
 
 
 class MolCLRNet(Encoder):
@@ -261,8 +324,10 @@ class FineTuneNet(Encoder):
     def _head_in(self) -> int:
         return self.feat_dim
 
-    def forward(self, batch, dropout_masks=None, generator=None):
-        hg = self.encode(batch, dropout_masks, generator)
+    def forward(self, batch, dropout_masks=None, generator=None, h=None):
+        """(h [G, feat_dim], pred [G, out_dim]); h: precomputed node
+        embeddings (member_trunks)."""
+        hg = self.encode(batch, dropout_masks, generator, h)
         return hg, _apply_head(self.pred_head, hg, self.dtype)
 
 
@@ -333,8 +398,8 @@ class MotifFineTuneNet(FineTuneNet):
         return 2 * self.feat_dim
 
     def forward(self, batch, motif_ids, motif_mask, dropout_masks=None,
-                generator=None):
-        hg = self.encode(batch, dropout_masks, generator)
+                generator=None, h=None):
+        hg = self.encode(batch, dropout_masks, generator, h)
         me = embed_lookup(self.motif_embedding.weight, motif_ids)  # [G, C, F]
         # (a bf16 hg meets the f32 motif table: the slots are f32, as in
         # the JAX package)

@@ -46,6 +46,7 @@ from molclr_tpu_torch.ops.fused_layer import (
     kernel_fn,
     kernel_plan,
     masked_moments,
+    members_plain,
     sm_count,
     weight_pass_shape,
 )
@@ -213,7 +214,8 @@ def fused_gcn_bn_layer_bwd(g, dsums, x, a, b, adj, cnt, out, w,
     _buf, (wt, gtc, dxw, xc, live, part_gt, part_adj, part_w) = \
         carve_scratch(g.device, (d * d * es, n * d * es, n * d * es,
                                  n * d * es, 4 * strips, 4 * strips * d,
-                                 4 * strips * 2 * d, 4 * chunks * width))
+                                 4 * strips * 2 * d, 4 * chunks * width),
+                      f"fused_gcn_bn_layer_bwd at D = {d}")
     dx = torch.empty_like(g)
     # dbias, [da | db], [dW | detab]
     res = torch.empty(d + 2 * d + width, dtype=torch.float32,
@@ -321,30 +323,65 @@ def fused_gcn_layer_bwd_plain(g, x, adj, w):
     return (dxw.float() @ w.float().t()).to(dt), x.float().t() @ dxw.float()
 
 
+def fused_gcn_layer_members_plain(x, adj, w):
+    """The plain forward of M members (x [M, N, D], w [M, D, D], adj
+    shared): fused_gcn_layer_plain member by member, stacked."""
+    return members_plain(lambda x, w, adj: (fused_gcn_layer_plain(x, adj, w),),
+                         dict(adj=adj), x, w)[0]
+
+
+def fused_gcn_layer_members_bwd_plain(g, x, adj, w):
+    """The plain backward of M members: fused_gcn_layer_bwd_plain member by
+    member, (dx [M, N, D], dW [M, D, D]) stacked."""
+    return members_plain(
+        lambda g, x, w, adj: fused_gcn_layer_bwd_plain(g, x, adj, w),
+        dict(adj=adj), g, x, w)
+
+
 def _check_gcn_args(name, x, adj, w):
-    n, d = x.shape
+    """One layer's arguments, or a stack of M (x [M, N, D], w [M, D, D])."""
+    n, d = x.shape[-2:]
     check_layer_args(name, dict(x=x, adj=adj, w=w), {}, adj, n, d)
-    if w.shape != (d, d):
+    if x.dim() not in (2, 3) or w.shape != (*x.shape[:-2], d, d):
         raise ValueError(f"{name}: w {tuple(w.shape)} does not match D")
 
 
-def fused_gcn_layer_fwd(x, adj, w):
-    """Forward of the unchained layer (kernel K5f, counted in
-    `fused_gcn_layer.launches`) on CUDA tensors; the plain version on CPU
-    tensors."""
-    if x.device.type == "cpu":
-        return fused_gcn_layer_plain(x, adj, w)
+def _gcn_fwd_cuda(x, adj, w):
+    """K5f on CUDA tensors, one launch for one layer (x [N, D], w [D, D])
+    or a stack of M (x [M, N, D], w [M, D, D]; adj shared): out with x's
+    leading axes."""
     t, s = cuda_tiles("fused_gcn_layer", x, adj, "fused_gcn_bn")
-    d = x.shape[1]
+    lead = x.shape[:-2]
+    d = x.shape[-1]
     suffix = "f32" if x.dtype == torch.float32 else "bf16"
-    fn = kernel_fn("fused_gcn_bn", f"gcn_fwd_{suffix}", 5, 3)
+    fn = kernel_fn("fused_gcn_bn", f"gcn_fwd_{suffix}", 5, 4)
     xw, out = torch.empty_like(x), torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), adj.data_ptr(), w.data_ptr(), xw.data_ptr(),
-             out.data_ptr(), t, s, d, stream)
+             out.data_ptr(), t, s, d, lead[0] if lead else 1, stream)
     _build.check(err, "fused_gcn_layer")
     fused_gcn_layer.launches += 1
     return out
+
+
+def fused_gcn_layer_fwd(x, adj, w):
+    """Forward of the unchained layer (kernel K5f, the one-member case of
+    the member-axis launch, counted in `fused_gcn_layer.launches`) on CUDA
+    tensors; the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return fused_gcn_layer_plain(x, adj, w)
+    return _gcn_fwd_cuda(x, adj, w)
+
+
+def fused_gcn_layer_members_fwd(x, adj, w):
+    """Forward of M unchained layers on one batch (kernel K5f with its
+    member grid axis; the JAX package's `jax.vmap` of `fused_gcn_layer`):
+    x [M, N, D], w [M, D, D], adj shared; out [M, N, D]. One launch on CUDA
+    tensors, counted in `fused_gcn_layer.launches`, member m's result a
+    one-member launch's bit for bit; the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return fused_gcn_layer_members_plain(x, adj, w)
+    return _gcn_fwd_cuda(x, adj, w)
 
 
 def dw_chunks(n: int, d: int, sms: int = H100_SMS) -> tuple[int, int]:
@@ -352,7 +389,8 @@ def dw_chunks(n: int, d: int, sms: int = H100_SMS) -> tuple[int, int]:
     (csrc/fused_bn_common.cuh wgrad_kernel, which takes them as they are):
     DW_TILE x DW_TILE tiles of dW times row chunks, enough chunks for two
     blocks per SM of a card with `sms` SMs, chunks of whole strips, at most
-    DW_MAX_ROWS rows each."""
+    DW_MAX_ROWS rows each. They order the sums, so a stack of members takes
+    each member's as one member would."""
     tiles = (-(-d // DW_TILE)) ** 2
     want = max(-(-2 * sms // tiles), -(-n // DW_MAX_ROWS))
     want = min(want, n // STRIP_ROWS)
@@ -376,36 +414,68 @@ def k5b_plan(adj: torch.Tensor, d: int, sms: int = H100_SMS) -> dict:
     return plan
 
 
-def fused_gcn_layer_bwd(g, x, adj, w):
-    """Backward of the unchained layer (kernel K5b): (dx in g's dtype, dW
-    f32). CUDA tensors run the sm_90a kernels (counted in
-    `fused_gcn_layer_bwd.launches`); CPU tensors run the plain version. x
-    is the saved input: nothing is recomputed but xw's adjoint."""
-    _check_gcn_args("fused_gcn_layer_bwd", g, adj, w)
-    if x.shape != g.shape or x.dtype != g.dtype or not x.is_contiguous():
-        raise ValueError("fused_gcn_layer_bwd: x must match g")
-    if g.device.type == "cpu":
-        return fused_gcn_layer_bwd_plain(g, x, adj, w)
+def _gcn_bwd_cuda(g, x, adj, w):
+    """K5b on CUDA tensors, one launch for one layer or a stack of M (as
+    _gcn_fwd_cuda): (dx, dW) with g's leading axes."""
     t, s = cuda_tiles("fused_gcn_layer_bwd", g, adj, "fused_gcn_bn")
-    n, d = g.shape
+    lead = g.shape[:-2]
+    m = lead[0] if lead else 1
+    n, d = g.shape[-2:]
     suffix = "f32" if g.dtype == torch.float32 else "bf16"
-    fn = kernel_fn("fused_gcn_bn", f"gcn_bwd_{suffix}", 10, 5)
+    fn = kernel_fn("fused_gcn_bn", f"gcn_bwd_{suffix}", 10, 6)
+    # the chunks of one member: they order its sums
     chunks, rows = dw_chunks(n, d, sm_count(g.device))
     dx = torch.empty_like(g)
-    dw = torch.empty(d, d, dtype=torch.float32, device=g.device)
+    dw = torch.empty(*lead, d, d, dtype=torch.float32, device=g.device)
     # W^T, dxw, the strip flags (int32) and the weight pass's chunk
-    # partials (f32)
+    # partials (f32), each member's
     es = g.element_size()
     _buf, (wt, dxw, strip_live, part_w) = carve_scratch(
-        g.device, (d * d * es, n * d * es, 4 * (n // STRIP_ROWS),
-                   4 * chunks * d * d))
+        g.device, tuple(m * b for b in (
+            d * d * es, n * d * es, 4 * (n // STRIP_ROWS),
+            4 * chunks * d * d)),
+        f"fused_gcn_layer_bwd at D = {d}, {m} members")
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(g.data_ptr(), x.data_ptr(), adj.data_ptr(), w.data_ptr(), wt,
              dxw, dx.data_ptr(), strip_live, part_w, dw.data_ptr(), t, s, d,
-             chunks, rows, stream)
+             chunks, rows, m, stream)
     _build.check(err, "fused_gcn_layer_bwd")
     fused_gcn_layer_bwd.launches += 1
     return dx, dw
+
+
+def _check_gcn_bwd_args(g, x, adj, w):
+    _check_gcn_args("fused_gcn_layer_bwd", g, adj, w)
+    if x.shape != g.shape or x.dtype != g.dtype or not x.is_contiguous():
+        raise ValueError("fused_gcn_layer_bwd: x must match g")
+
+
+def fused_gcn_layer_bwd(g, x, adj, w):
+    """Backward of the unchained layer (kernel K5b): (dx in g's dtype, dW
+    f32). CUDA tensors run the sm_90a kernels (the one-member case of the
+    member-axis launch, counted in `fused_gcn_layer_bwd.launches`); CPU
+    tensors run the plain version. x is the saved input: nothing is
+    recomputed but xw's adjoint."""
+    _check_gcn_bwd_args(g, x, adj, w)
+    if g.dim() != 2:
+        raise ValueError("fused_gcn_layer_bwd: g must be [N, D]")
+    if g.device.type == "cpu":
+        return fused_gcn_layer_bwd_plain(g, x, adj, w)
+    return _gcn_bwd_cuda(g, x, adj, w)
+
+
+def fused_gcn_layer_members_bwd(g, x, adj, w):
+    """Backward of M unchained layers (kernel K5b with its member grid
+    axis): g, x [M, N, D], w [M, D, D], adj shared; (dx [M, N, D] in g's
+    dtype, dW [M, D, D] f32). One launch on CUDA tensors (counted in
+    `fused_gcn_layer_bwd.launches`), member m's results a one-member
+    launch's bit for bit; the plain version on CPU tensors."""
+    _check_gcn_bwd_args(g, x, adj, w)
+    if g.dim() != 3:
+        raise ValueError("fused_gcn_layer_members_bwd: g must be [M, N, D]")
+    if g.device.type == "cpu":
+        return fused_gcn_layer_members_bwd_plain(g, x, adj, w)
+    return _gcn_bwd_cuda(g, x, adj, w)
 
 
 fused_gcn_layer_bwd.launches = 0
@@ -413,18 +483,22 @@ fused_gcn_layer_bwd.launches = 0
 
 class _Gcn(torch.autograd.Function):
     """K5f forward, K5b backward (`_fused_fwd` / `_fused_bwd` of the JAX
-    package: x saved, dW returned in w's dtype)."""
+    package: x saved, dW returned in w's dtype). One layer, or
+    (`members`) a stack of M."""
 
     @staticmethod
-    def forward(ctx, x, adj, w):
+    def forward(ctx, x, adj, w, members):
         ctx.save_for_backward(x, adj, w)
-        return fused_gcn_layer_fwd(x, adj, w)
+        ctx.members = members
+        return (fused_gcn_layer_members_fwd if members
+                else fused_gcn_layer_fwd)(x, adj, w)
 
     @staticmethod
     def backward(ctx, g):
         x, adj, w = ctx.saved_tensors
-        dx, dw = fused_gcn_layer_bwd(g.contiguous(), x, adj, w)
-        return dx, None, dw.to(w.dtype)
+        dx, dw = (fused_gcn_layer_members_bwd if ctx.members
+                  else fused_gcn_layer_bwd)(g.contiguous(), x, adj, w)
+        return dx, None, dw.to(w.dtype), None
 
 
 def fused_gcn_layer(x, adj, w):
@@ -439,9 +513,25 @@ def fused_gcn_layer(x, adj, w):
     fused_gcn_layer_plain. Differentiable in x and w when grad mode is on
     and either requires a gradient (backward K5b); adj gets none."""
     _check_gcn_args("fused_gcn_layer", x, adj, w)
+    if x.dim() != 2:
+        raise ValueError("fused_gcn_layer: x must be [N, D]")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return _Gcn.apply(x, adj, w)
+        return _Gcn.apply(x, adj, w, False)
     return fused_gcn_layer_fwd(x, adj, w)
 
 
 fused_gcn_layer.launches = 0
+
+
+def fused_gcn_layer_members(x, adj, w):
+    """fused_gcn_layer of M members on one batch, as the JAX FineTuner's
+    vmap runs it (x [M, N, D], w [M, D, D], adj shared): one K5f launch
+    (one K5b in the backward) over all members, counted as one in
+    `fused_gcn_layer.launches`; CPU tensors run the plain version member
+    by member. Returns out [M, N, D]."""
+    _check_gcn_args("fused_gcn_layer", x, adj, w)
+    if x.dim() != 3:
+        raise ValueError("fused_gcn_layer_members: x must be [M, N, D]")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Gcn.apply(x, adj, w, True)
+    return fused_gcn_layer_members_fwd(x, adj, w)

@@ -21,7 +21,8 @@ returns the gradients of h, a, b, etab, W1, b1, W2 and b2 (none for adj and
 cnt, which are mask-derived constants).
 
 `fused_gine_bn_layer` launches the hand-written sm_90a kernels
-(csrc/fused_gine_bn.cu) on CUDA tensors and runs the plain PyTorch versions
+(csrc/fused_gine_bn.cu, the backwards csrc/fused_gine_bwd.cu) on CUDA
+tensors and runs the plain PyTorch versions
 (`fused_gine_bn_layer_plain`, `fused_gine_bn_layer_bwd_plain`) on CPU
 tensors. When a gradient is needed it goes through `torch.autograd.
 Function`: K1f then also writes the residuals agg and mid, and the backward
@@ -177,8 +178,9 @@ def check_layer_args(name: str, act: dict, f32: dict, adj: torch.Tensor,
     for k in ("a", "b"):
         if k in f32 and f32[k].shape != (d,):
             raise ValueError(f"{name}: {k} has shape {tuple(f32[k].shape)}")
+    # (a member stack's etab is [M, CNT_PAD, D]; cnt is shared)
     if ("cnt" in act and act["cnt"].shape != (n, CNT_PAD)) or (
-            "etab" in act and act["etab"].shape != (CNT_PAD, d)):
+            "etab" in act and act["etab"].shape[-2:] != (CNT_PAD, d)):
         raise ValueError(f"{name}: cnt/etab must be [N, {CNT_PAD}] and "
                          f"[{CNT_PAD}, D]")
 
@@ -208,22 +210,43 @@ def strip_rows(source: str) -> int:
     return STRIP_ROWS
 
 
-@functools.lru_cache(maxsize=None)
-def k1f_block_rows(dtype: torch.dtype, s: int, d: int, d2: int) -> int:
-    """Rows per block that K1f launches with at tile s and widths d, d2:
-    K1F_BLOCK_ROWS, or 16 where a 32-row block's operands do not fit in
-    shared memory (0 where none fits). Needs the built library."""
+def _k1f_query(kind: str, dtype: torch.dtype, s: int, d: int,
+               d2: int) -> int:
     suffix = "f32" if dtype == torch.float32 else "bf16"
-    f = getattr(_build.load("fused_gine_bn"), f"gine_bn_fwd_rows_{suffix}")
+    f = getattr(_build.load("fused_gine_bn"), f"gine_bn_fwd_{kind}_{suffix}")
     f.argtypes = [ctypes.c_int] * 3
     f.restype = ctypes.c_int
     return f(s, d, d2)
 
 
 @functools.lru_cache(maxsize=None)
+def k1f_block_rows(dtype: torch.dtype, s: int, d: int, d2: int) -> int:
+    """Rows per block that K1f launches with at tile s and widths d, d2:
+    K1F_BLOCK_ROWS, or 16 where a 32-row block's operands do not fit in
+    shared memory, and 16 in the split design where no one-launch block
+    fits (k1f_splits); 0 where nothing fits. Needs the built library."""
+    return _k1f_query("rows", dtype, s, d, d2)
+
+
+@functools.lru_cache(maxsize=None)
+def k1f_splits(dtype: torch.dtype, s: int, d: int, d2: int) -> bool:
+    """Whether K1f takes its split design at tile s and widths d, d2
+    (csrc/fused_gine_bn.cu k1f_split_shape: mid [16, D2] does not fit in
+    shared memory beside agg, so mid goes through device memory and out is
+    a launch of its own). Needs the built library."""
+    return bool(_k1f_query("split", dtype, s, d, d2))
+
+
+@functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     """SMs of a CUDA device, which the launch plans fill."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def device_memory(device: torch.device) -> int:
+    """Bytes of a CUDA device's memory, which a kernel's scratch must fit."""
+    return torch.cuda.get_device_properties(device).total_memory
 
 
 def cuda_tiles(name: str, h: torch.Tensor, adj: torch.Tensor,
@@ -254,7 +277,9 @@ def fused_gine_bn_layer_fwd(h, a, b, adj, cnt, etab, w1, b1, w2, b2,
     fn = kernel_fn("fused_gine_bn", f"gine_bn_fwd_{suffix}", 15, 5)
     out = torch.empty_like(h)
     agg = torch.empty_like(h) if residuals else None
-    mid = h.new_empty(n, d2) if residuals else None
+    # the split design's out launch reads mid: scratch without residuals
+    mid = (h.new_empty(n, d2)
+           if residuals or k1f_splits(h.dtype, s, d, d2) else None)
     sums = torch.empty(2, d, dtype=torch.float32, device=h.device)
     # one [2, D] row per 16-row strip, and one for the dead blocks' row
     partial = torch.empty(n // STRIP_ROWS + 1, 2, d, dtype=torch.float32,
@@ -268,7 +293,7 @@ def fused_gine_bn_layer_fwd(h, a, b, adj, cnt, etab, w1, b1, w2, b2,
              sums.data_ptr(), t, s, d, d2, int(bool(relu_in)), stream)
     _build.check(err, "fused_gine_bn_layer")
     fused_gine_bn_layer.launches += 1
-    return out, sums, agg, mid
+    return out, sums, agg, mid if residuals else None
 
 
 def kernel_plan(adj: torch.Tensor, cnt: torch.Tensor | None = None,
@@ -320,7 +345,8 @@ BWD_CHUNK_ROWS = 1024
 
 @functools.lru_cache(maxsize=None)
 def weight_pass_shape(n: int, problems: tuple, dtype: torch.dtype,
-                      sms: int = H100_SMS) -> tuple[int, int, int]:
+                      sms: int = H100_SMS,
+                      members: int = 1) -> tuple[int, int, int]:
     """(chunks, rows per chunk, output tile rows) of a backward's weight
     pass over n rows (csrc/fused_bn_common.cuh wgrad_kernel over the
     problems' outputs ((m, c), ...) in one launch, which takes them as they
@@ -328,8 +354,11 @@ def weight_pass_shape(n: int, problems: tuple, dtype: torch.dtype,
     keeps the first design's chunks (ceil(n / BWD_CHUNK_ROWS) of equal
     size, so each output is the same ascending sum) and takes 32-row output
     tiles where 64-row ones give fewer than two blocks per SM of a card with
-    `sms` SMs; bf16 takes 64 x 64 tiles and enough chunks for two blocks
-    per SM, as K5b's dw_chunks does."""
+    `sms` SMs over the launch's `members` members (the tile sets no f32
+    sum's order); bf16 takes 64 x 64 tiles and enough chunks for two blocks
+    per SM of one member, as K5b's dw_chunks does: the chunks set the order
+    of the bf16 sums, so a member's do not depend on how many share its
+    launch."""
     def tiles(tr):
         return sum(-(-m // tr) * -(-c // DW_TILE) for m, c in problems)
 
@@ -341,16 +370,19 @@ def weight_pass_shape(n: int, problems: tuple, dtype: torch.dtype,
     rows = -(-(-(-n // want)) // STRIP_ROWS) * STRIP_ROWS
     chunks = -(-n // rows)
     tile_rows = DW_TILE
-    if dtype == torch.float32 and chunks * tiles(DW_TILE) < 2 * sms:
+    if dtype == torch.float32 and \
+            members * chunks * tiles(DW_TILE) < 2 * sms:
         tile_rows = DW_TILE // 2
     return chunks, rows, tile_rows
 
 
 def gine_bwd_weight_shape(n: int, d: int, d2: int, dtype: torch.dtype,
-                          sms: int = H100_SMS) -> tuple[int, int, int]:
+                          sms: int = H100_SMS,
+                          members: int = 1) -> tuple[int, int, int]:
     """weight_pass_shape of K1b's and K4b's weight pass: dW1 [d, d2], dW2
-    [d2, d] and detab [CNT_PAD, d]."""
-    return weight_pass_shape(n, ((d, d2), (d2, d), (CNT_PAD, d)), dtype, sms)
+    [d2, d] and detab [CNT_PAD, d] (of each of `members` members)."""
+    return weight_pass_shape(n, ((d, d2), (d2, d), (CNT_PAD, d)), dtype, sms,
+                             members)
 
 
 def gine_bwd_gt(g, dsums, adj, out):
@@ -365,7 +397,7 @@ def gine_bwd_plan(gt: torch.Tensor, adj: torch.Tensor, d2: int,
                   dtype: torch.dtype | None = None,
                   sms: int = H100_SMS) -> dict:
     """What K1b's and K4b's passes skip and how they are launched, decided
-    as the kernels decide it (csrc/fused_gine_bn.cu gine_bwd): gt [N, D]
+    as the kernels decide it (csrc/fused_gine_bwd.cu gine_bwd): gt [N, D]
     is the total cotangent (gine_bwd_gt for K1b, g for K4b), dtype the
     activation type (gt's by default). Only the tests and chip_smoke.py
     call it; the wrappers never do.
@@ -403,13 +435,19 @@ def gine_bwd_plan(gt: torch.Tensor, adj: torch.Tensor, d2: int,
                 grids=grids)
 
 
-def carve_scratch(device, sizes):
+def carve_scratch(device, sizes, what: str):
     """One scratch allocation on `device` cut at 256-byte offsets into
     pieces of the given byte sizes: (the buffer, which must outlive the
-    launches, and the pieces' addresses)."""
+    launches, and the pieces' addresses). Raises a ValueError naming
+    `what` (the call and its widths) where the card's memory cannot hold
+    the scratch."""
     offs = [0]
     for size in sizes:
         offs.append(offs[-1] + -(-size // 256) * 256)
+    total = device_memory(device)
+    if offs[-1] > total:
+        raise ValueError(f"{what} needs {offs[-1]} bytes of scratch, more "
+                         f"than the card's {total}")
     buf = torch.empty(offs[-1], dtype=torch.uint8, device=device)
     return buf, [buf.data_ptr() + o for o in offs[:-1]]
 
@@ -433,9 +471,9 @@ def fused_gine_bn_layer_bwd(g, dsums, h, a, b, adj, cnt, agg, mid, out, w1,
     if g.device.type == "cpu":
         return fused_gine_bn_layer_bwd_plain(g, dsums, h, a, b, adj, cnt,
                                              agg, mid, out, w1, w2, relu_in)
-    t, s = cuda_tiles("fused_gine_bn_layer_bwd", g, adj)
+    t, s = cuda_tiles("fused_gine_bn_layer_bwd", g, adj, "fused_gine_bwd")
     suffix = "f32" if g.dtype == torch.float32 else "bf16"
-    fn = kernel_fn("fused_gine_bn", f"gine_bn_bwd_{suffix}", 25, 8)
+    fn = kernel_fn("fused_gine_bwd", f"gine_bn_bwd_{suffix}", 25, 8)
     strips, sms = n // STRIP_ROWS, sm_count(g.device)
     chunks, rows, tile_rows = gine_bwd_weight_shape(n, d, d2, g.dtype, sms)
     width = 2 * d * d2 + CNT_PAD * d
@@ -446,7 +484,8 @@ def fused_gine_bn_layer_bwd(g, dsums, h, a, b, adj, cnt, agg, mid, out, w1,
            part_w) = carve_scratch(g.device, (
                d2 * d * es, d * d2 * es, n * d * es, n * d2 * es, n * d * es,
                4 * strips, 4 * strips * (d2 + d), 4 * strips * 2 * d,
-               4 * chunks * width))
+               4 * chunks * width),
+               f"fused_gine_bn_layer_bwd at D = {d}, D2 = {d2}")
     dh = torch.empty_like(g)
     # [db1 | db2], [da | db], [dW1 | dW2 | detab]
     res = torch.empty(d2 + d + 2 * d + width, dtype=torch.float32,
@@ -565,13 +604,48 @@ def fused_gine_layer_bwd_plain(g, adj, cnt, agg, mid, w1, w2):
             cnt.float().t() @ daggc.float())
 
 
+def members_plain(fn, shared: dict, *stacked):
+    """fn member by member on stacks of M (the JAX package's vmap with the
+    `shared` keyword arguments unmapped, as its FineTuner maps the member
+    axis over a shared batch), its results stacked along a new first
+    axis."""
+    outs = [fn(*(x[m] for x in stacked), **shared)
+            for m in range(stacked[0].shape[0])]
+    return tuple(torch.stack(r) for r in zip(*outs))
+
+
+def fused_gine_layer_members_fwd_plain(h, adj, cnt, etab, w1, b1, w2, b2):
+    """The plain forward of M members (h [M, N, D], etab [M, CNT_PAD, D],
+    w1 [M, D, 2D], b1 [M, 2D], w2 [M, 2D, D], b2 [M, D]; adj and cnt
+    shared): fused_gine_layer_fwd_plain member by member, (out, agg, mid)
+    stacked."""
+    return members_plain(
+        lambda h, etab, w1, b1, w2, b2, adj, cnt: fused_gine_layer_fwd_plain(
+            h, adj, cnt, etab, w1, b1, w2, b2),
+        dict(adj=adj, cnt=cnt), h, etab, w1, b1, w2, b2)
+
+
+def fused_gine_layer_members_bwd_plain(g, adj, cnt, agg, mid, w1, w2):
+    """The plain backward of M members: fused_gine_layer_bwd_plain member
+    by member on stacks of g, agg, mid, w1 and w2, its six results
+    stacked."""
+    return members_plain(
+        lambda g, agg, mid, w1, w2, adj, cnt: fused_gine_layer_bwd_plain(
+            g, adj, cnt, agg, mid, w1, w2),
+        dict(adj=adj, cnt=cnt), g, agg, mid, w1, w2)
+
+
 def _check_gine_args(name, h, adj, cnt, etab, w1, b1, w2, b2):
-    n, d = h.shape
-    d2 = w1.shape[1]
+    """The unchained layer's arguments, one layer or a stack of M (h [M,
+    N, D] and every parameter with a leading member axis)."""
+    lead = h.shape[:-2]
+    n, d = h.shape[-2:]
+    d2 = w1.shape[-1]
     check_layer_args(name, dict(h=h, adj=adj, cnt=cnt, etab=etab, w1=w1,
                                 w2=w2), dict(b1=b1, b2=b2), adj, n, d)
-    if w1.shape != (d, d2) or w2.shape != (d2, d) or b1.shape != (d2,) \
-            or b2.shape != (d,):
+    if h.dim() not in (2, 3) or etab.shape[:-2] != lead \
+            or w1.shape != (*lead, d, d2) or w2.shape != (*lead, d2, d) \
+            or b1.shape != (*lead, d2) or b2.shape != (*lead, d):
         raise ValueError(f"{name}: MLP shapes do not match D")
 
 
@@ -588,73 +662,141 @@ def unchained_fwd_plan(t: int, s: int, d: int, d2: int) -> dict:
                 k5f_xw=(rows, slices_out), k5f_out=(rows, slices_out))
 
 
-def fused_gine_layer_fwd(h, adj, cnt, etab, w1, b1, w2, b2,
-                         residuals: bool):
-    """Forward of the unchained layer (kernel K4f): (out, agg, mid); agg
-    and mid are None unless `residuals` (the CPU path, the plain version,
-    always has them). Launches K4f on CUDA tensors, counted in
-    `fused_gine_layer.launches`."""
-    if h.device.type == "cpu":
-        return fused_gine_layer_fwd_plain(h, adj, cnt, etab, w1, b1, w2, b2)
+def _gine_fwd_cuda(h, adj, cnt, etab, w1, b1, w2, b2, residuals: bool):
+    """K4f on CUDA tensors, one launch for one layer (h [N, D] and its
+    parameters) or a stack of M (a leading member axis on h and every
+    parameter; adj and cnt shared): (out, agg, mid) with h's leading axes,
+    agg and mid None unless `residuals`."""
     t, s = cuda_tiles("fused_gine_layer", h, adj)
-    n, d = h.shape
-    d2 = w1.shape[1]
+    lead = h.shape[:-2]
+    n, d = h.shape[-2:]
+    d2 = w1.shape[-1]
     suffix = "f32" if h.dtype == torch.float32 else "bf16"
-    fn = kernel_fn("fused_gine_bn", f"gine_fwd_{suffix}", 11, 4)
+    fn = kernel_fn("fused_gine_bn", f"gine_fwd_{suffix}", 11, 5)
     out = torch.empty_like(h)
     agg = torch.empty_like(h) if residuals else None
     # the out launch reads mid: scratch when no residuals are asked for
-    mid = h.new_empty(n, d2)
+    mid = h.new_empty(*lead, n, d2)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     err = fn(h.data_ptr(), adj.data_ptr(), cnt.data_ptr(), etab.data_ptr(),
              w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
              out.data_ptr(), None if agg is None else agg.data_ptr(),
-             mid.data_ptr(), t, s, d, d2, stream)
+             mid.data_ptr(), t, s, d, d2, lead[0] if lead else 1, stream)
     _build.check(err, "fused_gine_layer")
     fused_gine_layer.launches += 1
     return out, agg, mid if residuals else None
 
 
-def fused_gine_layer_bwd(g, adj, cnt, agg, mid, w1, w2):
-    """Backward of the unchained layer (kernel K4b): the arguments and
-    results of fused_gine_layer_bwd_plain. CUDA tensors run the sm_90a
-    kernels (counted in `fused_gine_layer_bwd.launches`); CPU tensors run
-    the plain version."""
-    n, d = g.shape
-    d2 = w1.shape[1]
+def fused_gine_layer_fwd(h, adj, cnt, etab, w1, b1, w2, b2,
+                         residuals: bool):
+    """Forward of the unchained layer (kernel K4f): (out, agg, mid); agg
+    and mid are None unless `residuals` (the CPU path, the plain version,
+    always has them). Launches K4f on CUDA tensors (the one-member case of
+    the member-axis launch), counted in `fused_gine_layer.launches`."""
+    if h.device.type == "cpu":
+        return fused_gine_layer_fwd_plain(h, adj, cnt, etab, w1, b1, w2, b2)
+    return _gine_fwd_cuda(h, adj, cnt, etab, w1, b1, w2, b2, residuals)
+
+
+def fused_gine_layer_members_fwd(h, adj, cnt, etab, w1, b1, w2, b2,
+                                 residuals: bool):
+    """Forward of M unchained layers on one batch (kernel K4f with its
+    member grid axis; the JAX package's `jax.vmap` of `fused_gine_layer`
+    over an ensemble): h [M, N, D], etab [M, CNT_PAD, D], w1 [M, D, D2],
+    b1 [M, D2], w2 [M, D2, D], b2 [M, D], adj and cnt shared. Returns
+    (out, agg, mid) [M, ...] as fused_gine_layer_fwd does. One launch on
+    CUDA tensors, counted in `fused_gine_layer.launches`; member m's
+    result equals a one-member launch's bit for bit."""
+    if h.device.type == "cpu":
+        return fused_gine_layer_members_fwd_plain(h, adj, cnt, etab, w1, b1,
+                                                  w2, b2)
+    return _gine_fwd_cuda(h, adj, cnt, etab, w1, b1, w2, b2, residuals)
+
+
+def _check_gine_bwd_args(g, adj, cnt, agg, mid, w1, w2):
+    """The unchained backward's arguments, one layer or a stack of M."""
+    lead = g.shape[:-2]
+    n, d = g.shape[-2:]
+    d2 = w1.shape[-1]
     check_layer_args("fused_gine_layer_bwd",
                      dict(g=g, adj=adj, cnt=cnt, agg=agg, mid=mid, w1=w1,
                           w2=w2), {}, adj, n, d)
-    if agg.shape != (n, d) or mid.shape != (n, d2) or w1.shape != (d, d2) \
-            or w2.shape != (d2, d):
+    if agg.shape != (*lead, n, d) or mid.shape != (*lead, n, d2) \
+            or w1.shape != (*lead, d, d2) or w2.shape != (*lead, d2, d):
         raise ValueError("fused_gine_layer_bwd: shapes do not match")
-    if g.device.type == "cpu":
-        return fused_gine_layer_bwd_plain(g, adj, cnt, agg, mid, w1, w2)
-    t, s = cuda_tiles("fused_gine_layer_bwd", g, adj)
+
+
+def _gine_bwd_cuda(g, adj, cnt, agg, mid, w1, w2):
+    """K4b on CUDA tensors, one launch for one layer or a stack of M (as
+    _gine_fwd_cuda): fused_gine_layer_bwd_plain's results with g's
+    leading axes."""
+    t, s = cuda_tiles("fused_gine_layer_bwd", g, adj, "fused_gine_bwd")
+    lead = g.shape[:-2]
+    m = lead[0] if lead else 1
+    n, d = g.shape[-2:]
+    d2 = w1.shape[-1]
     suffix = "f32" if g.dtype == torch.float32 else "bf16"
-    fn = kernel_fn("fused_gine_bn", f"gine_bwd_{suffix}", 17, 7)
+    fn = kernel_fn("fused_gine_bwd", f"gine_bwd_{suffix}", 17, 8)
     strips, sms = n // STRIP_ROWS, sm_count(g.device)
-    chunks, rows, tile_rows = gine_bwd_weight_shape(n, d, d2, g.dtype, sms)
+    # the chunks of one member (they order its bf16 sums); the tile rows
+    # for the whole launch
+    chunks, rows, tile_rows = gine_bwd_weight_shape(n, d, d2, g.dtype, sms,
+                                                    m)
     width = 2 * d * d2 + CNT_PAD * d
     es = g.element_size()
     # W1^T, W2^T, dmidc, daggc, the strip flags (int32) and the partials of
-    # the row and weight passes (f32)
+    # the row and weight passes (f32), each member's
     _buf, (w1t, w2t, dmidc, daggc, live, part_rows, part_w) = carve_scratch(
-        g.device, (d2 * d * es, d * d2 * es, n * d2 * es, n * d * es,
-                   4 * strips, 4 * strips * (d2 + d), 4 * chunks * width))
+        g.device, tuple(m * b for b in (
+            d2 * d * es, d * d2 * es, n * d2 * es, n * d * es, 4 * strips,
+            4 * strips * (d2 + d), 4 * chunks * width)),
+        f"fused_gine_layer_bwd at D = {d}, D2 = {d2}, {m} members")
     dh = torch.empty_like(g)
-    res = torch.empty(d2 + d + width, dtype=torch.float32, device=g.device)
-    sums_rows, wgrad = res.split([d2 + d, width])
+    # [db1 | db2] and [dW1 | dW2 | detab], each a stack over the members
+    sums_rows = torch.empty(*lead, d2 + d, dtype=torch.float32,
+                            device=g.device)
+    wgrad = torch.empty(*lead, width, dtype=torch.float32, device=g.device)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(*(x.data_ptr() for x in (g, adj, cnt, agg, mid, w1, w2)), w1t,
              w2t, dmidc, daggc, live, part_rows, part_w, dh.data_ptr(),
              sums_rows.data_ptr(), wgrad.data_ptr(), t, s, d, d2, chunks,
-             rows, tile_rows, stream)
+             rows, tile_rows, m, stream)
     _build.check(err, "fused_gine_layer_bwd")
     fused_gine_layer_bwd.launches += 1
-    dw1, dw2, detab = wgrad.split([d * d2, d2 * d, CNT_PAD * d])
-    return (dh, dw1.view(d, d2), sums_rows[:d2], dw2.view(d2, d),
-            sums_rows[d2:], detab.view(CNT_PAD, d))
+    dw1, dw2, detab = wgrad.split([d * d2, d2 * d, CNT_PAD * d], dim=-1)
+    return (dh, dw1.view(*lead, d, d2), sums_rows[..., :d2],
+            dw2.view(*lead, d2, d), sums_rows[..., d2:],
+            detab.view(*lead, CNT_PAD, d))
+
+
+def fused_gine_layer_bwd(g, adj, cnt, agg, mid, w1, w2):
+    """Backward of the unchained layer (kernel K4b): the arguments and
+    results of fused_gine_layer_bwd_plain. CUDA tensors run the sm_90a
+    kernels (the one-member case of the member-axis launch, counted in
+    `fused_gine_layer_bwd.launches`); CPU tensors run the plain version."""
+    _check_gine_bwd_args(g, adj, cnt, agg, mid, w1, w2)
+    if g.dim() != 2:
+        raise ValueError("fused_gine_layer_bwd: g must be [N, D]")
+    if g.device.type == "cpu":
+        return fused_gine_layer_bwd_plain(g, adj, cnt, agg, mid, w1, w2)
+    return _gine_bwd_cuda(g, adj, cnt, agg, mid, w1, w2)
+
+
+def fused_gine_layer_members_bwd(g, adj, cnt, agg, mid, w1, w2):
+    """Backward of M unchained layers (kernel K4b with its member grid
+    axis): g, agg, mid [M, N, .], w1 [M, D, D2], w2 [M, D2, D], adj and cnt
+    shared. Returns (dh [M, N, D] in g's dtype, dW1, db1, dW2, db2, detab,
+    each [M, ...] f32). One launch on CUDA tensors (counted in
+    `fused_gine_layer_bwd.launches`), member m's results a one-member
+    launch's bit for bit; the plain version on CPU tensors."""
+    _check_gine_bwd_args(g, adj, cnt, agg, mid, w1, w2)
+    if g.dim() != 3:
+        raise ValueError("fused_gine_layer_members_bwd: g must be "
+                         "[M, N, D]")
+    if g.device.type == "cpu":
+        return fused_gine_layer_members_bwd_plain(g, adj, cnt, agg, mid, w1,
+                                                  w2)
+    return _gine_bwd_cuda(g, adj, cnt, agg, mid, w1, w2)
 
 
 fused_gine_layer_bwd.launches = 0
@@ -664,22 +806,27 @@ class _Gine(torch.autograd.Function):
     """K4f with residuals forward, K4b backward (`_fused_fwd` /
     `_fused_bwd` of the JAX package: agg and mid saved from the forward,
     the weight gradients returned in the weights' dtype, the bias
-    gradients in f32)."""
+    gradients in f32). One layer, or (`members`) a stack of M."""
 
     @staticmethod
-    def forward(ctx, h, adj, cnt, etab, w1, b1, w2, b2):
-        out, agg, mid = fused_gine_layer_fwd(h, adj, cnt, etab, w1, b1, w2,
-                                             b2, residuals=True)
+    def forward(ctx, h, adj, cnt, etab, w1, b1, w2, b2, members):
+        fwd = (fused_gine_layer_members_fwd if members
+               else fused_gine_layer_fwd)
+        out, agg, mid = fwd(h, adj, cnt, etab, w1, b1, w2, b2,
+                            residuals=True)
         ctx.save_for_backward(adj, cnt, agg, mid, w1, w2)
+        ctx.members = members
         return out
 
     @staticmethod
     def backward(ctx, g):
         adj, cnt, agg, mid, w1, w2 = ctx.saved_tensors
-        dh, dw1, db1, dw2, db2, detab = fused_gine_layer_bwd(
-            g.contiguous(), adj, cnt, agg, mid, w1, w2)
+        bwd = (fused_gine_layer_members_bwd if ctx.members
+               else fused_gine_layer_bwd)
+        dh, dw1, db1, dw2, db2, detab = bwd(g.contiguous(), adj, cnt, agg,
+                                            mid, w1, w2)
         return (dh, None, None, detab.to(w1.dtype), dw1.to(w1.dtype), db1,
-                dw2.to(w2.dtype), db2)
+                dw2.to(w2.dtype), db2, None)
 
 
 def fused_gine_layer(h, adj, cnt, etab, w1, b1, w2, b2):
@@ -698,9 +845,27 @@ def fused_gine_layer(h, adj, cnt, etab, w1, b1, w2, b2):
     backward runs K4b. adj and cnt get no gradient."""
     args = (h, adj, cnt, etab, w1, b1, w2, b2)
     _check_gine_args("fused_gine_layer", *args)
+    if h.dim() != 2:
+        raise ValueError("fused_gine_layer: h must be [N, D]")
     if torch.is_grad_enabled() and any(x.requires_grad for x in args):
-        return _Gine.apply(*args)
+        return _Gine.apply(*args, False)
     return fused_gine_layer_fwd(*args, residuals=False)[0]
 
 
 fused_gine_layer.launches = 0
+
+
+def fused_gine_layer_members(h, adj, cnt, etab, w1, b1, w2, b2):
+    """fused_gine_layer of M members on one batch, as the JAX FineTuner's
+    vmap runs it (member axis first on h [M, N, D], etab [M, CNT_PAD, D],
+    w1 [M, D, 2D], b1 [M, 2D], w2 [M, 2D, D] and b2 [M, D]; adj and cnt
+    shared): one K4f launch (and one K4b in the backward) over all members,
+    counted as one in `fused_gine_layer.launches`; CPU tensors run the
+    plain version member by member. Returns out [M, N, D]."""
+    args = (h, adj, cnt, etab, w1, b1, w2, b2)
+    _check_gine_args("fused_gine_layer", *args)
+    if h.dim() != 3:
+        raise ValueError("fused_gine_layer_members: h must be [M, N, D]")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        return _Gine.apply(*args, True)
+    return fused_gine_layer_members_fwd(*args, residuals=False)[0]

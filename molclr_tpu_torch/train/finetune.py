@@ -13,14 +13,20 @@ Members. A FineTuner trains M = T x S members side by side: the T target
 columns of `targets` (a multi-target task whose columns keep the same
 rows, cfg.batch_targets) times cfg.n_seeds seeds; member m = t * S + s
 trains on column t from seed cfg.seed + s. This is the JAX package's
-vmapped member axis. Here each member is its own module, so the kernel
-wrappers, `transfer_state` and `state_dict_from_jax` serve unchanged; a
-step runs every member on one shared batch (M launches of each layer
-kernel where the JAX package launches one with a member grid axis), and
-one two-group Adam over all members' parameters steps them as M Adams
-would (Adam is elementwise). Dropout: seed s draws its keep masks once per
-step from a generator seeded cfg.seed + 17 + s and hands them to its T
-members, as the JAX package gives the members of a seed one stream.
+vmapped member axis. Here each member is its own module (its own state
+dict, BatchNorm, dropout masks and head), so `transfer_state`,
+`state_dict_from_jax` and checkpoints serve unchanged. A step runs every
+member on one shared batch; on the unchained tile trunk (tile > 0,
+drop_ratio > 0) with M > 1 their trunks run in lockstep
+(models.nets.member_trunks): per layer one launch of the layer kernel
+with a member grid axis over all members (K4f / K4b, or K5f / K5b), as
+the JAX package's vmapped pallas_call launches one, so a step launches
+each 5 times and not 5 M; one member and the ELL trunk run each member's
+own trunk. One two-group Adam over all members' parameters steps them as
+M Adams would (Adam is elementwise). Dropout: seed s draws its keep masks
+once per step from a generator seeded cfg.seed + 17 + s and hands them to
+its T members, as the JAX package gives the members of a seed one
+stream.
 
 Resident split stacks. Each split is one stack of packed batches on the
 device (the batches, labels [G] or [G, T], motif ids and mask, zeros
@@ -63,6 +69,7 @@ from molclr_tpu_torch.data.splits import generate_scaffold, random_split, \
     scaffold_split
 from molclr_tpu_torch.data.tasks import TASKS, TaskSpec, qm9_label_scale
 from molclr_tpu_torch.models import FineTuneNet, MotifFineTuneNet
+from molclr_tpu_torch.models.nets import member_trunks
 from molclr_tpu_torch.train import checkpoints as ckpt_lib
 from molclr_tpu_torch.train.config import FineTuneConfig
 from molclr_tpu_torch.train.graphed import GRAPH_WARMUP_STEPS, GraphedSteps
@@ -173,15 +180,19 @@ def train_step(models, opt, batch, labels, motifs, loss: str,
     device); returns their losses [M] (not synchronized). Member m = t *
     n_seeds + s takes labels[:, t] of labels [G, T] (or labels [G]) and
     the dropout keep masks seed_masks[s], one bool [N, emb_dim] per layer
-    (None at drop_ratio 0); motifs is () or (motif_ids, motif_mask). One
+    (None at drop_ratio 0); motifs is () or (motif_ids, motif_mask). The
+    members' trunks run in lockstep where member_trunks takes them. One
     backward of the members' summed losses gives each its own gradients,
     and `opt` steps all of them."""
+    masks = [None if seed_masks is None else seed_masks[m % n_seeds]
+             for m in range(len(models))]
+    for model in models:
+        model.train()
+    hs = member_trunks(models, batch, masks)
     losses = []
     for m, model in enumerate(models):
-        t, s = divmod(m, n_seeds)
-        model.train()
-        _, pred = model(batch, *motifs, dropout_masks=(
-            None if seed_masks is None else seed_masks[s]))
+        t = m // n_seeds
+        _, pred = model(batch, *motifs, dropout_masks=masks[m], h=hs[m])
         lab = labels[:, t] if labels.dim() == 2 else labels
         losses.append(compute_loss(pred.float(), lab, batch.graph_mask,
                                    loss))
@@ -194,12 +205,13 @@ def train_step(models, opt, batch, labels, motifs, loss: str,
 
 @torch.no_grad()
 def predict(models, batch, motifs) -> torch.Tensor:
-    """The members' eval-mode predictions [M, G, out_dim] in f32."""
-    out = []
+    """The members' eval-mode predictions [M, G, out_dim] in f32 (their
+    trunks in lockstep where member_trunks takes them)."""
     for model in models:
         model.eval()
-        out.append(model(batch, *motifs)[1].float())
-    return torch.stack(out)
+    hs = member_trunks(models, batch)
+    return torch.stack([model(batch, *motifs, h=h)[1].float()
+                        for model, h in zip(models, hs)])
 
 
 @dataclass

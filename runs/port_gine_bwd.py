@@ -329,7 +329,7 @@ def main() -> int:
                 emit(dict(kernel="k3b", tiles=t, dtype=sfx,
                           bit_identical=same, max_abs_diff=diff))
     # tensor cores in every bf16 kernel of K1b / K4b, none in the f32 ones
-    hmma = hmma_counts(_build._lib_path(_build.CSRC / "fused_gine_bn.cu"))
+    hmma = hmma_counts(_build._lib_path(_build.CSRC / "fused_gine_bwd.cu"))
     bf16 = {k: v for k, v in hmma.items() if "bfloat16" in k}
     f32 = {k: v for k, v in hmma.items() if "bfloat16" not in k}
     sass_ok = all(bf16.values()) and not any(f32.values()) and bf16 and f32

@@ -206,17 +206,23 @@ def test_backward_kernel_matches_plain(cuda, shape, dtype, relu_in):
 # rows expected here). K1b's and K4b's dagg launch
 # holds a [16, D2] f32 operand: 1,280 / 2,560 fits with the 32 KB ring
 # (the first design's row pass, 16 x (D + D2) floats, stopped just above
-# D = 1,024). At D = 2,048 no K1f block fits in shared memory and its
-# wrapper raises, while K5b takes its shallower ring.
+# D = 1,024). At D = 2,048 / D2 = 4,096 (tiles 128 and 256) no one-launch
+# K1f block fits in shared memory: K1f splits (16-row blocks, mid through
+# device memory, out a launch of its own), and K4f's out launch and the
+# dagg launch stream their [16, D2] operand in K-chunks; so do they at
+# D2 = 3,072 (D = 1,536), the first width above the old f32 limit of
+# about D2 = 3,000.
 WIDE = [((3, 256, 384, 8, "molecules"), 32),
         ((3, 256, 512, 8, "molecules"), 32),
         ((3, 512, 300, 8, "molecules"), 32),
         ((3, 128, 1024, 8, "molecules"), 16)]
-WIDEST = ((2, 128, 2048, 8, "molecules"), 0)
+WIDEST = [((2, 128, 2048, 8, "molecules"), 16),
+          ((2, 256, 2048, 8, "molecules"), 16)]
+WIDE_D2 = ((2, 128, 1536, 8, "molecules"), 16)
 WIDE_BWD = ((2, 128, 1280, 8, "molecules"), 0)
-WIDE_CASES = ([(k, *w) for k in ("k1f", "k1b", "k3f", "k3b", "k4f", "k4b",
-                                  "k5f", "k5b") for w in WIDE]
-              + [("k1f", *WIDEST), ("k5b", *WIDEST)]
+LAYER_KERNELS = ("k1f", "k1b", "k3f", "k3b", "k4f", "k4b", "k5f", "k5b")
+WIDE_CASES = ([(k, *w) for k in LAYER_KERNELS for w in WIDE + WIDEST]
+              + [(k, *WIDE_D2) for k in ("k4f", "k1b", "k4b")]
               + [("k1b", *WIDE_BWD), ("k4b", *WIDE_BWD)])
 
 
@@ -290,8 +296,9 @@ def _wide_calls(kernel, x, pg, pc, g, dsums):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wide_layer_kernels_match_plain(cuda, kernel, shape, rows, dtype):
     """Each layer kernel (relu_in off and on where it has a prologue)
-    against its plain version at wide layers and tiles; two runs
-    bit-identical."""
+    against its plain version at wide layers and tiles, up to D = 2,048 /
+    D2 = 4,096; two runs bit-identical; K1f's rows per block as
+    k1f_block_rows gives them."""
     dt = getattr(torch, dtype)
     x, pg, pc = _problem(_seed(shape) + 5, *shape)
     x, pg, pc = _to(x, cuda, dt), _to(pg, cuda, dt), _to(pc, cuda, dt)
@@ -303,10 +310,6 @@ def test_wide_layer_kernels_match_plain(cuda, kernel, shape, rows, dtype):
     dsums = (0.05 * torch.randn(2, d, generator=gen)).to(cuda)
     rtol = 1e-4 if dt == torch.float32 else 3e-2
     for names, run, plain in _wide_calls(kernel, x, pg, pc, g, dsums):
-        if kernel == "k1f" and not rows:
-            with pytest.raises(RuntimeError, match="fused_gine_bn_layer"):
-                run()
-            continue
         got, again, want = run(), run(), plain()
         torch.cuda.synchronize()
         for name, a, b, c in zip(names, got, again, want):
@@ -677,6 +680,92 @@ def test_unchained_gcn_kernels_match_plain(cuda, shape, dtype):
         assert torch.equal(a, b), name
 
 
+def _member_stack(shape, m, dt, dev, seed):
+    """m members' problems on one shared adjacency and counts: (shared x,
+    [member gine params], [member gcn params], [member features], [member
+    cotangents])."""
+    x, _, _ = _problem(seed, *shape)
+    x = _to(x, dev, dt)
+    real = fused_layer.adj_diag_mask(x["adj"]).to(dt)
+    pgs, pcs, hs, gs = [], [], [], []
+    for i in range(m):
+        xi, pg, pc = _problem(seed + 1 + i, *shape)
+        pgs.append(_to(pg, dev, dt))
+        pcs.append(_to(pc, dev, dt))
+        hs.append(_to(xi, dev, dt)["h"] * real)
+        gen = torch.Generator().manual_seed(seed + 100 + i)
+        gs.append(torch.randn(hs[-1].shape, generator=gen).to(dev, dt)
+                  * real)
+    return x, pgs, pcs, hs, gs
+
+
+def _stack(items, key):
+    return torch.stack([p[key] for p in items])
+
+
+@pytest.mark.parametrize("m", [1, 3, 6])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["k4", "k5"])
+def test_member_kernels_equal_single_launches(cuda, m, dtype, kernel):
+    """K4f / K4b (kernel k4) and K5f / K5b (k5) with the member grid axis at
+    the fine-tuning shape (T = 4 tiles of 256, D = 300, molecule-like
+    adjacency shared by the members): one launch over m members, counted
+    once, equals m one-member launches bit for bit and is within 1e-4 /
+    3e-2 of max|plain| of the plain version member by member."""
+    dt = getattr(torch, dtype)
+    shape = (4, 256, 300, 8, "molecules")
+    x, pgs, pcs, hs, gs = _member_stack(shape, m, dt, cuda, 40 + m)
+    adj, cnt = x["adj"], x["cnt"]
+    rtol = 1e-4 if dt == torch.float32 else 3e-2
+    h, g = torch.stack(hs), torch.stack(gs)
+    if kernel == "k4":
+        params = [_stack(pgs, k) for k in ("etab", "w1", "b1", "w2", "b2")]
+        fwd, fwd_plain = (fused_layer.fused_gine_layer_members_fwd,
+                          fused_layer.fused_gine_layer_members_fwd_plain)
+        bwd, bwd_plain = (fused_layer.fused_gine_layer_members_bwd,
+                          fused_layer.fused_gine_layer_members_bwd_plain)
+        counters = (fused_layer.fused_gine_layer,
+                    fused_layer.fused_gine_layer_bwd)
+        before = [c.launches for c in counters]
+        got = fwd(h, adj, cnt, *params, residuals=True)
+        bargs = (g, adj, cnt, got[1], got[2], params[1], params[3])
+        dgot = bwd(*bargs)
+        torch.cuda.synchronize()
+        assert [c.launches for c in counters] == [b + 1 for b in before]
+        want = fwd_plain(h, adj, cnt, *params)
+        dwant = bwd_plain(*bargs)
+        one = [fused_layer.fused_gine_layer_fwd(
+            hs[i], adj, cnt, *(pgs[i][k] for k in (
+                "etab", "w1", "b1", "w2", "b2")), residuals=True)
+            for i in range(m)]
+        done = [fused_layer.fused_gine_layer_bwd(
+            gs[i], adj, cnt, one[i][1], one[i][2], pgs[i]["w1"],
+            pgs[i]["w2"]) for i in range(m)]
+    else:
+        w = _stack(pcs, "w")
+        counters = (fused_gcn.fused_gcn_layer, fused_gcn.fused_gcn_layer_bwd)
+        before = [c.launches for c in counters]
+        got = (fused_gcn.fused_gcn_layer_members_fwd(h, adj, w),)
+        dgot = fused_gcn.fused_gcn_layer_members_bwd(g, h, adj, w)
+        torch.cuda.synchronize()
+        assert [c.launches for c in counters] == [b + 1 for b in before]
+        want = (fused_gcn.fused_gcn_layer_members_plain(h, adj, w),)
+        dwant = fused_gcn.fused_gcn_layer_members_bwd_plain(g, h, adj, w)
+        one = [(fused_gcn.fused_gcn_layer_fwd(hs[i], adj, pcs[i]["w"]),)
+               for i in range(m)]
+        done = [fused_gcn.fused_gcn_layer_bwd(gs[i], hs[i], adj,
+                                              pcs[i]["w"])
+                for i in range(m)]
+    torch.cuda.synchronize()
+    for outs, plain, singles in ((got, want, one), (dgot, dwant, done)):
+        for j, (a, c) in enumerate(zip(outs, plain)):
+            assert a.dtype == c.dtype and a.shape == c.shape, j
+            err = (a.float() - c.float()).abs().max().item()
+            assert err <= rtol * c.float().abs().max().item(), (j, err)
+            for i in range(m):
+                assert torch.equal(a[i], singles[i][j]), (j, i)
+
+
 @pytest.mark.parametrize("gnn", ["gin", "gcn"])
 def test_finetune_trunk_gets_gradients_on_card(cuda, gnn):
     """A train-mode FineTuneNet step (drop_ratio 0.3, the unchained trunk)
@@ -1018,7 +1107,8 @@ def test_graphed_finetune_steps_bit_identical_to_eager(cuda, tmp_path,
     graph against the same steps run eagerly from the same state and the
     same dropout generator states: the members' losses, parameters,
     BatchNorm stats and Adam moments bit-identical; the capture holds one
-    step's launches, M x layers of each layer kernel."""
+    step's launches, one of each layer kernel per layer (an ensemble's
+    members' trunks run in lockstep, one member-axis launch a layer)."""
     import copy
 
     kw = dict(gin=dict(), gcn=dict(model=dict(gnn_type="gcn")),
@@ -1027,10 +1117,10 @@ def test_graphed_finetune_steps_bit_identical_to_eager(cuda, tmp_path,
                                targets=["CT_TOX", "FDA_APPROVED"]))[case]
     ft = _finetuner(cuda, tmp_path, **kw)
     _ft_eager_then_graphed(ft, cuda)
-    m, layers = ft.n_members, ft.cfg.model.num_layers
+    layers = ft.cfg.model.num_layers
     fwd = "fused_gcn_layer" if case == "gcn" else "fused_gine_layer"
-    assert ft._train_graph.launches[fwd] == m * layers
-    assert ft._train_graph.launches[fwd + "_bwd"] == m * layers
+    assert ft._train_graph.launches[fwd] == layers
+    assert ft._train_graph.launches[fwd + "_bwd"] == layers
 
 
 def test_graphed_eval_bit_identical_to_eager(cuda, tmp_path):
