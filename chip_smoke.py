@@ -394,8 +394,8 @@ from molclr_tpu_torch.train.graphed import GRAPH_WARMUP_STEPS
 from molclr_tpu_torch.train.logging_util import MetricWriter
 from molclr_tpu_torch.train.optim import load_optimizer_state
 from molclr_tpu_torch.train.orbax import read_step_dir
-from molclr_tpu_torch.train.pretrain import TRAIN_STREAM, Pretrainer, \
-    build_model, forward_backward, step_generator, train_step
+from molclr_tpu_torch.train.pretrain import DROPOUT_STREAM, TRAIN_STREAM, \
+    Pretrainer, build_model, forward_backward, step_generator, train_step
 
 SEED = 0
 TILE, EMB, FEAT, LAYERS, BATCH, N_MOLS = 256, 300, 512, 5, 256, 1024
@@ -1379,6 +1379,17 @@ def card_and_cpu(cfg, dev, dps=None):
     return models, opts
 
 
+def card_dropout_masks(model, n: int, cfg, step: int, stream=()) -> list:
+    """The keep masks [view i, view j] that a train step of a model on the
+    card draws on a batch of n nodes from its own generators
+    step_generator(cfg.seed, DROPOUT_STREAM, step, view, *stream) (the
+    rank's streams under data parallelism), on the CPU."""
+    dev = next(model.parameters()).device
+    return [[m.cpu() for m in model.keep_masks(n, step_generator(
+        cfg.seed, DROPOUT_STREAM, step, view, *stream, device=dev))]
+        for view in (0, 1)]
+
+
 def card_vs_cpu_steps(models, opts, cfg, batch, dev, bw, first, steps, want,
                       tag, max_waves=0, masks=None, dps=None,
                       part=False) -> dict:
@@ -1388,8 +1399,11 @@ def card_vs_cpu_steps(models, opts, cfg, batch, dev, bw, first, steps, want,
     dropout masks, masks(step) -> per-view lists, when given) on its plain
     path: losses within STEP_LOSS_RTOL, parameters and BatchNorm stats as
     state_agreement holds them; every kernel launched as `want` says per
-    step (0 if absent). Under data parallelism (`dps`: the card's and the
-    CPU's DPGroup of this rank) both run the rank's DP step, its streams
+    step (0 if absent). With dropout and no `masks`, the card's step draws
+    its masks from its own generators and the CPU replays them
+    (card_dropout_masks). Under data parallelism (`dps`: the card's and the
+    CPU's DPGroup of this rank; the CPU's None at world 1, where the DP
+    step is the one-card step) both run the rank's DP step, its streams
     seeded with the rank; with part, the rank's partitioned step on its
     segment of a giant batch (batch: shard_graph_batch's). Returns the
     report, with the launches totalled."""
@@ -1405,6 +1419,12 @@ def card_vs_cpu_steps(models, opts, cfg, batch, dev, bw, first, steps, want,
         opts["cpu"].load_state_dict(copy.deepcopy(opts["card"].state_dict()))
         mk = masks(step) if masks else None
         stream = () if dps is None else (dps["card"].rank,)
+        # what the CPU replays: the given masks or, with dropout, the
+        # card's own draws
+        replay = mk
+        if mk is None and cfg.model.drop_ratio > 0:
+            replay = card_dropout_masks(models["card"], bc.num_nodes, cfg,
+                                        step, stream)
         reset_counts()
         if part:
             loss_g = partitioned_train_step(
@@ -1422,11 +1442,11 @@ def card_vs_cpu_steps(models, opts, cfg, batch, dev, bw, first, steps, want,
         if part:
             loss_c = partitioned_train_step(
                 models["cpu"], opts["cpu"], bc, cfg, step, lr, dps["cpu"],
-                bond_window=bw, max_waves=max_waves)
+                dropout_masks=replay, bond_window=bw, max_waves=max_waves)
         else:
             loss_c = train_step(models["cpu"], opts["cpu"], bc, cfg, step,
                                 lr, bond_window=bw, max_waves=max_waves,
-                                dropout_masks=mk, dp=dps and dps["cpu"],
+                                dropout_masks=replay, dp=dps and dps["cpu"],
                                 stream=stream)
         report["cpu_step_s"] = time.perf_counter() - t0
         report["losses"].append([loss_g.item(), loss_c.item()])
@@ -2140,12 +2160,19 @@ def member_kernel_phase(batch, dev) -> dict:
     return res
 
 
-# the widest layer the layer kernels are held at: D = 2,048, D2 = 4,096, on
-# WIDE_MOLS molecules of the fine-tuning stand-in packed at tiles 128 and
-# 256 (the f32 one-launch K1f stops at about D = 1,037 at S = 128, and the
-# [16, D2] operands of K4f's out launch and the dagg launch at about D2 =
-# 3,000: there K1f splits and those operands stream in K-chunks)
-WIDE_D, WIDE_MOLS, WIDE_TILES = 2048, 32, (128, 256)
+# the wide layers the layer kernels are held at, on WIDE_MOLS molecules of
+# the fine-tuning stand-in: (D, tile, timed) with D2 = 2 D. D = 2,048 at
+# tiles 128 and 256 (the f32 one-launch K1f stops at about D = 1,037 at S =
+# 128, and the [16, D2] operands of K4f's out launch and the dagg launch at
+# about D2 = 3,000: there K1f splits and those operands stream in
+# K-chunks); D = 3,000 (not a multiple of 32) at tile 128 and D = 4,096 at
+# tile 256, past f32 D = 2,752, where every [16, D] operand streams too
+# (K4f's and the split K1f's agg, K5f's / K3f's x, K5b's / K3b's dxw,
+# K1b's / K4b's gtc); there the member-axis K4f / K4b / K5f / K5b as well
+# (M = WIDE_MEMBERS, checked, not timed)
+WIDE_MOLS, WIDE_MEMBERS = 32, 2
+WIDE_SHAPES = ((2048, 128, False), (2048, TILE, True), (3000, 128, True),
+               (4096, TILE, True))
 
 
 def wide_calls(x, pg, pc, g, dsums, dt) -> dict:
@@ -2212,21 +2239,57 @@ def wide_calls(x, pg, pc, g, dsums, dt) -> dict:
     }
 
 
+def wide_member_calls(batch, dt, gen, d: int, tile: int,
+                      m: int = WIDE_MEMBERS) -> dict:
+    """{kernel: (output names, kernel call, plain call)} of the member-axis
+    K4f / K4b / K5f / K5b on m members' inputs at width d (the adjacency
+    and counts shared, features and cotangents zero on padded rows)."""
+    members = [layer_inputs(batch, dt, gen, d, tile) for _ in range(m)]
+    adj, cnt = members[0][0]["adj"], members[0][0]["cnt"]
+    mask = adj_diag_mask(adj)
+    dev = adj.device
+    h = torch.stack([(x["h"].float() * mask).to(dt) for x, _, _ in members])
+    g = torch.stack([((0.1 * torch.randn(*x["h"].shape, generator=gen))
+                      .to(dev) * mask).to(dt) for x, _, _ in members])
+    pg = [torch.stack([p[k] for _, p, _ in members]) for k in GINE_PARAMS]
+    w = torch.stack([p["w"] for _, _, p in members])
+    _, agg, mid = fused_gine_layer_members_fwd_plain(h, adj, cnt, *pg)
+    k4b = (g, adj, cnt, agg, mid, pg[1], pg[3])
+    return {
+        "fused_gine_layer_members": (
+            ("out", "agg", "mid"),
+            lambda: fused_gine_layer_members_fwd(h, adj, cnt, *pg,
+                                                 residuals=True),
+            lambda: fused_gine_layer_members_fwd_plain(h, adj, cnt, *pg)),
+        "fused_gine_layer_members_bwd": (
+            ("dh", "dw1", "db1", "dw2", "db2", "detab"),
+            lambda: fused_gine_layer_members_bwd(*k4b),
+            lambda: fused_gine_layer_members_bwd_plain(*k4b)),
+        "fused_gcn_layer_members": (
+            ("out",), lambda: fused_gcn_layer_members_fwd(h, adj, w),
+            lambda: fused_gcn_layer_members_plain(h, adj, w)),
+        "fused_gcn_layer_members_bwd": (
+            ("dx", "dw"), lambda: fused_gcn_layer_members_bwd(g, h, adj, w),
+            lambda: fused_gcn_layer_members_bwd_plain(g, h, adj, w)),
+    }
+
+
 def wide_kernel_phase(dev) -> list:
-    """The eight layer kernels at D = WIDE_D, D2 = 2 WIDE_D on WIDE_MOLS
-    molecules packed at each of WIDE_TILES, f32 and bf16 (kernel_case):
-    each within KERNEL_RTOL of its plain version, two runs bit-identical,
-    and at tile TILE the kernel's, the plain version's and the library's
-    times beside the bound; K1f's rows per block and whether it split."""
+    """The eight layer kernels at each of WIDE_SHAPES (D, D2 = 2 D, the
+    tile) on WIDE_MOLS molecules, f32 and bf16 (kernel_case): each within
+    KERNEL_RTOL of its plain version, two runs bit-identical, and where
+    timed the kernel's, the plain version's and the library's times
+    beside the bound; K1f's rows per block and whether it split; past D =
+    2,048 the member-axis kernels too (checked)."""
     graphs, _ = featurize_many(synthetic_corpus(WIDE_MOLS, seed=SEED))
     gen = torch.Generator().manual_seed(SEED + 7)
     cases = []
-    for tile in WIDE_TILES:
+    for d, tile, timed in WIDE_SHAPES:
         batch = pack_batch(graphs, spec_for_graphs(graphs, WIDE_MOLS,
                                                    tile=tile)).to(dev)
         for dt in (torch.float32, torch.bfloat16):
-            x, pg, pc = layer_inputs(batch, dt, gen, WIDE_D, tile)
-            n, d = x["h"].shape
+            x, pg, pc = layer_inputs(batch, dt, gen, d, tile)
+            n = x["h"].shape[0]
             g = (0.1 * torch.randn(n, d, generator=gen)).to(dev, dt)
             dsums = (0.05 * torch.randn(2, d, generator=gen)).to(dev)
             tag = dict(dtype=str(dt).replace("torch.", ""), tile=tile,
@@ -2235,12 +2298,22 @@ def wide_kernel_phase(dev) -> list:
             for name, (names, run, plain, library, bound) in calls.items():
                 case, _ = kernel_case(name, dict(tag, kernel=name), names,
                                       run, plain, library, KERNEL_RTOL[dt],
-                                      times=(3, 3) if tile == TILE else None)
-                if tile == TILE:
+                                      times=(3, 3) if timed else None)
+                if timed:
                     case["bound_ms"], case["bound_by"] = bound
                 if name == "fused_gine_bn_layer":
                     case.update(block_rows=k1f_block_rows(dt, tile, d, 2 * d),
                                 split=k1f_splits(dt, tile, d, 2 * d))
+                print(f"wide {json.dumps(case)}", flush=True)
+                cases.append(case)
+            del x, pg, pc, calls
+            if d <= 2048:
+                continue
+            for name, (names, run, plain) in wide_member_calls(
+                    batch, dt, gen, d, tile).items():
+                case, _ = kernel_case(
+                    name, dict(tag, kernel=name, members=WIDE_MEMBERS),
+                    names, run, plain, None, KERNEL_RTOL[dt], times=None)
                 print(f"wide {json.dumps(case)}", flush=True)
                 cases.append(case)
     return cases
@@ -3153,11 +3226,12 @@ STACK_ATTRS = ("_stack", "_units", "_units_per_batch", "_n_units",
                "_mean_real_nodes", "_mean_real_edges")
 
 
-def fork(base, cfg, stack: bool):
-    """A Pretrainer of cfg sharing base's featurized data and, when
-    `stack`, its uploaded tile-unit stack (no second featurization or
-    packing); its own model (seeded as setup_state seeds it) and Adam."""
-    pre = Pretrainer(cfg, base.device)
+def fork(base, cfg, stack: bool, dp=None):
+    """A Pretrainer of cfg (under data parallelism dp) sharing base's
+    featurized data and, when `stack`, its uploaded tile-unit stack (no
+    second featurization or packing); its own model (seeded as
+    setup_state seeds it) and Adam."""
+    pre = Pretrainer(cfg, base.device, dp=dp)
     for k in DATA_ATTRS + (STACK_ATTRS if stack else ()):
         setattr(pre, k, getattr(base, k))
     if not stack:
@@ -4311,6 +4385,15 @@ def model_options_phase(tmp: str, card: str, dev, batch, spec,
 # (b): images per rank, so that the global 2B = 2 x DP_B x DP_RANKS is
 # 4,096, where 'auto' takes K2f / K2b on the gathered projections
 DP_RANKS, DP_B, DP_STEPS = 2, 1024, 3
+# the DP steps held card against CPU: (name, gnn, the trunk's layer kernel,
+# steps, config): GIN and GCN in f32, then one bf16 GIN step (K1f / K1b)
+# and one GIN step at drop_ratio 0.1, the unchained trunk (K4f / K4b
+# between cross-rank BatchNorms), its masks from each rank's own streams
+DP_CASES = (("gin", "gin", "fused_gine_bn_layer", DP_STEPS, {}),
+            ("gcn", "gcn", "fused_gcn_bn_layer", DP_STEPS, {}),
+            ("gin_bf16", "gin", "fused_gine_bn_layer", 1, dict(bf16=True)),
+            ("gin_dropout", "gin", "fused_gine_layer", 1,
+             dict(drop_ratio=0.1)))
 DP_TIMEOUT_S = 400
 # per rank and GIN step: 2 views x LAYERS BatchNorm moment sums forward and
 # backward, the pairs' gather forward and backward, the pair mask's gather,
@@ -4375,13 +4458,39 @@ def dp_vs_one_card(pre, dev) -> dict:
                 collectives_per_step=DP_COLLECTIVES)
 
 
+def dp_world1_steps(dp, dev) -> dict:
+    """(a) At world 1 on NCCL, one DP step of each DP_CASES beyond f32 (GIN
+    bf16: K1f / K1b; GIN drop_ratio 0.1: K4f / K4b, its masks from the
+    card's own streams of rank 0) on phase 5's batch (where phase 5 holds
+    the one-card steps to the CPU), from the state of the CPU twin, which
+    runs the one-card step (at world 1 the DP step is the one-card step
+    bit for bit, and the NCCL group takes no CPU tensor) on the card's
+    masks: the STEP_* limits of the step's dtype and the launches per
+    step."""
+    batch, spec = pretrain_batch()
+    out = {}
+    for name, gnn, layer, _, kw in DP_CASES[2:]:
+        cfg = pretrain_cfg(gnn=gnn, data_axis="data", **kw)
+        dps = {"card": dp, "cpu": None}
+        models, opts = card_and_cpu(cfg, dev, dps)
+        out[name] = card_vs_cpu_steps(
+            models, opts, cfg, batch, dev, spec.max_graph_bonds, 0, 1,
+            {layer: 2 * LAYERS, f"{layer}_bwd": 2 * LAYERS},
+            f"dp world 1 {name}", dps=dps)
+        print(f"dp world 1 {name} {json.dumps(out[name])}", flush=True)
+    return out
+
+
 def dp_world1_cases(tmp: str, card: str, dev, units_row: dict) -> dict:
     """(a) World 1 on NCCL: the pretrain CLI with data_axis through the
     default units path (graphed) with a resume (cli_run's checks); then in
     this process, on the CLI's group, a DP Pretrainer on phase 7's corpus:
     one eager step's collectives, EQUAL_STEPS graphed steps bit-identical
-    to eager ones, its speed beside phase 15's one-card units path, and
-    the DP step against the one-card step bit for bit."""
+    to eager ones, its speed beside phase 15's one-card units path, the DP
+    step against the one-card step bit for bit, a bf16 and a dropout DP
+    step against the CPU (dp_world1_steps), and the same Pretrainer at
+    drop_ratio 0.1 with its graphed steps bit-identical to eager ones
+    (K4f 10 / K4b 10 per step)."""
     import torch.distributed as dist
 
     log = lambda *_: None  # noqa: E731
@@ -4407,6 +4516,16 @@ def dp_world1_cases(tmp: str, card: str, dev, units_row: dict) -> dict:
     check(per_step == {"fused_gine_bn_layer": 2 * LAYERS,
                        "fused_gine_bn_layer_bwd": 2 * LAYERS},
           f"dp world 1: launches per eager step {per_step}")
+    report["steps"] = dp_world1_steps(dp, dev)
+    drop = fork(pre, pretrain_cfg(data_axis="data", drop_ratio=0.1), True,
+                dp)
+    check(drop.graph_steps > 0, "dp world 1 dropout: no graphs")
+    report["equal_dropout"] = eager_vs_graphed(drop, "dp_world1_dropout")
+    per_step = {k: c / EQUAL_STEPS for k, c in report["equal_dropout"][
+        "eager_launches"].items() if c}
+    check(per_step == {"fused_gine_layer": 2 * LAYERS,
+                       "fused_gine_layer_bwd": 2 * LAYERS},
+          f"dp world 1 dropout: launches per eager step {per_step}")
     report["speed"] = path_speed(pre, "resident_graphed", card)
     report["one_card_units_row"] = {k: units_row[k] for k in (
         "step_ms", "host_ms", "device_ms", "device_busy_share")}
@@ -4433,12 +4552,14 @@ def ranks_bit_identical(model, dp) -> bool:
 def dp_rank_main(rank: int, port: int, out_dir: str,
                  dev=torch.device("cuda", 0)) -> int:
     """(b), one rank: DP_RANKS processes share the card through gloo over
-    CUDA tensors. GIN, then GCN, at full width with DP_B molecules per
-    rank: DP_STEPS eager steps, each card step from the state of the CPU
-    twin that runs the same rank's step with the plain versions (gloo on
-    CPU tensors): the STEP_* limits, the launches per step, the ranks'
-    states bit-identical after each step; then the card step's time
-    (two processes on one card: a record, not a speed figure)."""
+    CUDA tensors. The DP_CASES at full width with DP_B molecules per rank
+    (GIN, GCN: DP_STEPS eager steps; GIN bf16, GIN dropout 0.1: one), each
+    card step from the state of the CPU twin that runs the same rank's
+    step with the plain versions (gloo on CPU tensors; with dropout on the
+    card's own masks): the STEP_* limits of the step's dtype, the launches
+    per step, the ranks' states bit-identical after each step; then for
+    GIN and GCN the card step's time (two processes on one card: a
+    record, not a speed figure)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dps = {"card": init_distributed(
@@ -4451,20 +4572,22 @@ def dp_rank_main(rank: int, port: int, out_dir: str,
     batch = pack_batch(graphs[rank * DP_B: (rank + 1) * DP_B], spec)
     report = dict(rank=rank, spec=str(spec))
     try:
-        for gnn, layer in (("gin", "fused_gine_bn_layer"),
-                           ("gcn", "fused_gcn_bn_layer")):
+        for name, gnn, layer, n_steps, kw in DP_CASES:
             want = {layer: 2 * LAYERS, f"{layer}_bwd": 2 * LAYERS,
                     "ntxent_fwd": 1, "ntxent_bwd": 1}
-            cfg = pretrain_cfg(gnn=gnn, data_axis="data")
+            cfg = pretrain_cfg(gnn=gnn, data_axis="data", **kw)
             cfg.batch_size = DP_B
             models, opts = card_and_cpu(cfg, dev, dps)
             steps = []
-            for step in range(DP_STEPS):
+            for step in range(n_steps):
                 steps.append(card_vs_cpu_steps(
                     models, opts, cfg, batch, dev, spec.max_graph_bonds,
-                    step, 1, want, f"dp {gnn} rank {rank}", dps=dps))
+                    step, 1, want, f"dp {name} rank {rank}", dps=dps))
                 check(ranks_bit_identical(models["card"], dps["card"]),
-                      f"dp {gnn} step {step}: the ranks' states differ")
+                      f"dp {name} step {step}: the ranks' states differ")
+            if name != gnn:
+                report[name] = dict(steps=steps, ranks_bit_identical=True)
+                continue
             bg = batch.to(dev)
             times = []
             for step in range(DP_STEPS, 2 * DP_STEPS):
@@ -4528,20 +4651,22 @@ def dp_two_rank_cases(tmp: str) -> dict:
     reports = run_script_ranks("--dp-rank", DP_RANKS, tmp, DP_TIMEOUT_S,
                                "dp")
     summary = {}
-    for gnn in ("gin", "gcn"):
-        losses = [[s["losses"] for s in rep[gnn]["steps"]]
+    for name, *_ in DP_CASES:
+        losses = [[s["losses"] for s in rep[name]["steps"]]
                   for rep in reports]
         check(all(x == losses[0] for x in losses),
-              f"dp {gnn}: the ranks' losses differ: {losses}")
-        summary[gnn] = [dict(
+              f"dp {name}: the ranks' losses differ: {losses}")
+        summary[name] = [dict(
             rank=rep["rank"], losses=[s["losses"][0] for s in
-                                      rep[gnn]["steps"]],
-            counts=rep[gnn]["steps"][0]["counts"][0],
-            fraction_off=max(s["fraction_off"][0] for s in rep[gnn]["steps"]),
-            grad_off=max(s["grad_off"][0] for s in rep[gnn]["steps"]),
+                                      rep[name]["steps"]],
+            counts={k: v for k, v in rep[name]["steps"][0]["counts"][
+                0].items() if v},
+            fraction_off=max(s["fraction_off"][0]
+                             for s in rep[name]["steps"]),
+            grad_off=max(s["grad_off"][0] for s in rep[name]["steps"]),
             max_param_diff=max(s["max_param_diff"][0]
-                               for s in rep[gnn]["steps"]),
-            shared_card_step_ms=rep[gnn]["shared_card_step_ms"])
+                               for s in rep[name]["steps"]),
+            shared_card_step_ms=rep[name].get("shared_card_step_ms"))
             for rep in reports]
     print(f"dp two ranks {json.dumps(summary)}", flush=True)
     return dict(ranks=reports, summary=summary)
@@ -4617,6 +4742,20 @@ PART_TIMEOUT_S = 400
 # per rank and GIN step: the data-parallel step's all-reduces and the
 # running statistics' mean
 PART_COLLECTIVES = DP_COLLECTIVES + 1
+# the partitioned steps held card against CPU: (name, gnn, the trunk's
+# layer kernel, steps, config): GIN (PART_STEPS) and GCN (1) in f32 on the
+# BN chain, then one GIN and one GCN step at drop_ratio 0.1 on the
+# unchained trunk: K4f / K4b (K5f / K5b) on the rank's local tiles with
+# the cross-rank BatchNorm between them, expected 2 views x LAYERS = 10
+# launches of each per rank and step, its masks from each rank's own
+# streams, the same PART_COLLECTIVES (MaskedBatchNorm sums its moments in
+# one all-reduce each way, as the chained trunk's coefficient mode)
+PART_CASES = (("gin", "gin", "fused_gine_bn_layer", PART_STEPS, {}),
+              ("gcn", "gcn", "fused_gcn_bn_layer", 1, {}),
+              ("gin_dropout", "gin", "fused_gine_layer", 1,
+               dict(drop_ratio=0.1)),
+              ("gcn_dropout", "gcn", "fused_gcn_layer", 1,
+               dict(drop_ratio=0.1)))
 
 
 def part_giant_batch():
@@ -4809,9 +4948,11 @@ def part_rank_main(rank: int, port: int, out_dir: str,
     versions: the STEP_* limits, K1f 10 / K1b 10 / K2f 1 / K2b 1 per step,
     PART_COLLECTIVES all-reduces, the ranks' states bit-identical after
     every step; the card step's ms (PART_RANKS processes on one card: a
-    record, not a speed figure). GCN: one such step (K3f 10 / K3b 10).
-    Then one aug 'none' step against the one-card step on the whole giant
-    batch (part_one_card_none), and edgepart (part_edge_cases)."""
+    record, not a speed figure). GCN: one such step (K3f 10 / K3b 10). GIN
+    and GCN at drop_ratio 0.1: one such step each (PART_CASES: K4f 10 / K4b
+    10, K5f 10 / K5b 10; the CPU on the card's masks). Then one aug 'none'
+    step against the one-card step on the whole giant batch
+    (part_one_card_none), and edgepart (part_edge_cases)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(max(1, (os.cpu_count() or PART_RANKS)
@@ -4828,27 +4969,26 @@ def part_rank_main(rank: int, port: int, out_dir: str,
                   - t0)
     bw = spec.max_graph_bonds
     try:
-        for gnn, layer, steps in (("gin", "fused_gine_bn_layer", PART_STEPS),
-                                  ("gcn", "fused_gcn_bn_layer", 1)):
+        for name, gnn, layer, steps, kw in PART_CASES:
             want = {layer: 2 * LAYERS, f"{layer}_bwd": 2 * LAYERS,
                     "ntxent_fwd": 1, "ntxent_bwd": 1}
-            cfg = pretrain_cfg(gnn=gnn)
+            cfg = pretrain_cfg(gnn=gnn, **kw)
             models, opts = card_and_cpu(cfg, dev, dps)
             rec = []
             for step in range(steps):
                 c0 = dps["card"].collectives
                 rec.append(card_vs_cpu_steps(
                     models, opts, cfg, shard, dev, bw, step, 1, want,
-                    f"partitioned {gnn} rank {rank}", dps=dps, part=True))
+                    f"partitioned {name} rank {rank}", dps=dps, part=True))
                 calls = dps["card"].collectives - c0
-                check(calls == PART_COLLECTIVES, f"partitioned {gnn} step "
+                check(calls == PART_COLLECTIVES, f"partitioned {name} step "
                       f"{step}: {calls} all-reduces")
                 check(ranks_bit_identical(models["card"], dps["card"]),
-                      f"partitioned {gnn} step {step}: the ranks' states "
+                      f"partitioned {name} step {step}: the ranks' states "
                       f"differ")
-            report[gnn] = dict(steps=rec, all_reduces=PART_COLLECTIVES,
-                               ranks_bit_identical=True)
-            if gnn == "gin":
+            report[name] = dict(steps=rec, all_reduces=PART_COLLECTIVES,
+                                ranks_bit_identical=True)
+            if name == "gin":
                 sg, times = shard.to(dev), []
                 for step in range(steps, 2 * steps):
                     e0 = torch.cuda.Event(enable_timing=True)
@@ -4878,22 +5018,22 @@ def part_ranks_cases(tmp: str) -> dict:
                                PART_TIMEOUT_S, "part")
     summary = dict(giant_rows=reports[0]["giant_rows"],
                    shard_rows=reports[0]["shard_rows"])
-    for gnn in ("gin", "gcn"):
-        losses = [[s["losses"] for s in rep[gnn]["steps"]]
+    for name, *_ in PART_CASES:
+        losses = [[s["losses"] for s in rep[name]["steps"]]
                   for rep in reports]
         check(all(x == losses[0] for x in losses),
-              f"partitioned {gnn}: the ranks' losses differ: {losses}")
-        summary[gnn] = dict(
-            losses=[s["losses"][0] for s in reports[0][gnn]["steps"]],
-            counts={k: v for k, v in reports[0][gnn]["steps"][0]["counts"][
-                0].items() if v},
-            all_reduces=reports[0][gnn]["all_reduces"],
+              f"partitioned {name}: the ranks' losses differ: {losses}")
+        summary[name] = dict(
+            losses=[s["losses"][0] for s in reports[0][name]["steps"]],
+            counts=[{k: v for k, v in rep[name]["steps"][0]["counts"][
+                0].items() if v} for rep in reports],
+            all_reduces=reports[0][name]["all_reduces"],
             fraction_off=max(s["fraction_off"][0] for rep in reports
-                             for s in rep[gnn]["steps"]),
+                             for s in rep[name]["steps"]),
             grad_off=max(s["grad_off"][0] for rep in reports
-                         for s in rep[gnn]["steps"]),
+                         for s in rep[name]["steps"]),
             max_param_diff=max(s["max_param_diff"][0] for rep in reports
-                               for s in rep[gnn]["steps"]))
+                               for s in rep[name]["steps"]))
     summary["gin"]["shared_card_step_ms"] = [
         rep["gin"]["shared_card_step_ms"] for rep in reports]
     summary["none"] = reports[0]["none"]

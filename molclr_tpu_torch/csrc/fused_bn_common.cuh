@@ -343,6 +343,14 @@ static RbShape rb_stream(int K, Pick pick) {
   return RbShape{0, 0, 0};
 }
 
+// A row pass of 16-row blocks whose only operand is [16, K] rows of a
+// matrix in device memory (held whole, or K = ka columns of them where they
+// stream): the node mask and the operand, then the pass scratch.
+template <typename T>
+__host__ __device__ inline RbSmem row_operand_smem(int K, int ring) {
+  return rb_smem(0, 0, a_bytes<T>(R, K), 0, pass_bytes<T>(R, ring));
+}
+
 template <int RB>
 __device__ __forceinline__ void a_put(float* A, int, int r, int k, float v) {
   A[k * RB + r] = v;
@@ -949,7 +957,8 @@ __device__ void rows_to_a(T* A, int lda, const T* src, size_t row0,
 // One column pass Cs = src[rows row0 .., :K] @ W[:K, c0 .. c0 + RCW) with
 // the f32 ring `ring`, W row-major of row stride ldw, its left operand the
 // RB rows of the row-major [*, K] matrix src in device memory (rows past
-// nrows zero): held in A whole (not STREAM: one rows_to_a, one rb_pass_wr,
+// nrows zero; element (r, k) taken as xf(k, value), rows_to_a's transform):
+// held in A whole (not STREAM: one rows_to_a, one rb_pass_wr,
 // as every launch that fits does), or (STREAM) ka columns at a time
 // (rb_stream), the chunks in ascending k, Cs zeroed first and each pass
 // continuing the sums in Cs in f32. So each f32 output is one thread's sum
@@ -958,14 +967,14 @@ __device__ void rows_to_a(T* A, int lda, const T* src, size_t row0,
 // a_bytes<T>(RB, STREAM ? ka : K). All threads must call it, before
 // anything else uses scratch; it returns after a __syncthreads with Cs
 // complete.
-template <typename T, int RB, bool STREAM>
+template <typename T, int RB, bool STREAM, typename Xf = AsIs>
 __device__ void rb_pass_streamed(int ring, int ka, T* A, const T* src,
                                  size_t row0, int nrows, int K, int c0,
                                  int ncols, float* scratch, const T* W,
-                                 int ldw) {
+                                 int ldw, Xf xf = Xf()) {
   if constexpr (!STREAM) {
     const int lda = a_lda(K);
-    rows_to_a<RB>(A, lda, src, row0, nrows, K);
+    rows_to_a<RB>(A, lda, src, row0, nrows, K, xf);
     rb_pass_wr<T, RB>(ring, A, lda, K, c0, ncols, scratch, W, ldw);
   } else {
     for (int e = threadIdx.x; e < RB * CS; e += RNT) scratch[e] = 0.f;
@@ -975,7 +984,7 @@ __device__ void rb_pass_streamed(int ring, int ka, T* A, const T* src,
       // (the previous pass ended in a __syncthreads after its last read of
       // A)
       const int kc = min(ka, K - k0), lda = a_lda(kc);
-      rows_to_a_cols<RB>(A, lda, src, K, k0, row0, nrows, kc);
+      rows_to_a_cols<RB>(A, lda, src, K, k0, row0, nrows, kc, xf);
       rb_pass_rr<T, RB, true>(
           ring, A, lda, kc, c0, ncols, scratch,
           [=](int k) { return W + (size_t)(k0 + k) * ldw; }, wide);

@@ -162,19 +162,23 @@ gcn_bn_bwd_gt_kernel(const T* __restrict__ g, const float* __restrict__ ds,
 // operand, its slice of xw = rnd(operand @ W) with W through the weight
 // ring. A strip whose A rows are all zero writes zeros and no product
 // (see above); the zeros keep whatever the buffer held out of the live
-// chunks that the strip's nodes share.
+// chunks that the strip's nodes share. Where the [16, D] operand does not
+// fit in shared memory (f32 above about D = 3,000), it streams in K-chunks
+// (STREAM: rb_pass_streamed, the prologue applied as each chunk is staged;
+// ka columns at a time), each output still one thread's sum from 0 over k
+// ascending.
 template <typename T>
 __host__ __device__ inline RbSmem k5f_xw_smem(int S, int D, int ring) {
   const int nch = (S + ACW - 1) / ACW;
   return rb_smem(S, nch, a_bytes<T>(R, D), 0, pass_bytes<T>(R, ring));
 }
 
-template <typename T, bool BN, bool MEM>
+template <typename T, bool BN, bool MEM, bool STREAM = false>
 __global__ void __launch_bounds__(RNT, 2)
 k5f_xw_kernel(const T* __restrict__ x, const float* __restrict__ a,
               const float* __restrict__ b, const T* __restrict__ adj,
               const T* __restrict__ w, T* __restrict__ xw, int S, int D,
-              int relu_in, int ring) {
+              int relu_in, int ring, int ka) {
   extern __shared__ float smem_f[];  // 16-byte aligned
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
   if constexpr (MEM) {  // member blockIdx.z (K5f)
@@ -183,7 +187,7 @@ k5f_xw_kernel(const T* __restrict__ x, const float* __restrict__ a,
     w += z * D * D;
     xw += z * N * D;
   }
-  const RbSmem L = k5f_xw_smem<T>(S, D, ring);
+  const RbSmem L = k5f_xw_smem<T>(S, STREAM ? ka : D, ring);
   int* flags = reinterpret_cast<int*>(smem + L.meta);
   int* node = flags + 2 * L.nch;
   int* width = node + L.maxc;
@@ -199,14 +203,26 @@ k5f_xw_kernel(const T* __restrict__ x, const float* __restrict__ a,
     }
     return;
   }
-  const int lda = a_lda(D);
-  if constexpr (BN)
-    rows_to_a<R>(xa, lda, x, row0, R, D, [=](int k, float v) {
-      return rnd<T>(prologue(v, a[k], b[k], relu_in));
-    });
-  else
-    rows_to_a<R>(xa, lda, x, row0, R, D);
-  rb_pass_wr<T, R>(ring, xa, lda, D, cb, D, scratch, w, D);
+  if constexpr (STREAM) {
+    if constexpr (BN)
+      rb_pass_streamed<T, R, true>(
+          ring, ka, xa, x, row0, R, D, cb, D, scratch, w, D,
+          [=](int k, float v) {
+            return rnd<T>(prologue(v, a[k], b[k], relu_in));
+          });
+    else
+      rb_pass_streamed<T, R, true>(ring, ka, xa, x, row0, R, D, cb, D,
+                                   scratch, w, D);
+  } else {
+    const int lda = a_lda(D);
+    if constexpr (BN)
+      rows_to_a<R>(xa, lda, x, row0, R, D, [=](int k, float v) {
+        return rnd<T>(prologue(v, a[k], b[k], relu_in));
+      });
+    else
+      rows_to_a<R>(xa, lda, x, row0, R, D);
+    rb_pass_wr<T, R>(ring, xa, lda, D, cb, D, scratch, w, D);
+  }
   for (int e = threadIdx.x; e < R * RCW; e += RNT) {
     const int r = e / RCW, j = e % RCW, c = cb + j;
     if (c < D) st(xw, (row0 + r) * D + c, scratch[r * CS + j]);
@@ -214,25 +230,31 @@ k5f_xw_kernel(const T* __restrict__ x, const float* __restrict__ a,
 }
 
 // The xw pass over N rows of M members at the 64 KB f32 weight ring (the
-// 32 KB one where shared memory does not fit).
+// 32 KB one where shared memory does not fit), x streamed in K-chunks where
+// neither holds [16, D] of it.
 template <typename T, bool BN>
 static int launch_xw_pass(const void* x, const float* a, const float* b,
                           const void* adj, const void* w, void* xw, int N,
                           int S, int D, int relu_in, cudaStream_t st,
                           int M = 1) {
-  const RbShape sh = rb_shape(R, 1, [&](int, int rg) {
-    return k5f_xw_smem<T>(S, D, rg).total;
+  const RbShape sh = rb_stream(D, [&](int ka) {
+    return rb_shape(R, 1, [&](int, int rg) {
+      return k5f_xw_smem<T>(S, ka, rg).total;
+    });
   });
   if (!sh.rb) return (int)cudaErrorInvalidValue;
-  // (K3f launches one member; K5f's one-member instantiation compiles
+  // (K3f launches one member; K5f's one-member instantiations compile
   // without the member offsets)
-  auto kernel = !BN && M > 1 ? k5f_xw_kernel<T, BN, !BN>
-                             : k5f_xw_kernel<T, BN, false>;
+  const bool mem = !BN && M > 1;
+  auto kernel = mem ? (sh.ka ? k5f_xw_kernel<T, BN, !BN, true>
+                             : k5f_xw_kernel<T, BN, !BN>)
+                    : (sh.ka ? k5f_xw_kernel<T, BN, false, true>
+                             : k5f_xw_kernel<T, BN, false>);
   cudaError_t e = set_smem(kernel, sh.bytes);
   if (e != cudaSuccess) return (int)e;
   kernel<<<dim3(N / R, (D + RCW - 1) / RCW, M), RNT, sh.bytes, st>>>(
       (const T*)x, a, b, (const T*)adj, (const T*)w, (T*)xw, S, D, relu_in,
-      sh.ring);
+      sh.ring, sh.ka);
   return (int)cudaGetLastError();
 }
 
@@ -333,6 +355,12 @@ static int gcn_fwd(const void* x, const void* adj, const void* w, void* xw,
 // for the weight pass: 0 when its A rows are all zero and (cnt not null)
 // so are its cnt rows. Shared memory: the chunk list, the node mask, the A
 // chunks [16, live * 32], the dxw operand [16, D] and the pass scratch.
+// Where [16, D] of dxw does not fit beside the A chunks (f32 above about D
+// = 3,000), the strip pass is two launches: k5b_strip_kernel with STREAM
+// computes and writes only its own slice of dxw (and the strip's flag), and
+// k5b_dx_kernel streams the strip's dxw rows from device memory in
+// K-chunks for its slice of dx and calls the epilogue (a strip with no live
+// chunk: dxw = 0, so Cs = 0 there too).
 constexpr int K5B_RB = 16;
 
 template <typename T>
@@ -342,7 +370,7 @@ __host__ __device__ inline RbSmem k5b_smem(int S, int D, int ring) {
                  a_bytes<T>(K5B_RB, D), pass_bytes<T>(K5B_RB, ring));
 }
 
-template <typename T, typename Epi>
+template <typename T, typename Epi, bool STREAM = false>
 __global__ void __launch_bounds__(RNT, 2)
 k5b_strip_kernel(const T* __restrict__ g, const T* __restrict__ adj,
                  const T* __restrict__ cnt, const T* __restrict__ wt,
@@ -359,7 +387,7 @@ k5b_strip_kernel(const T* __restrict__ g, const T* __restrict__ adj,
     dxw += z * N * D;
     strip_live += z * gridDim.x;
   }
-  const RbSmem L = k5b_smem<T>(S, D, ring);
+  const RbSmem L = k5b_smem<T>(S, STREAM ? 0 : D, ring);
   int* flags = reinterpret_cast<int*>(smem + L.meta);
   int* node = flags + 2 * L.nch;
   int* width = node + L.maxc;
@@ -381,8 +409,23 @@ k5b_strip_kernel(const T* __restrict__ g, const T* __restrict__ adj,
       if (c < D) st(dxw, (row0 + r) * D + c, 0.f);
       scratch[r * CS + j] = 0.f;
     }
+    if (STREAM) return;
     __syncthreads();
     epi(row0, cb, scratch, msk);
+    return;
+  }
+  if constexpr (STREAM) {  // this block's slice of dxw = rnd(A @ g)
+    const int KL = nlive * ACW, lda1 = a_lda(KL);
+    adj_operand<RB, T>(adj, nullptr, row0, RB, S, nlive, node, width, knode,
+                       ext, lda1);
+    rb_pass<T, RB>(
+        ext, lda1, KL, cb, D, scratch,
+        [&](int k, int c) -> T { return g[(size_t)knode[k] * D + c]; },
+        IdentityFor());
+    for (int e = tid; e < RB * RCW; e += RNT) {
+      const int r = e / RCW, j = e % RCW, c = cb + j;
+      if (c < D) st(dxw, (row0 + r) * D + c, scratch[r * CS + j]);
+    }
     return;
   }
   const int KL = nlive * ACW, lda1 = a_lda(KL), lda2 = a_lda(D);
@@ -411,12 +454,45 @@ k5b_strip_kernel(const T* __restrict__ g, const T* __restrict__ adj,
   epi(row0, cb, scratch, msk);
 }
 
+// The streamed strip pass's second launch: one block of RNT threads per
+// (16-row strip, 128-column slice of dx) computes its slice of dx = dxw @
+// W^T with the strip's dxw rows streamed from device memory in K-chunks
+// (ka columns at a time, or held whole where ka = 0), then calls epi(row0,
+// c0, Cs, msk) as k5b_strip_kernel does. Members as there.
+template <typename T, typename Epi, bool STREAM>
+__global__ void __launch_bounds__(RNT, 2)
+k5b_dx_kernel(const T* __restrict__ dxw, const T* __restrict__ adj,
+              const T* __restrict__ wt, Epi epi, int S, int D, int ring,
+              int ka) {
+  extern __shared__ float smem_f[];  // 16-byte aligned
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  if constexpr (Epi::kMembers) {  // member blockIdx.z (K5b)
+    const size_t z = blockIdx.z, N = (size_t)gridDim.x * R;
+    wt += z * D * D;
+    dxw += z * N * D;
+  }
+  const RbSmem L = row_operand_smem<T>(STREAM ? ka : D, ring);
+  float* msk = reinterpret_cast<float*>(smem + L.msk);
+  T* da = reinterpret_cast<T*>(smem + L.op0);
+  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
+  const size_t row0 = (size_t)blockIdx.x * R;
+  const int cb = blockIdx.y * RCW;  // this block's slice of dx
+  if (threadIdx.x < R) {
+    const size_t r = row0 + threadIdx.x;
+    msk[threadIdx.x] = ld(adj, r * S + r % S) > 0.f ? 1.f : 0.f;
+  }
+  rb_pass_streamed<T, R, STREAM>(ring, ka, da, dxw, row0, R, D, cb, D,
+                                 scratch, wt, D);
+  epi(row0, cb, scratch, msk);
+}
+
 // The strip pass over N rows of M members. Its f32 weight ring: where the
 // grid is at most two blocks per SM (one fine-tuning batch), the 96 KB
 // one, a block alone on its SM with the deepest pipeline; else the ring
 // that leaves room for two blocks on an SM (rb_shape_two), so that one
 // block's adjacency scan and products overlap another's (the pretraining
 // batches, the members of an ensemble). The ring sets no f32 sum's order.
+// Where no ring holds [16, D] of dxw, the two streamed launches.
 template <typename T, typename Epi>
 static int launch_strip_pass(const void* g, const void* adj, const void* cnt,
                              const void* wt, void* dxw, const Epi& epi,
@@ -427,12 +503,34 @@ static int launch_strip_pass(const void* g, const void* adj, const void* cnt,
   const RbShape sh = (int)(grid.x * grid.y * grid.z) <= 2 * sm_count()
                          ? rb_shape(K5B_RB, 0, bytes)
                          : rb_shape_two(bytes);
-  if (!sh.rb) return (int)cudaErrorInvalidValue;
-  cudaError_t e = set_smem(k5b_strip_kernel<T, Epi>, sh.bytes);
-  if (e != cudaSuccess) return (int)e;
-  k5b_strip_kernel<T, Epi><<<grid, RNT, sh.bytes, st>>>(
-      (const T*)g, (const T*)adj, (const T*)cnt, (const T*)wt, (T*)dxw, epi,
-      strip_live, S, D, sh.ring);
+  cudaError_t e;
+  if (sh.rb) {
+    if ((e = set_smem(k5b_strip_kernel<T, Epi>, sh.bytes)) != cudaSuccess)
+      return (int)e;
+    k5b_strip_kernel<T, Epi><<<grid, RNT, sh.bytes, st>>>(
+        (const T*)g, (const T*)adj, (const T*)cnt, (const T*)wt, (T*)dxw,
+        epi, strip_live, S, D, sh.ring);
+    return (int)cudaGetLastError();
+  }
+  const RbShape s1 = rb_shape(K5B_RB, 1, [&](int, int ring) {
+    return k5b_smem<T>(S, 0, ring).total;
+  });
+  const RbShape s2 = rb_stream(D, [&](int ka) {
+    return rb_shape_two([&](int, int rg) {
+      return row_operand_smem<T>(ka, rg).total;
+    });
+  });
+  if (!s1.rb || !s2.rb) return (int)cudaErrorInvalidValue;
+  auto k1 = k5b_strip_kernel<T, Epi, true>;
+  if ((e = set_smem(k1, s1.bytes)) != cudaSuccess) return (int)e;
+  k1<<<grid, RNT, s1.bytes, st>>>((const T*)g, (const T*)adj, (const T*)cnt,
+                                  (const T*)wt, (T*)dxw, epi, strip_live, S,
+                                  D, s1.ring);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  auto k2 = s2.ka ? k5b_dx_kernel<T, Epi, true> : k5b_dx_kernel<T, Epi, false>;
+  if ((e = set_smem(k2, s2.bytes)) != cudaSuccess) return (int)e;
+  k2<<<grid, RNT, s2.bytes, st>>>((const T*)dxw, (const T*)adj, (const T*)wt,
+                                  epi, S, D, s2.ring, s2.ka);
   return (int)cudaGetLastError();
 }
 

@@ -114,7 +114,12 @@ namespace fbl {
 // shared memory in K-chunks where it does not fit whole (rb_pass_streamed),
 // and the strip's moment partials for its columns in stage 3's order. Dead
 // rows run the product on their rnd(relu(b1)) rows, which in f32 gives the
-// dead row's bits (one thread's sum from 0 over k ascending).
+// dead row's bits (one thread's sum from 0 over k ascending). Where not
+// even the split block holds agg [16, D] (f32 above about D = 2,752 at S =
+// 256), the block launch gives way to two streamed launches
+// (gine_bn_fwd_split): agg_kernel writes agg to device memory (the
+// caller's scratch without residuals) and the mid launch (k4f_out_kernel
+// with RELU) streams it in K-chunks.
 constexpr int K1F_RB = 32;
 
 template <typename T>
@@ -139,13 +144,6 @@ static RbShape k1f_launch_shape(int S, int D, int D2) {
   });
 }
 
-// K4f's out launch (also K1f's split out launch): the [16, D2] mid rows
-// (ka columns of them where they stream) and the pass scratch.
-template <typename T>
-__host__ __device__ inline RbSmem k4f_out_smem(int D2, int ring) {
-  return rb_smem(0, 0, a_bytes<T>(R, D2), 0, pass_bytes<T>(R, ring));
-}
-
 // The split K1f where k1f_launch_shape finds no block: (block launch, out
 // launch), rb = 0 in either where it cannot launch.
 template <typename T>
@@ -155,7 +153,7 @@ static void k1f_split_shape(int S, int D, int D2, RbShape* a, RbShape* b) {
   });
   *b = rb_stream(D2, [&](int ka) {
     return rb_shape(R, 1, [&](int, int rg) {
-      return k4f_out_smem<T>(ka, rg).total;
+      return row_operand_smem<T>(ka, rg).total;
     });
   });
 }
@@ -331,7 +329,7 @@ k1f_out_kernel(const T* __restrict__ mid, const T* __restrict__ adj,
                int D2, int ring, int ka) {
   extern __shared__ float smem_f[];  // 16-byte aligned
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
-  const RbSmem L = k4f_out_smem<T>(STREAM ? ka : D2, ring);
+  const RbSmem L = row_operand_smem<T>(STREAM ? ka : D2, ring);
   float* msk = reinterpret_cast<float*>(smem + L.msk);
   T* ma = reinterpret_cast<T*>(smem + L.op0);
   float* scratch = reinterpret_cast<float*>(smem + L.scratch);
@@ -386,6 +384,10 @@ k1f_out_kernel(const T* __restrict__ mid, const T* __restrict__ adj,
 //     the product on their rnd(relu(b1)) rows, as the first design did.
 //     Where [16, D2] mid rows do not fit in shared memory (f32 above about
 //     D2 = 3,000) they stream in K-chunks (rb_pass_streamed).
+// Where the mid launch cannot hold agg [16, D] beside its adjacency operand
+// (f32 above about D = 2,752 at S = 256), agg_kernel writes agg to device
+// memory and the mid launch is k4f_out_kernel with RELU, which streams agg
+// in K-chunks as the out launch streams mid (k4f_launch_shape, launch 2).
 // Members (MEM, where M > 1). Grid z is the member m of a stack of M
 // layers that share the adjacency and the counts (the JAX package's
 // vmapped pallas_call over a seed / target ensemble): h, etab, W1, b1, W2,
@@ -481,7 +483,10 @@ k4f_mid_kernel(const T* __restrict__ h, const T* __restrict__ adj,
   }
 }
 
-template <typename T, bool MEM, bool STREAM>
+// out = rnd(mid @ W2 + b2), [N, D2] @ [D2, D]; with RELU the streamed
+// designs' mid launch, mid = rnd(relu(agg @ W1 + b1)): the same pass on
+// (agg, W1, b1, mid) with D2 for D and D for D2.
+template <typename T, bool MEM, bool STREAM, bool RELU = false>
 __global__ void __launch_bounds__(RNT, 2)
 k4f_out_kernel(const T* __restrict__ mid, const T* __restrict__ w2,
                const float* __restrict__ b2, T* __restrict__ out, int D,
@@ -495,7 +500,7 @@ k4f_out_kernel(const T* __restrict__ mid, const T* __restrict__ w2,
     b2 += z * D;
     out += z * N * D;
   }
-  const RbSmem L = k4f_out_smem<T>(STREAM ? ka : D2, ring);
+  const RbSmem L = row_operand_smem<T>(STREAM ? ka : D2, ring);
   T* ma = reinterpret_cast<T*>(smem + L.op0);
   float* scratch = reinterpret_cast<float*>(smem + L.scratch);
   const size_t row0 = (size_t)blockIdx.x * R;
@@ -504,32 +509,144 @@ k4f_out_kernel(const T* __restrict__ mid, const T* __restrict__ w2,
                                  scratch, w2, D);
   for (int e = threadIdx.x; e < R * RCW; e += RNT) {
     const int r = e / RCW, j = e % RCW, c = cb + j;
-    if (c < D)
-      st(out, (row0 + r) * D + c, rnd<T>(scratch[r * CS + j] + b2[c]));
+    if constexpr (RELU) {
+      if (c < D)
+        st(out, (row0 + r) * D + c,
+           rnd<T>(fmaxf(scratch[r * CS + j] + b2[c], 0.f)));
+    } else {
+      if (c < D)
+        st(out, (row0 + r) * D + c, rnd<T>(scratch[r * CS + j] + b2[c]));
+    }
   }
 }
 
-// K4f's f32 ring for its mid launch (0) or out launch (1): the 64 KB one,
-// or the 32 KB one where that does not fit; the out launch streams mid in
-// K-chunks where neither fits it whole.
+// K4f's f32 ring for its mid launch (0), out launch (1) or streamed mid
+// launch (2): the 64 KB one, or the 32 KB one where that does not fit; the
+// out launch streams mid, the streamed mid launch agg, in K-chunks where
+// neither fits it whole. Launch 0 has rb = 0 where agg does not fit beside
+// its operand: then the streamed designs run.
 template <typename T>
 static RbShape k4f_launch_shape(int launch, int S, int D, int D2) {
   if (launch == 0)
     return rb_shape(R, 1, [&](int, int rg) {
       return k4f_mid_smem<T>(S, D, rg).total;
     });
-  return rb_stream(D2, [&](int ka) {
+  return rb_stream(launch == 1 ? D2 : D, [&](int ka) {
     return rb_shape(R, 1, [&](int, int rg) {
-      return k4f_out_smem<T>(ka, rg).total;
+      return row_operand_smem<T>(ka, rg).total;
     });
   });
+}
+
+// The streamed designs' agg launch (K4f's where its mid launch cannot hold
+// agg [16, D], the split K1f's where its block cannot): one block of RNT
+// threads per (16-row strip, 128-column slice of agg) computes its slice
+// agg = rnd([A live chunks | cnt] @ [y ; etab]), y = rnd(relu?(h a + b))
+// (PRO: K1f's prologue) or h (K4f), over the strip's live 32-column chunks,
+// and writes it to device memory, from which the mid launch streams it. A
+// strip whose A and cnt rows are all zero writes zeros with no product. In
+// f32 each output is one thread's sum over k in ascending order, as stage 1
+// of k1f_kernel and k4f_mid_kernel sum it. Members (MEM, K4f) as
+// k4f_mid_kernel: h, etab and agg per member, adj and cnt shared.
+template <typename T>
+__host__ __device__ inline RbSmem agg_smem(int S) {
+  const int nch = (S + ACW - 1) / ACW;
+  return rb_smem(S, nch, a_bytes<T>(R, nch * ACW + CNT_PAD), 0,
+                 chunk_bytes<T>(R));
+}
+
+template <typename T, bool PRO, bool MEM>
+__global__ void __launch_bounds__(RNT, 2)
+agg_kernel(const T* __restrict__ h, const float* __restrict__ a,
+           const float* __restrict__ b, const T* __restrict__ adj,
+           const T* __restrict__ cnt, const T* __restrict__ etab,
+           T* __restrict__ agg, int S, int D, int relu_in) {
+  extern __shared__ float smem_f[];  // 16-byte aligned
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  __shared__ int cnt_live;
+  if constexpr (MEM) {  // member blockIdx.z
+    const size_t z = blockIdx.z, N = (size_t)gridDim.x * R;
+    h += z * N * D;
+    etab += z * CNT_PAD * D;
+    agg += z * N * D;
+  }
+  const RbSmem L = agg_smem<T>(S);
+  int* flags = reinterpret_cast<int*>(smem + L.meta);
+  int* node = flags + 2 * L.nch;
+  int* width = node + L.maxc;
+  int* knode = width + L.maxc;
+  float* msk = reinterpret_cast<float*>(smem + L.msk);
+  T* xa = reinterpret_cast<T*>(smem + L.op0);
+  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
+  const size_t row0 = (size_t)blockIdx.x * R;
+  const int cb = blockIdx.y * RCW;  // this block's slice of agg
+  const bool clive = cnt_rows_live(cnt, row0, R, &cnt_live);
+  const int nlive = adj_live_chunks(adj, row0, R, S, flags, node, width,
+                                    msk);
+  if (nlive == 0 && !clive) {
+    for (int e = threadIdx.x; e < R * RCW; e += RNT) {
+      const int r = e / RCW, c = cb + e % RCW;
+      if (c < D) st(agg, (row0 + r) * D + c, 0.f);
+    }
+    return;
+  }
+  const int KL = nlive * ACW, K1 = KL + CNT_PAD, lda = a_lda(K1);
+  adj_operand<R>(adj, cnt, row0, R, S, nlive, node, width, knode, xa, lda);
+  auto load = [&](int k, int c) -> T {
+    const T* p =
+        k < KL ? h + (size_t)knode[k] * D : etab + (size_t)(k - KL) * D;
+    return p[c];
+  };
+  auto xf = [&](int c) {
+    const float ac = PRO ? a[c] : 1.f, bc = PRO ? b[c] : 0.f;
+    return [=](int k, float v) -> float {
+      return PRO && k < KL ? rnd<T>(prologue(v, ac, bc, relu_in)) : v;
+    };
+  };
+  rb_pass<T, R>(xa, lda, K1, cb, D, scratch, load, xf);
+  for (int e = threadIdx.x; e < R * RCW; e += RNT) {
+    const int r = e / RCW, j = e % RCW, c = cb + j;
+    if (c < D) st(agg, (row0 + r) * D + c, scratch[r * CS + j]);
+  }
+}
+
+// The streamed designs' agg launch, then their mid launch mid = rnd(relu(agg
+// @ W1 + b1)) with agg streamed in K-chunks where [16, D] of it do not fit
+// in shared memory (k4f_launch_shape, launch 2), for M members (PRO: K1f,
+// one member).
+template <typename T, bool PRO>
+static int agg_then_mid(const void* h, const float* a, const float* b,
+                        const void* adj, const void* cnt, const void* etab,
+                        const void* w1, const float* b1, void* agg, void* mid,
+                        int N, int S, int D, int D2, int relu_in, int M,
+                        cudaStream_t st) {
+  const size_t bytes = agg_smem<T>(S).total;
+  const RbShape sm = k4f_launch_shape<T>(2, S, D, D2);
+  if (!agg || !mid || bytes > max_smem() || !sm.rb)
+    return (int)cudaErrorInvalidValue;
+  auto aggk = M > 1 ? agg_kernel<T, PRO, !PRO> : agg_kernel<T, PRO, false>;
+  cudaError_t e = set_smem(aggk, bytes);
+  if (e != cudaSuccess) return (int)e;
+  aggk<<<dim3(N / R, (D + RCW - 1) / RCW, M), RNT, bytes, st>>>(
+      (const T*)h, a, b, (const T*)adj, (const T*)cnt, (const T*)etab,
+      (T*)agg, S, D, relu_in);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  auto midk = M > 1 ? (sm.ka ? k4f_out_kernel<T, !PRO, true, true>
+                             : k4f_out_kernel<T, !PRO, false, true>)
+                    : (sm.ka ? k4f_out_kernel<T, false, true, true>
+                             : k4f_out_kernel<T, false, false, true>);
+  if ((e = set_smem(midk, sm.bytes)) != cudaSuccess) return (int)e;
+  midk<<<dim3(N / R, (D2 + RCW - 1) / RCW, M), RNT, sm.bytes, st>>>(
+      (const T*)agg, (const T*)w1, b1, (T*)mid, D2, D, sm.ring, sm.ka);
+  return (int)cudaGetLastError();
 }
 
 // K1f: the dead blocks' constant row, the row-block kernel, then the
 // fixed-order sum of the moment partials of its N / 16 strips. partial
 // holds N / 16 + 1 rows of [2, D]: the last keeps the constant row. Where
 // no block fits (k1f_launch_shape), the split design: the SPLIT block
-// kernel writes mid (not null: the caller's scratch without residuals),
+// kernel writes mid (not null: the caller's scratch without residuals), or
+// where not even that block fits, agg_then_mid (agg not null either),
 // k1f_out_kernel out and the partials, then the same sum.
 template <typename T>
 static int gine_bn_fwd_split(const void* h, const float* a, const float* b,
@@ -541,14 +658,22 @@ static int gine_bn_fwd_split(const void* h, const float* a, const float* b,
                              int D, int D2, int relu_in, cudaStream_t st) {
   RbShape sa, sb;
   k1f_split_shape<T>(S, D, D2, &sa, &sb);
-  if (!sa.rb || !sb.rb || !mid) return (int)cudaErrorInvalidValue;
-  cudaError_t e = set_smem(k1f_kernel<T, R, true>, sa.bytes);
-  if (e != cudaSuccess) return (int)e;
-  k1f_kernel<T, R, true><<<N / R, RNT, sa.bytes, st>>>(
-      (const T*)h, a, b, (const T*)adj, (const T*)cnt, (const T*)etab,
-      (const T*)w1, b1, (const T*)w2, b2, (T*)out, (T*)agg, (T*)mid, partial,
-      nullptr, N, S, D, D2, relu_in, sa.ring);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (!sb.rb || !mid) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (sa.rb) {
+    if ((e = set_smem(k1f_kernel<T, R, true>, sa.bytes)) != cudaSuccess)
+      return (int)e;
+    k1f_kernel<T, R, true><<<N / R, RNT, sa.bytes, st>>>(
+        (const T*)h, a, b, (const T*)adj, (const T*)cnt, (const T*)etab,
+        (const T*)w1, b1, (const T*)w2, b2, (T*)out, (T*)agg, (T*)mid,
+        partial, nullptr, N, S, D, D2, relu_in, sa.ring);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  } else {
+    const int err = agg_then_mid<T, true>(h, a, b, adj, cnt, etab, w1, b1,
+                                          agg, mid, N, S, D, D2, relu_in, 1,
+                                          st);
+    if (err) return err;
+  }
   auto outk = sb.ka ? k1f_out_kernel<T, true> : k1f_out_kernel<T, false>;
   if ((e = set_smem(outk, sb.bytes)) != cudaSuccess) return (int)e;
   outk<<<dim3(N / R, (D + RCW - 1) / RCW), RNT, sb.bytes, st>>>(
@@ -591,8 +716,10 @@ static int gine_bn_fwd(const void* h, const float* a, const float* b,
 }
 
 // K4f of M members (stacked as k4f_mid_kernel says; M = 1: one layer):
-// the mid launch, then the out launch. mid is written in full (the
-// caller's scratch when it wants no residuals); agg only when not null.
+// the mid launch (or where it cannot hold agg, agg_then_mid), then the out
+// launch. mid is written in full (the caller's scratch when it wants no
+// residuals); agg only when not null, which it must not be where agg goes
+// through device memory (gine_streams_agg_*).
 template <typename T>
 static int gine_fwd(const void* h, const void* adj, const void* cnt,
                     const void* etab, const void* w1, const float* b1,
@@ -605,19 +732,26 @@ static int gine_fwd(const void* h, const void* adj, const void* cnt,
   cudaStream_t st = (cudaStream_t)stream;
   const RbShape a = k4f_launch_shape<T>(0, S, D, D2);
   const RbShape b = k4f_launch_shape<T>(1, S, D, D2);
-  if (!a.rb || !b.rb) return (int)cudaErrorInvalidValue;
+  if (!b.rb) return (int)cudaErrorInvalidValue;
   const bool mem = M > 1;
-  auto midk = mem ? k4f_mid_kernel<T, true> : k4f_mid_kernel<T, false>;
   auto outk = mem ? (b.ka ? k4f_out_kernel<T, true, true>
                           : k4f_out_kernel<T, true, false>)
                   : (b.ka ? k4f_out_kernel<T, false, true>
                           : k4f_out_kernel<T, false, false>);
-  cudaError_t e = set_smem(midk, a.bytes);
-  if (e != cudaSuccess) return (int)e;
-  midk<<<dim3(N / R, (D2 + RCW - 1) / RCW, M), RNT, a.bytes, st>>>(
-      (const T*)h, (const T*)adj, (const T*)cnt, (const T*)etab,
-      (const T*)w1, b1, (T*)agg, (T*)mid, S, D, D2, a.ring);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  cudaError_t e;
+  if (a.rb) {
+    auto midk = mem ? k4f_mid_kernel<T, true> : k4f_mid_kernel<T, false>;
+    if ((e = set_smem(midk, a.bytes)) != cudaSuccess) return (int)e;
+    midk<<<dim3(N / R, (D2 + RCW - 1) / RCW, M), RNT, a.bytes, st>>>(
+        (const T*)h, (const T*)adj, (const T*)cnt, (const T*)etab,
+        (const T*)w1, b1, (T*)agg, (T*)mid, S, D, D2, a.ring);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  } else {
+    const int err = agg_then_mid<T, false>(h, nullptr, nullptr, adj, cnt,
+                                           etab, w1, b1, agg, mid, N, S, D,
+                                           D2, 0, M, st);
+    if (err) return err;
+  }
   if ((e = set_smem(outk, b.bytes)) != cudaSuccess) return (int)e;
   outk<<<dim3(N / R, (D + RCW - 1) / RCW, M), RNT, b.bytes, st>>>(
       (const T*)mid, (const T*)w2, b2, (T*)out, D, D2, b.ring, b.ka);
@@ -631,12 +765,22 @@ extern "C" {
 // K1f: gine_bn_fwd_*, the rows per block it launches with at a shape (0
 // where it cannot launch), which the plan of what it skips needs, and
 // whether it takes the split design there (1: mid must not be null).
+// gine_streams_agg_*: whether K1f (bn 1) or K4f (bn 0) takes the streamed
+// design at a shape, which writes agg through device memory (1: agg must
+// not be null).
 #define GINE_BN_FWD(suffix, T)                                              \
   int gine_bn_fwd_split_##suffix(int S, int D, int D2) {                    \
     if (fbl::k1f_launch_shape<T>(S, D, D2).rb) return 0;                    \
     fbl::RbShape a, b;                                                      \
     fbl::k1f_split_shape<T>(S, D, D2, &a, &b);                              \
-    return a.rb && b.rb;                                                    \
+    return b.rb != 0;                                                       \
+  }                                                                         \
+  int gine_streams_agg_##suffix(int bn, int S, int D, int D2) {             \
+    if (!bn) return fbl::k4f_launch_shape<T>(0, S, D, D2).rb == 0;          \
+    if (fbl::k1f_launch_shape<T>(S, D, D2).rb) return 0;                    \
+    fbl::RbShape a, b;                                                      \
+    fbl::k1f_split_shape<T>(S, D, D2, &a, &b);                              \
+    return a.rb == 0;                                                       \
   }                                                                         \
   int gine_bn_fwd_##suffix(const void* h, const float* a, const float* b,   \
                            const void* adj, const void* cnt,                \

@@ -94,20 +94,61 @@ namespace fbl {
 // w1t [D2, D] and w2t [D, D2] are W1^T and W2^T, so that their rows
 // stream. The dagg launch streams dmidc's rows in K-chunks (STREAM) where
 // [16, D2] of them do not fit in shared memory (f32 above about D2 =
-// 3,000). K4b's members (MEM): grid z, as K4f's (g, mid, agg, W^T, dmidc,
-// daggc, dh, the strip flags and every partial per member, the adjacency
-// and counts shared).
-template <typename T>
-__host__ __device__ inline RbSmem gine_bwd_dmid_smem(int D, int ring) {
-  return rb_smem(0, 0, a_bytes<T>(R, D), 0, pass_bytes<T>(R, ring));
-}
-
-template <typename T>
-__host__ __device__ inline RbSmem gine_bwd_dagg_smem(int D2, int ring) {
-  return rb_smem(0, 0, a_bytes<T>(R, D2), 0, pass_bytes<T>(R, ring));
-}
-
+// 3,000). Where the dmid launch cannot hold gtc [16, D] (f32 above about D
+// = 3,000), gine_bwd_gt_kernel first writes gt's parts that the slice-0
+// block writes (gtc for K1b, the db2 partial, the live flag; K4b's gtc is g
+// itself) and the dmid launch (STREAM) streams gtc's rows in K-chunks. K4b's
+// members (MEM): grid z, as K4f's (g, mid, agg, W^T, dmidc, daggc, dh, the
+// strip flags and every partial per member, the adjacency and counts
+// shared).
 template <typename T, bool BN, bool MEM>
+__global__ void __launch_bounds__(RNT)
+gine_bwd_gt_kernel(const T* __restrict__ g, const float* __restrict__ ds,
+                   const T* __restrict__ adj, const T* __restrict__ out,
+                   T* __restrict__ gtc, int* __restrict__ strip_live,
+                   float* __restrict__ partial, int S, int D, int D2) {
+  __shared__ float msk[R];
+  __shared__ int live;
+  if constexpr (MEM) {  // member blockIdx.z (K4b)
+    const size_t z = blockIdx.z, N = (size_t)gridDim.x * R;
+    g += z * N * D;
+    strip_live += z * gridDim.x;
+    partial += z * gridDim.x * (D2 + D);
+  }
+  const int tid = threadIdx.x;
+  const size_t row0 = (size_t)blockIdx.x * R;
+  float* prow = partial + (size_t)blockIdx.x * (D2 + D);
+  if (tid == 0) live = 0;
+  if (BN && tid < R) {
+    const size_t r = row0 + tid;
+    msk[tid] = ld(adj, r * S + r % S) > 0.f ? 1.f : 0.f;
+  }
+  __syncthreads();
+  for (int c = tid; c < D; c += RNT) {
+    float s = 0.f;
+    bool nz = false;
+    for (int r = 0; r < R; ++r) {
+      const size_t e = (row0 + r) * D + c;
+      float gt;
+      if constexpr (BN) {
+        const float t =
+            __fadd_rn(ds[c], __fmul_rn(2.f * ld(out, e), ds[D + c]));
+        gt = __fadd_rn(ld(g, e), msk[r] * t);
+        st(gtc, e, gt);
+      } else {
+        gt = ld(g, e);
+      }
+      s += gt;
+      nz |= gt != 0.f;
+    }
+    prow[D2 + c] = s;
+    if (nz) live = 1;
+  }
+  __syncthreads();
+  if (tid == 0) strip_live[blockIdx.x] = live;
+}
+
+template <typename T, bool BN, bool MEM, bool STREAM = false>
 __global__ void __launch_bounds__(RNT, 2)
 gine_bwd_dmid_kernel(const T* __restrict__ g, const float* __restrict__ ds,
                      const T* __restrict__ adj, const T* __restrict__ mid,
@@ -115,7 +156,7 @@ gine_bwd_dmid_kernel(const T* __restrict__ g, const float* __restrict__ ds,
                      T* __restrict__ gtc, T* __restrict__ dmidc,
                      int* __restrict__ strip_live,
                      float* __restrict__ partial, int S, int D, int D2,
-                     int ring) {
+                     int ring, int ka) {
   extern __shared__ float smem_f[];  // 16-byte aligned
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
   __shared__ int live;
@@ -128,7 +169,7 @@ gine_bwd_dmid_kernel(const T* __restrict__ g, const float* __restrict__ ds,
     strip_live += z * gridDim.x;
     partial += z * gridDim.x * (D2 + D);
   }
-  const RbSmem L = gine_bwd_dmid_smem<T>(D, ring);
+  const RbSmem L = row_operand_smem<T>(STREAM ? ka : D, ring);
   float* msk = reinterpret_cast<float*>(smem + L.msk);
   T* ga = reinterpret_cast<T*>(smem + L.op0);
   float* scratch = reinterpret_cast<float*>(smem + L.scratch);
@@ -139,49 +180,54 @@ gine_bwd_dmid_kernel(const T* __restrict__ g, const float* __restrict__ ds,
   // the strip's [db1 | db2] partials
   float* prow = partial + (size_t)blockIdx.x * (D2 + D);
   const int lda = a_lda(D);
-  if (tid == 0) live = 0;
-  if (BN && tid < R) {
-    const size_t r = row0 + tid;
-    msk[tid] = ld(adj, r * S + r % S) > 0.f ? 1.f : 0.f;
-  }
-  a_zero_cols<R>(ga, lda, D, D);
-  __syncthreads();
-  for (int c = tid; c < D; c += RNT) {
-    float v[R];
-    float s = 0.f;
-    bool nz = false;
+  if constexpr (STREAM) {
+    if (tid == 0) live = strip_live[blockIdx.x];
+  } else {
+    if (tid == 0) live = 0;
+    if (BN && tid < R) {
+      const size_t r = row0 + tid;
+      msk[tid] = ld(adj, r * S + r % S) > 0.f ? 1.f : 0.f;
+    }
+    a_zero_cols<R>(ga, lda, D, D);
+    __syncthreads();
+    for (int c = tid; c < D; c += RNT) {
+      float v[R];
+      float s = 0.f;
+      bool nz = false;
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const size_t e = (row0 + r) * D + c;
-      float gt;
-      if constexpr (BN) {
-        const float t =
-            __fadd_rn(ds[c], __fmul_rn(2.f * ld(out, e), ds[D + c]));
-        gt = __fadd_rn(ld(g, e), msk[r] * t);
-        v[r] = rnd<T>(gt);
-        if (first) st(gtc, e, v[r]);
-      } else {
-        gt = v[r] = ld(g, e);
+      for (int r = 0; r < R; ++r) {
+        const size_t e = (row0 + r) * D + c;
+        float gt;
+        if constexpr (BN) {
+          const float t =
+              __fadd_rn(ds[c], __fmul_rn(2.f * ld(out, e), ds[D + c]));
+          gt = __fadd_rn(ld(g, e), msk[r] * t);
+          v[r] = rnd<T>(gt);
+          if (first) st(gtc, e, v[r]);
+        } else {
+          gt = v[r] = ld(g, e);
+        }
+        s += gt;
+        nz |= gt != 0.f;
       }
-      s += gt;
-      nz |= gt != 0.f;
-    }
-    if (first) prow[D2 + c] = s;
-    if (nz) live = 1;
-    // column c of the operand: k-major in f32 (R consecutive floats,
-    // stored as float4), row-major in bf16
-    if constexpr (sizeof(T) == 4) {
-      float4* a4 = reinterpret_cast<float4*>(ga) + (size_t)c * (R / 4);
+      if (first) prow[D2 + c] = s;
+      if (nz) live = 1;
+      // column c of the operand: k-major in f32 (R consecutive floats,
+      // stored as float4), row-major in bf16
+      if constexpr (sizeof(T) == 4) {
+        float4* a4 = reinterpret_cast<float4*>(ga) + (size_t)c * (R / 4);
 #pragma unroll
-      for (int q = 0; q < R / 4; ++q)
-        a4[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-    } else {
+        for (int q = 0; q < R / 4; ++q)
+          a4[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
+                              v[4 * q + 3]);
+      } else {
 #pragma unroll
-      for (int r = 0; r < R; ++r) a_put<R>(ga, lda, r, c, v[r]);
+        for (int r = 0; r < R; ++r) a_put<R>(ga, lda, r, c, v[r]);
+      }
     }
   }
   __syncthreads();
-  if (first && tid == 0) strip_live[blockIdx.x] = live;
+  if (!STREAM && first && tid == 0) strip_live[blockIdx.x] = live;
   // thread tid < RCW: column cb + tid of the strip's db1 partial
   const int pc = cb + tid;
   const bool pown = tid < RCW && pc < D2;
@@ -193,7 +239,11 @@ gine_bwd_dmid_kernel(const T* __restrict__ g, const float* __restrict__ ds,
     if (pown) prow[pc] = 0.f;
     return;
   }
-  rb_pass_wr<T, R>(ring, ga, lda, D, cb, D2, scratch, w2t, D2);
+  if constexpr (STREAM)
+    rb_pass_streamed<T, R, true>(ring, ka, ga, BN ? gtc : g, row0, R, D, cb,
+                                 D2, scratch, w2t, D2);
+  else
+    rb_pass_wr<T, R>(ring, ga, lda, D, cb, D2, scratch, w2t, D2);
   for (int e = tid; e < R * RCW; e += RNT) {
     const int r = e / RCW, j = e % RCW, c = cb + j;
     if (c < D2) {
@@ -230,7 +280,7 @@ gine_bwd_dagg_kernel(const T* __restrict__ dmidc, const T* __restrict__ w1t,
     strip_live += z * gridDim.x;
     daggc += z * N * D;
   }
-  const RbSmem L = gine_bwd_dagg_smem<T>(STREAM ? ka : D2, ring);
+  const RbSmem L = row_operand_smem<T>(STREAM ? ka : D2, ring);
   T* ma = reinterpret_cast<T*>(smem + L.op0);
   float* scratch = reinterpret_cast<float*>(smem + L.scratch);
   const size_t row0 = (size_t)blockIdx.x * R;
@@ -278,14 +328,15 @@ static int gine_bwd(const void* g, const float* ds, const void* h,
     return (int)cudaErrorInvalidValue;
   const int N = T_ * S, nstrip = N / R;
   cudaStream_t st = (cudaStream_t)stream;
-  const RbShape sm = rb_shape_two([&](int, int rg) {
-    return gine_bwd_dmid_smem<T>(D, rg).total;
-  });
-  const RbShape sa = rb_stream(D2, [&](int ka) {
-    return rb_shape_two([&](int, int rg) {
-      return gine_bwd_dagg_smem<T>(ka, rg).total;
+  // each row launch's operand [16, K] held whole, or K-chunks of it
+  auto row_shape = [](int K) {
+    return rb_stream(K, [&](int ka) {
+      return rb_shape_two([&](int, int rg) {
+        return row_operand_smem<T>(ka, rg).total;
+      });
     });
-  });
+  };
+  const RbShape sm = row_shape(D), sa = row_shape(D2);
   if (!sm.rb || !sa.rb) return (int)cudaErrorInvalidValue;
 
   int err = launch_transpose<T>(w1, w1t, D, D2, st, M);
@@ -295,18 +346,28 @@ static int gine_bwd(const void* g, const float* ds, const void* h,
   // (K1b launches one member; K4b's one-member instantiations compile
   // without the member offsets)
   const bool mem = !BN && M > 1;
-  auto dmidk = mem ? gine_bwd_dmid_kernel<T, BN, !BN>
-                   : gine_bwd_dmid_kernel<T, BN, false>;
+  auto dmidk = mem ? (sm.ka ? gine_bwd_dmid_kernel<T, BN, !BN, true>
+                            : gine_bwd_dmid_kernel<T, BN, !BN>)
+                   : (sm.ka ? gine_bwd_dmid_kernel<T, BN, false, true>
+                            : gine_bwd_dmid_kernel<T, BN, false>);
   auto daggk = mem ? (sa.ka ? gine_bwd_dagg_kernel<T, !BN, true>
                             : gine_bwd_dagg_kernel<T, !BN, false>)
                    : (sa.ka ? gine_bwd_dagg_kernel<T, false, true>
                             : gine_bwd_dagg_kernel<T, false, false>);
-  cudaError_t e = set_smem(dmidk, sm.bytes);
-  if (e != cudaSuccess) return (int)e;
+  cudaError_t e;
+  if (sm.ka) {  // gtc streams: its parts of the slice-0 block first
+    auto gtk = mem ? gine_bwd_gt_kernel<T, BN, !BN>
+                   : gine_bwd_gt_kernel<T, BN, false>;
+    gtk<<<dim3(nstrip, 1, M), RNT, 0, st>>>(
+        (const T*)g, ds, (const T*)adj, (const T*)out, (T*)gtc, strip_live,
+        part_rows, S, D, D2);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  if ((e = set_smem(dmidk, sm.bytes)) != cudaSuccess) return (int)e;
   dmidk<<<dim3(nstrip, (D2 + RCW - 1) / RCW, M), RNT, sm.bytes, st>>>(
       (const T*)g, ds, (const T*)adj, (const T*)mid, (const T*)out,
       (const T*)w2t, (T*)gtc, (T*)dmidc, strip_live, part_rows, S, D, D2,
-      sm.ring);
+      sm.ring, sm.ka);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   if ((e = set_smem(daggk, sa.bytes)) != cudaSuccess) return (int)e;
   daggk<<<dim3(nstrip, (D + RCW - 1) / RCW, M), RNT, sa.bytes, st>>>(

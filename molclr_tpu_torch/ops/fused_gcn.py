@@ -41,6 +41,7 @@ from molclr_tpu_torch.ops.fused_layer import (
     adj_diag_mask,
     bn_prologue,
     carve_scratch,
+    check_fits,
     check_layer_args,
     cuda_tiles,
     kernel_fn,
@@ -118,6 +119,9 @@ def fused_gcn_bn_layer_fwd(x, a, b, adj, cnt, etab, w, bias, relu_in: bool):
     t, s = cuda_tiles("fused_gcn_bn_layer", x, adj, "fused_gcn_bn")
     suffix = "f32" if x.dtype == torch.float32 else "bf16"
     fn = kernel_fn("fused_gcn_bn", f"gcn_bn_fwd_{suffix}", 12, 4)
+    check_fits(x.device, 2 * x.element_size() * n * d
+               + 4 * (n // STRIP_ROWS + 1) * 2 * d,
+               f"fused_gcn_bn_layer at D = {d}")
     out = torch.empty_like(x)
     xw = torch.empty_like(x)
     sums = torch.empty(2, d, dtype=torch.float32, device=x.device)
@@ -215,7 +219,7 @@ def fused_gcn_bn_layer_bwd(g, dsums, x, a, b, adj, cnt, out, w,
         carve_scratch(g.device, (d * d * es, n * d * es, n * d * es,
                                  n * d * es, 4 * strips, 4 * strips * d,
                                  4 * strips * 2 * d, 4 * chunks * width),
-                      f"fused_gcn_bn_layer_bwd at D = {d}")
+                      f"fused_gcn_bn_layer_bwd at D = {d}", width)
     dx = torch.empty_like(g)
     # dbias, [da | db], [dW | detab]
     res = torch.empty(d + 2 * d + width, dtype=torch.float32,
@@ -355,6 +359,8 @@ def _gcn_fwd_cuda(x, adj, w):
     d = x.shape[-1]
     suffix = "f32" if x.dtype == torch.float32 else "bf16"
     fn = kernel_fn("fused_gcn_bn", f"gcn_fwd_{suffix}", 5, 4)
+    check_fits(x.device, 2 * x.element_size() * x.numel(),
+               f"fused_gcn_layer at D = {d}")
     xw, out = torch.empty_like(x), torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), adj.data_ptr(), w.data_ptr(), xw.data_ptr(),
@@ -434,7 +440,7 @@ def _gcn_bwd_cuda(g, x, adj, w):
         g.device, tuple(m * b for b in (
             d * d * es, n * d * es, 4 * (n // STRIP_ROWS),
             4 * chunks * d * d)),
-        f"fused_gcn_layer_bwd at D = {d}, {m} members")
+        f"fused_gcn_layer_bwd at D = {d}, {m} members", d * d)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(g.data_ptr(), x.data_ptr(), adj.data_ptr(), w.data_ptr(), wt,
              dxw, dx.data_ptr(), strip_live, part_w, dw.data_ptr(), t, s, d,

@@ -238,6 +238,22 @@ def k1f_splits(dtype: torch.dtype, s: int, d: int, d2: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
+def gine_streams_agg(bn: bool, dtype: torch.dtype, s: int, d: int,
+                     d2: int) -> bool:
+    """Whether K1f (bn) or K4f (not bn) takes its streamed design at tile s
+    and widths d, d2 (csrc/fused_gine_bn.cu agg_then_mid: agg [16, D] does
+    not fit in shared memory beside the block's other operands, so a launch
+    of its own writes agg to device memory and the mid launch streams it):
+    the wrapper then passes an agg buffer, scratch without residuals.
+    Needs the built library."""
+    suffix = "f32" if dtype == torch.float32 else "bf16"
+    f = getattr(_build.load("fused_gine_bn"), f"gine_streams_agg_{suffix}")
+    f.argtypes = [ctypes.c_int] * 4
+    f.restype = ctypes.c_int
+    return bool(f(int(bool(bn)), s, d, d2))
+
+
+@functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     """SMs of a CUDA device, which the launch plans fill."""
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -247,6 +263,28 @@ def sm_count(device: torch.device) -> int:
 def device_memory(device: torch.device) -> int:
     """Bytes of a CUDA device's memory, which a kernel's scratch must fit."""
     return torch.cuda.get_device_properties(device).total_memory
+
+
+# The weight passes index one member's row of partials ([dW1 | dW2 | detab]
+# and the like) in 32-bit ints (csrc/fused_bn_common.cuh wgrad_kernel,
+# sum_partials): a width that reaches 2^31 elements (the GINE backwards
+# near D = 23,000 at D2 = 2 D) is refused before any launch.
+MAX_WIDTH = 2 ** 31 - 1
+
+
+def check_fits(device, nbytes: int, what: str, width: int = 0) -> None:
+    """Raise a ValueError naming `what` (the call and its widths) where the
+    card's memory cannot hold nbytes, or a weight pass's row of partials
+    would be `width` > MAX_WIDTH elements: the limits a wide layer meets,
+    since every launch plan streams what shared memory cannot hold."""
+    total = device_memory(device)
+    if nbytes > total:
+        raise ValueError(f"{what} needs {nbytes} bytes of device memory, "
+                         f"more than the card's {total}")
+    if width > MAX_WIDTH:
+        raise ValueError(f"{what}: a weight-pass row of {width} elements, "
+                         f"more than the kernels' 32-bit index reaches "
+                         f"({MAX_WIDTH})")
 
 
 def cuda_tiles(name: str, h: torch.Tensor, adj: torch.Tensor,
@@ -275,11 +313,17 @@ def fused_gine_bn_layer_fwd(h, a, b, adj, cnt, etab, w1, b1, w2, b2,
     d2 = w1.shape[1]
     suffix = "f32" if h.dtype == torch.float32 else "bf16"
     fn = kernel_fn("fused_gine_bn", f"gine_bn_fwd_{suffix}", 15, 5)
+    # the split design's out launch reads mid, the streamed design's mid
+    # launch agg: scratch without residuals
+    with_agg = residuals or gine_streams_agg(True, h.dtype, s, d, d2)
+    with_mid = residuals or k1f_splits(h.dtype, s, d, d2)
+    es = h.element_size()
+    check_fits(h.device, es * n * (d * (1 + with_agg) + d2 * with_mid)
+               + 4 * (n // STRIP_ROWS + 2) * 2 * d,
+               f"fused_gine_bn_layer at D = {d}, D2 = {d2}")
     out = torch.empty_like(h)
-    agg = torch.empty_like(h) if residuals else None
-    # the split design's out launch reads mid: scratch without residuals
-    mid = (h.new_empty(n, d2)
-           if residuals or k1f_splits(h.dtype, s, d, d2) else None)
+    agg = torch.empty_like(h) if with_agg else None
+    mid = h.new_empty(n, d2) if with_mid else None
     sums = torch.empty(2, d, dtype=torch.float32, device=h.device)
     # one [2, D] row per 16-row strip, and one for the dead blocks' row
     partial = torch.empty(n // STRIP_ROWS + 1, 2, d, dtype=torch.float32,
@@ -293,7 +337,8 @@ def fused_gine_bn_layer_fwd(h, a, b, adj, cnt, etab, w1, b1, w2, b2,
              sums.data_ptr(), t, s, d, d2, int(bool(relu_in)), stream)
     _build.check(err, "fused_gine_bn_layer")
     fused_gine_bn_layer.launches += 1
-    return out, sums, agg, mid if residuals else None
+    return (out, sums, agg if residuals else None,
+            mid if residuals else None)
 
 
 def kernel_plan(adj: torch.Tensor, cnt: torch.Tensor | None = None,
@@ -435,19 +480,17 @@ def gine_bwd_plan(gt: torch.Tensor, adj: torch.Tensor, d2: int,
                 grids=grids)
 
 
-def carve_scratch(device, sizes, what: str):
+def carve_scratch(device, sizes, what: str, width: int = 0):
     """One scratch allocation on `device` cut at 256-byte offsets into
     pieces of the given byte sizes: (the buffer, which must outlive the
     launches, and the pieces' addresses). Raises a ValueError naming
     `what` (the call and its widths) where the card's memory cannot hold
-    the scratch."""
+    the scratch or the weight pass's row of partials is `width` elements
+    past MAX_WIDTH (check_fits)."""
     offs = [0]
     for size in sizes:
         offs.append(offs[-1] + -(-size // 256) * 256)
-    total = device_memory(device)
-    if offs[-1] > total:
-        raise ValueError(f"{what} needs {offs[-1]} bytes of scratch, more "
-                         f"than the card's {total}")
+    check_fits(device, offs[-1], what, width)
     buf = torch.empty(offs[-1], dtype=torch.uint8, device=device)
     return buf, [buf.data_ptr() + o for o in offs[:-1]]
 
@@ -485,7 +528,7 @@ def fused_gine_bn_layer_bwd(g, dsums, h, a, b, adj, cnt, agg, mid, out, w1,
                d2 * d * es, d * d2 * es, n * d * es, n * d2 * es, n * d * es,
                4 * strips, 4 * strips * (d2 + d), 4 * strips * 2 * d,
                4 * chunks * width),
-               f"fused_gine_bn_layer_bwd at D = {d}, D2 = {d2}")
+               f"fused_gine_bn_layer_bwd at D = {d}, D2 = {d2}", width)
     dh = torch.empty_like(g)
     # [db1 | db2], [da | db], [dW1 | dW2 | detab]
     res = torch.empty(d2 + d + 2 * d + width, dtype=torch.float32,
@@ -673,18 +716,24 @@ def _gine_fwd_cuda(h, adj, cnt, etab, w1, b1, w2, b2, residuals: bool):
     d2 = w1.shape[-1]
     suffix = "f32" if h.dtype == torch.float32 else "bf16"
     fn = kernel_fn("fused_gine_bn", f"gine_fwd_{suffix}", 11, 5)
+    # the out launch reads mid, the streamed design's mid launch agg:
+    # scratch when no residuals are asked for
+    with_agg = residuals or gine_streams_agg(False, h.dtype, s, d, d2)
+    m = lead[0] if lead else 1
+    check_fits(h.device, h.element_size() * m * n * (d * (1 + with_agg)
+                                                      + d2),
+               f"fused_gine_layer at D = {d}, D2 = {d2}, {m} members")
     out = torch.empty_like(h)
-    agg = torch.empty_like(h) if residuals else None
-    # the out launch reads mid: scratch when no residuals are asked for
+    agg = torch.empty_like(h) if with_agg else None
     mid = h.new_empty(*lead, n, d2)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     err = fn(h.data_ptr(), adj.data_ptr(), cnt.data_ptr(), etab.data_ptr(),
              w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
              out.data_ptr(), None if agg is None else agg.data_ptr(),
-             mid.data_ptr(), t, s, d, d2, lead[0] if lead else 1, stream)
+             mid.data_ptr(), t, s, d, d2, m, stream)
     _build.check(err, "fused_gine_layer")
     fused_gine_layer.launches += 1
-    return out, agg, mid if residuals else None
+    return out, agg if residuals else None, mid if residuals else None
 
 
 def fused_gine_layer_fwd(h, adj, cnt, etab, w1, b1, w2, b2,
@@ -750,7 +799,7 @@ def _gine_bwd_cuda(g, adj, cnt, agg, mid, w1, w2):
         g.device, tuple(m * b for b in (
             d2 * d * es, d * d2 * es, n * d2 * es, n * d * es, 4 * strips,
             4 * strips * (d2 + d), 4 * chunks * width)),
-        f"fused_gine_layer_bwd at D = {d}, D2 = {d2}, {m} members")
+        f"fused_gine_layer_bwd at D = {d}, D2 = {d2}, {m} members", width)
     dh = torch.empty_like(g)
     # [db1 | db2] and [dW1 | dW2 | detab], each a stack over the members
     sums_rows = torch.empty(*lead, d2 + d, dtype=torch.float32,

@@ -119,8 +119,8 @@ def mean_running_stats(model, dp: DPGroup) -> None:
 
 def partitioned_train_step(model, opt, batch_shard: GraphBatch, cfg,
                            step: int, lr: float | None, dp: DPGroup, *,
-                           views=None, bond_window: int = 0,
-                           max_waves: int = 0,
+                           views=None, dropout_masks=None,
+                           bond_window: int = 0, max_waves: int = 0,
                            return_grads: bool = False):
     """One optimizer step of the node-row-sharded giant batch on this rank
     (JAX's build_partitioned_pretrain_step's local step). batch_shard is
@@ -130,8 +130,14 @@ def partitioned_train_step(model, opt, batch_shard: GraphBatch, cfg,
     step_generator(cfg.seed, TRAIN_STREAM, step, dp.rank) on the localized
     shard, as the data-parallel step draws them (JAX folds (step, device)
     into its key); views = (vi, vj) of the localized shard replaces the
-    draw. Returns the global loss (the same on every rank); the parameters
-    and running statistics leave the same on every rank.
+    draw. With drop_ratio > 0 the dropout masks come from
+    step_generator(cfg.seed, DROPOUT_STREAM, step, view, dp.rank) on the
+    rank's device, as the data-parallel step draws them (JAX splits its
+    dropout keys from the same folded key); dropout_masks (per view a list
+    of this rank's [N, emb_dim] keep masks, one per layer, as train_step
+    takes them) replaces the draw. Returns the global loss (the same on
+    every rank); the parameters and running statistics leave the same on
+    every rank.
 
     return_grads=True returns (loss, {name: averaged gradient}) with no
     update: the parameters, the optimizer and the running statistics are
@@ -145,8 +151,9 @@ def partitioned_train_step(model, opt, batch_shard: GraphBatch, cfg,
         raise ValueError(f"{batch_shard.num_nodes} node rows on this rank, "
                          f"not a multiple of the tile {tile}")
     batch = localize_shard(batch_shard, dp)
-    kw = dict(views=views, bond_window=bond_window, max_waves=max_waves,
-              dp=dp, stream=(dp.rank,))
+    kw = dict(views=views, dropout_masks=dropout_masks,
+              bond_window=bond_window, max_waves=max_waves, dp=dp,
+              stream=(dp.rank,))
     if return_grads:
         saved = [b.clone() for b in model.buffers()]
         loss = pretrain_lib.forward_backward(model, opt, batch, cfg, step,

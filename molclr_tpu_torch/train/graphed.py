@@ -43,6 +43,8 @@ A capture that fails raises; nothing falls back.
 
 from __future__ import annotations
 
+import gc
+
 import torch
 
 # eager resident steps of a run before the first capture
@@ -92,10 +94,20 @@ class GraphedSteps:
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
-        with torch.cuda.graph(graph):
-            for j in range(self.k):
-                self.out[j].copy_(self.body(j, *(x[j] for x in
-                                                   self.inputs)))
+        # No garbage collection inside the capture: a collected reference
+        # cycle that holds an earlier graph (a trainer and its
+        # GraphedSteps) would destroy that graph mid-capture, a call the
+        # capture's global mode forbids, and the capture would fail.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                for j in range(self.k):
+                    self.out[j].copy_(self.body(j, *(x[j] for x in
+                                                       self.inputs)))
+        finally:
+            if collecting:
+                gc.enable()
         after = launch_counts()
         self.launches = {k: after[k] - before[k] for k in after}
         self.graph = graph

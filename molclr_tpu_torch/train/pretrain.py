@@ -436,9 +436,11 @@ class Pretrainer:
             cfg, torch.Generator().manual_seed(cfg.seed),
             self.dp).to(self.device)
         self.graph_steps = self._resolve_graph_steps()
+        # capturable on the card whatever the path, so that the host path,
+        # eager steps and graph replays round Adam alike
         self.opt = make_adam(cfg.adam_impl, self.model.parameters(),
                              cfg.weight_decay,
-                             capturable=self.graph_steps > 0)
+                             capturable=self.device.type == "cuda")
         # one optimizer step takes one batch of every rank: the schedule
         # counts optimizer steps, and every rank bakes the same one (the
         # fewest batches any rank has)

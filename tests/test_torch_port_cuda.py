@@ -15,11 +15,14 @@ three layers, a BatchNorm each); a training step replayed as a CUDA graph
 against the same step run eagerly from the same state, with the same
 optimizer object: bit-identical (tolerance 0)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from molclr_tpu_torch.cli import embed as port_embed
+from molclr_tpu_torch.data.augment import unflatten_keys
 from molclr_tpu_torch.data.featurize import featurize_smiles
 from molclr_tpu_torch.data.graphs import pack_batch
 from molclr_tpu_torch.data.loader import spec_for_graphs
@@ -28,7 +31,7 @@ from molclr_tpu_torch.models import MolCLRNet
 from molclr_tpu_torch.losses import nt_xent_loss
 from molclr_tpu_torch.ops import fused_gcn, fused_layer, ntxent, \
     scatter_free, segment
-from molclr_tpu_torch.data.regroup import epoch_unit_orders
+from molclr_tpu_torch.data.regroup import concat_units, epoch_unit_orders
 from molclr_tpu_torch.train import checkpoints as ckpt_lib
 from molclr_tpu_torch.train.config import FineTuneConfig, ModelConfig, \
     PretrainConfig
@@ -36,7 +39,7 @@ from molclr_tpu_torch.train.finetune import FineTuner
 from molclr_tpu_torch.train.graphed import GRAPH_WARMUP_STEPS, \
     GraphedSteps, launch_counts
 from molclr_tpu_torch.train.optim import load_optimizer_state
-from molclr_tpu_torch.train.pretrain import Pretrainer
+from molclr_tpu_torch.train.pretrain import Pretrainer, train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -211,7 +214,12 @@ def test_backward_kernel_matches_plain(cuda, shape, dtype, relu_in):
 # device memory, out a launch of its own), and K4f's out launch and the
 # dagg launch stream their [16, D2] operand in K-chunks; so do they at
 # D2 = 3,072 (D = 1,536), the first width above the old f32 limit of
-# about D2 = 3,000.
+# about D2 = 3,000. Past f32 D = 2,752 at tile 256 no launch holds a
+# [16, D] operand whole either: K4f's mid launch and the split K1f write agg
+# to device memory and stream it, K5f's / K3f's xw pass streams x, K5b's /
+# K3b's strip pass writes dxw and streams it, K1b's / K4b's dmid launch
+# streams gtc; at D = 3,000 (not a multiple of 32, tile 128) and D = 4,096
+# (tile 256), also for the member-axis kernels (k4f_m ..: M = 2).
 WIDE = [((3, 256, 384, 8, "molecules"), 32),
         ((3, 256, 512, 8, "molecules"), 32),
         ((3, 512, 300, 8, "molecules"), 32),
@@ -220,10 +228,47 @@ WIDEST = [((2, 128, 2048, 8, "molecules"), 16),
           ((2, 256, 2048, 8, "molecules"), 16)]
 WIDE_D2 = ((2, 128, 1536, 8, "molecules"), 16)
 WIDE_BWD = ((2, 128, 1280, 8, "molecules"), 0)
+STREAMED = [((2, 128, 3000, 8, "molecules"), 16),
+            ((2, 256, 4096, 8, "molecules"), 16)]
 LAYER_KERNELS = ("k1f", "k1b", "k3f", "k3b", "k4f", "k4b", "k5f", "k5b")
+MEMBER_KERNELS = ("k4f_m", "k4b_m", "k5f_m", "k5b_m")
 WIDE_CASES = ([(k, *w) for k in LAYER_KERNELS for w in WIDE + WIDEST]
               + [(k, *WIDE_D2) for k in ("k4f", "k1b", "k4b")]
-              + [("k1b", *WIDE_BWD), ("k4b", *WIDE_BWD)])
+              + [("k1b", *WIDE_BWD), ("k4b", *WIDE_BWD)]
+              + [(k, *w) for k in LAYER_KERNELS + MEMBER_KERNELS
+                 for w in STREAMED])
+
+
+def _wide_member_calls(kernel, shape, dt, dev):
+    """_wide_calls of a member-axis kernel (M = 2 on one adjacency)."""
+    x, pgs, pcs, hs, gs = _member_stack(shape, 2, dt, dev, _seed(shape) + 9)
+    adj, cnt = x["adj"], x["cnt"]
+    h, g = torch.stack(hs), torch.stack(gs)
+    pg = [_stack(pgs, k) for k in ("etab", "w1", "b1", "w2", "b2")]
+    w = _stack(pcs, "w")
+    uargs = (h, adj, cnt, *pg)
+    if kernel == "k4f_m":
+        return [(("out", "agg", "mid"),
+                 lambda: fused_layer.fused_gine_layer_members_fwd(
+                     *uargs, residuals=True),
+                 lambda: fused_layer.fused_gine_layer_members_fwd_plain(
+                     *uargs))]
+    if kernel == "k4b_m":
+        _, agg, mid = fused_layer.fused_gine_layer_members_fwd_plain(*uargs)
+        bargs = (g, adj, cnt, agg, mid, pg[1], pg[3])
+        return [(("dh", "dw1", "db1", "dw2", "db2", "detab"),
+                 lambda: fused_layer.fused_gine_layer_members_bwd(*bargs),
+                 lambda: fused_layer.fused_gine_layer_members_bwd_plain(
+                     *bargs))]
+    if kernel == "k5f_m":
+        return [(("out",),
+                 lambda: (fused_gcn.fused_gcn_layer_members_fwd(h, adj, w),),
+                 lambda: (fused_gcn.fused_gcn_layer_members_plain(h, adj,
+                                                                  w),))]
+    return [(("dx", "dw"),
+             lambda: fused_gcn.fused_gcn_layer_members_bwd(g, h, adj, w),
+             lambda: fused_gcn.fused_gcn_layer_members_bwd_plain(g, h, adj,
+                                                                 w))]
 
 
 def _wide_calls(kernel, x, pg, pc, g, dsums):
@@ -295,21 +340,25 @@ def _wide_calls(kernel, x, pg, pc, g, dsums):
 @pytest.mark.parametrize("kernel,shape,rows", WIDE_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wide_layer_kernels_match_plain(cuda, kernel, shape, rows, dtype):
-    """Each layer kernel (relu_in off and on where it has a prologue)
-    against its plain version at wide layers and tiles, up to D = 2,048 /
-    D2 = 4,096; two runs bit-identical; K1f's rows per block as
-    k1f_block_rows gives them."""
+    """Each layer kernel (relu_in off and on where it has a prologue) and
+    each member-axis kernel against its plain version at wide layers and
+    tiles, up to D = 4,096 / D2 = 8,192; two runs bit-identical; K1f's rows
+    per block as k1f_block_rows gives them."""
     dt = getattr(torch, dtype)
-    x, pg, pc = _problem(_seed(shape) + 5, *shape)
-    x, pg, pc = _to(x, cuda, dt), _to(pg, cuda, dt), _to(pc, cuda, dt)
     _, s, d = shape[:3]
-    if kernel == "k1f":
-        assert fused_layer.k1f_block_rows(dt, s, d, 2 * d) == rows
-    gen = torch.Generator().manual_seed(_seed(shape))
-    g = torch.randn(x["h"].shape, generator=gen).to(cuda, dt)
-    dsums = (0.05 * torch.randn(2, d, generator=gen)).to(cuda)
     rtol = 1e-4 if dt == torch.float32 else 3e-2
-    for names, run, plain in _wide_calls(kernel, x, pg, pc, g, dsums):
+    if kernel in MEMBER_KERNELS:
+        calls = _wide_member_calls(kernel, shape, dt, cuda)
+    else:
+        x, pg, pc = _problem(_seed(shape) + 5, *shape)
+        x, pg, pc = _to(x, cuda, dt), _to(pg, cuda, dt), _to(pc, cuda, dt)
+        if kernel == "k1f":
+            assert fused_layer.k1f_block_rows(dt, s, d, 2 * d) == rows
+        gen = torch.Generator().manual_seed(_seed(shape))
+        g = torch.randn(x["h"].shape, generator=gen).to(cuda, dt)
+        dsums = (0.05 * torch.randn(2, d, generator=gen)).to(cuda)
+        calls = _wide_calls(kernel, x, pg, pc, g, dsums)
+    for names, run, plain in calls:
         got, again, want = run(), run(), plain()
         torch.cuda.synchronize()
         for name, a, b, c in zip(names, got, again, want):
@@ -559,6 +608,24 @@ def test_bfs_views_on_card_equal_cpu(cuda, kind, tile):
     for got, want in zip(*views):
         for f in augment.AUG_DELTA_FIELDS:
             assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+def test_layer_past_the_card_memory_raises_a_value_error(cuda, monkeypatch):
+    """Every launch plan streams what shared memory cannot hold, so the
+    limit of a layer's width is the card's memory: a call whose buffers
+    do not fit (here a card taken to hold 64 KiB) raises a ValueError that
+    names it, before any launch, for each of the eight layer kernels."""
+    shape = (2, 128, 256, 8, "molecules")
+    x, pg, pc = _problem(_seed(shape) + 5, *shape)
+    x, pg, pc = (_to(v, cuda, torch.float32) for v in (x, pg, pc))
+    gen = torch.Generator().manual_seed(3)
+    g = torch.randn(x["h"].shape, generator=gen).to(cuda)
+    dsums = (0.05 * torch.randn(2, 256, generator=gen)).to(cuda)
+    monkeypatch.setattr(fused_layer, "device_memory", lambda dev: 1 << 16)
+    for kernel in LAYER_KERNELS:
+        for _, run, _ in _wide_calls(kernel, x, pg, pc, g, dsums):
+            with pytest.raises(ValueError, match="device memory"):
+                run()
 
 
 def test_kernel_rejects_a_tile_that_is_not_a_multiple_of_the_strip(cuda):
@@ -947,11 +1014,11 @@ def test_frozen_cache_and_replanned_units_replay_on_card(cuda, tmp_path):
 def test_resume_across_host_and_graphed_paths(cuda, tmp_path, first_mb,
                                               then_mb):
     """A checkpoint written on the host path (device_cache_mb 0: eager
-    steps, an Adam that is not capturable, its step counts on the CPU)
-    resumes on the default units path (a capturable Adam, the steps after
-    the warm-up replayed), and one written there resumes on the host
-    path: the resumed run takes its epoch to finite losses, its Adam step
-    counts where its optimizer keeps them."""
+    steps) resumes on the default units path (the steps after the warm-up
+    replayed), and one written there resumes on the host path: the
+    resumed run takes its epoch to finite losses, its Adam step counts on
+    the card, where the capturable Adam that the Pretrainer builds on the
+    card on either path keeps them."""
     smiles = synthetic_corpus(150, seed=3)
 
     def run(cache_mb, **kw):
@@ -975,9 +1042,51 @@ def test_resume_across_host_and_graphed_paths(cuda, tmp_path, first_mb,
                                         - GRAPH_WARMUP_STEPS)
     else:
         assert then.graphed is None
-    where = "cuda" if then_mb else "cpu"
-    assert all(st["step"].device.type == where
+    assert all(st["step"].device.type == "cuda"
                for st in then.opt.state.values())
+
+
+def test_host_path_and_graphed_step_take_one_adam(cuda, tmp_path):
+    """The Pretrainer builds one Adam on the card whatever its path: the
+    host path's (device_cache_mb 0) is the capturable torch.optim.Adam of
+    the graphed units path. From the same state (the units path's after
+    its eager warm-up, loaded into the host path's model and Adam), one
+    host-path step (train_step, eager) and one graphed step (a replay) on
+    the same batch and augmentation keys give the same loss, parameters,
+    BatchNorm stats and Adam moments bit for bit."""
+    import copy
+
+    log = lambda *_: None  # noqa: E731
+    pre = _resident_pretrainer(cuda, tmp_path / "g")
+    cfg = dataclasses.replace(pre.cfg, device_cache_mb=0,
+                              ckpt_dir=str(tmp_path / "h"))
+    host = Pretrainer(cfg, cuda).setup_data(synthetic_corpus(150, seed=3))
+    host.setup_state()
+    assert host.graph_steps == 0 and pre.graph_steps == 1
+    for p in (pre, host):
+        assert type(p.opt) is torch.optim.Adam
+        assert all(g["capturable"] for g in p.opt.param_groups)
+    orders = epoch_unit_orders(pre._n_units, pre._units_per_batch, 0, 0)
+    pre._resident_epoch(0, orders[:GRAPH_WARMUP_STEPS], log)
+    host.model.load_state_dict(copy.deepcopy(pre.model.state_dict()))
+    load_optimizer_state(host.opt, copy.deepcopy(pre.opt.state_dict()))
+    step, row = pre.step, orders[GRAPH_WARMUP_STEPS]
+    keys = pre._key_window(step, 1)[0]
+    batch = concat_units(pre._stack, torch.as_tensor(row, device=cuda))
+    lr = pre.schedule(step)
+    graphed = pre._resident_epoch(0, orders[GRAPH_WARMUP_STEPS:
+                                            GRAPH_WARMUP_STEPS + 1], log)
+    assert pre.graphed.replays == 1
+    loss = train_step(host.model, host.opt, batch, cfg, step, lr,
+                      keys=unflatten_keys(cfg.aug, keys, batch.num_nodes,
+                                          batch.num_graphs),
+                      bond_window=pre.spec.max_graph_bonds,
+                      max_waves=pre.max_waves)
+    assert [loss.item()] == graphed
+    for a, b in zip(_state(pre), _state(host)):
+        for k in a:
+            assert torch.equal(a[k], b[k]) if torch.is_tensor(a[k]) \
+                else a[k] == b[k], k
 
 
 def test_a_capture_that_fails_raises(cuda, tmp_path):

@@ -713,6 +713,27 @@ def _constexpr(src, name):
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
+def test_width_limits_raise_value_errors_naming_them(monkeypatch):
+    """check_fits, which every layer wrapper calls before its launches:
+    buffers past the card's memory, or a weight pass's row of partials past
+    the kernels' 32-bit index, raise a ValueError naming the call; what
+    fits passes."""
+    monkeypatch.setattr(fused_layer, "device_memory", lambda dev: 1 << 30)
+    dev = torch.device("cpu")
+    fused_layer.check_fits(dev, 1 << 30, "fits",
+                           width=fused_layer.MAX_WIDTH)
+    with pytest.raises(ValueError, match="K at D = 9 needs 1073741825 "
+                                         "bytes of device memory"):
+        fused_layer.check_fits(dev, (1 << 30) + 1, "K at D = 9")
+    with pytest.raises(ValueError, match="K at D = 9: a weight-pass row"):
+        fused_layer.check_fits(dev, 0, "K at D = 9",
+                               width=fused_layer.MAX_WIDTH + 1)
+    # the GINE backwards' row [dW1 | dW2 | detab] reaches the index near
+    # D = 23,170 at D2 = 2 D
+    width = lambda d: 2 * d * 2 * d + fused_layer.CNT_PAD * d  # noqa: E731
+    assert width(23_160) <= fused_layer.MAX_WIDTH < width(23_180)
+
+
 def test_layout_matches_the_kernel_sources():
     """fused_layer.LAYOUT and K1F_BLOCK_ROWS, with which the
     plan helpers and the wrappers work, are the constants in the kernels'

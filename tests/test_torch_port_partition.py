@@ -18,7 +18,10 @@ a 4-device CPU mesh while the ranks run.
   (fold_in(fold_in(rng, step), rank), split in three, paired_augment on
   the localized shard), fed through AUG_DELTA_FIELDS: three GIN steps, one
   GCN step, one GIN step with 'pallas' NT-Xent (JAX's kernel in
-  interpreter mode); the ranks bit-identical; the all-reduces per step;
+  interpreter mode), three GIN steps at drop_ratio 0.1 on JAX's keep
+  masks (the unchained trunk) and three in bf16 against JAX's BN-chained
+  layers (test_torch_port_dp's BF16_LIMITS); the ranks bit-identical; the
+  all-reduces per step;
 - tile 0 refused, by the port as by JAX;
 - world 1: the partitioned step and its return_grads bit for bit the
   one-card step;
@@ -66,7 +69,8 @@ from molclr_tpu_torch.train.checkpoints import state_dict_from_jax
 from molclr_tpu_torch.train.config import ModelConfig, PretrainConfig
 from molclr_tpu_torch.train.pretrain import build_model
 from test_torch_port_dp import LR, WD, _compare_states, _deltas, \
-    _free_port, _np, _start, _wait
+    _free_port, _np, _start, _wait, jax_dropout_masks, ranks_identical, \
+    steps_against_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "torch_dp_worker.py")
@@ -112,14 +116,16 @@ def _segment(cat, i, world=S):
 # ------------------------------------------------------- the JAX side
 
 
-def _jax_model(gnn, axis=None, fused=True):
+def _jax_model(gnn, axis=None, fused=True, drop=0.0, bf16=False):
     """JAX's MolCLRNet at MODEL: by default its BN-chained fused layers
     (Pallas in interpreter mode), JAX's path on a TPU (resolve_fused) and
     the port's; fused=False the unchained XLA layers with classic
-    BatchNorm."""
+    BatchNorm; drop its dropout rate, bf16 bfloat16 activations."""
     return JaxMolCLRNet(gnn_type=gnn, num_layers=MODEL["num_layers"],
                         emb_dim=MODEL["emb_dim"], feat_dim=MODEL["feat_dim"],
-                        tile=TILE, bn_axis_name=axis, fused=fused)
+                        tile=TILE, bn_axis_name=axis, fused=fused,
+                        drop_ratio=drop,
+                        dtype=jnp.bfloat16 if bf16 else jnp.float32)
 
 
 def _jax_init(gnn, cat):
@@ -128,18 +134,25 @@ def _jax_init(gnn, cat):
     return v["params"], v["batch_stats"]
 
 
-def _jax_views(cat, aug, rng, bond_window, steps=STEPS, world=S):
-    """Per step and rank, the AUG_DELTA_FIELDS of the views JAX's
-    partitioned step draws on the localized shard (None for 'none')."""
+def _jax_view_batches(cat, aug, rng, bond_window, steps=STEPS, world=S):
+    """Per step and rank, the views JAX's partitioned step draws on the
+    localized shard (None for 'none')."""
     if aug == "none":
         return [None] * steps
     locs = [jax_localize(_segment(cat, d, world), d, world)
             for d in range(world)]
-    return [[_deltas(jax_paired_augment(
+    return [[jax_paired_augment(
         locs[d], jax.random.split(jax.random.fold_in(
             jax.random.fold_in(rng, s), d), 3)[0], aug, tile=TILE,
-        bond_window=bond_window)) for d in range(world)]
+        bond_window=bond_window) for d in range(world)]
         for s in range(steps)]
+
+
+def _jax_views(cat, aug, rng, bond_window, steps=STEPS, world=S):
+    """Per step and rank, the AUG_DELTA_FIELDS of _jax_view_batches."""
+    return [None if v is None else [_deltas(x) for x in v]
+            for v in _jax_view_batches(cat, aug, rng, bond_window, steps,
+                                       world)]
 
 
 def _adam(state):
@@ -149,15 +162,26 @@ def _adam(state):
         if isinstance(x, optax.ScaleByAdamState)][0]
 
 
+def _jax_masks(c, cat, params, stats, steps):
+    """Per step the keep masks per rank of JAX's partitioned step for
+    configuration c (drop_ratio > 0; jax_dropout_masks)."""
+    masks = jax_dropout_masks(
+        _jax_model(c["gnn"], "part", c["fused"], c["drop"], c["bf16"]),
+        params, stats, make_mesh(S, axis="part"), "part")
+    views = _jax_view_batches(cat, c["aug"], c["rng"], c["bond_window"],
+                              steps)
+    return [masks(views[s], c["rng"], s) for s in range(steps)]
+
+
 def _jax_steps(c, cat, params, stats, steps):
     """JAX's partitioned step for configuration c, `steps` times: the loss,
     the state and Adam's moments after each."""
     tx = jax_adam_torch(LR, WD)
     mesh = make_mesh(S, axis="part")
     step_fn = build_partitioned_pretrain_step(
-        _jax_model(c["gnn"], "part", c["fused"]), tx, mesh, aug=c["aug"],
-        axis="part",
-        tile=TILE, bond_window=c["bond_window"], ntxent_impl=c["impl"],
+        _jax_model(c["gnn"], "part", c["fused"], c["drop"], c["bf16"]), tx,
+        mesh, aug=c["aug"], axis="part", tile=TILE,
+        bond_window=c["bond_window"], ntxent_impl=c["impl"],
         ntxent_interpret=True)
     state = TrainState(params=params, batch_stats=stats,
                        opt_state=tx.init(params), step=0)
@@ -312,15 +336,22 @@ def _results(started, out_dir) -> list[dict]:
             for r in range(len(started[0]))]
 
 
-# (name, gnn, aug, ntxent_impl, steps, rng seed, JAX's fused layers): aug
-# 'none' against JAX's BN-chained layers, whose arithmetic is the port's
-# (the gradients' limits are JAX's own, 2e-4 / 1e-6); the augmented steps,
-# held at the step-parity limits, against its unchained XLA layers (the
-# cheaper compile), as tests/test_torch_port_dp.py's 2-rank cases
-PART_CASES = [("gin-none", "gin", "none", "xla", STEPS, 1, True),
-              ("gin-node", "gin", "node", "xla", STEPS, 2, False),
-              ("gcn-node", "gcn", "node", "xla", 1, 3, False),
-              ("gin-pallas", "gin", "node", "pallas", 1, 4, False)]
+# (name, gnn, aug, ntxent_impl, steps, rng seed, JAX's fused layers,
+# drop_ratio, bf16): aug 'none' against JAX's BN-chained layers, whose
+# arithmetic is the port's (the gradients' limits are JAX's own, 2e-4 /
+# 1e-6); the augmented steps, held at the step-parity limits, against its
+# unchained XLA layers (the cheaper compile), as
+# tests/test_torch_port_dp.py's 2-rank cases: GIN with dropout 0.1 on
+# JAX's keep masks too (the port's unchained trunk, K4f / K4b per rank);
+# GIN in bf16 against its BN-chained layers, at tests/test_torch_port_dp's
+# BF16_LIMITS
+PART_CASES = [("gin-none", "gin", "none", "xla", STEPS, 1, True, 0.0, False),
+              ("gin-node", "gin", "node", "xla", STEPS, 2, False, 0.0, False),
+              ("gcn-node", "gcn", "node", "xla", 1, 3, False, 0.0, False),
+              ("gin-pallas", "gin", "node", "pallas", 1, 4, False, 0.0,
+               False),
+              ("gin-drop", "gin", "node", "xla", STEPS, 5, False, 0.1, False),
+              ("gin-bf16", "gin", "node", "xla", STEPS, 6, True, 0.0, True)]
 
 
 def _world_one_configs():
@@ -352,20 +383,25 @@ def run(tmp_path_factory):
     cat = jax_concat(batches)
     inits = {gnn: _jax_init(gnn, cat) for gnn in ("gin", "gcn")}
     configs = []
-    for name, gnn, aug, impl, steps, seed, fused in PART_CASES:
+    for name, gnn, aug, impl, steps, seed, fused, drop, bf16 in PART_CASES:
         rng = jax.random.PRNGKey(seed)
-        configs.append(dict(
+        c = dict(
             name=name, gnn=gnn, aug=aug, impl=impl, rng=rng, fused=fused,
-            bond_window=max_bonds, batch_size=S * PER, lr=LR,
-            weight_decay=WD, model=dict(MODEL, gnn_type=gnn),
+            drop=drop, bf16=bf16, bond_window=max_bonds, batch_size=S * PER,
+            lr=LR, weight_decay=WD,
+            model=dict(MODEL, gnn_type=gnn, drop_ratio=drop, bf16=bf16),
             init=state_dict_from_jax(*inits[gnn]),
             shards=[_np(b) for b in batches],
             views=_jax_views(cat, aug, rng, max_bonds, steps),
-            return_grads=aug == "none"))
+            return_grads=aug == "none")
+        if drop:
+            c["masks"] = _jax_masks(c, cat, *inits[gnn], steps)
+        configs.append(c)
     edge_batches, edge = _edge_inputs()
     four = _start_ranks(
         tmp, "part", S, {"configs": [
-            {k: v for k, v in c.items() if k not in ("rng", "gnn", "fused")}
+            {k: v for k, v in c.items()
+             if k not in ("rng", "gnn", "fused", "drop", "bf16")}
             for c in configs], "edge": edge})
     try:
         jax_res = {c["name"]: _jax_steps(c, cat, *inits[c["gnn"]],
@@ -429,16 +465,6 @@ def test_tile_zero_is_refused():
             make_mesh(S, axis="part"), axis="part", tile=0)
 
 
-def _ranks_identical(ranks, name):
-    got = [r[name] for r in ranks]
-    for r in got[1:]:
-        assert r["losses"] == got[0]["losses"], name
-        for s, st in enumerate(got[0]["states"]):
-            for k, v in st.items():
-                assert np.array_equal(r["states"][s][k], v), (name, s, k)
-    return got[0]
-
-
 def test_none_step_matches_jax(run):
     """aug 'none': the return_grads call against JAX's partitioned
     return_grads and its unsharded step (loss rtol 1e-5, gradients rtol
@@ -463,36 +489,22 @@ def test_none_step_matches_jax(run):
 
 def _steps_match(run, name):
     c = next(c for c in run["configs"] if c["name"] == name)
-    port = _ranks_identical(run["ranks"], name)
+    port = ranks_identical(run["ranks"], name)
     assert port["collectives_per_step"] == PART_COLLECTIVES, port[
         "collectives_per_step"]
-    p0 = c["init"]
-    for s, j in enumerate(run["jax"][name]):
-        np.testing.assert_allclose(
-            port["losses"][s], j["loss"], rtol=1e-5 if s == 0 else 1e-3,
-            atol=0.0 if s == 0 else 2e-5, err_msg=f"{name} loss, step {s}")
-        if s == 0:
-            for k in port["grads0"]:
-                jg = j["mu"][k].numpy() / 0.1 - WD * np.asarray(p0[k])
-                np.testing.assert_allclose(port["grads0"][k], jg,
-                                           rtol=2e-4, atol=1e-5,
-                                           err_msg=(name, k))
-                np.testing.assert_allclose(port["mu0"][k],
-                                           j["mu"][k].numpy(), rtol=2e-4,
-                                           atol=5e-6, err_msg=(name, k))
-                np.testing.assert_allclose(port["nu0"][k],
-                                           j["nu"][k].numpy(), rtol=5e-4,
-                                           atol=1e-10, err_msg=(name, k))
-        _compare_states({k: v.numpy() for k, v in j["state"].items()},
-                        port["states"][s], port["grads0"], s + 1,
-                        tight=s == 0)
+    steps_against_jax(name, port, run["jax"][name], c["init"], c["bf16"])
 
 
-@pytest.mark.parametrize("name", ["gin-node", "gcn-node", "gin-pallas"])
+@pytest.mark.parametrize("name", ["gin-node", "gcn-node", "gin-pallas",
+                                  "gin-drop", "gin-bf16"])
 def test_node_steps_match_jax(run, name):
     """aug 'node' on JAX's views of each localized shard: three GIN steps,
     one GCN step, one GIN step with 'pallas' NT-Xent, at the step-parity
-    limits; the ranks bit-identical."""
+    limits; three GIN steps with dropout 0.1 on JAX's keep masks (the
+    unchained trunk: its BatchNorm moments summed across the ranks in
+    MaskedBatchNorm, one all-reduce each way as the chained trunk's, so
+    the same PART_COLLECTIVES) and three in bf16 (BF16_LIMITS); the ranks
+    bit-identical."""
     _steps_match(run, name)
 
 

@@ -9,8 +9,9 @@ inputs from the torch.save file IN and writes its results to
 OUT/rank<RANK>.pt. Modes:
   step   the configurations of IN["configs"]: each starts a model from the
          given state dict and takes three DP train steps on this rank's
-         batches and JAX-drawn views; it records the loss, the state
-         dict, the step-0 gradients and Adam moments.
+         batches and JAX-drawn views (and with dropout JAX's keep masks);
+         it records the loss, the state dict, the step-0 gradients and
+         Adam moments.
   world1 (WORLD 1) the DP step against the one-card step on the same
          batch, views and state, two steps of each configuration: loss,
          state dict and gradients, bit for bit.
@@ -18,12 +19,15 @@ OUT/rank<RANK>.pt. Modes:
          its steps per epoch, the unit spec, units and their stack, and
          the unit rows of epochs 0 and 1; then, with fresh_compositions
          off, the batch-cache shard size and the cache orders of epoch 1
-         after one host epoch.
+         after one host epoch; then a run of IN["drop_cfg"] (dropout >
+         0): the keep masks its steps drew, and the masks of this rank's
+         generator streams for the same steps.
   part   (tests/test_torch_port_partition.py) the node-row-sharded step:
          each configuration of IN["configs"] concatenates its per-shard
          batches (concat_shards), takes this rank's segment
          (shard_graph_batch) and runs partitioned_train_step from the
-         given state on JAX-drawn views of the localized shard (or none):
+         given state on JAX-drawn views of the localized shard (or none)
+         and, with dropout, JAX's keep masks:
          optionally a return_grads call first (its loss, gradients and
          whether the state stayed as it was), then its steps' losses,
          states, step-0 gradients and Adam moments, and the all-reduces
@@ -70,6 +74,15 @@ def port_views(bp: GraphBatch, deltas):
         for f, a in zip(AUG_DELTA_FIELDS, d))) for d in deltas)
 
 
+def port_masks(masks):
+    """JAX's keep masks of one rank and step as train_step takes them
+    (None without dropout)."""
+    if masks is None:
+        return None
+    return [[torch.from_numpy(np.asarray(m)) for m in view]
+            for view in masks]
+
+
 def state_np(model) -> dict:
     return {k: v.detach().numpy().copy()
             for k, v in model.state_dict().items()}
@@ -104,8 +117,11 @@ def run_steps(c: dict, rank: int, dp) -> dict:
     out = {"losses": [], "states": []}
     for s, step in enumerate(c["steps"]):
         bp = GraphBatch(**step["batches"][rank]).to("cpu")
+        masks = step.get("masks")
         loss = train_step(model, opt, bp, cfg, s, cfg.init_lr,
                           views=port_views(bp, step["views"][rank]),
+                          dropout_masks=port_masks(
+                              None if masks is None else masks[rank]),
                           bond_window=c["bond_window"], dp=dp)
         _record(out, model, opt, s, loss)
     return out
@@ -121,20 +137,23 @@ def run_partitioned(c: dict, rank: int, dp, one_card: bool = False) -> dict:
     local = cat if one_card else localize_shard(shard, dp)
     views = [None if v is None else port_views(local, v[rank])
              for v in c["views"]]
+    masks = [port_masks(None if m is None else m[rank])
+             for m in c.get("masks", [None] * len(views))]
     kw = dict(bond_window=c["bond_window"])
     out = {"losses": [], "states": []}
     if c.get("return_grads"):
         before = state_np(model)
         if one_card:
             loss = forward_backward(model, opt, local, cfg, 0,
-                                    views=views[0], **kw)
+                                    views=views[0], dropout_masks=masks[0],
+                                    **kw)
             grads = {k: p.grad for k, p in model.named_parameters()}
             model.load_state_dict({k: torch.from_numpy(v)
                                    for k, v in before.items()})
         else:
             loss, grads = partitioned_train_step(
                 model, opt, shard, cfg, 0, cfg.init_lr, dp, views=views[0],
-                return_grads=True, **kw)
+                dropout_masks=masks[0], return_grads=True, **kw)
         after = state_np(model)
         out["rg"] = dict(loss=float(loss), grads={
             k: g.numpy().copy() for k, g in grads.items()},
@@ -142,13 +161,14 @@ def run_partitioned(c: dict, rank: int, dp, one_card: bool = False) -> dict:
                           for k, v in before.items()),
             opt_empty=len(opt.state) == 0)
     c0 = dp.collectives
-    for s, v in enumerate(views):
+    for s, (v, m) in enumerate(zip(views, masks)):
         if one_card:
             loss = train_step(model, opt, local, cfg, s, cfg.init_lr,
-                              views=v, **kw)
+                              views=v, dropout_masks=m, **kw)
         else:
             loss = partitioned_train_step(model, opt, shard, cfg, s,
-                                          cfg.init_lr, dp, views=v, **kw)
+                                          cfg.init_lr, dp, views=v,
+                                          dropout_masks=m, **kw)
         _record(out, model, opt, s, loss)
     out["collectives_per_step"] = (dp.collectives - c0) / len(views)
     return out
@@ -215,6 +235,47 @@ def plan(inp: dict, rank: int, dp) -> dict:
             out.update(shard_size=pre._dp_shard_size,
                        cache_orders=pre.train_iter.cached_epoch_order(),
                        resident=pre._stack is not None)
+    if "drop_cfg" in inp:
+        out["dropout"] = dropout_draws(inp, rank, dp)
+    return out
+
+
+def dropout_draws(inp: dict, rank: int, dp) -> dict:
+    """A Pretrainer run of IN["drop_cfg"] (drop_ratio > 0) under data_axis:
+    {step: [view i, view j] keep masks} that its train steps drew (every
+    draw_keep call, recorded with the step count), and the same from this
+    rank's streams step_generator(seed, DROPOUT_STREAM, step, view,
+    rank)."""
+    from molclr_tpu_torch.models import nets
+    from molclr_tpu_torch.train.pretrain import DROPOUT_STREAM, \
+        step_generator
+
+    cfg = PretrainConfig(**inp["drop_cfg"], data_axis="data",
+                         ckpt_dir=os.path.join(inp["tmp"], f"d{rank}"),
+                         model=ModelConfig(**inp["drop_model"]))
+    pre = Pretrainer(cfg, "cpu", dp=dp).setup_data(inp["smiles"])
+    pre.setup_state()
+    drawn, draw = [], nets.draw_keep
+
+    def recorded(*args, **kw):
+        keep = draw(*args, **kw)
+        drawn.append((pre.step, keep.clone()))
+        return keep
+
+    nets.draw_keep = recorded
+    try:
+        pre.train(log=lambda *a: None)
+    finally:
+        nets.draw_keep = draw
+    layers = cfg.model.num_layers
+    out = {"drawn": {}, "stream": {}}
+    for step in sorted({s for s, _ in drawn}):
+        masks = [m for s, m in drawn if s == step]
+        assert len(masks) == 2 * layers, len(masks)
+        out["drawn"][step] = [masks[:layers], masks[layers:]]
+        n = masks[0].shape[0]
+        out["stream"][step] = [pre.model.keep_masks(n, step_generator(
+            cfg.seed, DROPOUT_STREAM, step, view, rank)) for view in (0, 1)]
     return out
 
 
