@@ -106,28 +106,25 @@ namespace fbl {
 // weight ring `ring` (k1f_smem).
 //
 // Where not even a 16-row block holds mid [16, D2] beside agg (f32 above
-// about D = 1,037 at S = 128, bf16 about D2 = 4,000), K1f splits as K4f
-// does (k1f_split_shape): the block kernel with SPLIT stops after stage 2
-// and writes mid to device memory (the caller's scratch when it wants no
-// residuals), and k1f_out_kernel, one block per (16-row strip, 128-column
-// slice), computes out = rnd(mid @ W2 + b2) with mid streamed through
-// shared memory in K-chunks where it does not fit whole (rb_pass_streamed),
-// and the strip's moment partials for its columns in stage 3's order. Dead
-// rows run the product on their rnd(relu(b1)) rows, which in f32 gives the
-// dead row's bits (one thread's sum from 0 over k ascending). Where not
-// even the split block holds agg [16, D] (f32 above about D = 2,752 at S =
-// 256), the block launch gives way to two streamed launches
+// about D = 1,037 at S = 128, bf16 about D2 = 4,000), K1f splits into the
+// streamed design that K4f takes where its mid launch cannot hold agg
 // (gine_bn_fwd_split): agg_kernel writes agg to device memory (the
-// caller's scratch without residuals) and the mid launch (k4f_out_kernel
-// with RELU) streams it in K-chunks.
+// caller's scratch without residuals), the mid launch (k4f_out_kernel with
+// RELU) streams it in K-chunks and writes mid (scratch likewise), and
+// k1f_out_kernel, one block per (16-row strip, 128-column slice), computes
+// out = rnd(mid @ W2 + b2) with mid streamed through shared memory in
+// K-chunks where it does not fit whole (rb_pass_streamed), and the strip's
+// moment partials for its columns in stage 3's order. Dead rows run the
+// products on agg = 0, which in f32 gives the dead row's bits (one thread's
+// sum from 0 over k ascending).
 constexpr int K1F_RB = 32;
 
 template <typename T>
 __host__ __device__ inline RbSmem k1f_smem(int S, int D, int D2, int rb,
-                                           int ring, bool split = false) {
+                                           int ring) {
   const int nch = (S + ACW - 1) / ACW, maxc = (S % rb ? 2 : 1) * nch;
   const size_t x = a_bytes<T>(rb, maxc * ACW + CNT_PAD);
-  const size_t m = split ? 0 : a_bytes<T>(rb, D2);
+  const size_t m = a_bytes<T>(rb, D2);
   return rb_smem(S, maxc, x > m ? x : m, a_bytes<T>(rb, D),
                  pass_bytes<T>(rb, ring));
 }
@@ -144,14 +141,11 @@ static RbShape k1f_launch_shape(int S, int D, int D2) {
   });
 }
 
-// The split K1f where k1f_launch_shape finds no block: (block launch, out
-// launch), rb = 0 in either where it cannot launch.
+// The split K1f's out launch (k1f_out_kernel) where k1f_launch_shape finds
+// no block; rb = 0 where it cannot launch.
 template <typename T>
-static void k1f_split_shape(int S, int D, int D2, RbShape* a, RbShape* b) {
-  *a = rb_shape(R, 0, [&](int, int ring) {
-    return k1f_smem<T>(S, D, D2, R, ring, true).total;
-  });
-  *b = rb_stream(D2, [&](int ka) {
+static RbShape k1f_out_shape(int D2) {
+  return rb_stream(D2, [&](int ka) {
     return rb_shape(R, 1, [&](int, int rg) {
       return row_operand_smem<T>(ka, rg).total;
     });
@@ -181,7 +175,7 @@ k1f_dead_row_kernel(const float* __restrict__ b1, const T* __restrict__ w2,
 // 128 registers so that two run on an SM (the pretraining shape's 150 live
 // blocks then take one round of the 132 SMs, for some register spills);
 // f32 blocks (217 KB) run one to an SM.
-template <typename T, int RB, bool SPLIT = false>
+template <typename T, int RB>
 __global__ void __launch_bounds__(RNT, sizeof(T) == 2 ? 2 : 1)
 k1f_kernel(const T* __restrict__ h, const float* __restrict__ a,
            const float* __restrict__ b, const T* __restrict__ adj,
@@ -195,7 +189,7 @@ k1f_kernel(const T* __restrict__ h, const float* __restrict__ a,
   extern __shared__ float smem_f[];  // 16-byte aligned
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
   __shared__ int cnt_live;
-  const RbSmem L = k1f_smem<T>(S, D, D2, RB, ring, SPLIT);
+  const RbSmem L = k1f_smem<T>(S, D, D2, RB, ring);
   int* flags = reinterpret_cast<int*>(smem + L.meta);
   int* node = flags + 2 * L.nch;
   int* width = node + L.maxc;
@@ -218,17 +212,15 @@ k1f_kernel(const T* __restrict__ h, const float* __restrict__ a,
   if (nlive == 0 && !clive) {
     // A dead block: agg = 0, so every row is mid = rnd(relu(b1)) and the
     // constant row out = rnd(mid @ W2 + b2) that k1f_dead_row_kernel left
-    // in dead_row; zero moment partials (no row is a node). SPLIT: agg and
-    // mid only (k1f_out_kernel computes out and the partials).
+    // in dead_row; zero moment partials (no row is a node).
     for (int e = tid; e < nrows * D; e += RNT) {
-      if (!SPLIT) st(out, row0 * D + e, dead_row[e % D]);
+      st(out, row0 * D + e, dead_row[e % D]);
       if (agg_out) st(agg_out, row0 * D + e, 0.f);
     }
     if (mid_out)
       for (int e = tid; e < nrows * D2; e += RNT)
         st(mid_out, row0 * D2 + e, rnd<T>(fmaxf(b1[e % D2], 0.f)));
-    if (!SPLIT)
-      for (int e = tid; e < (nrows / R) * 2 * D; e += RNT) prow[e] = 0.f;
+    for (int e = tid; e < (nrows / R) * 2 * D; e += RNT) prow[e] = 0.f;
     return;
   }
 
@@ -264,8 +256,8 @@ k1f_kernel(const T* __restrict__ h, const float* __restrict__ a,
   }
 
   // stage 2: mid = rnd(relu(agg @ W1 + b1)) into region X (stage 1's
-  // operand is dead); SPLIT: to mid_out only
-  if (!SPLIT) a_zero_cols<RB>(xa, lda3, D2, D2);
+  // operand is dead)
+  a_zero_cols<RB>(xa, lda3, D2, D2);
   for (int c0 = 0; c0 < D2; c0 += RCW) {
     rb_pass_wr<T, RB>(ring, ga, lda2, D, c0, D2, scratch, w1, D2);
     for (int e = tid; e < RB * RCW; e += RNT) {
@@ -277,9 +269,8 @@ k1f_kernel(const T* __restrict__ h, const float* __restrict__ a,
       }
     }
     __syncthreads();
-    if (!SPLIT) cs_to_a<RB>(xa, lda3, c0, D2, scratch);
+    cs_to_a<RB>(xa, lda3, c0, D2, scratch);
   }
-  if (SPLIT) return;
 
   // stage 3: out = rnd(mid @ W2 + b2) and the masked moments of the cast
   // out, summed over the block's rows in row order
@@ -539,7 +530,7 @@ static RbShape k4f_launch_shape(int launch, int S, int D, int D2) {
 }
 
 // The streamed designs' agg launch (K4f's where its mid launch cannot hold
-// agg [16, D], the split K1f's where its block cannot): one block of RNT
+// agg [16, D], the split K1f's): one block of RNT
 // threads per (16-row strip, 128-column slice of agg) computes its slice
 // agg = rnd([A live chunks | cnt] @ [y ; etab]), y = rnd(relu?(h a + b))
 // (PRO: K1f's prologue) or h (K4f), over the strip's live 32-column chunks,
@@ -641,13 +632,10 @@ static int agg_then_mid(const void* h, const float* a, const float* b,
   return (int)cudaGetLastError();
 }
 
-// K1f: the dead blocks' constant row, the row-block kernel, then the
-// fixed-order sum of the moment partials of its N / 16 strips. partial
-// holds N / 16 + 1 rows of [2, D]: the last keeps the constant row. Where
-// no block fits (k1f_launch_shape), the split design: the SPLIT block
-// kernel writes mid (not null: the caller's scratch without residuals), or
-// where not even that block fits, agg_then_mid (agg not null either),
-// k1f_out_kernel out and the partials, then the same sum.
+// K1f where no block fits (k1f_launch_shape): agg_then_mid (agg and mid
+// not null: the caller's scratch without residuals), k1f_out_kernel out and
+// the partials, then the fixed-order sum of the partials of its N / 16
+// strips.
 template <typename T>
 static int gine_bn_fwd_split(const void* h, const float* a, const float* b,
                              const void* adj, const void* cnt,
@@ -656,26 +644,14 @@ static int gine_bn_fwd_split(const void* h, const float* a, const float* b,
                              const float* b2, void* out, void* agg, void* mid,
                              float* partial, float* sums, int N, int S,
                              int D, int D2, int relu_in, cudaStream_t st) {
-  RbShape sa, sb;
-  k1f_split_shape<T>(S, D, D2, &sa, &sb);
-  if (!sb.rb || !mid) return (int)cudaErrorInvalidValue;
-  cudaError_t e;
-  if (sa.rb) {
-    if ((e = set_smem(k1f_kernel<T, R, true>, sa.bytes)) != cudaSuccess)
-      return (int)e;
-    k1f_kernel<T, R, true><<<N / R, RNT, sa.bytes, st>>>(
-        (const T*)h, a, b, (const T*)adj, (const T*)cnt, (const T*)etab,
-        (const T*)w1, b1, (const T*)w2, b2, (T*)out, (T*)agg, (T*)mid,
-        partial, nullptr, N, S, D, D2, relu_in, sa.ring);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  } else {
-    const int err = agg_then_mid<T, true>(h, a, b, adj, cnt, etab, w1, b1,
-                                          agg, mid, N, S, D, D2, relu_in, 1,
-                                          st);
-    if (err) return err;
-  }
+  const RbShape sb = k1f_out_shape<T>(D2);
+  if (!sb.rb) return (int)cudaErrorInvalidValue;
+  const int err = agg_then_mid<T, true>(h, a, b, adj, cnt, etab, w1, b1, agg,
+                                        mid, N, S, D, D2, relu_in, 1, st);
+  if (err) return err;
   auto outk = sb.ka ? k1f_out_kernel<T, true> : k1f_out_kernel<T, false>;
-  if ((e = set_smem(outk, sb.bytes)) != cudaSuccess) return (int)e;
+  cudaError_t e = set_smem(outk, sb.bytes);
+  if (e != cudaSuccess) return (int)e;
   outk<<<dim3(N / R, (D + RCW - 1) / RCW), RNT, sb.bytes, st>>>(
       (const T*)mid, (const T*)adj, (const T*)w2, b2, (T*)out, partial, S, D,
       D2, sb.ring, sb.ka);
@@ -694,6 +670,9 @@ static int gine_bn_fwd(const void* h, const float* a, const float* b,
     return (int)cudaErrorInvalidValue;
   const int N = T_ * S;
   cudaStream_t st = (cudaStream_t)stream;
+  // the dead blocks' constant row, the row-block kernel, then the
+  // fixed-order sum of the moment partials of its N / 16 strips; partial
+  // holds N / 16 + 1 rows of [2, D]: the last keeps the constant row
   const RbShape shape = k1f_launch_shape<T>(S, D, D2);
   if (!shape.rb)
     return gine_bn_fwd_split<T>(h, a, b, adj, cnt, etab, w1, b1, w2, b2, out,
@@ -764,23 +743,17 @@ extern "C" {
 
 // K1f: gine_bn_fwd_*, the rows per block it launches with at a shape (0
 // where it cannot launch), which the plan of what it skips needs, and
-// whether it takes the split design there (1: mid must not be null).
-// gine_streams_agg_*: whether K1f (bn 1) or K4f (bn 0) takes the streamed
-// design at a shape, which writes agg through device memory (1: agg must
-// not be null).
+// whether it takes the split design there (1: agg and mid must not be
+// null). gine_streams_agg_*: whether K4f takes the streamed design at a
+// shape, which writes agg through device memory (1: agg must not be null).
 #define GINE_BN_FWD(suffix, T)                                              \
   int gine_bn_fwd_split_##suffix(int S, int D, int D2) {                    \
-    if (fbl::k1f_launch_shape<T>(S, D, D2).rb) return 0;                    \
-    fbl::RbShape a, b;                                                      \
-    fbl::k1f_split_shape<T>(S, D, D2, &a, &b);                              \
-    return b.rb != 0;                                                       \
+    return !fbl::k1f_launch_shape<T>(S, D, D2).rb &&                        \
+           fbl::k1f_out_shape<T>(D2).rb &&                                  \
+           fbl::k4f_launch_shape<T>(2, S, D, D2).rb;                        \
   }                                                                         \
-  int gine_streams_agg_##suffix(int bn, int S, int D, int D2) {             \
-    if (!bn) return fbl::k4f_launch_shape<T>(0, S, D, D2).rb == 0;          \
-    if (fbl::k1f_launch_shape<T>(S, D, D2).rb) return 0;                    \
-    fbl::RbShape a, b;                                                      \
-    fbl::k1f_split_shape<T>(S, D, D2, &a, &b);                              \
-    return a.rb == 0;                                                       \
+  int gine_streams_agg_##suffix(int S, int D, int D2) {                     \
+    return fbl::k4f_launch_shape<T>(0, S, D, D2).rb == 0;                   \
   }                                                                         \
   int gine_bn_fwd_##suffix(const void* h, const float* a, const float* b,   \
                            const void* adj, const void* cnt,                \

@@ -231,26 +231,27 @@ def k1f_block_rows(dtype: torch.dtype, s: int, d: int, d2: int) -> int:
 @functools.lru_cache(maxsize=None)
 def k1f_splits(dtype: torch.dtype, s: int, d: int, d2: int) -> bool:
     """Whether K1f takes its split design at tile s and widths d, d2
-    (csrc/fused_gine_bn.cu k1f_split_shape: mid [16, D2] does not fit in
-    shared memory beside agg, so mid goes through device memory and out is
-    a launch of its own). Needs the built library."""
+    (csrc/fused_gine_bn.cu gine_bn_fwd_split: mid [16, D2] does not fit in
+    shared memory beside agg, so a launch of its own writes agg to device
+    memory, the mid launch streams it and writes mid, and out is a launch
+    of its own): the wrapper then passes agg and mid buffers, scratch
+    without residuals. Needs the built library."""
     return bool(_k1f_query("split", dtype, s, d, d2))
 
 
 @functools.lru_cache(maxsize=None)
-def gine_streams_agg(bn: bool, dtype: torch.dtype, s: int, d: int,
-                     d2: int) -> bool:
-    """Whether K1f (bn) or K4f (not bn) takes its streamed design at tile s
-    and widths d, d2 (csrc/fused_gine_bn.cu agg_then_mid: agg [16, D] does
-    not fit in shared memory beside the block's other operands, so a launch
-    of its own writes agg to device memory and the mid launch streams it):
-    the wrapper then passes an agg buffer, scratch without residuals.
-    Needs the built library."""
+def gine_streams_agg(dtype: torch.dtype, s: int, d: int, d2: int) -> bool:
+    """Whether K4f takes its streamed design at tile s and widths d, d2
+    (csrc/fused_gine_bn.cu agg_then_mid: agg [16, D] does not fit in
+    shared memory beside the mid launch's adjacency operand, so a launch of
+    its own writes agg to device memory and the mid launch streams it): the
+    wrapper then passes an agg buffer, scratch without residuals. Needs the
+    built library."""
     suffix = "f32" if dtype == torch.float32 else "bf16"
     f = getattr(_build.load("fused_gine_bn"), f"gine_streams_agg_{suffix}")
-    f.argtypes = [ctypes.c_int] * 4
+    f.argtypes = [ctypes.c_int] * 3
     f.restype = ctypes.c_int
-    return bool(f(int(bool(bn)), s, d, d2))
+    return bool(f(s, d, d2))
 
 
 @functools.lru_cache(maxsize=None)
@@ -313,10 +314,9 @@ def fused_gine_bn_layer_fwd(h, a, b, adj, cnt, etab, w1, b1, w2, b2,
     d2 = w1.shape[1]
     suffix = "f32" if h.dtype == torch.float32 else "bf16"
     fn = kernel_fn("fused_gine_bn", f"gine_bn_fwd_{suffix}", 15, 5)
-    # the split design's out launch reads mid, the streamed design's mid
-    # launch agg: scratch without residuals
-    with_agg = residuals or gine_streams_agg(True, h.dtype, s, d, d2)
-    with_mid = residuals or k1f_splits(h.dtype, s, d, d2)
+    # the split design's mid launch reads agg, its out launch mid: scratch
+    # without residuals
+    with_agg = with_mid = residuals or k1f_splits(h.dtype, s, d, d2)
     es = h.element_size()
     check_fits(h.device, es * n * (d * (1 + with_agg) + d2 * with_mid)
                + 4 * (n // STRIP_ROWS + 2) * 2 * d,
@@ -718,7 +718,7 @@ def _gine_fwd_cuda(h, adj, cnt, etab, w1, b1, w2, b2, residuals: bool):
     fn = kernel_fn("fused_gine_bn", f"gine_fwd_{suffix}", 11, 5)
     # the out launch reads mid, the streamed design's mid launch agg:
     # scratch when no residuals are asked for
-    with_agg = residuals or gine_streams_agg(False, h.dtype, s, d, d2)
+    with_agg = residuals or gine_streams_agg(h.dtype, s, d, d2)
     m = lead[0] if lead else 1
     check_fits(h.device, h.element_size() * m * n * (d * (1 + with_agg)
                                                       + d2),

@@ -19,6 +19,11 @@ turn with this checkout's libraries: the C entry points are the same.
     fine-tuning batch (T = 4) and their member-axis launches at M = 3, on
     chip_smoke.py's full-width layer inputs, f32 and bf16: every output of
     the two builds bit for bit;
+  * outputs at D = 2,048, D2 = 4,096 (tiles 128 and 256), phase 8's wide
+    inputs (chip_smoke.wide_calls on its WIDE_MOLS molecules): the eight
+    layer kernels, f32 bit for bit, bf16 within KERNEL_RTOL of the
+    parent's (where K1f splits, the parent computes mid in the split block
+    and this checkout in the streamed mid launch);
   * unless --no-timing, each call's CUDA-event ms (chip_smoke.time_ms) in
     the order parent, change, change, parent.
 Prints one JSON line per case and writes them all to --out; exits 1 where
@@ -43,6 +48,7 @@ from molclr_tpu_torch.ops import fused_layer as FL  # noqa: E402
 
 LIBS = ("fused_gine_bn", "fused_gine_bwd", "fused_gcn_bn")
 MEMBERS = 3
+WIDE_D = 2048
 
 
 def build_parent(parent: Path) -> dict:
@@ -94,16 +100,17 @@ def ptxas(log: str) -> dict:
 
 def match_ptxas(parent: dict, change: dict) -> list:
     """Each parent kernel beside this checkout's instantiation of it: the
-    same name, or the name with one or more trailing `false` template
-    arguments (the new STREAM / RELU parameters) dropped."""
-    rows = []
-    for name, got in sorted(change.items()):
-        base = name
-        while base not in parent and base.endswith(", false>"):
-            base = base[: -len(", false>")] + ">"
-        if base in parent:
-            rows.append(dict(kernel=name, parent=parent[base], change=got))
-    return rows
+    same name once trailing `false` template arguments (parameters added or
+    removed since, false where the instantiation does not use them) are
+    dropped from both."""
+    def base(name: str) -> str:
+        while name.endswith(", false>"):
+            name = name[: -len(", false>")] + ">"
+        return name
+
+    theirs = {base(n): v for n, v in parent.items()}
+    return [dict(kernel=name, parent=theirs[base(name)], change=got)
+            for name, got in sorted(change.items()) if base(name) in theirs]
 
 
 def calls(dev, dt, gen) -> dict:
@@ -126,6 +133,25 @@ def calls(dev, dt, gen) -> dict:
     for name, (names, run, _) in cs.wide_member_calls(
             ft, dt, gen, cs.EMB, cs.TILE, MEMBERS).items():
         out[name] = (names, run)
+    return out
+
+
+def wide(dev, dt, gen) -> dict:
+    """{name: (output names, kernel call)}: chip_smoke.wide_calls at D =
+    WIDE_D, D2 = 2 D, tiles 128 and 256, on phase 8's molecules."""
+    graphs, _ = cs.featurize_many(cs.synthetic_corpus(cs.WIDE_MOLS,
+                                                      seed=cs.SEED))
+    out = {}
+    for tile in (128, cs.TILE):
+        batch = cs.pack_batch(graphs, cs.spec_for_graphs(
+            graphs, cs.WIDE_MOLS, tile=tile)).to(dev)
+        x, pg, pc = cs.layer_inputs(batch, dt, gen, WIDE_D, tile)
+        n = x["h"].shape[0]
+        g = (0.1 * torch.randn(n, WIDE_D, generator=gen)).to(dev, dt)
+        dsums = (0.05 * torch.randn(2, WIDE_D, generator=gen)).to(dev)
+        for name, (names, run, *_rest) in cs.wide_calls(
+                x, pg, pc, g, dsums, dt).items():
+            out[f"{name}@{WIDE_D}/{tile}"] = (names, run)
     return out
 
 
@@ -168,19 +194,28 @@ def main() -> int:
     for dt in (torch.float32, torch.bfloat16):
         sfx = str(dt).replace("torch.", "")
         cases = calls(dev, dt, torch.Generator().manual_seed(cs.SEED + 11))
+        cases.update(wide(dev, dt, torch.Generator().manual_seed(
+            cs.SEED + 13)))
         for name, (names, run) in cases.items():
             bind(mine)
             FL.gine_streams_agg = streams_agg
             got = cs._tuple(run())
             bind(theirs)
-            # (the parent's libraries have no such query; at the reference
-            # width neither forward streams agg)
+            # (the parent's libraries have no such query; up to D = 2,048
+            # K4f does not stream agg)
             FL.gine_streams_agg = lambda *a: False
             want = cs._tuple(run())
             torch.cuda.synchronize()
             same = {o: torch.equal(u, v) for o, u, v in zip(names, got, want)}
             row = dict(kernel=name, dtype=sfx, equal=same)
-            ok &= all(same.values())
+            if "@" in name and dt == torch.bfloat16:
+                rel = {o: (u.float() - v.float()).abs().max().item()
+                       / max(v.float().abs().max().item(), 1e-30)
+                       for o, u, v in zip(names, got, want)}
+                row["rel_err"] = rel
+                ok &= max(rel.values()) <= cs.KERNEL_RTOL[dt]
+            else:
+                ok &= all(same.values())
             if not args.no_timing:
                 ms = []
                 for libs in (theirs, mine, mine, theirs):

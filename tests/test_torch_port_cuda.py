@@ -210,13 +210,14 @@ def test_backward_kernel_matches_plain(cuda, shape, dtype, relu_in):
 # holds a [16, D2] f32 operand: 1,280 / 2,560 fits with the 32 KB ring
 # (the first design's row pass, 16 x (D + D2) floats, stopped just above
 # D = 1,024). At D = 2,048 / D2 = 4,096 (tiles 128 and 256) no one-launch
-# K1f block fits in shared memory: K1f splits (16-row blocks, mid through
-# device memory, out a launch of its own), and K4f's out launch and the
+# K1f block fits in shared memory: K1f splits (agg and mid through device
+# memory, the mid launch streaming agg, out a launch of its own streaming
+# mid; rows 16), and K4f's out launch and the
 # dagg launch stream their [16, D2] operand in K-chunks; so do they at
 # D2 = 3,072 (D = 1,536), the first width above the old f32 limit of
 # about D2 = 3,000. Past f32 D = 2,752 at tile 256 no launch holds a
-# [16, D] operand whole either: K4f's mid launch and the split K1f write agg
-# to device memory and stream it, K5f's / K3f's xw pass streams x, K5b's /
+# [16, D] operand whole either: K4f's mid launch writes agg
+# to device memory and streams it, K5f's / K3f's xw pass streams x, K5b's /
 # K3b's strip pass writes dxw and streams it, K1b's / K4b's dmid launch
 # streams gtc; at D = 3,000 (not a multiple of 32, tile 128) and D = 4,096
 # (tile 256), also for the member-axis kernels (k4f_m ..: M = 2).
