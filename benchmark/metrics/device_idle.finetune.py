@@ -1,0 +1,8 @@
+"""The share of the profiled fine-tuning sub-window in which no kernel,
+copy or fill runs on the device (torch.profiler's CUDA activity)."""
+
+
+def read(run: dict):
+    if run.get("kind") != "finetune" or not run.get("busy_s"):
+        return None
+    return 100.0 * (1.0 - run["busy_s"] / run["profiled_window_s"])
