@@ -55,8 +55,8 @@ def main(argv=None) -> int:
                         "resident paths (0 = auto: one; 1 = eager "
                         "steps)")
     p.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler trace of the first steps "
-                        "here")
+                   help="write a torch.profiler trace of 8 steps after "
+                        "the warm-up and graph capture here")
     p.add_argument("--device-cache-mb", type=int, default=None,
                    help="device budget of the resident unit stack, batch "
                         "cache and eval stack (0 = stream batches from the "

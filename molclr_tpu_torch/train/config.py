@@ -113,8 +113,9 @@ class PretrainConfig:
     narrow_cache: str = "auto"      # 'auto' / 'on': store the unit stack
                                     # in int8 / int16 / uint8 where the unit
                                     # spec fits; 'off': int32 / bool
-    profile_dir: str = ""           # write a torch.profiler trace of the
-                                    # first steps of the first epoch here
+    profile_dir: str = ""           # write a torch.profiler trace of
+                                    # PROFILE_STEPS steps after the warm-up
+                                    # (and capture) here
     concat_views: bool = False      # True: both views in ONE forward
                                     # (joint BatchNorm statistics); False
                                     # runs them one after the other, as the

@@ -37,8 +37,11 @@ The trainers run their first GRAPH_WARMUP_STEPS resident steps eagerly
 state), then capture and replay. A replay runs the kernels the eager step
 runs, on the same inputs, so it gives the same bits. The kernel wrappers
 count a launch when they launch, which during a capture happens once:
-`launches` records the counts of the capture, which each replay repeats.
-A capture that fails raises; nothing falls back.
+`launches` records the counts of the capture, which each replay repeats;
+`captures` and `replays` count the captures and replays. A capture that
+fails raises; nothing falls back. The replay call and the capture are
+the profiler ranges `graphed.replay` and `graphed.capture`
+(train/spans.py); ranges inside the body fire at capture only.
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ from __future__ import annotations
 import gc
 
 import torch
+
+from molclr_tpu_torch.train.spans import span
 
 # eager resident steps of a run before the first capture
 GRAPH_WARMUP_STEPS = 2
@@ -86,6 +91,7 @@ class GraphedSteps:
                                device=device)
         self.generators = tuple(generators)
         self.graph = None
+        self.captures = 0
         self.replays = 0
         self.launches: dict[str, int] = {}
 
@@ -111,14 +117,17 @@ class GraphedSteps:
         after = launch_counts()
         self.launches = {k: after[k] - before[k] for k in after}
         self.graph = graph
+        self.captures += 1
 
     def run(self, *rows: torch.Tensor) -> torch.Tensor:
         """The k steps of `rows` (one [k, *shape] tensor per static
         input); returns the static [k, *out] output buffer."""
-        for buf, row in zip(self.inputs, rows, strict=True):
-            buf.copy_(row)
-        if self.graph is None:
-            self._capture()
-        self.graph.replay()
+        with span("graphed.replay"):
+            for buf, row in zip(self.inputs, rows, strict=True):
+                buf.copy_(row)
+            if self.graph is None:
+                with span("graphed.capture"):
+                    self._capture()
+            self.graph.replay()
         self.replays += 1
         return self.out

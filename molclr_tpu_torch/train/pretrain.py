@@ -127,12 +127,14 @@ from molclr_tpu_torch.train.graphed import GRAPH_WARMUP_STEPS, GraphedSteps
 from molclr_tpu_torch.train.logging_util import MetricWriter, NullWriter
 from molclr_tpu_torch.train.optim import load_optimizer_state, make_adam, \
     set_lr, warmup_then_cosine
+from molclr_tpu_torch.train.spans import span
 
 # stream ids of step_generator
 TRAIN_STREAM, VALID_STREAM, DROPOUT_STREAM = 0, 1, 2
 # resident steps whose augmentation keys are drawn and uploaded at once
 KEY_WINDOW = 64
-# steps that profile_dir traces, from the first step of the run
+# steps that profile_dir traces, from the first step after the first
+# capture (or after GRAPH_WARMUP_STEPS steps where nothing is captured)
 PROFILE_STEPS = 8
 
 
@@ -195,35 +197,39 @@ def forward_backward(model, opt, batch, cfg: PretrainConfig, step: int,
     into the parameters' .grad (averaged over the ranks under dp). Returns
     the loss with its graph; the arguments are train_step's."""
     if views is None:
-        if keys is None:
-            keys = draw_paired_keys(
-                cfg.aug, batch.num_nodes, batch.num_graphs,
-                step_generator(cfg.seed, TRAIN_STREAM, step, *stream))
-        views = paired_augment_keys(batch, keys, cfg.aug,
-                                    tile=cfg.model.tile,
-                                    bond_window=bond_window,
-                                    max_waves=max_waves)
+        with span("step.views"):
+            if keys is None:
+                keys = draw_paired_keys(
+                    cfg.aug, batch.num_nodes, batch.num_graphs,
+                    step_generator(cfg.seed, TRAIN_STREAM, step, *stream))
+            views = paired_augment_keys(batch, keys, cfg.aug,
+                                        tile=cfg.model.tile,
+                                        bond_window=bond_window,
+                                        max_waves=max_waves)
     vi, vj = views
     masks = dropout_masks or (None, None)
     gens = dropout_generators
     model.train()
-    if cfg.concat_views:
-        _, z = model(concat_views(vi, vj), **_dropout_kw(
-            model, cfg, step, 0, masks[0], gens, stream))
-        g = batch.num_graphs
-        zi, zj = z[:g], z[g:]
-    else:
-        _, zi = model(vi, **_dropout_kw(model, cfg, step, 0, masks[0], gens,
-                                        stream))
-        _, zj = model(vj, **_dropout_kw(model, cfg, step, 1, masks[1], gens,
-                                        stream))
+    with span("step.encode"):
+        if cfg.concat_views:
+            _, z = model(concat_views(vi, vj), **_dropout_kw(
+                model, cfg, step, 0, masks[0], gens, stream))
+            g = batch.num_graphs
+            zi, zj = z[:g], z[g:]
+        else:
+            _, zi = model(vi, **_dropout_kw(model, cfg, step, 0, masks[0],
+                                            gens, stream))
+            _, zj = model(vj, **_dropout_kw(model, cfg, step, 1, masks[1],
+                                            gens, stream))
     world = 1 if dp is None else dp.world
-    loss = _loss(resolve_ntxent(cfg.ntxent_impl, world), cfg, zi, zj, batch,
-                 dp)
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    if dp is not None:
-        dp_lib.mean_grads(model.parameters(), dp)
+    with span("step.loss"):
+        loss = _loss(resolve_ntxent(cfg.ntxent_impl, world), cfg, zi, zj,
+                     batch, dp)
+    with span("step.backward"):
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        if dp is not None:
+            dp_lib.mean_grads(model.parameters(), dp)
     return loss
 
 
@@ -253,9 +259,10 @@ def train_step(model, opt, batch, cfg: PretrainConfig, step: int,
                             dropout_masks=dropout_masks, keys=keys,
                             dropout_generators=dropout_generators, dp=dp,
                             stream=stream)
-    if lr is not None:
-        set_lr(opt, lr)
-    opt.step()
+    with span("step.adam"):
+        if lr is not None:
+            set_lr(opt, lr)
+        opt.step()
     return loss.detach()
 
 
@@ -265,12 +272,16 @@ def eval_step(model, batch, cfg: PretrainConfig, generator: torch.Generator,
     """Validation loss of one batch: both views in eval mode, one after the
     other whatever concat_views says, the closed form NT-Xent (as the JAX
     eval_step)."""
-    vi, vj = paired_augment(batch, generator, cfg.aug, tile=cfg.model.tile,
-                            bond_window=bond_window, max_waves=max_waves)
+    with span("step.views"):
+        vi, vj = paired_augment(batch, generator, cfg.aug,
+                                tile=cfg.model.tile, bond_window=bond_window,
+                                max_waves=max_waves)
     model.eval()
-    _, zi = model(vi)
-    _, zj = model(vj)
-    return _loss(nt_xent_loss, cfg, zi, zj, batch)
+    with span("step.encode"):
+        _, zi = model(vi)
+        _, zj = model(vj)
+    with span("step.loss"):
+        return _loss(nt_xent_loss, cfg, zi, zj, batch)
 
 
 class Pretrainer:
@@ -316,6 +327,8 @@ class Pretrainer:
         self.graphed = None
         self._graph_gens = []
         self._eager_resident_steps = 0
+        # profile_dir: the step from which a pending profiler may start
+        self._profile_from = None
         self._profiler = None
         self._profiled_steps = 0
         self.epoch_losses: list[np.ndarray] = []
@@ -627,22 +640,32 @@ class Pretrainer:
         """The mean validation loss, from the device-resident eval stack once
         a first pass has filled the iterator's cache (the same batches and
         keys, so the same bits)."""
-        cfg = self.cfg
+        with span("pretrain.validate"):
+            losses = [eval_step(self.model, batch, self.cfg,
+                                step_generator(self.cfg.seed, VALID_STREAM,
+                                               epoch, i),
+                                self.spec.max_graph_bonds, self.max_waves)
+                      for i, batch in enumerate(self._valid_batches())]
+            if self._eval_stack is None:
+                self._maybe_upload_eval()
+            return (float(np.float32(np.mean([float(x) for x in losses])))
+                    if losses else float("nan"))
+
+    def _valid_batches(self):
+        """The validation batches on the device: rows of the eval stack,
+        or the iterator's batches uploaded one by one."""
         if self._eval_stack is not None:
             rows = torch.arange(self._eval_stack["graph_mask"].shape[0],
                                 device=self.device)
-            batches = (concat_units(self._eval_stack, rows[i: i + 1])
-                       for i in range(rows.shape[0]))
+            for i in range(rows.shape[0]):
+                with span("step.take"):
+                    batch = concat_units(self._eval_stack, rows[i: i + 1])
+                yield batch
         else:
-            batches = (b.to(self.device) for b, _, _ in self.valid_iter)
-        losses = [eval_step(self.model, batch, cfg,
-                            step_generator(cfg.seed, VALID_STREAM, epoch, i),
-                            self.spec.max_graph_bonds, self.max_waves)
-                  for i, batch in enumerate(batches)]
-        if self._eval_stack is None:
-            self._maybe_upload_eval()
-        return (float(np.float32(np.mean([float(x) for x in losses])))
-                if losses else float("nan"))
+            for b, _, _ in self.valid_iter:
+                with span("step.take"):
+                    batch = b.to(self.device)
+                yield batch
 
     def _save_best(self) -> None:
         path = os.path.join(self.cfg.ckpt_dir, "best.pth")
@@ -651,18 +674,24 @@ class Pretrainer:
 
     def _advance(self, n: int, losses: torch.Tensor, epoch: int,
                  log) -> None:
-        """Count n steps just taken (losses: theirs), log where a multiple
-        of log_every_steps was passed, and stop the profiler after its
-        steps."""
+        """Count n steps just taken (losses: theirs) and log where a
+        multiple of log_every_steps was passed."""
         every = self.cfg.log_every_steps
         before, self.step = self.step, self.step + n
         if self.step // every > before // every:
             log(f"epoch {epoch} step {self.step} loss "
                 f"{float(losses[-1]):.4f} lr {self.schedule(self.step):.6f}")
+
+    def _profile_steps(self, n: int, log) -> None:
+        """After n steps (outside any range): start a pending profiler
+        once past the warm-up, or stop it after its PROFILE_STEPS."""
         if self._profiler is not None:
             self._profiled_steps += n
             if self._profiled_steps >= PROFILE_STEPS:
                 self._stop_profiler(log)
+        elif self._profile_from is not None and self._steady():
+            self._profile_from = None
+            self._start_profiler(log)
 
     def _stream_batches(self):
         """The host batches of one epoch of the host path: from an on-disk
@@ -712,6 +741,7 @@ class Pretrainer:
             buf[n].copy_(loss)
             n += 1
             self._advance(1, buf[:n], epoch, log)
+            self._profile_steps(1, log)
         return buf[:n].tolist()
 
     def _batch_size(self) -> tuple[int, int]:
@@ -726,22 +756,25 @@ class Pretrainer:
         the device at once (from pinned memory on the card)."""
         cfg = self.cfg
         nodes, graphs = self._batch_size()
-        rows = torch.stack([flatten_keys(draw_paired_keys(
-            cfg.aug, nodes, graphs,
-            step_generator(cfg.seed, TRAIN_STREAM, start + j, *self._stream)))
-            for j in range(n)])
-        if self.device.type == "cuda":
-            rows = rows.pin_memory()
-        return rows.to(self.device, non_blocking=True)
+        with span("pretrain.keys"):
+            rows = torch.stack([flatten_keys(draw_paired_keys(
+                cfg.aug, nodes, graphs,
+                step_generator(cfg.seed, TRAIN_STREAM, start + j,
+                               *self._stream)))
+                for j in range(n)])
+            if self.device.type == "cuda":
+                rows = rows.pin_memory()
+            return rows.to(self.device, non_blocking=True)
 
     def _resident_step(self, idx_row, key_row, lr: float | None,
                        dropout_generators=None) -> torch.Tensor:
         """One step on T rows of the device stack, its views from its key
         row."""
         cfg = self.cfg
-        batch = concat_units(self._stack, idx_row)
-        keys = unflatten_keys(cfg.aug, key_row, batch.num_nodes,
-                              batch.num_graphs)
+        with span("step.take"):
+            batch = concat_units(self._stack, idx_row)
+            keys = unflatten_keys(cfg.aug, key_row, batch.num_nodes,
+                                  batch.num_graphs)
         return train_step(self.model, self.opt, batch, cfg, self.step, lr,
                           keys=keys, bond_window=self.spec.max_graph_bonds,
                           max_waves=self.max_waves,
@@ -795,22 +828,26 @@ class Pretrainer:
             j = 0
             while j < w:
                 at = lo + j
-                if (k and j + k <= w
-                        and self._eager_resident_steps >= GRAPH_WARMUP_STEPS):
-                    if self.graphed is None:
-                        self.graphed = self._new_graph(k, idx.shape[1],
-                                                       keys.shape[1])
-                    set_lr(self.opt, self.schedule(self.step))
-                    self._reseed_graph_gens()
-                    buf[at: at + k].copy_(self.graphed.run(
-                        idx[at: at + k], keys[j: j + k]))
-                    n = k
-                else:
-                    buf[at].copy_(self._resident_step(
-                        idx[at], keys[j], self.schedule(self.step)))
-                    self._eager_resident_steps += 1
-                    n = 1
-                self._advance(n, buf[at: at + n], epoch, log)
+                replay = (k and j + k <= w and self._eager_resident_steps
+                          >= GRAPH_WARMUP_STEPS)
+                n = k if replay else 1
+                with span("pretrain.dispatch"):
+                    if replay:
+                        if self.graphed is None:
+                            self.graphed = self._new_graph(k, idx.shape[1],
+                                                           keys.shape[1])
+                        set_lr(self.opt, self.schedule(self.step))
+                        self._reseed_graph_gens()
+                        buf[at: at + k].copy_(self.graphed.run(
+                            idx[at: at + k], keys[j: j + k]))
+                    else:
+                        with span("pretrain.eager_step"):
+                            loss = self._resident_step(
+                                idx[at], keys[j], self.schedule(self.step))
+                        buf[at].copy_(loss)
+                        self._eager_resident_steps += 1
+                    self._advance(n, buf[at: at + n], epoch, log)
+                self._profile_steps(n, log)
                 j += n
         return buf.tolist()
 
@@ -858,7 +895,15 @@ class Pretrainer:
                                   plan_seed=self.cfg.seed + 7919 * epoch):
                 self._units_plan_epoch = epoch
 
-    def _start_profiler(self) -> None:
+    def _steady(self) -> bool:
+        """Past the warm-up: on a resident path that replays, its graph
+        captured; elsewhere (the host path, eager steps) GRAPH_WARMUP_STEPS
+        steps of this run taken."""
+        if self.graph_steps and self._stack is not None:
+            return self.graphed is not None and self.graphed.captures > 0
+        return self.step >= self._profile_from
+
+    def _start_profiler(self, log) -> None:
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU]
@@ -866,6 +911,7 @@ class Pretrainer:
             acts.append(ProfilerActivity.CUDA)
         self._profiler = profile(activities=acts)
         self._profiler.start()
+        log(f"profiler: tracing from step {self.step}")
 
     def _stop_profiler(self, log) -> None:
         if self._profiler is None:
@@ -895,7 +941,7 @@ class Pretrainer:
         history = []
         self._activate_units(log)
         if cfg.profile_dir:
-            self._start_profiler()
+            self._profile_from = self.step + GRAPH_WARMUP_STEPS
         try:
             for epoch in range(self._start_epoch, cfg.epochs):
                 t0 = time.perf_counter()
@@ -959,5 +1005,8 @@ class Pretrainer:
                     break
         finally:
             self._stop_profiler(log)
+            if self._profile_from is not None:
+                self._profile_from = None
+                log("profiler: no step after the warm-up; no trace written")
             writer.close()
         return history

@@ -16,6 +16,7 @@ against the same step run eagerly from the same state, with the same
 optimizer object: bit-identical (tolerance 0)."""
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -39,7 +40,8 @@ from molclr_tpu_torch.train.finetune import FineTuner
 from molclr_tpu_torch.train.graphed import GRAPH_WARMUP_STEPS, \
     GraphedSteps, launch_counts
 from molclr_tpu_torch.train.optim import load_optimizer_state
-from molclr_tpu_torch.train.pretrain import Pretrainer, train_step
+from molclr_tpu_torch.train.pretrain import PROFILE_STEPS, Pretrainer, \
+    train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -967,6 +969,89 @@ def test_graph_of_several_steps_bit_identical_to_eager(cuda, tmp_path):
     assert all(torch.equal(se[0][k], sg[0][k]) for k in se[0])
     assert pre.graphed.replays == 2
     assert pre.graphed.launches["fused_gine_bn_layer_bwd"] == 3 * 2 * 2
+
+
+def test_spans_in_a_graph_body_change_no_launch_and_no_bit(cuda, tmp_path):
+    """A graph captured and replayed while torch.profiler records (the
+    step's ranges live in its body during the capture) against one
+    captured and replayed without it, from the same state: the same
+    captured launches, and the same losses, parameters, BatchNorm stats
+    and Adam moments bit for bit. The profiled run's replays and capture
+    are its `graphed.replay` and `graphed.capture` ranges, inside
+    `pretrain.dispatch`."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    log = lambda *_: None  # noqa: E731
+    pre = _resident_pretrainer(cuda, tmp_path)
+    orders = epoch_unit_orders(pre._n_units, pre._units_per_batch, 0, 0)
+    pre._resident_epoch(0, orders[:GRAPH_WARMUP_STEPS], log)
+    snap = (copy.deepcopy(pre.model.state_dict()),
+            copy.deepcopy(pre.opt.state_dict()), pre.step)
+    rows = orders[GRAPH_WARMUP_STEPS: GRAPH_WARMUP_STEPS + 3]
+    plain = (pre._resident_epoch(0, rows, log), _state(pre),
+             dict(pre.graphed.launches))
+    pre.model.load_state_dict(snap[0])
+    load_optimizer_state(pre.opt, copy.deepcopy(snap[1]))
+    pre.step = snap[2]
+    pre.graphed = None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced = (pre._resident_epoch(0, rows, log), _state(pre),
+                  dict(pre.graphed.launches))
+    assert traced[0] == plain[0] and traced[2] == plain[2]
+    for a, b in zip(traced[1], plain[1]):
+        for k in a:
+            assert torch.equal(a[k], b[k]) if torch.is_tensor(a[k]) \
+                else a[k] == b[k], k
+    ranges = [e for e in prof.events() if e.device_type.name == "CPU"
+              and e.name.startswith(("graphed.", "pretrain."))]
+    parent = {e.name: e.cpu_parent.name for e in ranges if e.cpu_parent}
+    assert sum(e.name == "graphed.replay" for e in ranges) == 3
+    assert sum(e.name == "graphed.capture" for e in ranges) == 1
+    assert parent["graphed.replay"] == "pretrain.dispatch"
+    assert parent["graphed.capture"] == "graphed.replay"
+    assert (pre.graphed.captures, pre.graphed.replays) == (1, 3)
+
+
+@pytest.mark.parametrize("path", ["units", "host"])
+def test_profile_dir_traces_steady_steps_on_card(cuda, tmp_path, path):
+    """--profile-dir on the card: on the units path the profiler starts
+    after the graph capture and traces PROFILE_STEPS replays (their
+    `graphed.replay` ranges; no capture, no eager step); on the host path,
+    with the graph steps the card resolves where a corpus exceeds
+    device_cache_mb, after GRAPH_WARMUP_STEPS steps, with each step's
+    parts."""
+    lines = []
+    cfg = PretrainConfig(batch_size=16, epochs=1, warm_up=1, valid_size=0.1,
+                         ckpt_dir=str(tmp_path / "ck"),
+                         profile_dir=str(tmp_path / "prof"),
+                         model=ModelConfig(num_layers=2, emb_dim=32,
+                                           feat_dim=64, tile=64),
+                         **({"device_cache_mb": 0} if path == "host"
+                            else {}))
+    pre = Pretrainer(cfg, cuda).setup_data(synthetic_corpus(300, seed=3))
+    pre.setup_state()
+    assert pre.steps_per_epoch >= GRAPH_WARMUP_STEPS + 1 + PROFILE_STEPS
+    if path == "host":
+        pre.graph_steps = 1             # the default's, on the host path
+    pre.train(log=lines.append)
+    assert (pre._stack is None) == (path == "host")
+    replays = PROFILE_STEPS if path == "units" else 0
+    start = GRAPH_WARMUP_STEPS + (path == "units")
+    assert f"profiler: tracing from step {start}" in lines
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    # the host's ranges (with CUDA activity each also has a device-side
+    # annotation, category gpu_user_annotation)
+    names = [e["name"] for e in trace["traceEvents"]
+             if e.get("cat") == "user_annotation"]
+    assert names.count("pretrain.dispatch") == replays
+    assert names.count("graphed.replay") == replays
+    assert names.count("step.views") == PROFILE_STEPS - replays
+    assert names.count("step.adam") == PROFILE_STEPS - replays
+    assert "graphed.capture" not in names
+    assert "pretrain.eager_step" not in names
 
 
 def test_default_pretrainer_on_card_replays_the_units_path(cuda, tmp_path):
