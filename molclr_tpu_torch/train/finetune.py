@@ -34,7 +34,11 @@ without motifs), as the JAX package's `_split_stack`; a step takes its
 batch through a device index (`concat_units`), so nothing is uploaded per
 step. repack_each_epoch re-draws the train compositions on the host every
 epoch and refills the same device buffers; False uploads the train stack
-once and takes `cached_epoch_order` every epoch.
+once and takes `cached_epoch_order` every epoch. Under repack_each_epoch
+the next epoch's batches are packed during this epoch's steps, one after
+each step is launched (while the card runs it), into a host stack of
+their own; the epoch boundary packs only what is left and refills the
+device stack, after the last step that reads it.
 
 On the card, every step after GRAPH_WARMUP_STEPS eager ones is one replay
 of a CUDA graph of the M members' step, and every evaluate one replay over
@@ -50,7 +54,7 @@ import csv
 import os
 import time
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
@@ -244,6 +248,54 @@ class SplitStack:
             dst[k].copy_(v)
 
 
+class _TrainPass:
+    """One pass of the train iterator packed a batch at a time into a host
+    stack of S rows: the GraphBatch fields in upload_stack's dtypes (int32
+    / bool), the labels, motif ids and mask padded as _epoch_items pads
+    them. The iterator draws its shuffle at the first batch, so a pass
+    opened before it is packed keeps the iterator's order."""
+
+    def __init__(self, tuner: FineTuner):
+        self.tuner = tuner
+        self.items = iter(tuner.iters["train"])
+        self.rows = len(tuner.iters["train"])
+        self.packed = 0
+        self.ahead = 0          # rows packed before finish
+        self.fields: dict[str, np.ndarray] = {}
+        self.padded: tuple[np.ndarray, ...] = ()
+
+    def pack(self) -> bool:
+        """Pack the next batch into its row; False once every row is."""
+        if self.packed == self.rows:
+            return False
+        batch, lab, idx = next(self.items)
+        padded = self.tuner._padded("train", lab, idx)
+        if not self.fields:
+            for f in fields(batch):
+                v = np.asarray(getattr(batch, f.name))
+                self.fields[f.name] = np.empty(
+                    (self.rows,) + v.shape,
+                    bool if v.dtype == bool else np.int32)
+            self.padded = tuple(np.empty((self.rows,) + v.shape, v.dtype)
+                                for v in padded)
+        r = self.packed
+        for name, rows in self.fields.items():
+            rows[r] = getattr(batch, name)
+        for rows, v in zip(self.padded, padded):
+            rows[r] = v
+        self.packed += 1
+        return True
+
+    def finish(self) -> SplitStack:
+        """The rows left packed now; the whole stack as host tensors."""
+        self.ahead = self.packed
+        while self.pack():
+            pass
+        lab, mi, mm = (torch.from_numpy(v) for v in self.padded)
+        return SplitStack({k: torch.from_numpy(v)
+                           for k, v in self.fields.items()}, lab, mi, mm)
+
+
 class FineTuner:
     """setup_data -> setup_state -> train for one target column (`target`)
     or, with `targets`, for all the listed columns at once (they must keep
@@ -276,6 +328,12 @@ class FineTuner:
         self._host_stacks: dict[str, tuple] = {}
         # host -> device transfers of each split's stack
         self.uploads = {"train": 0, "valid": 0, "test": 0}
+        # the next epoch's train pass (repack_each_epoch), and of the
+        # current train stack's rows those packed between the previous
+        # epoch's step launches and those packed at the epoch boundary
+        self._next_pass: _TrainPass | None = None
+        self.packed_ahead = 0
+        self.packed_late = 0
         self._train_graph = None
         self._eval_graphs: dict[str, GraphedSteps] = {}
         self._eager_steps = 0
@@ -389,24 +447,27 @@ class FineTuner:
         return mi, mm
 
     # ---- resident split stacks ----
-    def _epoch_items(self, split: str) -> list[tuple]:
-        """One pass of the split's iterator as (batch, labels [G] or
-        [G, T], motif ids, motif mask) on the host; motif ids and mask are
-        zeros [G, 1] without motifs."""
-        out = []
+    def _padded(self, split: str, lab, idx) -> tuple:
+        """(labels [G] or [G, T], motif ids, motif mask) of a packed batch
+        of `split` on the host; motif ids and mask are zeros [G, 1]
+        without motifs."""
         g = self.spec.n_graphs
-        for batch, lab, idx in self.iters[split]:
-            labp = (np.zeros((g, self.n_targets), np.float32)
-                    if self.n_targets > 1 else np.zeros(g, np.float32))
-            if lab is not None:
-                labp[: len(lab)] = lab
-            if self.cfg.use_motifs:
-                mi, mm = self._batch_motifs(split, idx)
-            else:
-                mi = np.zeros((g, 1), np.int32)
-                mm = np.zeros((g, 1), bool)
-            out.append((batch, labp, mi, mm))
-        return out
+        labp = (np.zeros((g, self.n_targets), np.float32)
+                if self.n_targets > 1 else np.zeros(g, np.float32))
+        if lab is not None:
+            labp[: len(lab)] = lab
+        if self.cfg.use_motifs:
+            mi, mm = self._batch_motifs(split, idx)
+        else:
+            mi = np.zeros((g, 1), np.int32)
+            mm = np.zeros((g, 1), bool)
+        return labp, mi, mm
+
+    def _epoch_items(self, split: str) -> list[tuple]:
+        """One pass of the split's iterator as (batch, labels, motif ids,
+        motif mask) on the host (`_padded`)."""
+        return [(batch, *self._padded(split, lab, idx))
+                for batch, lab, idx in self.iters[split]]
 
     @staticmethod
     def _stack_items(items) -> tuple:
@@ -416,18 +477,16 @@ class FineTuner:
         return (stack_batches(batches), np.stack(labs), np.stack(mis),
                 np.stack(mms))
 
-    def _upload(self, split: str, host: tuple) -> SplitStack:
-        """The host stack on the device: a new SplitStack, or the split's
-        existing one refilled in place (its buffers are the ones a
+    def _upload(self, split: str, fresh: SplitStack) -> SplitStack:
+        """A stack of host tensors on the device: a new SplitStack, or the
+        split's existing one refilled in place (its buffers are the ones a
         captured graph reads)."""
-        gb, lab, mi, mm = host
-        fresh = SplitStack(upload_stack(gb, "cpu"), torch.from_numpy(lab),
-                           torch.from_numpy(mi), torch.from_numpy(mm))
         if split in self._stacks:
             self._stacks[split].fill_(fresh)
         else:
             self._stacks[split] = fresh.to(self.device)
-        self._host_stacks[split] = (gb.graph_mask, lab)
+        self._host_stacks[split] = (fresh.batches["graph_mask"].numpy(),
+                                    fresh.labels.numpy())
         self.uploads[split] += 1
         return self._stacks[split]
 
@@ -436,20 +495,29 @@ class FineTuner:
         on first use (the packed-batch cache of valid / test, and of train
         under repack_each_epoch False)."""
         if split not in self._stacks:
-            self._upload(split, self._stack_items(self._epoch_items(split)))
+            gb, lab, mi, mm = self._stack_items(self._epoch_items(split))
+            self._upload(split, SplitStack(
+                upload_stack(gb, "cpu"), torch.from_numpy(lab),
+                torch.from_numpy(mi), torch.from_numpy(mm)))
         return self._stacks[split]
 
     def _train_epoch_stack(self) -> tuple[SplitStack, np.ndarray]:
         """(stack, order) of one training epoch. repack_each_epoch packs
-        fresh compositions on the host and refills the device stack;
-        otherwise the compositions are frozen after epoch 0 and only the
-        order changes."""
-        if self.cfg.repack_each_epoch:
-            items = self._epoch_items("train")
-            return (self._upload("train", self._stack_items(items)),
-                    np.arange(len(items)))
-        stack = self._split_stack("train")
-        return stack, self.iters["train"].cached_epoch_order()
+        fresh compositions on the host and refills the device stack: the
+        rows of the pass that the previous epoch's steps left unpacked
+        (every row at the first call) are packed now; then the next
+        epoch's pass opens, and _run_steps packs one of its batches after
+        each step it launches. Otherwise the compositions are frozen
+        after epoch 0 and only the order changes."""
+        if not self.cfg.repack_each_epoch:
+            stack = self._split_stack("train")
+            return stack, self.iters["train"].cached_epoch_order()
+        done = self._next_pass or _TrainPass(self)
+        stack = self._upload("train", done.finish())
+        self.packed_ahead = done.ahead
+        self.packed_late = done.rows - done.ahead
+        self._next_pass = _TrainPass(self)
+        return stack, np.arange(done.rows)
 
     def _take(self, stack: SplitStack, idx: torch.Tensor) -> tuple:
         """(batch, labels, motifs) of the stack's row idx ([1] int64 on
@@ -568,7 +636,8 @@ class FineTuner:
         """The steps of rows ([S, 1] train-stack rows on the device):
         eager ones, or on the card after GRAPH_WARMUP_STEPS eager steps
         replays of the step's graph; returns the losses [S, M] on the
-        device."""
+        device. After each step is launched, one batch of the next
+        epoch's pass is packed on the host while the card runs it."""
         out = torch.empty(rows.shape[0], self.n_members, device=self.device)
         for i in range(rows.shape[0]):
             if self.graphed and self._eager_steps >= GRAPH_WARMUP_STEPS:
@@ -582,6 +651,8 @@ class FineTuner:
             else:
                 out[i].copy_(self._step(0, rows[i]))
                 self._eager_steps += 1
+            if self._next_pass is not None:
+                self._next_pass.pack()
         return out
 
     def _predict_split(self, split: str) -> torch.Tensor:
@@ -721,7 +792,11 @@ class FineTuner:
                           f"valid_{val['name']}": val["metric"],
                           "time_s": round(time.perf_counter() - t0, 2),
                           "steps": losses.shape[0],
-                          "train_s": train_s}
+                          "train_s": train_s,
+                          # share of the epoch's batches packed during
+                          # the previous epoch's steps
+                          "packed_ahead": (self.packed_ahead
+                                           / max(losses.shape[0], 1))}
                 if "std" in val:
                     record[f"valid_{val['name']}_std"] = val["std"]
                 if "per_target" in val:

@@ -1294,8 +1294,32 @@ def _finetune_state(ft):
     return out
 
 
+def _ft_epochs_eager_against_graphed(cuda, tmp, **kw):
+    """Three repacked epochs (each epoch's batches packed between the
+    launches of the epoch before, the device stack refilled at each
+    boundary) of an eager FineTuner and of a graphed one built alike (the
+    same members, data and dropout generators): the members' losses,
+    parameters, BatchNorm stats and Adam moments bit-identical, so each
+    refill lands after the last replay that reads the stack. Returns the
+    graphed one."""
+    runs = []
+    for graphed in (False, True):
+        ft = _finetuner(cuda, tmp / f"graphed_{graphed}", graphed=graphed,
+                        **kw)
+        losses = np.stack([ft._train_epoch() for _ in range(3)])
+        assert (ft.packed_ahead, ft.packed_late) == (losses.shape[1], 0)
+        runs.append((ft, losses, _finetune_state(ft)))
+    (_, eager, want), (ft, graphed, got) = runs
+    assert np.array_equal(eager, graphed)
+    assert [k for k in want if not (torch.equal(want[k], got[k])
+            if torch.is_tensor(want[k]) else want[k] == got[k])] == []
+    assert ft._train_graph.replays == graphed.shape[0] * graphed.shape[1] \
+        - GRAPH_WARMUP_STEPS
+    return ft
+
+
 @pytest.mark.parametrize("case", ["gin", "gcn", "motifs", "gin_3_seeds",
-                                  "clintox_2x2"])
+                                  "clintox_2x2", "repacked_epochs"])
 def test_graphed_finetune_steps_bit_identical_to_eager(cuda, tmp_path,
                                                        case):
     """Ten fine-tuning steps (dropout 0.3, all members) replayed as a CUDA
@@ -1303,15 +1327,21 @@ def test_graphed_finetune_steps_bit_identical_to_eager(cuda, tmp_path,
     same dropout generator states: the members' losses, parameters,
     BatchNorm stats and Adam moments bit-identical; the capture holds one
     step's launches, one of each layer kernel per layer (an ensemble's
-    members' trunks run in lockstep, one member-axis launch a layer)."""
+    members' trunks run in lockstep, one member-axis launch a layer).
+    repacked_epochs: three whole ClinTox 2 x 2 epochs with their repacks,
+    graphed against eager (_ft_epochs_eager_against_graphed)."""
     import copy
 
+    clintox = dict(task="ClinTox", n_seeds=2,
+                   targets=["CT_TOX", "FDA_APPROVED"])
     kw = dict(gin=dict(), gcn=dict(model=dict(gnn_type="gcn")),
               motifs=dict(use_motifs=True), gin_3_seeds=dict(n_seeds=3),
-              clintox_2x2=dict(task="ClinTox", n_seeds=2,
-                               targets=["CT_TOX", "FDA_APPROVED"]))[case]
-    ft = _finetuner(cuda, tmp_path, **kw)
-    _ft_eager_then_graphed(ft, cuda)
+              clintox_2x2=clintox, repacked_epochs=clintox)[case]
+    if case == "repacked_epochs":
+        ft = _ft_epochs_eager_against_graphed(cuda, tmp_path, **kw)
+    else:
+        ft = _finetuner(cuda, tmp_path, **kw)
+        _ft_eager_then_graphed(ft, cuda)
     layers = ft.cfg.model.num_layers
     fwd = "fused_gcn_layer" if case == "gcn" else "fused_gine_layer"
     assert ft._train_graph.launches[fwd] == layers

@@ -128,16 +128,34 @@ def _syn2r(monkeypatch):
 # ------------------------------------------------------------------- data
 
 
-@pytest.mark.parametrize("task,repack", [("ClinTox", True),
-                                         ("ClinTox", False),
-                                         ("Syn2R", False)])
-def test_data_and_stacks_equal_jax(tmp_path, monkeypatch, task, repack):
+# the steps run between two _train_epoch_stack calls, as row slices: none;
+# the benchmark harness's split of an epoch; that split with epoch 1 cut
+# short, fewer steps than batches
+STEPS = {None: None, "ahead": [(0, 1), (1, 3), (3, None)],
+         "short": [(0, 1), (1, 3)]}
+
+
+@pytest.mark.parametrize("task,repack,steps,motifs", [
+    pytest.param("ClinTox", True, None, False, id="ClinTox-True"),
+    pytest.param("ClinTox", False, None, False, id="ClinTox-False"),
+    pytest.param("Syn2R", False, None, False, id="Syn2R-False"),
+    pytest.param("ClinTox", True, "ahead", False, id="ClinTox-True-ahead"),
+    pytest.param("ClinTox", True, "short", False, id="ClinTox-True-short"),
+    pytest.param("ClinTox", True, "ahead", True, id="ClinTox-True-motifs"),
+])
+def test_data_and_stacks_equal_jax(tmp_path, monkeypatch, task, repack,
+                                   steps, motifs):
     """Labels [n, T] (the qm9 scale aside), splits, per-column
     normalizers, the valid stack and two epochs' train stacks and orders
-    (fresh compositions, or cached_epoch_order over frozen ones)."""
+    (fresh compositions, or cached_epoch_order over frozen ones). With
+    `steps`, the port's steps run between the epochs (so the next epoch's
+    batches are packed between their launches, the rest at the boundary
+    where an epoch is cut short) and three epochs' stacks and orders are
+    held to JAX's; `motifs` adds the motif head's ids and mask."""
     targets = _syn2r(monkeypatch) if task == "Syn2R" else CLINTOX
-    jft, port = _pair(tmp_path, targets, state=False, task_name=task,
-                      repack_each_epoch=repack)
+    jft, port = _pair(tmp_path, targets, state=steps is not None,
+                      task_name=task, repack_each_epoch=repack,
+                      use_motifs=motifs)
     assert port.n_members == jft.n_members == 2
     assert port.labels.shape == (len(port.smiles), 2)
     assert np.array_equal(port.labels, jft.labels)
@@ -152,21 +170,33 @@ def test_data_and_stacks_equal_jax(tmp_path, monkeypatch, task, repack):
     _assert_stacks_equal(
         port._stack_items(port._epoch_items("valid")),
         jft._split_stack("valid"))
-    for _ in range(2):
+    epochs = 2 if steps is None else 3
+    for epoch in range(epochs):
         p_stack, p_order = port._train_epoch_stack()
         j_stack, j_order = jft._train_epoch_stack()
         assert np.array_equal(p_order, j_order)
         got = {k: v.numpy() for k, v in p_stack.tensors().items()}
         jb, jlab, jmi, jmm = jax.tree_util.tree_map(np.asarray, j_stack)
         for name, v in _batch_fields(jb).items():
+            assert got[name].dtype == v.dtype, name
             assert np.array_equal(got[name], v), name
         for name, want in (("labels", jlab), ("motif_ids", jmi),
                            ("motif_mask", jmm)):
             assert got[name].dtype == want.dtype
             assert np.array_equal(got[name], want), name
+        if motifs:
+            assert got["motif_mask"].any()
+        if steps is None:
+            continue
+        cut = STEPS[steps] if epoch == 1 else STEPS["ahead"]
+        ran = len(p_order) if epoch != 2 or steps == "ahead" else 3
+        assert port.packed_ahead == (0 if epoch == 0 else ran)
+        rows = torch.from_numpy(np.asarray(p_order, np.int64)[:, None])
+        for lo, hi in cut:
+            assert np.isfinite(port._run_steps(rows[lo:hi]).numpy()).all()
     if not repack:
         assert not np.array_equal(p_order, np.arange(len(p_order)))
-    assert port.uploads["train"] == (2 if repack else 1)
+    assert port.uploads["train"] == (epochs if repack else 1)
 
 
 def test_rows_that_differ_raise_and_run_all_targets_loops(tmp_path):
@@ -319,7 +349,9 @@ def test_whole_run_matches_jax_vmapped(tmp_path):
         np.testing.assert_allclose(a["test_metric"], b["test_metric"],
                                    rtol=5e-4, atol=5e-4)
     assert [set(r) for r in got["history"]] == \
-        [set(r) | {"steps", "train_s"} for r in want["history"]]
+        [set(r) | {"steps", "train_s", "packed_ahead"}
+         for r in want["history"]]
+    assert [r["packed_ahead"] for r in got["history"]] == [0.0, 1.0, 1.0]
     direction = port_finetune.METRIC_DIRECTION[port.task.metric]
     final = port.evaluate("valid", state=port.final_state)["per_member"]
     best = port.evaluate("valid", state=port.best_state)["per_member"]
@@ -402,14 +434,19 @@ def test_train_stack_uploads(tmp_path, repack):
     epoch's order from cached_epoch_order (seeded by the iterator's epoch
     count: setup_state's example batch, the pass that fills the cache,
     then one per epoch); True refills the same buffers every epoch, in
-    the iterator's order."""
+    the iterator's order. Of each repacked stack's S rows, packed_ahead
+    were packed during the previous epoch's steps and packed_late at the
+    epoch boundary: all late at the first epoch and at a call with no
+    steps before it, all ahead after an epoch that ran all its steps;
+    both 0 without repacking."""
     ft = _tuner(tmp_path, repack_each_epoch=repack)
-    orders = []
+    orders, counts = [], []
     inner = ft._train_epoch_stack
 
     def recording():
         stack, order = inner()
         orders.append((stack, order))
+        counts.append((ft.packed_ahead, ft.packed_late))
         return stack, order
 
     ft._train_epoch_stack = recording
@@ -423,6 +460,10 @@ def test_train_stack_uploads(tmp_path, repack):
         want = (np.random.RandomState(ft.cfg.seed + 2 + e).permutation(n)
                 if not repack else np.arange(n))
         assert np.array_equal(order, want)
+    ft._train_epoch_stack()                   # after a whole epoch
+    ft._train_epoch_stack()                   # with no steps before it
+    assert counts == ([(0, n)] + [(n, 0)] * 3 + [(0, n)] if repack
+                      else [(0, 0)] * 5)
 
 
 # ---------------------------------------------------------- CLI, optimizer
