@@ -10,6 +10,7 @@ versions), and raises when there is none.
     python -m molclr_tpu_torch.cli.finetune --task BBBP --data-root data
     python -m molclr_tpu_torch.cli.finetune --allow-synthetic --cpu \
         --config small.yaml
+    python -m molclr_tpu_torch.cli.finetune --task HIV --model graphormer
 """
 
 from __future__ import annotations
@@ -32,7 +33,10 @@ def main(argv=None) -> int:
                         "warm-start from")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
-    p.add_argument("--model", choices=["gin", "gcn"], default=None)
+    p.add_argument("--model", choices=["gin", "gcn", "graphormer"],
+                   default=None,
+                   help="the encoder; graphormer: Graphormer-base (12 x "
+                        "768, 32 heads) in place of the config's widths")
     p.add_argument("--data-root", default=None)
     p.add_argument("--motifs", action="store_true",
                    help="use the motif (clique) attention head")
@@ -52,8 +56,8 @@ def main(argv=None) -> int:
     device = resolve_device(args.cpu)
 
     from molclr_tpu_torch.data.tasks import TASKS
-    from molclr_tpu_torch.train.config import FineTuneConfig, \
-        finetune_from_yaml
+    from molclr_tpu_torch.train.config import GRAPHORMER_BASE, \
+        FineTuneConfig, ModelConfig, finetune_from_yaml
     from molclr_tpu_torch.train.finetune import FineTuner, run_all_targets
 
     cfg = (finetune_from_yaml(args.config) if os.path.exists(args.config)
@@ -66,7 +70,9 @@ def main(argv=None) -> int:
         cfg.epochs = args.epochs
     if args.batch_size is not None:
         cfg.batch_size = args.batch_size
-    if args.model:
+    if args.model == "graphormer":
+        cfg.model = ModelConfig(**GRAPHORMER_BASE, tile=cfg.model.tile)
+    elif args.model:
         cfg.model.gnn_type = args.model
     if args.data_root:
         cfg.data_root = args.data_root

@@ -30,6 +30,19 @@ def generate_scaffold(smiles: str) -> str:
     return murcko_scaffold_smiles(mol)
 
 
+def scaffold_keys(smiles_list: list[str], processes: int = 1) -> list[str]:
+    """generate_scaffold of each SMILES, in a pool of `processes`
+    (spawned) processes where processes > 1."""
+    if processes > 1:
+        from multiprocessing import get_context
+
+        with get_context("spawn").Pool(processes) as pool:
+            return pool.map(generate_scaffold, smiles_list,
+                            chunksize=max(1, len(smiles_list)
+                                          // (4 * processes)))
+    return [generate_scaffold(s) for s in smiles_list]
+
+
 def scaffold_split(smiles_list: list[str], valid_size: float = 0.1,
                    test_size: float = 0.1, keys: list[str] | None = None):
     """`keys`: optional precomputed scaffold keys aligned with

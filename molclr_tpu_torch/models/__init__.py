@@ -1,5 +1,7 @@
-"""GIN / GCN encoders (PyTorch) with the reference's state-dict schema."""
+"""GIN / GCN encoders (PyTorch) with the reference's state-dict schema, and
+the Graphormer fine-tuning network."""
 
+from molclr_tpu_torch.models.graphormer import GraphormerNet
 from molclr_tpu_torch.models.layers import GCNConv, GINEConv, MaskedBatchNorm
 from molclr_tpu_torch.models.nets import (
     Encoder,
@@ -9,6 +11,6 @@ from molclr_tpu_torch.models.nets import (
     MotifFineTuneNet,
 )
 
-__all__ = ["Encoder", "FineTuneNet", "GCNConv", "GINEConv",
+__all__ = ["Encoder", "FineTuneNet", "GCNConv", "GINEConv", "GraphormerNet",
            "LinkFineTuneNet", "MaskedBatchNorm", "MolCLRNet",
            "MotifFineTuneNet"]

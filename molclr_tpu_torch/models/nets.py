@@ -251,10 +251,11 @@ def member_trunks(models, batch, dropout_masks=None) -> list:
     configuration, in one mode) on one batch, from one lockstep pass of
     their unchained tile trunks (unchained_layers; dropout_masks[m] member
     m's keep masks in training mode); None for each member where that is
-    not their path (one member, the BN-chained or the ELL trunk: each runs
-    its own trunk in its forward)."""
+    not their path (one member, the BN-chained or the ELL trunk, a network
+    without an Encoder trunk: each runs its own in its forward)."""
     first = models[0]
-    if len(models) < 2 or not (first.tile > 0 and first.drop_ratio > 0):
+    if len(models) < 2 or not isinstance(first, Encoder) \
+            or not (first.tile > 0 and first.drop_ratio > 0):
         return [None] * len(models)
     adj = build_tile_adjacency(batch.nbr, batch.nbr_mask, first.tile,
                                dtype=first.dtype)

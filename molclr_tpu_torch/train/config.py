@@ -18,6 +18,7 @@ from dataclasses import asdict, dataclass, field
 @dataclass
 class ModelConfig:
     gnn_type: str = "gin"           # 'gin' | 'gcn' (config.yaml model_type)
+                                    # | 'graphormer' (fine-tuning only)
     num_layers: int = 5
     emb_dim: int = 300
     feat_dim: int = 512
@@ -30,6 +31,17 @@ class ModelConfig:
     tile: int = 256                 # tile-dense aggregation, tile-aligned
                                     # packing (a multiple of 16 on the
                                     # card); 0 = the ELL trunk, any size
+    num_heads: int = 32             # graphormer: attention heads
+    ffn_dim: int = 768              # graphormer: feed-forward width
+    max_hops: int = 5               # graphormer: bonds of a path that bias
+                                    # its pair (multi_hop_max_dist)
+
+
+# Graphormer-base (arXiv:2106.05234, PCQM4M and ogbg-molhiv): 12 layers of
+# 768, FFN 768, 32 heads, 5 hops, dropout 0.1 (cli/finetune.py --model
+# graphormer)
+GRAPHORMER_BASE = dict(gnn_type="graphormer", num_layers=12, emb_dim=768,
+                       ffn_dim=768, num_heads=32, max_hops=5, drop_ratio=0.1)
 
 
 @dataclass
@@ -168,7 +180,8 @@ _REF_MODEL_KEYS = {"num_layer": "num_layers", "drop_ratio": "drop_ratio",
                    "emb_dim": "emb_dim", "feat_dim": "feat_dim",
                    "pool": "pool", "pred_n_layer": "pred_n_layer",
                    "pred_act": "pred_act"}
-_EXT_MODEL_KEYS = ("tile", "bf16", "normalize_gcn", "gnn_type")
+_EXT_MODEL_KEYS = ("tile", "bf16", "normalize_gcn", "gnn_type", "num_heads",
+                   "ffn_dim", "max_hops")
 
 
 def _apply_model_keys(model_cfg: ModelConfig, raw: dict) -> None:

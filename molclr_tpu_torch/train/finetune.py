@@ -40,6 +40,16 @@ each step is launched (while the card runs it), into a host stack of
 their own; the epoch boundary packs only what is left and refills the
 device stack, after the last step that reads it.
 
+Networks. One lookup by trunk and head (NETWORKS) gives the model class
+and its host data: GIN and GCN with the prediction or the motif head read
+the packed batch alone (`PackedInputs`); Graphormer (models/graphormer.py,
+data/graphormer.py `GraphormerInputs`) packs each molecule with a
+graph-token row, and each split stack carries its batches' pair tables
+([S, T, tile, tile] spatial rows, [S, T, tile, tile, max_hops] path
+bonds) beside the batches. The host data's counters of the current train
+stack (Graphormer's `pairs_real` and `pairs_computed`) go into train()'s
+record.
+
 On the card, every step after GRAPH_WARMUP_STEPS eager ones is one replay
 of a CUDA graph of the M members' step, and every evaluate one replay over
 the split's stack followed by one readback (train/graphed.py); a capture
@@ -54,12 +64,13 @@ import csv
 import os
 import time
 import warnings
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, field, fields
 
 import numpy as np
 import torch
 
 from molclr_tpu_torch.cli.embed import resolve_device
+from molclr_tpu_torch.data.graphormer import GraphormerInputs
 from molclr_tpu_torch.data.loader import (
     BatchIterator,
     featurize_many,
@@ -69,18 +80,82 @@ from molclr_tpu_torch.data.motifs import build_motif_vocab, \
     encode_motif_vocab, mol_fragment_keys
 from molclr_tpu_torch.data.regroup import concat_units, stack_batches, \
     upload_stack
-from molclr_tpu_torch.data.splits import generate_scaffold, random_split, \
+from molclr_tpu_torch.data.splits import random_split, scaffold_keys, \
     scaffold_split
 from molclr_tpu_torch.data.tasks import TASKS, TaskSpec, qm9_label_scale
-from molclr_tpu_torch.models import FineTuneNet, MotifFineTuneNet
+from molclr_tpu_torch.models import FineTuneNet, GraphormerNet, \
+    MotifFineTuneNet
 from molclr_tpu_torch.models.nets import member_trunks
 from molclr_tpu_torch.train import checkpoints as ckpt_lib
-from molclr_tpu_torch.train.config import FineTuneConfig
+from molclr_tpu_torch.train.config import FineTuneConfig, ModelConfig
 from molclr_tpu_torch.train.graphed import GRAPH_WARMUP_STEPS, GraphedSteps
 from molclr_tpu_torch.train.logging_util import MetricWriter
 from molclr_tpu_torch.train.metrics import METRIC_DIRECTION, METRICS, \
     Normalizer
 from molclr_tpu_torch.train.optim import two_group_adam
+
+
+def _encoder_kwargs(m: ModelConfig) -> dict:
+    return dict(num_layers=m.num_layers, emb_dim=m.emb_dim,
+                feat_dim=m.feat_dim, gnn_type=m.gnn_type, pool=m.pool,
+                drop_ratio=m.drop_ratio, pred_n_layer=m.pred_n_layer,
+                pred_act=m.pred_act, normalize_gcn=m.normalize_gcn,
+                dtype=torch.bfloat16 if m.bf16 else torch.float32,
+                tile=m.tile)
+
+
+def _graphormer_kwargs(m: ModelConfig) -> dict:
+    if m.bf16:
+        raise ValueError("the Graphormer network computes in f32 only")
+    return dict(num_layers=m.num_layers, emb_dim=m.emb_dim,
+                ffn_dim=m.ffn_dim, num_heads=m.num_heads,
+                max_hops=m.max_hops, drop_ratio=m.drop_ratio, tile=m.tile)
+
+
+class PackedInputs:
+    """The host data of a network that reads the packed batch alone: the
+    molecules as featurized, worst-case evaluation batches, no inputs
+    beside a batch and no counters. A network with inputs of its own
+    gives a class with these methods (data/graphormer.py
+    `GraphormerInputs`)."""
+
+    def __init__(self, model: ModelConfig, device):
+        self.tile = model.tile
+
+    def prepare(self, graphs: list, splits: dict) -> list:
+        """The molecules as packed (splits: name -> molecule ids)."""
+        return graphs
+
+    def eval_spec(self, graphs: list, splits: dict, batch_size: int,
+                  max_degree: int):
+        """The valid / test batches' spec: they follow the scaffold order,
+        where the statistical 'total' bound does not hold, so worst-case
+        capacity."""
+        return spec_for_graphs(graphs, batch_size, max_degree,
+                               tile=self.tile, sizing="max")
+
+    def arrays(self, split: str, batch, idx) -> dict:
+        """The network's inputs beside a packed batch, in its order."""
+        return {}
+
+    @staticmethod
+    def counters(batches: dict, arrays: dict) -> dict:
+        """Counters of a train stack, for train()'s record."""
+        return {}
+
+
+# (gnn_type, head) -> (network class, its keyword arguments from the model
+# configuration, its host data); the motif head rides on the
+# message-passing trunks
+NETWORKS = {
+    ("gin", "predict"): (FineTuneNet, _encoder_kwargs, PackedInputs),
+    ("gcn", "predict"): (FineTuneNet, _encoder_kwargs, PackedInputs),
+    ("gin", "motif"): (MotifFineTuneNet, _encoder_kwargs, PackedInputs),
+    ("gcn", "motif"): (MotifFineTuneNet, _encoder_kwargs, PackedInputs),
+    ("graphormer", "predict"): (GraphormerNet, _graphormer_kwargs,
+                                GraphormerInputs),
+}
+
 
 def resolve_task_csv(cfg: FineTuneConfig, spec: TaskSpec) -> tuple[str, bool]:
     """Locate the task CSV under data_root. When absent, raise, or (iff
@@ -114,6 +189,12 @@ def resolve_task_csv(cfg: FineTuneConfig, spec: TaskSpec) -> tuple[str, bool]:
     except OSError:
         pass
     return path, False
+
+
+# molecules from which SharedTaskData computes scaffold keys in a pool, and
+# the pool's most processes
+SCAFFOLD_POOL_MIN = 8192
+SCAFFOLD_PROCESSES = 8
 
 
 class SharedTaskData:
@@ -153,8 +234,14 @@ class SharedTaskData:
         return ids, labels
 
     def scaffold_keys(self) -> list[str]:
+        """The molecules' scaffold keys: in a pool of up to
+        SCAFFOLD_PROCESSES processes from SCAFFOLD_POOL_MIN molecules (an
+        HIV-sized task's keys take minutes on one core), else here."""
         if self._scaffold_keys is None:
-            self._scaffold_keys = [generate_scaffold(s) for s in self.smiles]
+            n = len(self.smiles)
+            procs = (min(SCAFFOLD_PROCESSES, len(os.sched_getaffinity(0)))
+                     if n >= SCAFFOLD_POOL_MIN else 1)
+            self._scaffold_keys = scaffold_keys(self.smiles, procs)
         return self._scaffold_keys
 
     def fragment_keys(self) -> list[list[str]]:
@@ -178,13 +265,14 @@ def compute_loss(pred: torch.Tensor, labels: torch.Tensor,
     return (per * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
-def train_step(models, opt, batch, labels, motifs, loss: str,
+def train_step(models, opt, batch, labels, inputs, loss: str,
                seed_masks=None, n_seeds: int = 1) -> torch.Tensor:
     """One optimizer step of the members on one packed batch (on their
     device); returns their losses [M] (not synchronized). Member m = t *
     n_seeds + s takes labels[:, t] of labels [G, T] (or labels [G]) and
-    the dropout keep masks seed_masks[s], one bool [N, emb_dim] per layer
-    (None at drop_ratio 0); motifs is () or (motif_ids, motif_mask). The
+    the dropout keep masks seed_masks[s] (its model's keep_masks; None at
+    drop_ratio 0); inputs are the network's beside the batch: (),
+    (motif_ids, motif_mask) or its host data's arrays. The
     members' trunks run in lockstep where member_trunks takes them. One
     backward of the members' summed losses gives each its own gradients,
     and `opt` steps all of them."""
@@ -196,7 +284,7 @@ def train_step(models, opt, batch, labels, motifs, loss: str,
     losses = []
     for m, model in enumerate(models):
         t = m // n_seeds
-        _, pred = model(batch, *motifs, dropout_masks=masks[m], h=hs[m])
+        _, pred = model(batch, *inputs, dropout_masks=masks[m], h=hs[m])
         lab = labels[:, t] if labels.dim() == 2 else labels
         losses.append(compute_loss(pred.float(), lab, batch.graph_mask,
                                    loss))
@@ -208,13 +296,13 @@ def train_step(models, opt, batch, labels, motifs, loss: str,
 
 
 @torch.no_grad()
-def predict(models, batch, motifs) -> torch.Tensor:
+def predict(models, batch, inputs) -> torch.Tensor:
     """The members' eval-mode predictions [M, G, out_dim] in f32 (their
     trunks in lockstep where member_trunks takes them)."""
     for model in models:
         model.eval()
     hs = member_trunks(models, batch)
-    return torch.stack([model(batch, *motifs, h=h)[1].float()
+    return torch.stack([model(batch, *inputs, h=h)[1].float()
                         for model, h in zip(models, hs)])
 
 
@@ -222,21 +310,35 @@ def predict(models, batch, motifs) -> torch.Tensor:
 class SplitStack:
     """One split's packed batches on the device, [S, ...] each: the
     GraphBatch fields (int32 / bool, `upload_stack`), the labels [S, G] or
-    [S, G, T] (f32), the motif ids [S, G, C] (int32) and mask (bool)."""
+    [S, G, T] (f32), the motif ids [S, G, C] (int32) and mask (bool), and
+    the arrays of the network's host data (`extras`, in the network's
+    order; empty for a network that reads the batch alone)."""
 
     batches: dict[str, torch.Tensor]
     labels: torch.Tensor
     motif_ids: torch.Tensor
     motif_mask: torch.Tensor
+    extras: dict[str, torch.Tensor] = field(default_factory=dict)
+
+    @staticmethod
+    def of(batches: dict, padded: dict) -> SplitStack:
+        """A stack of the GraphBatch fields and `_padded`'s arrays, [S,
+        ...] numpy each, as host tensors."""
+        t = {k: torch.from_numpy(v) for k, v in padded.items()}
+        return SplitStack({k: torch.from_numpy(v) for k, v in
+                           batches.items()}, t.pop("labels"),
+                          t.pop("motif_ids"), t.pop("motif_mask"), t)
 
     def tensors(self) -> dict[str, torch.Tensor]:
         return dict(self.batches, labels=self.labels,
-                    motif_ids=self.motif_ids, motif_mask=self.motif_mask)
+                    motif_ids=self.motif_ids, motif_mask=self.motif_mask,
+                    **self.extras)
 
     def to(self, device) -> SplitStack:
         return SplitStack({k: v.to(device) for k, v in self.batches.items()},
                           self.labels.to(device), self.motif_ids.to(device),
-                          self.motif_mask.to(device))
+                          self.motif_mask.to(device),
+                          {k: v.to(device) for k, v in self.extras.items()})
 
     def fill_(self, other: SplitStack) -> None:
         """Copy `other`, of the same shapes, into these buffers."""
@@ -251,9 +353,9 @@ class SplitStack:
 class _TrainPass:
     """One pass of the train iterator packed a batch at a time into a host
     stack of S rows: the GraphBatch fields in upload_stack's dtypes (int32
-    / bool), the labels, motif ids and mask padded as _epoch_items pads
-    them. The iterator draws its shuffle at the first batch, so a pass
-    opened before it is packed keeps the iterator's order."""
+    / bool) and `FineTuner._padded`'s arrays. The iterator draws its
+    shuffle at the first batch, so a pass opened before it is packed keeps
+    the iterator's order."""
 
     def __init__(self, tuner: FineTuner):
         self.tuner = tuner
@@ -262,27 +364,27 @@ class _TrainPass:
         self.packed = 0
         self.ahead = 0          # rows packed before finish
         self.fields: dict[str, np.ndarray] = {}
-        self.padded: tuple[np.ndarray, ...] = ()
+        self.padded: dict[str, np.ndarray] = {}
 
     def pack(self) -> bool:
         """Pack the next batch into its row; False once every row is."""
         if self.packed == self.rows:
             return False
         batch, lab, idx = next(self.items)
-        padded = self.tuner._padded("train", lab, idx)
+        padded = self.tuner._padded("train", batch, lab, idx)
         if not self.fields:
             for f in fields(batch):
                 v = np.asarray(getattr(batch, f.name))
                 self.fields[f.name] = np.empty(
                     (self.rows,) + v.shape,
                     bool if v.dtype == bool else np.int32)
-            self.padded = tuple(np.empty((self.rows,) + v.shape, v.dtype)
-                                for v in padded)
+            self.padded = {k: np.empty((self.rows,) + v.shape, v.dtype)
+                           for k, v in padded.items()}
         r = self.packed
         for name, rows in self.fields.items():
             rows[r] = getattr(batch, name)
-        for rows, v in zip(self.padded, padded):
-            rows[r] = v
+        for k, v in padded.items():
+            self.padded[k][r] = v
         self.packed += 1
         return True
 
@@ -291,9 +393,7 @@ class _TrainPass:
         self.ahead = self.packed
         while self.pack():
             pass
-        lab, mi, mm = (torch.from_numpy(v) for v in self.padded)
-        return SplitStack({k: torch.from_numpy(v)
-                           for k, v in self.fields.items()}, lab, mi, mm)
+        return SplitStack.of(self.fields, self.padded)
 
 
 class FineTuner:
@@ -337,21 +437,28 @@ class FineTuner:
         self._train_graph = None
         self._eval_graphs: dict[str, GraphedSteps] = {}
         self._eager_steps = 0
+        # the network's host data (NETWORKS; set by setup_data) and its
+        # counters of the current train stack
+        self.inputs = None
+        self.counters: dict[str, int] = {}
 
     @property
     def model(self):
         """The first member: the model of a one-member run."""
         return self.models[0]
 
-    def _model_kwargs(self) -> dict:
+    def _network(self) -> tuple:
+        """(class, keyword arguments, host data class) of the members'
+        network."""
         m = self.cfg.model
-        return dict(task=self.task.task, num_layers=m.num_layers,
-                    emb_dim=m.emb_dim, feat_dim=m.feat_dim,
-                    gnn_type=m.gnn_type, pool=m.pool,
-                    drop_ratio=m.drop_ratio, pred_n_layer=m.pred_n_layer,
-                    pred_act=m.pred_act, normalize_gcn=m.normalize_gcn,
-                    dtype=torch.bfloat16 if m.bf16 else torch.float32,
-                    tile=m.tile)
+        head = "motif" if self.cfg.use_motifs else "predict"
+        if (m.gnn_type, head) not in NETWORKS:
+            raise ValueError(f"no {head} head on gnn_type {m.gnn_type!r}")
+        cls, kwargs, inputs = NETWORKS[(m.gnn_type, head)]
+        return cls, dict(task=self.task.task, **kwargs(m)), inputs
+
+    def _model_kwargs(self) -> dict:
+        return self._network()[1]
 
     # ---- data ----
     def setup_data(self, shared: SharedTaskData | None = None):
@@ -411,13 +518,14 @@ class FineTuner:
                 smiles, max_motifs_per_mol=cfg.max_motifs_per_mol,
                 fragment_keys=[fk[i] for i in ids])
 
+        splits = {"train": tr, "valid": va, "test": te}
+        self.inputs = self._network()[2](cfg.model, self.device)
+        graphs = self.inputs.prepare(graphs, splits)
         self.spec = spec_for_graphs(graphs, cfg.batch_size, cfg.max_degree,
                                     tile=cfg.model.tile)
-        # valid/test batches follow the scaffold order, where the
-        # statistical 'total' bound does not hold: worst-case capacity
-        self.eval_spec = spec_for_graphs(graphs, cfg.batch_size,
-                                         cfg.max_degree,
-                                         tile=cfg.model.tile, sizing="max")
+        self.eval_spec = self.inputs.eval_spec(graphs, splits,
+                                               cfg.batch_size,
+                                               cfg.max_degree)
         lab = labels.astype(np.float32)
         self.iters, self.split_motifs = {}, {}
         for name, split_ids, shuffle, drop in [
@@ -447,10 +555,10 @@ class FineTuner:
         return mi, mm
 
     # ---- resident split stacks ----
-    def _padded(self, split: str, lab, idx) -> tuple:
-        """(labels [G] or [G, T], motif ids, motif mask) of a packed batch
-        of `split` on the host; motif ids and mask are zeros [G, 1]
-        without motifs."""
+    def _padded(self, split: str, batch, lab, idx) -> dict:
+        """{labels [G] or [G, T], motif_ids, motif_mask, then the network's
+        host data's arrays} of a packed batch of `split` on the host, motif
+        ids and mask zeros [G, 1] without motifs."""
         g = self.spec.n_graphs
         labp = (np.zeros((g, self.n_targets), np.float32)
                 if self.n_targets > 1 else np.zeros(g, np.float32))
@@ -461,21 +569,20 @@ class FineTuner:
         else:
             mi = np.zeros((g, 1), np.int32)
             mm = np.zeros((g, 1), bool)
-        return labp, mi, mm
+        return {"labels": labp, "motif_ids": mi, "motif_mask": mm,
+                **self.inputs.arrays(split, batch, idx)}
 
-    def _epoch_items(self, split: str) -> list[tuple]:
-        """One pass of the split's iterator as (batch, labels, motif ids,
-        motif mask) on the host (`_padded`)."""
-        return [(batch, *self._padded(split, lab, idx))
-                for batch, lab, idx in self.iters[split]]
-
-    @staticmethod
-    def _stack_items(items) -> tuple:
-        """The items stacked on the host: (a GraphBatch of [S, ...] numpy
-        arrays, labels, motif ids, motif mask)."""
-        batches, labs, mis, mms = zip(*items)
-        return (stack_batches(batches), np.stack(labs), np.stack(mis),
-                np.stack(mms))
+    def _epoch_stack(self, split: str) -> SplitStack:
+        """One pass of the split's iterator stacked on the host: the
+        batches and `_padded`'s arrays, as host tensors."""
+        batches, padded = [], []
+        for batch, lab, idx in self.iters[split]:
+            batches.append(batch)
+            padded.append(self._padded(split, batch, lab, idx))
+        gb = upload_stack(stack_batches(batches), "cpu")
+        return SplitStack.of({k: v.numpy() for k, v in gb.items()},
+                             {k: np.stack([p[k] for p in padded])
+                              for k in padded[0]})
 
     def _upload(self, split: str, fresh: SplitStack) -> SplitStack:
         """A stack of host tensors on the device: a new SplitStack, or the
@@ -487,6 +594,8 @@ class FineTuner:
             self._stacks[split] = fresh.to(self.device)
         self._host_stacks[split] = (fresh.batches["graph_mask"].numpy(),
                                     fresh.labels.numpy())
+        if split == "train":
+            self.counters = self.inputs.counters(fresh.batches, fresh.extras)
         self.uploads[split] += 1
         return self._stacks[split]
 
@@ -495,10 +604,7 @@ class FineTuner:
         on first use (the packed-batch cache of valid / test, and of train
         under repack_each_epoch False)."""
         if split not in self._stacks:
-            gb, lab, mi, mm = self._stack_items(self._epoch_items(split))
-            self._upload(split, SplitStack(
-                upload_stack(gb, "cpu"), torch.from_numpy(lab),
-                torch.from_numpy(mi), torch.from_numpy(mm)))
+            self._upload(split, self._epoch_stack(split))
         return self._stacks[split]
 
     def _train_epoch_stack(self) -> tuple[SplitStack, np.ndarray]:
@@ -520,15 +626,17 @@ class FineTuner:
         return stack, np.arange(done.rows)
 
     def _take(self, stack: SplitStack, idx: torch.Tensor) -> tuple:
-        """(batch, labels, motifs) of the stack's row idx ([1] int64 on
-        the device)."""
+        """(batch, labels, the network's other inputs: motif ids and mask
+        with the motif head, then the host data's arrays) of the stack's
+        row idx ([1] int64 on the device)."""
         batch = concat_units(stack.batches, idx)
         labels = torch.index_select(stack.labels, 0, idx)[0]
-        motifs = ()
+        inputs = ()
         if self.cfg.use_motifs:
-            motifs = (torch.index_select(stack.motif_ids, 0, idx)[0].long(),
+            inputs = (torch.index_select(stack.motif_ids, 0, idx)[0].long(),
                       torch.index_select(stack.motif_mask, 0, idx)[0])
-        return batch, labels, motifs
+        return batch, labels, inputs + tuple(
+            torch.index_select(v, 0, idx)[0] for v in stack.extras.values())
 
     # ---- members / optimizer ----
     def setup_state(self):
@@ -548,14 +656,12 @@ class FineTuner:
             path = ckpt_lib.resolve_pretrained(cfg.pretrained)
             pretrained = (path, ckpt_lib.load_pretrained_state(path))
         seeds, table = [], None
+        cls, kwargs, _ = self._network()
+        if cfg.use_motifs:
+            kwargs["num_motifs"] = max(1, self.motif_vocab.size)
         for s in range(cfg.n_seeds):
             gen = torch.Generator().manual_seed(cfg.seed + s)
-            if cfg.use_motifs:
-                model = MotifFineTuneNet(
-                    num_motifs=max(1, self.motif_vocab.size), generator=gen,
-                    **self._model_kwargs())
-            else:
-                model = FineTuneNet(generator=gen, **self._model_kwargs())
+            model = cls(generator=gen, **kwargs)
             if pretrained is not None:
                 got = ckpt_lib.transfer_state(pretrained[1], model)
                 if got["copied"] == 0:
@@ -619,8 +725,8 @@ class FineTuner:
     def _step(self, j: int, idx: torch.Tensor) -> torch.Tensor:
         """One step of every member on the train stack's row idx ([1]
         int64 on the device); the body of the train graph (j unused)."""
-        batch, labels, motifs = self._take(self._stacks["train"], idx)
-        return train_step(self.models, self.opt, batch, labels, motifs,
+        batch, labels, inputs = self._take(self._stacks["train"], idx)
+        return train_step(self.models, self.opt, batch, labels, inputs,
                           self.task.loss, self.seed_masks(batch.num_nodes),
                           self.cfg.n_seeds)
 
@@ -662,8 +768,8 @@ class FineTuner:
         rows = torch.arange(stack.labels.shape[0], device=self.device)
         preds = []
         for b in range(rows.shape[0]):
-            batch, _, motifs = self._take(stack, rows[b: b + 1])
-            preds.append(predict(self.models, batch, motifs))
+            batch, _, inputs = self._take(stack, rows[b: b + 1])
+            preds.append(predict(self.models, batch, inputs))
         return torch.stack(preds)
 
     def predictions(self, split: str) -> np.ndarray:
@@ -797,6 +903,7 @@ class FineTuner:
                           # the previous epoch's steps
                           "packed_ahead": (self.packed_ahead
                                            / max(losses.shape[0], 1))}
+                record.update(self.counters)
                 if "std" in val:
                     record[f"valid_{val['name']}_std"] = val["std"]
                 if "per_target" in val:

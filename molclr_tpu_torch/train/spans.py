@@ -17,7 +17,10 @@ and upload), `pretrain.dispatch` (one resident step or graph replay with
 its LR, reseeding, loss copy and bookkeeping), `pretrain.eager_step`,
 `pretrain.validate`, `graphed.replay` (the input copies and the replay
 call), `graphed.capture`, `step.take`, `step.views`, `step.encode`,
-`step.loss`, `step.backward` and `step.adam`.
+`step.loss`, `step.backward` and `step.adam`; the Graphormer network's
+`graphormer.bias` and `graphormer.attn`, each around its part's forward
+and, inside its autograd Function, its backward (on autograd's thread),
+and `graphormer.ffn` around the FFN's forward.
 """
 
 from __future__ import annotations

@@ -17,6 +17,7 @@ optimizer object: bit-identical (tolerance 0)."""
 
 import dataclasses
 import json
+import types
 
 import numpy as np
 import pytest
@@ -1521,3 +1522,124 @@ def test_embed_cli_tile0_on_card_matches_cpu(cuda, tmp_path):
     emb, ref = np.load(tmp_path / "g.npy"), np.load(tmp_path / "c.npy")
     assert emb.shape == ref.shape == (31, 64)
     assert np.abs(emb - ref).max() <= 1e-4 * max(1.0, np.abs(ref).max())
+
+
+GRAPHORMER = dict(gnn_type="graphormer", num_heads=4, ffn_dim=48,
+                  drop_ratio=0.1, tile=128)
+
+
+def test_graphed_graphormer_steps_bit_identical_to_eager(cuda, tmp_path):
+    """The FineTuner on Graphormer (2 layers of 32, 4 heads, dropout 0.1,
+    tile 128): ten graphed steps bit-identical to ten eager ones from the
+    same state and dropout generator state (the bias tables' gathers and
+    the token rows' readout sum without atomics); no layer kernel of the
+    message-passing trunks launched."""
+    ft = _finetuner(cuda, tmp_path, model=GRAPHORMER)
+    before = launch_counts()
+    _ft_eager_then_graphed(ft, cuda)
+    assert launch_counts() == before
+
+
+def test_graphormer_first_step_on_card_matches_cpu(cuda, tmp_path):
+    """One Graphormer FineTuner step on the card against the same step on
+    the CPU (the same seed's weights, batch and pair tables, the card's
+    keep masks): the pair tables equal, the loss within 1e-5 of its value
+    and each parameter's gradient (Adam's first moment over 1 - b1) within
+    1e-4 of its largest entry or of the median parameter's (f32 summed in
+    another order through 2 layers; a key bias's gradient is rounding
+    alone)."""
+    from molclr_tpu_torch.train.finetune import train_step
+
+    fts = [_finetuner(dev, tmp_path / str(i), model=GRAPHORMER)
+           for i, dev in enumerate((cuda, torch.device("cpu")))]
+    stacks = [ft._train_epoch_stack()[0] for ft in fts]
+    for k, v in stacks[1].extras.items():
+        assert torch.equal(stacks[0].extras[k].cpu(), v), k
+    masks = fts[0].seed_masks(fts[0]._take(stacks[0], torch.zeros(
+        1, dtype=torch.long, device=cuda))[0].num_nodes)
+    grads, losses = [], []
+    for ft, stack, dev in zip(fts, stacks, (cuda, torch.device("cpu"))):
+        batch, labels, inputs = ft._take(stack, torch.zeros(
+            1, dtype=torch.long, device=dev))
+        seed_masks = [{"input": m["input"].to(dev),
+                       "layers": [{k: v.to(dev) for k, v in layer.items()}
+                                  for layer in m["layers"]]} for m in masks]
+        losses.append(float(train_step(ft.models, ft.opt, batch, labels,
+                                       inputs, ft.task.loss, seed_masks)[0]))
+        grads.append({n: (ft.opt.state[p]["exp_avg"] / 0.1).cpu()
+                      for n, p in ft.model.named_parameters()})
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+    scale = {k: float(g.abs().max()) for k, g in grads[1].items()}
+    median = sorted(scale.values())[len(scale) // 2]
+    for k, g in grads[1].items():
+        gap = float((grads[0][k] - g).abs().max())
+        assert gap <= 1e-4 * max(scale[k], median), k
+
+
+def test_graphormer_ranges_in_a_graph_body_change_no_launch(cuda, tmp_path,
+                                                         monkeypatch):
+    """The Graphormer step captured while torch.profiler records, once with
+    the program's `graphormer.*` ranges live in its body (the forward's
+    and the backward's ranges fire during the capture) and once with them
+    off: the body of each graph launches the same kernels, and both, and
+    a capture without the profiler, give the same losses and states bit
+    for bit from the same state."""
+    import copy
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from molclr_tpu_torch.train import spans
+
+    ft = _finetuner(cuda, tmp_path, model=GRAPHORMER)
+    _, order = ft._train_epoch_stack()
+    rows = torch.from_numpy(np.asarray(order, np.int64)[:, None]).to(cuda)
+    ft._run_steps(rows[:GRAPH_WARMUP_STEPS])
+    snap = (ft.member_states(), copy.deepcopy(ft.opt.state_dict()),
+            [g.get_state() for g in ft.dropout_gens])
+    rows = rows[GRAPH_WARMUP_STEPS: GRAPH_WARMUP_STEPS + 2]
+    live = spans._profiler
+
+    def captured(profiled: bool, ranges: bool):
+        ft.load_member_states(snap[0])
+        load_optimizer_state(ft.opt, copy.deepcopy(snap[1]))
+        for g, st in zip(ft.dropout_gens, snap[2]):
+            g.set_state(st)
+        ft._train_graph = None
+        monkeypatch.setattr(spans, "_profiler", live if ranges else
+                            types.SimpleNamespace(_is_profiler_enabled=False))
+        try:
+            if not profiled:
+                return ft._run_steps(rows).cpu(), _finetune_state(ft), None
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                losses = ft._run_steps(rows).cpu()
+        finally:
+            monkeypatch.setattr(spans, "_profiler", live)
+        names = {e.name for e in prof.events()}
+        assert ({"graphormer.bias", "graphormer.attn", "graphormer.ffn"}
+                <= names) == ranges
+        state = _finetune_state(ft)
+        # one more replay, outside the compared state, to list the kernels
+        # of the graph's body: those whose correlation id is the graph
+        # launch's (the replay's prologue, which refills the registered
+        # generators' seed and offset, launches apart from it)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ft._train_graph.graph.replay()
+            torch.cuda.synchronize()
+        events = prof.events()
+        launch = {e.id for e in events if e.name == "cudaGraphLaunch"}
+        kernels = Counter(e.name for e in events
+                          if e.device_type.name == "CUDA" and e.id in launch)
+        return losses, state, kernels
+
+    runs = [captured(True, True), captured(True, False),
+            captured(False, False)]
+    (_, _, ka), (_, _, kb), _ = runs
+    assert ka == kb and sum(ka.values()) > 0, (ka - kb, kb - ka)
+    a, sa, _ = runs[0]
+    for b, sb, _ in runs[1:]:
+        assert torch.equal(a, b)
+        assert [k for k in sa if not (torch.equal(sa[k], sb[k])
+                if torch.is_tensor(sa[k]) else sa[k] == sb[k])] == []

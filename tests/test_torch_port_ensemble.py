@@ -167,8 +167,11 @@ def test_data_and_stacks_equal_jax(tmp_path, monkeypatch, task, repack,
         assert port.normalizers[0].mean != port.normalizers[1].mean
     else:
         assert port.normalizers is None and jft.normalizers is None
+    valid = port._epoch_stack("valid")
     _assert_stacks_equal(
-        port._stack_items(port._epoch_items("valid")),
+        (GraphBatch(**{k: v.numpy() for k, v in valid.batches.items()}),
+         valid.labels.numpy(), valid.motif_ids.numpy(),
+         valid.motif_mask.numpy()),
         jft._split_stack("valid"))
     epochs = 2 if steps is None else 3
     for epoch in range(epochs):

@@ -23,6 +23,7 @@ otherwise; JAX runs its fused layers in interpreter mode. Tolerances:
 
 import csv
 import dataclasses
+import os
 import re
 from pathlib import Path
 
@@ -96,6 +97,7 @@ def test_scaffolds_and_splits_equal_jax():
     keys = [splits.generate_scaffold(s) for s in smiles]
     assert keys == [jax_splits.generate_scaffold(s) for s in smiles]
     assert len(set(keys)) > 10
+    assert splits.scaffold_keys(smiles) == keys
     for valid, test in ((0.1, 0.1), (0.2, 0.15)):
         assert splits.scaffold_split(smiles, valid, test) == \
             jax_splits.scaffold_split(smiles, valid, test)
@@ -105,6 +107,30 @@ def test_scaffolds_and_splits_equal_jax():
                                            quirk) == \
                     jax_splits.random_split(len(smiles), valid, test, seed,
                                             quirk)
+
+
+def test_scaffold_keys_of_a_large_task_come_from_a_pool(monkeypatch):
+    """From SCAFFOLD_POOL_MIN molecules SharedTaskData computes the
+    scaffold keys in a pool of spawned processes: the serial keys, in
+    order; below it, in the process."""
+    from molclr_tpu_torch.train import finetune as port_finetune
+
+    smiles = _molecules()[:120]
+    serial = [splits.generate_scaffold(s) for s in smiles]
+    procs = []
+
+    def recording(smiles_list, processes=1):
+        procs.append(processes)
+        return splits.scaffold_keys(smiles_list, processes)
+
+    monkeypatch.setattr(port_finetune, "scaffold_keys", recording)
+    monkeypatch.setattr(port_finetune, "SCAFFOLD_PROCESSES", 2)
+    for least, want in ((len(smiles) + 1, 1), (len(smiles), 2)):
+        monkeypatch.setattr(port_finetune, "SCAFFOLD_POOL_MIN", least)
+        shared = object.__new__(port_finetune.SharedTaskData)
+        shared.smiles, shared._scaffold_keys = smiles, None
+        assert shared.scaffold_keys() == serial
+        assert procs[-1] == min(want, len(os.sched_getaffinity(0)))
 
 
 def test_brics_fragments_and_motif_vocab_equal_jax():
@@ -156,8 +182,15 @@ def test_finetune_from_yaml_equals_jax():
     for f in dataclasses.fields(FineTuneConfig):
         if f.name != "model":
             assert getattr(got, f.name) == getattr(want, f.name), f.name
+    # the port's ModelConfig is the JAX package's with Graphormer's
+    # widths beside it, at their defaults (the YAML names no Graphormer)
+    shared = {f.name for f in dataclasses.fields(want.model)}
     for f in dataclasses.fields(ModelConfig):
-        assert getattr(got.model, f.name) == getattr(want.model, f.name)
+        if f.name in shared:
+            assert getattr(got.model, f.name) == getattr(want.model, f.name)
+        else:
+            assert f.name in ("num_heads", "ffn_dim", "max_hops"), f.name
+            assert getattr(got.model, f.name) == f.default
     assert got.model.drop_ratio == 0.3 and got.batch_size == 32
     # the defaults of the two FineTuneConfigs agree too
     for f in dataclasses.fields(FineTuneConfig):
